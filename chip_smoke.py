@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+Drives the port's main path, ``Streamer.stream_clip`` on SmollRoom at the
+shipped configuration (15,000 rays x 5 bounces, 48 kHz, 1.5 s IR of 72,000
+bins, 0.1 s chunks of 4,800 samples), through the hand-written bounce
+kernel, and holds every kernel against its plain PyTorch version:
+
+0. device: the card's name and power limit (nvidia-smi);
+1. build the kernels from ``realisticaudioraytracing2d_tpu_torch/csrc``;
+2. K3 (host uniforms) vs plain, the same uniforms (torch-drawn and
+   Philox), SmollRoom and Big Room, 15k x 5, 4 frames: energy and per-bin
+   L1 within 1e-5 (SAME_ENERGY, SAME_L1), first nonzero bin equal;
+3. K4 (in-kernel Philox) vs plain at 131,072 rays x 8 bounces x 8 frames:
+   statistically against independent draws (energy 2%, first arrival 4
+   bins, 5 ms envelope 5%, decay slope 10%), within the limits of 2
+   against the plain path fed the same Philox numbers, and bit-identical
+   on a rerun;
+4. the stream: K4 and K3 against plain at the stream's own shape (one
+   frame of 15k x 5), then 2.0 s of clicks = 20 chunks + 15 tail chunks
+   through K4, and the same stream with one fixed IR through K3, which
+   must equal the offline bake; the launch counts are reset before and
+   read after each stream;
+5. timings with CUDA events after a warm-up.
+
+Prints one JSON line of kernels, the card line, and last the contract line
+``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1).
+Run from the root of a checkout: ``python3 chip_smoke.py``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+K3_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/bounce_kernel.cu"
+PALLAS = "realisticaudioraytracing2d_tpu/ops/pallas/bounce_kernel.py"
+SR, T, CHUNK = 48000, 72000, 4800           # the shipped SmollRoom audio
+RAYS, BOUNCES = 15000, 5                     # the shipped SmollRoom trace
+BIG_RAYS, BIG_BOUNCES, BIG_FRAMES = 131072, 8, 8   # bench.py's frame
+DEVICE = "cuda"
+# Kernel vs plain on the same uniforms: relative total energy and per-bin
+# L1 over the L1 norm. Both compute every hit in the same IEEE order, so
+# only the summation differs (u64 fixed point vs float index_add_): the
+# readings on an H100 were <= 7.4e-8 and <= 4.0e-8. The limits sit over
+# 100x above them and below what a few hits of average energy moving to
+# another bin or flipping validity would add (estimated ~3e-6 each).
+SAME_ENERGY, SAME_L1 = 1e-5, 1e-5
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def l1(a, b):
+    return float(np.abs(a - b).sum() / np.abs(b).sum())
+
+
+def cuda_ms(torch, fn, reps):
+    """Mean milliseconds per call of ``fn`` over ``reps`` calls, timed with
+    CUDA events after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(torch, fn, reps):
+    """Mean device time of one ``frames_ir_kernel`` launch over ``reps``
+    calls of ``fn``, from the profiler's CUDA events (None if it records
+    none). The wrapper's own small launches are left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "frames_ir_kernel" in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def main():
+    sys.path.insert(0, HERE)
+    import torch
+    import realisticaudioraytracing2d_tpu_torch as art
+    from realisticaudioraytracing2d_tpu_torch.ops import rng
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
+        bounce_kernel as bk
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import build
+    from realisticaudioraytracing2d_tpu_torch.utils.audio_io import \
+        click_clip
+
+    # --- 0. device -----------------------------------------------------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this smoke runs only "
+                         "on an NVIDIA GPU")
+    card = card_line()
+    dev = torch.device(DEVICE)
+    print(f"[0] device: {torch.cuda.get_device_name(0)} | {card} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    # --- 1. build ------------------------------------------------------------
+    secs = build.build()
+    build.load_library()
+    ptxas = [ln.strip() for ln in build.build_log().splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"[1] build: {secs:.1f} s ({build.library_path().name}); "
+          + " | ".join(ptxas), flush=True)
+
+    def setup(room_fn, cfg):
+        room = room_fn(device=dev)
+        eng = art.Engine(room.scene, cfg)
+        return room, eng, eng.params(room.source, room.listener)
+
+    smoll, smoll_eng, smoll_p = setup(
+        art.rooms.smoll_room, art.smoll_room_config(ray_count=RAYS))
+    s = bk.fixed_point_scale(smoll_p, 1, RAYS, BOUNCES)
+    s50 = bk.fixed_point_scale(smoll_p, 50, BIG_RAYS, BIG_BOUNCES)
+    print(f"    fixed point: S = 2^{int(torch.log2(s))} at {RAYS} x {BOUNCES}"
+          f" x 1 frame (resolution {1 / float(s):.3g}); S = 2^"
+          f"{int(torch.log2(s50))} at {BIG_RAYS} x {BIG_BOUNCES} x 50 "
+          "frames", flush=True)
+    kw = dict(sample_rate=SR, ir_length=T)
+    errs = {"K3": 0.0, "K4": 0.0}
+
+    def same_numbers(tag, kernel, got, want):
+        """Kernel vs plain on the same uniforms: energy, first nonzero bin,
+        per-bin L1 (limits at the top); keeps the max abs error in errs."""
+        torch.cuda.synchronize()
+        g, w = got.cpu().numpy().ravel(), want.cpu().numpy().ravel()
+        check(np.isfinite(g).all() and w.sum() > 0, f"{tag}: IR finite")
+        e_rel = abs(g.sum() - w.sum()) / w.sum()
+        first_g, first_w = np.flatnonzero(g)[0], np.flatnonzero(w)[0]
+        err = float(np.abs(g - w).max())
+        errs[kernel] = max(errs[kernel], err)
+        print(f"{tag}: energy {e_rel:.2e} (< {SAME_ENERGY:g}), first bin "
+              f"{first_g}/{first_w}, L1 {l1(g, w):.2e} (< {SAME_L1:g}), max "
+              f"abs {err:.3e} of peak {w.max():.3e}", flush=True)
+        check(e_rel < SAME_ENERGY, f"{tag}: energy")
+        check(first_g == first_w, f"{tag}: first nonzero bin")
+        check(l1(g, w) < SAME_L1, f"{tag}: L1")
+
+    # --- 2. K3 vs plain, same uniforms ---------------------------------------
+    for name, room_fn, cfg in (
+            ("SmollRoom", art.rooms.smoll_room, art.smoll_room_config()),
+            ("Big Room", art.rooms.big_room, art.big_room_config())):
+        room, eng, p = setup(room_fn, cfg)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for source, (emit, u) in (
+                ("torch.rand", rng.bounce_uniforms(gen, 4, BOUNCES, RAYS,
+                                                   dev)),
+                ("Philox", rng.philox_uniforms(1, 4, BOUNCES, RAYS, dev))):
+            same_numbers(
+                f"[2] K3 vs plain {name} {RAYS} x {BOUNCES} x 4 frames, "
+                f"{source} uniforms", "K3",
+                bk.trace_frames_ir_whole(room.scene, p, emit, u, **kw),
+                bk.trace_frames_ir_plain(room.scene, p, emit, u, **kw))
+
+    # --- 3. K4 vs plain at 131k x 8 x 8 frames ---------------------------
+    big = dict(n_rays=BIG_RAYS, max_bounces=BIG_BOUNCES)
+    nf = BIG_FRAMES
+    k4 = bk.trace_frames_ir_mega(smoll.scene, smoll_p, 2024, nf, **big, **kw)
+    k4_again = bk.trace_frames_ir_mega(smoll.scene, smoll_p, 2024, nf, **big,
+                                       **kw)
+    k4_other = bk.trace_frames_ir_mega(smoll.scene, smoll_p, 2025, nf, **big,
+                                       **kw)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    emit, u = rng.bounce_uniforms(gen, nf, BIG_BOUNCES, BIG_RAYS, dev)
+    indep = bk.trace_frames_ir_plain(smoll.scene, smoll_p, emit, u, **kw)
+    del emit, u
+    same = bk.trace_frames_ir_mega_plain(smoll.scene, smoll_p, 2024, nf,
+                                         **big, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(k4, k4_again), "K4 same seed -> bit-identical IR")
+    check(not torch.equal(k4, k4_other), "K4 other seed -> other IR")
+    a = k4.cpu().numpy().ravel() / nf
+    o = indep.cpu().numpy().ravel() / nf
+    e_rel = abs(a.sum() - o.sum()) / o.sum()
+    first_a = int(np.nonzero(a > 1e-7)[0][0])
+    first_o = int(np.nonzero(o > 1e-7)[0][0])
+    win = SR // 200
+    n = (T // win) * win
+    env = float(np.linalg.norm(a[:n].reshape(-1, win).sum(1)
+                               - o[:n].reshape(-1, win).sum(1))
+                / np.linalg.norm(o[:n].reshape(-1, win).sum(1)))
+
+    def slope(ir):
+        w10 = SR // 100
+        e = ir[ir.argmax():ir.argmax() + 6 * w10].reshape(6, w10).sum(1)
+        check((e > 0).all(), "decay windows nonzero")
+        return np.polyfit(np.arange(6.0), np.log(e), 1)[0]
+
+    s_a, s_o = slope(a), slope(o)
+    print(f"[3] K4 vs plain {BIG_RAYS} x {BIG_BOUNCES} x {nf} frames, "
+          f"independent draws: energy "
+          f"{e_rel:.2e} (< 2e-2), first arrival {first_a}/{first_o} (<= 4 "
+          f"bins), 5 ms envelope {env:.2e} (< 5e-2), decay slope "
+          f"{s_a:.4f}/{s_o:.4f} ({abs(s_a - s_o) / abs(s_o):.2e} < 1e-1); "
+          "rerun bit-identical, other seed differs", flush=True)
+    check(e_rel < 0.02, "K4 energy")
+    check(abs(first_a - first_o) <= 4, "K4 first arrival")
+    check(env < 0.05, "K4 5 ms envelope")
+    check(s_o < 0 and abs(s_a - s_o) / abs(s_o) < 0.10, "K4 decay slope")
+    same_numbers(f"[3] K4 vs plain {BIG_RAYS} x {BIG_BOUNCES} x {nf} frames,"
+                 " same Philox numbers", "K4", k4, same)
+    del k4, k4_again, k4_other, indep, same
+
+    # --- 4. the main path: the stream ------------------------------------
+    cfg = art.smoll_room_config(ray_count=RAYS)
+    clicks = (0.1, 0.7, 1.3)
+    dry = torch.as_tensor(click_clip(2.0, SR, click_times=clicks),
+                          device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    fixed = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
+    one = dict(n_rays=RAYS, max_bounces=BOUNCES, **kw)
+    # each kernel at the shape the stream gives it (one frame, a partial
+    # last block of rays, the one-frame fixed-point scale): chunk 0's
+    # Philox key for K4, the fixed-IR stream's uniforms for K3
+    chunk0 = rng.mix_seed(7, 0)
+    same_numbers(f"[4] K4 vs plain at the stream's shape, {RAYS} x {BOUNCES}"
+                 " x 1 frame, chunk 0's Philox numbers", "K4",
+                 bk.trace_frames_ir_mega(smoll.scene, smoll_p, chunk0, 1,
+                                         **one),
+                 bk.trace_frames_ir_mega_plain(smoll.scene, smoll_p, chunk0,
+                                               1, **one))
+    same_numbers(f"[4] K3 vs plain at the stream's shape, {RAYS} x {BOUNCES}"
+                 " x 1 frame, the fixed-IR stream's uniforms", "K3",
+                 bk.trace_frames_ir_whole(smoll.scene, smoll_p, *fixed, **kw),
+                 bk.trace_frames_ir_plain(smoll.scene, smoll_p, *fixed, **kw))
+
+    def counted_stream(streamer):
+        """Stream the clip; return it with the launches of this run only."""
+        bk.trace_frames_ir_whole.launches = 0
+        bk.trace_frames_ir_mega.launches = 0
+        wet = streamer.stream_clip(dry, lambda i: smoll_p)
+        torch.cuda.synchronize()
+        return wet, {"K3": bk.trace_frames_ir_whole.launches,
+                     "K4": bk.trace_frames_ir_mega.launches}
+
+    n_chunks = 20 + 15
+    wet, seeded = counted_stream(art.Streamer(smoll.scene, cfg, seed=7))
+    check(seeded == {"K3": 0, "K4": n_chunks},
+          f"seeded stream launch counts {seeded}")
+    static, fixed_ir = counted_stream(
+        art.Streamer(smoll.scene, cfg, uniforms_fn=lambda i: fixed))
+    check(fixed_ir == {"K3": n_chunks, "K4": 0},
+          f"fixed-IR stream launch counts {fixed_ir}")
+    launches = {"K3": fixed_ir["K3"], "K4": seeded["K4"]}
+    out = wet.cpu().numpy()
+    check(out.shape == (1, n_chunks * CHUNK), f"stream shape {out.shape}")
+    check(np.isfinite(out).all() and np.abs(out).max() > 0,
+          "stream finite, peak > 0")
+    tails = []
+    for tc in clicks:
+        c = int(tc * SR)
+        after = float((out[0, c:c + int(0.3 * SR)] ** 2).sum())
+        before = float((out[0, max(0, c - int(0.3 * SR)):c] ** 2).sum())
+        tails.append(after / max(before, 1e-30))
+        check(after > 2 * before, f"reverb tail after the click at {tc} s")
+    first = int(np.flatnonzero(np.abs(out[0]) > 1e-9)[0])
+    bake = art.bake_audio(dry, smoll_eng.trace_frames(smoll_p,
+                                                      uniforms=fixed),
+                          normalize=False).cpu().numpy()
+    st = static.cpu().numpy()[0]
+    bake_ok = np.allclose(st, bake[:st.shape[0]], rtol=2e-3, atol=2e-5)
+    print(f"[4] stream: {n_chunks} chunks -> {out.shape}, peak "
+          f"{np.abs(out).max():.3e}, first sound at "
+          f"{(first - clicks[0] * SR) / SR * 1e3:.1f} ms after the first "
+          f"click, tail/pre-click energy {[f'{r:.3g}' for r in tails]}, "
+          f"launches {seeded} (seeded stream) and {fixed_ir} (fixed-IR "
+          f"stream); fixed-IR stream vs bake: max abs "
+          f"{np.abs(st - bake[:st.shape[0]]).max():.2e} (rtol 2e-3, atol "
+          f"2e-5) {'ok' if bake_ok else 'FAILED'}", flush=True)
+    check(bake_ok, "fixed-IR stream == bake")
+
+    # --- 5. timings ------------------------------------------------------
+    emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
+    sc, p = smoll.scene, smoll_p
+    times = {
+        "K3": (cuda_ms(torch, lambda: bk.trace_frames_ir_whole(
+            sc, p, emit, u, **kw), 20),
+            cuda_ms(torch, lambda: bk.trace_frames_ir_plain(
+                sc, p, emit, u, **kw), 5)),
+        "K4": (cuda_ms(torch, lambda: bk.trace_frames_ir_mega(
+            sc, p, 5, 1, **one), 20),
+            cuda_ms(torch, lambda: bk.trace_frames_ir_mega_plain(
+                sc, p, 5, 1, **one), 5)),
+    }
+    emit8, u8 = rng.bounce_uniforms(gen, 1, BIG_BOUNCES, BIG_RAYS, dev)
+    big_k = cuda_ms(torch, lambda: bk.trace_frames_ir_mega(
+        sc, p, 6, nf, **big, **kw), 5) / nf
+    big_k3 = cuda_ms(torch, lambda: bk.trace_frames_ir_whole(
+        sc, p, emit8, u8, **kw), 5)
+    big_plain = cuda_ms(torch, lambda: bk.trace_frames_ir_plain(
+        sc, p, emit8, u8, **kw), 3)
+    dev_ms = {
+        "K3": kernel_device_ms(torch, lambda: bk.trace_frames_ir_whole(
+            sc, p, emit, u, **kw), 10),
+        "K4": kernel_device_ms(torch, lambda: bk.trace_frames_ir_mega(
+            sc, p, 5, 1, **one), 10),
+        "K4 big": kernel_device_ms(torch, lambda: bk.trace_frames_ir_mega(
+            sc, p, 6, nf, **big, **kw), 3)}
+    streamer = art.Streamer(sc, cfg, seed=11)
+    streamer.stream_clip(dry, lambda i: p, total_chunks=5)     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamer.stream_clip(dry, lambda i: p)
+    torch.cuda.synchronize()
+    ms_chunk = (time.perf_counter() - t0) * 1e3 / n_chunks
+    print(f"[5] timings on {card}: ms per frame at {RAYS} x {BOUNCES} "
+          f"(72,000 bins): "
+          f"K3 {times['K3'][0]:.3f} vs plain {times['K3'][1]:.3f}, K4 "
+          f"{times['K4'][0]:.3f} vs plain+Philox {times['K4'][1]:.3f}; at "
+          f"{BIG_RAYS} x {BIG_BOUNCES}: K4 {big_k:.3f} ({nf} frames/launch), "
+          f"K3 {big_k3:.3f} vs "
+          f"plain {big_plain:.3f}; stream {ms_chunk:.3f} ms per 100 ms "
+          f"chunk = {100.0 / ms_chunk:.1f}x realtime", flush=True)
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+    print(f"    kernel device time per launch (profiler): K3 {RAYS} x "
+          f"{BOUNCES} {fmt(dev_ms['K3'])}, K4 {fmt(dev_ms['K4'])}, K4 "
+          f"{BIG_RAYS} x {BIG_BOUNCES} x {nf} frames {fmt(dev_ms['K4 big'])}"
+          "; the per-call times above include the wrapper's host work",
+          flush=True)
+
+    kernels = [
+        {"name": "bounce_kernel K3 (host uniforms)", "route": "cuda",
+         "source": K3_SOURCE, "replaces": f"{PALLAS}:494",
+         "launches": launches["K3"], "max_abs_err": errs["K3"],
+         "ms": times["K3"][0], "plain_ms": times["K3"][1]},
+        {"name": "bounce_kernel K4 (in-kernel Philox)", "route": "cuda",
+         "source": K3_SOURCE, "replaces": f"{PALLAS}:563",
+         "launches": launches["K4"], "max_abs_err": errs["K4"],
+         "ms": times["K4"][0], "plain_ms": times["K4"][1]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

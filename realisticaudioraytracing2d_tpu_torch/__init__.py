@@ -1,0 +1,45 @@
+"""PyTorch/CUDA port of ``realisticaudioraytracing2d_tpu``.
+
+The JAX package is the reference; this package has its module names and
+runs the reference app's main loop (scene -> Monte-Carlo trace into an
+IR -> crossfaded chunked convolution) with PyTorch on the CPU or on an
+NVIDIA H100, where the trace runs in a hand-written CUDA kernel
+(``csrc/bounce_kernel.cu``). It imports no JAX.
+
+Quick start::
+
+    import torch
+    import realisticaudioraytracing2d_tpu_torch as art
+    room = art.rooms.smoll_room(device="cuda")
+    eng = art.Engine(room.scene, art.smoll_room_config())
+    params = eng.params(room.source, room.listener)
+    ir_state = eng.trace_frames(params, seed=0, n_frames=8)
+    wet = eng.bake(torch.as_tensor(dry_audio, device="cuda"), ir_state)
+"""
+
+from . import config, utils
+from .config import (AudioConfig, DebugConfig, EngineConfig, SimConfig,
+                     big_room_config, sample_scene_config,
+                     smoll_room_config)
+from .engine import Engine, bake_audio, trace_accumulate
+from .models import materials, rooms, scene
+from .models.materials import (MATERIAL_ANECHOIC, MATERIAL_BORDER,
+                               MATERIAL_INTERIOR, AudioMaterial)
+from .models.scene import Scene, SceneBuilder, Transform2D
+from .ops import convolve, geometry, ir, trace
+from .ops.ir import IRState
+from .ops.trace import Hits, TraceParams
+from .streaming import RingBuffer, Streamer, StreamState, stream_chunk
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AudioConfig", "AudioMaterial", "DebugConfig", "Engine",
+    "EngineConfig", "Hits", "IRState", "MATERIAL_ANECHOIC",
+    "MATERIAL_BORDER", "MATERIAL_INTERIOR", "RingBuffer", "Scene",
+    "SceneBuilder", "SimConfig", "StreamState", "Streamer", "TraceParams",
+    "Transform2D", "bake_audio", "big_room_config", "config", "convolve",
+    "geometry", "ir", "materials", "rooms", "sample_scene_config", "scene",
+    "smoll_room_config", "stream_chunk", "trace", "trace_accumulate",
+    "utils",
+]

@@ -1,0 +1,119 @@
+"""High-level engine: trace -> IR accumulation -> convolution (PyTorch).
+
+Port of ``realisticaudioraytracing2d_tpu/engine.py`` (the reference's
+``RayTraceManager.RunSimulation``/``OnSimulationFinished``,
+``Assets/Script/RayTraceManager.cs:179-244``, and the legacy offline
+bake, ``RayTraceManagerComplex.cs:170-227``).
+
+Routing of :func:`trace_accumulate`: a CUDA scene goes to the hand
+kernel (``ops/cuda/bounce_kernel.py``: K4 with in-kernel Philox numbers
+for a seed, K3 when uniforms are given), a CPU scene to the plain path,
+and ``backend="plain"`` forces the plain path on either device (the JAX
+package's ``backend="jnp"``). A configuration the kernel does not take
+raises on CUDA; it is never rerouted.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .config import EngineConfig
+from .models.scene import Scene
+from .ops import convolve as cv
+from .ops import ir as irm
+from .ops.cuda import bounce_kernel as bk
+from .ops.trace import TraceParams
+
+_BACKENDS = ("auto", "plain")
+
+
+def trace_accumulate(scene: Scene, params: TraceParams, state: irm.IRState,
+                     *, n_rays: int, max_bounces: int, sample_rate: int,
+                     n_frames: int = 1, seed: int = 0,
+                     uniforms: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
+                     backend: str = "auto") -> irm.IRState:
+    """Run ``n_frames`` trace frames and add them to ``state``.
+
+    Frame ``f`` draws from ``(seed, f)``: the Philox stream of
+    :func:`..ops.rng.philox_uniforms`, which the kernel draws in-kernel
+    and the plain path computes on the host, so one seed names the same
+    rays on either path. ``uniforms = (emit[F, R], u[F, B, R, 3])``
+    replaces the draws (the parity tests pass JAX's)."""
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got "
+                         f"{backend!r}")
+    kw = dict(sample_rate=sample_rate, ir_length=state.ir_length)
+    plain = backend == "plain"
+    if uniforms is None:
+        mega = bk.trace_frames_ir_mega_plain if plain \
+            else bk.trace_frames_ir_mega
+        ir = mega(scene, params, seed, n_frames, n_rays=n_rays,
+                  max_bounces=max_bounces, **kw)
+    else:
+        emit, u = uniforms
+        if emit.shape != (n_frames, n_rays) or \
+                u.shape != (n_frames, max_bounces, n_rays, 3):
+            raise ValueError(
+                f"uniforms must be emit[{n_frames}, {n_rays}] and "
+                f"u[{n_frames}, {max_bounces}, {n_rays}, 3]; got "
+                f"{tuple(emit.shape)} and {tuple(u.shape)}")
+        whole = bk.trace_frames_ir_plain if plain \
+            else bk.trace_frames_ir_whole
+        ir = whole(scene, params, emit, u, **kw)
+    return irm.IRState(sum=state.sum + ir, frames=state.frames + n_frames)
+
+
+def bake_audio(dry: torch.Tensor, state: irm.IRState, *,
+               normalize: bool = True) -> torch.Tensor:
+    """Offline bake: one FFT convolution of a whole dry clip with the
+    frame-averaged IR (``RayTraceManagerComplex.cs:170-245``). Returns
+    ``[N+T]`` mono or ``[L, N+T]``."""
+    ir = state.normalized()                  # [L, T, K]
+    if ir.shape[0] == 1:
+        ir = ir[0]                           # -> [T, K] (mono listener)
+    wet = cv.apply_ir(dry, ir, accum_count=1)
+    return cv.peak_normalize(wet) if normalize else wet
+
+
+class Engine:
+    """A scene + config bound to the pure functions; keeps no simulation
+    state. Everything lives on the scene's device."""
+
+    def __init__(self, scene: Scene, config: EngineConfig,
+                 n_listeners: int = 1):
+        self.scene = scene
+        self.config = config
+        self.n_listeners = n_listeners
+
+    def fresh_ir(self) -> irm.IRState:
+        return irm.IRState.zeros(self.config.audio.ir_length,
+                                 self.n_listeners, self.scene.n_bands,
+                                 device=self.scene.device)
+
+    def params(self, source, listener, directivity=None,
+               mic_directivity=None) -> TraceParams:
+        return TraceParams.make(
+            source, listener,
+            listener_radius=self.config.sim.listener_radius,
+            speed_of_sound=self.config.sim.speed_of_sound,
+            input_gain=self.config.sim.input_gain,
+            directivity=directivity, mic_directivity=mic_directivity,
+            device=self.scene.device)
+
+    def trace_frames(self, params: TraceParams, seed: int = 0,
+                     n_frames: int = 1,
+                     state: Optional[irm.IRState] = None,
+                     uniforms=None, backend: str = "auto") -> irm.IRState:
+        state = self.fresh_ir() if state is None else state
+        return trace_accumulate(
+            self.scene, params, state, n_rays=self.config.sim.ray_count,
+            max_bounces=self.config.sim.max_bounces,
+            sample_rate=self.config.audio.sample_rate, n_frames=n_frames,
+            seed=seed, uniforms=uniforms, backend=backend)
+
+    def bake(self, dry: torch.Tensor, state: irm.IRState,
+             normalize: bool = True) -> torch.Tensor:
+        return bake_audio(dry, state, normalize=normalize)

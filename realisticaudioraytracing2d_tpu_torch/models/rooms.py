@@ -1,0 +1,133 @@
+"""Reference room fixtures (PyTorch).
+
+Port of ``realisticaudioraytracing2d_tpu/models/rooms.py``:
+``smoll_room()`` / ``big_room()`` reproduce the two shipped Unity scenes
+wall-for-wall (``Assets/Scenes/SmollRoom.unity``, ``Big Room.unity``),
+``sample_scene()`` the repaired SampleScene and ``shoebox_room()`` a
+rectangular room. The procedural ``random_rooms`` and ``city_scene``
+fixtures are not ported yet (ROADMAP queue 1, item 13).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+from .materials import MATERIAL_BORDER, MATERIAL_INTERIOR, AudioMaterial
+from .scene import Scene, SceneBuilder, Transform2D
+
+
+class RoomSetup(NamedTuple):
+    """A scene plus the source/listener poses it ships with."""
+
+    scene: Scene
+    source: np.ndarray       # [2]
+    listener: np.ndarray     # [2]
+    listener_radius: float
+    directivity: np.ndarray | None = None
+    mic_directivity: np.ndarray | None = None
+    # the SceneBuilder that flattened the scene (collider records for
+    # SceneBuilder.move_collider)
+    builder: "SceneBuilder | None" = None
+
+
+def _quat_z_angle(z: float, w: float) -> float:
+    """Angle (radians, CCW) of a Unity quaternion rotating about +z."""
+    return 2.0 * math.atan2(z, w)
+
+
+def _bands(mat: AudioMaterial, n_bands: int) -> AudioMaterial:
+    """Expand a scalar reference material to n_bands with a mild
+    high-frequency rolloff (identity when n_bands == 1)."""
+    if n_bands == 1:
+        return mat
+    return mat.with_hf_rolloff(n_bands, strength=1.0)
+
+
+def smoll_room(n_bands: int = 1, pad_to: Optional[int] = None,
+               device="cpu") -> RoomSetup:
+    """SmollRoom.unity: 5 scaled unit boxes forming a room. Source
+    (-18, 9), listener (0, -3.68), listenerRadius 0.5."""
+    slant = _quat_z_angle(0.47792548, 0.8784004)
+    b = SceneBuilder(n_bands=n_bands)
+    border = _bands(MATERIAL_BORDER, n_bands)
+    interior = _bands(MATERIAL_INTERIOR, n_bands)
+    b.add_box(border, Transform2D((0.0, 10.0), 0.0, (100.0, 1.0)),
+              name="Wall")
+    b.add_box(border, Transform2D((0.01, -5.0), 0.0, (100.0, 1.0)),
+              name="Wall (1)")
+    b.add_box(border, Transform2D((-20.0, 0.0), math.pi / 2, (20.0, 1.0)),
+              name="Wall (2)")
+    b.add_box(border, Transform2D((20.0, 0.0), math.pi / 2, (20.0, 1.0)),
+              name="Wall (3)")
+    b.add_box(interior, Transform2D((-11.8, 7.18), slant, (100.0, 1.0)),
+              name="Wall (4)")
+    return RoomSetup(scene=b.build(pad_to=pad_to, device=device),
+                     source=np.array([-18.0, 9.0], np.float32),
+                     listener=np.array([0.0, -3.68], np.float32),
+                     listener_radius=0.5, builder=b)
+
+
+def big_room(n_bands: int = 1, pad_to: Optional[int] = None,
+             device="cpu") -> RoomSetup:
+    """Big Room.unity: same topology 10x scaled (plus a thicker slant
+    wall). Source (-183.8, 87.1), listener (0, -3.68), radius 0.5; its
+    config needs ``input_gain=100`` (``config.big_room_config``)."""
+    slant = _quat_z_angle(0.47792548, 0.8784004)
+    b = SceneBuilder(n_bands=n_bands)
+    border = _bands(MATERIAL_BORDER, n_bands)
+    interior = _bands(MATERIAL_INTERIOR, n_bands)
+    b.add_box(border, Transform2D((0.0, 100.0), 0.0, (1000.0, 1.0)),
+              name="Wall")
+    b.add_box(border, Transform2D((0.01, -50.0), 0.0, (1000.0, 1.0)),
+              name="Wall (1)")
+    b.add_box(border, Transform2D((-200.0, 0.0), math.pi / 2,
+                                  (200.0, 1.0)), name="Wall (2)")
+    b.add_box(border, Transform2D((200.0, 0.0), math.pi / 2,
+                                  (200.0, 1.0)), name="Wall (3)")
+    b.add_box(interior, Transform2D((-118.8, 71.8), slant,
+                                    (1000.0, 10.0)), name="Wall (4)")
+    return RoomSetup(scene=b.build(pad_to=pad_to, device=device),
+                     source=np.array([-183.8, 87.1], np.float32),
+                     listener=np.array([0.0, -3.68], np.float32),
+                     listener_radius=0.5, builder=b)
+
+
+def sample_scene(n_bands: int = 1, pad_to: Optional[int] = None,
+                 device="cpu") -> RoomSetup:
+    """SampleScene.unity, repaired: the open 3-wall scene with every wall
+    on the Border material (see the JAX package's docstring)."""
+    slant = _quat_z_angle(0.6239737, 0.7814454)
+    b = SceneBuilder(n_bands=n_bands)
+    border = _bands(MATERIAL_BORDER, n_bands)
+    b.add_box(border, Transform2D((-0.09, 14.12), 0.0, (27.576956, 1.0)),
+              name="Wall")
+    b.add_box(border, Transform2D((0.01, -11.72), 0.0, (38.184124, 1.0)),
+              name="Wall (1)")
+    b.add_box(border, Transform2D((-16.62, 1.34), slant,
+                                  (27.576956, 1.0)), name="Wall (2)")
+    return RoomSetup(scene=b.build(pad_to=pad_to, device=device),
+                     source=np.array([0.07, 10.01], np.float32),
+                     listener=np.array([0.0, -3.68], np.float32),
+                     listener_radius=0.5, builder=b)
+
+
+def shoebox_room(width: float, height: float,
+                 wall_material: AudioMaterial = MATERIAL_BORDER,
+                 n_bands: int = 1, pad_to: Optional[int] = None,
+                 obstacles: Optional[list] = None, device="cpu") -> Scene:
+    """A rectangular room centered at the origin; walls are four thin
+    boxes just outside the interior. ``obstacles`` is a list of
+    (Transform2D, material)."""
+    t = 1.0  # wall thickness
+    b = SceneBuilder(n_bands=n_bands)
+    hw, hh = width / 2, height / 2
+    b.add_box(wall_material, Transform2D((0, hh + t / 2), 0, (width + 2 * t, t)))
+    b.add_box(wall_material, Transform2D((0, -hh - t / 2), 0, (width + 2 * t, t)))
+    b.add_box(wall_material, Transform2D((-hw - t / 2, 0), 0, (t, height)))
+    b.add_box(wall_material, Transform2D((hw + t / 2, 0), 0, (t, height)))
+    for tf, mat in (obstacles or []):
+        b.add_box(mat, tf)
+    return b.build(pad_to=pad_to, device=device)

@@ -1,0 +1,130 @@
+"""Geometry primitives (PyTorch): ray-segment / ray-circle intersection,
+reflection, refraction, rotation.
+
+Port of ``realisticaudioraytracing2d_tpu/ops/geometry.py`` (spec:
+``Assets/Script/Common.hlsl:14-43``). Every function broadcasts over
+leading dims, and keeps the JAX version's operation order so float32
+results agree to the last bit wherever both libraries round the same.
+
+* Points and directions are float32 tensors whose last axis is 2 (x, y).
+* Missing intersections return ``INF`` (1e8), exactly like the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Constants match Common.hlsl:4-6.
+EPS = 1e-4
+INF = 1e8
+PI = 3.14159265
+
+
+def perp(d: torch.Tensor) -> torch.Tensor:
+    """90-degree counter-clockwise rotation: (x, y) -> (-y, x)."""
+    return torch.stack([-d[..., 1], d[..., 0]], dim=-1)
+
+
+def dot2(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return u[..., 0] * v[..., 0] + u[..., 1] * v[..., 1]
+
+
+def cross2(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """z-component of the 2D cross product."""
+    return u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]
+
+
+def rotate(v: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Rotate 2D vectors by ``angle`` radians (broadcasts over leading dims)."""
+    s, c = torch.sin(angle), torch.cos(angle)
+    return torch.stack(
+        [v[..., 0] * c - v[..., 1] * s, v[..., 0] * s + v[..., 1] * c],
+        dim=-1)
+
+
+def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Safe normalize; zero vectors stay zero."""
+    n2 = dot2(v, v)
+    inv = torch.where(n2 > eps, 1.0 / torch.sqrt(torch.clamp(n2, min=eps)),
+                      0.0)
+    return v * inv[..., None]
+
+
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """HLSL ``reflect``: d - 2*dot(d, n)*n."""
+    return d - 2.0 * dot2(d, n)[..., None] * n
+
+
+def ray_segment_intersect(o, d, a, b) -> torch.Tensor:
+    """Parametric distance along ray ``o + t*d`` to segment ``[a, b]``:
+    ``t`` when ``t >= EPS`` and the segment parameter lies in [0, 1],
+    else ``INF`` (``Common.hlsl:14-21``)."""
+    v1 = o - a
+    v2 = b - a
+    v3 = perp(d)
+    dotp = dot2(v2, v3)
+    safe = torch.where(dotp.abs() < EPS, 1.0, dotp)
+    t1 = cross2(v2, v1) / safe
+    t2 = dot2(v1, v3) / safe
+    valid = (dotp.abs() >= EPS) & (t1 >= EPS) & (t2 >= 0.0) & (t2 <= 1.0)
+    return torch.where(valid, t1, INF)
+
+
+def pairwise_ray_segment_t(o, d, a, b) -> torch.Tensor:
+    """All-pairs ray-segment distances: rays ``[..., R, 2]`` x segments
+    ``[W, 2]`` -> ``t[..., R, W]`` (the trace loop's hot computation,
+    ``Raytrace2D.compute:69-72``)."""
+    ox, oy = o[..., 0:1], o[..., 1:2]          # [R, 1]
+    dx, dy = d[..., 0:1], d[..., 1:2]          # [R, 1]
+    ax, ay = a[..., 0], a[..., 1]              # [W]
+    v2x = b[..., 0] - ax                        # [W]
+    v2y = b[..., 1] - ay                        # [W]
+    dotp = v2y * dx - v2x * dy
+    safe = torch.where(dotp.abs() < EPS, 1.0, dotp)
+    cross_const = v2x * ay - v2y * ax           # [W]
+    t1 = (v2x * oy - v2y * ox - cross_const) / safe
+    t2 = ((oy * dx - ox * dy) - (ay * dx - ax * dy)) / safe
+    valid = (dotp.abs() >= EPS) & (t1 >= EPS) & (t2 >= 0.0) & (t2 <= 1.0)
+    return torch.where(valid, t1, INF)
+
+
+def ray_circle_intersect(o, d, center, radius) -> torch.Tensor:
+    """Nearest positive distance along ray to a circle, else ``INF``
+    (``Common.hlsl:23-36``): entry point preferred when > EPS, else exit."""
+    L = center - o
+    tca = dot2(L, d)
+    d2 = dot2(L, L) - tca * tca
+    r2 = radius * radius
+    inside = (tca >= 0.0) & (d2 <= r2)
+    pos = (r2 - d2) > 0.0
+    disc = torch.where(inside & pos, r2 - d2, 1.0)
+    thc = torch.where(inside & pos, torch.sqrt(disc), 0.0)
+    t0 = tca - thc
+    t1 = tca + thc
+    t = torch.where(t0 > EPS, t0, torch.where(t1 > EPS, t1, INF))
+    return torch.where(inside, t, INF)
+
+
+def refract(i, n, eta):
+    """Snell refraction of direction ``i`` across normal ``n`` with
+    relative index ``eta``. Returns ``(t, ok)``; ``t`` is zero where
+    ``ok`` is False (total internal reflection, ``Common.hlsl:38-43``)."""
+    cosi = -dot2(i, n)
+    cost2 = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    ok = cost2 > 0.0
+    t = eta[..., None] * i + (eta * cosi -
+                              torch.sqrt(cost2.abs()))[..., None] * n
+    return t * ok[..., None].to(t.dtype), ok
+
+
+def nearest_hit(t: torch.Tensor):
+    """Reduce pairwise distances ``t[..., W]`` to (closest[...], index[...]).
+
+    The index is the FIRST wall among equal minima (the JAX oracle's
+    ``argmin`` rule, which the hand kernel keeps by scanning walls in
+    ascending order with a strict ``<``), and -1 when nothing was hit."""
+    closest = t.min(dim=-1).values
+    ids = torch.arange(t.shape[-1], dtype=torch.int32, device=t.device)
+    idx = torch.where(t == closest[..., None], ids,
+                      t.shape[-1]).min(dim=-1).values.to(torch.int32)
+    return closest, torch.where(closest >= INF, -1, idx).to(torch.int32)

@@ -1,0 +1,281 @@
+"""Batched 2D acoustic path tracing, plain PyTorch (the oracle).
+
+Port of ``realisticaudioraytracing2d_tpu/ops/trace.py`` (spec: the
+reference's ``Trace`` compute kernel, ``Raytrace2D.compute:49-156``):
+stratified angular emission, a fixed-depth bounce loop with nearest-wall
+intersection, direct listener-circle capture while outside walls,
+next-event estimation (NEE) to the listener with occlusion, absorption
+with an energy cutoff, probabilistic transmission with Snell refraction
+and medium speed change, and a specular/diffuse reflection lerp.
+
+Unlike the JAX version, the uniforms are an argument (``emit[R]``,
+``u[B, R, 3]``): the parity tests pass JAX's threefry draws, production
+draws them from :mod:`.rng`. The hand kernel
+(``ops/cuda/bounce_kernel.py``) is held against this module on the card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..models.scene import Scene
+from .geometry import (EPS, INF, PI, dot2, nearest_hit, normalize,
+                       pairwise_ray_segment_t, ray_circle_intersect, reflect,
+                       refract, rotate)
+
+# Cutoffs verbatim from the reference kernel.
+ENERGY_CUTOFF = 1e-3       # Raytrace2D.compute:122
+NEE_CONTRIB_CUTOFF = 1e-5  # Raytrace2D.compute:111
+OCCLUSION_SLACK = 0.1      # checkVis tolerance, Raytrace2D.compute:44
+
+
+class TraceParams(NamedTuple):
+    """Trace inputs that are not shapes. Every tensor lies on one device.
+    ``directivity`` / ``mic_directivity`` exist for field parity with the
+    JAX package; the port does not trace them yet."""
+
+    source: torch.Tensor           # [2] source position
+    listeners: torch.Tensor        # [L, 2] listener centers
+    listener_radius: torch.Tensor  # scalar
+    speed_of_sound: torch.Tensor   # scalar
+    input_gain: torch.Tensor       # scalar
+    directivity: Optional[torch.Tensor] = None
+    mic_directivity: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def make(source, listeners, listener_radius=0.5, speed_of_sound=343.0,
+             input_gain=1.0, directivity=None, mic_directivity=None,
+             device="cpu") -> "TraceParams":
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+        return TraceParams(
+            source=f32(source).reshape(2),
+            listeners=f32(listeners).reshape(-1, 2),
+            listener_radius=f32(listener_radius),
+            speed_of_sound=f32(speed_of_sound),
+            input_gain=f32(input_gain),
+            directivity=None if directivity is None else f32(directivity),
+            mic_directivity=(None if mic_directivity is None
+                             else f32(mic_directivity)))
+
+    def to(self, device) -> "TraceParams":
+        return TraceParams(*(None if x is None else x.to(device)
+                             for x in self))
+
+
+class Hits(NamedTuple):
+    """Fixed-shape hit records. Axes: [bounce, slot, ray, listener] with
+    slot 0 = direct circle capture, slot 1 = NEE; ``energy`` carries a
+    trailing band axis [K]."""
+
+    delay: torch.Tensor    # [B, 2, R, L] seconds
+    energy: torch.Tensor   # [B, 2, R, L, K]
+    valid: torch.Tensor    # [B, 2, R, L] bool
+
+    @property
+    def n_bands(self) -> int:
+        return self.energy.shape[-1]
+
+
+class _RayState(NamedTuple):
+    pos: torch.Tensor      # [R, 2]
+    dir: torch.Tensor      # [R, 2]
+    energy: torch.Tensor   # [R, K]
+    time: torch.Tensor     # [R] accumulated seconds
+    dist: torch.Tensor     # [R] accumulated path length
+    speed: torch.Tensor    # [R] current medium speed
+    depth: torch.Tensor    # [R] int32 wall nesting depth
+    alive: torch.Tensor    # [R] bool
+
+
+def _check_supported(params: TraceParams,
+                     transmission_surrogate: bool = False) -> None:
+    """Raise for trace features the port has not reached yet."""
+    if params.directivity is not None or params.mic_directivity is not None:
+        raise NotImplementedError(
+            "source/microphone directivity is not ported yet "
+            "(ROADMAP queue 1, item 8: ops/directivity.py)")
+    if transmission_surrogate:
+        raise NotImplementedError(
+            "transmission_surrogate belongs to the differentiable path, "
+            "not ported yet (ROADMAP queue 1, item 14: diff.py)")
+
+
+def emission_angle(n_rays: int, emit_jitter: torch.Tensor) -> torch.Tensor:
+    """Stratified-jittered emission angles (``Raytrace2D.compute:52``):
+    angle_i = (i + u_i) / R * 2*pi."""
+    idx = torch.arange(n_rays, dtype=torch.float32,
+                       device=emit_jitter.device)
+    # Divide by a tensor, not a Python number: on CUDA, torch divides by a
+    # host scalar as a multiply by its reciprocal, which is not IEEE
+    # division: unless R is a power of two, some angles move by an ulp and
+    # their rays drift from the hand kernel's (which, like the JAX oracle,
+    # divides exactly).
+    return (idx + emit_jitter) / idx.new_tensor(float(n_rays)) * (2.0 * PI)
+
+
+def _emit(params: TraceParams, n_rays: int, n_bands: int,
+          emit_jitter: torch.Tensor) -> _RayState:
+    """Stratified-jittered angular emission (:func:`emission_angle`)."""
+    dev = emit_jitter.device
+    angle = emission_angle(n_rays, emit_jitter)
+    direction = torch.stack([torch.cos(angle), torch.sin(angle)], dim=-1)
+    return _RayState(
+        pos=params.source.expand(n_rays, 2).clone(),
+        dir=direction,
+        energy=params.input_gain.expand(n_rays, n_bands).clone(),
+        time=torch.zeros(n_rays, dtype=torch.float32, device=dev),
+        dist=torch.zeros(n_rays, dtype=torch.float32, device=dev),
+        speed=params.speed_of_sound.expand(n_rays).clone(),
+        depth=torch.zeros(n_rays, dtype=torch.int32, device=dev),
+        alive=torch.ones(n_rays, dtype=torch.bool, device=dev))
+
+
+def _bounce(scene: Scene, params: TraceParams, st: _RayState,
+            u: torch.Tensor) -> Tuple[_RayState, Tuple]:
+    """One bounce for all rays; ``u[R, 3]`` are this bounce's uniforms
+    (transmission test / refraction jitter / diffuse angle)."""
+    listeners = params.listeners                     # [L, 2]
+    c = params.speed_of_sound
+
+    # --- nearest wall (Raytrace2D.compute:69-72) ---------------------------
+    t_wall = pairwise_ray_segment_t(st.pos, st.dir, scene.a, scene.b)
+    closest, hit_idx = nearest_hit(t_wall)           # [R], [R]
+    hit_wall = (hit_idx >= 0) & st.alive
+
+    # --- direct listener capture, only outside walls (compute:74-84) -------
+    t_lis = ray_circle_intersect(st.pos[:, None, :], st.dir[:, None, :],
+                                 listeners[None, :, :],
+                                 params.listener_radius)   # [R, L]
+    direct_valid = (st.alive & (st.depth == 0))[:, None] \
+        & (t_lis < closest[:, None]) & (t_lis < INF)
+    total_d = st.dist[:, None] + t_lis
+    direct_energy = st.energy[:, None, :] / \
+        torch.clamp(total_d * total_d, min=1.0)[..., None]  # [R, L, K]
+    direct_delay = st.time[:, None] + t_lis / st.speed[:, None]
+
+    # --- advance to the wall (compute:92-94) --------------------------------
+    adv = torch.where(hit_wall, closest, 0.0)
+    pos = st.pos + st.dir * adv[:, None]
+    time = st.time + adv / st.speed
+    dist = st.dist + adv
+
+    # --- gather hit-wall attributes -----------------------------------------
+    widx = torch.clamp(hit_idx, min=0).long()
+    w_n = scene.normal[widx]            # [R, 2]
+    w_abs = scene.absorption[widx]      # [R, K]
+    w_scat = scene.scattering[widx]     # [R]
+    w_trans = scene.transmission[widx]  # [R]
+    w_ior = scene.ior[widx]             # [R]
+
+    # --- NEE with occlusion check (compute:101-119) -------------------------
+    # Shadow ray starts offset along the *unflipped* wall normal; direction
+    # is normalized by the unoffset distance — both reference quirks kept.
+    nee_src = pos + w_n * EPS                                # [R, 2]
+    to_lis = listeners[None, :, :] - pos[:, None, :]         # [R, L, 2]
+    dist_lis = torch.sqrt(torch.clamp(dot2(to_lis, to_lis), min=1e-20))
+    vis_dir = (listeners[None, :, :] - nee_src[:, None, :]) \
+        / dist_lis[..., None]
+    t_occ = pairwise_ray_segment_t(nee_src[:, None, :], vis_dir,
+                                   scene.a, scene.b)         # [R, L, W]
+    occ_min = t_occ.min(dim=-1).values
+    visible = occ_min >= dist_lis - OCCLUSION_SLACK
+
+    eff_sign = torch.where(dot2(st.dir, w_n) > 0.0, -1.0, 1.0)  # [R]
+    eff_n = w_n * eff_sign[:, None]
+    cos_t = torch.clamp(dot2(eff_n[:, None, :],
+                             to_lis / dist_lis[..., None]), min=0.0)
+    total_d_nee = dist[:, None] + dist_lis
+    geom = cos_t * 0.5 / (total_d_nee * total_d_nee)          # [R, L]
+    nee_energy = st.energy[:, None, :] * (1.0 - w_abs)[:, None, :] \
+        * geom[..., None]                                     # [R, L, K]
+    nee_valid = hit_wall[:, None] & (st.depth == 0)[:, None] & visible \
+        & (nee_energy.amax(dim=-1) > NEE_CONTRIB_CUTOFF)
+    # Listener leg uses the *rest-frame* speed of sound, matching the
+    # reference (compute:114 divides by speedOfSound, not curSpeed).
+    nee_delay = time[:, None] + dist_lis / c
+
+    # --- absorption + cutoff (compute:121-122) ------------------------------
+    energy = st.energy * torch.where(hit_wall[:, None], 1.0 - w_abs, 1.0)
+    alive = hit_wall & (energy.amax(dim=-1) >= ENERGY_CUTOFF)
+
+    # --- transmission w/ refraction (compute:124-147) -----------------------
+    entering = dot2(st.dir, w_n) < 0.0
+    n_eff = w_n * torch.where(entering, 1.0, -1.0)[:, None]
+    wall_speed = c / w_ior
+    next_speed = torch.where(entering, wall_speed,
+                             torch.where(st.depth <= 1, c, wall_speed))
+    eta = next_speed / st.speed
+    refr, refr_ok = refract(st.dir, n_eff, eta)
+    transmit = (u[:, 0] < w_trans) & refr_ok
+    jitter = (u[:, 1] - 0.5) * 2.0 * w_scat
+    trans_dir = normalize(rotate(refr, jitter))
+
+    # --- reflection: specular/diffuse lerp (compute:149-154) ----------------
+    spec_dir = reflect(st.dir, n_eff)
+    diff_ang = torch.asin(torch.clamp(2.0 * u[:, 2] - 1.0, -1.0, 1.0))
+    diff_dir = rotate(n_eff, diff_ang)
+    refl_dir = normalize(spec_dir +
+                         (diff_dir - spec_dir) * w_scat[:, None])
+
+    new_dir = torch.where(transmit[:, None], trans_dir, refl_dir)
+    new_speed = torch.where(transmit, next_speed, st.speed)
+    new_depth = torch.where(
+        transmit,
+        torch.where(entering, st.depth + 1, torch.clamp(st.depth - 1, min=0)),
+        st.depth)
+    pos = pos + torch.where(transmit[:, None], new_dir * EPS, n_eff * EPS)
+
+    sel = alive
+    st_next = _RayState(
+        pos=torch.where(sel[:, None], pos, st.pos),
+        dir=torch.where(sel[:, None], new_dir, st.dir),
+        energy=torch.where(sel[:, None], energy, st.energy),
+        time=torch.where(sel, time, st.time),
+        dist=torch.where(sel, dist, st.dist),
+        speed=torch.where(sel, new_speed, st.speed),
+        depth=torch.where(sel, new_depth, st.depth),
+        alive=sel)
+
+    out = (torch.stack([direct_delay, nee_delay]),            # [2, R, L]
+           torch.stack([direct_energy, nee_energy]),          # [2, R, L, K]
+           torch.stack([direct_valid, nee_valid]))            # [2, R, L]
+    return st_next, out
+
+
+def trace(scene: Scene, params: TraceParams, emit: torch.Tensor,
+          u: torch.Tensor, *, n_debug: int = 0,
+          transmission_surrogate: bool = False
+          ) -> Tuple[Hits, None]:
+    """Trace ``R = emit.shape[0]`` rays for ``B = u.shape[0]`` bounces with
+    the given uniforms (``emit[R]``, ``u[B, R, 3]``). Returns
+    ``(Hits, None)``, the shape of the JAX function's result; the debug
+    paths (``n_debug > 0``) are not ported yet."""
+    _check_supported(params, transmission_surrogate)
+    if n_debug:
+        raise NotImplementedError("DebugPaths are not ported yet "
+                                  "(ROADMAP queue 1, item 3)")
+    n_rays = emit.shape[0]
+    if u.shape[1:] != (n_rays, 3):
+        raise ValueError(f"u must be [B, {n_rays}, 3], got {tuple(u.shape)}")
+    st = _emit(params, n_rays, scene.n_bands, emit)
+    delays, energies, valids = [], [], []
+    for b in range(u.shape[0]):
+        st, (delay, energy, valid) = _bounce(scene, params, st, u[b])
+        delays.append(delay)
+        energies.append(energy)
+        valids.append(valid)
+    return Hits(delay=torch.stack(delays), energy=torch.stack(energies),
+                valid=torch.stack(valids)), None
+
+
+def trace_hits_only(scene: Scene, params: TraceParams, emit: torch.Tensor,
+                    u: torch.Tensor, *,
+                    transmission_surrogate: bool = False) -> Hits:
+    """Hits-only wrapper of :func:`trace`."""
+    hits, _ = trace(scene, params, emit, u,
+                    transmission_surrogate=transmission_surrogate)
+    return hits

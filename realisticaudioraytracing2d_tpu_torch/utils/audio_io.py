@@ -1,0 +1,75 @@
+"""Audio file I/O and synthetic test clips (numpy only).
+
+WAV (PCM) read/write is stdlib-only (wave + numpy), copied from
+``realisticaudioraytracing2d_tpu/utils/audio_io.py``. The JAX package's
+mp3 path goes through its native codec binding, which is not ported yet
+(ROADMAP queue 1, item 15).
+
+Plus generators for synthetic dry clips used by tests and the chip smoke.
+"""
+
+from __future__ import annotations
+
+import wave
+from typing import Tuple
+
+import numpy as np
+
+
+def read_wav(path: str) -> Tuple[np.ndarray, int]:
+    """Read a PCM WAV file. Returns ``(samples[N] or [N, C] float32 in
+    [-1, 1], sample_rate)``."""
+    with wave.open(path, "rb") as w:
+        n = w.getnframes()
+        ch = w.getnchannels()
+        width = w.getsampwidth()
+        rate = w.getframerate()
+        raw = w.readframes(n)
+    if width == 2:
+        x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif width == 4:
+        # could be PCM32 or float32; wave module only does PCM — treat as i4
+        x = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif width == 1:
+        x = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32)
+             - 128.0) / 128.0
+    else:
+        raise ValueError(f"unsupported sample width {width}")
+    if ch > 1:
+        x = x.reshape(-1, ch)
+    return x, rate
+
+
+def write_wav(path: str, x: np.ndarray, sample_rate: int) -> None:
+    """Write float32 audio ([-1, 1], shape [N] or [N, C]) as PCM16 WAV."""
+    x = np.asarray(x, dtype=np.float32)
+    if x.ndim == 1:
+        x = x[:, None]
+    pcm = np.clip(x, -1.0, 1.0)
+    pcm = (pcm * 32767.0).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(x.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())
+
+
+def click_clip(duration: float, sample_rate: int,
+               click_times=(0.05,)) -> np.ndarray:
+    """Dirac-ish clicks — ideal for verifying IR delays audibly/numerically."""
+    x = np.zeros(int(duration * sample_rate), np.float32)
+    for t in click_times:
+        i = int(t * sample_rate)
+        if 0 <= i < len(x):
+            x[i] = 1.0
+    return x
+
+
+def noise_burst(duration: float, sample_rate: int, seed: int = 0,
+                amplitude: float = 0.5) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    n = int(duration * sample_rate)
+    env = np.minimum(1.0, np.arange(n) / max(1, n * 0.05))
+    env *= np.minimum(1.0, (n - np.arange(n)) / max(1, n * 0.05))
+    return (amplitude * env *
+            rng.standard_normal(n).astype(np.float32)).astype(np.float32)

@@ -1,0 +1,97 @@
+"""PyTorch port: every ported convolution function vs JAX, same inputs
+(numpy, seeded), rtol 1e-5.
+
+Elementwise functions (gate, resample, normalize, downmix) must agree to
+1e-6. FFT results carry each FFT library's float32 rounding, which is
+absolute (relative to the signal's peak) rather than relative per
+sample, so those comparisons add ``atol = 1e-5 * max|reference|``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import to_numpy, to_torch
+
+from realisticaudioraytracing2d_tpu.ops import convolve as jcv
+from realisticaudioraytracing2d_tpu_torch.ops import convolve as cv
+
+
+def _fft_close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(to_numpy(got), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.fixture
+def signals(rng):
+    x = rng.uniform(-1, 1, 300).astype(np.float32)
+    x[::7] = 5e-5                                   # below the input gate
+    ir = rng.uniform(-0.2, 0.5, 150).astype(np.float32)
+    return x, ir
+
+
+def test_gate_direct_and_fft_match_jax(signals):
+    x, ir = signals
+    np.testing.assert_array_equal(to_numpy(cv.gate_input(to_torch(x))),
+                                  np.asarray(jcv.gate_input(jnp.asarray(x))))
+    for gate in (1e-4, None):
+        _fft_close(cv.convolve_direct(to_torch(x), to_torch(ir), 3, gate),
+                   jcv.convolve_direct(jnp.asarray(x), jnp.asarray(ir), 3,
+                                       gate))
+        _fft_close(cv.convolve_fft(to_torch(x), to_torch(ir), 3, gate),
+                   jcv.convolve_fft(jnp.asarray(x), jnp.asarray(ir), 3, gate))
+    assert cv.convolve_direct(to_torch(x), to_torch(ir)).shape == (450,)
+
+
+def test_chunk_crossfade_matches_jax(rng):
+    chunk = rng.uniform(-1, 1, 64).astype(np.float32)
+    ir_a = rng.uniform(0, 1, 200).astype(np.float32)
+    ir_b = rng.uniform(0, 1, 200).astype(np.float32)
+    _fft_close(cv.convolve_chunk_crossfade(to_torch(chunk), to_torch(ir_a),
+                                           to_torch(ir_b), 2, 5),
+               jcv.convolve_chunk_crossfade(jnp.asarray(chunk),
+                                            jnp.asarray(ir_a),
+                                            jnp.asarray(ir_b), 2, 5))
+
+
+@pytest.mark.parametrize("shape", [(150,), (150, 1), (150, 4), (2, 150, 4)])
+def test_apply_ir_and_combined_transfer_match_jax(rng, shape):
+    x = rng.uniform(-1, 1, 200).astype(np.float32)
+    ir = rng.uniform(0, 0.5, shape).astype(np.float32)
+    _fft_close(cv.apply_ir(to_torch(x), to_torch(ir), 2),
+               jcv.apply_ir(jnp.asarray(x), jnp.asarray(ir), 2))
+    if len(shape) > 1:
+        h = cv.combined_transfer(to_torch(ir), 512)
+        jh = jcv.combined_transfer(jnp.asarray(ir), 512)
+        np.testing.assert_allclose(to_numpy(h.real), np.asarray(jh.real),
+                                   rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(to_numpy(h.imag), np.asarray(jh.imag),
+                                   rtol=1e-5, atol=1e-4)
+
+
+def test_band_filterbank_equals_jax():
+    for k in (1, 3, 8):
+        np.testing.assert_array_equal(
+            to_numpy(cv.band_filterbank(100, k, 256)),
+            np.asarray(jcv.band_filterbank(100, k, 256)))
+
+
+def test_peak_downmix_resample_load_match_jax(rng):
+    x = rng.uniform(-2, 2, (500, 2)).astype(np.float32)
+    np.testing.assert_allclose(to_numpy(cv.downmix_mono(to_torch(x))),
+                               np.asarray(jcv.downmix_mono(jnp.asarray(x))),
+                               rtol=1e-6)
+    mono = x[:, 0].copy()
+    np.testing.assert_allclose(to_numpy(cv.peak_normalize(to_torch(mono))),
+                               np.asarray(jcv.peak_normalize(
+                                   jnp.asarray(mono))), rtol=1e-6)
+    for src, dst in ((44100, 48000), (48000, 22050), (16000, 16000)):
+        np.testing.assert_allclose(
+            to_numpy(cv.resample_linear(to_torch(mono), src, dst)),
+            np.asarray(jcv.resample_linear(jnp.asarray(mono), src, dst)),
+            rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(
+            to_numpy(cv.load_samples(to_torch(x), src, dst)),
+            np.asarray(jcv.load_samples(jnp.asarray(x), src, dst)),
+            rtol=1e-6, atol=1e-6)
+    assert cv.downmix_mono(torch.ones(4)).shape == (4,)

@@ -1,0 +1,65 @@
+"""Shared helpers of the PyTorch port's parity tests (``test_torch_*.py``).
+
+The same inputs, made from a seed with numpy (or drawn by JAX and
+handed over as numpy), go through the JAX function and its counterpart
+in ``realisticaudioraytracing2d_tpu_torch``. Tests that need the card use
+the ``cuda_device`` fixture and the ``cuda`` marker: they skip, with a
+reason, where ``torch.cuda.is_available()`` is false. Whether a card
+exists is decided inside the fixture, never at import time. JAX is
+imported only by the helpers that draw JAX's uniforms, so the ``cuda``
+tests (tests/test_torch_cuda.py) also run where JAX is not installed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+# The test suite runs several xdist workers on a few cores.
+torch.set_num_threads(1)
+
+cuda = pytest.mark.cuda
+
+
+def to_torch(x, device="cpu") -> torch.Tensor:
+    """numpy / JAX array -> torch tensor (a copy, so JAX's read-only
+    buffers are never aliased)."""
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def jax_frame_uniforms(key, n_frames: int, max_bounces: int, n_rays: int,
+                       device="cpu"):
+    """The uniforms JAX's ``engine.trace_accumulate(backend="jnp")`` draws
+    for frames ``0..n_frames-1`` of ``key`` (``fold_in(key, f)``), stacked
+    as the port's ``(emit[F, R], u[F, B, R, 3])``."""
+    from realisticaudioraytracing2d_tpu.ops import rng as jax_rng
+    draws = [jax_rng.bounce_uniforms(jax_rng.frame_key(key, f), max_bounces,
+                                     n_rays) for f in range(n_frames)]
+    return (to_torch(np.stack([np.asarray(e) for e, _ in draws]), device),
+            to_torch(np.stack([np.asarray(u) for _, u in draws]), device))
+
+
+def jax_chunk_uniforms(key, chunk: int, n_frames: int, max_bounces: int,
+                       n_rays: int, device="cpu"):
+    """The uniforms JAX's ``stream_chunk`` draws for chunk ``chunk``
+    (``fold_in(fold_in(key, chunk), frame)``)."""
+    from realisticaudioraytracing2d_tpu.ops import rng as jax_rng
+    return jax_frame_uniforms(jax_rng.frame_key(key, chunk), n_frames,
+                              max_bounces, n_rays, device)
+
+
+@pytest.fixture
+def cuda_device():
+    """A CUDA device, or a skip where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel tests run on the card: "
+                    "python -m pytest tests/test_torch_cuda.py -m cuda "
+                    "--noconftest)")
+    return torch.device("cuda")
+
+
+__all__ = ["cuda", "cuda_device", "jax_chunk_uniforms",
+           "jax_frame_uniforms", "to_numpy", "to_torch"]
