@@ -1,10 +1,19 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
-Drives the port's main path, ``Streamer.stream_clip`` on SmollRoom at the
-shipped configuration (15,000 rays x 5 bounces, 48 kHz, 1.5 s IR of 72,000
-bins, 0.1 s chunks of 4,800 samples), through the hand-written bounce
-kernel, and holds every kernel against its plain PyTorch version:
+Drives the port's paths through the hand-written bounce kernel and holds
+every kernel against its plain PyTorch version:
+
+* the stream, ``Streamer.stream_clip`` on SmollRoom at the shipped
+  configuration (15,000 rays x 5 bounces, 48 kHz, 1.5 s IR of 72,000 bins,
+  0.1 s chunks of 4,800 samples), through K3 and K4;
+* the room-dataset sweep, ``cli sweep --rooms 1024`` at the CLI's defaults
+  (BASELINE.json config #5: 1,024 random rooms of 28 walls, 15,000 rays x
+  5 bounces x 8 frames, 72,000 bins), through one launch of K9;
+* the 64-source stereo mixdown in SmollRoom (BASELINE.json config #4),
+  through one launch of K9.
+
+Phases:
 
 0. device: the card's name and power limit (nvidia-smi);
 1. build the kernels from ``realisticaudioraytracing2d_tpu_torch/csrc``;
@@ -21,7 +30,22 @@ kernel, and holds every kernel against its plain PyTorch version:
    through K4, and the same stream with one fixed IR through K3, which
    must equal the offline bake; the launch counts are reset before and
    read after each stream;
-5. timings with CUDA events after a warm-up.
+6. the sweep: the CLI into a temporary directory (launch counts reset
+   before and read after: one K9 launch), its npz read back; K9 over the
+   1,024 rooms directly, which must equal the npz times 8 frames, rerun
+   bit-identical; room 0 through K9 alone (E = 1) and as entry 0 of the
+   sweep equals K4 on room 0 bit for bit; rooms 0, 1, 511 and 1023 within
+   the limits of 2 against the plain version on the same Philox numbers;
+   >= 90% of the rooms carry energy; the smallest per-room fixed-point
+   scale;
+7. the mixdown: 64 sources, two ears (counts reset and read: one K9
+   launch), within the limits of 2 against the plain sum over sources on
+   the same numbers, the ears differ;
+5. timings with CUDA events after a warm-up, device times from the
+   profiler, and each kernel's bound (the larger of its bytes over 3.35
+   TB/s and its FP32 operations over 67 TFLOP/s, the operations counted
+   from the wall tests and wall sweeps the kernel reports it made on
+   these inputs).
 
 Prints one JSON line of kernels, the card line, and last the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1).
@@ -32,17 +56,27 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-K3_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/bounce_kernel.cu"
+KERNEL_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/bounce_kernel.cu"
 PALLAS = "realisticaudioraytracing2d_tpu/ops/pallas/bounce_kernel.py"
 SR, T, CHUNK = 48000, 72000, 4800           # the shipped SmollRoom audio
 RAYS, BOUNCES = 15000, 5                     # the shipped SmollRoom trace
 BIG_RAYS, BIG_BOUNCES, BIG_FRAMES = 131072, 8, 8   # bench.py's frame
+SWEEP_ROOMS, SWEEP_FRAMES = 1024, 8             # cli sweep defaults, 1k rooms
+N_SOURCES = 64                                   # BASELINE.json config #4
 DEVICE = "cuda"
+# The card's published peaks (H100 SXM data sheet, at 700 W): FP32 outside
+# the tensor cores and device-memory bandwidth. csrc/bounce_kernel.cu::
+# wall_t is 16 FP32 operations (two of them divides), 3 of which, the
+# ray's own cross product oy * dx - ox * dy, are the same for every wall
+# of a sweep: 13 per wall test and 3 per sweep.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+OPS_PER_TEST, OPS_PER_SWEEP = 13, 3
 # Kernel vs plain on the same uniforms: relative total energy and per-bin
 # L1 over the L1 norm. Both compute every hit in the same IEEE order, so
 # only the summation differs (u64 fixed point vs float index_add_): the
@@ -93,6 +127,18 @@ def kernel_device_ms(torch, fn, reps):
     return sum(us) / len(us) / 1e3 if us else None
 
 
+def bound(counts, n_bytes):
+    """The least time (ms) the card could take: operations (from
+    ``counts`` = (wall tests, wall sweeps)) over the FP32 peak or bytes
+    over the memory rate, whichever is larger."""
+    n_tests, n_sweeps = counts
+    ops_ms = (n_tests * OPS_PER_TEST + n_sweeps * OPS_PER_SWEEP) \
+        / PEAK_FP32 * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -105,10 +151,16 @@ def main():
     sys.path.insert(0, HERE)
     import torch
     import realisticaudioraytracing2d_tpu_torch as art
+    from realisticaudioraytracing2d_tpu_torch import cli
+    from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
     from realisticaudioraytracing2d_tpu_torch.ops import rng
     from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
         bounce_kernel as bk
     from realisticaudioraytracing2d_tpu_torch.ops.cuda import build
+    from realisticaudioraytracing2d_tpu_torch.parallel.multisource import \
+        trace_sources_mixdown
+    from realisticaudioraytracing2d_tpu_torch.parallel.sweep import \
+        sweep_rooms
     from realisticaudioraytracing2d_tpu_torch.utils.audio_io import \
         click_clip
 
@@ -143,7 +195,7 @@ def main():
           f"{int(torch.log2(s50))} at {BIG_RAYS} x {BIG_BOUNCES} x 50 "
           "frames", flush=True)
     kw = dict(sample_rate=SR, ir_length=T)
-    errs = {"K3": 0.0, "K4": 0.0}
+    errs = {"K3": 0.0, "K4": 0.0, "K9": 0.0}
 
     def same_numbers(tag, kernel, got, want):
         """Kernel vs plain on the same uniforms: energy, first nonzero bin,
@@ -250,22 +302,29 @@ def main():
                  bk.trace_frames_ir_whole(smoll.scene, smoll_p, *fixed, **kw),
                  bk.trace_frames_ir_plain(smoll.scene, smoll_p, *fixed, **kw))
 
+    wrappers = {"K3": bk.trace_frames_ir_whole, "K4": bk.trace_frames_ir_mega,
+                "K9": bk.trace_rooms_ir_mega}
+
+    def counted(run):
+        """Run one path; return its result with the launches of this run
+        only (every count set to 0 just before, read just after)."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: fn.launches for k, fn in wrappers.items()}
+
     def counted_stream(streamer):
         """Stream the clip; return it with the launches of this run only."""
-        bk.trace_frames_ir_whole.launches = 0
-        bk.trace_frames_ir_mega.launches = 0
-        wet = streamer.stream_clip(dry, lambda i: smoll_p)
-        torch.cuda.synchronize()
-        return wet, {"K3": bk.trace_frames_ir_whole.launches,
-                     "K4": bk.trace_frames_ir_mega.launches}
+        return counted(lambda: streamer.stream_clip(dry, lambda i: smoll_p))
 
     n_chunks = 20 + 15
     wet, seeded = counted_stream(art.Streamer(smoll.scene, cfg, seed=7))
-    check(seeded == {"K3": 0, "K4": n_chunks},
+    check(seeded == {"K3": 0, "K4": n_chunks, "K9": 0},
           f"seeded stream launch counts {seeded}")
     static, fixed_ir = counted_stream(
         art.Streamer(smoll.scene, cfg, uniforms_fn=lambda i: fixed))
-    check(fixed_ir == {"K3": n_chunks, "K4": 0},
+    check(fixed_ir == {"K3": n_chunks, "K4": 0, "K9": 0},
           f"fixed-IR stream launch counts {fixed_ir}")
     launches = {"K3": fixed_ir["K3"], "K4": seeded["K4"]}
     out = wet.cpu().numpy()
@@ -295,7 +354,102 @@ def main():
           f"2e-5) {'ok' if bake_ok else 'FAILED'}", flush=True)
     check(bake_ok, "fixed-IR stream == bake")
 
-    # --- 5. timings ------------------------------------------------------
+    # --- 6. the sweep: cli sweep --rooms 1024 at the defaults ----------------
+    sweep_kw = dict(n_rays=RAYS, max_bounces=BOUNCES, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "irs.npz")
+        t0 = time.perf_counter()
+        _, swept = counted(lambda: cli.main(
+            ["sweep", "--rooms", str(SWEEP_ROOMS), "--out", path]))
+        cli_s = time.perf_counter() - t0
+        with np.load(path) as npz:
+            irs_cli, src, lis = npz["irs"], npz["sources"], npz["listeners"]
+    check(swept == {"K3": 0, "K4": 0, "K9": 1},
+          f"sweep launch counts {swept}")
+    check(irs_cli.shape == (SWEEP_ROOMS, 1, T, 1) and irs_cli.dtype ==
+          np.float32 and np.isfinite(irs_cli).all(),
+          f"sweep npz: irs {irs_cli.shape} {irs_cli.dtype}, finite")
+    scenes, src_r, lis_r = art.rooms.random_rooms(SWEEP_ROOMS, seed=0,
+                                                  device=dev)
+    check(np.array_equal(src, src_r) and np.array_equal(lis, lis_r),
+          "sweep npz: sources and listeners of random_rooms(seed=0)")
+    k9 = bk.trace_rooms_ir_mega(scenes, src, lis, 0, SWEEP_FRAMES,
+                                **sweep_kw)
+    k9_again = bk.trace_rooms_ir_mega(scenes, src, lis, 0, SWEEP_FRAMES,
+                                      **sweep_kw)
+    torch.cuda.synchronize()
+    check(torch.equal(k9, k9_again), "K9 sweep rerun bit-identical")
+    del k9_again
+    cli_again = (k9 / k9.new_tensor(float(SWEEP_FRAMES))).cpu().numpy()
+    check(np.array_equal(cli_again, irs_cli),
+          "cli sweep == K9 over the same rooms / 8 frames")
+    del cli_again
+    # K4's stream is entry 0 of K9's: room 0 through K4, through K9 alone
+    # (E = 1, offset 0) and as entry 0 of the 1,024-room launch
+    room0 = art.TraceParams.make(src[0], lis[0], device=dev)
+    k4_room0 = bk.trace_frames_ir_mega(scenes.row(0), room0, 0, SWEEP_FRAMES,
+                                       **sweep_kw)
+    k9_room0 = bk.trace_rooms_ir_mega(scenes.row(slice(0, 1)), src[:1],
+                                      lis[:1], 0, SWEEP_FRAMES, **sweep_kw)
+    torch.cuda.synchronize()
+    check(torch.equal(k9_room0[0], k4_room0) and torch.equal(k9[0], k4_room0),
+          "K9 (E = 1) and entry 0 of the sweep == K4 on room 0")
+    del k4_room0, k9_room0
+    with_energy = int((irs_cli.reshape(SWEEP_ROOMS, -1).sum(-1) > 0).sum())
+    scales = bk.fixed_point_scales(
+        torch.as_tensor(src, device=dev), torch.as_tensor(lis, device=dev)
+        [:, None], torch.ones(SWEEP_ROOMS, device=dev), SWEEP_FRAMES, RAYS,
+        BOUNCES)
+    s_min = int(torch.argmin(scales))
+    d_min = float(np.linalg.norm(src[s_min] - lis[s_min]))
+    print(f"[6] sweep: cli sweep --rooms {SWEEP_ROOMS} ({RAYS} x {BOUNCES} x "
+          f"{SWEEP_FRAMES} frames, {T} bins) in {cli_s:.2f} s incl. room "
+          f"build and npz write; irs {irs_cli.shape}; launches {swept}; "
+          f"{with_energy}/{SWEEP_ROOMS} rooms carry energy (>= 90%); rerun "
+          f"bit-identical; npz == K9 / {SWEEP_FRAMES}; K9 (E = 1) == entry 0 "
+          f"== K4 on room 0, bit for bit; smallest fixed-point "
+          f"S = 2^{int(torch.log2(scales[s_min]))} (room {s_min}, source-"
+          f"listener distance {d_min:.3f} m), largest S = 2^"
+          f"{int(torch.log2(scales.max()))}", flush=True)
+    check(with_energy >= 0.9 * SWEEP_ROOMS, "sweep: >= 90% rooms carry energy")
+    del irs_cli
+    for r in (0, 1, SWEEP_ROOMS // 2 - 1, SWEEP_ROOMS - 1):
+        tag = (f"[6] K9 vs plain, room {r} of the sweep, {RAYS} x {BOUNCES} "
+               f"x {SWEEP_FRAMES} frames, same Philox numbers")
+        want = bk.trace_rooms_ir_mega_plain(
+            scenes.row(slice(r, r + 1)), src[r:r + 1], lis[r:r + 1], 0,
+            SWEEP_FRAMES, entry_offset=r, **sweep_kw)[0]
+        if float(want.sum()) > 0:
+            same_numbers(tag, "K9", k9[r], want)
+        else:               # no ray reaches this room's listener
+            print(f"{tag}: no energy in either", flush=True)
+            check(torch.equal(k9[r], want), f"{tag}: both silent")
+    del k9
+
+    # --- 7. the mixdown: 64 sources, stereo, SmollRoom ---------------------
+    g = np.random.default_rng(11)       # tests/test_parallel.py's sources
+    sources = np.stack([g.uniform(-15, 15, N_SOURCES),
+                        g.uniform(-3, 8, N_SOURCES)], -1).astype(np.float32)
+    ears = np.array([[-0.2, -3.68], [0.2, -3.68]], np.float32)
+    mix_p = art.TraceParams.make(sources, ears, device=dev)
+    mix, mixed = counted(lambda: trace_sources_mixdown(
+        smoll.scene, mix_p, 7, **sweep_kw))
+    check(mixed == {"K3": 0, "K4": 0, "K9": 1},
+          f"mixdown launch counts {mixed}")
+    mix_plain = trace_sources_mixdown(smoll.scene, mix_p, 7,
+                                      backend="plain", **sweep_kw)
+    check(tuple(mix.shape) == (2, T, 1), f"mixdown shape {tuple(mix.shape)}")
+    for ear in range(2):
+        same_numbers(f"[7] mixdown of {N_SOURCES} sources vs the plain sum "
+                     f"over sources, ear {ear}, {RAYS} x {BOUNCES}, same "
+                     "Philox numbers", "K9", mix[ear], mix_plain[ear])
+    ear_diff = float((mix[0] - mix[1]).abs().sum() / mix[0].abs().sum())
+    print(f"[7] mixdown: {N_SOURCES} sources -> {tuple(mix.shape)}, "
+          f"launches {mixed}; ears differ by L1 {ear_diff:.3f}", flush=True)
+    check(ear_diff > 0, "mixdown: the two ears differ")
+    launches["K9"] = swept["K9"] + mixed["K9"]
+
+    # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
     sc, p = smoll.scene, smoll_p
     times = {
@@ -346,16 +500,100 @@ def main():
           "; the per-call times above include the wrapper's host work",
           flush=True)
 
+    # the sweep and the mixdown: wrapper calls (CUDA events), K9's device
+    # time (profiler), and the wall tests and sweeps the kernel made for
+    # the bounds
+    def work(fn):
+        n = torch.zeros(2, dtype=torch.int64, device=dev)
+        fn(n)
+        torch.cuda.synchronize()
+        return tuple(int(x) for x in n.cpu())
+
+    sweep_ms = cuda_ms(torch, lambda: sweep_rooms(
+        scenes, src, lis, 0, n_frames=SWEEP_FRAMES, **sweep_kw), 3)
+    torch.cuda.reset_peak_memory_stats()
+    sweep_rooms(scenes, src, lis, 0, n_frames=SWEEP_FRAMES, **sweep_kw)
+    torch.cuda.synchronize()
+    sweep_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dev_ms["K9 sweep"] = kernel_device_ms(torch, lambda: bk.trace_rooms_ir_mega(
+        scenes, src, lis, 0, SWEEP_FRAMES, **sweep_kw), 3)
+    sweep_work = work(lambda n: bk.trace_rooms_ir_mega(
+        scenes, src, lis, 0, SWEEP_FRAMES, work_counts=n, **sweep_kw))
+    w_sweep = scenes.n_walls
+    sweep_bound = bound(sweep_work, 4 * SWEEP_ROOMS * (
+        11 * w_sweep + 2 + 5 + T))
+    # K9 on the device tensors trace_sources_mixdown hands it
+    shared = Scene(*(x[None] for x in smoll.scene))
+    lis64 = mix_p.listeners.expand(N_SOURCES, -1, 2)
+    mix_args = (shared, mix_p.source, lis64, 7, 1)
+    mix_kw = dict(listener_radius=mix_p.listener_radius,
+                  speed_of_sound=mix_p.speed_of_sound,
+                  input_gain=mix_p.input_gain, **sweep_kw)
+    times["K9"] = (
+        cuda_ms(torch, lambda: bk.trace_rooms_ir_mega(*mix_args, **mix_kw),
+                20),
+        cuda_ms(torch, lambda: bk.trace_rooms_ir_mega_plain(
+            *mix_args, **mix_kw), 2))
+    mix_ms = (cuda_ms(torch, lambda: trace_sources_mixdown(
+        smoll.scene, mix_p, 7, **sweep_kw), 20),
+        cuda_ms(torch, lambda: trace_sources_mixdown(
+            smoll.scene, mix_p, 7, backend="plain", **sweep_kw), 2))
+    dev_ms["K9"] = kernel_device_ms(torch, lambda: bk.trace_rooms_ir_mega(
+        *mix_args, **mix_kw), 10)
+    n_work = {
+        "K3": work(lambda n: bk.trace_frames_ir_whole(
+            sc, p, *fixed, work_counts=n, **kw)),
+        "K4": work(lambda n: bk.trace_frames_ir_mega(
+            sc, p, chunk0, 1, work_counts=n, **one)),
+        "K9": work(lambda n: bk.trace_rooms_ir_mega(
+            *mix_args, work_counts=n, **mix_kw))}
+    # bytes: each input read once (wall table 11 x W, listeners, scalars,
+    # K3's host uniforms), the f32 IR written once
+    w = smoll.scene.n_walls
+    one_bytes = 4 * (11 * w + 2 + 5 + T)
+    bounds = {
+        "K3": bound(n_work["K3"], one_bytes + 4 * RAYS * (1 + 3 * BOUNCES)),
+        "K4": bound(n_work["K4"], one_bytes),
+        "K9": bound(n_work["K9"], 4 * (11 * w + N_SOURCES * (2 * 2 + 5)
+                                        + N_SOURCES * 2 * T))}
+    nominal = {"K3": RAYS * w * BOUNCES * 2, "K4": RAYS * w * BOUNCES * 2,
+               "K9": N_SOURCES * RAYS * w * BOUNCES * 3,
+               "sweep": SWEEP_ROOMS * SWEEP_FRAMES * RAYS * w_sweep * BOUNCES
+               * 2}
+    print(f"[5] sweep on {card}: {SWEEP_ROOMS} rooms x {SWEEP_FRAMES} frames"
+          f" x {RAYS} x {BOUNCES}, {T} bins: {sweep_ms:.3f} ms per sweep_rooms"
+          f" call = {SWEEP_ROOMS / sweep_ms * 1e3:.1f} rooms/s (CUDA events);"
+          f" K9 device time {fmt(dev_ms['K9 sweep'])} (profiler); peak "
+          f"device memory {sweep_peak:.3f} GiB; wall tests made "
+          f"{sweep_work[0]} of nominal R*W*B*(1+L) {nominal['sweep']} in "
+          f"{sweep_work[1]} sweeps; bound {sweep_bound[0]:.4f} ms "
+          f"({sweep_bound[1]})", flush=True)
+    print(f"[5] mixdown on {card}: {N_SOURCES} sources x {RAYS} x {BOUNCES},"
+          f" 2 ears: trace_sources_mixdown {mix_ms[0]:.3f} ms per call vs "
+          f"plain {mix_ms[1]:.3f}; K9 wrapper {times['K9'][0]:.3f} vs plain "
+          f"{times['K9'][1]:.3f}; K9 device time {fmt(dev_ms['K9'])}",
+          flush=True)
+    for k in ("K3", "K4", "K9"):
+        print(f"    bound {k}: {n_work[k][0]} wall tests made (nominal "
+              f"R*W*B*(1+L) {nominal[k]}) x {OPS_PER_TEST} + {n_work[k][1]} "
+              f"sweeps x {OPS_PER_SWEEP} FP32 ops -> {bounds[k][0]:.6f} ms "
+              f"({bounds[k][1]}); device time {fmt(dev_ms[k])}", flush=True)
+
+    names = {"K3": ("bounce_kernel K3 (host uniforms)", 494),
+             "K4": ("bounce_kernel K4 (in-kernel Philox)", 563),
+             "K9": ("bounce_kernel K9 (rooms-batched, in-kernel Philox)",
+                    656)}
+    # ms/plain_ms/bound at the main path's shapes: K3 and K4 at the
+    # stream's (15k x 5 x 1 frame), K9 at the mixdown's (64 entries x 15k
+    # x 5); the sweep's numbers are in the [5] sweep line. No PyTorch call
+    # computes a Monte-Carlo trace, so library_ms is null.
     kernels = [
-        {"name": "bounce_kernel K3 (host uniforms)", "route": "cuda",
-         "source": K3_SOURCE, "replaces": f"{PALLAS}:494",
-         "launches": launches["K3"], "max_abs_err": errs["K3"],
-         "ms": times["K3"][0], "plain_ms": times["K3"][1]},
-        {"name": "bounce_kernel K4 (in-kernel Philox)", "route": "cuda",
-         "source": K3_SOURCE, "replaces": f"{PALLAS}:563",
-         "launches": launches["K4"], "max_abs_err": errs["K4"],
-         "ms": times["K4"][0], "plain_ms": times["K4"][1]},
-    ]
+        {"name": names[k][0], "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": f"{PALLAS}:{names[k][1]}", "launches": launches[k],
+         "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": None}
+        for k in ("K3", "K4", "K9")]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

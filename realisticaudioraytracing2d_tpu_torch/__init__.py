@@ -4,23 +4,29 @@ The JAX package is the reference; this package has its module names and
 runs the reference app's main loop (scene -> Monte-Carlo trace into an
 IR -> crossfaded chunked convolution) with PyTorch on the CPU or on an
 NVIDIA H100, where the trace runs in a hand-written CUDA kernel
-(``csrc/bounce_kernel.cu``). It imports no JAX.
+(``csrc/bounce_kernel.cu``). It also sweeps room datasets and mixes
+down many sources through the same kernel's batched mode
+(:mod:`.parallel`). It imports no JAX.
+
+Every builder takes ``device=None``, which means :data:`DEFAULT_DEVICE`
+(``"cuda"``); pass ``device="cpu"`` for the plain PyTorch path.
 
 Quick start::
 
     import torch
     import realisticaudioraytracing2d_tpu_torch as art
-    room = art.rooms.smoll_room(device="cuda")
+    room = art.rooms.smoll_room()                     # on the card
     eng = art.Engine(room.scene, art.smoll_room_config())
     params = eng.params(room.source, room.listener)
     ir_state = eng.trace_frames(params, seed=0, n_frames=8)
     wet = eng.bake(torch.as_tensor(dry_audio, device="cuda"), ir_state)
 """
 
-from . import config, utils
+from . import config, parallel, utils
 from .config import (AudioConfig, DebugConfig, EngineConfig, SimConfig,
                      big_room_config, sample_scene_config,
                      smoll_room_config)
+from .device import DEFAULT_DEVICE
 from .engine import Engine, bake_audio, trace_accumulate
 from .models import materials, rooms, scene
 from .models.materials import (MATERIAL_ANECHOIC, MATERIAL_BORDER,
@@ -34,12 +40,12 @@ from .streaming import RingBuffer, Streamer, StreamState, stream_chunk
 __version__ = "0.1.0"
 
 __all__ = [
-    "AudioConfig", "AudioMaterial", "DebugConfig", "Engine",
-    "EngineConfig", "Hits", "IRState", "MATERIAL_ANECHOIC",
+    "AudioConfig", "AudioMaterial", "DEFAULT_DEVICE", "DebugConfig",
+    "Engine", "EngineConfig", "Hits", "IRState", "MATERIAL_ANECHOIC",
     "MATERIAL_BORDER", "MATERIAL_INTERIOR", "RingBuffer", "Scene",
     "SceneBuilder", "SimConfig", "StreamState", "Streamer", "TraceParams",
     "Transform2D", "bake_audio", "big_room_config", "config", "convolve",
-    "geometry", "ir", "materials", "rooms", "sample_scene_config", "scene",
-    "smoll_room_config", "stream_chunk", "trace", "trace_accumulate",
-    "utils",
+    "geometry", "ir", "materials", "parallel", "rooms",
+    "sample_scene_config", "scene", "smoll_room_config", "stream_chunk",
+    "trace", "trace_accumulate", "utils",
 ]

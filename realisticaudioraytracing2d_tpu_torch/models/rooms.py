@@ -4,17 +4,19 @@ Port of ``realisticaudioraytracing2d_tpu/models/rooms.py``:
 ``smoll_room()`` / ``big_room()`` reproduce the two shipped Unity scenes
 wall-for-wall (``Assets/Scenes/SmollRoom.unity``, ``Big Room.unity``),
 ``sample_scene()`` the repaired SampleScene and ``shoebox_room()`` a
-rectangular room. The procedural ``random_rooms`` and ``city_scene``
-fixtures are not ported yet (ROADMAP queue 1, item 13).
+rectangular room, ``random_rooms()`` the procedural room dataset of the
+sweep. The large-scene ``city_scene`` waits for the cluster kernels
+K7/K8 (ROADMAP queue 2).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from ..device import resolve
 from .materials import MATERIAL_BORDER, MATERIAL_INTERIOR, AudioMaterial
 from .scene import Scene, SceneBuilder, Transform2D
 
@@ -47,7 +49,7 @@ def _bands(mat: AudioMaterial, n_bands: int) -> AudioMaterial:
 
 
 def smoll_room(n_bands: int = 1, pad_to: Optional[int] = None,
-               device="cpu") -> RoomSetup:
+               device=None) -> RoomSetup:
     """SmollRoom.unity: 5 scaled unit boxes forming a room. Source
     (-18, 9), listener (0, -3.68), listenerRadius 0.5."""
     slant = _quat_z_angle(0.47792548, 0.8784004)
@@ -71,7 +73,7 @@ def smoll_room(n_bands: int = 1, pad_to: Optional[int] = None,
 
 
 def big_room(n_bands: int = 1, pad_to: Optional[int] = None,
-             device="cpu") -> RoomSetup:
+             device=None) -> RoomSetup:
     """Big Room.unity: same topology 10x scaled (plus a thicker slant
     wall). Source (-183.8, 87.1), listener (0, -3.68), radius 0.5; its
     config needs ``input_gain=100`` (``config.big_room_config``)."""
@@ -96,7 +98,7 @@ def big_room(n_bands: int = 1, pad_to: Optional[int] = None,
 
 
 def sample_scene(n_bands: int = 1, pad_to: Optional[int] = None,
-                 device="cpu") -> RoomSetup:
+                 device=None) -> RoomSetup:
     """SampleScene.unity, repaired: the open 3-wall scene with every wall
     on the Border material (see the JAX package's docstring)."""
     slant = _quat_z_angle(0.6239737, 0.7814454)
@@ -117,7 +119,7 @@ def sample_scene(n_bands: int = 1, pad_to: Optional[int] = None,
 def shoebox_room(width: float, height: float,
                  wall_material: AudioMaterial = MATERIAL_BORDER,
                  n_bands: int = 1, pad_to: Optional[int] = None,
-                 obstacles: Optional[list] = None, device="cpu") -> Scene:
+                 obstacles: Optional[list] = None, device=None) -> Scene:
     """A rectangular room centered at the origin; walls are four thin
     boxes just outside the interior. ``obstacles`` is a list of
     (Transform2D, material)."""
@@ -131,3 +133,52 @@ def shoebox_room(width: float, height: float,
     for tf, mat in (obstacles or []):
         b.add_box(mat, tf)
     return b.build(pad_to=pad_to, device=device)
+
+
+def random_rooms(n_rooms: int, seed: int = 0, n_obstacles: int = 3,
+                 n_bands: int = 1, device=None
+                 ) -> Tuple[Scene, np.ndarray, np.ndarray]:
+    """A batch of shoebox rooms with random interior box obstacles,
+    materials and source/listener placements (BASELINE.json config #5).
+
+    Returns ``(scenes, sources[n_rooms, 2], listeners[n_rooms, 2])`` where
+    ``scenes`` is a stacked :class:`Scene` (leading axis ``n_rooms``, every
+    room padded to ``4 * (4 + n_obstacles)`` walls). The numpy draws are
+    the JAX package's in the same order, so for one seed the arrays equal
+    its ``random_rooms`` bit for bit. The rooms are built on the host and
+    uploaded to ``device`` in one copy per field."""
+    rng = np.random.default_rng(seed)
+    wall_count = 4 * (4 + n_obstacles)
+    scenes, sources, listeners = [], [], []
+    for _ in range(n_rooms):
+        w = float(rng.uniform(15.0, 60.0))
+        h = float(rng.uniform(10.0, 40.0))
+        wall_mat = AudioMaterial(
+            absorption=float(rng.uniform(0.05, 0.7)),
+            scattering=float(rng.uniform(0.0, 1.0)),
+            transmission=float(rng.uniform(0.0, 0.4)),
+            ior=float(rng.uniform(0.01, 1.0)), name="wall")
+        obstacles = []
+        for _ in range(n_obstacles):
+            mat = AudioMaterial(
+                absorption=float(rng.uniform(0.05, 0.9)),
+                scattering=float(rng.uniform(0.0, 1.0)),
+                transmission=float(rng.uniform(0.0, 1.0)),
+                ior=float(rng.uniform(0.1, 2.0)), name="obstacle")
+            tf = Transform2D(
+                position=(float(rng.uniform(-w / 3, w / 3)),
+                          float(rng.uniform(-h / 3, h / 3))),
+                angle=float(rng.uniform(0, np.pi)),
+                scale=(float(rng.uniform(1.0, w / 4)),
+                       float(rng.uniform(0.5, 2.0))))
+            obstacles.append((tf, mat))
+        scenes.append(shoebox_room(w, h, wall_mat, n_bands=n_bands,
+                                   pad_to=wall_count, obstacles=obstacles,
+                                   device="cpu"))
+        sources.append([rng.uniform(-w / 2.5, w / 2.5),
+                        rng.uniform(-h / 2.5, h / 2.5)])
+        listeners.append([rng.uniform(-w / 2.5, w / 2.5),
+                          rng.uniform(-h / 2.5, h / 2.5)])
+    return (Scene.stack(scenes).to(resolve(device)),
+            np.asarray(sources, np.float32),
+            np.asarray(listeners, np.float32))

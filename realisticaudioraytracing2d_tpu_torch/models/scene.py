@@ -22,6 +22,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve
 from .materials import AudioMaterial
 
 CIRCLE_RESOLUTION = 32  # SceneHelper.cs:26
@@ -120,6 +121,17 @@ class Scene(NamedTuple):
                          for x1, x2 in zip(self, other)))
         return merged.pad_to(pad_to if pad_to is not None
                              else self.n_walls + other.n_walls)
+
+    @staticmethod
+    def stack(scenes: Sequence["Scene"]) -> "Scene":
+        """Batch scenes along a leading axis (they must share W and K):
+        the room dataset of a sweep, ``[E, W, ...]`` per field."""
+        return Scene(*(torch.stack(xs) for xs in zip(*scenes)))
+
+    def row(self, i) -> "Scene":
+        """Scene ``i`` of a stacked batch (the JAX sweep's
+        ``_index_scene``); a slice keeps the batch axis."""
+        return Scene(*(x[i] for x in self))
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -301,8 +313,9 @@ class SceneBuilder:
         return len(self._starts)
 
     def build(self, pad_to: Optional[int] = None, pad_multiple: int = 8,
-              device="cpu") -> Scene:
-        """Produce the Scene on ``device``. Walls are padded to ``pad_to`` if
+              device=None) -> Scene:
+        """Produce the Scene on ``device`` (default: the package's
+        :data:`..device.DEFAULT_DEVICE`). Walls are padded to ``pad_to`` if
         given, else to the next multiple of ``pad_multiple``."""
         n = len(self._starts)
         if n == 0:
@@ -331,6 +344,7 @@ class SceneBuilder:
             ior[i] = m.ior
         mask[:n] = True
 
+        device = resolve(device)
         return Scene(*(torch.from_numpy(x).to(device)
                        for x in (a, b, nrm, absb, scat, trans, ior, mask)))
 

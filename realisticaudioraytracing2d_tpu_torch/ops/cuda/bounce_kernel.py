@@ -1,45 +1,55 @@
-"""Whole-frame bounce kernel: wrappers, plain version and launch counts.
+"""Bounce kernel: wrappers, plain versions and launch counts.
 
-Two entry points launch the one CUDA template of
+Three entry points launch the one CUDA template of
 ``csrc/bounce_kernel.cu``:
 
 * :func:`trace_frames_ir_whole` (K3) takes host uniforms ``emit[F, R]`` and
   ``u[F, B, R, 3]``; it replaces ``ops/pallas/bounce_kernel.py::
   trace_frame_ir_whole`` of the JAX package;
 * :func:`trace_frames_ir_mega` (K4) draws Philox numbers in the kernel
-  from an integer seed; it replaces ``::trace_frames_ir_mega``.
+  from an integer seed; it replaces ``::trace_frames_ir_mega``;
+* :func:`trace_rooms_ir_mega` (K9) is K4 over a batch of E entries (the
+  rooms of a sweep, or the sources of a mixdown over one shared scene),
+  each with its own tables, random stream and fixed-point scale; it
+  replaces ``::trace_rooms_ir_mega``.
 
-Both return the frame-SUMMED IR ``[L, T, 1]`` float32. On a CUDA scene
-they launch the kernel or raise; on a CPU scene they run their plain
-version, :func:`trace_frames_ir_plain` (the oracle trace + scatter,
-summed over frames) and :func:`trace_frames_ir_mega_plain` (the same on
-the kernel's Philox numbers), which are also what the kernel is held
-against on the card. Each entry point counts its launches in
-``.launches``.
+K3 and K4 return the frame-SUMMED IR ``[L, T, 1]`` float32, K9
+``[E, L, T, 1]``. On a CUDA scene they launch the kernel or raise; on a
+CPU scene they run their plain version, :func:`trace_frames_ir_plain`
+(the oracle trace + scatter, summed over frames),
+:func:`trace_frames_ir_mega_plain` and :func:`trace_rooms_ir_mega_plain`
+(the same on the kernel's Philox numbers), which are also what the
+kernel is held against on the card. Each entry point counts its launches
+in ``.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ...models.scene import Scene
 from .. import rng
 from ..ir import scatter_hits
-from ..trace import TraceParams, trace_hits_only
+from ..trace import TraceParams, check_single_source, trace_hits_only
 from . import build
 
 MAX_LISTENERS = 16
 # 44 B per wall in the 227 KB of shared memory a block can use, beside
 # the listener table (kMaxWalls in csrc/bounce_kernel.cu)
 MAX_WALLS = (232448 - 2 * MAX_LISTENERS * 4) // (11 * 4)
+# batch entries ride the grid's z axis
+MAX_ENTRIES = 65535
 
-_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p)
 
 
 def _kernel_fn():
@@ -49,28 +59,44 @@ def _kernel_fn():
     return fn
 
 
-def check_kernel_supported(scene: Scene, params: TraceParams) -> None:
-    """Raise ``NotImplementedError`` for a configuration the kernel does not
-    take. Such configurations are never rerouted to the plain path."""
-    if scene.n_bands != 1:
+def _check_supported(n_bands: int, n_walls: int, n_listeners: int,
+                     directive: bool) -> None:
+    if n_bands != 1:
         raise NotImplementedError(
             f"the CUDA bounce kernel traces K=1 only (scene has K="
-            f"{scene.n_bands}); the banded kernel is still to port (ROADMAP "
-            "queue 2, K3/K4 with K>1). backend='plain' traces bands.")
-    if params.directivity is not None or params.mic_directivity is not None:
+            f"{n_bands}); the banded kernel is still to port (ROADMAP "
+            "queue 2, K3/K4/K9 with K>1). backend='plain' traces bands.")
+    if directive:
         raise NotImplementedError(
             "directive sources/microphones are still to port to the CUDA "
             "bounce kernel (ROADMAP queue 1, item 8)")
-    n_l = params.listeners.shape[0]
-    if n_l > MAX_LISTENERS:
+    if n_listeners > MAX_LISTENERS:
         raise NotImplementedError(
-            f"{n_l} listeners exceed the kernel's {MAX_LISTENERS}-listener "
-            "table; blocked listener launches are still to port")
-    if scene.n_walls > MAX_WALLS:
+            f"{n_listeners} listeners exceed the kernel's {MAX_LISTENERS}-"
+            "listener table; blocked listener launches are still to port")
+    if n_walls > MAX_WALLS:
         raise NotImplementedError(
-            f"{scene.n_walls} walls exceed the kernel's shared-memory limit "
+            f"{n_walls} walls exceed the kernel's shared-memory limit "
             f"of {MAX_WALLS}; large scenes need the cluster kernels K7/K8, "
             "still to port (ROADMAP queue 2)")
+
+
+def check_kernel_supported(scene: Scene, params: TraceParams) -> None:
+    """Raise ``NotImplementedError`` for a configuration the kernel does not
+    take. Such configurations are never rerouted to the plain path."""
+    check_single_source(params)
+    _check_supported(scene.n_bands, scene.n_walls,
+                     params.listeners.shape[0],
+                     params.directivity is not None
+                     or params.mic_directivity is not None)
+
+
+def check_batch_supported(scenes: Scene, listeners: torch.Tensor) -> None:
+    """:func:`check_kernel_supported` for a batch (K9): stacked scenes
+    ``[E or 1, W, ...]`` and listeners ``[E, L, 2]``. The batch path
+    takes no directivity argument, so omni is the only case."""
+    _check_supported(scenes.n_bands, scenes.n_walls, listeners.shape[-2],
+                     False)
 
 
 def _check_tensor(name, x, device, shape=None, dtype=torch.float32):
@@ -84,64 +110,98 @@ def _check_tensor(name, x, device, shape=None, dtype=torch.float32):
 
 
 def pack_walls(scene: Scene) -> torch.Tensor:
-    """Wall table ``[11, W]``: ax, ay, v2x, v2y, cc, nx, ny, absorption,
-    scattering, transmission, ior (the kernel's shared-memory layout).
-    ``v2`` and ``cc`` are computed as the plain trace computes them."""
-    ax, ay = scene.a[:, 0], scene.a[:, 1]
-    v2x = scene.b[:, 0] - ax
-    v2y = scene.b[:, 1] - ay
+    """Wall table ``[..., 11, W]``: ax, ay, v2x, v2y, cc, nx, ny,
+    absorption, scattering, transmission, ior (the kernel's shared-memory
+    layout), with the leading batch axes of a stacked scene. ``v2`` and
+    ``cc`` are computed as the plain trace computes them."""
+    ax, ay = scene.a[..., 0], scene.a[..., 1]
+    v2x = scene.b[..., 0] - ax
+    v2y = scene.b[..., 1] - ay
     cc = v2x * ay - v2y * ax
-    return torch.stack([ax, ay, v2x, v2y, cc, scene.normal[:, 0],
-                        scene.normal[:, 1], scene.absorption[:, 0],
+    return torch.stack([ax, ay, v2x, v2y, cc, scene.normal[..., 0],
+                        scene.normal[..., 1], scene.absorption[..., 0],
                         scene.scattering, scene.transmission,
-                        scene.ior]).contiguous()
+                        scene.ior], dim=-2).contiguous()
 
 
-def fixed_point_scale(params: TraceParams, n_frames: int, n_rays: int,
-                      max_bounces: int) -> torch.Tensor:
-    """The kernel's fixed-point scale ``S`` (a 0-d float64 tensor on the
-    params' device; computed there, so no host sync).
+def fixed_point_scales(sources: torch.Tensor, listeners: torch.Tensor,
+                       gains: torch.Tensor, n_frames: int, n_rays: int,
+                       max_bounces: int) -> torch.Tensor:
+    """Each batch entry's fixed-point scale ``S_e`` (float64 ``[E]`` on the
+    inputs' device; computed there, so no host sync) for sources
+    ``[E, 2]``, listeners ``[E, L, 2]`` and gains ``[E]``.
 
     A bin can receive at most ``n_frames * n_rays * 2 * max_bounces`` hits
     of one listener (one direct and one NEE hit per bounce). A direct
     hit carries at most the input gain; an NEE hit at most
     ``gain * 0.5 / d^2`` with ``d`` >= the source-listener distance (the
-    path through the wall is no shorter). ``S`` is the largest power of
+    path through the wall is no shorter). ``S_e`` is the largest power of
     two that keeps that worst-case sum below 2^62, so no u64 bin
-    overflows and ``S`` itself is exact."""
-    d2 = ((params.listeners.double() - params.source.double()) ** 2
-          ).sum(-1).min().clamp(min=1e-12)
-    e_max = params.input_gain.double() * torch.clamp(0.5 / d2, min=1.0)
+    overflows and ``S_e`` itself is exact. Each entry gets its own: a
+    room whose listener sits near its source has a large NEE bound and a
+    small ``S_e`` without coarsening the others."""
+    d2 = ((listeners.double() - sources.double()[:, None]) ** 2
+          ).sum(-1).amin(-1).clamp(min=1e-12)
+    e_max = gains.double() * torch.clamp(0.5 / d2, min=1.0)
     # clamped at 1 so a zero gain still gives a finite S (at most 2^62)
     bound = (float(n_frames * n_rays * 2 * max_bounces) * e_max).clamp(min=1.0)
     return torch.exp2(torch.floor(62.0 - torch.log2(bound)))
 
 
-def _launch(host_uniforms, scene, params, emit, u, key, n_frames, n_rays,
-            max_bounces, sample_rate, ir_length):
-    check_kernel_supported(scene, params)
-    dev = scene.device
-    walls = pack_walls(scene)
-    lis = params.listeners.contiguous()
-    scal = torch.stack([params.source[0], params.source[1],
-                        params.listener_radius, params.speed_of_sound,
-                        params.input_gain]).to(torch.float32).contiguous()
-    for name, x in (("walls", walls), ("listeners", lis), ("scalars", scal)):
+def fixed_point_scale(params: TraceParams, n_frames: int, n_rays: int,
+                      max_bounces: int) -> torch.Tensor:
+    """The single-scene kernel's (K3, K4) scale ``S``: a 0-d float64
+    tensor, :func:`fixed_point_scales` of the one entry of ``params``."""
+    return fixed_point_scales(params.source[None], params.listeners[None],
+                              params.input_gain.reshape(1), n_frames, n_rays,
+                              max_bounces)[0]
+
+
+def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
+            entry_offset, n_frames, n_rays, max_bounces, sample_rate,
+            ir_length, scales, work_counts):
+    """One launch over ``E = listeners.shape[0]`` entries: walls
+    ``[E or 1, 11, W]``, listeners ``[E, L, 2]``, scal ``[E, 5]``, scales
+    ``[E]`` float64, all on one CUDA device. Returns ``[E, L, T, 1]``."""
+    dev = walls.device
+    n_e, n_l = listeners.shape[:2]
+    for name, x in (("walls", walls), ("listeners", listeners),
+                    ("scalars", scal)):
         _check_tensor(name, x, dev)
-    n_l = lis.shape[0]
-    scale = fixed_point_scale(params, n_frames, n_rays, max_bounces)
-    acc = torch.empty((n_l, ir_length), dtype=torch.int64, device=dev)
-    out = torch.empty((n_l, ir_length, 1), dtype=torch.float32, device=dev)
+    _check_tensor("scales", scales, dev, (n_e,), torch.float64)
+    if work_counts is not None:
+        _check_tensor("work_counts", work_counts, dev, (2,), torch.int64)
+    n_walls = walls.shape[-1]
+    acc = torch.empty((n_e, n_l, ir_length), dtype=torch.int64, device=dev)
+    out = torch.empty((n_e, n_l, ir_length, 1), dtype=torch.float32,
+                      device=dev)
     err = _kernel_fn()(
-        int(host_uniforms), walls.data_ptr(), scene.n_walls, lis.data_ptr(),
-        n_l, scal.data_ptr(), float(sample_rate),
+        int(host_uniforms), walls.data_ptr(),
+        0 if walls.shape[0] == 1 else 11 * n_walls, n_walls,
+        listeners.data_ptr(), n_l, scal.data_ptr(), float(sample_rate),
         emit.data_ptr() if emit is not None else None,
-        u.data_ptr() if u is not None else None, key[0], key[1], n_rays,
-        max_bounces, n_frames, ir_length, scale.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        u.data_ptr() if u is not None else None, key[0], key[1],
+        int(entry_offset) & 0xFFFFFFFF, n_e, n_rays, max_bounces, n_frames,
+        ir_length, scales.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        work_counts.data_ptr() if work_counts is not None else None,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bounce kernel launch failed: cudaError {err}")
     return out
+
+
+def _launch_scene(host_uniforms, scene, params, emit, u, key, n_frames,
+                  n_rays, max_bounces, sample_rate, ir_length, work_counts):
+    """K3/K4: one scene, one entry."""
+    check_kernel_supported(scene, params)
+    scal = torch.stack([params.source[0], params.source[1],
+                        params.listener_radius, params.speed_of_sound,
+                        params.input_gain]).to(torch.float32)
+    scales = fixed_point_scale(params, n_frames, n_rays, max_bounces)
+    return _launch(host_uniforms, pack_walls(scene)[None],
+                   params.listeners.contiguous()[None], scal[None], emit, u,
+                   key, 0, n_frames, n_rays, max_bounces, sample_rate,
+                   ir_length, scales[None], work_counts)[0]
 
 
 def trace_frames_ir_plain(scene: Scene, params: TraceParams,
@@ -172,7 +232,9 @@ def trace_frames_ir_mega_plain(scene: Scene, params: TraceParams, seed: int,
 
 def trace_frames_ir_whole(scene: Scene, params: TraceParams,
                           emit: torch.Tensor, u: torch.Tensor, *,
-                          sample_rate: int, ir_length: int) -> torch.Tensor:
+                          sample_rate: int, ir_length: int,
+                          work_counts: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """K3: ``F`` frames with host uniforms ``emit[F, R]``, ``u[F, B, R, 3]``
     -> frame-summed IR ``[L, T, 1]``. CUDA scenes launch the kernel; CPU
     scenes run :func:`trace_frames_ir_plain`."""
@@ -184,29 +246,159 @@ def trace_frames_ir_whole(scene: Scene, params: TraceParams,
     max_bounces = u.shape[1]
     _check_tensor("emit", emit, scene.device, (n_frames, n_rays))
     _check_tensor("u", u, scene.device, (n_frames, max_bounces, n_rays, 3))
-    out = _launch(True, scene, params, emit.contiguous(), u.contiguous(),
-                  (0, 0), n_frames, n_rays, max_bounces, sample_rate,
-                  ir_length)
+    out = _launch_scene(True, scene, params, emit.contiguous(),
+                        u.contiguous(), (0, 0), n_frames, n_rays,
+                        max_bounces, sample_rate, ir_length, work_counts)
     trace_frames_ir_whole.launches += 1
     return out
 
 
 def trace_frames_ir_mega(scene: Scene, params: TraceParams, seed: int,
                          n_frames: int, *, n_rays: int, max_bounces: int,
-                         sample_rate: int, ir_length: int) -> torch.Tensor:
+                         sample_rate: int, ir_length: int,
+                         work_counts: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """K4: ``n_frames`` frames in one launch, uniforms drawn in the kernel
     (Philox-4x32-10 under the key of ``seed``) -> frame-summed IR
-    ``[L, T, 1]``. CPU scenes run :func:`trace_frames_ir_mega_plain`."""
+    ``[L, T, 1]``. CPU scenes run :func:`trace_frames_ir_mega_plain`.
+
+    ``work_counts`` (K3, K4 and K9 alike): an int64 CUDA tensor ``[2]`` to
+    which the launch adds the wall tests it really made and the wall
+    sweeps (nearest or occlusion) they belong to, for a bound computed
+    from the run's data (``chip_smoke.py``)."""
     if scene.device.type != "cuda":
         return trace_frames_ir_mega_plain(
             scene, params, seed, n_frames, n_rays=n_rays,
             max_bounces=max_bounces, sample_rate=sample_rate,
             ir_length=ir_length)
-    out = _launch(False, scene, params, None, None, rng.seed_key(seed),
-                  n_frames, n_rays, max_bounces, sample_rate, ir_length)
+    out = _launch_scene(False, scene, params, None, None, rng.seed_key(seed),
+                        n_frames, n_rays, max_bounces, sample_rate,
+                        ir_length, work_counts)
     trace_frames_ir_mega.launches += 1
+    return out
+
+
+def _batch_inputs(scenes: Scene, sources, listeners, listener_radius,
+                  speed_of_sound, input_gain):
+    """The batch's per-entry inputs as float32 tensors on the scenes'
+    device: sources ``[E, 2]``, listeners ``[E, L, 2]`` and radius, speed
+    of sound and gain ``[E]`` (each a scalar or ``[E]``)."""
+    dev = scenes.device
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    src = f32(sources)
+    lis = f32(listeners)
+    if lis.dim() == 2:
+        lis = lis[:, None]
+    n_e = src.shape[0]
+    if src.shape != (n_e, 2) or lis.dim() != 3 or lis.shape[0] != n_e \
+            or lis.shape[-1] != 2:
+        raise ValueError(f"sources must be [E, 2] and listeners [E, 2] or "
+                         f"[E, L, 2]; got {tuple(src.shape)} and "
+                         f"{tuple(lis.shape)}")
+    if scenes.a.dim() != 3 or scenes.a.shape[0] not in (1, n_e):
+        raise ValueError(f"scenes must be stacked with a leading dim of "
+                         f"{n_e} (or 1 for a shared scene); got a of shape "
+                         f"{tuple(scenes.a.shape)}")
+    per_entry = [torch.broadcast_to(f32(x), (n_e,))
+                 for x in (listener_radius, speed_of_sound, input_gain)]
+    return (src, lis, *per_entry)
+
+
+def trace_rooms_ir_mega_plain(scenes: Scene, sources, listeners, seed: int,
+                              n_frames: int, *, n_rays: int,
+                              max_bounces: int, sample_rate: int,
+                              ir_length: int, listener_radius=0.5,
+                              speed_of_sound=343.0, input_gain=1.0,
+                              entry_offset: int = 0,
+                              uniforms=None) -> torch.Tensor:
+    """Plain version of K9: :func:`trace_frames_ir_plain` for each entry
+    ``e`` on the Philox numbers the kernel draws for it
+    (``philox_uniforms(seed, ..., entry=entry_offset + e)``), or on host
+    uniforms ``uniforms = (emit[E, F, R], u[E, F, B, R, 3])`` (the JAX
+    parity tests pass JAX's). Returns the frame-summed ``[E, L, T, K]``."""
+    src, lis, radius, c, gain = _batch_inputs(
+        scenes, sources, listeners, listener_radius, speed_of_sound,
+        input_gain)
+    n_e = src.shape[0]
+    if uniforms is not None:
+        emit, u = uniforms
+        want = ((n_e, n_frames, n_rays), (n_e, n_frames, max_bounces, n_rays,
+                                          3))
+        if (tuple(emit.shape), tuple(u.shape)) != want:
+            raise ValueError(f"uniforms must be emit{list(want[0])} and "
+                             f"u{list(want[1])}; got {tuple(emit.shape)} and "
+                             f"{tuple(u.shape)}")
+    shared = scenes.a.shape[0] == 1
+    irs = []
+    for e in range(n_e):
+        params = TraceParams(source=src[e], listeners=lis[e],
+                             listener_radius=radius[e],
+                             speed_of_sound=c[e], input_gain=gain[e])
+        if uniforms is None:
+            emit_e, u_e = rng.philox_uniforms(
+                seed, n_frames, max_bounces, n_rays, scenes.device,
+                entry=entry_offset + e)
+        else:
+            emit_e, u_e = uniforms[0][e], uniforms[1][e]
+        irs.append(trace_frames_ir_plain(
+            scenes.row(0 if shared else e), params, emit_e, u_e,
+            sample_rate=sample_rate, ir_length=ir_length))
+    return torch.stack(irs)
+
+
+def trace_rooms_ir_mega(scenes: Scene, sources, listeners, seed: int,
+                        n_frames: int, *, n_rays: int, max_bounces: int,
+                        sample_rate: int, ir_length: int,
+                        listener_radius=0.5, speed_of_sound=343.0,
+                        input_gain=1.0, entry_offset: int = 0,
+                        uniforms=None,
+                        work_counts: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """K9: ``E`` batch entries x ``n_frames`` frames in ONE launch, uniforms
+    drawn in the kernel -> frame-SUMMED IRs ``[E, L, T, 1]`` (the contract
+    of the JAX ``trace_rooms_ir_mega``).
+
+    ``scenes`` is stacked with a leading dim of ``E`` (a room dataset) or
+    1 (one scene every entry shares: a multi-source batch, whose wall
+    table the kernel reads with stride 0). ``sources`` ``[E, 2]``,
+    ``listeners`` ``[E, 2]`` or ``[E, L, 2]``; ``listener_radius``,
+    ``speed_of_sound`` and ``input_gain`` a scalar or ``[E]``. Entry ``e``
+    draws Philox counter word 3 = ``entry_offset + e``, its global id, so
+    a batch cut into pieces draws the same rays as the whole. CPU scenes
+    run :func:`trace_rooms_ir_mega_plain`, which alone takes host
+    ``uniforms``; the kernel draws its own numbers and refuses them."""
+    kw = dict(n_rays=n_rays, max_bounces=max_bounces,
+              sample_rate=sample_rate, ir_length=ir_length,
+              listener_radius=listener_radius,
+              speed_of_sound=speed_of_sound, input_gain=input_gain,
+              entry_offset=entry_offset)
+    if scenes.device.type != "cuda":
+        return trace_rooms_ir_mega_plain(scenes, sources, listeners, seed,
+                                         n_frames, uniforms=uniforms, **kw)
+    if uniforms is not None:
+        raise ValueError("the kernel draws its own numbers: uniforms= "
+                         "needs backend='plain'")
+    src, lis, radius, c, gain = _batch_inputs(
+        scenes, sources, listeners, listener_radius, speed_of_sound,
+        input_gain)
+    check_batch_supported(scenes, lis)
+    if src.shape[0] > MAX_ENTRIES:
+        raise ValueError(f"{src.shape[0]} entries exceed the grid's "
+                         f"{MAX_ENTRIES}; split the batch (entry_offset "
+                         "keeps the streams)")
+    scal = torch.stack([src[:, 0], src[:, 1], radius, c, gain], dim=-1)
+    scales = fixed_point_scales(src, lis, gain, n_frames, n_rays, max_bounces)
+    out = _launch(False, pack_walls(scenes), lis.contiguous(),
+                  scal.contiguous(), None, None, rng.seed_key(seed),
+                  entry_offset, n_frames, n_rays, max_bounces, sample_rate,
+                  ir_length, scales, work_counts)
+    trace_rooms_ir_mega.launches += 1
     return out
 
 
 trace_frames_ir_whole.launches = 0
 trace_frames_ir_mega.launches = 0
+trace_rooms_ir_mega.launches = 0

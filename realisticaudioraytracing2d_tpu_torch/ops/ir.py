@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve
 from .trace import Hits
 
 
@@ -32,11 +33,12 @@ class IRState(NamedTuple):
 
     @staticmethod
     def zeros(ir_length: int, n_listeners: int = 1, n_bands: int = 1,
-              device="cpu") -> "IRState":
+              device=None) -> "IRState":
         """Fresh state: the ``ClearImpulse`` + ``accumFrames = 0`` reset
         (``RayTraceManager.cs:169-177``)."""
         return IRState(sum=torch.zeros((n_listeners, ir_length, n_bands),
-                                       dtype=torch.float32, device=device),
+                                       dtype=torch.float32,
+                                       device=resolve(device)),
                        frames=0)
 
     @property

@@ -6,8 +6,8 @@ the parity tests hand it JAX's own draws. Two sources make them here:
 
 * :func:`bounce_uniforms` draws from an explicit ``torch.Generator``;
 * :func:`philox_uniforms` computes the Philox-4x32-10 stream that the
-  hand kernel (``csrc/bounce_kernel.cu``, K4 mode) draws on the card, bit
-  for bit, from an integer seed. The plain path uses it for seeded
+  hand kernel (``csrc/bounce_kernel.cu``, K4 and K9 modes) draws on the
+  card, bit for bit, from an integer seed and a batch-entry id. The plain path uses it for seeded
   traces, so a seed names the same rays on the CPU and on the card.
 
 :func:`hlsl_random` is the reference's PCG-style hash
@@ -21,6 +21,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ..device import resolve
 
 _M32 = 0xFFFFFFFF
 _MUL1 = 747796405
@@ -54,10 +56,10 @@ def hlsl_random(state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             state)
 
 
-def ray_init_state(n_rays: int, frame: int, device="cpu") -> torch.Tensor:
+def ray_init_state(n_rays: int, frame: int, device=None) -> torch.Tensor:
     """Reference per-ray seed: ``id.x + rngStateOffset * 719393``
     (``Raytrace2D.compute:51``), as uint32 values in int64."""
-    ids = torch.arange(n_rays, dtype=torch.int64, device=device)
+    ids = torch.arange(n_rays, dtype=torch.int64, device=resolve(device))
     return (ids + 719393 * int(frame)) & _M32
 
 
@@ -109,22 +111,27 @@ def _u24(word: torch.Tensor) -> torch.Tensor:
 
 
 def philox_uniforms(seed: int, n_frames: int, max_bounces: int,
-                    n_rays: int, device="cpu"
+                    n_rays: int, device=None, entry: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The uniforms the hand kernel's K4 mode draws for ``seed``:
-    ``emit[F, R]`` and ``u[F, B, R, 3]``.
+    """The uniforms the hand kernel draws for ``seed`` in batch entry
+    ``entry``: ``emit[F, R]`` and ``u[F, B, R, 3]``.
 
-    Counter ``(ray, frame, bounce, 0)`` under the key of ``seed``; words
-    0-2 of bounce ``b`` are that bounce's three draws, and word 0 of
-    counter bounce ``B`` is the emission jitter."""
+    Counter ``(ray, frame, bounce, entry)`` under the key of ``seed``;
+    words 0-2 of bounce ``b`` are that bounce's three draws, and word 0 of
+    counter bounce ``B`` is the emission jitter. ``entry`` is the global
+    id of a room of a sweep or a source of a mixdown (K9); the
+    single-scene trace (K4) is entry 0. Streams of different entries are
+    disjoint by construction."""
     k0, k1 = seed_key(seed)
+    device = resolve(device)
     ray = torch.arange(n_rays, dtype=torch.int64, device=device)
     frame = torch.arange(n_frames, dtype=torch.int64, device=device)
     bounce = torch.arange(max_bounces + 1, dtype=torch.int64, device=device)
     c0 = ray.expand(n_frames, max_bounces + 1, n_rays)
     c1 = frame[:, None, None].expand_as(c0)
     c2 = bounce[None, :, None].expand_as(c0)
-    w0, w1, w2, _ = philox4x32(c0, c1, c2, torch.zeros_like(c0), k0, k1)
+    c3 = torch.full_like(c0, int(entry) & _M32)
+    w0, w1, w2, _ = philox4x32(c0, c1, c2, c3, k0, k1)
     emit = _u24(w0[:, max_bounces])
     u = torch.stack([_u24(w0[:, :max_bounces]), _u24(w1[:, :max_bounces]),
                      _u24(w2[:, :max_bounces])], dim=-1)
@@ -132,12 +139,13 @@ def philox_uniforms(seed: int, n_frames: int, max_bounces: int,
 
 
 def bounce_uniforms(generator: torch.Generator, n_frames: int,
-                    max_bounces: int, n_rays: int, device="cpu"
+                    max_bounces: int, n_rays: int, device=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-draw every uniform ``n_frames`` traces consume from a torch
     Generator: ``(emit[F, R], u[F, B, R, 3])``, the 3 slots per bounce
     being transmission test, refraction jitter and diffuse angle
     (``Raytrace2D.compute:129, 137, 150``)."""
+    device = resolve(device)
     emit = torch.rand((n_frames, n_rays), generator=generator,
                       device=device, dtype=torch.float32)
     u = torch.rand((n_frames, max_bounces, n_rays, 3), generator=generator,

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import resolve
 from ..models.scene import Scene
 from .geometry import (EPS, INF, PI, dot2, nearest_hit, normalize,
                        pairwise_ray_segment_t, ray_circle_intersect, reflect,
@@ -36,23 +37,25 @@ class TraceParams(NamedTuple):
     ``directivity`` / ``mic_directivity`` exist for field parity with the
     JAX package; the port does not trace them yet."""
 
-    source: torch.Tensor           # [2] source position
+    source: torch.Tensor           # [2] source position ([S, 2]: mixdown)
     listeners: torch.Tensor        # [L, 2] listener centers
     listener_radius: torch.Tensor  # scalar
     speed_of_sound: torch.Tensor   # scalar
-    input_gain: torch.Tensor       # scalar
+    input_gain: torch.Tensor       # scalar ([S]: per-source gains)
     directivity: Optional[torch.Tensor] = None
     mic_directivity: Optional[torch.Tensor] = None
 
     @staticmethod
     def make(source, listeners, listener_radius=0.5, speed_of_sound=343.0,
              input_gain=1.0, directivity=None, mic_directivity=None,
-             device="cpu") -> "TraceParams":
+             device=None) -> "TraceParams":
+        device = resolve(device)
+
         def f32(x):
             return torch.as_tensor(x, dtype=torch.float32, device=device)
 
         return TraceParams(
-            source=f32(source).reshape(2),
+            source=f32(source).reshape(-1, 2).squeeze(0),
             listeners=f32(listeners).reshape(-1, 2),
             listener_radius=f32(listener_radius),
             speed_of_sound=f32(speed_of_sound),
@@ -91,9 +94,22 @@ class _RayState(NamedTuple):
     alive: torch.Tensor    # [R] bool
 
 
+def check_single_source(params: TraceParams) -> None:
+    """Raise ``ValueError`` unless ``params`` holds one source ``[2]``. A
+    batch of sources ``[S, 2]`` belongs to
+    :func:`..parallel.multisource.trace_sources_mixdown`."""
+    if tuple(params.source.shape) != (2,):
+        raise ValueError(
+            f"this path traces one source [2], got a source of shape "
+            f"{tuple(params.source.shape)}; trace S sources [S, 2] with "
+            "parallel.multisource.trace_sources_mixdown")
+
+
 def _check_supported(params: TraceParams,
                      transmission_surrogate: bool = False) -> None:
-    """Raise for trace features the port has not reached yet."""
+    """Raise for trace features the port has not reached yet, and for a
+    batch of sources."""
+    check_single_source(params)
     if params.directivity is not None or params.mic_directivity is not None:
         raise NotImplementedError(
             "source/microphone directivity is not ported yet "

@@ -1,0 +1,54 @@
+"""Multi-source batching and mixdown (BASELINE.json config #4).
+
+Port of ``realisticaudioraytracing2d_tpu/parallel/multisource.py::
+trace_sources_mixdown``: S simultaneous sources share one scene. They
+become the S entries of one launch of the rooms-batched kernel K9, which
+reads the one wall table with stride 0, and the IRs are mixed down by a
+sum over sources at the listeners (exact, since an IR is linear in hit
+energy). The mesh-sharded ``trace_sources_mixdown_sharded`` is not ported
+yet (ROADMAP queue 1, item 13).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..models.scene import Scene
+from ..ops.trace import TraceParams
+from .sweep import trace_batch
+
+
+def trace_sources_mixdown(scene: Scene, params: TraceParams, seed: int, *,
+                          n_rays: int, max_bounces: int, sample_rate: int,
+                          ir_length: int, backend: str = "auto",
+                          uniforms: Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]] = None
+                          ) -> torch.Tensor:
+    """Trace S sources (``params.source`` ``[S, 2]``, ``input_gain`` a
+    scalar or per-source ``[S]``), one frame each, and return the summed IR
+    ``[L, T, K]`` at the shared listeners ``params.listeners``.
+
+    Source ``s`` draws the Philox stream of entry ``s``. ``backend="auto"``
+    launches K9 once on a CUDA scene and runs its plain version on a CPU
+    scene; ``"plain"`` runs the plain version on either. ``uniforms =
+    (emit[S, 1, R], u[S, 1, B, R, 3])`` replace the draws on the plain path
+    (the parity tests pass JAX's). The sum over sources runs on the
+    device in one fixed order, so one seed gives a bit-identical mixdown."""
+    if params.directivity is not None or params.mic_directivity is not None:
+        raise NotImplementedError(
+            "directive sources/microphones are still to port (ROADMAP "
+            "queue 1, item 8)")
+    sources = params.source.reshape(-1, 2)
+    n_src = sources.shape[0]
+    shared = Scene(*(x[None] for x in scene))        # leading dim 1
+    listeners = params.listeners.expand(n_src, -1, 2)
+    irs = trace_batch(shared, sources, listeners, seed, 1, backend=backend,
+                      uniforms=uniforms, n_rays=n_rays,
+                      max_bounces=max_bounces, sample_rate=sample_rate,
+                      ir_length=ir_length,
+                      listener_radius=params.listener_radius,
+                      speed_of_sound=params.speed_of_sound,
+                      input_gain=params.input_gain)
+    return irs.sum(dim=0)                            # [L, T, K]

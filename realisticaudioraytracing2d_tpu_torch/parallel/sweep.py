@@ -1,0 +1,71 @@
+"""Room-dataset sweeps on one device (BASELINE.json config #5).
+
+Port of ``realisticaudioraytracing2d_tpu/parallel/sweep.py::sweep_rooms``:
+a batch of procedurally generated rooms (a stacked :class:`Scene`) is
+traced in ONE launch of the rooms-batched kernel K9 on the card, or
+through its plain version on the CPU, into the ``[n_rooms, L, T, K]`` IR
+dataset. The mesh-sharded ``sweep_rooms_sharded`` is not ported yet
+(ROADMAP queue 1, item 13): the target is one card.
+
+Room ``i`` draws the Philox stream of entry ``room_offset + i``, its
+global id, so a sweep of rows 4-7 with ``room_offset=4`` equals rows 4-7
+of the whole sweep.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..models.scene import Scene
+from ..ops.cuda import bounce_kernel as bk
+
+_BACKENDS = ("auto", "plain")
+
+
+def trace_batch(scenes: Scene, sources, listeners, seed: int, n_frames: int,
+                *, backend: str = "auto",
+                uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                **kw) -> torch.Tensor:
+    """The batched paths' choice of backend: the plain version of K9
+    (:func:`..ops.cuda.bounce_kernel.trace_rooms_ir_mega_plain`) with
+    ``backend="plain"``, else the K9 wrapper, which itself runs the plain
+    version on a CPU scene. Returns the frame-summed ``[E, L, T, K]``."""
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got "
+                         f"{backend!r}")
+    fn = (bk.trace_rooms_ir_mega_plain if backend == "plain"
+          else bk.trace_rooms_ir_mega)
+    return fn(scenes, sources, listeners, seed, n_frames, uniforms=uniforms,
+              **kw)
+
+
+def sweep_rooms(scenes: Scene, sources, listeners, seed: int, *,
+                n_rays: int, max_bounces: int, sample_rate: int,
+                ir_length: int, n_frames: int = 1,
+                listener_radius: float = 0.5, speed_of_sound: float = 343.0,
+                input_gain: float = 1.0, backend: str = "auto",
+                room_offset: int = 0,
+                uniforms: Optional[Tuple[torch.Tensor,
+                                         torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """Sweep a room batch: returns frame-normalized IRs ``[n_rooms, L, T,
+    K]``. ``scenes`` is stacked (leading room axis), ``sources``
+    ``[n_rooms, 2]``, ``listeners`` ``[n_rooms, 2]`` or ``[n_rooms, L, 2]``.
+
+    ``backend="auto"`` launches K9 once on a CUDA scene and runs its plain
+    version on a CPU scene; ``"plain"`` runs the plain version on either
+    (the JAX package's ``backend="jnp"``). ``uniforms = (emit[R, F, n],
+    u[R, F, B, n, 3])`` replace the Philox draws on the plain path (the
+    parity tests pass JAX's); the kernel draws its own numbers, so a CUDA
+    scene with ``backend="auto"`` refuses them."""
+    irs = trace_batch(scenes, sources, listeners, seed, n_frames,
+                      backend=backend, uniforms=uniforms, n_rays=n_rays,
+                      max_bounces=max_bounces, sample_rate=sample_rate,
+                      ir_length=ir_length, listener_radius=listener_radius,
+                      speed_of_sound=speed_of_sound, input_gain=input_gain,
+                      entry_offset=room_offset)
+    # in place, and by a tensor: torch on CUDA divides by a host scalar as
+    # a multiply by its reciprocal (ROADMAP section 3)
+    return irs.div_(irs.new_tensor(float(n_frames)))

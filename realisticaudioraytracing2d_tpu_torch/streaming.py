@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from .config import EngineConfig
+from .device import resolve
 from .models.scene import Scene
 from .ops import convolve as cv
 from .ops import ir as irm
@@ -50,9 +51,9 @@ class RingBuffer:
         self.read_head = int(read_head)
 
     @staticmethod
-    def zeros(size: int, n_listeners: int = 1, device="cpu") -> "RingBuffer":
+    def zeros(size: int, n_listeners: int = 1, device=None) -> "RingBuffer":
         return RingBuffer(torch.zeros((n_listeners, size), dtype=torch.float32,
-                                      device=device))
+                                      device=resolve(device)))
 
     @property
     def size(self) -> int:
@@ -100,9 +101,10 @@ class StreamState:
 
 
 def init_stream(ir_length: int, chunk_samples: int, n_listeners: int = 1,
-                n_bands: int = 1, device="cpu") -> StreamState:
+                n_bands: int = 1, device=None) -> StreamState:
     """Ring sized to hold a chunk + its reverb tail with slack:
     ``ir_length + 2 * chunk_samples`` (the JAX package's rule)."""
+    device = resolve(device)
     return StreamState(
         prev_ir=torch.zeros((n_listeners, ir_length, n_bands),
                             dtype=torch.float32, device=device),

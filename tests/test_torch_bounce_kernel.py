@@ -46,8 +46,8 @@ SR, T = 8000, 2048
 def jax_setup():
     room = jax_rooms.smoll_room()
     p = JaxTraceParams.make(room.source, room.listener, 0.5, 343.0, 1.0)
-    return (room, p, convert.scene_from_arrays(room.scene),
-            convert.params_from_arrays(p))
+    return (room, p, convert.scene_from_arrays(room.scene, device="cpu"),
+            convert.params_from_arrays(p, device="cpu"))
 
 
 def _l1(got, want):
@@ -95,7 +95,7 @@ def test_cpu_wrappers_run_plain_without_counting(jax_setup):
     _, _, scene, params = jax_setup
     before = (bk.trace_frames_ir_whole.launches,
               bk.trace_frames_ir_mega.launches)
-    emit, u = rng.philox_uniforms(11, 2, 4, 256)
+    emit, u = rng.philox_uniforms(11, 2, 4, 256, device="cpu")
     plain = bk.trace_frames_ir_plain(scene, params, emit, u, sample_rate=SR,
                                      ir_length=T)
     whole = bk.trace_frames_ir_whole(scene, params, emit, u, sample_rate=SR,
@@ -110,15 +110,17 @@ def test_cpu_wrappers_run_plain_without_counting(jax_setup):
 
 
 def test_kernel_support_checks():
-    room = rooms.smoll_room()
-    p = TraceParams.make(room.source, room.listener)
+    room = rooms.smoll_room(device="cpu")
+    p = TraceParams.make(room.source, room.listener, device="cpu")
     bk.check_kernel_supported(room.scene, p)
     with pytest.raises(NotImplementedError, match="K=1"):
-        bk.check_kernel_supported(rooms.smoll_room(n_bands=4).scene, p)
+        bk.check_kernel_supported(
+            rooms.smoll_room(n_bands=4, device="cpu").scene, p)
     with pytest.raises(NotImplementedError, match="directive"):
         bk.check_kernel_supported(room.scene,
                                   p._replace(directivity=torch.ones(3)))
-    many = TraceParams.make(room.source, np.zeros((17, 2), np.float32))
+    many = TraceParams.make(room.source, np.zeros((17, 2), np.float32),
+                            device="cpu")
     with pytest.raises(NotImplementedError, match="listeners"):
         bk.check_kernel_supported(room.scene, many)
     with pytest.raises(NotImplementedError, match="K7/K8"):
@@ -127,7 +129,7 @@ def test_kernel_support_checks():
 
 
 def test_pack_walls_layout():
-    scene = rooms.smoll_room().scene
+    scene = rooms.smoll_room(device="cpu").scene
     w = bk.pack_walls(scene)
     assert tuple(w.shape) == (11, scene.n_walls) and w.is_contiguous()
     v2 = scene.b - scene.a
@@ -145,8 +147,9 @@ def test_pack_walls_layout():
 ])
 def test_fixed_point_scale_cannot_overflow(n_frames, n_rays, n_bounces,
                                            gain, log2_s):
-    room = rooms.smoll_room()
-    p = TraceParams.make(room.source, room.listener, input_gain=gain)
+    room = rooms.smoll_room(device="cpu")
+    p = TraceParams.make(room.source, room.listener, input_gain=gain,
+                         device="cpu")
     s = bk.fixed_point_scale(p, n_frames, n_rays, n_bounces)
     assert s.dtype == torch.float64 and float(torch.log2(s)) == log2_s
     worst = n_frames * n_rays * 2 * n_bounces * gain * float(s)

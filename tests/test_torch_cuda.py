@@ -1,6 +1,7 @@
-"""PyTorch port on the card: the CUDA bounce kernel (K3 and K4 modes of
-``csrc/bounce_kernel.cu``) against its plain PyTorch version, its
-determinism, its launch counts, and the wrappers' refusals.
+"""PyTorch port on the card: the CUDA bounce kernel (K3, K4 and the
+rooms-batched K9 modes of ``csrc/bounce_kernel.cu``) against its plain
+PyTorch version, its determinism, its launch counts, the sweep and the
+mixdown on the card, and the wrappers' refusals.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
 file imports no JAX, so it runs on a machine without it:
@@ -20,10 +21,14 @@ from torch_parity import cuda, cuda_device, to_numpy  # noqa: F401
 
 import realisticaudioraytracing2d_tpu_torch as art
 from realisticaudioraytracing2d_tpu_torch.models import rooms
+from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
 from realisticaudioraytracing2d_tpu_torch.ops import rng
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import bounce_kernel as bk
 from realisticaudioraytracing2d_tpu_torch.ops.trace import (TraceParams,
                                                             emission_angle)
+from realisticaudioraytracing2d_tpu_torch.parallel.multisource import \
+    trace_sources_mixdown
+from realisticaudioraytracing2d_tpu_torch.parallel.sweep import sweep_rooms
 
 KW = dict(sample_rate=48000, ir_length=72000)
 
@@ -152,3 +157,116 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="scene"):
         bk.trace_frames_ir_whole(scene, params.to("cpu"), emit, u,
                                  sample_rate=48000, ir_length=4800)
+
+
+def _mixdown_batch(device, n_src=8):
+    """n_src sources in SmollRoom, two ears, one shared scene (stride 0)."""
+    room = rooms.smoll_room(device=device)
+    g = np.random.default_rng(11)
+    src = np.stack([g.uniform(-15, 15, n_src), g.uniform(-3, 8, n_src)],
+                   -1).astype(np.float32)
+    ears = np.array([[-0.2, -3.68], [0.2, -3.68]], np.float32)
+    shared = Scene(*(x[None] for x in room.scene))
+    return shared, src, np.repeat(ears[None], n_src, 0), room.scene
+
+
+@cuda
+@pytest.mark.parametrize("layout", ["stacked", "shared"])
+def test_rooms_kernel_matches_plain(cuda_device, layout):
+    if layout == "stacked":
+        scenes, src, lis = rooms.random_rooms(6, seed=3, device=cuda_device)
+        gains = 1.0
+    else:
+        scenes, src, lis, _ = _mixdown_batch(cuda_device)
+        gains = torch.linspace(0.5, 2.0, 8, device=cuda_device)
+    kw = dict(n_rays=15000, max_bounces=5, input_gain=gains,
+              entry_offset=100, **KW)
+    before = bk.trace_rooms_ir_mega.launches
+    got = bk.trace_rooms_ir_mega(scenes, src, lis, 17, 2, **kw)
+    want = bk.trace_rooms_ir_mega_plain(scenes, src, lis, 17, 2, **kw)
+    torch.cuda.synchronize()
+    assert bk.trace_rooms_ir_mega.launches == before + 1
+    assert got.shape == want.shape and got.shape[2:] == (72000, 1)
+    for e in range(got.shape[0]):
+        if float(want[e].sum()) > 0:
+            _assert_close_irs(got[e], want[e])
+
+
+@cuda
+def test_rooms_kernel_of_one_entry_is_the_single_scene_kernel(cuda_device):
+    scene, params = _setup(cuda_device)
+    kw = dict(n_rays=15000, max_bounces=5, **KW)
+    k4 = bk.trace_frames_ir_mega(scene, params, 42, 3, **kw)
+    k9 = bk.trace_rooms_ir_mega(Scene.stack([scene]), params.source[None],
+                                params.listeners[None], 42, 3, **kw)
+    torch.cuda.synchronize()
+    assert tuple(k9.shape) == (1, 1, 72000, 1)
+    assert torch.equal(k9[0], k4)
+
+
+@cuda
+def test_rooms_kernel_is_deterministic(cuda_device):
+    scenes, src, lis = rooms.random_rooms(16, seed=1, device=cuda_device)
+    kw = dict(n_rays=15000, max_bounces=5, **KW)
+    a = bk.trace_rooms_ir_mega(scenes, src, lis, 5, 2, **kw)
+    b = bk.trace_rooms_ir_mega(scenes, src, lis, 5, 2, **kw)
+    c = bk.trace_rooms_ir_mega(scenes, src, lis, 6, 2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # a row of the batch draws the rays of its global room id
+    row = bk.trace_rooms_ir_mega(scenes.row(slice(7, 8)), src[7:8],
+                                 lis[7:8], 5, 2, entry_offset=7, **kw)
+    assert torch.equal(row[0], a[7])
+
+
+@cuda
+def test_sweep_on_the_card_equals_the_cpu_sweep(cuda_device):
+    kw = dict(n_rays=15000, max_bounces=5, n_frames=2, **KW)
+    scenes, src, lis = rooms.random_rooms(4, seed=8, device=cuda_device)
+    before = bk.trace_rooms_ir_mega.launches
+    card = sweep_rooms(scenes, src, lis, 3, **kw)
+    torch.cuda.synchronize()
+    assert bk.trace_rooms_ir_mega.launches == before + 1
+    cpu = sweep_rooms(scenes.to("cpu"), src, lis, 3, **kw)
+    assert card.device.type == "cuda" and cpu.device.type == "cpu"
+    # the same rays, but the CPU's sin/cos may differ from the card's by an
+    # ulp and move a hit that sits on a bin edge: the limits of the JAX
+    # parity tests (energy 1e-4, per-bin L1 1%)
+    g, w = to_numpy(card), to_numpy(cpu)
+    assert np.isfinite(g).all() and w.sum() > 0
+    assert abs(g.sum() - w.sum()) / w.sum() < 1e-4
+    assert np.abs(g - w).sum() / np.abs(w).sum() < 1e-2
+
+
+@cuda
+def test_mixdown_on_the_card_runs_one_rooms_launch(cuda_device):
+    _, src, _, scene = _mixdown_batch(cuda_device)
+    ears = np.array([[-0.2, -3.68], [0.2, -3.68]], np.float32)
+    params = TraceParams.make(src, ears, device=cuda_device)
+    kw = dict(n_rays=15000, max_bounces=5, **KW)
+    before = bk.trace_rooms_ir_mega.launches
+    mix = trace_sources_mixdown(scene, params, 4, **kw)
+    again = trace_sources_mixdown(scene, params, 4, **kw)
+    plain = trace_sources_mixdown(scene, params, 4, backend="plain", **kw)
+    torch.cuda.synchronize()
+    assert bk.trace_rooms_ir_mega.launches == before + 2
+    assert tuple(mix.shape) == (2, 72000, 1) and torch.equal(mix, again)
+    _assert_close_irs(mix, plain)
+    assert not torch.equal(mix[0], mix[1])
+
+
+@cuda
+def test_rooms_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    kw = dict(n_rays=256, max_bounces=2, sample_rate=48000, ir_length=4800)
+    scenes, src, lis = rooms.random_rooms(2, seed=0, n_bands=4,
+                                          device=cuda_device)
+    with pytest.raises(NotImplementedError, match="K=1"):
+        bk.trace_rooms_ir_mega(scenes, src, lis, 0, 1, **kw)
+    scenes, src, lis = rooms.random_rooms(2, seed=0, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="listeners"):
+        bk.trace_rooms_ir_mega(scenes, src, np.zeros((2, 17, 2), np.float32),
+                               0, 1, **kw)
+    with pytest.raises(ValueError, match="backend='plain'"):
+        sweep_rooms(scenes, src, lis, 0,
+                    uniforms=rng.philox_uniforms(0, 1, 2, 256, cuda_device),
+                    **kw)

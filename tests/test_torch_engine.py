@@ -39,7 +39,7 @@ def test_trace_accumulate_and_bake_match_jax(small, rng):
     jst = jart.trace_accumulate(room.scene, jp, jeng.fresh_ir(), key,
                                 n_rays=1024, max_bounces=5, sample_rate=8000,
                                 n_frames=2, backend="jnp")
-    eng = art.Engine(convert.scene_from_arrays(room.scene), cfg)
+    eng = art.Engine(convert.scene_from_arrays(room.scene, device="cpu"), cfg)
     p = eng.params(room.source, room.listener)
     st = eng.trace_frames(p, n_frames=2,
                           uniforms=jax_frame_uniforms(key, 2, 5, 1024))
@@ -49,7 +49,7 @@ def test_trace_accumulate_and_bake_match_jax(small, rng):
     assert np.abs(got - want).sum() / np.abs(want).sum() < 1e-2
 
     dry = rng.uniform(-1, 1, 900).astype(np.float32)
-    jst_port = convert.ir_state_from_arrays(jst)
+    jst_port = convert.ir_state_from_arrays(jst, device="cpu")
     for normalize in (True, False):
         wet = to_numpy(art.bake_audio(to_torch(dry), jst_port,
                                       normalize=normalize))
@@ -62,7 +62,7 @@ def test_trace_accumulate_and_bake_match_jax(small, rng):
 
 def test_seeded_routing_plain_equals_auto_on_cpu(small):
     room, cfg = small
-    eng = art.Engine(convert.scene_from_arrays(room.scene), cfg)
+    eng = art.Engine(convert.scene_from_arrays(room.scene, device="cpu"), cfg)
     p = eng.params(room.source, room.listener)
     auto = eng.trace_frames(p, seed=9, n_frames=2)
     plain = eng.trace_frames(p, seed=9, n_frames=2, backend="plain")
@@ -82,7 +82,7 @@ def test_seeded_routing_plain_equals_auto_on_cpu(small):
 
 def test_engine_state_lives_on_the_scene_device(small):
     _, cfg = small
-    room = art.rooms.smoll_room()
+    room = art.rooms.smoll_room(device="cpu")
     eng = art.Engine(room.scene, cfg, n_listeners=2)
     st = eng.fresh_ir()
     assert tuple(st.sum.shape) == (2, 2048, 1) and st.frames == 0

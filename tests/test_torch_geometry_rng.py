@@ -96,7 +96,8 @@ def test_hlsl_random_bit_exact(rng):
                                       np.asarray(js))
     frame = int(rng.integers(0, 5))
     np.testing.assert_array_equal(
-        to_numpy(trng.ray_init_state(1000, frame)).astype(np.uint32),
+        to_numpy(trng.ray_init_state(1000, frame, device="cpu")
+                 ).astype(np.uint32),
         np.asarray(jax_rng.ray_init_state(1000, jnp.asarray(frame))))
 
 
@@ -117,17 +118,17 @@ def test_philox_known_answers(ctr, key, want):
 
 
 def test_philox_uniforms_layout_and_streams():
-    emit, u = trng.philox_uniforms(1234, 3, 4, 100)
+    emit, u = trng.philox_uniforms(1234, 3, 4, 100, device="cpu")
     assert emit.shape == (3, 100) and u.shape == (3, 4, 100, 3)
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
     assert emit.dtype == u.dtype == torch.float32
-    e2, u2 = trng.philox_uniforms(1234, 3, 4, 100)
+    e2, u2 = trng.philox_uniforms(1234, 3, 4, 100, device="cpu")
     assert torch.equal(emit, e2) and torch.equal(u, u2)
     # frame f of a 3-frame draw is frame f of a longer one: counters, not
     # a sequential stream
-    e5, u5 = trng.philox_uniforms(1234, 5, 4, 100)
+    e5, u5 = trng.philox_uniforms(1234, 5, 4, 100, device="cpu")
     assert torch.equal(u5[:3], u) and torch.equal(e5[:3], emit)
-    e_other, _ = trng.philox_uniforms(1235, 3, 4, 100)
+    e_other, _ = trng.philox_uniforms(1235, 3, 4, 100, device="cpu")
     assert not torch.equal(emit, e_other)
     # the uniforms look uniform: mean 0.5, var 1/12
     all_u = torch.cat([emit.ravel(), u.ravel()])
@@ -141,7 +142,7 @@ def test_mix_seed_and_generator_draws():
     assert trng.mix_seed(7, 3) == trng.mix_seed(7, 3) != trng.mix_seed(8, 3)
     assert trng.seed_key(2 ** 32 + 5) == (5, 1)
     gen = torch.Generator().manual_seed(0)
-    emit, u = trng.bounce_uniforms(gen, 2, 3, 10)
+    emit, u = trng.bounce_uniforms(gen, 2, 3, 10, device="cpu")
     assert emit.shape == (2, 10) and u.shape == (2, 3, 10, 3)
     gen = torch.Generator().manual_seed(0)
-    assert torch.equal(trng.bounce_uniforms(gen, 2, 3, 10)[1], u)
+    assert torch.equal(trng.bounce_uniforms(gen, 2, 3, 10, device="cpu")[1], u)

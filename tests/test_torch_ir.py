@@ -52,7 +52,7 @@ def test_scatter_drops_invalid_and_out_of_range():
 def test_ir_state_accumulate_and_normalize(rng):
     delay, energy, valid = _random_hits(rng, n_l=1, k=1)
     hits = Hits(to_torch(delay), to_torch(energy), to_torch(valid))
-    st = ir.IRState.zeros(256, 1, 1)
+    st = ir.IRState.zeros(256, 1, 1, device="cpu")
     assert st.ir_length == 256 and st.frames == 0
     st = ir.accumulate(ir.accumulate(st, hits, 8000), hits, 8000)
     assert st.frames == 2

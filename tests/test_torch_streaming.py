@@ -33,7 +33,7 @@ STREAM_TOL = dict(rtol=2e-3, atol=2e-5)
 
 
 def test_ring_buffer_push_drain_roundtrip():
-    rb = RingBuffer.zeros(16, 1)
+    rb = RingBuffer.zeros(16, 1, device="cpu")
     rb.push(torch.arange(1.0, 5.0)[None, :], 0)
     np.testing.assert_allclose(to_numpy(rb.drain(4))[0], [1, 2, 3, 4])
     np.testing.assert_allclose(to_numpy(rb.drain(4))[0], np.zeros(4))
@@ -41,13 +41,13 @@ def test_ring_buffer_push_drain_roundtrip():
 
 
 def test_ring_buffer_overlap_add():
-    rb = RingBuffer.zeros(8, 1)
+    rb = RingBuffer.zeros(8, 1, device="cpu")
     rb.push(torch.ones(1, 4), 0).push(torch.ones(1, 4), 2)
     np.testing.assert_allclose(to_numpy(rb.drain(6))[0], [1, 1, 2, 2, 1, 1])
 
 
 def test_ring_buffer_wraparound_matches_jax():
-    rb = RingBuffer.zeros(8, 2)
+    rb = RingBuffer.zeros(8, 2, device="cpu")
     rb.push(torch.ones(2, 6), 5)                 # wraps 5,6,7,0,1,2
     jrb = jart.RingBuffer.zeros(8, 2).push(jnp.ones((2, 6)), jnp.asarray(5))
     np.testing.assert_array_equal(to_numpy(rb.data), np.asarray(jrb.data))
@@ -66,7 +66,7 @@ def setup():
     cfg = art.smoll_room_config(ray_count=512)
     cfg = dataclasses.replace(cfg, audio=dataclasses.replace(
         cfg.audio, reverb_duration=0.2, chunk_duration=0.05))
-    return room, cfg, convert.scene_from_arrays(room.scene)
+    return room, cfg, convert.scene_from_arrays(room.scene, device="cpu")
 
 
 def test_stream_clip_matches_jax_stream(setup):
@@ -95,7 +95,7 @@ def test_static_scene_stream_equals_bake(setup):
     room, cfg, scene = setup
     dry = to_torch(noise_burst(0.18, cfg.audio.sample_rate, seed=3))
     b, r = cfg.sim.max_bounces, cfg.sim.ray_count
-    fixed = rng.philox_uniforms(5, 1, b, r)
+    fixed = rng.philox_uniforms(5, 1, b, r, device="cpu")
     eng = art.Engine(scene, cfg)
     p = eng.params(room.source, room.listener)
     wet = art.Streamer(scene, cfg, uniforms_fn=lambda i: fixed).stream_clip(
@@ -146,7 +146,7 @@ def test_loop_controls_and_moving_obstacle(setup):
     s.reset_ir()
     assert float(s.state.prev_ir.abs().sum()) == 0.0
     # a moved obstacle keeps the padded wall count and changes the sound
-    port_room = art.rooms.smoll_room()
+    port_room = art.rooms.smoll_room(device="cpu")
     moved = port_room.builder.move_collider(port_room.scene, "Wall (4)",
                                             position=(-5.0, 2.0))
     a = art.Streamer(scene, cfg, seed=1).stream_clip(
@@ -176,6 +176,6 @@ def test_dry_chunk_and_init_stream():
                                   [8, 9, 0, 1])
     np.testing.assert_array_equal(to_numpy(dry_chunk(dry, 5, 4, False)),
                                   [0, 0, 0, 0])
-    st = init_stream(100, 10, n_listeners=2, n_bands=3)
+    st = init_stream(100, 10, n_listeners=2, n_bands=3, device="cpu")
     assert tuple(st.prev_ir.shape) == (2, 100, 3)
     assert st.ring.size == 120 and st.chunk_index == 0

@@ -39,9 +39,9 @@ def test_trace_matches_jax_with_jax_uniforms(n_listeners, n_bands):
     key = jax.random.PRNGKey(3)
     hj, _ = jax_trace.trace(room.scene, p, key, n_rays=R, max_bounces=B)
     emit, u = jax_rng.bounce_uniforms(key, B, R)
-    ht, dbg = tt.trace(convert.scene_from_arrays(room.scene),
-                       convert.params_from_arrays(p), to_torch(emit),
-                       to_torch(u))
+    ht, dbg = tt.trace(convert.scene_from_arrays(room.scene, device="cpu"),
+                       convert.params_from_arrays(p, device="cpu"),
+                       to_torch(emit), to_torch(u))
     assert dbg is None
     assert tuple(ht.delay.shape) == (B, 2, R, n_listeners)
     assert tuple(ht.energy.shape) == (B, 2, R, n_listeners, n_bands)
@@ -67,8 +67,8 @@ def test_emission_angles_equal_the_jax_ones(n_rays):
 
 def test_trace_hits_only_and_unported_features_raise():
     room = jax_rooms.smoll_room()
-    scene = convert.scene_from_arrays(room.scene)
-    p = tt.TraceParams.make(room.source, room.listener)
+    scene = convert.scene_from_arrays(room.scene, device="cpu")
+    p = tt.TraceParams.make(room.source, room.listener, device="cpu")
     emit, u = torch.rand(64), torch.rand(3, 64, 3)
     hits = tt.trace_hits_only(scene, p, emit, u)
     assert tuple(hits.valid.shape) == (3, 2, 64, 1)

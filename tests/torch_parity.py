@@ -19,6 +19,10 @@ torch.set_num_threads(1)
 
 cuda = pytest.mark.cuda
 
+# The device every CPU test hands the port's builders: their default is
+# the card (realisticaudioraytracing2d_tpu_torch.DEFAULT_DEVICE).
+CPU = "cpu"
+
 
 def to_torch(x, device="cpu") -> torch.Tensor:
     """numpy / JAX array -> torch tensor (a copy, so JAX's read-only
@@ -51,6 +55,35 @@ def jax_chunk_uniforms(key, chunk: int, n_frames: int, max_bounces: int,
                               max_bounces, n_rays, device)
 
 
+def jax_room_uniforms(key, n_rooms: int, n_frames: int, max_bounces: int,
+                      n_rays: int, room_offset: int = 0, device="cpu"):
+    """The uniforms JAX's ``sweep_rooms(backend="jnp")`` and the rooms
+    kernel's interpret fallback draw for rooms ``room_offset + i``
+    (``fold_in(fold_in(key, room), frame)``), stacked as the port's
+    ``(emit[E, F, R], u[E, F, B, R, 3])``."""
+    import jax
+    per_room = [jax_frame_uniforms(jax.random.fold_in(key, room_offset + i),
+                                   n_frames, max_bounces, n_rays, device)
+                for i in range(n_rooms)]
+    return (torch.stack([e for e, _ in per_room]),
+            torch.stack([u for _, u in per_room]))
+
+
+def jax_source_uniforms(key, n_sources: int, max_bounces: int, n_rays: int,
+                        device="cpu"):
+    """The uniforms JAX's ``trace_sources_mixdown(backend="jnp")`` draws
+    (one frame per source under ``jax.random.split(key, S)``), as the
+    port's ``(emit[S, 1, R], u[S, 1, B, R, 3])``."""
+    import jax
+    from realisticaudioraytracing2d_tpu.ops import rng as jax_rng
+    draws = [jax_rng.bounce_uniforms(k, max_bounces, n_rays)
+             for k in jax.random.split(key, n_sources)]
+    return (to_torch(np.stack([np.asarray(e) for e, _ in draws]),
+                     device)[:, None],
+            to_torch(np.stack([np.asarray(u) for _, u in draws]),
+                     device)[:, None])
+
+
 @pytest.fixture
 def cuda_device():
     """A CUDA device, or a skip where there is none."""
@@ -61,5 +94,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-__all__ = ["cuda", "cuda_device", "jax_chunk_uniforms",
-           "jax_frame_uniforms", "to_numpy", "to_torch"]
+__all__ = ["CPU", "cuda", "cuda_device", "jax_chunk_uniforms",
+           "jax_frame_uniforms", "jax_room_uniforms", "jax_source_uniforms",
+           "to_numpy", "to_torch"]
