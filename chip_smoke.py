@@ -11,7 +11,12 @@ every kernel against its plain PyTorch version:
   (BASELINE.json config #5: 1,024 random rooms of 28 walls, 15,000 rays x
   5 bounces x 8 frames, 72,000 bins), through one launch of K9;
 * the 64-source stereo mixdown in SmollRoom (BASELINE.json config #4),
-  through one launch of K9.
+  through one launch of K9;
+* large scenes, the JAX package's large-scene bench (bench.py:249-301):
+  the procedural city of 40,008 and 100,016 walls at 131,072 rays x 6
+  bounces x 4 frames, 16 kHz, 24,000 bins, gain 100, through
+  ``trace_accumulate(backend="auto")`` and the cluster kernel K8, the
+  8-band city through K7, and the stream on a 10,008-wall city through K8.
 
 Phases:
 
@@ -41,11 +46,40 @@ Phases:
 7. the mixdown: 64 sources, two ears (counts reset and read: one K9
    launch), within the limits of 2 against the plain sum over sources on
    the same numbers, the ears differ;
+8a. bit parity on a scene K4 can take: ``city_scene(1200)`` (4,808 walls)
+   Morton-sorted, 131,072 x 6 x 4 frames: K4, K7 (K = 1) and K8 equal
+   bit for bit, and K7 and K8 equal themselves with ``early_out=False``;
+8b. the 40,008-wall city, K = 1, through ``trace_accumulate(backend=
+   "auto")`` (counts reset and read: 6 K8 launches, nothing else); a
+   rerun and ``early_out=False`` bit-identical; that IR against K8's
+   plain version within SAME_ENERGY / SAME_L1 at the same full shape and
+   Philox numbers, the plain version run over slices of rays (a plain
+   [131072, 40008] f32 temporary would be 21 GB; PLAIN_ELEMENTS); timings
+   with ``early_out`` on and off, the tests, sweeps and slab tests made,
+   brute-equivalent tests/s ``R * B * 2 * W * F / time`` and the bound;
+8c. the 100,016-wall city: the same, its listener enclosed (an IR of
+   zeros), then with a second listener in the open: ``early_out=False``
+   bit-identical and K8 against its plain version at full shape;
+8d. the 8-band 40,008-wall city through ``backend="auto"``: one K7
+   launch, ``early_out`` off bit-identical, K7 against its plain version
+   at full shape, the highest band quieter than the lowest;
+9. the stream on ``city_scene(2500)`` (10,008 walls) at the shipped audio
+   settings (15,000 x 5, 48 kHz, 72,000 bins, 4,800-sample chunks): 20
+   chunks of clicks + 15 tail chunks through K8 (5 launches per chunk, no
+   K3/K4), K8 against its plain version at the stream's shape, the chunk
+   time;
 5. timings with CUDA events after a warm-up, device times from the
    profiler, and each kernel's bound (the larger of its bytes over 3.35
    TB/s and its FP32 operations over 67 TFLOP/s, the operations counted
-   from the wall tests and wall sweeps the kernel reports it made on
-   these inputs).
+   from the wall tests, wall sweeps and slab tests the kernel reports it
+   made on these inputs).
+
+In the JSON line, K3 and K4 are timed at the stream's shape, K9 at the
+mixdown's, K8 at the city stream's (15,000 x 5 x 1 frame, 10,008 walls)
+and K7 at the banded city's (131,072 x 6 x 4 frames, 8 bands, 40,008
+walls; its plain time is that of the comparison over slices of rays), so
+that ``ms``, ``plain_ms`` and ``bound_ms`` are of one call; K8's
+full-width times are in the [8] lines.
 
 Prints one JSON line of kernels, the card line, and last the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1).
@@ -63,20 +97,31 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/bounce_kernel.cu"
+ACCEL_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/accel_kernel.cu"
 PALLAS = "realisticaudioraytracing2d_tpu/ops/pallas/bounce_kernel.py"
 SR, T, CHUNK = 48000, 72000, 4800           # the shipped SmollRoom audio
 RAYS, BOUNCES = 15000, 5                     # the shipped SmollRoom trace
 BIG_RAYS, BIG_BOUNCES, BIG_FRAMES = 131072, 8, 8   # bench.py's frame
 SWEEP_ROOMS, SWEEP_FRAMES = 1024, 8             # cli sweep defaults, 1k rooms
 N_SOURCES = 64                                   # BASELINE.json config #4
+# bench.py:249-282 (bench_accel): the city at 131,072 rays x 6 bounces x 4
+# frames, 16 kHz, 24,000 bins, input gain 100
+CITY_BOUNCES, CITY_FRAMES, CITY_SR, CITY_T, CITY_GAIN = 6, 4, 16000, 24000, \
+    100.0
+# The cities' plain comparisons run at full shape over slices of rays (the
+# rays are independent): a [131072, 40008] f32 temporary would take 21 GB,
+# a slice keeps each [rays, listeners, walls] temporary at 1 GiB.
+PLAIN_ELEMENTS = 1 << 28
 DEVICE = "cuda"
 # The card's published peaks (H100 SXM data sheet, at 700 W): FP32 outside
 # the tensor cores and device-memory bandwidth. csrc/bounce_kernel.cu::
 # wall_t is 16 FP32 operations (two of them divides), 3 of which, the
 # ray's own cross product oy * dx - ox * dy, are the same for every wall
-# of a sweep: 13 per wall test and 3 per sweep.
+# of a sweep: 13 per wall test and 3 per sweep. csrc/accel_kernel.cu::
+# slab_hit is 16 (4 subtractions, 4 multiplies, 7 min/max, 1 add;
+# comparisons are not counted, as in wall_t).
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
-OPS_PER_TEST, OPS_PER_SWEEP = 13, 3
+OPS_PER_TEST, OPS_PER_SWEEP, OPS_PER_SLAB = 13, 3, 16
 # Kernel vs plain on the same uniforms: relative total energy and per-bin
 # L1 over the L1 norm. Both compute every hit in the same IEEE order, so
 # only the summation differs (u64 fixed point vs float index_add_): the
@@ -110,10 +155,12 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(torch, fn, reps):
-    """Mean device time of one ``frames_ir_kernel`` launch over ``reps``
-    calls of ``fn``, from the profiler's CUDA events (None if it records
-    none). The wrapper's own small launches are left out."""
+def kernel_device_ms(torch, fn, reps, name="frames_ir_kernel"):
+    """Device time per call of ``fn`` of the kernels whose name holds
+    ``name`` (all of a call's launches: one for K3/K4/K7/K9, one per
+    bounce for K8), over ``reps`` calls, from the profiler's CUDA events
+    (None if it records none). The wrapper's own small launches are left
+    out."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -123,20 +170,43 @@ def kernel_device_ms(torch, fn, reps):
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
-          and "frames_ir_kernel" in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
+          and name in e.name]
+    return sum(us) / reps / 1e3 if us else None
 
 
 def bound(counts, n_bytes):
     """The least time (ms) the card could take: operations (from
-    ``counts`` = (wall tests, wall sweeps)) over the FP32 peak or bytes
-    over the memory rate, whichever is larger."""
-    n_tests, n_sweeps = counts
-    ops_ms = (n_tests * OPS_PER_TEST + n_sweeps * OPS_PER_SWEEP) \
-        / PEAK_FP32 * 1e3
+    ``counts`` = (wall tests, wall sweeps, slab tests)) over the FP32 peak
+    or bytes over the memory rate, whichever is larger."""
+    n_tests, n_sweeps, n_slabs = counts
+    ops_ms = (n_tests * OPS_PER_TEST + n_sweeps * OPS_PER_SWEEP
+              + n_slabs * OPS_PER_SLAB) / PEAK_FP32 * 1e3
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
+
+
+def free_spot(scene, near):
+    """The point of a 1 m grid around ``near`` (``[2]`` on the scene's
+    device) nearest to it that lies inside no box of a city: rays from it
+    in two directions each cross an odd number of walls (the border once,
+    each box they leave or pass twice)."""
+    import torch
+    from realisticaudioraytracing2d_tpu_torch.ops.geometry import \
+        pairwise_ray_segment_t
+    offsets = torch.tensor([[dx, dy] for dx in range(-10, 11)
+                            for dy in range(-10, 11)],
+                           dtype=torch.float32, device=near.device)
+    pts = near[None] + offsets
+    free = torch.ones(len(pts), dtype=torch.bool, device=near.device)
+    for d in ((1.0, 1e-4), (-1e-4, 1.0)):
+        dirs = pts.new_tensor([d]).expand_as(pts)
+        hits = (pairwise_ray_segment_t(pts, dirs, scene.a, scene.b)
+                < 1e8).sum(-1)
+        free &= hits % 2 == 1
+    check(bool(free.any()), "a free spot near the source")
+    dist = torch.where(free, (offsets ** 2).sum(-1), float("inf"))
+    return pts[int(torch.argmin(dist))]
 
 
 def card_line():
@@ -154,6 +224,8 @@ def main():
     from realisticaudioraytracing2d_tpu_torch import cli
     from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
     from realisticaudioraytracing2d_tpu_torch.ops import rng
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
+        accel_kernel as ak
     from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
         bounce_kernel as bk
     from realisticaudioraytracing2d_tpu_torch.ops.cuda import build
@@ -195,7 +267,7 @@ def main():
           f"{int(torch.log2(s50))} at {BIG_RAYS} x {BIG_BOUNCES} x 50 "
           "frames", flush=True)
     kw = dict(sample_rate=SR, ir_length=T)
-    errs = {"K3": 0.0, "K4": 0.0, "K9": 0.0}
+    errs = {"K3": 0.0, "K4": 0.0, "K9": 0.0, "K7": 0.0, "K8": 0.0}
 
     def same_numbers(tag, kernel, got, want):
         """Kernel vs plain on the same uniforms: energy, first nonzero bin,
@@ -303,7 +375,12 @@ def main():
                  bk.trace_frames_ir_plain(smoll.scene, smoll_p, *fixed, **kw))
 
     wrappers = {"K3": bk.trace_frames_ir_whole, "K4": bk.trace_frames_ir_mega,
-                "K9": bk.trace_rooms_ir_mega}
+                "K9": bk.trace_rooms_ir_mega, "K7": ak.trace_frames_ir_accel,
+                "K8": ak.trace_frames_ir_accel_sorted}
+
+    def only(**n):
+        """The launch counts of a run that launched only ``n``."""
+        return {k: n.get(k, 0) for k in wrappers}
 
     def counted(run):
         """Run one path; return its result with the launches of this run
@@ -320,11 +397,11 @@ def main():
 
     n_chunks = 20 + 15
     wet, seeded = counted_stream(art.Streamer(smoll.scene, cfg, seed=7))
-    check(seeded == {"K3": 0, "K4": n_chunks, "K9": 0},
+    check(seeded == only(K4=n_chunks),
           f"seeded stream launch counts {seeded}")
     static, fixed_ir = counted_stream(
         art.Streamer(smoll.scene, cfg, uniforms_fn=lambda i: fixed))
-    check(fixed_ir == {"K3": n_chunks, "K4": 0, "K9": 0},
+    check(fixed_ir == only(K3=n_chunks),
           f"fixed-IR stream launch counts {fixed_ir}")
     launches = {"K3": fixed_ir["K3"], "K4": seeded["K4"]}
     out = wet.cpu().numpy()
@@ -364,7 +441,7 @@ def main():
         cli_s = time.perf_counter() - t0
         with np.load(path) as npz:
             irs_cli, src, lis = npz["irs"], npz["sources"], npz["listeners"]
-    check(swept == {"K3": 0, "K4": 0, "K9": 1},
+    check(swept == only(K9=1),
           f"sweep launch counts {swept}")
     check(irs_cli.shape == (SWEEP_ROOMS, 1, T, 1) and irs_cli.dtype ==
           np.float32 and np.isfinite(irs_cli).all(),
@@ -434,7 +511,7 @@ def main():
     mix_p = art.TraceParams.make(sources, ears, device=dev)
     mix, mixed = counted(lambda: trace_sources_mixdown(
         smoll.scene, mix_p, 7, **sweep_kw))
-    check(mixed == {"K3": 0, "K4": 0, "K9": 1},
+    check(mixed == only(K9=1),
           f"mixdown launch counts {mixed}")
     mix_plain = trace_sources_mixdown(smoll.scene, mix_p, 7,
                                       backend="plain", **sweep_kw)
@@ -448,6 +525,228 @@ def main():
           f"launches {mixed}; ears differ by L1 {ear_diff:.3f}", flush=True)
     check(ear_diff > 0, "mixdown: the two ears differ")
     launches["K9"] = swept["K9"] + mixed["K9"]
+
+    def work(fn):
+        """(wall tests, wall sweeps, slab tests) one call of ``fn(n)``
+        made."""
+        n = torch.zeros(3, dtype=torch.int64, device=dev)
+        fn(n)
+        torch.cuda.synchronize()
+        return tuple(int(x) for x in n.cpu())
+
+    # --- 8. the large-scene path: the city through K7 and K8 -----------------
+    city_kw = dict(sample_rate=CITY_SR, ir_length=CITY_T)
+    city_run = dict(n_rays=BIG_RAYS, max_bounces=CITY_BOUNCES, **city_kw)
+
+    def city(n_boxes, n_bands=1):
+        t0 = time.perf_counter()
+        room = art.rooms.city_scene(n_boxes, n_bands=n_bands, device=dev)
+        p = art.TraceParams.make(room.source, room.listener,
+                                 room.listener_radius, 343.0, CITY_GAIN,
+                                 device=dev)
+        return room.scene, p, time.perf_counter() - t0
+
+    # 8a. K4 = K7 = K8 on a sorted city K4 can take
+    scene_a, p_a, _ = city(1200)
+    sorted_a = ak.prepare(scene_a).scene
+    check(scene_a.n_walls == 4808 and sorted_a.n_walls <= bk.MAX_WALLS,
+          f"8a: {scene_a.n_walls} walls, {sorted_a.n_walls} sorted")
+    k4a = bk.trace_frames_ir_mega(sorted_a, p_a, 31, CITY_FRAMES, **city_run)
+    parity = {f"{k} early_out={eo}": torch.equal(fn(
+        scene_a, p_a, 31, CITY_FRAMES, early_out=eo, **city_run), k4a)
+        for k, fn in (("K7", ak.trace_frames_ir_accel),
+                      ("K8", ak.trace_frames_ir_accel_sorted))
+        for eo in (True, False)}
+    torch.cuda.synchronize()
+    print(f"[8a] city_scene(1200): {scene_a.n_walls} walls, sorted and "
+          f"padded to {sorted_a.n_walls}, {BIG_RAYS} x {CITY_BOUNCES} x "
+          f"{CITY_FRAMES} frames, IR energy {float(k4a.sum()):.4e}: equal to "
+          f"K4 bit for bit: {parity}", flush=True)
+    check(float(k4a.sum()) > 0 and all(parity.values()),
+          "8a: K4 == K7 == K8 bit for bit")
+    del k4a
+
+    city_launches = {"K7": 0, "K8": 0}
+    large = {}
+
+    def against_plain(tag, key, plain, scene, p, seed, got):
+        """Hold the kernel's IR ``got`` of a city at full shape against its
+        plain version on the same Philox numbers, the plain version run
+        over slices of rays; return the plain call's milliseconds (CUDA
+        events)."""
+        chunk = max(256, PLAIN_ELEMENTS // (scene.n_walls
+                                            * p.listeners.shape[0]))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(scene, p, seed, CITY_FRAMES, ray_chunk=chunk,
+                     **city_run)
+        end.record()
+        end.synchronize()
+        same_numbers(f"{tag} {key} vs plain at full shape, {BIG_RAYS} x "
+                     f"{CITY_BOUNCES} x {CITY_FRAMES} frames, "
+                     f"{p.listeners.shape[0]} listener(s), the plain version "
+                     f"over slices of {chunk} rays in "
+                     f"{start.elapsed_time(end) / 1e3:.1f} s, same Philox "
+                     "numbers", key, got, want)
+        return start.elapsed_time(end)
+
+    def large_scene(tag, key, scene, p, seed, build_s, n_bands=1,
+                    plain=None, silent=False):
+        """Drive a city through trace_accumulate(auto) (counts reset and
+        read), check reruns and early_out=False bit-identical, hold the
+        kernel's IR against its plain version at full shape if ``plain``,
+        and time it with early_out on and off. ``silent``: the listener is
+        enclosed, so an IR of zeros is right."""
+        fn = wrappers[key]
+        kname = "accel_bounce_kernel" if key == "K8" else \
+            "accel_frames_kernel"
+        ir, launched = counted(lambda: art.trace_accumulate(
+            scene, p, art.IRState.zeros(CITY_T, p.listeners.shape[0],
+                                        n_bands, device=dev),
+            n_frames=CITY_FRAMES, seed=seed, n_rays=BIG_RAYS,
+            max_bounces=CITY_BOUNCES, sample_rate=CITY_SR).sum)
+        n_launch = CITY_BOUNCES if key == "K8" else 1
+        check(launched == only(**{key: n_launch}),
+              f"{tag}: launch counts {launched}")
+        city_launches[key] += launched[key]
+        g = ir.cpu().numpy()
+        check(np.isfinite(g).all() and g.shape == (p.listeners.shape[0],
+                                                   CITY_T, n_bands),
+              f"{tag}: IR {g.shape} finite")
+        check(silent or (g.reshape(len(g), -1).sum(-1) > 0).any(),
+              f"{tag}: energy")
+        again = fn(scene, p, seed, CITY_FRAMES, **city_run)
+        brute = fn(scene, p, seed, CITY_FRAMES, early_out=False, **city_run)
+        torch.cuda.synchronize()
+        check(torch.equal(ir, again), f"{tag}: rerun bit-identical")
+        check(torch.equal(ir, brute), f"{tag}: early_out=False bit-identical")
+        del again, brute
+        plain_ms = None if plain is None else against_plain(
+            tag, key, plain, scene, p, seed, ir)
+        run = dict(city_run, n_frames=CITY_FRAMES)
+        on = cuda_ms(torch, lambda: fn(scene, p, 5, **run), 3)
+        off = cuda_ms(torch, lambda: fn(scene, p, 5, early_out=False, **run),
+                      1)
+        dev_on = kernel_device_ms(torch, lambda: fn(scene, p, 5, **run), 2,
+                                  kname)
+        w_on = work(lambda n: fn(scene, p, 5, work_counts=n, **run))
+        w_off = work(lambda n: fn(scene, p, 5, early_out=False,
+                                  work_counts=n, **run))
+        prep = ak.prepare(scene)
+        n_l = p.listeners.shape[0]
+        n_bytes = 4 * (prep.walls.numel() + prep.aabb.numel()
+                       + prep.saabb.numel() + 2 * n_l + 5
+                       + n_l * CITY_T * n_bands)
+        check(w_on[1] == w_off[1], f"{tag}: early_out on and off made the "
+              f"same sweeps ({w_on[1]}, {w_off[1]}): the same ray paths")
+        bnd = bound(w_on, n_bytes)
+        brute_tests = BIG_RAYS * CITY_BOUNCES * 2 * scene.n_walls * CITY_FRAMES
+        low = "; the highest band carries less energy than the lowest" \
+            if n_bands > 1 else ""
+        energy = [float(x) for x in g.reshape(len(g), -1).sum(-1)]
+        print(f"{tag} {scene.n_walls} walls (built in {build_s:.2f} s), "
+              f"{prep.n_clusters} clusters of {prep.cluster_size} in "
+              f"{prep.n_clusters // prep.group} supers, K={n_bands}, "
+              f"{BIG_RAYS} x {CITY_BOUNCES} x {CITY_FRAMES} frames through "
+              f"trace_accumulate(auto): launches {launched}; IR energy per "
+              f"listener {energy}; rerun and early_out=False bit-identical"
+              f"{low}. {key} per call: "
+              f"{on:.3f} ms early_out on, {off:.3f} ms off = "
+              f"{off / on:.2f}x over brute force; device "
+              f"{'not measured' if dev_on is None else f'{dev_on:.4f} ms'}"
+              f"; made {w_on[0]} wall tests, {w_on[1]} sweeps, {w_on[2]} "
+              f"slab tests (brute force: {w_off[0]} tests, {w_off[1]} "
+              f"sweeps); brute-equivalent R*B*2*W*F = {brute_tests} tests "
+              f"= {brute_tests / on / 1e9:.2f} T tests/s (early_out on), "
+              f"{brute_tests / off / 1e9:.3f} T/s (off); bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), the call at "
+              f"{bnd[0] / on * 100:.1f}% of it", flush=True)
+        large[tag] = dict(ms=on, brute_ms=off, device_ms=dev_on, work=w_on,
+                          brute_work=w_off, bound=bnd, walls=scene.n_walls,
+                          plain_ms=plain_ms)
+        return g
+
+    # 8b. the 40,008-wall city, K = 1, through K8
+    scene_b, p_b, secs = city(10000)
+    check(scene_b.n_walls == 40008, f"8b: {scene_b.n_walls} walls")
+    large_scene("[8b]", "K8", scene_b, p_b, 41, secs,
+                plain=ak.trace_frames_ir_accel_sorted_plain)
+    del scene_b, p_b
+    # 8c. the 100,016-wall city. Its listener (and source) sit inside a box,
+    # so no ray reaches the bench's listener; a second listener in the open
+    # gives the bit-identity checks an IR to compare.
+    scene_c, p_c, secs = city(25002)
+    check(scene_c.n_walls == 100016, f"8c: {scene_c.n_walls} walls")
+    large_scene("[8c]", "K8", scene_c, p_c, 43, secs, silent=True)
+    open_spot = free_spot(scene_c, p_c.source)
+    p_c2 = p_c._replace(listeners=torch.stack([p_c.listeners[0],
+                                               open_spot]))
+    ir_c2 = ak.trace_frames_ir_accel_sorted(scene_c, p_c2, 44, CITY_FRAMES,
+                                            **city_run)
+    brute_c2 = ak.trace_frames_ir_accel_sorted(
+        scene_c, p_c2, 44, CITY_FRAMES, early_out=False, **city_run)
+    torch.cuda.synchronize()
+    e_c2 = [float(x) for x in ir_c2.sum(dim=(1, 2))]
+    print(f"[8c] with a second listener in the open at "
+          f"{open_spot.tolist()}: IR energy per listener {e_c2}; "
+          f"early_out=False bit-identical: {torch.equal(ir_c2, brute_c2)}",
+          flush=True)
+    check(e_c2[1] > 0 and torch.equal(ir_c2, brute_c2),
+          "8c: second listener: energy, early_out=False bit-identical")
+    del brute_c2
+    against_plain("[8c]", "K8", ak.trace_frames_ir_accel_sorted_plain,
+                  scene_c, p_c2, 44, ir_c2)
+    del scene_c, p_c, p_c2, ir_c2
+    # 8d. the 8-band 40,008-wall city through K7
+    scene_d, p_d, secs = city(10000, n_bands=8)
+    banded_ir = large_scene("[8d]", "K7", scene_d, p_d, 47, secs, n_bands=8,
+                            plain=ak.trace_frames_ir_accel_plain)
+    check(banded_ir[..., -1].sum() < banded_ir[..., 0].sum(),
+          "8d: highest band quieter than the lowest")
+
+    # --- 9. the stream on a 10,008-wall city through K8 ------------------
+    scene_9, p_9, secs = city(2500)
+    check(scene_9.n_walls == 10008, f"9: {scene_9.n_walls} walls")
+    same_numbers(f"[9] K8 vs plain at the stream's shape, {RAYS} x {BOUNCES}"
+                 " x 1 frame, chunk 0's Philox numbers", "K8",
+                 ak.trace_frames_ir_accel_sorted(scene_9, p_9, chunk0, 1,
+                                                 **one),
+                 ak.trace_frames_ir_accel_sorted_plain(scene_9, p_9, chunk0,
+                                                       1, **one))
+    city_wet, streamed = counted(lambda: art.Streamer(
+        scene_9, cfg, seed=7).stream_clip(dry, lambda i: p_9))
+    check(streamed == only(K8=n_chunks * BOUNCES),
+          f"city stream launch counts {streamed}")
+    city_launches["K8"] += streamed["K8"]
+    out9 = city_wet.cpu().numpy()
+    check(out9.shape == (1, n_chunks * CHUNK) and np.isfinite(out9).all()
+          and np.abs(out9).max() > 0, f"city stream {out9.shape}: finite, "
+          "peak > 0")
+    # no sound before the straight path could bring it: sound crosses the
+    # boxes at c / 0.6 (their ior, MATERIAL_INTERIOR) and the air at c
+    first9 = (int(np.flatnonzero(np.abs(out9[0]) > 1e-9)[0])
+              - clicks[0] * SR) / SR
+    direct = (float(np.linalg.norm(p_9.listeners[0].cpu().numpy()
+                                   - p_9.source.cpu().numpy()))
+              - float(p_9.listener_radius)) / 343.0
+    check(first9 >= 0.6 * direct, "city stream: no sound before the "
+          f"straight path ({first9:.4f} s vs {0.6 * direct:.4f} s)")
+    streamer = art.Streamer(scene_9, cfg, seed=11)
+    streamer.stream_clip(dry, lambda i: p_9, total_chunks=5)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamer.stream_clip(dry, lambda i: p_9)
+    torch.cuda.synchronize()
+    ms_city = (time.perf_counter() - t0) * 1e3 / n_chunks
+    print(f"[9] city stream: city_scene(2500), {scene_9.n_walls} walls "
+          f"(built in {secs:.2f} s), {RAYS} x {BOUNCES}, {n_chunks} chunks "
+          f"-> {out9.shape}, launches {streamed}, peak "
+          f"{np.abs(out9).max():.3e}, first sound {first9 * 1e3:.1f} ms "
+          f"after the first click (straight path {direct * 1e3:.1f} ms in "
+          f"air, {0.6 * direct * 1e3:.1f} ms through boxes); "
+          f"{ms_city:.3f} ms per 100 ms chunk = {100.0 / ms_city:.1f}x "
+          f"realtime on {card}", flush=True)
 
     # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
@@ -503,12 +802,6 @@ def main():
     # the sweep and the mixdown: wrapper calls (CUDA events), K9's device
     # time (profiler), and the wall tests and sweeps the kernel made for
     # the bounds
-    def work(fn):
-        n = torch.zeros(2, dtype=torch.int64, device=dev)
-        fn(n)
-        torch.cuda.synchronize()
-        return tuple(int(x) for x in n.cpu())
-
     sweep_ms = cuda_ms(torch, lambda: sweep_rooms(
         scenes, src, lis, 0, n_frames=SWEEP_FRAMES, **sweep_kw), 3)
     torch.cuda.reset_peak_memory_stats()
@@ -579,21 +872,61 @@ def main():
               f"sweeps x {OPS_PER_SWEEP} FP32 ops -> {bounds[k][0]:.6f} ms "
               f"({bounds[k][1]}); device time {fmt(dev_ms[k])}", flush=True)
 
-    names = {"K3": ("bounce_kernel K3 (host uniforms)", 494),
-             "K4": ("bounce_kernel K4 (in-kernel Philox)", 563),
+    # K8 at the city stream's shape (15k x 5 x 1 frame, 10,008 walls):
+    # wrapper calls (CUDA events), device time (profiler), and the tests,
+    # sweeps and slab tests made for the bound. K7 at the banded city's
+    # (131,072 x 6 x 4 frames, 8 bands, 40,008 walls), measured in [8d].
+    times["K8"] = (
+        cuda_ms(torch, lambda: ak.trace_frames_ir_accel_sorted(
+            scene_9, p_9, 5, 1, **one), 10),
+        cuda_ms(torch, lambda: ak.trace_frames_ir_accel_sorted_plain(
+            scene_9, p_9, 5, 1, **one), 2))
+    dev_ms["K8"] = kernel_device_ms(
+        torch, lambda: ak.trace_frames_ir_accel_sorted(scene_9, p_9, 5, 1,
+                                                       **one),
+        5, "accel_bounce_kernel")
+    n_work["K8"] = work(lambda n: ak.trace_frames_ir_accel_sorted(
+        scene_9, p_9, 5, 1, work_counts=n, **one))
+    prep = ak.prepare(scene_9)
+    bounds["K8"] = bound(n_work["K8"], 4 * (
+        prep.walls.numel() + prep.aabb.numel() + prep.saabb.numel() + 2 + 5
+        + T))
+    banded = large["[8d]"]
+    times["K7"] = (banded["ms"], banded["plain_ms"])
+    dev_ms["K7"], n_work["K7"] = banded["device_ms"], banded["work"]
+    bounds["K7"] = banded["bound"]
+    for k, shape in (("K8", f"{RAYS} x {BOUNCES} x 1 frame, "
+                            f"{scene_9.n_walls} walls, K=1"),
+                     ("K7", f"{BIG_RAYS} x {CITY_BOUNCES} x {CITY_FRAMES} "
+                            f"frames, {banded['walls']} walls, K=8")):
+        print(f"    {k} at {shape}: {times[k][0]:.3f} ms per call vs plain "
+              f"{times[k][1]:.3f}; device {fmt(dev_ms[k])}; {n_work[k][0]} "
+              f"wall tests, {n_work[k][1]} sweeps, {n_work[k][2]} slab tests"
+              f" -> bound {bounds[k][0]:.6f} ms ({bounds[k][1]})",
+              flush=True)
+    launches.update(city_launches)
+
+    names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),
+             "K4": ("bounce_kernel K4 (in-kernel Philox)", 563,
+                    KERNEL_SOURCE),
              "K9": ("bounce_kernel K9 (rooms-batched, in-kernel Philox)",
-                    656)}
-    # ms/plain_ms/bound at the main path's shapes: K3 and K4 at the
-    # stream's (15k x 5 x 1 frame), K9 at the mixdown's (64 entries x 15k
-    # x 5); the sweep's numbers are in the [5] sweep line. No PyTorch call
-    # computes a Monte-Carlo trace, so library_ms is null.
+                    656, KERNEL_SOURCE),
+             "K7": ("accel_kernel K7 (cluster early-out, all bounces, "
+                    "K <= 8 bands)", 1869, ACCEL_SOURCE),
+             "K8": ("accel_kernel K8 (cluster early-out per bounce, Morton "
+                    "re-sort)", 2154, ACCEL_SOURCE)}
+    # ms/plain_ms/bound of one call each: K3 and K4 at the stream's shape
+    # (15k x 5 x 1 frame), K9 at the mixdown's (64 entries x 15k x 5), K8
+    # at the city stream's, K7 at the banded city's; the sweep's and the
+    # other full-width cities' numbers are in the [5] and [8] lines. No
+    # PyTorch call computes a Monte-Carlo trace, so library_ms is null.
     kernels = [
-        {"name": names[k][0], "route": "cuda", "source": KERNEL_SOURCE,
+        {"name": names[k][0], "route": "cuda", "source": names[k][2],
          "replaces": f"{PALLAS}:{names[k][1]}", "launches": launches[k],
          "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": None}
-        for k in ("K3", "K4", "K9")]
+        for k in ("K3", "K4", "K9", "K7", "K8")]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ The JAX package is the reference; this package has its module names and
 runs the reference app's main loop (scene -> Monte-Carlo trace into an
 IR -> crossfaded chunked convolution) with PyTorch on the CPU or on an
 NVIDIA H100, where the trace runs in a hand-written CUDA kernel
-(``csrc/bounce_kernel.cu``). It also sweeps room datasets and mixes
-down many sources through the same kernel's batched mode
-(:mod:`.parallel`). It imports no JAX.
+(``csrc/bounce_kernel.cu``), or, for scenes past 5,280 walls, in the
+hand-written cluster kernels (``csrc/accel_kernel.cu``). It also sweeps
+room datasets and mixes down many sources through the bounce kernel's
+batched mode (:mod:`.parallel`). It imports no JAX.
 
 Every builder takes ``device=None``, which means :data:`DEFAULT_DEVICE`
 (``"cuda"``); pass ``device="cpu"`` for the plain PyTorch path.

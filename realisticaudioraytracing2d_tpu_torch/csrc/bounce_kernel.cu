@@ -19,7 +19,9 @@
 // oracle ops/trace.py::_bounce + ops/ir.py::scatter_hits of this package;
 // the TPU layout (rays on lanes, one-hot MXU gather, two-level bf16
 // histogram, K9's [Rg, Wp, 8] blocks and its seed plan) is not carried
-// over.
+// over. The ray physics (emission, the bounce after the nearest-wall
+// search, Philox, the deposit) is trace_common.cuh, shared with the
+// cluster kernels K7/K8 of accel_kernel.cu.
 //
 // Design:
 //  * One thread per (ray, frame, entry); its state (pos, dir, energy,
@@ -33,7 +35,7 @@
 //    one scene among all entries (the mixdown) without copying it. The
 //    attribute gather is an indexed shared-memory load. The 227 KB a
 //    block can use caps a scene at kMaxWalls = 5280 walls; larger scenes
-//    belong to the cluster kernels (K7/K8), which are not ported yet.
+//    go to the cluster kernels K7/K8 (accel_kernel.cu).
 //  * Nearest wall: walls scanned in ascending order with a strict '<', so
 //    the lowest index wins among equal distances (the oracle's argmin).
 //    Padding walls are degenerate (a == b, so v2 == 0): dotp == 0 marks
@@ -58,10 +60,11 @@
 //    disjoint by construction, and K4's stream is entry 0 of K9's. Top 24
 //    bits times 2^-24, as the TPU kernels' _draw_uniforms. ops/rng.py::
 //    philox_uniforms computes the same numbers on the host.
-//  * An optional counter (work != nullptr) sums the wall tests the launch
-//    really made and the wall sweeps they belong to (one warp-reduced
-//    atomic per warp and counter), so a bound can be computed from this
-//    run's data.
+//  * An optional counter (work != nullptr, three u64: wall tests, wall
+//    sweeps, slab tests) sums the wall tests the launch really made and
+//    the wall sweeps they belong to (one warp-reduced atomic per warp and
+//    counter; this kernel makes no slab tests), so a bound can be
+//    computed from this run's data.
 //
 // What bounds it: the wall pass is compute-bound, O(R * W * B * (1 + L))
 // intersection tests of 13 FP32 operations each (two of them divides),
@@ -75,94 +78,14 @@
 // registers, warp-aggregated or shared-memory time windows for the
 // histogram, and a persistent grid are later work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "trace_common.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-4f;
-constexpr float kInf = 1e8f;
-constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265);
-constexpr float kEnergyCutoff = 1e-3f;
-constexpr float kNeeCutoff = 1e-5f;
-constexpr float kOcclusionSlack = 0.1f;
 constexpr int kThreads = 256;
-constexpr int kWallFields = 11;
-constexpr int kScalFields = 5;
-constexpr int kMaxListeners = 16;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kMaxWalls =
     (kMaxSmemBytes - 2 * kMaxListeners * 4) / (kWallFields * 4);
-
-enum WallField { AX, AY, V2X, V2Y, CC, NX, NY, ABS, SCAT, TRANS, IOR };
-
-struct Uniforms {
-  float u0, u1, u2;
-};
-
-struct Work {  // what one ray did: wall tests and the sweeps they belong to
-  unsigned long long tests = 0, sweeps = 0;
-};
-
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
-                                              uint32_t k1) {
-  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  constexpr uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(M0, c[0]), lo0 = M0 * c[0];
-    const uint32_t hi1 = __umulhi(M1, c[2]), lo1 = M1 * c[2];
-    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-    k0 += W0;
-    k1 += W1;
-  }
-}
-
-__device__ __forceinline__ float u24(uint32_t w) {
-  return static_cast<float>(w >> 8) * 5.9604644775390625e-08f;  // 2^-24
-}
-
-// Ray-segment distance, the operation order of geometry.py::
-// pairwise_ray_segment_t (cc = v2x * ay - v2y * ax precomputed).
-__device__ __forceinline__ float wall_t(const float* w, int n, int i,
-                                       float ox, float oy, float dx,
-                                       float dy) {
-  const float ax = w[AX * n + i], ay = w[AY * n + i];
-  const float v2x = w[V2X * n + i], v2y = w[V2Y * n + i];
-  const float cc = w[CC * n + i];
-  const float dotp = v2y * dx - v2x * dy;
-  const bool parallel = fabsf(dotp) < kEps;
-  const float safe = parallel ? 1.0f : dotp;
-  const float t1 = (v2x * oy - v2y * ox - cc) / safe;
-  const float t2 = ((oy * dx - ox * dy) - (ay * dx - ax * dy)) / safe;
-  return (!parallel && t1 >= kEps && t2 >= 0.0f && t2 <= 1.0f) ? t1 : kInf;
-}
-
-// Safe normalize (geometry.py::normalize).
-__device__ __forceinline__ void normalize2(float& x, float& y) {
-  const float n2 = x * x + y * y;
-  const float inv = n2 > 1e-20f ? 1.0f / sqrtf(fmaxf(n2, 1e-20f)) : 0.0f;
-  x *= inv;
-  y *= inv;
-}
-
-__device__ __forceinline__ void deposit(unsigned long long* acc, int row,
-                                        int ir_length, float delay,
-                                        float energy, float sr,
-                                        double scale) {
-  const float fb = floorf(delay * sr);
-  if (!(fb >= 0.0f && fb < static_cast<float>(ir_length))) return;
-  const unsigned long long q =
-      static_cast<unsigned long long>(llrint(static_cast<double>(energy) *
-                                             scale));
-  if (q) atomicAdd(acc + static_cast<size_t>(row) * ir_length +
-                       static_cast<int>(fb),
-                   q);
-}
 
 template <bool kHostUniforms>
 __device__ __forceinline__ Work trace_ray(
@@ -171,9 +94,9 @@ __device__ __forceinline__ Work trace_ray(
     uint32_t key0, uint32_t key1, uint32_t entry_id, int ray, int frame,
     int n_frames, int entry, int n_rays, int max_bounces, int ir_length,
     double scale, unsigned long long* acc) {
-  const float src_x = scal[0], src_y = scal[1], radius = scal[2];
-  const float c = scal[3], gain = scal[4];
-  const float r2 = radius * radius;
+  const float radius = scal[2];
+  const Listeners lis{s_lis, n_listeners, radius * radius, scal[3]};
+  const Sink sink{acc, ir_length, 1, sr, scale};
   Work work;
 
   auto draw = [&](int bounce) -> Uniforms {
@@ -183,11 +106,19 @@ __device__ __forceinline__ Work trace_ray(
            bounce) * n_rays + ray;
       return {u[3 * o], u[3 * o + 1], u[3 * o + 2]};
     }
-    uint32_t ctr[4] = {static_cast<uint32_t>(ray),
-                       static_cast<uint32_t>(frame),
-                       static_cast<uint32_t>(bounce), entry_id};
-    philox4x32_10(ctr, key0, key1);
-    return {u24(ctr[0]), u24(ctr[1]), u24(ctr[2])};
+    return philox_uniforms(ray, frame, bounce, entry_id, key0, key1);
+  };
+  // One occlusion sweep: walls in ascending order, stop at the first that
+  // blocks the shadow ray before `limit`.
+  auto occluded = [&](float sx, float sy, float vdx, float vdy, float,
+                      float limit) {
+    bool visible = true;
+    int i = 0;
+    for (; i < n_walls && visible; ++i)
+      visible = wall_t(s_walls, n_walls, i, sx, sy, vdx, vdy) >= limit;
+    work.tests += i;
+    ++work.sweeps;
+    return !visible;
   };
 
   // --- emission (ops/trace.py::_emit) ---------------------------------------
@@ -196,20 +127,15 @@ __device__ __forceinline__ Work trace_ray(
           ? emit[(static_cast<size_t>(entry) * n_frames + frame) * n_rays +
                  ray]
           : draw(max_bounces).u0;
-  const float angle =
-      (static_cast<float>(ray) + jitter0) / static_cast<float>(n_rays) *
-      kTwoPi;
-  float px = src_x, py = src_y, dx, dy;
-  sincosf(angle, &dy, &dx);
-  float en = gain, tm = 0.0f, ds = 0.0f, sp = c;
-  int dep = 0;
+  Ray<1> r = emit_ray<1>(ray, n_rays, jitter0, scal[0], scal[1], scal[3],
+                         scal[4]);
 
   for (int b = 0; b < max_bounces; ++b) {
-    // --- nearest wall ------------------------------------------------------
+    // --- nearest wall: ascending scan, strict '<' keeps the lowest index ---
     float closest = kInf;
     int hit = -1;
     for (int i = 0; i < n_walls; ++i) {
-      const float t = wall_t(s_walls, n_walls, i, px, py, dx, dy);
+      const float t = wall_t(s_walls, n_walls, i, r.px, r.py, r.dx, r.dy);
       if (t < closest) {
         closest = t;
         hit = i;
@@ -217,118 +143,9 @@ __device__ __forceinline__ Work trace_ray(
     }
     work.tests += n_walls;
     ++work.sweeps;
-
-    // --- direct listener capture, outside walls only -------------------------
-    if (dep == 0) {
-      for (int l = 0; l < n_listeners; ++l) {
-        const float lx = s_lis[2 * l] - px, ly = s_lis[2 * l + 1] - py;
-        const float tca = lx * dx + ly * dy;
-        const float d2 = (lx * lx + ly * ly) - tca * tca;
-        if (!(tca >= 0.0f && d2 <= r2)) continue;
-        const float thc = (r2 - d2) > 0.0f ? sqrtf(r2 - d2) : 0.0f;
-        const float t0 = tca - thc, t1 = tca + thc;
-        const float t_lis = t0 > kEps ? t0 : (t1 > kEps ? t1 : kInf);
-        if (!(t_lis < closest && t_lis < kInf)) continue;
-        const float total_d = ds + t_lis;
-        deposit(acc, l, ir_length, tm + t_lis / sp,
-                en / fmaxf(total_d * total_d, 1.0f), sr, scale);
-      }
-    }
-    if (hit < 0) break;  // escaped: dead from here on
-
-    // --- advance to the wall -------------------------------------------------
-    const float npx = px + dx * closest, npy = py + dy * closest;
-    const float ntm = tm + closest / sp, nds = ds + closest;
-    const float w_nx = s_walls[NX * n_walls + hit];
-    const float w_ny = s_walls[NY * n_walls + hit];
-    const float w_abs = s_walls[ABS * n_walls + hit];
-    const float w_scat = s_walls[SCAT * n_walls + hit];
-    const float w_trans = s_walls[TRANS * n_walls + hit];
-    const float w_ior = s_walls[IOR * n_walls + hit];
-    const float d_dot_n = dx * w_nx + dy * w_ny;
-
-    // --- NEE with occlusion (shadow ray offset along the UNflipped normal,
-    //     direction normalized by the unoffset distance: reference quirks) --
-    if (dep == 0) {
-      const float sx = npx + w_nx * kEps, sy = npy + w_ny * kEps;
-      const float eff_sign = d_dot_n > 0.0f ? -1.0f : 1.0f;
-      const float enx = w_nx * eff_sign, eny = w_ny * eff_sign;
-      for (int l = 0; l < n_listeners; ++l) {
-        const float lx = s_lis[2 * l], ly = s_lis[2 * l + 1];
-        const float tx = lx - npx, ty = ly - npy;
-        const float dist_l = sqrtf(fmaxf(tx * tx + ty * ty, 1e-20f));
-        const float cos_t = fmaxf(enx * (tx / dist_l) + eny * (ty / dist_l),
-                                  0.0f);
-        const float total_dn = nds + dist_l;
-        const float geom = cos_t * 0.5f / (total_dn * total_dn);
-        const float e_nee = en * (1.0f - w_abs) * geom;
-        if (!(e_nee > kNeeCutoff)) continue;
-        const float vdx = (lx - sx) / dist_l, vdy = (ly - sy) / dist_l;
-        const float limit = dist_l - kOcclusionSlack;
-        bool visible = true;
-        int i = 0;
-        for (; i < n_walls && visible; ++i)
-          visible = wall_t(s_walls, n_walls, i, sx, sy, vdx, vdy) >= limit;
-        work.tests += i;
-        ++work.sweeps;
-        // The listener leg uses the rest-frame speed c, not the current one.
-        if (visible)
-          deposit(acc, l, ir_length, ntm + dist_l / c, e_nee, sr, scale);
-      }
-    }
-
-    // --- absorption + cutoff -------------------------------------------------
-    const float nen = en * (1.0f - w_abs);
-    if (!(nen >= kEnergyCutoff)) break;
-
-    const Uniforms uv = draw(b);
-
-    // --- transmission / refraction -------------------------------------------
-    const bool entering = d_dot_n < 0.0f;
-    const float nex = entering ? w_nx : -w_nx;
-    const float ney = entering ? w_ny : -w_ny;
-    const float wall_speed = c / w_ior;
-    const float next_speed =
-        entering ? wall_speed : (dep <= 1 ? c : wall_speed);
-    const float eta = next_speed / sp;
-    const float cosi = -(dx * nex + dy * ney);
-    const float cost2 = 1.0f - eta * eta * (1.0f - cosi * cosi);
-    const bool refr_ok = cost2 > 0.0f;
-    const bool transmit = (uv.u0 < w_trans) && refr_ok;
-
-    float ndx, ndy;
-    if (transmit) {
-      const float coef = eta * cosi - sqrtf(fabsf(cost2));
-      const float rx = eta * dx + coef * nex, ry = eta * dy + coef * ney;
-      float sj, cj;
-      sincosf((uv.u1 - 0.5f) * 2.0f * w_scat, &sj, &cj);
-      ndx = rx * cj - ry * sj;
-      ndy = rx * sj + ry * cj;
-      normalize2(ndx, ndy);
-    } else {
-      // --- reflection: specular/diffuse lerp ---------------------------------
-      const float dn2 = 2.0f * (dx * nex + dy * ney);
-      const float spx = dx - dn2 * nex, spy = dy - dn2 * ney;
-      float sd, cd;
-      sincosf(asinf(fminf(fmaxf(2.0f * uv.u2 - 1.0f, -1.0f), 1.0f)), &sd,
-              &cd);
-      const float ddx = nex * cd - ney * sd, ddy = nex * sd + ney * cd;
-      ndx = spx + (ddx - spx) * w_scat;
-      ndy = spy + (ddy - spy) * w_scat;
-      normalize2(ndx, ndy);
-    }
-
-    px = npx + (transmit ? ndx * kEps : nex * kEps);
-    py = npy + (transmit ? ndy * kEps : ney * kEps);
-    dx = ndx;
-    dy = ndy;
-    en = nen;
-    tm = ntm;
-    ds = nds;
-    if (transmit) {
-      sp = next_speed;
-      dep = entering ? dep + 1 : max(0, dep - 1);
-    }
+    if (!finish_bounce<1>(r, closest, hit, s_walls, n_walls, lis, sink,
+                          occluded, [&] { return draw(b); }))
+      break;
   }
   return work;
 }
@@ -364,27 +181,8 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
         ray, blockIdx.y, gridDim.y, entry, n_rays, max_bounces, ir_length,
         scales[entry],
         acc + static_cast<size_t>(entry) * n_listeners * ir_length);
-  if (work_out != nullptr) {  // every thread of the block reaches this point
-    for (int off = 16; off > 0; off >>= 1) {
-      work.tests += __shfl_down_sync(0xffffffffu, work.tests, off);
-      work.sweeps += __shfl_down_sync(0xffffffffu, work.sweeps, off);
-    }
-    if ((threadIdx.x & 31) == 0 && work.sweeps) {
-      atomicAdd(work_out, work.tests);
-      atomicAdd(work_out + 1, work.sweeps);
-    }
-  }
-}
-
-// out[e, i] = acc[e, i] / S_e over the [E, per_entry] accumulator.
-__global__ void fixed_to_float_kernel(const unsigned long long* __restrict__ acc,
-                                      const double* __restrict__ scales,
-                                      float* __restrict__ out, size_t n,
-                                      size_t per_entry) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n)
-    out[i] = static_cast<float>(static_cast<double>(acc[i]) /
-                                scales[i / per_entry]);
+  if (work_out != nullptr)  // every thread of the block reaches this point
+    add_work(work, work_out);
 }
 
 template <bool kHostUniforms>
@@ -416,9 +214,7 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
       work);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fixed_to_float_kernel<<<static_cast<unsigned int>((n + 255) / 256), 256, 0,
-                          stream>>>(acc, scales, out, n, per_entry);
-  return cudaGetLastError();
+  return launch_fixed_to_float(acc, scales, out, n, per_entry, stream);
 }
 
 }  // namespace
@@ -432,9 +228,10 @@ extern "C" {
 // E). walls is [E or 1, 11, W] (see WallField) with wall_stride 11 * W or
 // 0 (shared), listeners [E, L, 2], scal [E, 5] = (source x, source y,
 // listener radius, speed of sound, input gain), all device f32; scales
-// [E] device doubles, acc [E, L, T] u64 scratch; work, if not null, two
-// device u64 to which the launch adds the wall tests it made and the wall
-// sweeps (nearest or occlusion) they belong to. Returns a cudaError_t code
+// [E] device doubles, acc [E, L, T] u64 scratch; work, if not null,
+// three device u64 to which the launch adds the wall tests it made, the
+// wall sweeps (nearest or occlusion) they belong to and its slab tests
+// (none). Returns a cudaError_t code
 // (0 = launched).
 int art_trace_frames_ir(int host_uniforms, const float* walls,
                         long long wall_stride, int n_walls,

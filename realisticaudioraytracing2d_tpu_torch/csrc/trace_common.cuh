@@ -1,0 +1,364 @@
+// Ray physics shared by the bounce kernel (bounce_kernel.cu: K3, K4, K9)
+// and the cluster kernels (accel_kernel.cu: K7, K8).
+//
+// What is here: the constants of the reference kernel, Philox-4x32-10 and
+// its 24-bit uniforms, the ray-segment test (wall_t), the emission of a
+// ray, the fixed-point IR deposit, the u64 -> f32 conversion kernel, and
+// the whole bounce after the nearest-wall search (finish_bounce): direct
+// listener capture, advance, NEE with occlusion, absorption and cutoff,
+// transmission with refraction, and the specular/diffuse reflection.
+// The kernels differ only in how they find the nearest wall and run the
+// occlusion sweep (a full scan of a shared-memory table, or a two-level
+// box early-out over a global one), where their random numbers come from,
+// and where a ray's state lives between bounces.
+//
+// The semantics are those of the plain oracle ops/trace.py::_bounce +
+// ops/ir.py::scatter_hits, in its IEEE operation order: '/', sqrtf,
+// sincosf, asinf, no fast math, and the build passes --fmad=false, so a
+// hit here is the plain path's hit. A wall table is struct-of-arrays
+// [rows, stride] (see WallField); banded tables append the absorption of
+// bands 1 .. K-1 as rows 11 .. 9 + K. An IR accumulator is u64
+// [L, T, K] fixed point: each hit adds llrint(e * S), and integer
+// addition is associative, so the IR of a seed is bit-identical whatever
+// order the atomics land in.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kEps = 1e-4f;
+constexpr float kInf = 1e8f;
+constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265);
+constexpr float kEnergyCutoff = 1e-3f;
+constexpr float kNeeCutoff = 1e-5f;
+constexpr float kOcclusionSlack = 0.1f;
+constexpr int kWallFields = 11;
+constexpr int kScalFields = 5;
+constexpr int kMaxListeners = 16;
+
+enum WallField { AX, AY, V2X, V2Y, CC, NX, NY, ABS, SCAT, TRANS, IOR };
+
+struct Uniforms {
+  float u0, u1, u2;
+};
+
+// What one ray did: wall tests, the sweeps (nearest or occlusion) they
+// belong to, and box slab tests (cluster kernels only).
+struct Work {
+  unsigned long long tests = 0, sweeps = 0, slabs = 0;
+};
+
+// One ray between bounces; kMaxK energy bands, of which n_bands are used.
+template <int kMaxK>
+struct Ray {
+  float px, py, dx, dy, tm, ds, sp;
+  float en[kMaxK];
+  int dep;
+};
+
+// Where hits go: the u64 accumulator [L, T, K] of one entry and its scale.
+struct Sink {
+  unsigned long long* acc;
+  int ir_length;
+  int n_bands;
+  float sr;
+  double scale;
+};
+
+// The listeners of one entry: xy [L, 2], radius^2, rest-frame speed c.
+struct Listeners {
+  const float* xy;
+  int n;
+  float r2;
+  float c;
+};
+
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
+                                              uint32_t k1) {
+  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  constexpr uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(M0, c[0]), lo0 = M0 * c[0];
+    const uint32_t hi1 = __umulhi(M1, c[2]), lo1 = M1 * c[2];
+    const uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
+    c[0] = n0;
+    c[1] = lo1;
+    c[2] = n2;
+    c[3] = lo0;
+    k0 += W0;
+    k1 += W1;
+  }
+}
+
+__device__ __forceinline__ float u24(uint32_t w) {
+  return static_cast<float>(w >> 8) * 5.9604644775390625e-08f;  // 2^-24
+}
+
+// The three uniforms of counter (ray, frame, bounce, entry); bounce = B
+// gives the emission jitter in u0 (ops/rng.py::philox_uniforms).
+__device__ __forceinline__ Uniforms philox_uniforms(uint32_t ray,
+                                                   uint32_t frame,
+                                                   uint32_t bounce,
+                                                   uint32_t entry,
+                                                   uint32_t key0,
+                                                   uint32_t key1) {
+  uint32_t ctr[4] = {ray, frame, bounce, entry};
+  philox4x32_10(ctr, key0, key1);
+  return {u24(ctr[0]), u24(ctr[1]), u24(ctr[2])};
+}
+
+// Ray-segment distance, the operation order of geometry.py::
+// pairwise_ray_segment_t (cc = v2x * ay - v2y * ax precomputed). 16 FP32
+// operations (two of them divides); oy * dx - ox * dy (3) is the same for
+// every wall of a sweep, so a test costs 13 beside 3 per sweep.
+__device__ __forceinline__ float wall_t(const float* w, int n, int i,
+                                       float ox, float oy, float dx,
+                                       float dy) {
+  const float ax = w[AX * n + i], ay = w[AY * n + i];
+  const float v2x = w[V2X * n + i], v2y = w[V2Y * n + i];
+  const float cc = w[CC * n + i];
+  const float dotp = v2y * dx - v2x * dy;
+  const bool parallel = fabsf(dotp) < kEps;
+  const float safe = parallel ? 1.0f : dotp;
+  const float t1 = (v2x * oy - v2y * ox - cc) / safe;
+  const float t2 = ((oy * dx - ox * dy) - (ay * dx - ax * dy)) / safe;
+  return (!parallel && t1 >= kEps && t2 >= 0.0f && t2 <= 1.0f) ? t1 : kInf;
+}
+
+// Safe normalize (geometry.py::normalize).
+__device__ __forceinline__ void normalize2(float& x, float& y) {
+  const float n2 = x * x + y * y;
+  const float inv = n2 > 1e-20f ? 1.0f / sqrtf(fmaxf(n2, 1e-20f)) : 0.0f;
+  x *= inv;
+  y *= inv;
+}
+
+// Absorption of band k of wall i (row ABS for band 0, 10 + k after).
+__device__ __forceinline__ float band_absorption(const float* w, int n,
+                                                 int i, int k) {
+  return w[(k == 0 ? ABS : 10 + k) * n + i];
+}
+
+// Add each band's energy e[k] of one hit at `delay` to listener l's bin.
+template <int kMaxK>
+__device__ __forceinline__ void deposit(const Sink& s, int l, float delay,
+                                        const float* e) {
+  const float fb = floorf(delay * s.sr);
+  if (!(fb >= 0.0f && fb < static_cast<float>(s.ir_length))) return;
+  unsigned long long* bin =
+      s.acc + (static_cast<size_t>(l) * s.ir_length + static_cast<int>(fb)) *
+                  s.n_bands;
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {
+    if (k >= s.n_bands) break;
+    const unsigned long long q = static_cast<unsigned long long>(
+        llrint(static_cast<double>(e[k]) * s.scale));
+    if (q) atomicAdd(bin + k, q);
+  }
+}
+
+// A ray leaving the source (ops/trace.py::_emit): stratified angle
+// (ray + jitter) / R * 2pi, energy `gain` in every band.
+template <int kMaxK>
+__device__ __forceinline__ Ray<kMaxK> emit_ray(int ray, int n_rays,
+                                               float jitter, float src_x,
+                                               float src_y, float c,
+                                               float gain) {
+  Ray<kMaxK> r;
+  const float angle =
+      (static_cast<float>(ray) + jitter) / static_cast<float>(n_rays) *
+      kTwoPi;
+  r.px = src_x;
+  r.py = src_y;
+  sincosf(angle, &r.dy, &r.dx);
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) r.en[k] = gain;
+  r.tm = 0.0f;
+  r.ds = 0.0f;
+  r.sp = c;
+  r.dep = 0;
+  return r;
+}
+
+// The bounce after the nearest-wall search found `closest` and `hit`
+// (-1: escaped) on wall table `w` (stride n). occluded(sx, sy, vdx, vdy,
+// dist, limit) runs one occlusion sweep and returns true when a wall
+// blocks the shadow ray before `limit`; draw() gives this bounce's three
+// uniforms. Returns false when the ray dies (escaped, or every band under
+// the energy cutoff); the ray is then left as it was.
+template <int kMaxK, class Occluded, class Draw>
+__device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
+                                              int hit, const float* w, int n,
+                                              const Listeners& lis,
+                                              const Sink& sink,
+                                              Occluded occluded, Draw draw) {
+  const int nk = sink.n_bands;
+  const float c = lis.c;
+  // --- direct listener capture, outside walls only -------------------------
+  if (r.dep == 0) {
+    for (int l = 0; l < lis.n; ++l) {
+      const float lx = lis.xy[2 * l] - r.px, ly = lis.xy[2 * l + 1] - r.py;
+      const float tca = lx * r.dx + ly * r.dy;
+      const float d2 = (lx * lx + ly * ly) - tca * tca;
+      if (!(tca >= 0.0f && d2 <= lis.r2)) continue;
+      const float thc = (lis.r2 - d2) > 0.0f ? sqrtf(lis.r2 - d2) : 0.0f;
+      const float t0 = tca - thc, t1 = tca + thc;
+      const float t_lis = t0 > kEps ? t0 : (t1 > kEps ? t1 : kInf);
+      if (!(t_lis < closest && t_lis < kInf)) continue;
+      const float total_d = r.ds + t_lis;
+      const float att = fmaxf(total_d * total_d, 1.0f);
+      float e[kMaxK];
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) e[k] = r.en[k] / att;
+      deposit<kMaxK>(sink, l, r.tm + t_lis / r.sp, e);
+    }
+  }
+  if (hit < 0) return false;  // escaped: dead from here on
+
+  // --- advance to the wall --------------------------------------------------
+  const float npx = r.px + r.dx * closest, npy = r.py + r.dy * closest;
+  const float ntm = r.tm + closest / r.sp, nds = r.ds + closest;
+  const float w_nx = w[NX * n + hit];
+  const float w_ny = w[NY * n + hit];
+  const float w_scat = w[SCAT * n + hit];
+  const float w_trans = w[TRANS * n + hit];
+  const float w_ior = w[IOR * n + hit];
+  float keep[kMaxK];  // 1 - absorption, per band
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k)
+    keep[k] = k < nk ? 1.0f - band_absorption(w, n, hit, k) : 0.0f;
+  const float d_dot_n = r.dx * w_nx + r.dy * w_ny;
+
+  // --- NEE with occlusion (shadow ray offset along the UNflipped normal,
+  //     direction normalized by the unoffset distance: reference quirks) ----
+  if (r.dep == 0) {
+    const float sx = npx + w_nx * kEps, sy = npy + w_ny * kEps;
+    const float eff_sign = d_dot_n > 0.0f ? -1.0f : 1.0f;
+    const float enx = w_nx * eff_sign, eny = w_ny * eff_sign;
+    for (int l = 0; l < lis.n; ++l) {
+      const float lx = lis.xy[2 * l], ly = lis.xy[2 * l + 1];
+      const float tx = lx - npx, ty = ly - npy;
+      const float dist_l = sqrtf(fmaxf(tx * tx + ty * ty, 1e-20f));
+      const float cos_t = fmaxf(enx * (tx / dist_l) + eny * (ty / dist_l),
+                                0.0f);
+      const float total_dn = nds + dist_l;
+      const float geom = cos_t * 0.5f / (total_dn * total_dn);
+      float e[kMaxK];
+      float e_max = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) {
+        e[k] = r.en[k] * keep[k] * geom;
+        if (k < nk) e_max = k == 0 ? e[k] : fmaxf(e_max, e[k]);
+      }
+      if (!(e_max > kNeeCutoff)) continue;
+      const float vdx = (lx - sx) / dist_l, vdy = (ly - sy) / dist_l;
+      // The listener leg uses the rest-frame speed c, not the current one.
+      if (!occluded(sx, sy, vdx, vdy, dist_l, dist_l - kOcclusionSlack))
+        deposit<kMaxK>(sink, l, ntm + dist_l / c, e);
+    }
+  }
+
+  // --- absorption + cutoff (on the loudest band) ----------------------------
+  float nen[kMaxK];
+  float n_max = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {
+    nen[k] = r.en[k] * keep[k];
+    if (k < nk) n_max = k == 0 ? nen[k] : fmaxf(n_max, nen[k]);
+  }
+  if (!(n_max >= kEnergyCutoff)) return false;
+
+  const Uniforms uv = draw();
+
+  // --- transmission / refraction --------------------------------------------
+  const bool entering = d_dot_n < 0.0f;
+  const float nex = entering ? w_nx : -w_nx;
+  const float ney = entering ? w_ny : -w_ny;
+  const float wall_speed = c / w_ior;
+  const float next_speed =
+      entering ? wall_speed : (r.dep <= 1 ? c : wall_speed);
+  const float eta = next_speed / r.sp;
+  const float cosi = -(r.dx * nex + r.dy * ney);
+  const float cost2 = 1.0f - eta * eta * (1.0f - cosi * cosi);
+  const bool refr_ok = cost2 > 0.0f;
+  const bool transmit = (uv.u0 < w_trans) && refr_ok;
+
+  float ndx, ndy;
+  if (transmit) {
+    const float coef = eta * cosi - sqrtf(fabsf(cost2));
+    const float rx = eta * r.dx + coef * nex, ry = eta * r.dy + coef * ney;
+    float sj, cj;
+    sincosf((uv.u1 - 0.5f) * 2.0f * w_scat, &sj, &cj);
+    ndx = rx * cj - ry * sj;
+    ndy = rx * sj + ry * cj;
+    normalize2(ndx, ndy);
+  } else {
+    // --- reflection: specular/diffuse lerp ----------------------------------
+    const float dn2 = 2.0f * (r.dx * nex + r.dy * ney);
+    const float spx = r.dx - dn2 * nex, spy = r.dy - dn2 * ney;
+    float sd, cd;
+    sincosf(asinf(fminf(fmaxf(2.0f * uv.u2 - 1.0f, -1.0f), 1.0f)), &sd,
+            &cd);
+    const float ddx = nex * cd - ney * sd, ddy = nex * sd + ney * cd;
+    ndx = spx + (ddx - spx) * w_scat;
+    ndy = spy + (ddy - spy) * w_scat;
+    normalize2(ndx, ndy);
+  }
+
+  r.px = npx + (transmit ? ndx * kEps : nex * kEps);
+  r.py = npy + (transmit ? ndy * kEps : ney * kEps);
+  r.dx = ndx;
+  r.dy = ndy;
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) r.en[k] = nen[k];
+  r.tm = ntm;
+  r.ds = nds;
+  if (transmit) {
+    r.sp = next_speed;
+    r.dep = entering ? r.dep + 1 : max(0, r.dep - 1);
+  }
+  return true;
+}
+
+// Sum each thread's work over its warp and add it to work_out[3] (tests,
+// sweeps, slab tests) with one atomic per warp and counter. Every thread
+// of the warp must call it.
+__device__ __forceinline__ void add_work(Work work,
+                                         unsigned long long* work_out) {
+  for (int off = 16; off > 0; off >>= 1) {
+    work.tests += __shfl_down_sync(0xffffffffu, work.tests, off);
+    work.sweeps += __shfl_down_sync(0xffffffffu, work.sweeps, off);
+    work.slabs += __shfl_down_sync(0xffffffffu, work.slabs, off);
+  }
+  if ((threadIdx.x & 31) == 0 && work.sweeps) {
+    atomicAdd(work_out, work.tests);
+    atomicAdd(work_out + 1, work.sweeps);
+    if (work.slabs) atomicAdd(work_out + 2, work.slabs);
+  }
+}
+
+// out[e, i] = acc[e, i] / S_e over the [E, per_entry] accumulator.
+__global__ void fixed_to_float_kernel(const unsigned long long* __restrict__ acc,
+                                      const double* __restrict__ scales,
+                                      float* __restrict__ out, size_t n,
+                                      size_t per_entry) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n)
+    out[i] = static_cast<float>(static_cast<double>(acc[i]) /
+                                scales[i / per_entry]);
+}
+
+inline cudaError_t launch_fixed_to_float(const unsigned long long* acc,
+                                         const double* scales, float* out,
+                                         size_t n, size_t per_entry,
+                                         cudaStream_t stream) {
+  fixed_to_float_kernel<<<static_cast<unsigned int>((n + 255) / 256), 256, 0,
+                          stream>>>(acc, scales, out, n, per_entry);
+  return cudaGetLastError();
+}
+
+}  // namespace

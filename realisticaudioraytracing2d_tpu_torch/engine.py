@@ -5,12 +5,28 @@ Port of ``realisticaudioraytracing2d_tpu/engine.py`` (the reference's
 ``Assets/Script/RayTraceManager.cs:179-244``, and the legacy offline
 bake, ``RayTraceManagerComplex.cs:170-227``).
 
-Routing of :func:`trace_accumulate`: a CUDA scene goes to the hand
-kernel (``ops/cuda/bounce_kernel.py``: K4 with in-kernel Philox numbers
-for a seed, K3 when uniforms are given), a CPU scene to the plain path,
-and ``backend="plain"`` forces the plain path on either device (the JAX
-package's ``backend="jnp"``). A configuration the kernel does not take
-raises on CUDA; it is never rerouted.
+Routing of :func:`trace_accumulate` (the JAX package's
+``engine.py:110-136``, with the H100's limits in place of VMEM limits):
+
+* a CUDA scene of at most ``MAX_WALLS`` (5,280) walls goes to the bounce
+  kernel (``ops/cuda/bounce_kernel.py``: K4 with in-kernel Philox numbers
+  for a seed, K3 when uniforms are given), which keeps the whole wall
+  table in one block's shared memory;
+* a larger CUDA scene goes to the cluster kernels
+  (``ops/cuda/accel_kernel.py``): K8, with the Morton re-sort of the rays
+  between bounces, for K = 1, and K7 for 1 < K <= 8 bands;
+* ``backend="accel"`` forces the cluster path on any scene (K8 at K = 1,
+  K7 at K > 1), so both can be held against K4 on one scene. The port's
+  backend values are part of its API and mirror the JAX engine's
+  (``"auto"``, ``"accel"``, and ``"plain"`` for its ``"jnp"``), so code
+  written for one engine names the same routes on the other;
+* a CPU scene runs the plain path (``backend="accel"``: the cluster
+  kernels' plain versions), and ``backend="plain"`` forces the plain path
+  on either device (the JAX package's ``backend="jnp"``).
+
+A configuration the chosen kernel does not take raises on CUDA (a banded
+scene under the wall limit does, until K3/K4 get bands); it is never
+rerouted.
 """
 
 from __future__ import annotations
@@ -23,10 +39,11 @@ from .config import EngineConfig
 from .models.scene import Scene
 from .ops import convolve as cv
 from .ops import ir as irm
+from .ops.cuda import accel_kernel as ak
 from .ops.cuda import bounce_kernel as bk
 from .ops.trace import TraceParams
 
-_BACKENDS = ("auto", "plain")
+_BACKENDS = ("auto", "plain", "accel")
 
 
 def trace_accumulate(scene: Scene, params: TraceParams, state: irm.IRState,
@@ -47,7 +64,12 @@ def trace_accumulate(scene: Scene, params: TraceParams, state: irm.IRState,
                          f"{backend!r}")
     kw = dict(sample_rate=sample_rate, ir_length=state.ir_length)
     plain = backend == "plain"
-    if uniforms is None:
+    if backend == "accel" or (backend == "auto"
+                              and scene.device.type == "cuda"
+                              and scene.n_walls > bk.MAX_WALLS):
+        ir = _trace_accel(scene, params, seed, n_frames, uniforms,
+                          n_rays=n_rays, max_bounces=max_bounces, **kw)
+    elif uniforms is None:
         mega = bk.trace_frames_ir_mega_plain if plain \
             else bk.trace_frames_ir_mega
         ir = mega(scene, params, seed, n_frames, n_rays=n_rays,
@@ -64,6 +86,24 @@ def trace_accumulate(scene: Scene, params: TraceParams, state: irm.IRState,
             else bk.trace_frames_ir_whole
         ir = whole(scene, params, emit, u, **kw)
     return irm.IRState(sum=state.sum + ir, frames=state.frames + n_frames)
+
+
+def _trace_accel(scene: Scene, params: TraceParams, seed: int,
+                 n_frames: int, uniforms, **kw) -> torch.Tensor:
+    """The cluster path: K8 for K = 1, K7 for banded scenes, or their
+    plain versions on a CPU scene. Host ``uniforms`` reach only the plain
+    versions: the kernels draw their own numbers."""
+    sorted_path = scene.n_bands == 1
+    if scene.device.type != "cuda":
+        plain = (ak.trace_frames_ir_accel_sorted_plain if sorted_path
+                 else ak.trace_frames_ir_accel_plain)
+        return plain(scene, params, seed, n_frames, uniforms=uniforms, **kw)
+    if uniforms is not None:
+        raise ValueError("the cluster kernels draw their own numbers: "
+                         "uniforms= needs backend='plain'")
+    kernel = (ak.trace_frames_ir_accel_sorted if sorted_path
+              else ak.trace_frames_ir_accel)
+    return kernel(scene, params, seed, n_frames, **kw)
 
 
 def bake_audio(dry: torch.Tensor, state: irm.IRState, *,

@@ -5,8 +5,7 @@ Port of ``realisticaudioraytracing2d_tpu/models/rooms.py``:
 wall-for-wall (``Assets/Scenes/SmollRoom.unity``, ``Big Room.unity``),
 ``sample_scene()`` the repaired SampleScene and ``shoebox_room()`` a
 rectangular room, ``random_rooms()`` the procedural room dataset of the
-sweep. The large-scene ``city_scene`` waits for the cluster kernels
-K7/K8 (ROADMAP queue 2).
+sweep and ``city_scene()`` the large scene of the cluster kernels K7/K8.
 """
 
 from __future__ import annotations
@@ -182,3 +181,33 @@ def random_rooms(n_rooms: int, seed: int = 0, n_obstacles: int = 3,
     return (Scene.stack(scenes).to(resolve(device)),
             np.asarray(sources, np.float32),
             np.asarray(listeners, np.float32))
+
+
+def city_scene(n_boxes: int = 2500, seed: int = 0, extent: float = 500.0,
+               n_bands: int = 1, device=None) -> RoomSetup:
+    """Large-scene fixture: a bordered 'city' of randomly placed and
+    rotated box obstacles, ``4 * n_boxes + 4`` walls (padded to a multiple
+    of 8). It exercises the cluster-early-out path (``ops/accel.py``,
+    ``ops/cuda/accel_kernel.py``) at wall counts far beyond the
+    reference's scenes. The numpy draws are the JAX package's in the same
+    order, so for one seed the arrays equal its ``city_scene`` bit for
+    bit."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(n_bands=n_bands)
+    border = _bands(MATERIAL_BORDER, n_bands)
+    interior = _bands(MATERIAL_INTERIOR, n_bands)
+    b.add_box(border, Transform2D(position=(0.0, 0.0), scale=(1.0, 1.0)),
+              size=(2 * extent, 2 * extent))
+    for _ in range(n_boxes):
+        tf = Transform2D(
+            position=(float(rng.uniform(-extent * 0.95, extent * 0.95)),
+                      float(rng.uniform(-extent * 0.95, extent * 0.95))),
+            angle=float(rng.uniform(0, np.pi)))
+        b.add_box(interior, tf,
+                  size=(float(rng.uniform(1.0, 8.0)),
+                        float(rng.uniform(1.0, 8.0))))
+    return RoomSetup(scene=b.build(device=device),
+                     source=np.asarray([0.0, 0.0], np.float32),
+                     listener=np.asarray([extent * 0.2, extent * 0.1],
+                                         np.float32),
+                     listener_radius=2.0, builder=b)

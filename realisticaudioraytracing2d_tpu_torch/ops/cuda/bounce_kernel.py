@@ -60,12 +60,13 @@ def _kernel_fn():
 
 
 def _check_supported(n_bands: int, n_walls: int, n_listeners: int,
-                     directive: bool) -> None:
+                     directive: bool, batch: bool = False) -> None:
     if n_bands != 1:
         raise NotImplementedError(
             f"the CUDA bounce kernel traces K=1 only (scene has K="
-            f"{n_bands}); the banded kernel is still to port (ROADMAP "
-            "queue 2, K3/K4/K9 with K>1). backend='plain' traces bands.")
+            f"{n_bands}); K3/K4/K9 with bands are still to port (ROADMAP "
+            "queue 2). backend='accel' traces up to 8 bands through the "
+            "cluster kernel K7, backend='plain' any.")
     if directive:
         raise NotImplementedError(
             "directive sources/microphones are still to port to the CUDA "
@@ -74,16 +75,26 @@ def _check_supported(n_bands: int, n_walls: int, n_listeners: int,
         raise NotImplementedError(
             f"{n_listeners} listeners exceed the kernel's {MAX_LISTENERS}-"
             "listener table; blocked listener launches are still to port")
-    if n_walls > MAX_WALLS:
+    if n_walls > MAX_WALLS and batch:
         raise NotImplementedError(
-            f"{n_walls} walls exceed the kernel's shared-memory limit "
-            f"of {MAX_WALLS}; large scenes need the cluster kernels K7/K8, "
-            "still to port (ROADMAP queue 2)")
+            f"{n_walls} walls exceed the bounce kernel's shared-memory "
+            f"limit of {MAX_WALLS}; sweeps and mixdowns of such scenes are "
+            "still to port (ROADMAP queue 2), the cluster kernels K7/K8 "
+            "trace one such scene")
+    if n_walls > MAX_WALLS:
+        raise ValueError(
+            f"{n_walls} walls exceed the bounce kernel's shared-memory "
+            f"limit of {MAX_WALLS}; the cluster kernels K7/K8 "
+            "(ops/cuda/accel_kernel.py) trace such scenes, and "
+            "engine.trace_accumulate routes them there")
 
 
 def check_kernel_supported(scene: Scene, params: TraceParams) -> None:
-    """Raise ``NotImplementedError`` for a configuration the kernel does not
-    take. Such configurations are never rerouted to the plain path."""
+    """Raise for a configuration the kernel does not take
+    (``NotImplementedError`` for what is still to port, ``ValueError`` for
+    a scene past :data:`MAX_WALLS`, which ``engine.trace_accumulate``
+    sends to the cluster kernels). Such configurations are never rerouted
+    to the plain path."""
     check_single_source(params)
     _check_supported(scene.n_bands, scene.n_walls,
                      params.listeners.shape[0],
@@ -96,7 +107,7 @@ def check_batch_supported(scenes: Scene, listeners: torch.Tensor) -> None:
     ``[E or 1, W, ...]`` and listeners ``[E, L, 2]``. The batch path
     takes no directivity argument, so omni is the only case."""
     _check_supported(scenes.n_bands, scenes.n_walls, listeners.shape[-2],
-                     False)
+                     False, batch=True)
 
 
 def _check_tensor(name, x, device, shape=None, dtype=torch.float32):
@@ -170,7 +181,7 @@ def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
         _check_tensor(name, x, dev)
     _check_tensor("scales", scales, dev, (n_e,), torch.float64)
     if work_counts is not None:
-        _check_tensor("work_counts", work_counts, dev, (2,), torch.int64)
+        _check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
     n_walls = walls.shape[-1]
     acc = torch.empty((n_e, n_l, ir_length), dtype=torch.int64, device=dev)
     out = torch.empty((n_e, n_l, ir_length, 1), dtype=torch.float32,
@@ -262,10 +273,11 @@ def trace_frames_ir_mega(scene: Scene, params: TraceParams, seed: int,
     (Philox-4x32-10 under the key of ``seed``) -> frame-summed IR
     ``[L, T, 1]``. CPU scenes run :func:`trace_frames_ir_mega_plain`.
 
-    ``work_counts`` (K3, K4 and K9 alike): an int64 CUDA tensor ``[2]`` to
-    which the launch adds the wall tests it really made and the wall
-    sweeps (nearest or occlusion) they belong to, for a bound computed
-    from the run's data (``chip_smoke.py``)."""
+    ``work_counts`` (K3, K4 and K9 alike): an int64 CUDA tensor ``[3]`` to
+    which the launch adds the wall tests it really made, the wall sweeps
+    (nearest or occlusion) they belong to and its slab tests (none here;
+    the cluster kernels make them), for a bound computed from the run's
+    data (``chip_smoke.py``)."""
     if scene.device.type != "cuda":
         return trace_frames_ir_mega_plain(
             scene, params, seed, n_frames, n_rays=n_rays,

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels: ``nvcc`` + ``ctypes``.
 
 Every ``csrc/*.cu`` file is compiled once, at first use, into one shared
-library with a plain C interface, for Hopper (``sm_90a``) only. The
-library goes to ``<repository>/build/torch_kernels/`` under a name that
-carries a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one is loaded as it is. A failed build raises with nvcc's
-output; nothing falls back to the plain PyTorch versions.
+library with a plain C interface, for Hopper (``sm_90a``) only: one
+``nvcc`` per source, all started together, then one link. The library
+goes to ``<repository>/build/torch_kernels/`` under a name that carries a
+hash of the sources, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds and an unchanged one is loaded as it is. A
+failed build raises with nvcc's output; nothing falls back to the plain
+PyTorch versions.
 
 Nothing here runs at import time: the CPU tests import every module on
 machines that have no ``nvcc``.
@@ -31,8 +33,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 # the plain PyTorch version it is held against. -Xptxas -v records each
 # kernel's registers, shared memory and spills in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> list:
@@ -41,7 +42,7 @@ def sources() -> list:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(SOURCE_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -74,21 +75,30 @@ def build() -> float:
     if lib.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(compiles, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode}:\n"
+                    f"{' '.join(cmd)}\n{log}")
+        so = os.path.join(tmp, lib.name)
+        link = [nvcc, "-shared", "-o", so, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: concurrent builders load either copy
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        lib.with_suffix(".log").write_text("".join(logs))
+        os.replace(so, lib)  # atomic: concurrent builders load either copy
     return time.perf_counter() - t0
 
 

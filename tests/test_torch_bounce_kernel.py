@@ -123,7 +123,7 @@ def test_kernel_support_checks():
                             device="cpu")
     with pytest.raises(NotImplementedError, match="listeners"):
         bk.check_kernel_supported(room.scene, many)
-    with pytest.raises(NotImplementedError, match="K7/K8"):
+    with pytest.raises(ValueError, match="K7/K8"):
         bk.check_kernel_supported(room.scene.pad_to(bk.MAX_WALLS + 1), p)
     assert bk.MAX_WALLS == 5280
 

@@ -1,6 +1,8 @@
 """PyTorch port on the card: the CUDA bounce kernel (K3, K4 and the
-rooms-batched K9 modes of ``csrc/bounce_kernel.cu``) against its plain
-PyTorch version, its determinism, its launch counts, the sweep and the
+rooms-batched K9 modes of ``csrc/bounce_kernel.cu``) and the cluster
+kernels of the large-scene path (K7, K8 of ``csrc/accel_kernel.cu``)
+against their plain PyTorch versions, their determinism, their launch
+counts, the engine's routing by wall and band count, the sweep and the
 mixdown on the card, and the wrappers' refusals.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
@@ -12,7 +14,9 @@ Tolerances: the kernel and the plain version see the same uniforms and
 compute every hit in the same IEEE order; only the binning sums differ
 (u64 fixed point vs float ``index_add_``), which reads below 1e-7 on an
 H100. Energy and per-bin L1 within 1e-5 (a few hits of average energy
-moving bin would exceed it), the first nonzero bin equal."""
+moving bin would exceed it), the first nonzero bin equal. The cluster
+kernels only skip work: early_out on or off, and K4, K7 (K = 1) and K8 on
+one sorted scene, give the same bits."""
 
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ import realisticaudioraytracing2d_tpu_torch as art
 from realisticaudioraytracing2d_tpu_torch.models import rooms
 from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
 from realisticaudioraytracing2d_tpu_torch.ops import rng
+from realisticaudioraytracing2d_tpu_torch.ops.cuda import accel_kernel as ak
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import bounce_kernel as bk
 from realisticaudioraytracing2d_tpu_torch.ops.trace import (TraceParams,
                                                             emission_angle)
@@ -270,3 +275,152 @@ def test_rooms_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         sweep_rooms(scenes, src, lis, 0,
                     uniforms=rng.philox_uniforms(0, 1, 2, 256, cuda_device),
                     **kw)
+
+
+# --- the large-scene path: K7 and K8 -----------------------------------------
+
+ACCEL_KW = dict(n_rays=4096, max_bounces=5, sample_rate=16000,
+                ir_length=24000)
+
+
+def _city(device, n_boxes, n_bands=1):
+    """A city on the card with the JAX bench's parameters (gain 100)."""
+    room = rooms.city_scene(n_boxes, n_bands=n_bands, device=device)
+    return room.scene, TraceParams.make(room.source, room.listener,
+                                        room.listener_radius, 343.0, 100.0,
+                                        device=device)
+
+
+def _launch_counts():
+    return (bk.trace_frames_ir_whole.launches,
+            bk.trace_frames_ir_mega.launches,
+            ak.trace_frames_ir_accel.launches,
+            ak.trace_frames_ir_accel_sorted.launches)
+
+
+@cuda
+@pytest.mark.parametrize("kernel,n_bands", [("K7", 1), ("K7", 8),
+                                            ("K8", 1)])
+def test_accel_kernels_match_plain(cuda_device, kernel, n_bands):
+    scene, params = _city(cuda_device, 300, n_bands)
+    fn, plain = ((ak.trace_frames_ir_accel, ak.trace_frames_ir_accel_plain)
+                 if kernel == "K7" else
+                 (ak.trace_frames_ir_accel_sorted,
+                  ak.trace_frames_ir_accel_sorted_plain))
+    got = fn(scene, params, 21, 2, **ACCEL_KW)
+    want = plain(scene, params, 21, 2, **ACCEL_KW)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (1, 24000, n_bands)
+    for k in range(n_bands):
+        _assert_close_irs(got[..., k], want[..., k])
+
+
+@cuda
+def test_accel_early_out_is_lossless(cuda_device):
+    scene, params = _city(cuda_device, 1200)
+    banded, bparams = _city(cuda_device, 1200, 8)
+    for fn, sc, p in ((ak.trace_frames_ir_accel, scene, params),
+                      (ak.trace_frames_ir_accel_sorted, scene, params),
+                      (ak.trace_frames_ir_accel, banded, bparams)):
+        work = [torch.zeros(3, dtype=torch.int64, device=cuda_device)
+                for _ in range(2)]
+        on = fn(sc, p, 3, 2, work_counts=work[0], **ACCEL_KW)
+        off = fn(sc, p, 3, 2, early_out=False, work_counts=work[1],
+                 **ACCEL_KW)
+        torch.cuda.synchronize()
+        assert float(on.sum()) > 0 and torch.equal(on, off)
+        (tests_on, sweeps_on, slabs_on), (tests_off, sweeps_off, slabs_off) \
+            = (w.tolist() for w in work)
+        assert sweeps_on == sweeps_off and slabs_on > 0 and slabs_off == 0
+        assert tests_on < tests_off / 4
+
+
+@cuda
+def test_k4_k7_k8_are_bit_identical_on_a_sorted_city(cuda_device):
+    scene, params = _city(cuda_device, 1200)
+    sorted_scene = ak.prepare(scene).scene
+    assert scene.n_walls == 4808 and sorted_scene.n_walls <= bk.MAX_WALLS
+    k4 = bk.trace_frames_ir_mega(sorted_scene, params, 8, 3, **ACCEL_KW)
+    k7 = ak.trace_frames_ir_accel(scene, params, 8, 3, **ACCEL_KW)
+    k8 = ak.trace_frames_ir_accel_sorted(scene, params, 8, 3, **ACCEL_KW)
+    torch.cuda.synchronize()
+    assert float(k4.sum()) > 0
+    assert torch.equal(k7, k4) and torch.equal(k8, k4)
+
+
+@cuda
+def test_routing_by_wall_and_band_count(cuda_device):
+    def run(scene, params, n_bands=1, backend="auto"):
+        before = _launch_counts()
+        st = art.trace_accumulate(
+            scene, params, art.IRState.zeros(24000, 1, n_bands,
+                                             device=cuda_device),
+            n_rays=4096, max_bounces=5, sample_rate=16000, n_frames=2,
+            seed=1, backend=backend)
+        torch.cuda.synchronize()
+        assert float(st.sum.sum()) > 0
+        return tuple(a - b for a, b in zip(_launch_counts(), before))
+
+    small, p_small = _setup(cuda_device, gain=100.0)
+    big, p_big = _city(cuda_device, 1500)          # 6,004 walls
+    banded, p_banded = _city(cuda_device, 1500, 4)
+    assert big.n_walls > bk.MAX_WALLS
+    assert run(small, p_small) == (0, 1, 0, 0)               # K4
+    assert run(big, p_big) == (0, 0, 0, 5)                   # K8, B launches
+    assert run(banded, p_banded, 4) == (0, 0, 1, 0)          # K7
+    assert run(small, p_small, backend="accel") == (0, 0, 0, 5)
+    small_banded, p_sb = _city(cuda_device, 300, 4)
+    assert run(small_banded, p_sb, 4, backend="accel") == (0, 0, 1, 0)
+    with pytest.raises(NotImplementedError, match="K=1"):
+        run(small_banded, p_sb, 4)
+    with pytest.raises(ValueError, match="K7/K8"):
+        bk.trace_frames_ir_mega(big, p_big, 0, 1, **ACCEL_KW)
+    with pytest.raises(ValueError, match="uniforms"):
+        art.trace_accumulate(
+            big, p_big, art.IRState.zeros(24000, device=cuda_device),
+            n_rays=256, max_bounces=2, sample_rate=16000,
+            uniforms=rng.philox_uniforms(0, 1, 2, 256, cuda_device))
+
+
+@cuda
+def test_k8_refuses_an_order_table_that_is_not_its_grid(cuda_device):
+    # the wrapper's BLOCK sizes the order table, the library's block size
+    # the grid: a table of another row count is refused before any launch
+    prep = ak.prepare(_city(cuda_device, 1500)[0])
+    fn = ak._fn("art_accel_bounce", ak._BOUNCE_ARGTYPES)
+    n_slots = 1000
+    rows = -(-n_slots // ak.BLOCK)
+    for wrong in (rows - 1, rows + 1):
+        err = fn(prep.walls.data_ptr(), prep.walls.shape[1],
+                 prep.aabb.data_ptr(), prep.saabb.data_ptr(), None, wrong,
+                 prep.n_clusters, prep.group, prep.cluster_size, None, 1,
+                 None, 16000.0, 0, 0, n_slots, n_slots, 1, 0, 100, None,
+                 None, None, None, 1, None, None)
+        assert err == 1          # cudaErrorInvalidValue
+
+
+@cuda
+def test_cuda_city_never_runs_the_plain_version(cuda_device, monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    for mod, name in ((bk, "trace_frames_ir_plain"),
+                      (bk, "trace_frames_ir_mega_plain"),
+                      (ak, "trace_frames_ir_accel_plain"),
+                      (ak, "trace_frames_ir_accel_sorted_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    scene, params = _city(cuda_device, 1500)
+    cfg = art.EngineConfig(sim=art.SimConfig(ray_count=4096, max_bounces=5,
+                                             listener_radius=2.0,
+                                             input_gain=100.0))
+    before = ak.trace_frames_ir_accel_sorted.launches
+    eng = art.Engine(scene, cfg)
+    st = eng.trace_frames(params, seed=2, n_frames=2)
+    dry = torch.zeros(9600, device=cuda_device)
+    dry[100] = 1.0
+    out = art.Streamer(scene, cfg, seed=1).stream_clip(
+        dry, lambda i: params, total_chunks=3)
+    torch.cuda.synchronize()
+    assert ak.trace_frames_ir_accel_sorted.launches == before + 4 * 5
+    assert float(st.sum.sum()) > 0 and st.frames == 2
+    assert bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0
