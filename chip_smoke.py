@@ -16,7 +16,11 @@ every kernel against its plain PyTorch version:
   the procedural city of 40,008 and 100,016 walls at 131,072 rays x 6
   bounces x 4 frames, 16 kHz, 24,000 bins, gain 100, through
   ``trace_accumulate(backend="auto")`` and the cluster kernel K8, the
-  8-band city through K7, and the stream on a 10,008-wall city through K8.
+  8-band city through K7, and the stream on a 10,008-wall city through K8;
+* the hit-record path, ``cli trace`` and ``cli bake [--legacy]`` at their
+  defaults (SmollRoom 15,000 rays x 5 bounces x 8 frames, 72,000 bins, 100
+  debug rays; Big Room; the legacy IR of 562 time bins x 128 slots),
+  through the wall sweeps K1/K2 and the per-bounce step kernel K5/K6.
 
 Phases:
 
@@ -68,6 +72,24 @@ Phases:
    chunks of clicks + 15 tail chunks through K8 (5 launches per chunk, no
    K3/K4), K8 against its plain version at the stream's shape, the chunk
    time;
+10. the hit-record path. 10a: K1 and K2 against their plain versions on
+   the rays of a real trace (SmollRoom and Big Room at 131,072 rays,
+   bounce 0 and bounce 3; the 10,008-wall city with two listeners, the
+   plain versions over slices of rays): distances and indices equal. 10b:
+   ``trace(use_kernels=True)`` against the plain trace at 15,000 x 5 and
+   131,072 x 8, one and two listeners: ``valid`` equal, delays and
+   energies equal under it, the debug paths of 100 rays equal. 10c: K5's
+   rows equal the plain rows and its hits the plain hits; its rows binned
+   in float against K3's IR within SAME_ENERGY / SAME_L1; reruns
+   bit-identical; B launches per frame. 10d: K6 == K3 bit for bit (one and
+   two listeners, and at 131,072 x 8), with a seed == K4, and against its
+   plain version. 10e: ``cli trace --room smoll`` at its defaults with
+   every output, resumed with ``--ir-in`` (16 frames, held against a fresh
+   16-frame run: energy within 2%), ``cli trace --room big``, ``--stereo``,
+   ``cli bake`` and ``cli bake --legacy`` (twice: the same bytes) on a
+   click clip, ``trace_accumulate_fused`` with and without
+   ``exact_scatter``; the launch counts are reset before and read after
+   each; the float scatters of the path rerun bit-identical;
 5. timings with CUDA events after a warm-up, device times from the
    profiler, and each kernel's bound (the larger of its bytes over 3.35
    TB/s and its FP32 operations over 67 TFLOP/s, the operations counted
@@ -79,26 +101,37 @@ mixdown's, K8 at the city stream's (15,000 x 5 x 1 frame, 10,008 walls)
 and K7 at the banded city's (131,072 x 6 x 4 frames, 8 bands, 40,008
 walls; its plain time is that of the comparison over slices of rays), so
 that ``ms``, ``plain_ms`` and ``bound_ms`` are of one call; K8's
-full-width times are in the [8] lines.
+full-width times are in the [8] lines. K1 and K2 are timed on the rays
+``cli trace --scene-out`` gives them (15,000 rays at bounce 3, 24 walls),
+K5 and K6 at one 15,000 x 5 frame; their times at 131,072 rays and on the
+city are in the [5] lines.
 
 Prints one JSON line of kernels, the card line, and last the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1).
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
 
+import contextlib
+import io
 import json
 import os
+import re
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/bounce_kernel.cu"
 ACCEL_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/accel_kernel.cu"
+STEP_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/step_kernel.cu"
+SWEEP_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/trace_kernel.cu"
 PALLAS = "realisticaudioraytracing2d_tpu/ops/pallas/bounce_kernel.py"
+PALLAS_SWEEPS = "realisticaudioraytracing2d_tpu/ops/pallas/trace_kernel.py"
 SR, T, CHUNK = 48000, 72000, 4800           # the shipped SmollRoom audio
 RAYS, BOUNCES = 15000, 5                     # the shipped SmollRoom trace
 BIG_RAYS, BIG_BOUNCES, BIG_FRAMES = 131072, 8, 8   # bench.py's frame
@@ -159,19 +192,22 @@ def kernel_device_ms(torch, fn, reps, name="frames_ir_kernel"):
     """Device time per call of ``fn`` of the kernels whose name holds
     ``name`` (all of a call's launches: one for K3/K4/K7/K9, one per
     bounce for K8), over ``reps`` calls, from the profiler's CUDA events
-    (None if it records none). The wrapper's own small launches are left
-    out."""
+    (None if it records none in three tries). The wrapper's own small
+    launches are left out."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and name in e.name]
-    return sum(us) / reps / 1e3 if us else None
+    for _ in range(3):      # a short trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        if us:
+            return sum(us) / reps / 1e3
+    return None
 
 
 def bound(counts, n_bytes):
@@ -209,6 +245,21 @@ def free_spot(scene, near):
     return pts[int(torch.argmin(dist))]
 
 
+def read_png(path):
+    """Decode a PNG as the port writes it (8-bit RGB, filter 0, one IDAT
+    chunk) into ``[H, W, 3]`` uint8."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    check(raw[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: PNG signature")
+    w, h, depth, color = struct.unpack(">IIBB", raw[16:26])
+    n = struct.unpack(">I", raw[33:37])[0]
+    check((depth, color) == (8, 2) and raw[37:41] == b"IDAT",
+          f"{path}: 8-bit RGB, one IDAT")
+    rows = np.frombuffer(zlib.decompress(raw[41:41 + n]), np.uint8
+                         ).reshape(h, 1 + 3 * w)
+    return rows[:, 1:].reshape(h, w, 3)
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -223,18 +274,24 @@ def main():
     import realisticaudioraytracing2d_tpu_torch as art
     from realisticaudioraytracing2d_tpu_torch import cli
     from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
-    from realisticaudioraytracing2d_tpu_torch.ops import rng
+    from realisticaudioraytracing2d_tpu_torch.ops import ir as irm
+    from realisticaudioraytracing2d_tpu_torch.ops import legacy, rng
+    from realisticaudioraytracing2d_tpu_torch.ops import trace as tt
     from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
         accel_kernel as ak
     from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
         bounce_kernel as bk
     from realisticaudioraytracing2d_tpu_torch.ops.cuda import build
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
+        trace_kernel as tk
     from realisticaudioraytracing2d_tpu_torch.parallel.multisource import \
         trace_sources_mixdown
     from realisticaudioraytracing2d_tpu_torch.parallel.sweep import \
         sweep_rooms
-    from realisticaudioraytracing2d_tpu_torch.utils.audio_io import \
-        click_clip
+    from realisticaudioraytracing2d_tpu_torch.utils.audio_io import (
+        click_clip, read_wav, write_wav)
+    from realisticaudioraytracing2d_tpu_torch.utils.checkpoint import \
+        load_ir_state
 
     # --- 0. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -267,18 +324,21 @@ def main():
           f"{int(torch.log2(s50))} at {BIG_RAYS} x {BIG_BOUNCES} x 50 "
           "frames", flush=True)
     kw = dict(sample_rate=SR, ir_length=T)
-    errs = {"K3": 0.0, "K4": 0.0, "K9": 0.0, "K7": 0.0, "K8": 0.0}
+    errs = {"K3": 0.0, "K4": 0.0, "K9": 0.0, "K7": 0.0, "K8": 0.0,
+            "K1": 0.0, "K2": 0.0, "K5": 0.0, "K6": 0.0}
 
     def same_numbers(tag, kernel, got, want):
         """Kernel vs plain on the same uniforms: energy, first nonzero bin,
-        per-bin L1 (limits at the top); keeps the max abs error in errs."""
+        per-bin L1 (limits at the top); keeps the max abs error in errs
+        (``kernel`` None: in none)."""
         torch.cuda.synchronize()
         g, w = got.cpu().numpy().ravel(), want.cpu().numpy().ravel()
         check(np.isfinite(g).all() and w.sum() > 0, f"{tag}: IR finite")
         e_rel = abs(g.sum() - w.sum()) / w.sum()
         first_g, first_w = np.flatnonzero(g)[0], np.flatnonzero(w)[0]
         err = float(np.abs(g - w).max())
-        errs[kernel] = max(errs[kernel], err)
+        if kernel is not None:
+            errs[kernel] = max(errs[kernel], err)
         print(f"{tag}: energy {e_rel:.2e} (< {SAME_ENERGY:g}), first bin "
               f"{first_g}/{first_w}, L1 {l1(g, w):.2e} (< {SAME_L1:g}), max "
               f"abs {err:.3e} of peak {w.max():.3e}", flush=True)
@@ -376,7 +436,9 @@ def main():
 
     wrappers = {"K3": bk.trace_frames_ir_whole, "K4": bk.trace_frames_ir_mega,
                 "K9": bk.trace_rooms_ir_mega, "K7": ak.trace_frames_ir_accel,
-                "K8": ak.trace_frames_ir_accel_sorted}
+                "K8": ak.trace_frames_ir_accel_sorted, "K1": tk.nearest_hit,
+                "K2": tk.occlusion_min, "K5": bk.trace_fused_rows,
+                "K6": bk.trace_frame_ir_fused}
 
     def only(**n):
         """The launch counts of a run that launched only ``n``."""
@@ -748,6 +810,339 @@ def main():
           f"{ms_city:.3f} ms per 100 ms chunk = {100.0 / ms_city:.1f}x "
           f"realtime on {card}", flush=True)
 
+    # --- 10. the hit-record path: K1, K2, K5, K6 ---------------------------
+    sc = smoll.scene
+    big_room, _, big_p = setup(art.rooms.big_room, art.big_room_config())
+    ears = torch.stack([smoll_p.listeners[0],
+                        smoll_p.listeners[0] + smoll_p.listeners.new_tensor(
+                            [1.5, 0.5])])
+    smoll_p2 = smoll_p._replace(listeners=ears)
+    p_9two = p_9._replace(listeners=torch.stack(
+        [p_9.listeners[0], free_spot(scene_9, p_9.source)]))
+    LATER = 3
+
+    def ray_states(scene, p, n_rays, seed):
+        """(origin, direction) of the rays of a real trace of ``seed`` at
+        bounce 0 and before bounce ``LATER``."""
+        emit, u = rng.philox_uniforms(seed, 1, LATER, n_rays, dev)
+        walls = tk.pack_walls(scene)
+        st = tt._emit(p, n_rays, scene.n_bands, emit[0])
+        first = (st.pos, st.dir)
+        for b in range(LATER):
+            st, _ = tt._bounce(scene, p, st, u[0, b], walls)
+        return first, (st.pos, st.dir)
+
+    def shadow_rays(p, o):
+        """The shadow rays from ``o[R, 2]`` to every listener: ``[R, L, 2]``
+        origins and unit directions, the occlusion pass's input shape."""
+        to_lis = p.listeners[None] - o[:, None]
+        d = to_lis / to_lis.norm(dim=-1, keepdim=True).clamp(min=1e-10)
+        return o[:, None].expand_as(d).contiguous(), d
+
+    # 10a. K1 and K2 against their plain versions on the rays of a trace
+    sweep_tests = {"K1": 0, "K2": 0}
+    for name, scene, p in (("SmollRoom", sc, smoll_p),
+                           ("Big Room", big_room.scene, big_p),
+                           ("city_scene(2500), 2 listeners", scene_9,
+                            p_9two)):
+        walls = tk.pack_walls(scene)
+        n_l = p.listeners.shape[0]
+        step = max(256, PLAIN_ELEMENTS // (scene.n_walls * n_l))
+        for at, (o, d) in zip((0, LATER), ray_states(scene, p, BIG_RAYS, 20)):
+            t, idx = tk.nearest_hit(o, d, walls)
+            so, sd = shadow_rays(p, o)
+            occ = tk.occlusion_min(so, sd, walls)
+            torch.cuda.synchronize()
+            equal = True
+            for r0 in range(0, BIG_RAYS, step):
+                sl = slice(r0, r0 + step)
+                t_p, idx_p = tk.nearest_hit_plain(o[sl], d[sl], walls)
+                occ_p = tk.occlusion_min_plain(so[sl], sd[sl], walls)
+                errs["K1"] = max(errs["K1"], float((t[sl] - t_p).abs().max()))
+                errs["K2"] = max(errs["K2"],
+                                 float((occ[sl] - occ_p).abs().max()))
+                equal &= torch.equal(t[sl], t_p) and torch.equal(
+                    idx[sl], idx_p) and torch.equal(occ[sl], occ_p)
+            sweep_tests["K1"] += BIG_RAYS * scene.n_walls
+            sweep_tests["K2"] += BIG_RAYS * n_l * scene.n_walls
+            hit = float((idx >= 0).float().mean())
+            blocked = float((occ < 1e8).float().mean())
+            print(f"[10a] K1/K2 vs plain, {name}, {scene.n_walls} walls, "
+                  f"{BIG_RAYS} rays at bounce {at} (plain over slices of "
+                  f"{step} rays): distances, indices and occlusion minima "
+                  f"equal: {equal}; {hit:.3f} of the rays hit a wall, "
+                  f"{blocked:.3f} of the {BIG_RAYS * n_l} shadow rays cross "
+                  "one", flush=True)
+            check(equal, f"10a {name} bounce {at}: K1/K2 == plain")
+            check(hit > 0.5, f"10a {name} bounce {at}: most rays hit a wall")
+    print(f"[10a] wall tests compared: K1 {sweep_tests['K1']}, K2 "
+          f"{sweep_tests['K2']}; max abs error K1 {errs['K1']}, K2 "
+          f"{errs['K2']}", flush=True)
+
+    # 10b. trace(use_kernels=True) against the plain trace
+    def hits_equal(tag, got, want):
+        v = want.valid
+        n_valid = int(v.sum())
+        ok = (torch.equal(got.valid, v)
+              and torch.equal(got.delay[v], want.delay[v])
+              and torch.equal(got.energy[v], want.energy[v]))
+        print(f"{tag}: {n_valid} valid hits of {v.numel()}; valid equal, "
+              f"delays and energies equal under it: {ok}", flush=True)
+        check(n_valid > 0 and ok, tag)
+
+    shapes = ((RAYS, BOUNCES), (BIG_RAYS, BIG_BOUNCES))
+    for n_rays, n_b in shapes:
+        emit, u = rng.philox_uniforms(21, 1, n_b, n_rays, dev)
+        for p in (smoll_p, smoll_p2):
+            got, dbg = tt.trace(sc, p, emit[0], u[0], n_debug=100,
+                                use_kernels=True)
+            want, dbg_p = tt.trace(sc, p, emit[0], u[0], n_debug=100)
+            hits_equal(f"[10b] trace(use_kernels=True) vs plain trace, "
+                       f"SmollRoom {n_rays} x {n_b}, "
+                       f"{p.listeners.shape[0]} listener(s)", got, want)
+            check(tuple(dbg.pos.shape) == (n_b + 1, 100, 2) and all(
+                torch.equal(a, b) for a, b in zip(dbg, dbg_p)),
+                "10b: the debug paths of 100 rays equal the plain ones")
+    del got, want
+
+    # 10c. K5: rows and hits against plain, rows binned against K3
+    for n_rays, n_b in shapes:
+        emit, u = rng.philox_uniforms(22, 1, n_b, n_rays, dev)
+        e1, u1 = emit[0], u[0]
+        rows, launched = counted(lambda: bk.trace_fused_rows(sc, smoll_p, e1,
+                                                             u1))
+        check(launched == only(K5=n_b), f"10c: K5 launch counts {launched}")
+        rows_p = bk.trace_fused_rows_plain(sc, smoll_p, e1, u1)
+        errs["K5"] = max(errs["K5"], float((rows - rows_p).abs().max()))
+        check(torch.equal(rows, rows_p), "10c: K5 rows == plain rows")
+        check(torch.equal(rows, bk.trace_fused_rows(sc, smoll_p, e1, u1)),
+              "10c: K5 rerun bit-identical")
+        hits_equal(f"[10c] K5 trace_fused vs plain hits, SmollRoom {n_rays} x"
+                   f" {n_b}, launches {launched['K5']}",
+                   bk.trace_fused(sc, smoll_p, e1, u1),
+                   tt.trace_hits_only(sc, smoll_p, e1, u1))
+        ir_rows = bk.scatter_hits_rows(rows, SR, T)
+        check(torch.equal(ir_rows, bk.scatter_hits_rows(rows, SR, T)),
+              "10c: scatter_hits_rows rerun bit-identical")
+        same_numbers(f"[10c] scatter_hits_rows(K5 rows) vs K3's IR, {n_rays} "
+                     f"x {n_b}, same uniforms", None, ir_rows,
+                     bk.trace_frames_ir_whole(sc, smoll_p, emit, u, **kw))
+    del rows, rows_p, ir_rows
+
+    # 10d. K6 == K3 == K4 bit for bit, and against its plain version
+    emit, u = rng.philox_uniforms(23, 1, BOUNCES, RAYS, dev)
+    for p in (smoll_p, smoll_p2):
+        n_l = p.listeners.shape[0]
+        k6, launched = counted(lambda: bk.trace_frame_ir_fused(
+            sc, p, emit[0], u[0], **kw))
+        check(launched == only(K6=BOUNCES),
+              f"10d: K6 launch counts {launched}")
+        seeded = bk.trace_frame_ir_fused(sc, p, seed=23, n_rays=RAYS,
+                                         max_bounces=BOUNCES, **kw)
+        k3 = bk.trace_frames_ir_whole(sc, p, emit, u, **kw)
+        k4 = bk.trace_frames_ir_mega(sc, p, 23, 1, **one)
+        torch.cuda.synchronize()
+        bits = {"K6 == K3": torch.equal(k6, k3),
+                "K6(seed) == K4": torch.equal(seeded, k4)}
+        print(f"[10d] K6, SmollRoom {RAYS} x {BOUNCES} x 1 frame, {n_l} "
+              f"listener(s), IR energy {float(k6.sum()):.5f}, launches "
+              f"{launched['K6']}: bit for bit {bits}", flush=True)
+        check(float(k6.sum()) > 0 and all(bits.values()), "10d: K6 bits")
+        for ear in range(n_l):
+            same_numbers(f"[10d] K6 vs plain, listener {ear} of {n_l}, "
+                         f"{RAYS} x {BOUNCES}, same uniforms", "K6", k6[ear],
+                         bk.trace_frame_ir_fused_plain(sc, p, emit[0], u[0],
+                                                       **kw)[ear])
+    emit8, u8 = rng.philox_uniforms(24, 1, BIG_BOUNCES, BIG_RAYS, dev)
+    k6_big = bk.trace_frame_ir_fused(sc, smoll_p, emit8[0], u8[0], **kw)
+    check(torch.equal(k6_big, bk.trace_frames_ir_whole(sc, smoll_p, emit8, u8,
+                                                       **kw)),
+          f"10d: K6 == K3 at {BIG_RAYS} x {BIG_BOUNCES}")
+    same_numbers(f"[10d] K6 (== K3 bit for bit) vs plain, {BIG_RAYS} x "
+                 f"{BIG_BOUNCES}, same uniforms", "K6", k6_big,
+                 bk.trace_frame_ir_fused_plain(sc, smoll_p, emit8[0], u8[0],
+                                               **kw))
+    del k6_big, emit8, u8
+
+    # 10e. the path: cli trace and cli bake at their defaults
+    def run_cli(argv):
+        """One CLI command: what it printed, its launches, its seconds."""
+        said = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            _, launched = counted(lambda: cli.main(argv))
+        secs = time.perf_counter() - t0
+        for line in said.getvalue().splitlines():
+            print(f"      | {line}", flush=True)
+        return said.getvalue(), launched, secs
+
+    def lit(path, shape):
+        img = read_png(path)
+        check(img.shape == shape, f"{path}: shape {img.shape}")
+        share = float((img.reshape(-1, 3).max(-1) > 0).mean())
+        check(share > 0.002, f"{path}: not blank ({share:.4f} lit)")
+        return share
+
+    def tails(path, click_times, n_channels=1):
+        """The WAV at 48 kHz: finite, and more energy in the 0.3 s after
+        each click than in the 50 ms before it."""
+        x, rate = read_wav(path)
+        x = x.reshape(len(x), -1)
+        check(rate == SR and x.shape[1] == n_channels and np.isfinite(x).all()
+              and np.abs(x).max() > 0, f"{path}: {x.shape} at {rate} Hz")
+        ratios = []
+        for tc in click_times:
+            c = int(tc * SR)
+            after = float((x[c:c + int(0.3 * SR), 0] ** 2).sum())
+            before = float((x[c - int(0.05 * SR):c, 0] ** 2).sum())
+            ratios.append(after / before if before > 0 else float("inf"))
+            check(after > 2 * before, f"{path}: reverb tail after {tc} s")
+        return ratios
+
+    cli_launches = {k: 0 for k in wrappers}
+    cli_secs = {}
+    hit_clicks = (0.1, 0.6)
+    with tempfile.TemporaryDirectory() as tmp:
+        def f(name):
+            return os.path.join(tmp, name)
+
+        # cli trace --room smoll at its defaults, every output
+        said, launched, cli_secs["trace smoll"] = run_cli(
+            ["trace", "--room", "smoll", "--out", f("ir.png"), "--scene-out",
+             f("scene.png"), "--spectro-out", f("spectro.png"), "--ir-out",
+             f("ir.npz")])
+        check(launched == only(K4=1, K5=BOUNCES, K1=BOUNCES, K2=BOUNCES),
+              f"10e: cli trace launch counts {launched}")
+        for k in cli_launches:
+            cli_launches[k] += launched[k]
+        shares = [lit(f("ir.png"), (256, 1024, 3)),
+                  lit(f("scene.png"), (600, 800, 3)),
+                  lit(f("spectro.png"), (256, 1024, 3))]
+        state8 = load_ir_state(f("ir.npz"), device=dev)
+        direct = smoll_eng.trace_frames(smoll_p, seed=0, n_frames=8)
+        check(state8.frames == 8 and torch.equal(state8.sum, direct.sum),
+              "10e: the checkpoint holds the engine's 8-frame IR of seed 0")
+        ir8 = direct.normalized()[0, :, 0].cpu().numpy()
+        peak = int(re.search(r"peak bin (\d+)", said).group(1))
+        plain8 = bk.trace_frames_ir_mega_plain(sc, smoll_p, 0, 8, **one)
+        first_k, first_p = (int(np.flatnonzero(x)[0]) for x in (
+            ir8, plain8[0, :, 0].cpu().numpy()))
+        check(peak == int(ir8.argmax()) and first_k == first_p <= peak,
+              f"10e: printed peak bin {peak}, IR peak {int(ir8.argmax())}, "
+              f"first arrival {first_k} (plain {first_p})")
+        print(f"[10e] cli trace --room smoll ({RAYS} x {BOUNCES} x 8 frames, "
+              f"100 debug rays) in {cli_secs['trace smoll']:.3f} s with its "
+              f"four outputs; launches {launched}; lit share of ir/scene/"
+              f"spectro PNG {[f'{x:.4f}' for x in shares]}; checkpoint == "
+              f"engine IR; peak bin {peak}, first arrival bin {first_k} "
+              "(plain: the same)", flush=True)
+        # resumed: 16 frames, against a fresh 16-frame run
+        said, launched, cli_secs["trace resume"] = run_cli(
+            ["trace", "--room", "smoll", "--ir-in", f("ir.npz"), "--ir-out",
+             f("ir16.npz")])
+        check(launched == only(K4=1) and "at frame 8" in said,
+              f"10e: resumed trace launch counts {launched}")
+        cli_launches["K4"] += launched["K4"]
+        state16 = load_ir_state(f("ir16.npz"), device=dev)
+        fresh16 = smoll_eng.trace_frames(smoll_p, seed=0, n_frames=16)
+        e_rel = abs(float(state16.sum.sum()) - float(fresh16.sum.sum())) \
+            / float(fresh16.sum.sum())
+        print(f"[10e] resumed with --ir-in: {state16.frames} frames; energy "
+              f"against a fresh 16-frame run {e_rel:.2e} (< 2e-2; the "
+              "resumed frames draw under mix_seed(seed, 8))", flush=True)
+        check(state16.frames == 16 and e_rel < 0.02
+              and not torch.equal(state16.sum, fresh16.sum),
+              "10e: resume continues the count with new draws")
+        # Big Room, and a stereo spectrogram (two listeners: K1/K2 hits)
+        said, launched, cli_secs["trace big"] = run_cli(
+            ["trace", "--room", "big", "--out", f("big.png"), "--scene-out",
+             f("big_scene.png")])
+        check(launched == only(K4=1, K1=BOUNCES, K2=BOUNCES),
+              f"10e: cli trace --room big launch counts {launched}")
+        for k in cli_launches:
+            cli_launches[k] += launched[k]
+        energy = float(re.search(r"IR energy ([0-9.eE+-]+),", said).group(1))
+        check(energy > 0, "10e: Big Room IR energy")
+        lit(f("big.png"), (256, 1024, 3))
+        lit(f("big_scene.png"), (600, 800, 3))
+        said, launched, cli_secs["trace stereo"] = run_cli(
+            ["trace", "--stereo", "0.4", "--spectro-out", f("stereo.png")])
+        check(launched == only(K4=1, K1=BOUNCES, K2=BOUNCES),
+              f"10e: cli trace --stereo launch counts {launched}")
+        for k in cli_launches:
+            cli_launches[k] += launched[k]
+        lit(f("stereo.png"), (256, 1024, 3))
+        # bake and bake --legacy on a click clip (44.1 kHz: resampled)
+        write_wav(f("dry.wav"), click_clip(1.0, 44100, click_times=hit_clicks),
+                  44100)
+        said, launched, cli_secs["bake"] = run_cli(
+            ["bake", "--room", "smoll", "--in", f("dry.wav"), "--out",
+             f("wet.wav")])
+        check(launched == only(K4=1) and "baked 48000 samples" in said,
+              f"10e: cli bake launch counts {launched}")
+        cli_launches["K4"] += launched["K4"]
+        ratios = tails(f("wet.wav"), hit_clicks)
+        said, launched, cli_secs["bake --legacy"] = run_cli(
+            ["bake", "--room", "smoll", "--in", f("dry.wav"), "--out",
+             f("legacy.wav"), "--legacy"])
+        check(launched == only(K5=8 * BOUNCES)
+              and "baked 48000 samples" in said,
+              f"10e: cli bake --legacy launch counts {launched}")
+        cli_launches["K5"] += launched["K5"]
+        ratios_l = tails(f("legacy.wav"), hit_clicks)
+        run_cli(["bake", "--room", "smoll", "--in", f("dry.wav"), "--out",
+                 f("legacy2.wav"), "--legacy"])
+        with open(f("legacy.wav"), "rb") as a, open(f("legacy2.wav"),
+                                                    "rb") as b:
+            check(a.read() == b.read(),
+                  "10e: cli bake --legacy rerun writes the same bytes")
+        print(f"[10e] cli bake: tail/pre-click energy "
+              f"{[f'{r:.3g}' for r in ratios]}; --legacy (8 frames of hit "
+              f"records through K5, launches {launched}): "
+              f"{[f'{r:.3g}' for r in ratios_l]}, rerun byte-identical; "
+              "seconds per command "
+              f"{({k: round(v, 3) for k, v in cli_secs.items()})}", flush=True)
+    # the step-kernel accumulate entry point: K6 per frame, and the
+    # exact_scatter route (a K5 pass per listener, binned in float)
+    emit, u = rng.philox_uniforms(25, 2, BOUNCES, RAYS, dev)
+    k3_two = bk.trace_frames_ir_whole(sc, smoll_p2, emit, u, **kw)
+    for exact, key in ((False, "K6"), (True, "K5")):
+        got, launched = counted(lambda: bk.trace_accumulate_fused(
+            sc, smoll_p2, art.IRState.zeros(T, 2, device=dev), emit, u,
+            sample_rate=SR, exact_scatter=exact))
+        n_launch = 2 * BOUNCES * (2 if exact else 1)
+        check(launched == only(**{key: n_launch}) and got.frames == 2,
+              f"10e: trace_accumulate_fused(exact_scatter={exact}) launch "
+              f"counts {launched}")
+        cli_launches[key] += launched[key]
+        for ear in range(2):
+            same_numbers(f"[10e] trace_accumulate_fused(exact_scatter={exact}"
+                         f"), 2 frames, ear {ear}, launches {launched[key]} "
+                         f"{key}, vs K3's 2-frame IR", None, got.sum[ear],
+                         k3_two[ear])
+    # every float scatter of the path gives the same bits on a rerun
+    hits = smoll_eng.trace_hits(smoll_p2, 0)
+    spectro = legacy.scatter_hits_legacy(hits, SR, T // 128)
+    reruns = {
+        "scatter_hits": torch.equal(irm.scatter_hits(hits, SR, T),
+                                    irm.scatter_hits(hits, SR, T)),
+        "scatter_hits_legacy": torch.equal(
+            spectro, legacy.scatter_hits_legacy(hits, SR, T // 128)),
+        "legacy_ir_to_time_domain": torch.equal(
+            legacy.legacy_ir_to_time_domain(spectro, SR, T),
+            legacy.legacy_ir_to_time_domain(spectro, SR, T))}
+    print(f"[10e] legacy IR {tuple(spectro.shape)}; float scatters rerun "
+          f"bit-identical: {reruns}", flush=True)
+    check(tuple(spectro.shape) == (2, 562, 128) and all(reruns.values())
+          and not torch.are_deterministic_algorithms_enabled(),
+          "10e: the float scatters are deterministic, the global mode "
+          "untouched")
+    del hits, spectro
+    for k in ("K1", "K2", "K5", "K6"):
+        launches[k] = cli_launches[k]
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K5", "K6")),
+          f"10e: the path launched K1, K2, K5 and K6: {launches}")
+
     # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
     sc, p = smoll.scene, smoll_p
@@ -904,6 +1299,115 @@ def main():
               f"wall tests, {n_work[k][1]} sweeps, {n_work[k][2]} slab tests"
               f" -> bound {bounds[k][0]:.6f} ms ({bounds[k][1]})",
               flush=True)
+    # K1 and K2 on the rays cli trace --scene-out gives them (15,000 rays
+    # before bounce 3, SmollRoom's 24 walls, one listener); K5 and K6 at one
+    # 15,000 x 5 frame. A sweep tests every wall, so its work follows from
+    # the shapes: N * W tests in N sweeps.
+    _, (o15, d15) = ray_states(sc, p, RAYS, 0)
+    so15, sd15 = shadow_rays(p, o15)
+    walls_s = tk.pack_walls(sc)
+    sweeps = {"K1": (lambda: tk.nearest_hit(o15, d15, walls_s),
+                     lambda: tk.nearest_hit_plain(o15, d15, walls_s), 8),
+              "K2": (lambda: tk.occlusion_min(so15, sd15, walls_s),
+                     lambda: tk.occlusion_min_plain(so15, sd15, walls_s), 4)}
+    for k, (fn, plain, out_bytes) in sweeps.items():
+        times[k] = (cuda_ms(torch, fn, 50), cuda_ms(torch, plain, 20))
+        dev_ms[k] = kernel_device_ms(torch, fn, 20, "wall_sweep_kernel")
+        n_work[k] = (RAYS * w, RAYS, 0)
+        bounds[k] = bound(n_work[k], RAYS * (16 + out_bytes) + 20 * w)
+    e1, u1 = (x[0] for x in rng.philox_uniforms(26, 1, BOUNCES, RAYS, dev))
+    steps = {"K5": (lambda **a: bk.trace_fused_rows(sc, p, e1, u1, **a),
+                    lambda: bk.trace_fused_rows_plain(sc, p, e1, u1)),
+             "K6": (lambda **a: bk.trace_frame_ir_fused(sc, p, e1, u1, **kw,
+                                                        **a),
+                    lambda: bk.trace_frame_ir_fused_plain(sc, p, e1, u1,
+                                                          **kw))}
+    # bytes beside the tables: the uniforms in, and between the B launches
+    # the ray state (8 f32 + 1 i32 per ray) written B times and read B - 1
+    # times; K5 writes 8 f32 rows per ray and bounce, K6 the f32 IR
+    step_bytes = 4 * RAYS * (1 + 3 * BOUNCES) + 36 * RAYS * (2 * BOUNCES - 1)
+    for k, (fn, plain) in steps.items():
+        times[k] = (cuda_ms(torch, fn, 20), cuda_ms(torch, plain, 5))
+        dev_ms[k] = kernel_device_ms(torch, fn, 10, "bounce_step_kernel")
+        n_work[k] = work(lambda n: fn(work_counts=n))
+    bounds["K5"] = bound(n_work["K5"], 4 * (11 * w + 2 + 5) + step_bytes
+                         + 32 * RAYS * BOUNCES)
+    bounds["K6"] = bound(n_work["K6"], one_bytes + step_bytes)
+    for k, shape in (("K1", f"{RAYS} rays x {w} walls"),
+                     ("K2", f"{RAYS} shadow rays x {w} walls"),
+                     ("K5", f"{RAYS} x {BOUNCES} x 1 frame, {BOUNCES} "
+                            "launches"),
+                     ("K6", f"{RAYS} x {BOUNCES} x 1 frame, {BOUNCES} "
+                            "launches")):
+        print(f"    {k} at {shape}: {times[k][0]:.4f} ms per call vs plain "
+              f"{times[k][1]:.4f}; device {fmt(dev_ms[k])} per call; "
+              f"{n_work[k][0]} wall tests, {n_work[k][1]} sweeps -> bound "
+              f"{bounds[k][0]:.6f} ms ({bounds[k][1]})", flush=True)
+    # the same kernels at the bench frame's 131,072 rays, and K1/K2 on the
+    # 10,008-wall city with two listeners (plain over slices of rays)
+    e8, u8b = emit8[0], u8[0]
+    wide = {
+        "K3 1 frame": (lambda: bk.trace_frames_ir_whole(sc, p, emit8, u8,
+                                                        **kw),
+                       "frames_ir_kernel"),
+        "K5": (lambda: bk.trace_fused_rows(sc, p, e8, u8b),
+               "bounce_step_kernel"),
+        "K6": (lambda: bk.trace_frame_ir_fused(sc, p, e8, u8b, **kw),
+               "bounce_step_kernel")}
+    wide_ms = {k: (cuda_ms(torch, fn, 5), kernel_device_ms(torch, fn, 3, name))
+               for k, (fn, name) in wide.items()}
+    wide_plain = cuda_ms(torch, lambda: bk.trace_fused_rows_plain(
+        sc, p, e8, u8b), 2)
+    print(f"[5] step kernel on {card} at {BIG_RAYS} x {BIG_BOUNCES} x 1 frame"
+          f", {w} walls, ms per call [device]: "
+          + ", ".join(f"{k} {v[0]:.4f} [{fmt(v[1])}]"
+                      for k, v in wide_ms.items())
+          + f"; K5's plain version {wide_plain:.3f}", flush=True)
+    for name, scene, pp in (("SmollRoom", sc, p),
+                            ("city_scene(2500), 2 listeners", scene_9,
+                             p_9two)):
+        _, (o, d) = ray_states(scene, pp, BIG_RAYS, 20)
+        so, sd = shadow_rays(pp, o)
+        walls_w = tk.pack_walls(scene)
+        n_l = pp.listeners.shape[0]
+        step = max(256, PLAIN_ELEMENTS // (scene.n_walls * n_l))
+
+        def plain_sweeps():
+            for r0 in range(0, BIG_RAYS, step):
+                sl = slice(r0, r0 + step)
+                tk.nearest_hit_plain(o[sl], d[sl], walls_w)
+                tk.occlusion_min_plain(so[sl], sd[sl], walls_w)
+
+        k1 = (cuda_ms(torch, lambda: tk.nearest_hit(o, d, walls_w), 10),
+              kernel_device_ms(torch, lambda: tk.nearest_hit(o, d, walls_w),
+                               5, "wall_sweep_kernel"))
+        k2 = (cuda_ms(torch, lambda: tk.occlusion_min(so, sd, walls_w), 10),
+              kernel_device_ms(torch, lambda: tk.occlusion_min(so, sd,
+                                                               walls_w),
+                               5, "wall_sweep_kernel"))
+        both_plain = cuda_ms(torch, plain_sweeps, 1)
+        tests = BIG_RAYS * scene.n_walls
+        b1 = bound((tests, BIG_RAYS, 0),
+                   24 * BIG_RAYS + 20 * scene.n_walls)
+        b2 = bound((tests * n_l, BIG_RAYS * n_l, 0),
+                   20 * BIG_RAYS * n_l + 20 * scene.n_walls)
+        print(f"[5] wall sweeps on {card}, {name}, {BIG_RAYS} rays x "
+              f"{scene.n_walls} walls: K1 {k1[0]:.4f} ms per call [device "
+              f"{fmt(k1[1])}], bound {b1[0]:.6f} ms ({b1[1]}); K2 over "
+              f"{BIG_RAYS * n_l} shadow rays {k2[0]:.4f} [{fmt(k2[1])}], "
+              f"bound {b2[0]:.6f} ms ({b2[1]}); both plain versions "
+              f"{both_plain:.3f} ms"
+              + ("" if k1[1] is None else
+                 f"; K1 {tests / k1[1] / 1e9:.3f} T tests/s on the device"),
+              flush=True)
+    # trace(use_kernels=True) against the plain trace, one frame
+    for n_rays, e_, u_ in ((RAYS, e1, u1), (BIG_RAYS, e8, u8b)):
+        with_k = cuda_ms(torch, lambda: tt.trace_hits_only(
+            sc, p, e_, u_, use_kernels=True), 5)
+        without = cuda_ms(torch, lambda: tt.trace_hits_only(sc, p, e_, u_), 5)
+        print(f"[5] trace(use_kernels=True) on {card}, SmollRoom {n_rays} x "
+              f"{u_.shape[0]}: {with_k:.3f} ms per frame vs the plain trace "
+              f"{without:.3f}", flush=True)
     launches.update(city_launches)
 
     names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),
@@ -914,19 +1418,31 @@ def main():
              "K7": ("accel_kernel K7 (cluster early-out, all bounces, "
                     "K <= 8 bands)", 1869, ACCEL_SOURCE),
              "K8": ("accel_kernel K8 (cluster early-out per bounce, Morton "
-                    "re-sort)", 2154, ACCEL_SOURCE)}
+                    "re-sort)", 2154, ACCEL_SOURCE),
+             "K1": ("trace_kernel K1 (nearest wall of each ray)", 75,
+                    SWEEP_SOURCE),
+             "K2": ("trace_kernel K2 (occlusion minimum of each shadow ray)",
+                    82, SWEEP_SOURCE),
+             "K5": ("step_kernel K5 (one bounce per launch, hit rows out)",
+                    180, STEP_SOURCE),
+             "K6": ("step_kernel K6 (one bounce per launch, in-kernel "
+                    "binning)", 1291, STEP_SOURCE)}
     # ms/plain_ms/bound of one call each: K3 and K4 at the stream's shape
     # (15k x 5 x 1 frame), K9 at the mixdown's (64 entries x 15k x 5), K8
-    # at the city stream's, K7 at the banded city's; the sweep's and the
-    # other full-width cities' numbers are in the [5] and [8] lines. No
-    # PyTorch call computes a Monte-Carlo trace, so library_ms is null.
+    # at the city stream's, K7 at the banded city's, K1/K2 on the 15,000
+    # rays of cli trace --scene-out, K5/K6 at one 15k x 5 frame; the
+    # sweep's and the other full-width numbers are in the [5] and [8]
+    # lines. No PyTorch call computes a Monte-Carlo trace or a bounce, and
+    # none a fused rays x segments min/argmin (the plain versions are
+    # several calls: plain_ms), so library_ms is null.
     kernels = [
         {"name": names[k][0], "route": "cuda", "source": names[k][2],
-         "replaces": f"{PALLAS}:{names[k][1]}", "launches": launches[k],
+         "replaces": f"{PALLAS_SWEEPS if k in ('K1', 'K2') else PALLAS}:"
+                     f"{names[k][1]}", "launches": launches[k],
          "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": None}
-        for k in ("K3", "K4", "K9", "K7", "K8")]
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ NVIDIA H100, where the trace runs in a hand-written CUDA kernel
 (``csrc/bounce_kernel.cu``), or, for scenes past 5,280 walls, in the
 hand-written cluster kernels (``csrc/accel_kernel.cu``). It also sweeps
 room datasets and mixes down many sources through the bounce kernel's
-batched mode (:mod:`.parallel`). It imports no JAX.
+batched mode (:mod:`.parallel`), and hands out individual hit records
+(debug ray paths, the legacy time x frequency IR) through the wall-sweep
+kernels (``csrc/trace_kernel.cu``) and the per-bounce step kernel
+(``csrc/step_kernel.cu``). It imports no JAX.
 
 Every builder takes ``device=None``, which means :data:`DEFAULT_DEVICE`
 (``"cuda"``); pass ``device="cpu"`` for the plain PyTorch path.

@@ -3,7 +3,8 @@
 Each function takes the JAX object, or anything with the same attribute
 names, reads every field with ``np.asarray`` (so this module imports no
 JAX), and returns the port's object on ``device``. This is how the tests
-hand a JAX scene, poses, IR and stream state to the port.
+hand a JAX scene, poses, hits, debug paths, IR and stream state to the
+port.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 from .device import resolve
 from .models.scene import Scene
 from .ops.ir import IRState
-from .ops.trace import TraceParams
+from .ops.legacy import LegacyIRState
+from .ops.trace import DebugPaths, Hits, TraceParams
 from .streaming import RingBuffer, StreamState
 
 
@@ -52,3 +54,23 @@ def stream_state_from_arrays(state, device=None) -> StreamState:
     return StreamState(prev_ir=_t(state.prev_ir, device, np.float32),
                        ring=ring,
                        chunk_index=int(np.asarray(state.chunk_index)))
+
+
+def hits_from_arrays(hits, device=None) -> Hits:
+    """:class:`Hits` from a JAX ``Hits`` (``delay``, ``energy``, ``valid``)."""
+    return Hits(delay=_t(hits.delay, device, np.float32),
+                energy=_t(hits.energy, device, np.float32),
+                valid=_t(hits.valid, device, bool))
+
+
+def debug_paths_from_arrays(paths, device=None) -> DebugPaths:
+    """:class:`DebugPaths` from a JAX ``DebugPaths``."""
+    return DebugPaths(pos=_t(paths.pos, device, np.float32),
+                      energy=_t(paths.energy, device, np.float32),
+                      alive=_t(paths.alive, device, bool))
+
+
+def legacy_state_from_arrays(state, device=None) -> LegacyIRState:
+    """:class:`LegacyIRState` from a JAX ``LegacyIRState``."""
+    return LegacyIRState(sum=_t(state.sum, device, np.float32),
+                         frames=int(np.asarray(state.frames)))

@@ -1,5 +1,6 @@
-// Ray physics shared by the bounce kernel (bounce_kernel.cu: K3, K4, K9)
-// and the cluster kernels (accel_kernel.cu: K7, K8).
+// Ray physics shared by the bounce kernel (bounce_kernel.cu: K3, K4, K9),
+// the cluster kernels (accel_kernel.cu: K7, K8), the per-bounce step kernel
+// (step_kernel.cu: K5, K6) and the wall sweeps (trace_kernel.cu: K1, K2).
 //
 // What is here: the constants of the reference kernel, Philox-4x32-10 and
 // its 24-bit uniforms, the ray-segment test (wall_t), the emission of a
@@ -10,7 +11,8 @@
 // The kernels differ only in how they find the nearest wall and run the
 // occlusion sweep (a full scan of a shared-memory table, or a two-level
 // box early-out over a global one), where their random numbers come from,
-// and where a ray's state lives between bounces.
+// where a ray's state lives between bounces, and where a hit goes: into
+// the fixed-point IR (Sink) or, as a raw record, into hit rows (RowSink).
 //
 // The semantics are those of the plain oracle ops/trace.py::_bounce +
 // ops/ir.py::scatter_hits, in its IEEE operation order: '/', sqrtf,
@@ -66,6 +68,18 @@ struct Sink {
   int n_bands;
   float sr;
   double scale;
+};
+
+// Where hits go instead when the caller wants the records themselves (K5):
+// the [8, R] f32 rows of one bounce, one listener, one band: direct
+// delay, energy, valid, then NEE delay, energy, valid, then two rows of
+// padding. A ray's column is zeroed before its bounce, so the rows of a
+// hit that did not happen are zeros.
+struct RowSink {
+  float* rows;
+  int n_rays;
+  int ray;
+  static constexpr int n_bands = 1;
 };
 
 // The listeners of one entry: xy [L, 2], radius^2, rest-frame speed c.
@@ -144,9 +158,10 @@ __device__ __forceinline__ float band_absorption(const float* w, int n,
 }
 
 // Add each band's energy e[k] of one hit at `delay` to listener l's bin.
+// `slot` (0 direct capture, 1 NEE) matters only to the row sink.
 template <int kMaxK>
-__device__ __forceinline__ void deposit(const Sink& s, int l, float delay,
-                                        const float* e) {
+__device__ __forceinline__ void deposit(const Sink& s, int /*slot*/, int l,
+                                        float delay, const float* e) {
   const float fb = floorf(delay * s.sr);
   if (!(fb >= 0.0f && fb < static_cast<float>(s.ir_length))) return;
   unsigned long long* bin =
@@ -159,6 +174,17 @@ __device__ __forceinline__ void deposit(const Sink& s, int l, float delay,
         llrint(static_cast<double>(e[k]) * s.scale));
     if (q) atomicAdd(bin + k, q);
   }
+}
+
+// Store one hit as a record: rows 3 * slot .. 3 * slot + 2 of the ray's
+// column (one listener, band 0).
+template <int kMaxK>
+__device__ __forceinline__ void deposit(const RowSink& s, int slot, int /*l*/,
+                                        float delay, const float* e) {
+  float* col = s.rows + static_cast<size_t>(3 * slot) * s.n_rays + s.ray;
+  col[0] = delay;
+  col[s.n_rays] = e[0];
+  col[2 * static_cast<size_t>(s.n_rays)] = 1.0f;
 }
 
 // A ray leaving the source (ops/trace.py::_emit): stratified angle
@@ -188,13 +214,14 @@ __device__ __forceinline__ Ray<kMaxK> emit_ray(int ray, int n_rays,
 // (-1: escaped) on wall table `w` (stride n). occluded(sx, sy, vdx, vdy,
 // dist, limit) runs one occlusion sweep and returns true when a wall
 // blocks the shadow ray before `limit`; draw() gives this bounce's three
-// uniforms. Returns false when the ray dies (escaped, or every band under
-// the energy cutoff); the ray is then left as it was.
-template <int kMaxK, class Occluded, class Draw>
+// uniforms; `sink` (Sink or RowSink) takes the hits. Returns false when
+// the ray dies (escaped, or every band under the energy cutoff); the ray
+// is then left as it was.
+template <int kMaxK, class SinkT, class Occluded, class Draw>
 __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
                                               int hit, const float* w, int n,
                                               const Listeners& lis,
-                                              const Sink& sink,
+                                              const SinkT& sink,
                                               Occluded occluded, Draw draw) {
   const int nk = sink.n_bands;
   const float c = lis.c;
@@ -214,7 +241,7 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
       float e[kMaxK];
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k) e[k] = r.en[k] / att;
-      deposit<kMaxK>(sink, l, r.tm + t_lis / r.sp, e);
+      deposit<kMaxK>(sink, 0, l, r.tm + t_lis / r.sp, e);
     }
   }
   if (hit < 0) return false;  // escaped: dead from here on
@@ -258,7 +285,7 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
       const float vdx = (lx - sx) / dist_l, vdy = (ly - sy) / dist_l;
       // The listener leg uses the rest-frame speed c, not the current one.
       if (!occluded(sx, sy, vdx, vdy, dist_l, dist_l - kOcclusionSlack))
-        deposit<kMaxK>(sink, l, ntm + dist_l / c, e);
+        deposit<kMaxK>(sink, 1, l, ntm + dist_l / c, e);
     }
   }
 

@@ -27,6 +27,18 @@ Routing of :func:`trace_accumulate` (the JAX package's
 A configuration the chosen kernel does not take raises on CUDA (a banded
 scene under the wall limit does, until K3/K4 get bands); it is never
 rerouted.
+
+Routing of a request for hit RECORDS (:func:`trace_hits`: the legacy
+spectro-IR, anything that consumes individual hits instead of a binned
+IR), by device and shape:
+
+* a CUDA scene with one listener, one band and at most ``MAX_WALLS`` walls
+  goes to the per-bounce step kernel K5 (``bounce_kernel.trace_fused``);
+* any other CUDA scene (more listeners, bands, or walls) goes to the plain
+  trace with its two rays x walls passes in the kernels K1 and K2
+  (``ops/trace.py::trace(use_kernels=True)``), as do the debug ray paths
+  (:meth:`Engine.trace_debug`);
+* a CPU scene runs the plain trace.
 """
 
 from __future__ import annotations
@@ -41,7 +53,8 @@ from .ops import convolve as cv
 from .ops import ir as irm
 from .ops.cuda import accel_kernel as ak
 from .ops.cuda import bounce_kernel as bk
-from .ops.trace import TraceParams
+from .ops import rng
+from .ops.trace import DebugPaths, Hits, TraceParams, trace, trace_hits_only
 
 _BACKENDS = ("auto", "plain", "accel")
 
@@ -106,6 +119,20 @@ def _trace_accel(scene: Scene, params: TraceParams, seed: int,
     return kernel(scene, params, seed, n_frames, **kw)
 
 
+def trace_hits(scene: Scene, params: TraceParams, emit: torch.Tensor,
+               u: torch.Tensor) -> Hits:
+    """One frame's hit records ``[B, 2, R, L]`` for host uniforms
+    ``emit[R]``, ``u[B, R, 3]``: the one place that routes a request for
+    hits (see the module docstring). On CUDA the chosen kernel launches or
+    raises; nothing continues on a plain version."""
+    if scene.device.type != "cuda":
+        return trace_hits_only(scene, params, emit, u)
+    if params.listeners.shape[0] == 1 and scene.n_bands == 1 \
+            and scene.n_walls <= bk.MAX_WALLS:
+        return bk.trace_fused(scene, params, emit, u)
+    return trace_hits_only(scene, params, emit, u, use_kernels=True)
+
+
 def bake_audio(dry: torch.Tensor, state: irm.IRState, *,
                normalize: bool = True) -> torch.Tensor:
     """Offline bake: one FFT convolution of a whole dry clip with the
@@ -153,6 +180,30 @@ class Engine:
             max_bounces=self.config.sim.max_bounces,
             sample_rate=self.config.audio.sample_rate, n_frames=n_frames,
             seed=seed, uniforms=uniforms, backend=backend)
+
+    def frame_uniforms(self, seed: int, frame: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(emit[R], u[B, R, 3])`` of frame ``frame`` of ``seed``: the
+        Philox numbers K4 draws for that frame, so the hit records and
+        debug paths of a seed are those of the rays behind its IR."""
+        emit, u = rng.philox_uniforms(
+            seed, 1, self.config.sim.max_bounces, self.config.sim.ray_count,
+            self.scene.device, first_frame=frame)
+        return emit[0], u[0]
+
+    def trace_hits(self, params: TraceParams, seed: int = 0,
+                   frame: int = 0) -> Hits:
+        """Hit records of one frame of ``seed`` (:func:`trace_hits`)."""
+        return trace_hits(self.scene, params,
+                          *self.frame_uniforms(seed, frame))
+
+    def trace_debug(self, params: TraceParams, seed: int = 0,
+                    n_debug: int = 100) -> Tuple[Hits, DebugPaths]:
+        """Frame 0 of ``seed`` with the ray paths of its first ``n_debug``
+        rays, through ``trace(use_kernels=True)``: K1 and K2 on a CUDA
+        scene, their plain versions on the CPU."""
+        return trace(self.scene, params, *self.frame_uniforms(seed),
+                     n_debug=n_debug, use_kernels=True)
 
     def bake(self, dry: torch.Tensor, state: irm.IRState,
              normalize: bool = True) -> torch.Tensor:

@@ -122,12 +122,6 @@ def check_accel_supported(scene: Scene, params: TraceParams,
             "are still to port")
 
 
-def _scal(params: TraceParams) -> torch.Tensor:
-    return torch.stack([params.source[0], params.source[1],
-                        params.listener_radius, params.speed_of_sound,
-                        params.input_gain]).to(torch.float32)
-
-
 def _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms):
     if uniforms is None:
         return rng.philox_uniforms(seed, n_frames, max_bounces, n_rays,
@@ -168,7 +162,7 @@ def _trace_rays_plain(prep: AccelScene, params: TraceParams,
         parts = []
         for r0 in range(0, n, step):
             s = slice(r0, r0 + step)
-            part, (delay, energy, valid) = _bounce(
+            part, (delay, energy, valid, _, _) = _bounce(
                 prep.scene, params, _RayState(*(x[s] for x in st)), ub[s])
             ir = ir + scatter_hits(
                 Hits(delay[None], energy[None], valid[None]), sample_rate,
@@ -250,7 +244,7 @@ def trace_frames_ir_accel(scene: Scene, params: TraceParams, seed: int,
     dev = scene.device
     n_l, n_k = params.listeners.shape[0], scene.n_bands
     lis = params.listeners.contiguous()
-    scal = _scal(params)
+    scal = bk.pack_scalars(params)
     for name, x in (("listeners", lis), ("scalars", scal)):
         bk._check_tensor(name, x, dev)
     if work_counts is not None:
@@ -308,7 +302,7 @@ def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
     dev = scene.device
     n_l = params.listeners.shape[0]
     lis = params.listeners.contiguous()
-    scal = _scal(params)
+    scal = bk.pack_scalars(params)
     for name, x in (("listeners", lis), ("scalars", scal)):
         bk._check_tensor(name, x, dev)
     if work_counts is not None:

@@ -1,6 +1,6 @@
-"""Bounce kernel: wrappers, plain versions and launch counts.
+"""Bounce kernels: wrappers, plain versions and launch counts.
 
-Three entry points launch the one CUDA template of
+Three entry points launch the one whole-frame CUDA template of
 ``csrc/bounce_kernel.cu``:
 
 * :func:`trace_frames_ir_whole` (K3) takes host uniforms ``emit[F, R]`` and
@@ -13,14 +13,31 @@ Three entry points launch the one CUDA template of
   each with its own tables, random stream and fixed-point scale; it
   replaces ``::trace_rooms_ir_mega``.
 
+Two more launch the per-bounce step template of ``csrc/step_kernel.cu``,
+one launch per bounce with the ray state in device memory between them:
+
+* :func:`trace_fused_rows` (K5) returns the raw hit rows ``[B, 8, R]`` of
+  one frame (one listener, one band), the hit-record form that
+  :func:`scatter_hits_rows` bins and :func:`trace_fused` turns into
+  :class:`..trace.Hits`; it replaces ``::trace_fused_rows``;
+* :func:`trace_frame_ir_fused` (K6) bins each bounce's hits in the kernel
+  and returns one frame's IR ``[L, T, 1]``, bit-identical to K3 on the
+  same uniforms and to K4 on the same seed; it replaces
+  ``::trace_frame_ir_fused``.
+
+:func:`trace_accumulate_fused` is the JAX function's ``exact_scatter``
+route: a K5 pass per listener and a float scatter of its rows.
+
 K3 and K4 return the frame-SUMMED IR ``[L, T, 1]`` float32, K9
 ``[E, L, T, 1]``. On a CUDA scene they launch the kernel or raise; on a
 CPU scene they run their plain version, :func:`trace_frames_ir_plain`
 (the oracle trace + scatter, summed over frames),
 :func:`trace_frames_ir_mega_plain` and :func:`trace_rooms_ir_mega_plain`
-(the same on the kernel's Philox numbers), which are also what the
-kernel is held against on the card. Each entry point counts its launches
-in ``.launches``.
+(the same on the kernel's Philox numbers), :func:`trace_fused_rows_plain`
+and :func:`trace_frame_ir_fused_plain` (``ops/trace.py::_bounce`` one
+bounce at a time on an explicit state), which are also what the kernels
+are held against on the card. Each entry point counts its launches in
+``.launches`` (K5 and K6: one per bounce).
 """
 
 from __future__ import annotations
@@ -32,8 +49,10 @@ import torch
 
 from ...models.scene import Scene
 from .. import rng
-from ..ir import scatter_hits
-from ..trace import TraceParams, check_single_source, trace_hits_only
+from ..ir import IRState, add_rows, scatter_hits
+from ..trace import (Hits, TraceParams, _bounce, _check_supported as
+                     _check_trace_supported, _emit, check_single_source,
+                     trace_hits_only)
 from . import build
 
 MAX_LISTENERS = 16
@@ -201,13 +220,19 @@ def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
     return out
 
 
+def pack_scalars(params: TraceParams) -> torch.Tensor:
+    """The kernels' per-entry scalars ``[5]``: source x, source y, listener
+    radius, speed of sound, input gain."""
+    return torch.stack([params.source[0], params.source[1],
+                        params.listener_radius, params.speed_of_sound,
+                        params.input_gain]).to(torch.float32)
+
+
 def _launch_scene(host_uniforms, scene, params, emit, u, key, n_frames,
                   n_rays, max_bounces, sample_rate, ir_length, work_counts):
     """K3/K4: one scene, one entry."""
     check_kernel_supported(scene, params)
-    scal = torch.stack([params.source[0], params.source[1],
-                        params.listener_radius, params.speed_of_sound,
-                        params.input_gain]).to(torch.float32)
+    scal = pack_scalars(params)
     scales = fixed_point_scale(params, n_frames, n_rays, max_bounces)
     return _launch(host_uniforms, pack_walls(scene)[None],
                    params.listeners.contiguous()[None], scal[None], emit, u,
@@ -411,6 +436,293 @@ def trace_rooms_ir_mega(scenes: Scene, sources, listeners, seed: int,
     return out
 
 
+# --- the per-bounce step kernel: K5 (hit rows) and K6 (in-kernel binning) ----
+
+# hit-row indices of the [B, 8, R] rows (rows 6 and 7 are zero padding)
+HD_DELAY, HD_EN, HD_VAL, HN_DELAY, HN_EN, HN_VAL = range(6)
+HIT_ROWS = 8
+
+_STEP_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p)
+_CONVERT_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_longlong, ctypes.c_void_p)
+
+
+def _step_fns():
+    lib = build.load_library()
+    step, convert = lib.art_bounce_step, lib.art_fixed_to_float
+    step.argtypes, step.restype = _STEP_ARGTYPES, ctypes.c_int
+    convert.argtypes, convert.restype = _CONVERT_ARGTYPES, ctypes.c_int
+    return step, convert
+
+
+def _check_uniforms(scene, emit, u):
+    """Host uniforms of one frame: ``emit[R]``, ``u[B, R, 3]`` float32 on
+    the scene's device. Returns ``(R, B)``."""
+    if emit.dim() != 1 or u.dim() != 3:
+        raise ValueError(f"uniforms must be emit[R] and u[B, R, 3]; got "
+                         f"{tuple(emit.shape)} and {tuple(u.shape)}")
+    n_rays, max_bounces = emit.shape[0], u.shape[0]
+    _check_tensor("emit", emit, scene.device, (n_rays,))
+    _check_tensor("u", u, scene.device, (max_bounces, n_rays, 3))
+    return n_rays, max_bounces
+
+
+def _run_steps(scene, params, emit, u, key, n_rays, max_bounces, *,
+               rows=None, acc=None, scale=None, sample_rate=0.0,
+               ir_length=0, work_counts=None, counter):
+    """Launch the step kernel once per bounce on a fresh ray state. Host
+    uniforms ``emit[R]``, ``u[B, R, 3]``, or, with both None, Philox
+    numbers under ``key`` (frame 0). Hits go to ``rows[B, 8, R]`` (K5) or
+    into the u64 accumulator ``acc[L, T]`` under ``scale`` (K6).
+    ``counter`` is the entry point whose ``.launches`` counts them."""
+    dev = scene.device
+    step, _ = _step_fns()
+    walls = pack_walls(scene)
+    lis = params.listeners.contiguous()
+    scal = pack_scalars(params)
+    for name, x in (("walls", walls), ("listeners", lis), ("scalars", scal)):
+        _check_tensor(name, x, dev)
+    if work_counts is not None:
+        _check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
+    state = torch.empty((8, n_rays), dtype=torch.float32, device=dev)
+    depth = torch.empty(n_rays, dtype=torch.int32, device=dev)
+    host = emit is not None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for b in range(max_bounces):
+        err = step(
+            int(host), walls.data_ptr(), walls.shape[-1], lis.data_ptr(),
+            lis.shape[0], scal.data_ptr(), float(sample_rate),
+            emit.data_ptr() if host else None,
+            u[b].data_ptr() if host else None, key[0], key[1], 0, n_rays,
+            max_bounces, b, ir_length,
+            scale.data_ptr() if scale is not None else None,
+            state.data_ptr(), depth.data_ptr(),
+            rows[b].data_ptr() if rows is not None else None,
+            acc.data_ptr() if acc is not None else None,
+            work_counts.data_ptr() if work_counts is not None else None,
+            stream)
+        if err != 0:
+            raise RuntimeError(f"bounce step kernel launch failed at bounce "
+                               f"{b}: cudaError {err}")
+        counter.launches += 1
+
+
+def _check_rows_supported(scene: Scene, params: TraceParams) -> None:
+    """K5 takes one listener and one band (the JAX ``trace_fused_rows``
+    contract) on a scene the whole-table kernels take."""
+    if params.listeners.shape[0] != 1:
+        raise ValueError(
+            f"trace_fused takes exactly one listener, got "
+            f"{params.listeners.shape[0]}; trace(use_kernels=True) traces "
+            "hits for any listener count (engine.trace_hits routes there)")
+    if scene.n_bands != 1:
+        raise ValueError(
+            f"trace_fused takes n_bands == 1, got {scene.n_bands}; "
+            "trace(use_kernels=True) traces hits for any band count")
+    check_kernel_supported(scene, params)
+
+
+def _bounce_records(scene: Scene, params: TraceParams, emit: torch.Tensor,
+                    u: torch.Tensor):
+    """The plain trace one bounce at a time on an explicit state: yields
+    each bounce's ``(delay[2, R, L], energy[2, R, L, K], valid[2, R, L])``."""
+    _check_trace_supported(params)
+    n_rays = emit.shape[0]
+    if u.shape[1:] != (n_rays, 3):
+        raise ValueError(f"u must be [B, {n_rays}, 3], got {tuple(u.shape)}")
+    st = _emit(params, n_rays, scene.n_bands, emit)
+    for b in range(u.shape[0]):
+        st, (delay, energy, valid, _, _) = _bounce(scene, params, st, u[b])
+        yield delay, energy, valid
+
+
+def trace_fused_rows_plain(scene: Scene, params: TraceParams,
+                           emit: torch.Tensor, u: torch.Tensor
+                           ) -> torch.Tensor:
+    """Plain version of K5: the hit rows ``[B, 8, R]`` of one frame from
+    ``ops/trace.py::_bounce``, one bounce at a time. As in the kernel, the
+    delay and energy of a hit that did not happen are zeros."""
+    if params.listeners.shape[0] != 1 or scene.n_bands != 1:
+        raise ValueError("hit rows hold one listener and one band")
+    rows = []
+    for delay, energy, valid in _bounce_records(scene, params, emit, u):
+        d, e, v = delay[..., 0], energy[..., 0, 0], valid[..., 0]  # [2, R]
+        zero = torch.zeros_like(d[0])
+        rows.append(torch.stack([
+            torch.where(v[0], d[0], zero), torch.where(v[0], e[0], zero),
+            v[0].to(d.dtype),
+            torch.where(v[1], d[1], zero), torch.where(v[1], e[1], zero),
+            v[1].to(d.dtype), zero, zero]))
+    return torch.stack(rows)
+
+
+def trace_fused_rows(scene: Scene, params: TraceParams, emit: torch.Tensor,
+                     u: torch.Tensor, *,
+                     work_counts: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """K5: one frame with host uniforms ``emit[R]``, ``u[B, R, 3]`` -> raw
+    hit rows ``[B, 8, R]`` float32 (rows: direct delay/energy/valid, NEE
+    delay/energy/valid, two of padding), the form
+    :func:`scatter_hits_rows` consumes; one launch per bounce. One
+    listener, one band. CPU scenes run :func:`trace_fused_rows_plain`."""
+    if scene.device.type != "cuda":
+        return trace_fused_rows_plain(scene, params, emit, u)
+    _check_rows_supported(scene, params)
+    n_rays, max_bounces = _check_uniforms(scene, emit, u)
+    rows = torch.empty((max_bounces, HIT_ROWS, n_rays), dtype=torch.float32,
+                       device=scene.device)
+    _run_steps(scene, params, emit.contiguous(), u.contiguous(), (0, 0),
+               n_rays, max_bounces, rows=rows, work_counts=work_counts,
+               counter=trace_fused_rows)
+    return rows
+
+
+def scatter_hits_rows(hits_rows: torch.Tensor, sample_rate: int,
+                      ir_length: int) -> torch.Tensor:
+    """Deposit raw hit rows ``[B, 8, R]`` into IR bins ``[1, T, 1]`` (the
+    contract of ``..ir.scatter_hits`` for L = K = 1) without any layout
+    change of the row tensors: all direct rows, then all NEE rows, as the
+    JAX function orders them."""
+    delay = torch.cat([hits_rows[:, HD_DELAY], hits_rows[:, HN_DELAY]]
+                      ).reshape(-1)
+    energy = torch.cat([hits_rows[:, HD_EN], hits_rows[:, HN_EN]]
+                       ).reshape(-1)
+    valid = torch.cat([hits_rows[:, HD_VAL], hits_rows[:, HN_VAL]]
+                      ).reshape(-1)
+    bins = torch.floor(delay * sample_rate).to(torch.int32)
+    ok = (valid > 0.5) & (bins >= 0) & (bins < ir_length)
+    bins = torch.where(ok, bins, ir_length).long()
+    ir = add_rows(ir_length + 1, bins, energy * ok.to(energy.dtype), ok)
+    return ir[:ir_length][None, :, None]
+
+
+def hits_from_rows(hits_rows: torch.Tensor) -> Hits:
+    """Hit rows ``[B, 8, R]`` as :class:`..trace.Hits` ``[B, 2, R, 1]``
+    (energy ``[B, 2, R, 1, 1]``)."""
+    delay = torch.stack([hits_rows[:, HD_DELAY], hits_rows[:, HN_DELAY]],
+                        dim=1)[..., None]
+    energy = torch.stack([hits_rows[:, HD_EN], hits_rows[:, HN_EN]],
+                         dim=1)[..., None, None]
+    valid = torch.stack([hits_rows[:, HD_VAL], hits_rows[:, HN_VAL]],
+                        dim=1)[..., None] > 0.5
+    return Hits(delay=delay, energy=energy, valid=valid)
+
+
+def trace_fused(scene: Scene, params: TraceParams, emit: torch.Tensor,
+                u: torch.Tensor) -> Hits:
+    """K5 as the standard :class:`..trace.Hits` layout ``[B, 2, R, 1]``:
+    the interop wrapper around :func:`trace_fused_rows`."""
+    return hits_from_rows(trace_fused_rows(scene, params, emit, u))
+
+
+def trace_frame_ir_fused_plain(scene: Scene, params: TraceParams,
+                               emit: torch.Tensor, u: torch.Tensor, *,
+                               sample_rate: int, ir_length: int
+                               ) -> torch.Tensor:
+    """Plain version of K6: one frame's bounces one at a time on an
+    explicit state, their hits binned by ``..ir.scatter_hits`` in the
+    order the whole-frame plain version bins them, so it equals
+    :func:`trace_frames_ir_plain` of that frame bit for bit. Returns
+    ``[L, T, K]``."""
+    records = list(_bounce_records(scene, params, emit, u))
+    hits = Hits(*(torch.stack(x) for x in zip(*records)))
+    ir = torch.zeros((params.listeners.shape[0], ir_length, scene.n_bands),
+                     dtype=torch.float32, device=scene.device)
+    return ir + scatter_hits(hits, sample_rate, ir_length)
+
+
+def trace_frame_ir_fused(scene: Scene, params: TraceParams,
+                         emit: Optional[torch.Tensor] = None,
+                         u: Optional[torch.Tensor] = None, *,
+                         seed: Optional[int] = None,
+                         n_rays: Optional[int] = None,
+                         max_bounces: Optional[int] = None,
+                         sample_rate: int, ir_length: int,
+                         work_counts: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """K6: ONE frame -> IR ``[L, T, 1]`` with the binning inside the
+    per-bounce kernel (one launch per bounce, hits never reach device
+    memory as records). Either host uniforms ``emit[R]``, ``u[B, R, 3]``
+    or, the counterpart of the JAX function's ``in_kernel_rng``, a
+    ``seed`` with ``n_rays`` and ``max_bounces``: the kernel then draws
+    frame 0 of that seed's Philox stream. The accumulator and its scale
+    are K3's, so the IR equals :func:`trace_frames_ir_whole` of the same
+    one frame bit for bit, and with a seed
+    ``trace_frames_ir_mega(seed, 1)``. CPU scenes run
+    :func:`trace_frame_ir_fused_plain` (on the seed's Philox numbers)."""
+    if (seed is None) == (emit is None and u is None):
+        raise ValueError("give either host uniforms (emit, u) or a seed")
+    if seed is not None and (n_rays is None or max_bounces is None):
+        raise ValueError("a seed needs n_rays and max_bounces")
+    if scene.device.type != "cuda":
+        if seed is not None:
+            emit, u = rng.philox_uniforms(seed, 1, max_bounces, n_rays,
+                                          scene.device)
+            emit, u = emit[0], u[0]
+        return trace_frame_ir_fused_plain(scene, params, emit, u,
+                                          sample_rate=sample_rate,
+                                          ir_length=ir_length)
+    check_kernel_supported(scene, params)
+    key = (0, 0)
+    if seed is None:
+        n_rays, max_bounces = _check_uniforms(scene, emit, u)
+        emit, u = emit.contiguous(), u.contiguous()
+    else:
+        key = rng.seed_key(seed)
+    dev = scene.device
+    n_l = params.listeners.shape[0]
+    scale = fixed_point_scale(params, 1, n_rays, max_bounces).reshape(1)
+    acc = torch.zeros((n_l, ir_length), dtype=torch.int64, device=dev)
+    out = torch.empty((n_l, ir_length, 1), dtype=torch.float32, device=dev)
+    _run_steps(scene, params, emit, u, key, n_rays, max_bounces, acc=acc,
+               scale=scale, sample_rate=sample_rate, ir_length=ir_length,
+               work_counts=work_counts, counter=trace_frame_ir_fused)
+    _, convert = _step_fns()
+    err = convert(acc.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                  acc.numel(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"IR conversion launch failed: cudaError {err}")
+    return out
+
+
+def trace_accumulate_fused(scene: Scene, params: TraceParams, state: IRState,
+                           emit: torch.Tensor, u: torch.Tensor, *,
+                           sample_rate: int, exact_scatter: bool = False
+                           ) -> IRState:
+    """Step-kernel counterpart of ``engine.trace_accumulate`` for host
+    uniforms ``emit[F, R]``, ``u[F, B, R, 3]``: each frame through K6
+    (:func:`trace_frame_ir_fused`), or, with ``exact_scatter``, a K5 pass
+    per listener (the ray paths do not depend on the listener) whose rows
+    :func:`scatter_hits_rows` bins in float32, the route of the JAX
+    ``trace_accumulate_fused(exact_scatter=True)``. One band."""
+    ir_length = state.ir_length
+    total = state.sum
+    for f in range(emit.shape[0]):
+        if exact_scatter:
+            irs = []
+            for l0 in range(params.listeners.shape[0]):
+                p1 = params._replace(listeners=params.listeners[l0:l0 + 1])
+                irs.append(scatter_hits_rows(
+                    trace_fused_rows(scene, p1, emit[f], u[f]), sample_rate,
+                    ir_length))
+            ir = torch.cat(irs)
+        else:
+            ir = trace_frame_ir_fused(scene, params, emit[f], u[f],
+                                      sample_rate=sample_rate,
+                                      ir_length=ir_length)
+        total = total + ir
+    return IRState(sum=total, frames=state.frames + emit.shape[0])
+
+
 trace_frames_ir_whole.launches = 0
 trace_frames_ir_mega.launches = 0
 trace_rooms_ir_mega.launches = 0
+trace_fused_rows.launches = 0
+trace_frame_ir_fused.launches = 0

@@ -4,9 +4,11 @@ Port of ``realisticaudioraytracing2d_tpu/ops/ir.py`` (spec: the
 reference's ``ProcessHits`` / ``ClearImpulse`` kernels,
 ``Raytrace2D.compute:157-172``): each hit deposits its energy into IR bin
 ``floor(timeDelay * SampleRate)``. This plain version adds hits in one
-fixed order (``index_add_`` over the flattened ``[B, 2, R]`` hits of a
-listener), which on the CPU is deterministic. The hand kernel bins with
-fixed-point integer atomics instead, so it is deterministic on the card.
+fixed order (:func:`add_rows` over the flattened ``[B, 2, R]`` hits of a
+listener): ``index_add_`` on the CPU, and on the card, where that would
+be float atomics in arbitrary order, the sort-based accumulate of
+``index_put_``, so the same hits give a bit-identical IR on a rerun. The
+hand kernels bin with fixed-point integer atomics instead.
 
 :class:`IRState` holds ``(sum, frames)``, the reference's mutable
 ``ImpulseResponse`` buffer plus its ``accumFrames`` counter
@@ -16,8 +18,9 @@ use time, exactly like ``AudioConvolve.compute:30``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..device import resolve
@@ -63,6 +66,36 @@ def _flatten_hits(hits: Hits):
     return delay, valid, energy
 
 
+def add_rows(n_rows: int, rows: torch.Tensor, values: torch.Tensor,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[rows[i]] += values[i]`` into zeros ``[n_rows, ...]``, in a
+    fixed order on either device. ``keep[i]`` False marks an entry whose
+    value is zero and whose row is the caller's sacrificial one.
+
+    On the CPU ``index_add_`` runs in index order. On CUDA it would be
+    float ``atomicAdd`` in arbitrary order; there the accumulate form of
+    ``index_put_`` under torch's deterministic mode (scoped to this call)
+    sorts the indices and sums each row's values in their original order,
+    so a rerun gives the same bits. That kernel walks the entries of one
+    row one after the other, so the CUDA path first drops the entries
+    ``keep`` rules out (most hit records are invalid, and all of them
+    would queue on the sacrificial row); the order of the others, and so
+    every sum, stays as it is."""
+    out = torch.zeros((n_rows,) + tuple(values.shape[1:]),
+                      dtype=values.dtype, device=values.device)
+    if values.device.type != "cuda":
+        return out.index_add_(0, rows, values)
+    if keep is not None:
+        rows, values = rows[keep], values[keep]
+    was_on = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return out.index_put_((rows,), values, accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(was_on, warn_only=warn_only)
+
+
 def scatter_hits(hits: Hits, sample_rate: int, ir_length: int
                  ) -> torch.Tensor:
     """Deposit hits into IR bins: returns ``ir[L, T, K]``.
@@ -78,9 +111,8 @@ def scatter_hits(hits: Hits, sample_rate: int, ir_length: int
     energy = energy * ok[..., None].to(energy.dtype)
     rows = bins + (ir_length + 1) * torch.arange(
         l, device=bins.device)[:, None]                      # [L, N]
-    ir = torch.zeros((l * (ir_length + 1), k), dtype=torch.float32,
-                     device=energy.device)
-    ir.index_add_(0, rows.reshape(-1), energy.reshape(l * n, k))
+    ir = add_rows(l * (ir_length + 1), rows.reshape(-1),
+                  energy.reshape(l * n, k), ok.reshape(-1))
     return ir.reshape(l, ir_length + 1, k)[:, :ir_length]
 
 
@@ -89,3 +121,53 @@ def accumulate(state: IRState, hits: Hits, sample_rate: int) -> IRState:
     accumFrames++, ``RayTraceManager.cs:220-233``)."""
     ir = scatter_hits(hits, sample_rate, state.ir_length)
     return IRState(sum=state.sum + ir, frames=state.frames + 1)
+
+
+def muffle_band_energies(energy: torch.Tensor, muffle: torch.Tensor,
+                         n_bands: int, muffle_scale: float = 5.0
+                         ) -> torch.Tensor:
+    """Legacy frequency spread: expand scalar hit energies ``[...]`` into
+    band energies ``[..., n_bands]`` attenuated as
+    ``energy * exp(-muffle * band * muffle_scale / n_bands)``, verbatim
+    ``RaytraceOcclusion2D.compute:248`` (with its ``WindowSize`` = n_bands
+    and default ``muffleFactor = 5.0`` from ``RayTraceManagerComplex.cs:28``).
+    """
+    bands = torch.arange(n_bands, dtype=torch.float32, device=energy.device)
+    # a tensor divisor keeps IEEE division on CUDA (trace.emission_angle)
+    att = torch.exp(-muffle[..., None] * bands * muffle_scale
+                    / bands.new_tensor(float(n_bands)))
+    return energy[..., None] * att
+
+
+def rasterize_ir(ir_accum: torch.Tensor, frames: int, gain: float = 1000.0,
+                 width: int = 1024, height: int = 256) -> torch.Tensor:
+    """Waveform raster of a (possibly banded) IR, the ``DrawIR`` debug
+    overlay (``Raytrace2D.compute:174-189``) as a pure function.
+
+    ``ir_accum``: [T] or [T, K] accumulated (unnormalized) IR; ``frames``
+    its frame count. Returns a float32 image [height, width] with 1.0 where
+    the reference writes green. Reference mapping: column x samples bin
+    ``floor(x/W * T)``, bar spans ``0.1*h < y < 0.1*h + amp * gain * h``
+    with ``amp = ir[bin]/accumCount``.
+
+    The JAX function is jitted with ``width`` static, and XLA turns its
+    ``x / width`` into ``x * (1 / width)`` in float32, which for a width
+    that is no power of two moves a few columns by one bin against true
+    division. The port multiplies by the same float32 reciprocal (computed
+    on the host, so the card rounds as the CPU does) and its images equal
+    JAX's exactly; ``amp`` divides by a tensor."""
+    if ir_accum.dim() == 2:
+        ir_accum = ir_accum.sum(dim=-1)
+    t = ir_accum.shape[0]
+    cols = torch.arange(width, dtype=torch.float32, device=ir_accum.device)
+    inv_width = float(np.float32(1.0) / np.float32(width))
+    xs = (cols * inv_width * t).to(torch.int32)
+    amp = ir_accum[torch.clamp(xs, 0, t - 1).long()] \
+        / ir_accum.new_tensor(float(max(1, int(frames))))
+    h = float(height)
+    y_top = 0.1 * h + amp * gain * h                       # [W]
+    rows = torch.arange(height, dtype=torch.float32,
+                        device=ir_accum.device)[:, None]   # [H, 1]
+    img = (rows > 0.1 * h) & (rows < y_top[None, :])
+    # Image rows run bottom-up in the reference texture; keep that layout.
+    return img.to(torch.float32)

@@ -111,7 +111,8 @@ def _u24(word: torch.Tensor) -> torch.Tensor:
 
 
 def philox_uniforms(seed: int, n_frames: int, max_bounces: int,
-                    n_rays: int, device=None, entry: int = 0
+                    n_rays: int, device=None, entry: int = 0,
+                    first_frame: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The uniforms the hand kernel draws for ``seed`` in batch entry
     ``entry``: ``emit[F, R]`` and ``u[F, B, R, 3]``.
@@ -121,11 +122,13 @@ def philox_uniforms(seed: int, n_frames: int, max_bounces: int,
     counter bounce ``B`` is the emission jitter. ``entry`` is the global
     id of a room of a sweep or a source of a mixdown (K9); the
     single-scene trace (K4) is entry 0. Streams of different entries are
-    disjoint by construction."""
+    disjoint by construction. The frames are ``first_frame ..
+    first_frame + F - 1``."""
     k0, k1 = seed_key(seed)
     device = resolve(device)
     ray = torch.arange(n_rays, dtype=torch.int64, device=device)
-    frame = torch.arange(n_frames, dtype=torch.int64, device=device)
+    frame = torch.arange(first_frame, first_frame + n_frames,
+                         dtype=torch.int64, device=device)
     bounce = torch.arange(max_bounces + 1, dtype=torch.int64, device=device)
     c0 = ray.expand(n_frames, max_bounces + 1, n_rays)
     c1 = frame[:, None, None].expand_as(c0)

@@ -10,8 +10,15 @@ and medium speed change, and a specular/diffuse reflection lerp.
 
 Unlike the JAX version, the uniforms are an argument (``emit[R]``,
 ``u[B, R, 3]``): the parity tests pass JAX's threefry draws, production
-draws them from :mod:`.rng`. The hand kernel
-(``ops/cuda/bounce_kernel.py``) is held against this module on the card.
+draws them from :mod:`.rng`. The hand kernels
+(``ops/cuda/bounce_kernel.py``) are held against this module on the card.
+
+``trace(..., use_kernels=True)``, the counterpart of the JAX function's
+``use_pallas``, sends the two ``[rays, walls]`` passes of every bounce (the
+nearest-wall search and the NEE occlusion sweep) through the hand kernels
+K1 and K2 (``ops/cuda/trace_kernel.py``), which take any listener, band
+and wall count; the rest of the bounce stays tensor code. ``n_debug > 0``
+also records :class:`DebugPaths`, the ray-path gizmo of the first rays.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from ..device import resolve
 from ..models.scene import Scene
+from .cuda import trace_kernel as tk
 from .geometry import (EPS, INF, PI, dot2, nearest_hit, normalize,
                        pairwise_ray_segment_t, ray_circle_intersect, reflect,
                        refract, rotate)
@@ -81,6 +89,16 @@ class Hits(NamedTuple):
     @property
     def n_bands(self) -> int:
         return self.energy.shape[-1]
+
+
+class DebugPaths(NamedTuple):
+    """Per-bounce positions/energies of the first ``n_debug`` rays, the
+    equivalent of the reference's ``debugRays`` gizmo buffer
+    (``Raytrace2D.compute:63-64,87-88,96-97``)."""
+
+    pos: torch.Tensor      # [B+1, D, 2]
+    energy: torch.Tensor   # [B+1, D] (max over bands)
+    alive: torch.Tensor    # [B+1, D] bool
 
 
 class _RayState(NamedTuple):
@@ -151,15 +169,25 @@ def _emit(params: TraceParams, n_rays: int, n_bands: int,
 
 
 def _bounce(scene: Scene, params: TraceParams, st: _RayState,
-            u: torch.Tensor) -> Tuple[_RayState, Tuple]:
+            u: torch.Tensor, walls_packed: Optional[torch.Tensor] = None
+            ) -> Tuple[_RayState, Tuple]:
     """One bounce for all rays; ``u[R, 3]`` are this bounce's uniforms
-    (transmission test / refraction jitter / diffuse angle)."""
+    (transmission test / refraction jitter / diffuse angle). When
+    ``walls_packed`` (``trace_kernel.pack_walls``) is given, the two
+    rays x walls passes run as the kernels K1 and K2 (their plain
+    versions on the CPU). Returns the next state and ``(delay, energy,
+    valid, pos, hit_wall)``: the hit records, the position each ray
+    advanced to (offset off the wall, not frozen for a dying ray) and
+    whether it hit a wall."""
     listeners = params.listeners                     # [L, 2]
     c = params.speed_of_sound
 
     # --- nearest wall (Raytrace2D.compute:69-72) ---------------------------
-    t_wall = pairwise_ray_segment_t(st.pos, st.dir, scene.a, scene.b)
-    closest, hit_idx = nearest_hit(t_wall)           # [R], [R]
+    if walls_packed is not None:
+        closest, hit_idx = tk.nearest_hit(st.pos, st.dir, walls_packed)
+    else:
+        t_wall = pairwise_ray_segment_t(st.pos, st.dir, scene.a, scene.b)
+        closest, hit_idx = nearest_hit(t_wall)       # [R], [R]
     hit_wall = (hit_idx >= 0) & st.alive
 
     # --- direct listener capture, only outside walls (compute:74-84) -------
@@ -195,9 +223,13 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
     dist_lis = torch.sqrt(torch.clamp(dot2(to_lis, to_lis), min=1e-20))
     vis_dir = (listeners[None, :, :] - nee_src[:, None, :]) \
         / dist_lis[..., None]
-    t_occ = pairwise_ray_segment_t(nee_src[:, None, :], vis_dir,
-                                   scene.a, scene.b)         # [R, L, W]
-    occ_min = t_occ.min(dim=-1).values
+    if walls_packed is not None:
+        occ_min = tk.occlusion_min(nee_src[:, None, :].expand_as(vis_dir),
+                                   vis_dir, walls_packed)    # [R, L]
+    else:
+        t_occ = pairwise_ray_segment_t(nee_src[:, None, :], vis_dir,
+                                       scene.a, scene.b)     # [R, L, W]
+        occ_min = t_occ.min(dim=-1).values
     visible = occ_min >= dist_lis - OCCLUSION_SLACK
 
     eff_sign = torch.where(dot2(st.dir, w_n) > 0.0, -1.0, 1.0)  # [R]
@@ -258,40 +290,62 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
 
     out = (torch.stack([direct_delay, nee_delay]),            # [2, R, L]
            torch.stack([direct_energy, nee_energy]),          # [2, R, L, K]
-           torch.stack([direct_valid, nee_valid]))            # [2, R, L]
+           torch.stack([direct_valid, nee_valid]),            # [2, R, L]
+           pos, hit_wall)
     return st_next, out
 
 
 def trace(scene: Scene, params: TraceParams, emit: torch.Tensor,
-          u: torch.Tensor, *, n_debug: int = 0,
+          u: torch.Tensor, *, n_debug: int = 0, use_kernels: bool = False,
           transmission_surrogate: bool = False
-          ) -> Tuple[Hits, None]:
+          ) -> Tuple[Hits, Optional[DebugPaths]]:
     """Trace ``R = emit.shape[0]`` rays for ``B = u.shape[0]`` bounces with
-    the given uniforms (``emit[R]``, ``u[B, R, 3]``). Returns
-    ``(Hits, None)``, the shape of the JAX function's result; the debug
-    paths (``n_debug > 0``) are not ported yet."""
+    the given uniforms (``emit[R]``, ``u[B, R, 3]``). Returns fixed-shape
+    :class:`Hits` and, when ``n_debug > 0``, the :class:`DebugPaths` of
+    the first ``n_debug`` rays (else None). ``use_kernels`` routes the
+    rays x walls passes through the hand kernels K1 and K2 (on a CPU
+    scene: their plain versions)."""
     _check_supported(params, transmission_surrogate)
-    if n_debug:
-        raise NotImplementedError("DebugPaths are not ported yet "
-                                  "(ROADMAP queue 1, item 3)")
     n_rays = emit.shape[0]
     if u.shape[1:] != (n_rays, 3):
         raise ValueError(f"u must be [B, {n_rays}, 3], got {tuple(u.shape)}")
+    if not 0 <= n_debug <= n_rays:
+        raise ValueError(f"n_debug must lie in [0, {n_rays}], got {n_debug}")
+    walls_packed = tk.pack_walls(scene) if use_kernels else None
     st = _emit(params, n_rays, scene.n_bands, emit)
+    d = n_debug
+    dbg_pos, dbg_energy, dbg_alive = [], [], []
+    if d:
+        dbg_pos.append(params.source.expand(d, 2))
+        dbg_energy.append(st.energy[:d].amax(dim=-1))
+        dbg_alive.append(torch.ones(d, dtype=torch.bool, device=emit.device))
     delays, energies, valids = [], [], []
     for b in range(u.shape[0]):
-        st, (delay, energy, valid) = _bounce(scene, params, st, u[b])
+        prev = st
+        st, (delay, energy, valid, pos, hit_wall) = _bounce(
+            scene, params, st, u[b], walls_packed)
         delays.append(delay)
         energies.append(energy)
         valids.append(valid)
-    return Hits(delay=torch.stack(delays), energy=torch.stack(energies),
-                valid=torch.stack(valids)), None
+        if d:
+            # Miss rays draw an escape stub of length 20 like the reference
+            # gizmo path (compute:87-88).
+            esc = prev.pos[:d] + prev.dir[:d] * 20.0
+            dbg_pos.append(torch.where(hit_wall[:d, None], pos[:d], esc))
+            dbg_energy.append(st.energy[:d].amax(dim=-1))
+            dbg_alive.append(st.alive[:d])
+    hits = Hits(delay=torch.stack(delays), energy=torch.stack(energies),
+                valid=torch.stack(valids))
+    debug = DebugPaths(pos=torch.stack(dbg_pos),
+                       energy=torch.stack(dbg_energy),
+                       alive=torch.stack(dbg_alive)) if d else None
+    return hits, debug
 
 
 def trace_hits_only(scene: Scene, params: TraceParams, emit: torch.Tensor,
-                    u: torch.Tensor, *,
+                    u: torch.Tensor, *, use_kernels: bool = False,
                     transmission_surrogate: bool = False) -> Hits:
     """Hits-only wrapper of :func:`trace`."""
-    hits, _ = trace(scene, params, emit, u,
+    hits, _ = trace(scene, params, emit, u, use_kernels=use_kernels,
                     transmission_surrogate=transmission_surrogate)
     return hits

@@ -3,7 +3,11 @@ rooms-batched K9 modes of ``csrc/bounce_kernel.cu``) and the cluster
 kernels of the large-scene path (K7, K8 of ``csrc/accel_kernel.cu``)
 against their plain PyTorch versions, their determinism, their launch
 counts, the engine's routing by wall and band count, the sweep and the
-mixdown on the card, and the wrappers' refusals.
+mixdown on the card, and the wrappers' refusals; then the hit-record
+path: the wall sweeps (K1, K2 of ``csrc/trace_kernel.cu``) and the
+per-bounce step kernel (K5, K6 of ``csrc/step_kernel.cu``) against their
+plain versions, K6 == K3 == K4 bit for bit, the routing of a request for
+hits by listener, band and wall count, and the float scatters' determinism.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
 file imports no JAX, so it runs on a machine without it:
@@ -16,7 +20,10 @@ compute every hit in the same IEEE order; only the binning sums differ
 H100. Energy and per-bin L1 within 1e-5 (a few hits of average energy
 moving bin would exceed it), the first nonzero bin equal. The cluster
 kernels only skip work: early_out on or off, and K4, K7 (K = 1) and K8 on
-one sorted scene, give the same bits."""
+one sorted scene, give the same bits. K1, K2 and K5 hand out the plain
+version's own numbers (distances, indices, hit records): equal bit for
+bit, since both make the same IEEE operations and a minimum does not
+depend on its order."""
 
 import numpy as np
 import pytest
@@ -26,9 +33,13 @@ from torch_parity import cuda, cuda_device, to_numpy  # noqa: F401
 import realisticaudioraytracing2d_tpu_torch as art
 from realisticaudioraytracing2d_tpu_torch.models import rooms
 from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
-from realisticaudioraytracing2d_tpu_torch.ops import rng
+from realisticaudioraytracing2d_tpu_torch import engine
+from realisticaudioraytracing2d_tpu_torch.ops import ir as irm
+from realisticaudioraytracing2d_tpu_torch.ops import legacy, rng
+from realisticaudioraytracing2d_tpu_torch.ops import trace as tt
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import accel_kernel as ak
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import bounce_kernel as bk
+from realisticaudioraytracing2d_tpu_torch.ops.cuda import trace_kernel as tk
 from realisticaudioraytracing2d_tpu_torch.ops.trace import (TraceParams,
                                                             emission_angle)
 from realisticaudioraytracing2d_tpu_torch.parallel.multisource import \
@@ -424,3 +435,197 @@ def test_cuda_city_never_runs_the_plain_version(cuda_device, monkeypatch):
     assert ak.trace_frames_ir_accel_sorted.launches == before + 4 * 5
     assert float(st.sum.sum()) > 0 and st.frames == 2
     assert bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0
+
+
+# --- the hit-record path: K1, K2 (wall sweeps), K5, K6 (per-bounce step) -----
+
+def _hit_counts():
+    return (tk.nearest_hit.launches, tk.occlusion_min.launches,
+            bk.trace_fused_rows.launches, bk.trace_frame_ir_fused.launches)
+
+
+def _two_ears(room, device, **kw):
+    ears = np.stack([room.listener, room.listener + [1.5, 0.5]])
+    return TraceParams.make(room.source, ears, device=device, **kw)
+
+
+@cuda
+@pytest.mark.parametrize("n_boxes", [0, 2500])
+def test_wall_sweeps_equal_their_plain_versions(cuda_device, n_boxes):
+    """K1 and K2 on random rays (a count that fills no whole block) against
+    SmollRoom's 24 walls and the 10,008-wall city, whose table is staged
+    through shared memory in ten tiles."""
+    room = rooms.city_scene(n_boxes, device=cuda_device) if n_boxes else \
+        rooms.smoll_room(device=cuda_device)
+    walls = tk.pack_walls(room.scene)
+    n = 5001
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    lo = room.scene.a.amin(0)
+    span = room.scene.a.amax(0) - lo
+    o = lo + span * torch.rand((n, 2), generator=gen, device=cuda_device)
+    ang = 6.2831853 * torch.rand(n, generator=gen, device=cuda_device)
+    d = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+    before = _hit_counts()
+    t, idx = tk.nearest_hit(o, d, walls)
+    occ = tk.occlusion_min(o.reshape(-1, 3, 2), d.reshape(-1, 3, 2), walls)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_hit_counts(), before)) == (1, 1, 0, 0)
+    t_plain, idx_plain = tk.nearest_hit_plain(o, d, walls)
+    assert idx.dtype == torch.int32 and int((idx >= 0).sum()) > n // 2
+    assert torch.equal(t, t_plain) and torch.equal(idx, idx_plain)
+    assert tuple(occ.shape) == (n // 3, 3)
+    assert torch.equal(occ.reshape(-1), tk.occlusion_min_plain(o, d, walls))
+    # a ray that leaves the scene misses: distance INF, index -1
+    far = room.scene.a.amax(0)[None] + 10.0
+    t_far, idx_far = tk.nearest_hit(far, far.new_tensor([[1.0, 0.0]]), walls)
+    assert float(t_far) == 1e8 and int(idx_far) == -1
+
+
+@cuda
+def test_trace_with_kernels_equals_the_plain_trace(cuda_device):
+    room = rooms.smoll_room(n_bands=2, device=cuda_device)
+    params = _two_ears(room, cuda_device)
+    emit, u = rng.philox_uniforms(6, 1, 5, 15000, cuda_device)
+    before = _hit_counts()
+    hits, dbg = tt.trace(room.scene, params, emit[0], u[0], n_debug=100,
+                         use_kernels=True)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_hit_counts(), before)) == (5, 5, 0, 0)
+    want, dbg_plain = tt.trace(room.scene, params, emit[0], u[0], n_debug=100)
+    assert tuple(hits.valid.shape) == (5, 2, 15000, 2)
+    assert int(want.valid.sum()) > 1000 and torch.equal(hits.valid, want.valid)
+    v = want.valid
+    assert torch.equal(hits.delay[v], want.delay[v])
+    assert torch.equal(hits.energy[v], want.energy[v])
+    assert tuple(dbg.pos.shape) == (6, 100, 2)
+    for got, plain in zip(dbg, dbg_plain):
+        assert torch.equal(got, plain)
+
+
+@cuda
+@pytest.mark.parametrize("room_fn,gain", [(rooms.smoll_room, 1.0),
+                                          (rooms.big_room, 100.0)])
+def test_rows_kernel_equals_the_plain_rows(cuda_device, room_fn, gain):
+    scene, params = _setup(cuda_device, room_fn=room_fn, gain=gain)
+    emit, u = rng.philox_uniforms(3, 1, 5, 15000, cuda_device)
+    emit, u = emit[0], u[0]
+    before = _hit_counts()
+    rows = bk.trace_fused_rows(scene, params, emit, u)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_hit_counts(), before)) == (0, 0, 5, 0)
+    want = bk.trace_fused_rows_plain(scene, params, emit, u)
+    assert tuple(rows.shape) == (5, 8, 15000)
+    assert int((want[:, [2, 5]] > 0.5).sum()) > 500
+    assert torch.equal(rows, want)
+    assert torch.equal(rows, bk.trace_fused_rows(scene, params, emit, u))
+    hits = bk.trace_fused(scene, params, emit, u)
+    plain = tt.trace_hits_only(scene, params, emit, u)
+    assert torch.equal(hits.valid, plain.valid)
+    assert torch.equal(hits.delay[plain.valid], plain.delay[plain.valid])
+    # the rows binned in float are K3's IR of the same uniforms
+    ir = bk.scatter_hits_rows(rows, **KW)
+    assert torch.equal(ir, bk.scatter_hits_rows(rows, **KW))
+    _assert_close_irs(ir, bk.trace_frames_ir_whole(scene, params, emit[None],
+                                                   u[None], **KW))
+
+
+@cuda
+@pytest.mark.parametrize("n_listeners", [1, 2])
+def test_fused_ir_kernel_is_k3_and_k4_bit_for_bit(cuda_device, n_listeners):
+    room = rooms.smoll_room(device=cuda_device)
+    params = _two_ears(room, cuda_device)
+    params = params._replace(listeners=params.listeners[:n_listeners])
+    emit, u = rng.philox_uniforms(12, 1, 5, 15000, cuda_device)
+    before = _hit_counts()
+    k6 = bk.trace_frame_ir_fused(room.scene, params, emit[0], u[0], **KW)
+    seeded = bk.trace_frame_ir_fused(room.scene, params, seed=12,
+                                     n_rays=15000, max_bounces=5, **KW)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_hit_counts(), before)) == (0, 0, 0, 10)
+    k3 = bk.trace_frames_ir_whole(room.scene, params, emit, u, **KW)
+    k4 = bk.trace_frames_ir_mega(room.scene, params, 12, 1, n_rays=15000,
+                                 max_bounces=5, **KW)
+    assert tuple(k6.shape) == (n_listeners, 72000, 1) and float(k6.sum()) > 0
+    assert torch.equal(k6, k3) and torch.equal(seeded, k4)
+    assert torch.equal(k6, seeded)
+    _assert_close_irs(k6, bk.trace_frame_ir_fused_plain(
+        room.scene, params, emit[0], u[0], **KW))
+    # the exact_scatter route: a K5 pass per listener, binned in float
+    state = bk.trace_accumulate_fused(
+        room.scene, params, art.IRState.zeros(72000, n_listeners,
+                                              device=cuda_device),
+        emit, u, sample_rate=48000, exact_scatter=True)
+    assert state.frames == 1
+    _assert_close_irs(state.sum, k3)
+
+
+@cuda
+def test_hit_requests_route_by_listeners_bands_and_walls(cuda_device,
+                                                         monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    for mod, name in ((tk, "nearest_hit_plain"), (tk, "occlusion_min_plain"),
+                      (bk, "trace_fused_rows_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+
+    def run(scene, params, n_rays=4096, n_bounces=4):
+        emit, u = rng.philox_uniforms(2, 1, n_bounces, n_rays, cuda_device)
+        before = _hit_counts()
+        hits = engine.trace_hits(scene, params, emit[0], u[0])
+        torch.cuda.synchronize()
+        assert tuple(hits.valid.shape) == (n_bounces, 2, n_rays,
+                                           params.listeners.shape[0])
+        assert int(hits.valid.sum()) > 0
+        return tuple(a - b for a, b in zip(_hit_counts(), before))
+
+    room = rooms.smoll_room(device=cuda_device)
+    mono = TraceParams.make(room.source, room.listener, device=cuda_device)
+    assert run(room.scene, mono) == (0, 0, 4, 0)                   # K5
+    assert run(room.scene, _two_ears(room, cuda_device)) == (4, 4, 0, 0)
+    banded = rooms.smoll_room(n_bands=4, device=cuda_device)
+    assert run(banded.scene, mono) == (4, 4, 0, 0)                 # K1/K2
+    big, p_big = _city(cuda_device, 1500)                    # 6,004 walls
+    assert big.n_walls > bk.MAX_WALLS
+    assert run(big, p_big) == (4, 4, 0, 0)
+    eng = art.Engine(room.scene, art.smoll_room_config())
+    before = _hit_counts()
+    _, dbg = eng.trace_debug(mono, seed=1, n_debug=10)
+    assert tuple(a - b for a, b in zip(_hit_counts(), before)) == (5, 5, 0, 0)
+    assert tuple(dbg.pos.shape) == (6, 10, 2)
+    emit, u = rng.philox_uniforms(2, 1, 4, 256, cuda_device)
+    with pytest.raises(ValueError, match="one listener"):
+        bk.trace_fused(room.scene, _two_ears(room, cuda_device), emit[0],
+                       u[0])
+    with pytest.raises(ValueError, match="K7/K8"):
+        bk.trace_fused(big, p_big, emit[0], u[0])
+    with pytest.raises(ValueError, match="emit"):
+        bk.trace_fused_rows(room.scene, mono, emit[0].cpu(), u[0])
+    with pytest.raises(ValueError, match="is on"):
+        tk.nearest_hit(room.scene.a.cpu(), room.scene.b.cpu(),
+                       tk.pack_walls(room.scene))
+
+
+@cuda
+def test_float_scatters_are_deterministic_on_the_card(cuda_device):
+    room = rooms.smoll_room(device=cuda_device)
+    params = _two_ears(room, cuda_device)
+    emit, u = rng.philox_uniforms(9, 1, 5, 15000, cuda_device)
+    hits = tt.trace_hits_only(room.scene, params, emit[0], u[0],
+                              use_kernels=True)
+    ir = irm.scatter_hits(hits, **KW)
+    spectro = legacy.scatter_hits_legacy(hits, 48000, 562)
+    td = legacy.legacy_ir_to_time_domain(spectro, 48000, 72000)
+    for _ in range(3):
+        assert torch.equal(ir, irm.scatter_hits(hits, **KW))
+        assert torch.equal(spectro, legacy.scatter_hits_legacy(hits, 48000,
+                                                               562))
+        assert torch.equal(td, legacy.legacy_ir_to_time_domain(spectro, 48000,
+                                                               72000))
+    assert float(ir.sum()) > 0 and tuple(spectro.shape) == (2, 562, 128)
+    assert tuple(td.shape) == (2, 72000) and float(td.abs().sum()) > 0
+    # the same hits binned on the CPU: only the order of the float sums differs
+    cpu = irm.scatter_hits(tt.Hits(*(x.cpu() for x in hits)), **KW)
+    np.testing.assert_allclose(to_numpy(ir), to_numpy(cpu), rtol=1e-5,
+                               atol=1e-9)
+    assert not torch.are_deterministic_algorithms_enabled()

@@ -7,7 +7,11 @@ few percent of inputs (emission and diffuse directions), so a razor-edge
 hit may flip: valid masks must agree on >= 99.5% of entries. Where both
 are valid, delays and energies agree to rtol 1e-5 on >= 99% of entries
 and to 1e-4 everywhere; the largest gaps are grazing listener-circle
-captures, where ``sqrt(r^2 - d^2)`` magnifies an ulp of direction."""
+captures, where ``sqrt(r^2 - d^2)`` magnifies an ulp of direction. The
+debug paths (``n_debug``) follow the same rays: ``alive`` equal on >= 99.5%
+of the entries, and where both are alive positions to atol 2e-3 m (an ulp
+of direction over a 40 m room) and energies to rtol 1e-5, on all but at
+most one of the 32 rays (a razor-edge wall hit diverts a ray for good)."""
 
 import jax
 import numpy as np
@@ -54,6 +58,42 @@ def test_trace_matches_jax_with_jax_uniforms(n_listeners, n_bands):
            np.broadcast_to(both[..., None], hj.energy.shape))
 
 
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_debug_paths_match_jax(use_kernels):
+    """``trace(n_debug)`` against JAX's ``trace`` on JAX's uniforms; with
+    ``use_kernels`` against JAX's ``use_pallas`` (Pallas kernels in
+    interpret mode), the plain sweeps taking K1/K2's place on the CPU."""
+    d = 32
+    room = jax_rooms.smoll_room()
+    p = jax_trace.TraceParams.make(room.source, room.listener, 0.5, 343.0,
+                                   1.0)
+    key = jax.random.PRNGKey(4)
+    hj, dj = jax_trace.trace(room.scene, p, key, n_rays=R, max_bounces=B,
+                             n_debug=d, use_pallas=use_kernels)
+    emit, u = jax_rng.bounce_uniforms(key, B, R)
+    ht, dt = tt.trace(convert.scene_from_arrays(room.scene, device="cpu"),
+                      convert.params_from_arrays(p, device="cpu"),
+                      to_torch(emit), to_torch(u), n_debug=d,
+                      use_kernels=use_kernels)
+    assert tuple(dt.pos.shape) == (B + 1, d, 2) == dj.pos.shape
+    assert tuple(dt.energy.shape) == (B + 1, d) == tuple(dt.alive.shape)
+    assert dt.alive.dtype == torch.bool and bool(dt.alive[0].all())
+    aj, at = np.asarray(dj.alive), to_numpy(dt.alive)
+    assert aj[1:].sum() > d and (aj != at).mean() <= 5e-3
+    np.testing.assert_array_equal(to_numpy(dt.pos[0]), np.asarray(dj.pos[0]))
+    # a segment is comparable while both rays were alive at its start; a
+    # razor-edge wall hit (a distance within an ulp of EPS) sends a ray
+    # another way for good, so at most one ray of the 32 may differ
+    both = aj & at
+    seg = np.concatenate([both[:1], both[:-1]])
+    pos_ok = np.abs(to_numpy(dt.pos) - np.asarray(dj.pos)).max(-1) <= 2e-3
+    en_ok = np.isclose(to_numpy(dt.energy), np.asarray(dj.energy), rtol=1e-5,
+                       atol=0.0)
+    same_ray = (pos_ok | ~seg).all(0) & (en_ok | ~both).all(0)
+    assert same_ray.sum() >= d - 1, np.flatnonzero(~same_ray)
+    assert (np.asarray(hj.valid) != to_numpy(ht.valid)).mean() <= 5e-3
+
+
 @pytest.mark.parametrize("n_rays", [15000, 1024])
 def test_emission_angles_equal_the_jax_ones(n_rays):
     """Emission angles ``(i + u) / R * 2pi`` (JAX's ``_emit`` expression)
@@ -80,5 +120,7 @@ def test_trace_hits_only_and_unported_features_raise():
         tt.trace(scene, p._replace(mic_directivity=torch.ones(3)), emit, u)
     with pytest.raises(NotImplementedError, match="item 14"):
         tt.trace(scene, p, emit, u, transmission_surrogate=True)
-    with pytest.raises(NotImplementedError, match="DebugPaths"):
-        tt.trace(scene, p, emit, u, n_debug=4)
+    with pytest.raises(ValueError, match="n_debug"):
+        tt.trace(scene, p, emit, u, n_debug=65)
+    _, dbg = tt.trace(scene, p, emit, u, n_debug=4)
+    assert tuple(dbg.pos.shape) == (4, 4, 2)
