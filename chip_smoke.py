@@ -59,8 +59,13 @@ Phases:
    plain version within SAME_ENERGY / SAME_L1 at the same full shape and
    Philox numbers, the plain version run over slices of rays (a plain
    [131072, 40008] f32 temporary would be 21 GB; PLAIN_ELEMENTS); timings
-   with ``early_out`` on and off, the tests, sweeps and slab tests made,
-   brute-equivalent tests/s ``R * B * 2 * W * F / time`` and the bound;
+   with ``early_out`` on and off, the tests, sweeps and slab tests made
+   (held against the counts of the kernels before their redesign:
+   PARENT_WORK), brute-equivalent tests/s ``R * B * 2 * W * F / time`` and
+   the bound; the sort keys the kernel leaves after every bounce equal
+   ``morton_ray_keys`` of the state it leaves; one call under the
+   profiler: its device kernels by kind (6 K8 launches, 5 sorts, no
+   gather), ``prepare`` builds nothing, and the device-busy share;
 8c. the 100,016-wall city: the same, its listener enclosed (an IR of
    zeros), then with a second listener in the open: ``early_out=False``
    bit-identical and K8 against its plain version at full shape;
@@ -70,8 +75,9 @@ Phases:
 9. the stream on ``city_scene(2500)`` (10,008 walls) at the shipped audio
    settings (15,000 x 5, 48 kHz, 72,000 bins, 4,800-sample chunks): 20
    chunks of clicks + 15 tail chunks through K8 (5 launches per chunk, no
-   K3/K4), K8 against its plain version at the stream's shape, the chunk
-   time;
+   K3/K4; ``prepare`` sorts the walls once for the whole stream), K8
+   against its plain version at the stream's shape, the chunk time and
+   the device-busy share of a chunk;
 10. the hit-record path. 10a: K1 and K2 against their plain versions on
    the rays of a real trace (SmollRoom and Big Room at 131,072 rays,
    bounce 0 and bounce 3; the 10,008-wall city with two listeners, the
@@ -94,7 +100,13 @@ Phases:
    profiler, and each kernel's bound (the larger of its bytes over 3.35
    TB/s and its FP32 operations over 67 TFLOP/s, the operations counted
    from the wall tests, wall sweeps and slab tests the kernel reports it
-   made on these inputs).
+   made on these inputs). The counts keep one meaning whatever the
+   kernels execute: a wall test is counted for a ray whose own box tests
+   passed (whether the division-free filter or the exact test settled it,
+   and whatever the other rays of its warp dragged it through), a slab
+   test as the ray's own walk would make it. The kernels are built with
+   ``--fmad=false``, so no multiply-add is contracted and their
+   arithmetic can reach at most half of the FP32 peak the bound uses.
 
 In the JSON line, K3 and K4 are timed at the stream's shape, K9 at the
 mixdown's, K8 at the city stream's (15,000 x 5 x 1 frame, 10,008 walls)
@@ -162,6 +174,22 @@ OPS_PER_TEST, OPS_PER_SWEEP, OPS_PER_SLAB = 13, 3, 16
 # 100x above them and below what a few hits of average energy moving to
 # another bin or flipping validity would add (estimated ~3e-6 each).
 SAME_ENERGY, SAME_L1 = 1e-5, 1e-5
+# (wall tests, wall sweeps, slab tests) of the kernels before their
+# redesign, at this script's seeds and shapes (scripts/
+# torch_profile_ablate.py on the parent; NVIDIA H100 80GB HBM3). The
+# counts are of the work each ray needs, so a redesign must not move them:
+# K9's must be equal; K8's sweeps too, its tests and slab tests within
+# WORK_TOLERANCE (each block orders the boxes from a centroid it sums in
+# another order than torch.sum did, and near-ties may swap two boxes).
+PARENT_WORK = {
+    "sweep": (24634418322, 900952967, 0),
+    "mixdown": (229654632, 9769042, 0),
+    "[8b]": (502510022, 4183180, 778329724),
+    "[8c]": (1116307395, 4080241, 900722562),
+    "K8": (11022114, 104896, 10667717)}
+WORK_TOLERANCE = 0.01
+FMAD_NOTE = ("at the 67 TFLOP/s peak; the build's --fmad=false contracts no "
+             "multiply-add, so at most half of it is reachable")
 
 
 def check(ok, what):
@@ -208,6 +236,34 @@ def kernel_device_ms(torch, fn, reps, name="frames_ir_kernel"):
         if us:
             return sum(us) / reps / 1e3
     return None
+
+
+def check_work(tag, got, want, exact):
+    """Hold one call's work counts against the parent's."""
+    if exact:
+        check(tuple(got) == tuple(want), f"{tag}: work {got} == {want}")
+        return
+    check(got[1] == want[1], f"{tag}: sweeps {got[1]} == {want[1]}")
+    for g, w in zip(got, want):
+        check(abs(g - w) <= WORK_TOLERANCE * w,
+              f"{tag}: work {got} within {WORK_TOLERANCE} of {want}")
+
+
+def busy_share(torch, fn, call_ms):
+    """One call of ``fn`` under the profiler: (device-busy ms, its share
+    of ``call_ms``, the unprofiled time of a call, and the device kernels'
+    names)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return busy, busy / call_ms, [e.name for e in events]
 
 
 def bound(counts, n_bytes):
@@ -274,6 +330,7 @@ def main():
     import realisticaudioraytracing2d_tpu_torch as art
     from realisticaudioraytracing2d_tpu_torch import cli
     from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
+    from realisticaudioraytracing2d_tpu_torch.ops import accel
     from realisticaudioraytracing2d_tpu_torch.ops import ir as irm
     from realisticaudioraytracing2d_tpu_torch.ops import legacy, rng
     from realisticaudioraytracing2d_tpu_torch.ops import trace as tt
@@ -702,6 +759,8 @@ def main():
                        + n_l * CITY_T * n_bands)
         check(w_on[1] == w_off[1], f"{tag}: early_out on and off made the "
               f"same sweeps ({w_on[1]}, {w_off[1]}): the same ray paths")
+        if tag in PARENT_WORK:
+            check_work(tag, w_on, PARENT_WORK[tag], exact=False)
         bnd = bound(w_on, n_bytes)
         brute_tests = BIG_RAYS * CITY_BOUNCES * 2 * scene.n_walls * CITY_FRAMES
         low = "; the highest band carries less energy than the lowest" \
@@ -722,12 +781,54 @@ def main():
               f"sweeps); brute-equivalent R*B*2*W*F = {brute_tests} tests "
               f"= {brute_tests / on / 1e9:.2f} T tests/s (early_out on), "
               f"{brute_tests / off / 1e9:.3f} T/s (off); bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}), the call at "
+              f"{bnd[0]:.4f} ms ({bnd[1]}; {FMAD_NOTE}), the call at "
               f"{bnd[0] / on * 100:.1f}% of it", flush=True)
+        if key == "K8":
+            k8_call_checks(tag, scene, p, on)
         large[tag] = dict(ms=on, brute_ms=off, device_ms=dev_on, work=w_on,
                           brute_work=w_off, bound=bnd, walls=scene.n_walls,
                           plain_ms=plain_ms)
         return g
+
+    def k8_call_checks(tag, scene, p, call_ms):
+        """The bookkeeping of one K8 call: the keys its kernel leaves equal
+        morton_ray_keys of the state it leaves; under the profiler it
+        makes one K8 launch per bounce and one sort between two, gathers
+        nothing and sorts no walls; the device-busy share of the call."""
+        prep = ak.prepare(scene)
+        left = []
+        ak.trace_frames_ir_accel_sorted(scene, p, 5, CITY_FRAMES,
+                                        keys_out=left, **city_run)
+        torch.cuda.synchronize()
+        keys_ok = [torch.equal(keys, accel.morton_ray_keys(
+            state[0], state[1], istate[1] >= 0, prep.bounds[:2],
+            prep.bounds[2:])) for state, istate, keys in left]
+        dead = [int((istate[1] < 0).sum()) for _, istate, _ in left]
+        del left
+        ak.prepare.builds = 0
+        busy, share, names = busy_share(
+            torch, lambda: ak.trace_frames_ir_accel_sorted(
+                scene, p, 5, CITY_FRAMES, **city_run), call_ms)
+        n_k8 = sum("accel_bounce_kernel" in n for n in names)
+        n_sort = sum("RadixSortOnesweep" in n or "SingleTileKernel" in n
+                     for n in names)
+        gathers = [n for n in names if "index_select" in n.lower()
+                   or "gather" in n.lower()]
+        print(f"{tag} one K8 call: in-kernel keys == morton_ray_keys after "
+              f"each of {len(keys_ok)} bounces: {keys_ok} (dead rays "
+              f"{dead} of {BIG_RAYS * CITY_FRAMES}); under the profiler "
+              f"{len(names)} device kernels: {n_k8} K8 launches, {n_sort} "
+              f"sort passes, {len(gathers)} gathers; prepare built "
+              f"{ak.prepare.builds} scenes; device busy {busy:.4f} ms = "
+              f"{share * 100:.1f}% of the unprofiled {call_ms:.3f} ms call",
+              flush=True)
+        check(len(keys_ok) == CITY_BOUNCES and all(keys_ok),
+              f"{tag}: in-kernel keys == morton_ray_keys")
+        check(n_k8 == CITY_BOUNCES and not gathers and ak.prepare.builds == 0
+              and len(names) <= 30 * CITY_BOUNCES,
+              f"{tag}: one K8 call is {CITY_BOUNCES} launches, sorts and "
+              f"nothing else ({len(names)} kernels, {gathers})")
+        large[tag + " busy"] = (busy, share)
 
     # 8b. the 40,008-wall city, K = 1, through K8
     scene_b, p_b, secs = city(10000)
@@ -776,10 +877,16 @@ def main():
                                                  **one),
                  ak.trace_frames_ir_accel_sorted_plain(scene_9, p_9, chunk0,
                                                        1, **one))
+    # a scene no call has prepared yet: the same walls in new tensors
+    scene_9 = Scene(*(x.clone() for x in scene_9))
+    ak.prepare.builds = 0
     city_wet, streamed = counted(lambda: art.Streamer(
         scene_9, cfg, seed=7).stream_clip(dry, lambda i: p_9))
+    stream_builds = ak.prepare.builds
     check(streamed == only(K8=n_chunks * BOUNCES),
           f"city stream launch counts {streamed}")
+    check(stream_builds == 1, f"city stream: prepare sorted the walls "
+          f"{stream_builds} times over {n_chunks} chunks (1)")
     city_launches["K8"] += streamed["K8"]
     out9 = city_wet.cpu().numpy()
     check(out9.shape == (1, n_chunks * CHUNK) and np.isfinite(out9).all()
@@ -801,14 +908,19 @@ def main():
     streamer.stream_clip(dry, lambda i: p_9)
     torch.cuda.synchronize()
     ms_city = (time.perf_counter() - t0) * 1e3 / n_chunks
+    busy9, share9, _ = busy_share(
+        torch, lambda: streamer.stream_clip(dry, lambda i: p_9,
+                                            total_chunks=5), 5 * ms_city)
     print(f"[9] city stream: city_scene(2500), {scene_9.n_walls} walls "
           f"(built in {secs:.2f} s), {RAYS} x {BOUNCES}, {n_chunks} chunks "
-          f"-> {out9.shape}, launches {streamed}, peak "
+          f"-> {out9.shape}, launches {streamed}, prepare built "
+          f"{stream_builds} scene, peak "
           f"{np.abs(out9).max():.3e}, first sound {first9 * 1e3:.1f} ms "
           f"after the first click (straight path {direct * 1e3:.1f} ms in "
           f"air, {0.6 * direct * 1e3:.1f} ms through boxes); "
           f"{ms_city:.3f} ms per 100 ms chunk = {100.0 / ms_city:.1f}x "
-          f"realtime on {card}", flush=True)
+          f"realtime on {card}; device busy {busy9 / 5:.4f} ms per chunk = "
+          f"{share9 * 100:.1f}% of it", flush=True)
 
     # --- 10. the hit-record path: K1, K2, K5, K6 ---------------------------
     sc = smoll.scene
@@ -1207,6 +1319,7 @@ def main():
         scenes, src, lis, 0, SWEEP_FRAMES, **sweep_kw), 3)
     sweep_work = work(lambda n: bk.trace_rooms_ir_mega(
         scenes, src, lis, 0, SWEEP_FRAMES, work_counts=n, **sweep_kw))
+    check_work("sweep", sweep_work, PARENT_WORK["sweep"], exact=True)
     w_sweep = scenes.n_walls
     sweep_bound = bound(sweep_work, 4 * SWEEP_ROOMS * (
         11 * w_sweep + 2 + 5 + T))
@@ -1235,6 +1348,7 @@ def main():
             sc, p, chunk0, 1, work_counts=n, **one)),
         "K9": work(lambda n: bk.trace_rooms_ir_mega(
             *mix_args, work_counts=n, **mix_kw))}
+    check_work("mixdown", n_work["K9"], PARENT_WORK["mixdown"], exact=True)
     # bytes: each input read once (wall table 11 x W, listeners, scalars,
     # K3's host uniforms), the f32 IR written once
     w = smoll.scene.n_walls
@@ -1254,8 +1368,9 @@ def main():
           f" K9 device time {fmt(dev_ms['K9 sweep'])} (profiler); peak "
           f"device memory {sweep_peak:.3f} GiB; wall tests made "
           f"{sweep_work[0]} of nominal R*W*B*(1+L) {nominal['sweep']} in "
-          f"{sweep_work[1]} sweeps; bound {sweep_bound[0]:.4f} ms "
-          f"({sweep_bound[1]})", flush=True)
+          f"{sweep_work[1]} sweeps, the counts before the redesign; bound "
+          f"{sweep_bound[0]:.4f} ms ({sweep_bound[1]}; {FMAD_NOTE})",
+          flush=True)
     print(f"[5] mixdown on {card}: {N_SOURCES} sources x {RAYS} x {BOUNCES},"
           f" 2 ears: trace_sources_mixdown {mix_ms[0]:.3f} ms per call vs "
           f"plain {mix_ms[1]:.3f}; K9 wrapper {times['K9'][0]:.3f} vs plain "
@@ -1265,7 +1380,8 @@ def main():
         print(f"    bound {k}: {n_work[k][0]} wall tests made (nominal "
               f"R*W*B*(1+L) {nominal[k]}) x {OPS_PER_TEST} + {n_work[k][1]} "
               f"sweeps x {OPS_PER_SWEEP} FP32 ops -> {bounds[k][0]:.6f} ms "
-              f"({bounds[k][1]}); device time {fmt(dev_ms[k])}", flush=True)
+              f"({bounds[k][1]}; {FMAD_NOTE}); device time "
+              f"{fmt(dev_ms[k])}", flush=True)
 
     # K8 at the city stream's shape (15k x 5 x 1 frame, 10,008 walls):
     # wrapper calls (CUDA events), device time (profiler), and the tests,
@@ -1282,6 +1398,7 @@ def main():
         5, "accel_bounce_kernel")
     n_work["K8"] = work(lambda n: ak.trace_frames_ir_accel_sorted(
         scene_9, p_9, 5, 1, work_counts=n, **one))
+    check_work("K8", n_work["K8"], PARENT_WORK["K8"], exact=False)
     prep = ak.prepare(scene_9)
     bounds["K8"] = bound(n_work["K8"], 4 * (
         prep.walls.numel() + prep.aabb.numel() + prep.saabb.numel() + 2 + 5

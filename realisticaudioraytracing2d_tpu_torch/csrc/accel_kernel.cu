@@ -6,36 +6,65 @@
 //     bounce and the IR binning of F frames in one launch, K <= 8 bands;
 //   _make_accel_bounce_kernel (K8, through trace_frames_ir_accel_sorted):
 //     one bounce of every ray of F frames per launch, the ray state in
-//     global memory; between launches the host re-sorts the rays along a
-//     Morton curve of their positions and gives each block a near-to-far
-//     order of super boxes (ops/accel.py). K = 1.
+//     global memory; between launches the rays are re-sorted along a
+//     Morton curve of their positions (one sort of keys the kernel wrote;
+//     the next launch reads its rays through the permutation), and each
+//     block visits the super boxes near to far from its rays. K = 1.
 // Both sweep a Morton-sorted wall table (ops/accel.py::cluster_scene)
 // through a two-level hierarchy of boxes: a ray slab-tests a super box
 // against its running closest hit, descends into the super box's
 // clusters only on a hit, slab-tests each cluster, and runs the wall
-// tests of a cluster only on a hit. The physics after the nearest-wall
+// tests of a cluster only on a hit; the 32 rays of a warp take these
+// steps together. The physics after the nearest-wall
 // search is trace_common.cuh, shared with K3/K4/K9 (bounce_kernel.cu).
 // The TPU layout (the tile-wide any-lane guard, the transposed [8, Wp]
 // table, the one-hot MXU gather, the SMEM box tables) is not carried over.
 //
 // Design:
-//  * One thread per ray. The early-out is per thread: each ray skips the
-//    boxes it cannot hit on its own, like a BVH traversal with small
-//    leaves (16 or 32 walls per cluster, ops/accel.py::accel_layout).
-//  * The wall table ([11 + K - 1, Wp] struct of arrays, the bounce
-//    kernel's layout plus one absorption row per extra band) stays in
-//    global memory: 1.76 MB at 40,008 walls, 4.4 MB at 100,016, too large
-//    for shared memory and resident in the 50 MB L2. The cluster and super
-//    boxes (16 B each, at most ~4,100 clusters: ~66 KB) and the listeners
-//    go to shared memory, and K8's per-block visit order beside them.
+//  * One thread per ray; a warp's 32 rays walk the boxes together. K8's
+//    rays are re-sorted along a Morton curve of their positions between
+//    bounces, so a warp's rays are neighbours and want mostly the same
+//    boxes. In the nearest-wall sweep every lane slab-tests a super box
+//    against its own running closest hit, and the warp descends if any
+//    lane passed (__any_sync); it then slab-tests each cluster box the
+//    same way and enters a cluster if any lane passed that. Inside, all
+//    entering lanes read the same wall at the same time, one 16-byte
+//    load of its geometry from the global table that the hardware
+//    broadcasts, and only lanes whose own slab tests passed run the wall
+//    tests (predication); each keeps its own closest hit. What a lane
+//    computes depends on its own tests alone; the votes only let a warp
+//    skip what none of its lanes wants. An occlusion sweep is called from
+//    inside the bounce, where a warp's lanes have diverged (dead rays,
+//    rays inside walls, quiet listeners), so it walks the boxes per lane.
+//  * Wall tests: scan_nearest / scan_blocker of trace_common.cuh, a
+//    division-free filter over a cluster's 16 or 32 walls, then, on the
+//    few walls it leaves, a division-free reach test and the exact test
+//    with its two IEEE divides.
+//  * The wall table stays in global memory (1.76 MB at 40,008 walls, 4.4
+//    MB at 100,016, resident in the 50 MB L2): the wrapper's rows [11 + K
+//    - 1, Wp] for cc and the attributes, and a geo plane [Wp, 4] (ax, ay,
+//    v2x, v2y) for the 16-byte loads. The cluster boxes (16 B each) stay
+//    in global memory too: a warp reads one box at a time, the same for
+//    all lanes. Only the super boxes (a few hundred), K8's per-block visit
+//    order and the listeners are in shared memory, a few KB per block.
+//  * K8's bookkeeping between bounces is in the kernel. A launch reads
+//    slot s's ray through the permutation of the last sort (state_in[:,
+//    perm[s]]) and writes it to slot s of a second buffer, so nothing is
+//    gathered between launches; it writes each ray's next Morton key
+//    (ops/accel.py::morton_ray_keys bit for bit: the same float32
+//    quantization in the same order; a dead ray gets the largest key), so
+//    the host only sorts the keys; and each block orders the super boxes
+//    near to far from the centroid of its live rays itself (a block
+//    reduction, then a rank count in shared memory). The order only
+//    changes how soon a lane's closest hit tightens, never the result.
 //  * The slab test is the JAX package's (_slab_inv clamps |d| at 1e-12;
 //    padding boxes are inverted and never hit; 1e-3 slack). It only skips
 //    work: the nearest hit keeps the lowest wall index among equal
 //    distances whatever the visit order (t < closest, or t == closest and
-//    a lower index), which is the ascending strict-'<' scan of K4 on the
-//    same sorted table, and an occlusion sweep stops at the first blocker
-//    it meets, so early_out on or off gives the same bits, and K7 (K = 1)
-//    and K8 on a sorted scene give K4's.
+//    a lower index), which is the ascending scan of K4 on the same sorted
+//    table, and an occlusion sweep stops at the first blocker it meets,
+//    so early_out on or off gives the same bits, and K7 (K = 1) and K8 on
+//    a sorted scene give K4's.
 //  * Random numbers: Philox-4x32-10, counter (ray, frame, bounce, 0), as
 //    K4. K8 carries each ray's original (frame, ray) id through the
 //    re-sorts and draws by it, so sorting never changes a ray's numbers:
@@ -47,29 +76,38 @@
 //    the bounce kernel; K8 accumulates over its B launches and converts
 //    once at the end (art_fixed_to_float).
 //  * Blocks whose rays are all dead return at once (K8: dead rays sort to
-//    the tail).
+//    the tail), after writing their rays' keys and depths.
 //
-// What bounds it: FP32 operations, as for K4, but counted on the walls a
-// ray really tests: 13 per wall test, 3 per sweep, and 16 per slab test
-// (4 subtractions, 4 multiplies, 7 min/max, 1 add; comparisons are not
-// counted, as in wall_t). The optional work counter (three u64: wall
-// tests, wall sweeps, slab tests) sums them per launch. Divergence within
-// a warp (threads that descend into different boxes) and the scattered
-// global loads of the wall table are what this simple design leaves on
-// the table; wall tiles in shared memory, a persistent grid and
-// warp-coherent traversal are later work.
+// What bounds it: instruction rate. The work the bound counts is what
+// each ray needs under its own early out: 13 FP32 operations per wall
+// test of a cluster whose box the ray's own slab test passed, 3 per
+// sweep, and 16 per slab test (4 subtractions, 4 multiplies, 7 min/max, 1
+// add; comparisons are not counted, as in the wall test): every super
+// box, and the cluster boxes of the super boxes the ray passed. The
+// optional work counter (three u64: wall tests, wall sweeps, slab tests)
+// sums exactly that per launch, whatever the warp executed. A warp
+// executes the union of its lanes' boxes, so the executed work exceeds
+// the counted work by the spread of a warp's rays: the re-sort makes
+// their positions neighbours, but after a diffuse bounce their directions
+// point everywhere, and a warp descends into every box around it. Every
+// lane also slab-tests every super box. The divides no longer count (an
+// ablation that replaces them moves nothing) and neither do the atomics.
+// Measured shares: PERF.md.
 
 #include "trace_common.cuh"
 
 namespace {
 
 constexpr int kAccelThreads = 256;
+constexpr int kAccelWarps = kAccelThreads / 32;
 constexpr int kMaxBands = 8;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB per block on sm_90
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr long long kDeadKey = 0xFFFFFFFFll;
 
 struct Boxes {
-  const float4* cl;   // [C] cluster boxes (xmin, ymin, xmax, ymax)
-  const float4* sup;  // [S] super boxes, S = C / group
+  const float4* cl;   // [C] cluster boxes (xmin, ymin, xmax, ymax), global
+  const float4* sup;  // [S] super boxes, S = C / group, shared memory
   const int* order;   // [S] visit order of the super boxes, or nullptr
   int n_super, group, cluster_size;
 };
@@ -91,242 +129,346 @@ __device__ __forceinline__ bool slab_hit(float4 b, float ox, float oy,
   return b.z >= b.x && tfar >= kEps && tnear <= fminf(tfar, tmax) + 1e-3f;
 }
 
-// Call visit(first_wall) for each cluster the ray can meet before tmax()
-// (re-read at every box, so a tightening closest prunes at once), super
-// boxes first. visit returns false to end the walk. Without kEarlyOut
-// every cluster is visited and no box is tested.
-template <bool kEarlyOut, class TMax, class Visit>
-__device__ __forceinline__ void walk(const Boxes& bx, float ox, float oy,
-                                     float dx, float dy, TMax tmax,
-                                     Visit visit, Work& work) {
-  const float ix = slab_inv(dx), iy = slab_inv(dy);
-  for (int s = 0; s < bx.n_super; ++s) {
-    const int ss = bx.order != nullptr ? bx.order[s] : s;
-    if (kEarlyOut) {
-      ++work.slabs;
-      if (!slab_hit(bx.sup[ss], ox, oy, ix, iy, tmax())) continue;
-    }
-    for (int g = 0; g < bx.group; ++g) {
-      const int cc = ss * bx.group + g;
-      if (kEarlyOut && bx.group > 1) {  // group 1: the super box is it
-        ++work.slabs;
-        if (!slab_hit(bx.cl[cc], ox, oy, ix, iy, tmax())) continue;
-      }
-      if (!visit(cc * bx.cluster_size)) return;
-    }
-  }
-}
-
-// Nearest wall: the lowest index among the smallest distances, -1 in
-// `hit` for a miss.
+// Nearest wall of each lane's ray: the lowest index among the smallest
+// distances, -1 in `hit` for a miss. Every lane of the warp must call it
+// (`live` false for a lane without a ray): the warp walks the boxes
+// together and skips a box only if no lane's own slab test passed. The
+// work counted is the lane's own: every super box, the cluster boxes of
+// the super boxes it passed, the walls of the clusters it passed.
+// Without kEarlyOut every cluster is visited and no box is tested.
 template <bool kEarlyOut>
-__device__ __forceinline__ float nearest(const float* w, int n,
-                                         const Boxes& bx, float ox,
-                                         float oy, float dx, float dy,
-                                         int& hit, Work& work) {
+__device__ __forceinline__ float nearest(const WallTable& w, const Boxes& bx,
+                                         bool live, const Probe& q, int& hit,
+                                         Work& work) {
   float closest = kInf;
   int best = 0x7fffffff;
+  const float ix = slab_inv(q.dx), iy = slab_inv(q.dy);
   const int cs = bx.cluster_size;
-  walk<kEarlyOut>(
-      bx, ox, oy, dx, dy, [&] { return closest; },
-      [&](int lo) {
-        for (int i = lo; i < lo + cs; ++i) {
-          const float t = wall_t(w, n, i, ox, oy, dx, dy);
-          if (t < closest || (t == closest && i < best)) {
-            closest = t;
-            best = i;
-          }
-        }
+  for (int s = 0; s < bx.n_super; ++s) {
+    const int ss = bx.order != nullptr ? bx.order[s] : s;
+    bool in_super = live;
+    if (kEarlyOut) {
+      in_super = live && slab_hit(bx.sup[ss], q.ox, q.oy, ix, iy, closest);
+      if (!__any_sync(kFullMask, in_super)) continue;
+    }
+    for (int g = 0; g < bx.group; ++g) {
+      const int c = ss * bx.group + g;
+      bool in_cluster = in_super;
+      if (kEarlyOut && bx.group > 1) {  // group 1: the super box is it
+        in_cluster = in_super &&
+                     slab_hit(__ldg(bx.cl + c), q.ox, q.oy, ix, iy, closest);
+        work.slabs += in_super;
+        if (!__any_sync(kFullMask, in_cluster)) continue;
+      }
+      if (in_cluster) {
+        scan_nearest(w, c * cs, cs, q, closest, best);
         work.tests += cs;
-        return true;
-      },
-      work);
-  ++work.sweeps;
+      }
+    }
+  }
+  if (live) {
+    if (kEarlyOut) work.slabs += bx.n_super;
+    ++work.sweeps;
+  }
   hit = closest < kInf ? best : -1;
   return closest;
 }
 
 // Occlusion: does any wall cut the shadow ray before `limit`? Boxes are
-// tested against `dist`, the listener's distance.
+// tested against `dist`, the listener's distance; the walk is this lane's
+// own and ends at the first blocker it meets.
 template <bool kEarlyOut>
-__device__ __forceinline__ bool occluded(const float* w, int n,
-                                         const Boxes& bx, float sx, float sy,
-                                         float vdx, float vdy, float dist,
-                                         float limit, Work& work) {
-  bool blocked = false;
+__device__ __forceinline__ bool occluded(const WallTable& w, const Boxes& bx,
+                                         float sx, float sy, float vdx,
+                                         float vdy, float dist, float limit,
+                                         Work& work) {
+  const Probe q = make_probe(sx, sy, vdx, vdy);
+  const float ix = slab_inv(vdx), iy = slab_inv(vdy);
   const int cs = bx.cluster_size;
-  walk<kEarlyOut>(
-      bx, sx, sy, vdx, vdy, [&] { return dist; },
-      [&](int lo) {
-        for (int i = lo; i < lo + cs; ++i) {
-          ++work.tests;
-          if (wall_t(w, n, i, sx, sy, vdx, vdy) < limit) {
-            blocked = true;
-            return false;
-          }
-        }
-        return true;
-      },
-      work);
   ++work.sweeps;
-  return blocked;
+  for (int s = 0; s < bx.n_super; ++s) {
+    const int ss = bx.order != nullptr ? bx.order[s] : s;
+    if (kEarlyOut) {
+      ++work.slabs;
+      if (!slab_hit(bx.sup[ss], sx, sy, ix, iy, dist)) continue;
+    }
+    for (int g = 0; g < bx.group; ++g) {
+      const int c = ss * bx.group + g;
+      if (kEarlyOut && bx.group > 1) {
+        ++work.slabs;
+        if (!slab_hit(__ldg(bx.cl + c), sx, sy, ix, iy, dist)) continue;
+      }
+      const int blocker = scan_blocker(w, c * cs, cs, q, limit);
+      work.tests += blocker < 0 ? cs : blocker - c * cs + 1;
+      if (blocker >= 0) return true;
+    }
+  }
+  return false;
 }
 
-// Shared memory of a block: cluster boxes, super boxes, then (K8) the
-// block's visit order and the listeners.
+// Shared memory of a block: super boxes, then (K8) the block's visit order
+// and its sort keys, then the listeners.
 __device__ __forceinline__ Boxes load_boxes(const float4* aabb,
                                             const float4* saabb,
-                                            const int* order, int n_clusters,
+                                            bool with_order, int n_clusters,
                                             int group, int cluster_size,
                                             const float* listeners,
                                             int n_listeners, float4* smem,
+                                            int** s_order, unsigned** s_keys,
                                             const float** s_lis) {
   const int n_super = n_clusters / group;
-  float4* s_cl = smem;
-  float4* s_sup = s_cl + n_clusters;
-  int* s_order = reinterpret_cast<int*>(s_sup + n_super);
-  float* lis = reinterpret_cast<float*>(s_order + (order ? n_super : 0));
-  for (int i = threadIdx.x; i < n_clusters; i += blockDim.x)
-    s_cl[i] = aabb[i];
-  for (int i = threadIdx.x; i < n_super; i += blockDim.x) {
+  float4* s_sup = smem;
+  int* order = reinterpret_cast<int*>(s_sup + n_super);
+  unsigned* keys = reinterpret_cast<unsigned*>(order +
+                                               (with_order ? n_super : 0));
+  float* lis = reinterpret_cast<float*>(keys + (with_order ? n_super : 0));
+  for (int i = threadIdx.x; i < n_super; i += blockDim.x)
     s_sup[i] = saabb[i];
-    if (order) s_order[i] = order[i];
-  }
   for (int i = threadIdx.x; i < 2 * n_listeners; i += blockDim.x)
     lis[i] = listeners[i];
-  __syncthreads();
+  *s_order = order;
+  *s_keys = keys;
   *s_lis = lis;
-  return Boxes{s_cl, s_sup, order ? s_order : nullptr, n_super, group,
+  return Boxes{aabb, s_sup, with_order ? order : nullptr, n_super, group,
                cluster_size};
 }
 
 size_t smem_bytes(int n_clusters, int group, bool with_order,
                   int n_listeners) {
   const size_t n_super = n_clusters / group;
-  return 16 * (static_cast<size_t>(n_clusters) + n_super) +
-         (with_order ? 4 * n_super : 0) + 8 * static_cast<size_t>(n_listeners);
+  return 16 * n_super + (with_order ? 8 * n_super : 0) +
+         8 * static_cast<size_t>(n_listeners);
 }
 
-// K7: grid (ceil(R / 256), F); thread = (ray, frame), all bounces.
+// The global wall table as the kernels read it: geo [Wp, 4], and cc and
+// the attribute rows inside the wrapper's rows [11 + K - 1, Wp].
+__device__ __forceinline__ WallTable global_table(const float* rows,
+                                                  const float4* geo, int n) {
+  return {geo, rows + static_cast<size_t>(CC) * n,
+          rows + static_cast<size_t>(NX) * n, n};
+}
+
+// K7: grid (ceil(R / 256), F); thread = (ray, frame), all bounces. A warp
+// stays in the bounce loop until its last ray is dead, so that every lane
+// joins the nearest-wall sweep's votes.
 template <int kMaxK, bool kEarlyOut>
 __global__ void __launch_bounds__(kAccelThreads) accel_frames_kernel(
-    const float* __restrict__ walls, int n_walls, int n_bands,
-    const float4* __restrict__ aabb, const float4* __restrict__ saabb,
-    int n_clusters, int group, int cluster_size,
-    const float* __restrict__ listeners, int n_listeners,
+    const float* __restrict__ walls, const float4* __restrict__ geo,
+    int n_walls, int n_bands, const float4* __restrict__ aabb,
+    const float4* __restrict__ saabb, int n_clusters, int group,
+    int cluster_size, const float* __restrict__ listeners, int n_listeners,
     const float* __restrict__ scal, float sr, uint32_t key0, uint32_t key1,
     int n_rays, int max_bounces, int ir_length,
     const double* __restrict__ scale, unsigned long long* __restrict__ acc,
     unsigned long long* __restrict__ work_out) {
   extern __shared__ float4 smem[];
   const float* s_lis;
-  const Boxes bx = load_boxes(aabb, saabb, nullptr, n_clusters, group,
+  int* s_order;
+  unsigned* s_keys;
+  const Boxes bx = load_boxes(aabb, saabb, false, n_clusters, group,
                               cluster_size, listeners, n_listeners, smem,
-                              &s_lis);
+                              &s_order, &s_keys, &s_lis);
+  __syncthreads();
+  const WallTable table = global_table(walls, geo, n_walls);
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   const int frame = blockIdx.y;
+  const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3]};
+  const Sink sink{acc, ir_length, n_bands, sr, *scale};
   Work work;
-  if (ray < n_rays) {
-    const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3]};
-    const Sink sink{acc, ir_length, n_bands, sr, *scale};
-    auto occl = [&](float sx, float sy, float vdx, float vdy, float dist,
-                    float limit) {
-      return occluded<kEarlyOut>(walls, n_walls, bx, sx, sy, vdx, vdy, dist,
-                                 limit, work);
-    };
-    Ray<kMaxK> r = emit_ray<kMaxK>(
-        ray, n_rays,
-        philox_uniforms(ray, frame, max_bounces, 0, key0, key1).u0, scal[0],
-        scal[1], scal[3], scal[4]);
-    for (int b = 0; b < max_bounces; ++b) {
-      int hit;
-      const float closest = nearest<kEarlyOut>(walls, n_walls, bx, r.px,
-                                               r.py, r.dx, r.dy, hit, work);
-      if (!finish_bounce<kMaxK>(r, closest, hit, walls, n_walls, lis, sink,
-                                occl, [&] {
-                                  return philox_uniforms(ray, frame, b, 0,
-                                                         key0, key1);
-                                }))
-        break;
-    }
+  auto occl = [&](float sx, float sy, float vdx, float vdy, float dist,
+                  float limit) {
+    return occluded<kEarlyOut>(table, bx, sx, sy, vdx, vdy, dist, limit,
+                               work);
+  };
+  bool alive = ray < n_rays;
+  Ray<kMaxK> r = emit_ray<kMaxK>(
+      alive ? ray : 0, n_rays,
+      philox_uniforms(ray, frame, max_bounces, 0, key0, key1).u0, scal[0],
+      scal[1], scal[3], scal[4]);
+  for (int b = 0; b < max_bounces; ++b) {
+    if (!__any_sync(kFullMask, alive)) break;
+    int hit;
+    const float closest = nearest<kEarlyOut>(
+        table, bx, alive, make_probe(r.px, r.py, r.dx, r.dy), hit, work);
+    if (alive)
+      alive = finish_bounce<kMaxK>(r, closest, hit, table, lis, sink, occl,
+                                   [&] {
+                                     return philox_uniforms(ray, frame, b, 0,
+                                                            key0, key1);
+                                   });
   }
   if (work_out != nullptr) add_work(work, work_out);
 }
 
-// K8: one bounce of slot = blockIdx.x * 256 + threadIdx.x of the [F * R]
-// ray state (state [8, N] f32, istate [2, N] i32 = id, depth; depth -1 =
-// dead). Bounce 0 emits ray id = slot. order [n_blocks, S].
+// Spread the low 10 bits of x to every third bit (ops/accel.py::_part1by2).
+__device__ __forceinline__ unsigned part1by2(unsigned x) {
+  x &= 0x3FFu;
+  x = (x | (x << 16)) & 0x030000FFu;
+  x = (x | (x << 8)) & 0x0300F00Fu;
+  x = (x | (x << 4)) & 0x030C30C3u;
+  return (x | (x << 2)) & 0x09249249u;
+}
+
+// clip((p - lo) / span * 1023, 0, 1023) truncated, in float32 and in the
+// operation order of ops/accel.py::_quantize.
+__device__ __forceinline__ unsigned quantize10(float p, float lo,
+                                               float span) {
+  const float q = fminf(fmaxf((p - lo) / span * 1023.0f, 0.0f), 1023.0f);
+  return static_cast<unsigned>(static_cast<int>(q));
+}
+
+// Sort key of a live ray at (px, py): ops/accel.py::morton_ray_keys bit for
+// bit. bounds = (lo x, lo y, span x, span y) of the scene's boxes.
+__device__ __forceinline__ long long morton_ray_key(float px, float py,
+                                                    const float* bounds) {
+  return static_cast<long long>(
+      part1by2(quantize10(px, bounds[0], bounds[2])) |
+      (part1by2(quantize10(py, bounds[1], bounds[3])) << 1));
+}
+
+// The block's near-to-far order of the super boxes into s_order: the
+// centroid of the block's live rays (a block reduction over (x, y, 1)),
+// the squared distance of each box's centre from it, and each box's rank
+// among them (ties by index; the distances are compared by their bit
+// patterns, a total order that sorts a NaN last, so the result is always
+// a permutation). Every thread of the block calls it; it ends with a
+// barrier. ops/accel.py::block_rank_order mirrors it.
+__device__ __forceinline__ void order_super_boxes(const Boxes& bx, bool live,
+                                                  float px, float py,
+                                                  int* s_order,
+                                                  unsigned* s_keys) {
+  __shared__ float s_part[kAccelWarps][3];
+  float sx = live ? px : 0.0f, sy = live ? py : 0.0f;
+  float sn = live ? 1.0f : 0.0f;
+  for (int off = 16; off > 0; off >>= 1) {
+    sx += __shfl_down_sync(kFullMask, sx, off);
+    sy += __shfl_down_sync(kFullMask, sy, off);
+    sn += __shfl_down_sync(kFullMask, sn, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    s_part[threadIdx.x >> 5][0] = sx;
+    s_part[threadIdx.x >> 5][1] = sy;
+    s_part[threadIdx.x >> 5][2] = sn;
+  }
+  __syncthreads();  // also: the super boxes are in shared memory
+  sx = sy = sn = 0.0f;
+  for (int i = 0; i < kAccelWarps; ++i) {
+    sx += s_part[i][0];
+    sy += s_part[i][1];
+    sn += s_part[i][2];
+  }
+  const float cx = sx / fmaxf(sn, 1.0f), cy = sy / fmaxf(sn, 1.0f);
+  for (int i = threadIdx.x; i < bx.n_super; i += blockDim.x) {
+    const float4 b = bx.sup[i];
+    const float ex = cx - 0.5f * (b.x + b.z), ey = cy - 0.5f * (b.y + b.w);
+    s_keys[i] = __float_as_uint(ex * ex + ey * ey);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < bx.n_super; i += blockDim.x) {
+    const unsigned mine = s_keys[i];
+    int rank = 0;
+    for (int j = 0; j < bx.n_super; ++j) {
+      const unsigned other = s_keys[j];
+      rank += other < mine || (other == mine && j < i);
+    }
+    s_order[rank] = i;
+  }
+  __syncthreads();
+}
+
+// K8: one bounce of the ray in slot = blockIdx.x * 256 + threadIdx.x of
+// the [F * R] ray state (state [8, N] f32, istate [2, N] i32 = id, depth;
+// depth -1 = dead). Bounce 0 emits ray id = slot; a later bounce reads the
+// ray at perm[slot] of state_in / istate_in. Either writes the ray to
+// `slot` of state_out / istate_out and its next sort key to keys_out.
 template <bool kEarlyOut>
 __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
-    const float* __restrict__ walls, int n_walls,
-    const float4* __restrict__ aabb, const float4* __restrict__ saabb,
-    const int* __restrict__ order, int n_clusters, int group,
+    const float* __restrict__ walls, const float4* __restrict__ geo,
+    int n_walls, const float4* __restrict__ aabb,
+    const float4* __restrict__ saabb, int n_clusters, int group,
     int cluster_size, const float* __restrict__ listeners, int n_listeners,
-    const float* __restrict__ scal, float sr, uint32_t key0, uint32_t key1,
-    int n_rays, int n_slots, int max_bounces, int bounce, int ir_length,
-    const double* __restrict__ scale, float* __restrict__ state,
-    int* __restrict__ istate, unsigned long long* __restrict__ acc,
+    const float* __restrict__ scal, const float* __restrict__ bounds,
+    float sr, uint32_t key0, uint32_t key1, int n_rays, int n_slots,
+    int max_bounces, int bounce, int ir_length,
+    const double* __restrict__ scale, const long long* __restrict__ perm,
+    const float* __restrict__ state_in, const int* __restrict__ istate_in,
+    float* __restrict__ state_out, int* __restrict__ istate_out,
+    long long* __restrict__ keys_out, unsigned long long* __restrict__ acc,
     unsigned long long* __restrict__ work_out) {
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in_range = slot < n_slots;
+  const size_t n = static_cast<size_t>(n_slots);
+  size_t from = slot;
   int id = slot, dep = 0;
-  if (bounce > 0 && slot < n_slots) {
-    id = istate[slot];
-    dep = istate[n_slots + slot];
+  if (bounce > 0 && in_range) {
+    from = static_cast<size_t>(perm[slot]);
+    id = istate_in[from];
+    dep = istate_in[n + from];
   }
-  const bool live = slot < n_slots && dep >= 0;
+  const bool live = in_range && dep >= 0;
+  if (in_range && !live) {  // a dead ray keeps its id and sorts last
+    istate_out[slot] = id;
+    istate_out[n + slot] = -1;
+    keys_out[slot] = kDeadKey;
+  }
   if (!__syncthreads_or(live)) return;  // the sorted tail: all dead
 
   extern __shared__ float4 smem[];
   const float* s_lis;
-  const int n_super = n_clusters / group;
-  const Boxes bx = load_boxes(
-      aabb, saabb, order + static_cast<size_t>(blockIdx.x) * n_super,
-      n_clusters, group, cluster_size, listeners, n_listeners, smem, &s_lis);
+  int* s_order;
+  unsigned* s_keys;
+  const Boxes bx = load_boxes(aabb, saabb, true, n_clusters, group,
+                              cluster_size, listeners, n_listeners, smem,
+                              &s_order, &s_keys, &s_lis);
+  const WallTable table = global_table(walls, geo, n_walls);
+  const int ray = id % n_rays, frame = id / n_rays;
+  Ray<1> r;
+  if (bounce == 0 || !live) {
+    r = emit_ray<1>(
+        ray, n_rays,
+        philox_uniforms(ray, frame, max_bounces, 0, key0, key1).u0, scal[0],
+        scal[1], scal[3], scal[4]);
+  } else {
+    const float* s = state_in + from;
+    r.px = s[0];
+    r.py = s[n];
+    r.dx = s[2 * n];
+    r.dy = s[3 * n];
+    r.en[0] = s[4 * n];
+    r.tm = s[5 * n];
+    r.ds = s[6 * n];
+    r.sp = s[7 * n];
+    r.dep = dep;
+  }
+  order_super_boxes(bx, live, r.px, r.py, s_order, s_keys);
+
   Work work;
+  int hit;
+  const float closest = nearest<kEarlyOut>(
+      table, bx, live, make_probe(r.px, r.py, r.dx, r.dy), hit, work);
   if (live) {
-    const int ray = id % n_rays, frame = id / n_rays;
     const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3]};
     const Sink sink{acc, ir_length, 1, sr, *scale};
-    Ray<1> r;
-    if (bounce == 0) {
-      r = emit_ray<1>(
-          ray, n_rays,
-          philox_uniforms(ray, frame, max_bounces, 0, key0, key1).u0,
-          scal[0], scal[1], scal[3], scal[4]);
-    } else {
-      const float* s = state + slot;
-      r.px = s[0];
-      r.py = s[n_slots];
-      r.dx = s[2 * static_cast<size_t>(n_slots)];
-      r.dy = s[3 * static_cast<size_t>(n_slots)];
-      r.en[0] = s[4 * static_cast<size_t>(n_slots)];
-      r.tm = s[5 * static_cast<size_t>(n_slots)];
-      r.ds = s[6 * static_cast<size_t>(n_slots)];
-      r.sp = s[7 * static_cast<size_t>(n_slots)];
-      r.dep = dep;
-    }
-    int hit;
-    const float closest = nearest<kEarlyOut>(walls, n_walls, bx, r.px, r.py,
-                                             r.dx, r.dy, hit, work);
     const bool alive = finish_bounce<1>(
-        r, closest, hit, walls, n_walls, lis, sink,
+        r, closest, hit, table, lis, sink,
         [&](float sx, float sy, float vdx, float vdy, float dist,
             float limit) {
-          return occluded<kEarlyOut>(walls, n_walls, bx, sx, sy, vdx, vdy,
-                                     dist, limit, work);
+          return occluded<kEarlyOut>(table, bx, sx, sy, vdx, vdy, dist, limit,
+                                     work);
         },
         [&] { return philox_uniforms(ray, frame, bounce, 0, key0, key1); });
-    float* s = state + slot;
+    float* s = state_out + slot;
     s[0] = r.px;
-    s[n_slots] = r.py;
-    s[2 * static_cast<size_t>(n_slots)] = r.dx;
-    s[3 * static_cast<size_t>(n_slots)] = r.dy;
-    s[4 * static_cast<size_t>(n_slots)] = r.en[0];
-    s[5 * static_cast<size_t>(n_slots)] = r.tm;
-    s[6 * static_cast<size_t>(n_slots)] = r.ds;
-    s[7 * static_cast<size_t>(n_slots)] = r.sp;
-    istate[slot] = id;
-    istate[n_slots + slot] = alive ? r.dep : -1;
+    s[n] = r.py;
+    s[2 * n] = r.dx;
+    s[3 * n] = r.dy;
+    s[4 * n] = r.en[0];
+    s[5 * n] = r.tm;
+    s[6 * n] = r.ds;
+    s[7 * n] = r.sp;
+    istate_out[slot] = id;
+    istate_out[n + slot] = alive ? r.dep : -1;
+    keys_out[slot] = alive ? morton_ray_key(r.px, r.py, bounds) : kDeadKey;
   }
   if (work_out != nullptr) add_work(work, work_out);
 }
@@ -349,8 +491,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 template <int kMaxK, bool kEarlyOut>
-cudaError_t launch_frames(const float* walls, int n_walls, int n_bands,
-                          const float* aabb, const float* saabb,
+cudaError_t launch_frames(const float* walls, const float* geo, int n_walls,
+                          int n_bands, const float* aabb, const float* saabb,
                           int n_clusters, int group, int cluster_size,
                           const float* listeners, int n_listeners,
                           const float* scal, float sr, uint32_t key0,
@@ -366,7 +508,8 @@ cudaError_t launch_frames(const float* walls, int n_walls, int n_bands,
   if (err != cudaSuccess) return err;
   const dim3 grid((n_rays + kAccelThreads - 1) / kAccelThreads, n_frames);
   accel_frames_kernel<kMaxK, kEarlyOut><<<grid, kAccelThreads, smem, stream>>>(
-      walls, n_walls, n_bands, reinterpret_cast<const float4*>(aabb),
+      walls, reinterpret_cast<const float4*>(geo), n_walls, n_bands,
+      reinterpret_cast<const float4*>(aabb),
       reinterpret_cast<const float4*>(saabb), n_clusters, group,
       cluster_size, listeners, n_listeners, scal, sr, key0, key1, n_rays,
       max_bounces, ir_length, scale, acc, work);
@@ -376,14 +519,17 @@ cudaError_t launch_frames(const float* walls, int n_walls, int n_bands,
 }
 
 template <bool kEarlyOut>
-cudaError_t launch_bounce(const float* walls, int n_walls, const float* aabb,
-                          const float* saabb, const int* order,
+cudaError_t launch_bounce(const float* walls, const float* geo, int n_walls,
+                          const float* aabb, const float* saabb,
                           int n_clusters, int group, int cluster_size,
                           const float* listeners, int n_listeners,
-                          const float* scal, float sr, uint32_t key0,
-                          uint32_t key1, int n_rays, int n_slots,
-                          int max_bounces, int bounce, int ir_length,
-                          const double* scale, float* state, int* istate,
+                          const float* scal, const float* bounds, float sr,
+                          uint32_t key0, uint32_t key1, int n_rays,
+                          int n_slots, int max_bounces, int bounce,
+                          int ir_length, const double* scale,
+                          const long long* perm, const float* state_in,
+                          const int* istate_in, float* state_out,
+                          int* istate_out, long long* keys_out,
                           unsigned long long* acc, unsigned long long* work,
                           cudaStream_t stream) {
   const size_t smem = smem_bytes(n_clusters, group, true, n_listeners);
@@ -391,11 +537,12 @@ cudaError_t launch_bounce(const float* walls, int n_walls, const float* aabb,
   if (err != cudaSuccess) return err;
   const dim3 grid((n_slots + kAccelThreads - 1) / kAccelThreads);
   accel_bounce_kernel<kEarlyOut><<<grid, kAccelThreads, smem, stream>>>(
-      walls, n_walls, reinterpret_cast<const float4*>(aabb),
-      reinterpret_cast<const float4*>(saabb), order, n_clusters, group,
-      cluster_size, listeners, n_listeners, scal, sr, key0, key1, n_rays,
-      n_slots, max_bounces, bounce, ir_length, scale, state, istate, acc,
-      work);
+      walls, reinterpret_cast<const float4*>(geo), n_walls,
+      reinterpret_cast<const float4*>(aabb),
+      reinterpret_cast<const float4*>(saabb), n_clusters, group,
+      cluster_size, listeners, n_listeners, scal, bounds, sr, key0, key1,
+      n_rays, n_slots, max_bounces, bounce, ir_length, scale, perm, state_in,
+      istate_in, state_out, istate_out, keys_out, acc, work);
   return cudaGetLastError();
 }
 
@@ -405,27 +552,29 @@ extern "C" {
 
 // K7: the frame-summed IR out[L, T, K] (f32) of n_frames frames of n_rays
 // rays, drawn in the kernel under (key0, key1). walls [10 + K, W] (see
-// WallField; W = n_clusters * cluster_size, Morton-sorted), aabb [C, 4],
-// saabb [C / group, 4], listeners [L, 2], scal [5] = (source x, source y,
-// listener radius, speed of sound, input gain), all device f32; scale one
-// device double, acc [L, T, K] u64 scratch; work, if not null, three
-// device u64 (wall tests, wall sweeps, slab tests). 1 <= K <= 8. Returns
-// a cudaError_t code (0 = launched).
-int art_accel_frames(const float* walls, int n_walls, int n_bands,
-                     const float* aabb, const float* saabb, int n_clusters,
-                     int group, int cluster_size, const float* listeners,
-                     int n_listeners, const float* scal, float sr,
-                     unsigned int key0, unsigned int key1, int n_rays,
-                     int max_bounces, int n_frames, int ir_length,
-                     const double* scale, unsigned long long* acc, float* out,
-                     int early_out, unsigned long long* work, void* stream) {
+// WallField; W = n_clusters * cluster_size, Morton-sorted), geo [W, 4] =
+// (ax, ay, v2x, v2y) of the same walls, aabb [C, 4], saabb [C / group, 4],
+// listeners [L, 2], scal [5] = (source x, source y, listener radius, speed
+// of sound, input gain), all device f32; scale one device double, acc
+// [L, T, K] u64 scratch; work, if not null, three device u64 (wall tests,
+// wall sweeps, slab tests). 1 <= K <= 8. Returns a cudaError_t code (0 =
+// launched).
+int art_accel_frames(const float* walls, const float* geo, int n_walls,
+                     int n_bands, const float* aabb, const float* saabb,
+                     int n_clusters, int group, int cluster_size,
+                     const float* listeners, int n_listeners,
+                     const float* scal, float sr, unsigned int key0,
+                     unsigned int key1, int n_rays, int max_bounces,
+                     int n_frames, int ir_length, const double* scale,
+                     unsigned long long* acc, float* out, int early_out,
+                     unsigned long long* work, void* stream) {
   if (!boxes_ok(n_walls, n_clusters, group, cluster_size, n_listeners) ||
       n_bands < 1 || n_bands > kMaxBands || n_rays < 1 || n_frames < 1 ||
       n_frames > 65535 || max_bounces < 1 || ir_length < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
 #define ART_FRAMES(K, E)                                                     \
-  launch_frames<K, E>(walls, n_walls, n_bands, aabb, saabb, n_clusters,      \
+  launch_frames<K, E>(walls, geo, n_walls, n_bands, aabb, saabb, n_clusters, \
                       group, cluster_size, listeners, n_listeners, scal, sr, \
                       key0, key1, n_rays, max_bounces, n_frames, ir_length,  \
                       scale, acc, out, work, s)
@@ -439,37 +588,44 @@ int art_accel_frames(const float* walls, int n_walls, int n_bands,
   return static_cast<int>(err);
 }
 
-// K8: one bounce (0 .. max_bounces - 1) of the n_slots = F * R rays whose
-// state is state [8, n_slots] f32 (px py dx dy energy time distance
-// speed) and istate [2, n_slots] i32 (id = frame * R + ray, depth; depth
-// -1 = dead), updated in place; bounce 0 emits ray id = slot and reads no
-// state. order [order_rows, C / group] i32: each block's visit order of the
-// super boxes, one row per block of 256 rays; order_rows must be
-// ceil(n_slots / 256), the grid. Hits add to acc [L, T] u64 (zeroed by the
-// caller before bounce 0; art_fixed_to_float converts it after the last).
-// Other arguments as art_accel_frames, K = 1.
-int art_accel_bounce(const float* walls, int n_walls, const float* aabb,
-                     const float* saabb, const int* order, int order_rows,
-                     int n_clusters, int group, int cluster_size,
-                     const float* listeners, int n_listeners,
-                     const float* scal, float sr, unsigned int key0,
-                     unsigned int key1, int n_rays, int n_slots,
-                     int max_bounces, int bounce, int ir_length,
-                     const double* scale, float* state, int* istate,
-                     unsigned long long* acc, int early_out,
-                     unsigned long long* work, void* stream) {
+// K8: one bounce (0 .. max_bounces - 1) of the n_slots = F * R rays. A
+// ray's state is a column of state [8, n_slots] f32 (px py dx dy energy
+// time distance speed) and istate [2, n_slots] i32 (id = frame * R + ray,
+// depth; depth -1 = dead). Bounce 0 emits ray id = slot and reads nothing;
+// a later bounce reads slot's ray at column perm[slot] (i64 [n_slots], the
+// order of the last sort) of state_in / istate_in. Every bounce writes the
+// ray to column `slot` of state_out / istate_out (other buffers than the
+// inputs) and its next sort key to keys_out [n_slots] i64: the Morton code
+// of its new position within bounds [4] = (lo x, lo y, span x, span y), or
+// 0xFFFFFFFF if it died (ops/accel.py::morton_ray_keys). Hits add to acc
+// [L, T] u64 (zeroed by the caller before bounce 0; art_fixed_to_float
+// converts it after the last). Other arguments as art_accel_frames, K = 1.
+int art_accel_bounce(const float* walls, const float* geo, int n_walls,
+                     const float* aabb, const float* saabb, int n_clusters,
+                     int group, int cluster_size, const float* listeners,
+                     int n_listeners, const float* scal, const float* bounds,
+                     float sr, unsigned int key0, unsigned int key1,
+                     int n_rays, int n_slots, int max_bounces, int bounce,
+                     int ir_length, const double* scale,
+                     const long long* perm, const float* state_in,
+                     const int* istate_in, float* state_out, int* istate_out,
+                     long long* keys_out, unsigned long long* acc,
+                     int early_out, unsigned long long* work, void* stream) {
   if (!boxes_ok(n_walls, n_clusters, group, cluster_size, n_listeners) ||
       n_rays < 1 || n_slots < n_rays || n_slots % n_rays != 0 ||
-      order_rows != (n_slots + kAccelThreads - 1) / kAccelThreads ||
       max_bounces < 1 || bounce < 0 || bounce >= max_bounces ||
-      ir_length < 1)
+      ir_length < 1 || state_out == nullptr || istate_out == nullptr ||
+      keys_out == nullptr || state_out == state_in ||
+      (bounce > 0 && (perm == nullptr || state_in == nullptr ||
+                      istate_in == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
 #define ART_BOUNCE(E)                                                        \
-  launch_bounce<E>(walls, n_walls, aabb, saabb, order, n_clusters, group,    \
-                   cluster_size, listeners, n_listeners, scal, sr, key0,     \
-                   key1, n_rays, n_slots, max_bounces, bounce, ir_length,    \
-                   scale, state, istate, acc, work, s)
+  launch_bounce<E>(walls, geo, n_walls, aabb, saabb, n_clusters, group,      \
+                   cluster_size, listeners, n_listeners, scal, bounds, sr,   \
+                   key0, key1, n_rays, n_slots, max_bounces, bounce,         \
+                   ir_length, scale, perm, state_in, istate_in, state_out,   \
+                   istate_out, keys_out, acc, work, s)
   const cudaError_t err = early_out ? ART_BOUNCE(true) : ART_BOUNCE(false);
 #undef ART_BOUNCE
   return static_cast<int>(err);

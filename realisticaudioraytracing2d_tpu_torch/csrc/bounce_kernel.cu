@@ -27,17 +27,28 @@
 //  * One thread per (ray, frame, entry); its state (pos, dir, energy,
 //    time, distance, speed, depth) lives in registers. Grid
 //    (ceil(R/256), F, E): entries on z keep F and E each under the 65,535
-//    limit of those axes.
-//  * Each block loads its entry's wall table into shared memory as
-//    struct-of-arrays (ax, ay, v2x, v2y, cc, nx, ny, abs, scat, trans,
-//    ior: 44 B per wall), plus its listener table (<= 16 listeners). The
-//    tables are [E or 1, 11, W] and [E, L, 2]; a wall stride of 0 shares
-//    one scene among all entries (the mixdown) without copying it. The
-//    attribute gather is an indexed shared-memory load. The 227 KB a
-//    block can use caps a scene at kMaxWalls = 5280 walls; larger scenes
-//    go to the cluster kernels K7/K8 (accel_kernel.cu).
-//  * Nearest wall: walls scanned in ascending order with a strict '<', so
-//    the lowest index wins among equal distances (the oracle's argmin).
+//    limit of those axes. (A block that carried its tile of rays through
+//    all frames of its entry, loading the table once, measured the same
+//    on the 1,024-room sweep: a 28-wall table is 1.2 KB.)
+//  * Each block packs its entry's wall table into shared memory as a
+//    WallTable (trace_common.cuh): the geometry of a wall as one float4
+//    (ax, ay, v2x, v2y), cc, and six attribute rows (nx, ny, abs, scat,
+//    trans, ior): 44 B per wall, plus its listener table (<= 16
+//    listeners). The tables are [E or 1, 11, W] and [E, L, 2]; a wall
+//    stride of 0 shares one scene among all entries (the mixdown) without
+//    copying it. The attribute gather is an indexed shared-memory load.
+//    The 227 KB a block can use caps a scene at kMaxWalls = 5280 walls;
+//    larger scenes go to the cluster kernels K7/K8 (accel_kernel.cu).
+//  * Nearest wall and occlusion: scan_nearest / scan_blocker of
+//    trace_common.cuh. A division-free filter over 32 walls at a time
+//    leaves a mask of the few walls the ray's line can cross, and only
+//    those go on, lowest index first, to a second division-free step
+//    (is the wall within reach?) and then to the exact test with its two
+//    IEEE divides, so the lowest index wins among equal distances (the
+//    oracle's argmin) and an occlusion sweep stops at the first blocker.
+//  * 77 registers a thread, so three blocks of 256 share an SM. (Asking
+//    the compiler for two or four resident blocks through
+//    __launch_bounds__ measured the same on the 1,024-room sweep.)
 //    Padding walls are degenerate (a == b, so v2 == 0): dotp == 0 marks
 //    them parallel to every ray and they never hit, as in the oracle.
 //  * Arithmetic is IEEE: '/', sqrtf, sincosf, asinf, no fast math, and the
@@ -61,22 +72,28 @@
 //    bits times 2^-24, as the TPU kernels' _draw_uniforms. ops/rng.py::
 //    philox_uniforms computes the same numbers on the host.
 //  * An optional counter (work != nullptr, three u64: wall tests, wall
-//    sweeps, slab tests) sums the wall tests the launch really made and
-//    the wall sweeps they belong to (one warp-reduced atomic per warp and
-//    counter; this kernel makes no slab tests), so a bound can be
-//    computed from this run's data.
+//    sweeps, slab tests) sums the wall tests a sweep stands for (every
+//    wall of a nearest sweep, the walls up to the first blocker of an
+//    occlusion sweep, whether the filter or the exact test settled them)
+//    and the sweeps they belong to (one warp-reduced atomic per warp and
+//    counter; this kernel makes no slab tests), so a bound can be computed
+//    from this run's data.
 //
-// What bounds it: the wall pass is compute-bound, O(R * W * B * (1 + L))
-// intersection tests of 13 FP32 operations each (two of them divides),
-// plus 3 per sweep for the ray's own cross product (oy * dx - ox * dy),
-// which does not depend on the wall; one nearest-wall sweep per live
-// bounce plus one occlusion sweep per listener, which stops at the first
-// blocking wall. The bytes it must move
-// (wall tables in, the f32 IR out) are far fewer. Hits that land in the
-// same bins contend on the atomics (the early bins of an IR gather most
-// of them). This first design keeps both simple; tiling walls through
-// registers, warp-aggregated or shared-memory time windows for the
-// histogram, and a persistent grid are later work.
+// What bounds it: instruction rate in the wall pass. The work is
+// O(R * W * B * (1 + L)) intersection tests of 13 FP32 operations each
+// (two of them divides), plus 3 per sweep for the ray's own cross product
+// (oy * dx - ox * dy); one nearest-wall sweep per live bounce plus one
+// occlusion sweep per listener, which stops at the first blocking wall.
+// The bytes it must move (wall tables in, the f32 IR out) are far fewer.
+// The filter spends ~18 instructions on a wall, a survivor some 15 more
+// and ~40 for its divides, without multiply-add contraction, so the FP32
+// peak is out of reach by construction. A warp pays a whole scan when one
+// of its lanes needs it (the occlusion sweep of the rays that are outside
+// walls and loud enough, the bounces of the rays that still live), and the
+// rest of a bounce (Philox, sincosf, asinf, a dozen IEEE divides and square
+// roots, the double-precision deposit) is a fifth of the instructions; the
+// deposits' atomics are an eighth of the sweep's time. Measured shares:
+// PERF.md.
 
 #include "trace_common.cuh"
 
@@ -84,12 +101,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB per block on sm_90
+constexpr int kAttrRows = kWallFields - 5;  // NX .. IOR
 constexpr int kMaxWalls =
     (kMaxSmemBytes - 2 * kMaxListeners * 4) / (kWallFields * 4);
 
 template <bool kHostUniforms>
 __device__ __forceinline__ Work trace_ray(
-    const float* s_walls, int n_walls, const float* s_lis, int n_listeners,
+    const WallTable& walls, const float* s_lis, int n_listeners,
     const float* scal, float sr, const float* emit, const float* u,
     uint32_t key0, uint32_t key1, uint32_t entry_id, int ray, int frame,
     int n_frames, int entry, int n_rays, int max_bounces, int ir_length,
@@ -97,6 +115,7 @@ __device__ __forceinline__ Work trace_ray(
   const float radius = scal[2];
   const Listeners lis{s_lis, n_listeners, radius * radius, scal[3]};
   const Sink sink{acc, ir_length, 1, sr, scale};
+  const int n_walls = walls.n;
   Work work;
 
   auto draw = [&](int bounce) -> Uniforms {
@@ -108,17 +127,15 @@ __device__ __forceinline__ Work trace_ray(
     }
     return philox_uniforms(ray, frame, bounce, entry_id, key0, key1);
   };
-  // One occlusion sweep: walls in ascending order, stop at the first that
-  // blocks the shadow ray before `limit`.
+  // One occlusion sweep: stop at the first wall (ascending) that blocks
+  // the shadow ray before `limit`.
   auto occluded = [&](float sx, float sy, float vdx, float vdy, float,
                       float limit) {
-    bool visible = true;
-    int i = 0;
-    for (; i < n_walls && visible; ++i)
-      visible = wall_t(s_walls, n_walls, i, sx, sy, vdx, vdy) >= limit;
-    work.tests += i;
+    const int blocker = scan_blocker(walls, 0, n_walls,
+                                     make_probe(sx, sy, vdx, vdy), limit);
+    work.tests += blocker < 0 ? n_walls : blocker + 1;
     ++work.sweeps;
-    return !visible;
+    return blocker >= 0;
   };
 
   // --- emission (ops/trace.py::_emit) ---------------------------------------
@@ -131,20 +148,15 @@ __device__ __forceinline__ Work trace_ray(
                          scal[4]);
 
   for (int b = 0; b < max_bounces; ++b) {
-    // --- nearest wall: ascending scan, strict '<' keeps the lowest index ---
+    // --- nearest wall: the lowest index among the smallest distances -------
     float closest = kInf;
-    int hit = -1;
-    for (int i = 0; i < n_walls; ++i) {
-      const float t = wall_t(s_walls, n_walls, i, r.px, r.py, r.dx, r.dy);
-      if (t < closest) {
-        closest = t;
-        hit = i;
-      }
-    }
+    int best = 0x7fffffff;
+    scan_nearest(walls, 0, n_walls, make_probe(r.px, r.py, r.dx, r.dy),
+                 closest, best);
     work.tests += n_walls;
     ++work.sweeps;
-    if (!finish_bounce<1>(r, closest, hit, s_walls, n_walls, lis, sink,
-                          occluded, [&] { return draw(b); }))
+    if (!finish_bounce<1>(r, closest, closest < kInf ? best : -1, walls, lis,
+                          sink, occluded, [&] { return draw(b); }))
       break;
   }
   return work;
@@ -157,17 +169,18 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
     const float* __restrict__ scal, float sr,
     const float* __restrict__ emit, const float* __restrict__ u,
     uint32_t key0, uint32_t key1, uint32_t entry_offset, int n_rays,
-    int max_bounces, int ir_length, const double* __restrict__ scales,
+    int max_bounces, int ir_length,
+    const double* __restrict__ scales,
     unsigned long long* __restrict__ acc,
     unsigned long long* __restrict__ work_out) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int entry = blockIdx.z;
   walls += entry * wall_stride;  // stride 0: one scene shared by all entries
   listeners += static_cast<size_t>(entry) * 2 * n_listeners;
-  float* s_walls = smem;                              // [11][W]
-  float* s_lis = smem + kWallFields * n_walls;        // [L][2]
-  for (int i = threadIdx.x; i < kWallFields * n_walls; i += blockDim.x)
-    s_walls[i] = walls[i];
+  const WallTable table = load_wall_table(walls, n_walls, 0, n_walls,
+                                          kAttrRows, smem);
+  float* s_lis = smem + wall_table_floats(n_walls, kAttrRows);  // [L][2]
   for (int i = threadIdx.x; i < 2 * n_listeners; i += blockDim.x)
     s_lis[i] = listeners[i];
   __syncthreads();
@@ -176,9 +189,9 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
   Work work;
   if (ray < n_rays)
     work = trace_ray<kHostUniforms>(
-        s_walls, n_walls, s_lis, n_listeners, scal + kScalFields * entry, sr,
-        emit, u, key0, key1, entry_offset + static_cast<uint32_t>(entry),
-        ray, blockIdx.y, gridDim.y, entry, n_rays, max_bounces, ir_length,
+        table, s_lis, n_listeners, scal + kScalFields * entry, sr, emit, u,
+        key0, key1, entry_offset + static_cast<uint32_t>(entry), ray,
+        blockIdx.y, gridDim.y, entry, n_rays, max_bounces, ir_length,
         scales[entry],
         acc + static_cast<size_t>(entry) * n_listeners * ir_length);
   if (work_out != nullptr)  // every thread of the block reaches this point

@@ -25,9 +25,12 @@
 //    distance speed) and depth [R] i32, -1 for a dead ray, updated in
 //    place (a thread reads and writes only its own column). Bounce 0 emits
 //    the ray and reads no state.
-//  * The wall table [11, W] and the listeners are loaded into shared
-//    memory by every block, as in bounce_kernel.cu; the same 5,280-wall
-//    limit applies.
+//  * The wall table [11, W] and the listeners are packed into shared
+//    memory by every block, as in bounce_kernel.cu (a WallTable: one
+//    float4 of geometry per wall, cc, six attribute rows); the same
+//    5,280-wall limit applies. The sweeps are scan_nearest / scan_blocker
+//    of trace_common.cuh: a division-free filter, then the exact test on
+//    the few walls it leaves.
 //  * Uniforms: host u[R, 3] of this bounce and emit[R] (bounce 0), or
 //    Philox by counter (ray, frame, bounce, 0) as K4 draws them.
 //  * K5 zeroes its ray's column of the [8, R] rows before the bounce, dead
@@ -65,11 +68,11 @@ __global__ void __launch_bounds__(kStepThreads) bounce_step_kernel(
     int* __restrict__ depth, float* __restrict__ rows,
     unsigned long long* __restrict__ acc,
     unsigned long long* __restrict__ work_out) {
-  extern __shared__ float smem[];
-  float* s_walls = smem;                        // [11][W]
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const WallTable table = load_wall_table(walls, n_walls, 0, n_walls,
+                                          kWallFields - 5, smem);
   float* s_lis = smem + kWallFields * n_walls;  // [L][2]
-  for (int i = threadIdx.x; i < kWallFields * n_walls; i += blockDim.x)
-    s_walls[i] = walls[i];
   for (int i = threadIdx.x; i < 2 * n_listeners; i += blockDim.x)
     s_lis[i] = listeners[i];
   __syncthreads();
@@ -104,29 +107,23 @@ __global__ void __launch_bounds__(kStepThreads) bounce_step_kernel(
         r.sp = s[7 * n];
         r.dep = dep;
       }
-      // nearest wall: ascending scan, strict '<' keeps the lowest index
+      // nearest wall: the lowest index among the smallest distances
       float closest = kInf;
-      int hit = -1;
-      for (int i = 0; i < n_walls; ++i) {
-        const float t = wall_t(s_walls, n_walls, i, r.px, r.py, r.dx, r.dy);
-        if (t < closest) {
-          closest = t;
-          hit = i;
-        }
-      }
+      int best = 0x7fffffff;
+      scan_nearest(table, 0, n_walls, make_probe(r.px, r.py, r.dx, r.dy),
+                   closest, best);
+      const int hit = closest < kInf ? best : -1;
       work.tests += n_walls;
       ++work.sweeps;
       // one occlusion sweep: stop at the first wall that blocks the shadow
       // ray before `limit`
       auto occluded = [&](float sx, float sy, float vdx, float vdy, float,
                           float limit) {
-        bool visible = true;
-        int i = 0;
-        for (; i < n_walls && visible; ++i)
-          visible = wall_t(s_walls, n_walls, i, sx, sy, vdx, vdy) >= limit;
-        work.tests += i;
+        const int blocker = scan_blocker(
+            table, 0, n_walls, make_probe(sx, sy, vdx, vdy), limit);
+        work.tests += blocker < 0 ? n_walls : blocker + 1;
         ++work.sweeps;
-        return !visible;
+        return blocker >= 0;
       };
       auto draw = [&]() -> Uniforms {
         if (kHostUniforms)
@@ -137,11 +134,11 @@ __global__ void __launch_bounds__(kStepThreads) bounce_step_kernel(
       bool alive;
       if constexpr (kRows) {
         const RowSink sink{rows, n_rays, ray};
-        alive = finish_bounce<1>(r, closest, hit, s_walls, n_walls, lis, sink,
+        alive = finish_bounce<1>(r, closest, hit, table, lis, sink,
                                  occluded, draw);
       } else {
         const Sink sink{acc, ir_length, 1, sr, *scale};
-        alive = finish_bounce<1>(r, closest, hit, s_walls, n_walls, lis, sink,
+        alive = finish_bounce<1>(r, closest, hit, table, lis, sink,
                                  occluded, draw);
       }
       s[0] = r.px;

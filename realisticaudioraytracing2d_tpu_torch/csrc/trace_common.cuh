@@ -3,8 +3,9 @@
 // (step_kernel.cu: K5, K6) and the wall sweeps (trace_kernel.cu: K1, K2).
 //
 // What is here: the constants of the reference kernel, Philox-4x32-10 and
-// its 24-bit uniforms, the ray-segment test (wall_t), the emission of a
-// ray, the fixed-point IR deposit, the u64 -> f32 conversion kernel, and
+// its 24-bit uniforms, the ray-segment test (filter + wall_exact) and
+// the two scans built on it (scan_nearest, scan_blocker), the emission of
+// a ray, the fixed-point IR deposit, the u64 -> f32 conversion kernel, and
 // the whole bounce after the nearest-wall search (finish_bounce): direct
 // listener capture, advance, NEE with occlusion, absorption and cutoff,
 // transmission with refraction, and the specular/diffuse reflection.
@@ -17,12 +18,37 @@
 // The semantics are those of the plain oracle ops/trace.py::_bounce +
 // ops/ir.py::scatter_hits, in its IEEE operation order: '/', sqrtf,
 // sincosf, asinf, no fast math, and the build passes --fmad=false, so a
-// hit here is the plain path's hit. A wall table is struct-of-arrays
-// [rows, stride] (see WallField); banded tables append the absorption of
-// bands 1 .. K-1 as rows 11 .. 9 + K. An IR accumulator is u64
-// [L, T, K] fixed point: each hit adds llrint(e * S), and integer
-// addition is associative, so the IR of a seed is bit-identical whatever
-// order the atomics land in.
+// hit here is the plain path's hit. The wrappers hand over a wall table as
+// struct-of-arrays rows [rows, stride] (see WallField; banded tables
+// append the absorption of bands 1 .. K-1 as rows 11 .. 9 + K); a kernel
+// reads it as a WallTable: the four geometry rows of a wall as one float4
+// (16-byte load), cc beside it, the attribute rows as they are. An IR
+// accumulator is u64 [L, T, K] fixed point: each hit adds llrint(e * S),
+// and integer addition is associative, so the IR of a seed is
+// bit-identical whatever order the atomics land in.
+//
+// Design of the wall test. The exact test costs two IEEE divides, each a
+// sequence of a dozen or more instructions around a reciprocal, and a
+// ray's line crosses the extent of only a few walls of a scene. So a scan
+// first runs a division-free filter over up to 32 walls (wall_straddles):
+// the numerator n2 and the denominator dotp of the exact test, in its
+// operation order, compared by sign and magnitude with a one-sided
+// relative slack of 1e-6, so that it rejects only walls the exact test
+// would reject too. The survivors' bits form a mask, and a lane loops over
+// its own set bits, lowest index first: a second division-free step
+// (wall_in_reach: the numerator n1 against the caller's bound, the running
+// closest hit or the occlusion limit) and then the exact test with its two
+// divides (wall_exact, the operation order of geometry.py::
+// pairwise_ray_segment_t). A warp's lanes then loop over their own few
+// survivors instead of dragging each other through the divides of every
+// wall, and the bits a kept hit is made of do not move. ops/geometry.py::
+// ray_segment_maybe mirrors the two steps for the CPU tests.
+//
+// What bounds it: instruction rate. Step 1 costs ~18 instructions per
+// wall against the 13 FP32 operations the bound counts, a survivor ~15
+// more and ~40 for its divides, a warp runs as many survivor rounds as its
+// busiest lane needs, and with --fmad=false no multiply-add is contracted,
+// so this arithmetic can reach at most half of the card's 67 TFLOP/s.
 
 #pragma once
 
@@ -41,7 +67,32 @@ constexpr int kWallFields = 11;
 constexpr int kScalFields = 5;
 constexpr int kMaxListeners = 16;
 
+// Rows of the wrappers' wall table, and of its attribute part alone.
 enum WallField { AX, AY, V2X, V2Y, CC, NX, NY, ABS, SCAT, TRANS, IOR };
+enum WallAttr { A_NX, A_NY, A_ABS, A_SCAT, A_TRANS, A_IOR };
+
+// A wall table as the kernels read it: geo[i] = (ax, ay, v2x, v2y) and
+// cc[i] of wall i, and the attribute rows attr[row * n + i] (WallAttr;
+// the absorption of band k >= 1 is row 5 + k). In shared memory the three
+// parts are packed by load_wall_table (44 B per wall); the cluster
+// kernels read a global table whose geo plane the wrapper built.
+struct WallTable {
+  const float4* geo;
+  const float* cc;
+  const float* attr;
+  int n;
+};
+
+// What a sweep knows of its ray before it meets a wall.
+struct Probe {
+  float ox, oy, dx, dy;
+  float cross;  // oy * dx - ox * dy
+};
+
+__device__ __forceinline__ Probe make_probe(float ox, float oy, float dx,
+                                            float dy) {
+  return {ox, oy, dx, dy, oy * dx - ox * dy};
+}
 
 struct Uniforms {
   float u0, u1, u2;
@@ -125,22 +176,147 @@ __device__ __forceinline__ Uniforms philox_uniforms(uint32_t ray,
   return {u24(ctr[0]), u24(ctr[1]), u24(ctr[2])};
 }
 
-// Ray-segment distance, the operation order of geometry.py::
+// Ray-segment distance of one wall, the operation order of geometry.py::
 // pairwise_ray_segment_t (cc = v2x * ay - v2y * ax precomputed). 16 FP32
 // operations (two of them divides); oy * dx - ox * dy (3) is the same for
 // every wall of a sweep, so a test costs 13 beside 3 per sweep.
-__device__ __forceinline__ float wall_t(const float* w, int n, int i,
-                                       float ox, float oy, float dx,
-                                       float dy) {
-  const float ax = w[AX * n + i], ay = w[AY * n + i];
-  const float v2x = w[V2X * n + i], v2y = w[V2Y * n + i];
-  const float cc = w[CC * n + i];
-  const float dotp = v2y * dx - v2x * dy;
+__device__ __forceinline__ float wall_exact(float4 g, float cc,
+                                           const Probe& q) {
+  const float dotp = g.w * q.dx - g.z * q.dy;
   const bool parallel = fabsf(dotp) < kEps;
   const float safe = parallel ? 1.0f : dotp;
-  const float t1 = (v2x * oy - v2y * ox - cc) / safe;
-  const float t2 = ((oy * dx - ox * dy) - (ay * dx - ax * dy)) / safe;
+  const float t1 = (g.z * q.oy - g.w * q.ox - cc) / safe;
+  const float t2 = (q.cross - (g.y * q.dx - g.x * q.dy)) / safe;
   return (!parallel && t1 >= kEps && t2 >= 0.0f && t2 <= 1.0f) ? t1 : kInf;
+}
+
+// The filter's slacks. A rounded quotient n / d is <= 1 up to n / d = 1 +
+// 2^-24, is >= 0 down to an underflow to -0, and is >= kEps down to half
+// an ulp under it; each limit below is 1e-6 (relative) or more outside
+// the exact one, far more than the rounding of the products it is
+// compared with (6e-8), so no wall the exact test accepts is rejected.
+constexpr float kSlackHi = 1.000001f;   // t2 <= 1, t1 <= tmax
+constexpr float kSlackLo = -1e-6f;      // t2 >= 0
+constexpr float kEpsLo = 9.9999e-5f;    // t1 >= kEps
+
+// The filter, in two steps that share the exact test's numerators and
+// denominator (the same operations in the same order, no divide). With a =
+// |dotp| and a numerator given dotp's sign (m = n * sign(dotp), so n /
+// dotp = m / a exactly), t2 in [0, 1] needs m2 in [0, a] and t1 in [kEps,
+// tmax] needs m1 in [kEps * a, tmax * a]. A NaN fails every comparison and
+// passes on to the exact test.
+//
+// Step 1, for every wall: can the ray's line cross the wall's extent?
+// False only if wall_exact would return kInf (parallel, or t2 outside
+// [0, 1]). It needs the wall's float4 alone.
+__device__ __forceinline__ bool wall_straddles(float4 g, const Probe& q) {
+  const float dotp = g.w * q.dx - g.z * q.dy;
+  const float n2 = q.cross - (g.y * q.dx - g.x * q.dy);
+  const float a = fabsf(dotp);
+  const float m2 = dotp < 0.0f ? -n2 : n2;
+  const bool miss = a < kEps || m2 < a * kSlackLo || m2 > a * kSlackHi;
+  return !miss;
+}
+
+// Step 2, for a wall that passed step 1, before dividing: can its distance
+// lie in [kEps, tmax]? False only if wall_exact would return kInf or a
+// distance above tmax. tmax_s = max(tmax, 0) * kSlackHi.
+__device__ __forceinline__ bool wall_in_reach(float4 g, float cc,
+                                              const Probe& q, float tmax_s) {
+  const float dotp = g.w * q.dx - g.z * q.dy;
+  const float n1 = g.z * q.oy - g.w * q.ox - cc;
+  const float a = fabsf(dotp);
+  const float m1 = dotp < 0.0f ? -n1 : n1;
+  const bool miss = m1 < a * kEpsLo || m1 > a * tmax_s;
+  return !miss;
+}
+
+// Bit j set: the ray's line can cross wall lo + j (j < count <= 32).
+__device__ __forceinline__ unsigned wall_candidates(const WallTable& w,
+                                                    int lo, int count,
+                                                    const Probe& q) {
+  unsigned mask = 0;
+#pragma unroll 4
+  for (int j = 0; j < count; ++j)
+    mask |= static_cast<unsigned>(wall_straddles(w.geo[lo + j], q)) << j;
+  return mask;
+}
+
+// Nearest wall among walls lo .. lo + count - 1, folded into (closest,
+// best): the smallest distance, and among equal distances the lowest
+// index, whatever order the ranges of a table are scanned in. A caller
+// starts from (kInf, INT_MAX) and reads best only if closest < kInf.
+__device__ __forceinline__ void scan_nearest(const WallTable& w, int lo,
+                                             int count, const Probe& q,
+                                             float& closest, int& best) {
+  for (int base = lo; base < lo + count; base += 32) {
+    unsigned m = wall_candidates(w, base, min(32, lo + count - base), q);
+    while (m) {
+      const int i = base + __ffs(m) - 1;
+      m &= m - 1;
+      const float4 g = w.geo[i];
+      const float cc = w.cc[i];
+      if (!wall_in_reach(g, cc, q, closest * kSlackHi)) continue;
+      const float t = wall_exact(g, cc, q);
+      if (t < closest || (t == closest && i < best)) {
+        closest = t;
+        best = i;
+      }
+    }
+  }
+}
+
+// The lowest index among walls lo .. lo + count - 1 that cuts the ray
+// before `limit`, or -1. A sweep that stops there has tested the walls up
+// to and including it.
+__device__ __forceinline__ int scan_blocker(const WallTable& w, int lo,
+                                            int count, const Probe& q,
+                                            float limit) {
+  const float limit_s = fmaxf(limit, 0.0f) * kSlackHi;
+  for (int base = lo; base < lo + count; base += 32) {
+    unsigned m = wall_candidates(w, base, min(32, lo + count - base), q);
+    while (m) {
+      const int i = base + __ffs(m) - 1;
+      m &= m - 1;
+      const float4 g = w.geo[i];
+      const float cc = w.cc[i];
+      if (wall_in_reach(g, cc, q, limit_s) && wall_exact(g, cc, q) < limit)
+        return i;
+    }
+  }
+  return -1;
+}
+
+// Floats of a shared-memory WallTable of `count` walls (load_wall_table).
+__host__ __device__ constexpr size_t wall_table_floats(size_t count,
+                                                       size_t n_attr) {
+  return (5 + n_attr) * count;
+}
+
+// Pack `count` walls of the wrappers' row table (rows[field * stride +
+// first + i]) into shared memory at `smem` as a WallTable of stride
+// `count`: geo, then cc, then the n_attr attribute rows. Every thread of
+// the block calls it; the caller synchronises. smem must be 16-byte
+// aligned and hold wall_table_floats(count, n_attr) floats.
+__device__ __forceinline__ WallTable load_wall_table(const float* rows,
+                                                     size_t stride,
+                                                     int first, int count,
+                                                     int n_attr,
+                                                     float* smem) {
+  float4* geo = reinterpret_cast<float4*>(smem);
+  float* cc = smem + 4 * count;
+  float* attr = cc + count;
+  const float* r = rows + first;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    geo[i] = make_float4(r[AX * stride + i], r[AY * stride + i],
+                         r[V2X * stride + i], r[V2Y * stride + i]);
+    cc[i] = r[CC * stride + i];
+  }
+  for (int i = threadIdx.x; i < n_attr * count; i += blockDim.x) {
+    const int row = i / count, col = i - row * count;
+    attr[i] = r[(NX + row) * stride + col];
+  }
+  return {geo, cc, attr, count};
 }
 
 // Safe normalize (geometry.py::normalize).
@@ -151,14 +327,18 @@ __device__ __forceinline__ void normalize2(float& x, float& y) {
   y *= inv;
 }
 
-// Absorption of band k of wall i (row ABS for band 0, 10 + k after).
-__device__ __forceinline__ float band_absorption(const float* w, int n,
-                                                 int i, int k) {
-  return w[(k == 0 ? ABS : 10 + k) * n + i];
+// Absorption of band k of wall i (attribute row A_ABS for band 0, 5 + k
+// after).
+__device__ __forceinline__ float band_absorption(const WallTable& w, int i,
+                                                 int k) {
+  return w.attr[(k == 0 ? A_ABS : 5 + k) * w.n + i];
 }
 
 // Add each band's energy e[k] of one hit at `delay` to listener l's bin.
-// `slot` (0 direct capture, 1 NEE) matters only to the row sink.
+// `slot` (0 direct capture, 1 NEE) matters only to the row sink. One
+// atomic per hit and band: summing first among the lanes of a warp that
+// hit the same bin (__match_any_sync, then an integer reduction) was
+// tried and cost more than the atomics it saved (PERF.md).
 template <int kMaxK>
 __device__ __forceinline__ void deposit(const Sink& s, int /*slot*/, int l,
                                         float delay, const float* e) {
@@ -211,7 +391,7 @@ __device__ __forceinline__ Ray<kMaxK> emit_ray(int ray, int n_rays,
 }
 
 // The bounce after the nearest-wall search found `closest` and `hit`
-// (-1: escaped) on wall table `w` (stride n). occluded(sx, sy, vdx, vdy,
+// (-1: escaped) on wall table `w`. occluded(sx, sy, vdx, vdy,
 // dist, limit) runs one occlusion sweep and returns true when a wall
 // blocks the shadow ray before `limit`; draw() gives this bounce's three
 // uniforms; `sink` (Sink or RowSink) takes the hits. Returns false when
@@ -219,7 +399,7 @@ __device__ __forceinline__ Ray<kMaxK> emit_ray(int ray, int n_rays,
 // is then left as it was.
 template <int kMaxK, class SinkT, class Occluded, class Draw>
 __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
-                                              int hit, const float* w, int n,
+                                              int hit, const WallTable& w,
                                               const Listeners& lis,
                                               const SinkT& sink,
                                               Occluded occluded, Draw draw) {
@@ -249,15 +429,16 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
   // --- advance to the wall --------------------------------------------------
   const float npx = r.px + r.dx * closest, npy = r.py + r.dy * closest;
   const float ntm = r.tm + closest / r.sp, nds = r.ds + closest;
-  const float w_nx = w[NX * n + hit];
-  const float w_ny = w[NY * n + hit];
-  const float w_scat = w[SCAT * n + hit];
-  const float w_trans = w[TRANS * n + hit];
-  const float w_ior = w[IOR * n + hit];
+  const int n = w.n;
+  const float w_nx = w.attr[A_NX * n + hit];
+  const float w_ny = w.attr[A_NY * n + hit];
+  const float w_scat = w.attr[A_SCAT * n + hit];
+  const float w_trans = w.attr[A_TRANS * n + hit];
+  const float w_ior = w.attr[A_IOR * n + hit];
   float keep[kMaxK];  // 1 - absorption, per band
 #pragma unroll
   for (int k = 0; k < kMaxK; ++k)
-    keep[k] = k < nk ? 1.0f - band_absorption(w, n, hit, k) : 0.0f;
+    keep[k] = k < nk ? 1.0f - band_absorption(w, hit, k) : 0.0f;
   const float d_dot_n = r.dx * w_nx + r.dy * w_ny;
 
   // --- NEE with occlusion (shadow ray offset along the UNflipped normal,

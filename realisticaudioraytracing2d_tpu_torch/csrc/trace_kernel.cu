@@ -12,7 +12,7 @@
 // [rays, walls] passes they replace without ever writing the [R, W]
 // distance matrix to device memory; the rest of that bounce stays tensor
 // code. The semantics are those of ops/geometry.py::pairwise_ray_segment_t
-// followed by nearest_hit / min, in the same IEEE operation order (wall_t
+// followed by nearest_hit / min, in the same IEEE operation order (wall_exact
 // of trace_common.cuh, --fmad=false), so distances and indices equal the
 // plain version's bit for bit: a minimum does not depend on the order it is
 // taken in. The TPU layout (rays [Rp, 8] padded to tiles of 512, walls
@@ -21,11 +21,16 @@
 // Design:
 //  * One thread per ray, its origin and direction in registers.
 //  * The wall table is [5, W] (ax, ay, v2x, v2y, cc). A block stages it
-//    through shared memory in tiles of kTileWalls walls, so any wall count
-//    works: the 5,280-wall limit of the whole-table kernels does not apply.
-//  * Walls are visited in ascending order with a strict '<', so the lowest
-//    index wins among equal distances (the plain version's argmin rule).
-//    Padding walls (a == b) are parallel to every ray and never hit.
+//    through shared memory in tiles of kTileWalls walls (one float4 of
+//    geometry and cc per wall), so any wall count works: the 5,280-wall
+//    limit of the whole-table kernels does not apply.
+//  * A tile is swept by scan_nearest of trace_common.cuh: a division-free
+//    filter over 32 walls at a time, bounded by the running minimum, then
+//    the exact test (two IEEE divides) on the few walls it leaves, lowest
+//    index first; tiles in ascending order, and a later tile replaces the
+//    index only with a strictly smaller distance, so the lowest index wins
+//    among equal distances (the plain version's argmin rule). Padding
+//    walls (a == b) are parallel to every ray and never hit.
 //  * K2 returns the full minimum and cannot stop at the first blocker: its
 //    caller compares the minimum with the listener distance less a slack.
 //
@@ -34,15 +39,16 @@
 // table once. At the published peaks (67 TFLOP/s, 3.35 TB/s) the bytes set
 // the bound up to ~37 walls (SmollRoom's 24) and the operations beyond
 // (the 10,008-wall city). Every thread of a warp reads the same wall from
-// shared memory (a broadcast), so the divides set the pace. Register
-// tiling of walls and a persistent grid are later work.
+// shared memory (a broadcast); the filter's ~18 executed instructions per
+// wall set the pace, and without multiply-add contraction (--fmad=false)
+// half of the FP32 peak is out of reach by construction.
 
 #include "trace_common.cuh"
 
 namespace {
 
 constexpr int kSweepThreads = 256;
-constexpr int kTileWalls = 1024;   // 5 rows x 1024 walls x 4 B = 20 KB
+constexpr int kTileWalls = 1024;   // 1024 walls x 20 B = 20 KB
 constexpr int kGeoFields = 5;      // AX, AY, V2X, V2Y, CC of WallField
 
 template <bool kWantIndex>
@@ -50,7 +56,7 @@ __global__ void __launch_bounds__(kSweepThreads) wall_sweep_kernel(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     int n_rays, const float* __restrict__ walls, int n_walls,
     float* __restrict__ tmin, int* __restrict__ idx) {
-  __shared__ float s_walls[kGeoFields * kTileWalls];
+  __shared__ float4 s_walls[kGeoFields * kTileWalls / 4];
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = ray < n_rays;
   float ox = 0.0f, oy = 0.0f, dx = 1.0f, dy = 0.0f;
@@ -60,25 +66,20 @@ __global__ void __launch_bounds__(kSweepThreads) wall_sweep_kernel(
     dx = dirs[2 * ray];
     dy = dirs[2 * ray + 1];
   }
+  const Probe q = make_probe(ox, oy, dx, dy);
   float closest = kInf;
   int hit = 0;   // argmin of an all-kInf row is 0, turned into -1 below
   for (int base = 0; base < n_walls; base += kTileWalls) {
     const int n_tile = min(kTileWalls, n_walls - base);
     __syncthreads();   // the previous tile is no longer read
-    for (int i = threadIdx.x; i < kGeoFields * n_tile; i += blockDim.x) {
-      const int row = i / n_tile, col = i - row * n_tile;
-      s_walls[row * kTileWalls + col] =
-          walls[static_cast<size_t>(row) * n_walls + base + col];
-    }
+    const WallTable tile = load_wall_table(
+        walls, n_walls, base, n_tile, 0, reinterpret_cast<float*>(s_walls));
     __syncthreads();
     if (live) {
-      for (int i = 0; i < n_tile; ++i) {
-        const float t = wall_t(s_walls, kTileWalls, i, ox, oy, dx, dy);
-        if (t < closest) {
-          closest = t;
-          if (kWantIndex) hit = base + i;
-        }
-      }
+      const float before = closest;
+      int best = 0x7fffffff;
+      scan_nearest(tile, 0, n_tile, q, closest, best);
+      if (kWantIndex && closest < before) hit = base + best;
     }
   }
   if (live) {
@@ -91,7 +92,7 @@ __global__ void __launch_bounds__(kSweepThreads) wall_sweep_kernel(
 
 extern "C" {
 
-// tmin[N] (f32) = the least wall_t of ray n = (origins[n], dirs[n]) over
+// tmin[N] (f32) = the least wall_exact of ray n = (origins[n], dirs[n]) over
 // the n_walls walls of walls [5, W] (ax, ay, v2x, v2y, cc), kInf on a
 // miss; if idx is not null (K1) also idx[N] (i32), the lowest index of a
 // wall at that distance, -1 on a miss; with idx null it is K2. origins and

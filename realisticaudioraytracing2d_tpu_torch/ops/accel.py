@@ -10,8 +10,14 @@ Port of the host side of the JAX package's cluster-early-out path
   cluster boxes into the super boxes of the second level;
 * :func:`morton_ray_keys` (``_morton_ray_keys``, position-only as the
   JAX re-sort calls it) and :func:`block_cluster_order`
-  (``tile_cluster_order``) drive K8's re-sort of the rays between
-  bounces.
+  (``tile_cluster_order``) describe K8's re-sort of the rays between
+  bounces and the near-to-far order each block of rays visits the super
+  boxes in. On the card both are computed inside the kernel
+  (``csrc/accel_kernel.cu``: ``morton_ray_key``, ``order_super_boxes``);
+  the functions here are the plain mirrors the tests and the plain K8
+  path use. :func:`block_rank_order` mirrors the kernel's order
+  operation for operation, and :func:`walk_nearest_plain` its walk over
+  the boxes.
 
 The kernels (``ops/cuda/accel_kernel.py``) slab-test the boxes and skip
 the walls of a cluster no ray can hit nearer than its running closest.
@@ -36,6 +42,7 @@ from typing import Tuple
 import torch
 
 from ..models.scene import Scene, round_up
+from .geometry import EPS, INF, pairwise_ray_segment_t
 
 # Fewest walls per cluster: a thread tests a hit cluster's walls one by
 # one, so small leaves waste little work on walls that cannot be nearest.
@@ -171,15 +178,10 @@ def morton_ray_keys(px: torch.Tensor, py: torch.Tensor, alive: torch.Tensor,
     return torch.where(alive, key, _KEY_MAX)
 
 
-def block_cluster_order(px: torch.Tensor, py: torch.Tensor,
-                        alive: torch.Tensor, super_centers: torch.Tensor,
-                        block: int) -> torch.Tensor:
-    """Near-to-far visit order of the super boxes for each block of
-    ``block`` consecutive rays: the boxes sorted by the squared distance
-    of their centers ``[S, 2]`` from the centroid of the block's live rays
-    (the origin for a block with none). Returns int32 ``[n_blocks, S]``.
-    The order only changes how soon a thread's closest hit tightens, and
-    with it the speed, never the result."""
+def _block_distances(px, py, alive, super_centers, block):
+    """``[n_blocks, S]`` squared distances of the centres ``[S, 2]`` from
+    the centroid of each block's live rays (the origin for a block with
+    none)."""
     n = px.shape[0]
     pad = round_up(n, block) - n
     w = torch.nn.functional.pad(alive.to(px.dtype), (0, pad)).reshape(
@@ -189,6 +191,105 @@ def block_cluster_order(px: torch.Tensor, py: torch.Tensor,
     denom = w.sum(-1, keepdim=True).clamp(min=1.0)
     cx = (xs * w).sum(-1, keepdim=True) / denom
     cy = (ys * w).sum(-1, keepdim=True) / denom
-    d2 = (cx - super_centers[None, :, 0]) ** 2 \
+    return (cx - super_centers[None, :, 0]) ** 2 \
         + (cy - super_centers[None, :, 1]) ** 2
-    return torch.argsort(d2, dim=1).to(torch.int32)
+
+
+def block_cluster_order(px: torch.Tensor, py: torch.Tensor,
+                        alive: torch.Tensor, super_centers: torch.Tensor,
+                        block: int) -> torch.Tensor:
+    """Near-to-far visit order of the super boxes for each block of
+    ``block`` consecutive rays: the boxes sorted by the squared distance
+    of their centers ``[S, 2]`` from the centroid of the block's live rays
+    (the origin for a block with none). Returns int32 ``[n_blocks, S]``.
+    The order only changes how soon a thread's closest hit tightens, and
+    with it the speed, never the result. The plain mirror of the JAX
+    package's ``tile_cluster_order``, kept for the tests: K8 orders the
+    boxes in its kernel (:func:`block_rank_order` mirrors that)."""
+    return torch.argsort(_block_distances(px, py, alive, super_centers,
+                                          block), dim=1).to(torch.int32)
+
+
+def block_rank_order(px: torch.Tensor, py: torch.Tensor,
+                     alive: torch.Tensor, super_boxes: torch.Tensor,
+                     block: int) -> torch.Tensor:
+    """Plain mirror of K8's in-kernel order (``csrc/accel_kernel.cu::
+    order_super_boxes``): for each block of ``block`` consecutive rays the
+    super boxes ``[S, 4]`` by the squared distance of their centres from
+    the centroid of the block's live rays, each box placed at its rank,
+    the number of boxes whose distance is smaller or equal with a lower
+    index. The distances are compared by their bit patterns (a total
+    order that puts a NaN last), so every row is a permutation of
+    ``range(S)`` whatever the positions hold. Returns int32
+    ``[n_blocks, S]``; equal to :func:`block_cluster_order` wherever no
+    two distances tie."""
+    centers = 0.5 * (super_boxes[:, :2] + super_boxes[:, 2:])
+    d2 = _block_distances(px, py, alive, centers, block)
+    keys = d2.contiguous().view(torch.int32).to(torch.int64) & _KEY_MAX
+    idx = torch.arange(keys.shape[1], device=keys.device)
+    mine, other = keys[:, :, None], keys[:, None, :]
+    ranks = ((other < mine) | ((other == mine) & (idx[None, None, :]
+                                                  < idx[None, :, None]))
+             ).sum(-1)
+    order = torch.empty_like(ranks)
+    order.scatter_(1, ranks, idx.expand_as(ranks).contiguous())
+    return order.to(torch.int32)
+
+
+def slab_inv(d: torch.Tensor) -> torch.Tensor:
+    """Slab reciprocal that never makes ``inf * 0`` (the JAX package's
+    ``_slab_inv``): ``sign(d) / max(|d|, 1e-12)``."""
+    return torch.where(d >= 0, 1.0, -1.0) / d.abs().clamp(min=1e-12)
+
+
+def slab_hit(box: torch.Tensor, o: torch.Tensor, inv: torch.Tensor,
+             tmax: torch.Tensor) -> torch.Tensor:
+    """Can rays ``o + t d`` (``o[R, 2]``, ``inv = slab_inv(d)``), ``t`` in
+    ``[EPS, tmax[R]]``, meet ``box[4]``? The kernels' slab test: inverted
+    padding boxes never, 1e-3 slack."""
+    t0 = (box[:2] - o) * inv
+    t1 = (box[2:] - o) * inv
+    tnear = torch.minimum(t0, t1).amax(-1)
+    tfar = torch.maximum(t0, t1).amin(-1)
+    return (box[2] >= box[0]) & (tfar >= EPS) \
+        & (tnear <= torch.minimum(tfar, tmax) + 1e-3)
+
+
+def walk_nearest_plain(scene: Scene, aabb: torch.Tensor, group: int,
+                       o: torch.Tensor, d: torch.Tensor,
+                       order: torch.Tensor, block: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain mirror of the cluster kernels' nearest-wall walk, for the
+    tests: rays ``o[R, 2]``, ``d[R, 2]`` over the sorted ``scene`` and its
+    cluster boxes ``aabb[C, 4]``, each block of ``block`` rays visiting
+    the super boxes in its row of ``order[n_blocks, S]``. A ray tests a
+    cluster's walls only if its own slab tests of the super box and of the
+    cluster box passed against its running closest hit, and keeps the
+    lowest index among equal distances. Returns ``(closest[R], index[R])``
+    (``INF``, -1 on a miss), which must not depend on ``order``."""
+    saabb = super_aabbs(aabb, group)
+    cs = scene.n_walls // aabb.shape[0]
+    closest = torch.full((o.shape[0],), INF, dtype=o.dtype, device=o.device)
+    best = torch.full((o.shape[0],), 2 ** 31 - 1, dtype=torch.int64,
+                      device=o.device)
+    inv = slab_inv(d)
+    for r0 in range(0, o.shape[0], block):
+        sl = slice(r0, r0 + block)
+        ob, db, ib = o[sl], d[sl], inv[sl]
+        cl, be = closest[sl], best[sl]      # views: updated in place
+        for ss in order[r0 // block].tolist():
+            in_super = slab_hit(saabb[ss], ob, ib, cl)
+            for c in range(ss * group, (ss + 1) * group):
+                inside = in_super & slab_hit(aabb[c], ob, ib, cl) \
+                    if group > 1 else in_super
+                if not bool(inside.any()):
+                    continue
+                lo = c * cs
+                t = pairwise_ray_segment_t(ob, db, scene.a[lo:lo + cs],
+                                           scene.b[lo:lo + cs])
+                for j in range(cs):
+                    better = inside & ((t[:, j] < cl) | ((t[:, j] == cl)
+                                                         & (lo + j < be)))
+                    cl[better] = t[better, j]
+                    be[better] = lo + j
+    return closest, torch.where(closest < INF, best, -1).to(torch.int32)

@@ -2,16 +2,18 @@
 versions and launch counts.
 
 Two entry points launch the kernels of ``csrc/accel_kernel.cu`` on a scene
-that :func:`..accel.cluster_scene` Morton-sorts and boxes at every call:
+that :func:`prepare` Morton-sorts and boxes (:func:`..accel.cluster_scene`)
+once and keeps for later calls on the same scene tensors:
 
 * :func:`trace_frames_ir_accel` (K7): every bounce of ``n_frames`` frames
   in one launch, 1 <= K <= 8 bands; it replaces ``ops/pallas/
   bounce_kernel.py::trace_frames_ir_accel`` of the JAX package;
 * :func:`trace_frames_ir_accel_sorted` (K8): one launch per bounce over
   all frames' rays, the rays re-sorted along a Morton curve of their
-  positions between launches and each block given a near-to-far order of
-  super boxes (:mod:`..accel`), K = 1; it replaces
-  ``::trace_frames_ir_accel_sorted``.
+  positions between launches (the kernel writes the keys, the wrapper
+  sorts them, the next launch reads its rays through the permutation) and
+  each block visiting the super boxes near to far from its own rays, K =
+  1; it replaces ``::trace_frames_ir_accel_sorted``.
 
 Both return the frame-SUMMED IR ``[L, T, K]`` float32 and draw Philox
 numbers in the kernel under the key of ``seed``, counter (ray, frame,
@@ -24,12 +26,14 @@ their plain version, :func:`trace_frames_ir_accel_plain` (the plain trace
 + scatter on the sorted scene) and :func:`trace_frames_ir_accel_sorted_plain`
 (the same bounce by bounce on the re-sorted rays), which are also what the
 kernels are held against on the card. Each entry point counts its
-launches in ``.launches``: one per K7 call, ``max_bounces`` per K8 call.
+launches in ``.launches``: one per K7 call, ``max_bounces`` per K8 call;
+``prepare.builds`` counts the scenes :func:`prepare` really sorted.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
@@ -43,15 +47,16 @@ from . import bounce_kernel as bk
 from . import build
 
 MAX_BANDS = 8
-BLOCK = 256  # rays per block: K8's grain of the near-to-far order
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FRAMES_ARGTYPES = (_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P,
+_FRAMES_ARGTYPES = (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P,
                     ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, _I, _I,
                     _I, _I, _P, _P, _P, _I, _P, _P)
-_BOUNCE_ARGTYPES = (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P,
+_BOUNCE_ARGTYPES = (_P, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P,
                     ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, _I, _I,
-                    _I, _I, _I, _P, _P, _P, _P, _I, _P, _P)
+                    _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P)
+# scenes whose sorted tables prepare() keeps
+PREPARED_SCENES = 8
 
 
 def _fn(name, argtypes):
@@ -68,12 +73,15 @@ def _check(err: int, what: str) -> None:
 
 class AccelScene(NamedTuple):
     """A scene ready for the cluster kernels: Morton-sorted and padded to
-    ``C * cluster_size`` walls, its wall table, cluster and super boxes."""
+    ``C * cluster_size`` walls, its wall table, cluster and super boxes,
+    and the window the rays' sort keys are quantized in."""
 
     scene: Scene
     walls: torch.Tensor    # [11 + K - 1, Wp] f32 (pack_walls + bands 1..)
+    geo: torch.Tensor      # [Wp, 4] f32: ax, ay, v2x, v2y (16-byte loads)
     aabb: torch.Tensor     # [C, 4] f32
     saabb: torch.Tensor    # [C / group, 4] f32
+    bounds: torch.Tensor   # [4] f32: accel.scene_bounds lo x, lo y, span x, y
     cluster_size: int
     group: int
 
@@ -91,14 +99,51 @@ def pack_walls_banded(scene: Scene) -> torch.Tensor:
     return torch.cat([walls, scene.absorption[:, 1:].T], dim=0).contiguous()
 
 
+def _build(scene: Scene, cs: int, group: int) -> AccelScene:
+    scene_s, aabb = accel.cluster_scene(scene, cs, group)
+    walls = pack_walls_banded(scene_s)
+    return AccelScene(scene_s, walls, walls[:4].T.contiguous(),
+                      aabb.contiguous(),
+                      accel.super_aabbs(aabb, group).contiguous(),
+                      torch.cat(accel.scene_bounds(aabb)).contiguous(), cs,
+                      group)
+
+
+def _scene_key(scene: Scene, layout):
+    """What defines a scene's tables: the identity of its tensors, their
+    version counters, which every in-place edit advances (through any
+    view), and the cluster layout. None for tensors that keep no counter
+    (inference mode)."""
+    try:
+        return (layout, *((id(x), x._version) for x in scene))
+    except RuntimeError:
+        return None
+
+
+_prepared: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
 def prepare(scene: Scene) -> AccelScene:
     """Sort and box ``scene`` with the port's cluster size and group
-    (:func:`..accel.accel_layout`)."""
-    cs, group = accel.accel_layout(scene.n_walls)
-    scene_s, aabb = accel.cluster_scene(scene, cs, group)
-    return AccelScene(scene_s, pack_walls_banded(scene_s),
-                      aabb.contiguous(),
-                      accel.super_aabbs(aabb, group).contiguous(), cs, group)
+    (:func:`..accel.accel_layout`), once per scene: the result is kept
+    under the identity and versions of the scene's tensors (the last
+    :data:`PREPARED_SCENES` scenes), so a stream or an engine on a large
+    scene sorts its walls at the first call only. A new :class:`Scene`
+    (a moved collider builds one) or an in-place edit of a tensor is
+    another key and is sorted anew. An entry holds its scene's tensors, so
+    an identity cannot be reused while it is cached."""
+    layout = accel.accel_layout(scene.n_walls)
+    key = _scene_key(scene, layout)
+    if key is not None and key in _prepared:
+        _prepared.move_to_end(key)
+        return _prepared[key][1]
+    prep = _build(scene, *layout)
+    prepare.builds += 1
+    if key is not None:
+        _prepared[key] = (scene, prep)
+        while len(_prepared) > PREPARED_SCENES:
+            _prepared.popitem(last=False)
+    return prep
 
 
 def check_accel_supported(scene: Scene, params: TraceParams,
@@ -143,8 +188,9 @@ def _trace_rays_plain(prep: AccelScene, params: TraceParams,
     """The ``F * R`` rays of all frames bounce by bounce through
     ``ops/trace.py::_bounce`` on the sorted scene, each fed the numbers of
     its original (frame, ray) id and its hits scattered after every
-    bounce; with ``resort`` the rays are re-sorted by
-    :func:`..accel.morton_ray_keys` between bounces. ``ray_chunk`` runs
+    bounce; with ``resort`` each bounce leaves the rays' sort keys
+    (:func:`..accel.morton_ray_keys`) and the next one reads its rays
+    through the permutation that sorts them, as K8 does. ``ray_chunk`` runs
     each bounce over slices of that many rays (all at once if None): the
     rays are independent, so the slices bound the ``[rays, walls]``
     temporaries and move only the float summation order of the IR."""
@@ -155,9 +201,13 @@ def _trace_rays_plain(prep: AccelScene, params: TraceParams,
     n = n_frames * n_rays
     step = n if ray_chunk is None else ray_chunk
     ids = torch.arange(n, device=emit.device)
-    lo, span = accel.scene_bounds(prep.aabb)
+    lo, span = prep.bounds[:2], prep.bounds[2:]
     ir = 0.0
+    perm = None
     for b in range(u.shape[1]):
+        if perm is not None:    # slot s holds the ray the sort put there
+            st = _RayState(*(x[perm] for x in st))
+            ids = ids[perm]
         ub = u[:, b].reshape(-1, 3)[ids]
         parts = []
         for r0 in range(0, n, step):
@@ -170,10 +220,8 @@ def _trace_rays_plain(prep: AccelScene, params: TraceParams,
             parts.append(part)
         st = _RayState(*(torch.cat(xs) for xs in zip(*parts)))
         if resort and b + 1 < u.shape[1]:
-            order = torch.argsort(accel.morton_ray_keys(
-                st.pos[:, 0], st.pos[:, 1], st.alive, lo, span))
-            st = _RayState(*(x[order] for x in st))
-            ids = ids[order]
+            perm = torch.sort(accel.morton_ray_keys(
+                st.pos[:, 0], st.pos[:, 1], st.alive, lo, span)).indices
     return ir
 
 
@@ -255,7 +303,7 @@ def trace_frames_ir_accel(scene: Scene, params: TraceParams, seed: int,
     out = torch.empty((n_l, ir_length, n_k), dtype=torch.float32, device=dev)
     key = rng.seed_key(seed)
     err = _fn("art_accel_frames", _FRAMES_ARGTYPES)(
-        prep.walls.data_ptr(), prep.walls.shape[1], n_k,
+        prep.walls.data_ptr(), prep.geo.data_ptr(), prep.walls.shape[1], n_k,
         prep.aabb.data_ptr(), prep.saabb.data_ptr(), prep.n_clusters,
         prep.group, prep.cluster_size, lis.data_ptr(), n_l, scal.data_ptr(),
         float(sample_rate), key[0], key[1], n_rays, max_bounces, n_frames,
@@ -268,30 +316,27 @@ def trace_frames_ir_accel(scene: Scene, params: TraceParams, seed: int,
     return out
 
 
-def _resort(state: torch.Tensor, istate: torch.Tensor, lo: torch.Tensor,
-            span: torch.Tensor):
-    """K8's re-sort between bounces: the rays' state columns in the order
-    of :func:`..accel.morton_ray_keys` (dead rays last), one ``argsort``
-    and two gathers."""
-    perm = torch.argsort(accel.morton_ray_keys(state[0], state[1],
-                                               istate[1] >= 0, lo, span))
-    return state.index_select(1, perm), istate.index_select(1, perm)
-
-
 def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
                                  seed: int, n_frames: int, *, n_rays: int,
                                  max_bounces: int, sample_rate: int,
                                  ir_length: int, early_out: bool = True,
-                                 work_counts: Optional[torch.Tensor] = None
+                                 work_counts: Optional[torch.Tensor] = None,
+                                 keys_out: Optional[list] = None
                                  ) -> torch.Tensor:
     """K8: ``max_bounces`` launches over the ``F * R`` rays of all frames,
-    K = 1 -> frame-summed IR ``[L, T, 1]``. Between launches the rays are
-    re-sorted by :func:`..accel.morton_ray_keys` (one ``argsort``; dead
-    rays to the tail) and each block of 256 gets its near-to-far order of
-    super boxes (:func:`..accel.block_cluster_order`); the order changes
-    only the speed. CPU scenes run
+    K = 1 -> frame-summed IR ``[L, T, 1]``. A launch writes every ray to
+    its slot of a second state buffer together with its next sort key
+    (:func:`..accel.morton_ray_keys`, computed in the kernel; dead rays
+    last); between two launches the wrapper only sorts the keys (one
+    ``torch.sort``), and the next launch reads slot ``s``'s ray at
+    ``perm[s]`` of the buffer the last one wrote. Each block orders the
+    super boxes near to far from its own rays in the kernel; the order
+    changes only the speed. CPU scenes run
     :func:`trace_frames_ir_accel_sorted_plain`. ``work_counts`` as for
-    :func:`trace_frames_ir_accel`, summed over the launches."""
+    :func:`trace_frames_ir_accel`, summed over the launches. ``keys_out``,
+    a list, receives after each launch ``(state[8, N], istate[2, N],
+    keys[N])`` as the kernel left them (clones: a check of the in-kernel
+    keys against :func:`..accel.morton_ray_keys`)."""
     if scene.device.type != "cuda":
         return trace_frames_ir_accel_sorted_plain(
             scene, params, seed, n_frames, n_rays=n_rays,
@@ -310,41 +355,42 @@ def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
     scale = bk.fixed_point_scale(params, n_frames, n_rays,
                                  max_bounces).reshape(1)
     n = n_frames * n_rays
-    state = torch.empty((8, n), dtype=torch.float32, device=dev)
-    istate = torch.empty((2, n), dtype=torch.int32, device=dev)
+    state = torch.empty((2, 8, n), dtype=torch.float32, device=dev)
+    istate = torch.empty((2, 2, n), dtype=torch.int32, device=dev)
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
     acc = torch.zeros((n_l, ir_length), dtype=torch.int64, device=dev)
-    lo, span = accel.scene_bounds(prep.aabb)
-    centers = 0.5 * (prep.saabb[:, :2] + prep.saabb[:, 2:])
-    # bounce 0: every ray leaves the source
-    src = params.source.to(torch.float32)
-    order = accel.block_cluster_order(
-        src[0].expand(n), src[1].expand(n),
-        torch.ones(n, dtype=torch.bool, device=dev), centers, BLOCK)
     key = rng.seed_key(seed)
     fn = _fn("art_accel_bounce", _BOUNCE_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    perm = None
     for b in range(max_bounces):
-        if b > 0:
-            state, istate = _resort(state, istate, lo, span)
-            order = accel.block_cluster_order(state[0], state[1],
-                                              istate[1] >= 0, centers, BLOCK)
-        err = fn(prep.walls.data_ptr(), prep.walls.shape[1],
-                 prep.aabb.data_ptr(), prep.saabb.data_ptr(),
-                 order.data_ptr(), order.shape[0], prep.n_clusters,
-                 prep.group,
+        src, dst = (b + 1) % 2, b % 2
+        err = fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
+                 prep.walls.shape[1], prep.aabb.data_ptr(),
+                 prep.saabb.data_ptr(), prep.n_clusters, prep.group,
                  prep.cluster_size, lis.data_ptr(), n_l, scal.data_ptr(),
-                 float(sample_rate), key[0], key[1], n_rays, n, max_bounces,
-                 b, ir_length, scale.data_ptr(), state.data_ptr(),
-                 istate.data_ptr(), acc.data_ptr(), int(early_out),
+                 prep.bounds.data_ptr(), float(sample_rate), key[0], key[1],
+                 n_rays, n, max_bounces, b, ir_length, scale.data_ptr(),
+                 perm.data_ptr() if perm is not None else None,
+                 state[src].data_ptr(), istate[src].data_ptr(),
+                 state[dst].data_ptr(), istate[dst].data_ptr(),
+                 keys.data_ptr(), acc.data_ptr(), int(early_out),
                  work_counts.data_ptr() if work_counts is not None else None,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 stream)
         _check(err, "accel kernel K8")
         trace_frames_ir_accel_sorted.launches += 1
+        if keys_out is not None:
+            keys_out.append((state[dst].clone(), istate[dst].clone(),
+                             keys.clone()))
+        if b + 1 < max_bounces:
+            perm = torch.sort(keys).indices
     out = torch.empty((n_l, ir_length, 1), dtype=torch.float32, device=dev)
     _check(_fn("art_fixed_to_float", (_P, _P, _P, ctypes.c_longlong, _P))(
         acc.data_ptr(), scale.data_ptr(), out.data_ptr(), acc.numel(),
-        torch.cuda.current_stream(dev).cuda_stream), "fixed-to-float")
+        stream), "fixed-to-float")
     return out
 
 
 trace_frames_ir_accel.launches = 0
 trace_frames_ir_accel_sorted.launches = 0
+prepare.builds = 0

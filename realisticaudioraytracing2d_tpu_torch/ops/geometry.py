@@ -70,22 +70,80 @@ def ray_segment_intersect(o, d, a, b) -> torch.Tensor:
     return torch.where(valid, t1, INF)
 
 
+def segment_numerators(o, d, a, b):
+    """``(n1, n2, dotp)`` of :func:`pairwise_ray_segment_t`, in its
+    operation order: ``t1 = n1 / dotp`` is the distance along the ray and
+    ``t2 = n2 / dotp`` the position along the segment."""
+    ox, oy = o[..., 0:1], o[..., 1:2]
+    dx, dy = d[..., 0:1], d[..., 1:2]
+    ax, ay = a[..., 0], a[..., 1]
+    v2x = b[..., 0] - ax
+    v2y = b[..., 1] - ay
+    cross_const = v2x * ay - v2y * ax
+    dotp = v2y * dx - v2x * dy
+    n1 = v2x * oy - v2y * ox - cross_const
+    n2 = (oy * dx - ox * dy) - (ay * dx - ax * dy)
+    return n1, n2, dotp
+
+
+def exact_from_numerators(n1, n2, dotp) -> torch.Tensor:
+    """The exact test on given numerators: ``t1`` where the pair hits,
+    else ``INF`` (the last three lines of :func:`pairwise_ray_segment_t`)."""
+    safe = torch.where(dotp.abs() < EPS, 1.0, dotp)
+    t1 = n1 / safe
+    t2 = n2 / safe
+    valid = (dotp.abs() >= EPS) & (t1 >= EPS) & (t2 >= 0.0) & (t2 <= 1.0)
+    return torch.where(valid, t1, INF)
+
+
 def pairwise_ray_segment_t(o, d, a, b) -> torch.Tensor:
     """All-pairs ray-segment distances: rays ``[..., R, 2]`` x segments
     ``[W, 2]`` -> ``t[..., R, W]`` (the trace loop's hot computation,
     ``Raytrace2D.compute:69-72``)."""
-    ox, oy = o[..., 0:1], o[..., 1:2]          # [R, 1]
-    dx, dy = d[..., 0:1], d[..., 1:2]          # [R, 1]
-    ax, ay = a[..., 0], a[..., 1]              # [W]
-    v2x = b[..., 0] - ax                        # [W]
-    v2y = b[..., 1] - ay                        # [W]
-    dotp = v2y * dx - v2x * dy
-    safe = torch.where(dotp.abs() < EPS, 1.0, dotp)
-    cross_const = v2x * ay - v2y * ax           # [W]
-    t1 = (v2x * oy - v2y * ox - cross_const) / safe
-    t2 = ((oy * dx - ox * dy) - (ay * dx - ax * dy)) / safe
-    valid = (dotp.abs() >= EPS) & (t1 >= EPS) & (t2 >= 0.0) & (t2 <= 1.0)
-    return torch.where(valid, t1, INF)
+    return exact_from_numerators(*segment_numerators(o, d, a, b))
+
+
+# Slacks of ray_segment_maybe (csrc/trace_common.cuh: kSlackHi, kSlackLo,
+# kEpsLo), as float32 values.
+_SLACK_HI = 1.000001
+_SLACK_LO = -1e-6
+_EPS_LO = 9.9999e-5
+
+
+def maybe_from_numerators(n1, n2, dotp, tmax=INF) -> torch.Tensor:
+    """The division-free filter on given numerators (float32 tensors):
+    False only where :func:`exact_from_numerators` gives ``INF`` or a
+    distance above ``tmax``. With ``a = |dotp|`` and ``m = n *
+    sign(dotp)`` (so ``n / dotp = m / a`` exactly), ``t2`` in [0, 1] needs
+    ``m2`` in [0, a] and ``t1`` in [EPS, tmax] needs ``m1`` in [EPS * a,
+    tmax * a]. Each limit is widened by a relative 1e-6, far more than
+    the rounding of the products it is compared with (6e-8) and of a
+    quotient at the edges (a quotient up to 1 + 2^-24 rounds to 1, a tiny
+    negative one underflows to -0 and passes ``>= 0``), so the filter
+    never rejects a pair the exact test accepts. A NaN fails every
+    comparison and is kept."""
+    mag = dotp.abs()
+    m1 = torch.where(dotp < 0.0, -n1, n1)
+    m2 = torch.where(dotp < 0.0, -n2, n2)
+    f32 = dotp.new_tensor
+    tmax_s = torch.clamp(torch.as_tensor(tmax, dtype=dotp.dtype,
+                                         device=dotp.device), min=0.0) \
+        * f32(_SLACK_HI)
+    miss = (mag < EPS) | (m2 < mag * f32(_SLACK_LO)) \
+        | (m2 > mag * f32(_SLACK_HI)) | (m1 < mag * f32(_EPS_LO)) \
+        | (m1 > mag * tmax_s)
+    return ~miss
+
+
+def ray_segment_maybe(o, d, a, b, tmax=INF) -> torch.Tensor:
+    """Plain float32 mirror of the kernels' division-free filter
+    (``csrc/trace_common.cuh::wall_straddles`` and
+    ``wall_in_reach`` together), for rays ``[..., R, 2]`` x
+    segments ``[W, 2]`` -> bool ``[..., R, W]``: False only where
+    :func:`pairwise_ray_segment_t` gives ``INF`` or a distance above
+    ``tmax`` (a number or ``[..., R, 1]``). The kernels run the exact test
+    with its two divides only where this is True."""
+    return maybe_from_numerators(*segment_numerators(o, d, a, b), tmax)
 
 
 def ray_circle_intersect(o, d, center, radius) -> torch.Tensor:

@@ -11,7 +11,9 @@ bounces x 8 frames, 48 kHz, 72,000-bin IRs) and prints:
    ``sweep_rooms`` call, copying the IR dataset to the host, writing the
    npz; then the whole CLI once, end to end;
 2. one ``sweep_rooms`` call under ``torch.profiler``: device time by kind
-   of kernel and the device's idle share of the call's wall time;
+   of kernel (K9 is one launch of ``frames_ir_kernel<false>``; then the
+   accumulator's memset, ``fixed_to_float_kernel`` and the division by the
+   frame count) and the device's idle share of the call's wall time;
 3. the same for one 64-source stereo ``trace_sources_mixdown`` in
    SmollRoom (BASELINE.json config #4).
 

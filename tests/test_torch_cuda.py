@@ -34,6 +34,7 @@ import realisticaudioraytracing2d_tpu_torch as art
 from realisticaudioraytracing2d_tpu_torch.models import rooms
 from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
 from realisticaudioraytracing2d_tpu_torch import engine
+from realisticaudioraytracing2d_tpu_torch.ops import accel
 from realisticaudioraytracing2d_tpu_torch.ops import ir as irm
 from realisticaudioraytracing2d_tpu_torch.ops import legacy, rng
 from realisticaudioraytracing2d_tpu_torch.ops import trace as tt
@@ -394,20 +395,82 @@ def test_routing_by_wall_and_band_count(cuda_device):
 
 
 @cuda
-def test_k8_refuses_an_order_table_that_is_not_its_grid(cuda_device):
-    # the wrapper's BLOCK sizes the order table, the library's block size
-    # the grid: a table of another row count is refused before any launch
+def test_k8_refuses_buffers_it_cannot_ping_pong(cuda_device):
+    # a launch reads one state buffer and writes another: the library
+    # refuses, before any launch, an output that is its input and a later
+    # bounce without a permutation
     prep = ak.prepare(_city(cuda_device, 1500)[0])
     fn = ak._fn("art_accel_bounce", ak._BOUNCE_ARGTYPES)
-    n_slots = 1000
-    rows = -(-n_slots // ak.BLOCK)
-    for wrong in (rows - 1, rows + 1):
-        err = fn(prep.walls.data_ptr(), prep.walls.shape[1],
-                 prep.aabb.data_ptr(), prep.saabb.data_ptr(), None, wrong,
-                 prep.n_clusters, prep.group, prep.cluster_size, None, 1,
-                 None, 16000.0, 0, 0, n_slots, n_slots, 1, 0, 100, None,
-                 None, None, None, 1, None, None)
-        assert err == 1          # cudaErrorInvalidValue
+    n = 1000
+    state = torch.empty((2, 8, n), device=cuda_device)
+    istate = torch.empty((2, 2, n), dtype=torch.int32, device=cuda_device)
+    keys = torch.empty(n, dtype=torch.int64, device=cuda_device)
+    perm = torch.arange(n, device=cuda_device)
+
+    def launch(bounce, perm_ptr, src, dst):
+        return fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
+                  prep.walls.shape[1], prep.aabb.data_ptr(),
+                  prep.saabb.data_ptr(), prep.n_clusters, prep.group,
+                  prep.cluster_size, None, 1, None, prep.bounds.data_ptr(),
+                  16000.0, 0, 0, n, n, 2, bounce, 100, None, perm_ptr,
+                  state[src].data_ptr(), istate[src].data_ptr(),
+                  state[dst].data_ptr(), istate[dst].data_ptr(),
+                  keys.data_ptr(), None, 1, None, None)
+
+    assert launch(1, perm.data_ptr(), 0, 0) == 1    # cudaErrorInvalidValue
+    assert launch(1, None, 0, 1) == 1
+
+
+@cuda
+@pytest.mark.parametrize("n_boxes,frames", [(1500, 2), (10000, 1)])
+def test_k8_writes_the_morton_keys_of_its_rays(cuda_device, n_boxes, frames):
+    """The keys the kernel leaves after each bounce equal
+    ``morton_ray_keys`` of the state it leaves, bit for bit, dead rays
+    included; the ids are a permutation of the rays at every bounce."""
+    scene, params = _city(cuda_device, n_boxes)
+    prep = ak.prepare(scene)
+    left = []
+    ak.trace_frames_ir_accel_sorted(scene, params, 5, frames, keys_out=left,
+                                    **ACCEL_KW)
+    torch.cuda.synchronize()
+    assert len(left) == ACCEL_KW["max_bounces"]
+    n = frames * ACCEL_KW["n_rays"]
+    for state, istate, keys in left:
+        alive = istate[1] >= 0
+        want = accel.morton_ray_keys(state[0], state[1], alive,
+                                     prep.bounds[:2], prep.bounds[2:])
+        assert torch.equal(keys, want)
+        assert torch.equal(istate[0].sort().values,
+                           torch.arange(n, dtype=torch.int32,
+                                        device=cuda_device))
+    dead = [int((i[1] < 0).sum()) for _, i, _ in left]
+    assert dead == sorted(dead)
+
+
+@cuda
+def test_k8_call_launches_once_per_bounce_and_prepares_once(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+    scene, params = _city(cuda_device, 1500)
+    builds = ak.prepare.builds
+    before = ak.trace_frames_ir_accel_sorted.launches
+    first = ak.trace_frames_ir_accel_sorted(scene, params, 3, 2, **ACCEL_KW)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = ak.trace_frames_ir_accel_sorted(scene, params, 3, 2,
+                                                **ACCEL_KW)
+        torch.cuda.synchronize()
+    bounces = ACCEL_KW["max_bounces"]
+    assert ak.prepare.builds == builds + 1
+    assert ak.trace_frames_ir_accel_sorted.launches == before + 2 * bounces
+    assert torch.equal(first, again)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("accel_bounce_kernel" in n for n in names) == bounces
+    # between the launches only the sort of the keys runs: no gather, no
+    # per-block order, no wall sort
+    assert not any("index_select" in n.lower() or "gather" in n.lower()
+                   for n in names)
+    assert len(names) <= 30 * bounces
 
 
 @cuda
