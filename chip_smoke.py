@@ -96,6 +96,28 @@ Phases:
    click clip, ``trace_accumulate_fused`` with and without
    ``exact_scatter``; the launch counts are reset before and read after
    each; the float scatters of the path rerun bit-identical;
+11. directive sources and microphones, diffraction and air. 11a: each of
+   K3, K4 (stream shape and 131,072 x 8 x 8), K9 (the 64-source mixdown,
+   each source aimed its own way), K7 (the 8-band 4,808-wall city at full
+   shape), K8 (the city stream's shape), K5 and K6 with a cardioid source
+   (padded to C = 5) and a figure-eight microphone against its plain twin
+   on the same numbers, within the limits of the phase that covers its
+   omni form; K4 == K7 == K8 on a sorted city, directive; K6 == K3. 11b:
+   omni-coded patterns ([1.]) through each directive kernel give the omni
+   bits. 11c: registers per thread (cudaFuncGetAttributes) of the omni
+   kernels equal the parent's (PARENT_REGS), the directive ones printed
+   with their local bytes; in [5], each kernel's device time omni vs
+   directive. 11d: the directive mixdown equals the sum of 64
+   single-source launches (E = 1, entry offset s; source 0's is K4 bit
+   for bit). 11e: 2.0 s of clicks through ``Streamer.stream_clip`` on
+   SmollRoom with an opaque barrier below the source, a cardioid source,
+   an XY cardioid pair and a third listener in the barrier's shadow,
+   diffraction order 1 and ISO 9613-1 air (counts reset and read: 35 K4
+   and 105 K2 launches) against its ``backend="plain"`` twin; diffraction
+   adds energy in the shadow. 11f: ``diffraction_ir`` through K2 equals
+   its plain version, orders 1 and 2. 11g: ``cli trace`` and ``cli bake``
+   with ``--directivity --stereo --stereo-aim --diffraction --air``, and
+   ``cli bake --legacy`` with patterns, their launch counts;
 5. timings with CUDA events after a warm-up, device times from the
    profiler, and each kernel's bound (the larger of its bytes over 3.35
    TB/s and its FP32 operations over 67 TFLOP/s, the operations counted
@@ -124,6 +146,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
 """
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -188,6 +211,11 @@ PARENT_WORK = {
     "[8c]": (1116307395, 4080241, 900722562),
     "K8": (11022114, 104896, 10667717)}
 WORK_TOLERANCE = 0.01
+# Registers per thread of the omni kernels before the directive flag was
+# added (ptxas of the parent commit, built by this machine's nvcc for
+# sm_90a; NVIDIA H100 80GB HBM3): the flag must leave them as they were.
+PARENT_REGS = {"K3": 64, "K4": 64, "K9": 64, "K5": 61, "K6": 62, "K7": 64,
+               "K8": 48}
 FMAD_NOTE = ("at the 67 TFLOP/s peak; the build's --fmad=false contracts no "
              "multiply-add, so at most half of it is reachable")
 
@@ -1255,6 +1283,284 @@ def main():
     check(all(launches[k] > 0 for k in ("K1", "K2", "K5", "K6")),
           f"10e: the path launched K1, K2, K5 and K6: {launches}")
 
+    # --- 11. directive sources and microphones, diffraction and air --------
+    from realisticaudioraytracing2d_tpu_torch.ops import air
+    from realisticaudioraytracing2d_tpu_torch.ops import diffraction as dfr
+    from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
+
+    def pad5(c):
+        return np.pad(c, (0, 5 - len(c)))
+
+    # the issue's patterns: a cardioid source (padded to C = 5) and a
+    # figure-eight microphone (C = 5)
+    src_pat = torch.as_tensor(pad5(dv.cardioid(0.7)), device=dev)
+    mic_pat = torch.as_tensor(dv.figure_eight(0.3), device=dev)
+    one_pat = torch.ones(1, device=dev)
+
+    def directive(pp):
+        return pp._replace(directivity=src_pat, mic_directivity=mic_pat)
+
+    def omni_coded(pp):
+        return pp._replace(directivity=one_pat, mic_directivity=one_pat)
+
+    omni_bits = {}
+    sd = directive(smoll_p)
+    emit, u = rng.philox_uniforms(31, 4, BOUNCES, RAYS, dev)
+    same_numbers(f"[11a] K3 directive vs plain, SmollRoom {RAYS} x {BOUNCES}"
+                 " x 4 frames, same Philox numbers", "K3",
+                 bk.trace_frames_ir_whole(sc, sd, emit, u, **kw),
+                 bk.trace_frames_ir_plain(sc, sd, emit, u, **kw))
+    omni_bits["K3"] = torch.equal(
+        bk.trace_frames_ir_whole(sc, omni_coded(smoll_p), emit, u, **kw),
+        bk.trace_frames_ir_whole(sc, smoll_p, emit, u, **kw))
+    same_numbers(f"[11a] K4 directive vs plain at the stream's shape, {RAYS}"
+                 f" x {BOUNCES} x 1 frame", "K4",
+                 bk.trace_frames_ir_mega(sc, sd, chunk0, 1, **one),
+                 bk.trace_frames_ir_mega_plain(sc, sd, chunk0, 1, **one))
+    same_numbers(f"[11a] K4 directive vs plain, {BIG_RAYS} x {BIG_BOUNCES} x "
+                 f"{nf} frames", "K4",
+                 bk.trace_frames_ir_mega(sc, sd, 2024, nf, **big, **kw),
+                 bk.trace_frames_ir_mega_plain(sc, sd, 2024, nf, **big,
+                                               **kw))
+    omni_bits["K4"] = torch.equal(
+        bk.trace_frames_ir_mega(sc, omni_coded(smoll_p), chunk0, 1, **one),
+        bk.trace_frames_ir_mega(sc, smoll_p, chunk0, 1, **one))
+    rows = bk.trace_fused_rows(sc, sd, emit[0], u[0])
+    rows_p = bk.trace_fused_rows_plain(sc, sd, emit[0], u[0])
+    errs["K5"] = max(errs["K5"], float((rows - rows_p).abs().max()))
+    check(torch.equal(rows, rows_p), "11a: K5 directive rows == plain rows")
+    omni_bits["K5"] = torch.equal(
+        bk.trace_fused_rows(sc, omni_coded(smoll_p), emit[0], u[0]),
+        bk.trace_fused_rows(sc, smoll_p, emit[0], u[0]))
+    k6 = bk.trace_frame_ir_fused(sc, sd, emit[0], u[0], **kw)
+    check(torch.equal(k6, bk.trace_frames_ir_whole(sc, sd, emit[:1], u[:1],
+                                                   **kw)),
+          "11a: K6 == K3 bit for bit, directive")
+    same_numbers(f"[11a] K6 directive (== K3 bit for bit) vs plain, {RAYS} x "
+                 f"{BOUNCES}", "K6", k6,
+                 bk.trace_frame_ir_fused_plain(sc, sd, emit[0], u[0], **kw))
+    omni_bits["K6"] = torch.equal(
+        bk.trace_frame_ir_fused(sc, omni_coded(smoll_p), emit[0], u[0], **kw),
+        bk.trace_frame_ir_fused(sc, smoll_p, emit[0], u[0], **kw))
+    del rows, rows_p, k6
+    # K9: the 64-source mixdown, each source aimed its own way (11d)
+    aims = torch.as_tensor(np.stack([
+        pad5(dv.cardioid(2 * np.pi * s_ / N_SOURCES))
+        for s_ in range(N_SOURCES)]), device=dev)
+    mix_d = mix_p._replace(directivity=aims, mic_directivity=mic_pat)
+    mix_dir, mixed_d = counted(lambda: trace_sources_mixdown(
+        smoll.scene, mix_d, 7, **sweep_kw))
+    check(mixed_d == only(K9=1), f"11a: directive mixdown launches {mixed_d}")
+    mix_dir_plain = trace_sources_mixdown(smoll.scene, mix_d, 7,
+                                          backend="plain", **sweep_kw)
+    for ear in range(2):
+        same_numbers(f"[11a] K9 directive mixdown, {N_SOURCES} aims, vs the "
+                     f"plain sum over sources, ear {ear}", "K9", mix_dir[ear],
+                     mix_dir_plain[ear])
+    shared1 = Scene(*(x[None] for x in smoll.scene))
+    srcs64 = mix_p.source
+    singles = []
+    for s_ in range(N_SOURCES):
+        singles.append(bk.trace_rooms_ir_mega(
+            shared1, srcs64[s_:s_ + 1], mix_p.listeners[None], 7, 1,
+            entry_offset=s_, directivity=aims[s_:s_ + 1],
+            mic_directivity=mic_pat, **sweep_kw)[0])
+    k4_0 = bk.trace_frames_ir_mega(smoll.scene, mix_p._replace(
+        source=srcs64[0], directivity=aims[0], mic_directivity=mic_pat), 7, 1,
+        **sweep_kw)
+    torch.cuda.synchronize()
+    check(torch.equal(singles[0], k4_0),
+          "11d: source 0's single launch == K4 bit for bit")
+    for ear in range(2):
+        same_numbers(f"[11d] directive mixdown vs the sum of {N_SOURCES} "
+                     f"single-source launches, ear {ear}", None, mix_dir[ear],
+                     sum(x[ear] for x in singles))
+    omni_bits["K9"] = torch.equal(
+        trace_sources_mixdown(smoll.scene, mix_p._replace(
+            directivity=one_pat, mic_directivity=one_pat), 7, **sweep_kw),
+        trace_sources_mixdown(smoll.scene, mix_p, 7, **sweep_kw))
+    del singles, k4_0, mix_dir_plain
+    # K7 and K8: K4 == K7 == K8 on a sorted city, directive; K8 at the city
+    # stream's shape and K7 (8 bands) at full shape against plain
+    scene_a, p_a, _ = city(1200)
+    pa_d = directive(p_a)
+    k4a = bk.trace_frames_ir_mega(ak.prepare(scene_a).scene, pa_d, 31,
+                                  CITY_FRAMES, **city_run)
+    dir_parity = {k: torch.equal(fn(scene_a, pa_d, 31, CITY_FRAMES,
+                                    **city_run), k4a)
+                  for k, fn in (("K7", ak.trace_frames_ir_accel),
+                                ("K8", ak.trace_frames_ir_accel_sorted))}
+    print(f"[11a] city_scene(1200) sorted, {BIG_RAYS} x {CITY_BOUNCES} x "
+          f"{CITY_FRAMES} frames, directive: equal to K4 bit for bit "
+          f"{dir_parity}; IR energy {float(k4a.sum()):.4e}", flush=True)
+    check(float(k4a.sum()) > 0 and all(dir_parity.values()),
+          "11a: K4 == K7 == K8, directive")
+    del k4a
+    same_numbers(f"[11a] K8 directive vs plain at the city stream's shape, "
+                 f"{RAYS} x {BOUNCES} x 1 frame, {scene_9.n_walls} walls",
+                 "K8", ak.trace_frames_ir_accel_sorted(
+                     scene_9, directive(p_9), chunk0, 1, **one),
+                 ak.trace_frames_ir_accel_sorted_plain(
+                     scene_9, directive(p_9), chunk0, 1, **one))
+    omni_bits["K8"] = torch.equal(
+        ak.trace_frames_ir_accel_sorted(scene_9, omni_coded(p_9), chunk0, 1,
+                                        **one),
+        ak.trace_frames_ir_accel_sorted(scene_9, p_9, chunk0, 1, **one))
+    scene_a8, p_a8, _ = city(1200, n_bands=8)
+    k7d = ak.trace_frames_ir_accel(scene_a8, directive(p_a8), 47, CITY_FRAMES,
+                                   **city_run)
+    against_plain("[11a] 8-band city_scene(1200), directive,", "K7",
+                  ak.trace_frames_ir_accel_plain, scene_a8, directive(p_a8),
+                  47, k7d)
+    omni_bits["K7"] = torch.equal(
+        ak.trace_frames_ir_accel(scene_a8, omni_coded(p_a8), 47, CITY_FRAMES,
+                                 **city_run),
+        ak.trace_frames_ir_accel(scene_a8, p_a8, 47, CITY_FRAMES,
+                                 **city_run))
+    del k7d
+    print(f"[11b] omni-coded patterns ([1.]) through each directive kernel "
+          f"== the omni kernel, bit for bit: {omni_bits}", flush=True)
+    check(all(omni_bits.values()) and len(omni_bits) == 7,
+          "11b: omni-coded patterns give the omni bits")
+
+    # 11c. registers: the omni instantiations keep the parent's
+    lib = build.load_library()
+    attr_calls = {"K3": ("art_frames_attributes", (1,)),
+                  "K4": ("art_frames_attributes", (0,)),
+                  "K9": ("art_frames_attributes", (0,)),
+                  "K5": ("art_step_attributes", (1, 1)),
+                  "K6": ("art_step_attributes", (0, 1)),
+                  "K7": ("art_accel_attributes", (7, 8, 1)),
+                  "K8": ("art_accel_attributes", (8, 1, 1))}
+    regs = {}
+    for k, (fn_name, args) in attr_calls.items():
+        fn = getattr(lib, fn_name)
+        for d in (0, 1):
+            out = (ctypes.c_int * 2)()
+            check(fn(*args, d, out) == 0, f"11c: {fn_name}{args + (d,)}")
+            regs[k, d] = (out[0], out[1])
+    print("[11c] registers / local bytes per thread (cudaFuncGetAttributes), "
+          "omni (the parent's) -> directive: " + "; ".join(
+              f"{k} {regs[k, 0][0]} ({PARENT_REGS[k]}) / {regs[k, 0][1]} B -> "
+              f"{regs[k, 1][0]} / {regs[k, 1][1]} B" for k in attr_calls),
+          flush=True)
+    check(all(regs[k, 0][0] == PARENT_REGS[k] for k in attr_calls),
+          "11c: the omni kernels keep the parent's registers")
+
+    # 11e. the stream: SmollRoom with an opaque barrier below the source
+    # (the slant wall's ends lie outside the room, so it casts no shadow
+    # an edge could fill), an XY cardioid pair at +-45 degrees and a third
+    # listener in the barrier's shadow; a cardioid source, diffraction
+    # order 1 and ISO 9613-1 air at 20 C / 50 %
+    room_e = art.rooms.smoll_room(device=dev)
+    room_e.builder.add_segment((-18.0, 6.0), (-15.0, 6.0), (0.0, 1.0),
+                               art.AudioMaterial(0.9, 0.5, 0.0, 1.0))
+    scene_e = room_e.builder.build(device=dev)
+    lis_e = [[-0.1, -3.68], [0.1, -3.68], [-16.0, 3.0]]
+    mic_e = torch.as_tensor(np.stack([
+        pad5(dv.cardioid(np.pi / 4)), pad5(dv.cardioid(-np.pi / 4)),
+        pad5(dv.omni())]), device=dev)
+    p_e = art.Engine(scene_e, cfg).params(
+        room_e.source, lis_e, directivity=pad5(dv.cardioid(-0.9)),
+        mic_directivity=mic_e)
+    alpha = air.iso9613_alpha(air.band_frequencies(1))
+
+    def stream_e(**a):
+        return counted(lambda: art.Streamer(
+            scene_e, cfg, seed=7, n_listeners=3, air_alpha=alpha,
+            **a).stream_clip(dry, lambda i: p_e))
+
+    wet_e, launched_e = stream_e(diffraction=1)
+    check(launched_e == only(K4=n_chunks, K2=3 * n_chunks),
+          f"11e: stream launches {launched_e}")
+    wet_plain, launched_p = stream_e(diffraction=1, backend="plain")
+    check(launched_p == only(), f"11e: the plain twin launched {launched_p}")
+    wet_nod, _ = stream_e(diffraction=0)
+    out_e, out_p, out_n = (x.cpu().numpy() for x in (wet_e, wet_plain,
+                                                      wet_nod))
+    check(out_e.shape == (3, n_chunks * CHUNK) and np.isfinite(out_e).all(),
+          f"11e: stream {out_e.shape}, finite")
+    gap = float(np.abs(out_e - out_p).max())
+    e_shadow = [float((x[2] ** 2).sum()) for x in (out_n, out_e)]
+    xy = float(np.abs(out_e[0] - out_e[1]).sum() / np.abs(out_e[0]).sum())
+    print(f"[11e] stream: SmollRoom + barrier, cardioid source, XY cardioid "
+          f"pair +-45 deg and a listener in the barrier's shadow, "
+          f"diffraction 1, air {alpha[0] * 1000:.2f} dB/km: {n_chunks} chunks "
+          f"-> {out_e.shape}, launches {launched_e}; vs its plain twin "
+          f"(backend='plain', the same Philox numbers): max abs "
+          f"{gap:.3e} of peak {np.abs(out_p).max():.3e}; shadow listener "
+          f"energy without / with diffraction {e_shadow[0]:.6e} / "
+          f"{e_shadow[1]:.6e} (+{e_shadow[1] / e_shadow[0] - 1:.3e}: the "
+          "barrier's tips add to what the walls reflect around it); XY "
+          f"channels differ by L1 {xy:.3f}", flush=True)
+    check(np.allclose(out_e, out_p, rtol=1e-4,
+                      atol=1e-6 * np.abs(out_p).max()),
+          "11e: stream == its plain twin")
+    check(e_shadow[1] > e_shadow[0] and xy > 0,
+          "11e: diffraction adds energy in the shadow; the XY pair differs")
+    for k in ("K2", "K4"):
+        launches[k] += launched_e[k]
+    del wet_e, wet_plain, wet_nod, out_e, out_p, out_n
+
+    # 11f. diffraction through K2 equals its plain version
+    for order in (1, 2):
+        d_ir, launched_f = counted(lambda: dfr.diffraction_ir(
+            scene_e, p_e, order=order, **kw))
+        d_plain = dfr.diffraction_ir(scene_e, p_e, order=order,
+                                     use_kernels=False, **kw)
+        torch.cuda.synchronize()
+        print(f"[11f] diffraction_ir order {order}, {scene_e.n_walls} walls, "
+              f"3 listeners: launches {launched_f}; energy per listener "
+              f"{[float(x) for x in d_ir.sum(dim=(1, 2))]}; == plain bit for "
+              f"bit: {torch.equal(d_ir, d_plain)}", flush=True)
+        check(launched_f == only(K2=3 if order == 1 else 7)
+              and float(d_ir[2].sum()) > 0 and torch.equal(d_ir, d_plain),
+              f"11f: diffraction order {order} through K2 == plain")
+    del d_ir, d_plain
+
+    # 11g. cli trace / cli bake with the new flags
+    new_flags = ["--directivity", "cardioid:90", "--stereo", "0.2",
+                 "--stereo-aim", "45", "--diffraction", "--air"]
+    with tempfile.TemporaryDirectory() as tmp:
+        def g(name):
+            return os.path.join(tmp, name)
+
+        said, launched_g, secs_t = run_cli(
+            ["trace", "--room", "smoll", "--out", g("ir.png"), "--scene-out",
+             g("scene.png"), *new_flags])
+        check(launched_g == only(K4=1, K1=BOUNCES, K2=BOUNCES + 6)
+              and "air absorption:" in said and "diffraction: added" in said,
+              f"11g: cli trace launch counts {launched_g}")
+        lit(g("ir.png"), (256, 1024, 3))
+        lit(g("scene.png"), (600, 800, 3))
+        for k in ("K1", "K2", "K4"):
+            launches[k] += launched_g[k]
+        write_wav(g("dry.wav"), click_clip(1.0, 44100,
+                                           click_times=hit_clicks), 44100)
+        said, launched_b, secs_b = run_cli(
+            ["bake", "--room", "smoll", "--in", g("dry.wav"), "--out",
+             g("wet.wav"), *new_flags])
+        check(launched_b == only(K4=1, K2=3),
+              f"11g: cli bake launch counts {launched_b}")
+        ratios_b = tails(g("wet.wav"), hit_clicks, n_channels=2)
+        said, launched_l, secs_l = run_cli(
+            ["bake", "--room", "smoll", "--in", g("dry.wav"), "--out",
+             g("legacy.wav"), "--legacy", "--directivity", "cardioid:90",
+             "--mic-directivity", "figure8:45"])
+        check(launched_l == only(K5=8 * BOUNCES),
+              f"11g: cli bake --legacy launch counts {launched_l}")
+        ratios_l = tails(g("legacy.wav"), hit_clicks)
+        for lb in (launched_b, launched_l):
+            for k in ("K2", "K4", "K5"):
+                launches[k] += lb[k]
+    print(f"[11g] cli trace {' '.join(new_flags)}: {secs_t:.3f} s, launches "
+          f"{launched_g}; cli bake with them: {secs_b:.3f} s, launches "
+          f"{launched_b}, tail/pre-click energy "
+          f"{[f'{r:.3g}' for r in ratios_b]}; cli bake --legacy with a "
+          f"cardioid source and a figure-eight mic: {secs_l:.3f} s, "
+          f"launches {launched_l}, {[f'{r:.3g}' for r in ratios_l]}",
+          flush=True)
+
     # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
     sc, p = smoll.scene, smoll_p
@@ -1525,6 +1831,48 @@ def main():
         print(f"[5] trace(use_kernels=True) on {card}, SmollRoom {n_rays} x "
               f"{u_.shape[0]}: {with_k:.3f} ms per frame vs the plain trace "
               f"{without:.3f}", flush=True)
+    # the directive instantiations' device time beside the omni ones, at
+    # the kernel table's shapes (profiler; omni, directive, omni,
+    # directive, so that a drift between readings shows)
+    dmix = dict(mix_kw, directivity=aims, mic_directivity=mic_pat)
+
+    def pick(pp, d):
+        return directive(pp) if d else pp
+
+    dir_runs = {
+        "K3": (lambda d: bk.trace_frames_ir_whole(sc, pick(p, d), emit, u,
+                                                  **kw), "frames_ir_kernel"),
+        "K4": (lambda d: bk.trace_frames_ir_mega(sc, pick(p, d), 5, 1, **one),
+               "frames_ir_kernel"),
+        "K9": (lambda d: bk.trace_rooms_ir_mega(*mix_args,
+                                                **(dmix if d else mix_kw)),
+               "frames_ir_kernel"),
+        "K8": (lambda d: ak.trace_frames_ir_accel_sorted(
+            scene_9, pick(p_9, d), 5, 1, **one), "accel_bounce_kernel"),
+        "K7": (lambda d: ak.trace_frames_ir_accel(
+            scene_d, pick(p_d, d), 5, CITY_FRAMES, **city_run),
+            "accel_frames_kernel"),
+        "K5": (lambda d: bk.trace_fused_rows(sc, pick(p, d), e1, u1),
+               "bounce_step_kernel"),
+        "K6": (lambda d: bk.trace_frame_ir_fused(sc, pick(p, d), e1, u1,
+                                                 **kw), "bounce_step_kernel")}
+    dir_runs["K4 131k x 8 x 8"] = (
+        lambda d: bk.trace_frames_ir_mega(sc, pick(p, d), 6, nf, **big, **kw),
+        "frames_ir_kernel")
+    for k, (run, kname) in dir_runs.items():
+        reps = 2 if k in ("K7", "K4 131k x 8 x 8") else 10
+        dev_d = [kernel_device_ms(torch, lambda: run(d), reps, kname)
+                 for d in (False, True) * 3]
+        # the median of three readings of each: one reading now and then
+        # misses a launch
+        med = [None if None in dev_d[i::2] else float(np.median(dev_d[i::2]))
+               for i in (0, 1)]
+        ratio = ("not measured" if None in med else
+                 f"{med[1] / med[0]:.4f}")
+        print(f"[11c] {k} device ms per call on {card}, omni / directive "
+              f"alternating: {', '.join(fmt(x) for x in dev_d)}; medians "
+              f"{fmt(med[0])} / {fmt(med[1])}, directive over omni {ratio}",
+              flush=True)
     launches.update(city_launches)
 
     names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),

@@ -10,7 +10,10 @@ room datasets and mixes down many sources through the bounce kernel's
 batched mode (:mod:`.parallel`), and hands out individual hit records
 (debug ray paths, the legacy time x frequency IR) through the wall-sweep
 kernels (``csrc/trace_kernel.cu``) and the per-bounce step kernel
-(``csrc/step_kernel.cu``). It imports no JAX.
+(``csrc/step_kernel.cu``). Every path takes directive sources and
+microphones (:mod:`.ops.directivity`); the stream and the CLI add edge
+diffraction (:mod:`.ops.diffraction`) and air absorption
+(:mod:`.ops.air`). It imports no JAX.
 
 Every builder takes ``device=None``, which means :data:`DEFAULT_DEVICE`
 (``"cuda"``); pass ``device="cpu"`` for the plain PyTorch path.
@@ -36,7 +39,7 @@ from .models import materials, rooms, scene
 from .models.materials import (MATERIAL_ANECHOIC, MATERIAL_BORDER,
                                MATERIAL_INTERIOR, AudioMaterial)
 from .models.scene import Scene, SceneBuilder, Transform2D
-from .ops import convolve, geometry, ir, trace
+from .ops import air, convolve, diffraction, directivity, geometry, ir, trace
 from .ops.ir import IRState
 from .ops.trace import Hits, TraceParams
 from .streaming import RingBuffer, Streamer, StreamState, stream_chunk
@@ -48,8 +51,9 @@ __all__ = [
     "Engine", "EngineConfig", "Hits", "IRState", "MATERIAL_ANECHOIC",
     "MATERIAL_BORDER", "MATERIAL_INTERIOR", "RingBuffer", "Scene",
     "SceneBuilder", "SimConfig", "StreamState", "Streamer", "TraceParams",
-    "Transform2D", "bake_audio", "big_room_config", "config", "convolve",
-    "geometry", "ir", "materials", "parallel", "rooms",
-    "sample_scene_config", "scene", "smoll_room_config", "stream_chunk",
-    "trace", "trace_accumulate", "utils",
+    "Transform2D", "air", "bake_audio", "big_room_config", "config",
+    "convolve", "diffraction", "directivity", "geometry", "ir",
+    "materials", "parallel", "rooms", "sample_scene_config", "scene",
+    "smoll_room_config", "stream_chunk", "trace", "trace_accumulate",
+    "utils",
 ]

@@ -21,6 +21,15 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
 * ``bake`` convolves a dry WAV with the traced IR, or with ``--legacy``
   with the time x frequency legacy IR accumulated from hit records and
   rendered back to the time domain.
+* ``trace`` and ``bake`` take a directive source and microphones
+  (``--directivity``, ``--mic-directivity``: ``omni``, ``cardioid[:DEG]``,
+  ``figure8[:DEG]``; ``--stereo-aim DEG`` records ``--stereo`` through an
+  XY cardioid pair at +-DEG), traced by the same kernels, and edge
+  diffraction (``--diffraction``, ``--diffraction-order 1|2``; its paths
+  drawn on ``--scene-out``) and ISO 9613-1 air absorption (``--air``,
+  ``--air-temp``, ``--air-humidity``) added to the printed and written
+  IR (not to the ``--ir-out`` checkpoint, which keeps the raw
+  accumulation; ``bake --legacy`` ignores both), as the JAX CLI does.
 * ``sweep`` writes an IR dataset over procedurally generated rooms through
   the rooms-batched kernel K9 (one launch for the whole dataset): the same
   ``npz`` (``irs`` ``[rooms, 1, T, K]`` frame-normalized, ``sources``,
@@ -32,13 +41,13 @@ Draws: frame ``f`` of ``--seed`` is the Philox stream of
 A resumed run (``--ir-in``) draws under ``mix_seed(seed, frames so far)``.
 
 The flags and defaults are those the JAX subcommands read, plus
-``--device`` (default ``cuda``). Not ported yet, and therefore not
-accepted (ROADMAP queue 1 names what each waits for): ``--scene-json``,
-``--directivity``, ``--mic-directivity``, ``--stereo-aim``,
-``--diffraction*``, ``--air*``, ``--spatial-out``, ``--binaural``,
-``--head-radius``, the bundled default clip of ``bake --in`` and mp3
-files, ``sweep --sharded`` and ``--metrics-out``, and the other
-subcommands.
+``--device`` (default ``cuda``). ``sweep`` accepts the pattern flags and
+ignores them, as the JAX ``sweep`` does. Not ported yet, and therefore
+not accepted (ROADMAP queue 1 names what each waits for):
+``--scene-json`` (item 11), ``--spatial-out``, ``--binaural`` and
+``--head-radius`` (item 4), the bundled default clip of ``bake --in`` and
+mp3 files (item 8), ``sweep --sharded`` (item 10) and ``--metrics-out``
+(item 7), and the other subcommands.
 """
 
 from __future__ import annotations
@@ -85,6 +94,39 @@ def _listeners(args, room):
     return base, 1
 
 
+def _parse_pattern(spec):
+    """A pattern flag (``omni``, ``cardioid[:AIM_DEG]``,
+    ``figure8[:AIM_DEG]``) as coefficients, or None for omni."""
+    if spec is None or spec == "omni":
+        return None
+    from .ops import directivity as dv
+    name, _, aim = spec.partition(":")
+    aim_rad = float(aim) * np.pi / 180.0 if aim else 0.0
+    try:
+        return {"cardioid": dv.cardioid,
+                "figure8": dv.figure_eight}[name](aim_rad)
+    except KeyError:
+        raise SystemExit(f"unknown directivity {name!r}; pick "
+                         "omni/cardioid/figure8")
+
+
+def _directivity_arr(args):
+    """--directivity coefficients, or None."""
+    return _parse_pattern(args.directivity)
+
+
+def _mic_directivity_arr(args):
+    """--stereo-aim's XY cardioid pair (left ear +aim, right ear -aim),
+    else --mic-directivity's coefficients, or None."""
+    if args.stereo_aim is not None:
+        if args.stereo is None:
+            raise SystemExit("--stereo-aim needs --stereo")
+        from .ops import directivity as dv
+        a = float(args.stereo_aim) * np.pi / 180.0
+        return np.stack([dv.cardioid(a), dv.cardioid(-a)])
+    return _parse_pattern(args.mic_directivity)
+
+
 def _setup(args):
     """Room, config, engine and trace params of a trace/bake command."""
     from .engine import Engine
@@ -93,7 +135,39 @@ def _setup(args):
     cfg = _config(args)
     listeners, n_l = _listeners(args, room)
     eng = Engine(room.scene, cfg, n_listeners=n_l)
-    return room, cfg, listeners, n_l, eng, eng.params(room.source, listeners)
+    return room, cfg, listeners, n_l, eng, eng.params(
+        room.source, listeners, directivity=_directivity_arr(args),
+        mic_directivity=_mic_directivity_arr(args))
+
+
+def _apply_air(state, sample_rate, speed_of_sound, args):
+    """Fold --air's ISO 9613-1 absorption into an IRState's sum (linear,
+    so the same as attenuating the normalized IR). The JAX CLI calls the
+    curve eagerly, which divides; so does this."""
+    if not args.air:
+        return state
+    from .ops import air
+    freqs = air.band_frequencies(state.sum.shape[-1])
+    alpha = air.iso9613_alpha(freqs, args.air_temp, args.air_humidity)
+    print("air absorption: " + ", ".join(
+        f"{f:.0f} Hz {a * 1000:.1f} dB/km" for f, a in zip(freqs, alpha)))
+    return state._replace(sum=air.apply_air_absorption(
+        state.sum, sample_rate, alpha, speed_of_sound))
+
+
+def _apply_diffraction(state, scene, params, sample_rate, args):
+    """Add the deterministic edge-diffraction IR to an IRState: it has no
+    Monte-Carlo variance, so it scales by the frame count in the sum."""
+    if not args.diffraction:
+        return state
+    from .ops.diffraction import diffraction_ir
+    d_ir = diffraction_ir(scene, params, sample_rate=sample_rate,
+                          ir_length=state.ir_length,
+                          order=args.diffraction_order)
+    lit = int((d_ir > 0).any(dim=2).any(dim=1).sum())
+    print(f"diffraction: added {float(d_ir.sum()):.3g} shadow-zone "
+          f"energy/frame over {lit}/{d_ir.shape[0]} listeners")
+    return state._replace(sum=state.sum + float(max(1, state.frames)) * d_ir)
 
 
 def cmd_trace(args) -> None:
@@ -113,7 +187,16 @@ def cmd_trace(args) -> None:
         seed = mix_seed(seed, state.frames)
         print(f"resuming from {args.ir_in} at frame {state.frames}")
     t0 = time.perf_counter()
-    state = eng.trace_frames(p, seed=seed, n_frames=args.frames, state=state)
+    raw_state = eng.trace_frames(p, seed=seed, n_frames=args.frames,
+                                 state=state)
+    # Diffraction and air are linear views on the IR: the printed and
+    # drawn outputs get them, --ir-out keeps the raw accumulation so that
+    # a resume cannot apply them twice. Diffraction first: the air also
+    # attenuates the diffracted paths.
+    state = _apply_diffraction(raw_state, room.scene, p,
+                               cfg.audio.sample_rate, args)
+    state = _apply_air(state, cfg.audio.sample_rate, cfg.sim.speed_of_sound,
+                       args)
     ir = state.normalized()[0, :, 0].cpu().numpy()  # readback = sync barrier
     dt = time.perf_counter() - t0
     print(f"traced {args.frames} frames x {args.rays} rays in {dt:.3f}s; "
@@ -143,12 +226,15 @@ def cmd_trace(args) -> None:
     if args.scene_out:
         _, dbg = eng.trace_debug(p, seed, n_debug=args.debug_rays)
         lis0 = np.asarray(listeners, np.float32).reshape(-1, 2)[0]
+        extra = viz.diffraction_polylines(
+            room.scene, p, order=args.diffraction_order) \
+            if args.diffraction else None
         img = viz.render_scene(room.scene, room.source, lis0,
-                               room.listener_radius, dbg)
+                               room.listener_radius, dbg, extra_paths=extra)
         viz.save_image(args.scene_out, img)
         print(f"wrote {args.scene_out}")
     if args.ir_out:
-        save_ir_state(args.ir_out, state)
+        save_ir_state(args.ir_out, raw_state)
         print(f"wrote {args.ir_out}")
 
 
@@ -184,6 +270,10 @@ def cmd_bake(args) -> None:
         dt = time.perf_counter() - t0
     else:
         state = eng.trace_frames(p, seed=args.seed, n_frames=args.frames)
+        state = _apply_diffraction(state, room.scene, p,
+                                   cfg.audio.sample_rate, args)
+        state = _apply_air(state, cfg.audio.sample_rate,
+                           cfg.sim.speed_of_sound, args)
         t0 = time.perf_counter()
         wet = eng.bake(dry, state,
                        normalize=not args.no_normalize).cpu().numpy()
@@ -236,9 +326,36 @@ def _common(p, room: bool = True) -> None:
     p.add_argument("--stereo", default=None, metavar="SEP",
                    help="stereo output with two ear listeners SEP apart "
                         "(ignored by sweep: mono listeners per room)")
+    p.add_argument("--directivity", default=None, metavar="PATTERN",
+                   help="source directivity: omni (default), "
+                        "cardioid[:AIM_DEG], figure8[:AIM_DEG], weighted at "
+                        "emission (ignored by sweep)")
+    p.add_argument("--mic-directivity", default=None, metavar="PATTERN",
+                   help="listener pickup pattern (same syntax), weighted "
+                        "by arrival angle at each capture")
+    p.add_argument("--stereo-aim", type=float, default=None, metavar="DEG",
+                   help="with --stereo: record through an XY cardioid "
+                        "pair aimed at +-DEG (overrides --mic-directivity)")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device (default %(default)s; cpu runs the "
                         "plain version)")
+
+
+def _air_args(p) -> None:
+    """The JAX CLI's diffraction and air flags."""
+    p.add_argument("--diffraction", action="store_true",
+                   help="add edge diffraction (Maekawa knife-edge "
+                        "shadow-zone fill)")
+    p.add_argument("--diffraction-order", type=int, default=1,
+                   choices=[1, 2],
+                   help="2 adds edge-to-edge double diffraction (rounds "
+                        "thick obstacles; O(W^3), room-scale scenes)")
+    p.add_argument("--air", action="store_true",
+                   help="apply ISO 9613-1 atmospheric absorption to the "
+                        "IR (per band, at log-spaced band centres)")
+    p.add_argument("--air-temp", type=float, default=20.0, metavar="C")
+    p.add_argument("--air-humidity", type=float, default=50.0,
+                   metavar="PCT")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -261,6 +378,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="display gain (waveform default 1000; spectrogram "
                         "default auto-scale)")
     p.add_argument("--debug-rays", type=int, default=100)
+    _air_args(p)
     p.set_defaults(fn=cmd_trace)
 
     p = sub.add_parser("bake", help="offline convolution bake")
@@ -270,6 +388,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-normalize", action="store_true")
     p.add_argument("--legacy", action="store_true",
                    help="use the legacy frequency-binned (muffle) pipeline")
+    _air_args(p)  # applied on the modern path (ignored with --legacy)
     p.set_defaults(fn=cmd_bake)
 
     p = sub.add_parser("sweep", help="IR dataset over procedural rooms")

@@ -35,7 +35,9 @@ def scene_from_arrays(scene, device=None) -> Scene:
 
 
 def params_from_arrays(params, device=None) -> TraceParams:
-    """:class:`TraceParams` from a JAX ``TraceParams``."""
+    """:class:`TraceParams` from a JAX ``TraceParams``, with its source
+    and microphone patterns (``directivity``, ``mic_directivity``) when
+    it has them."""
     return TraceParams(**{f: (None if getattr(params, f) is None
                               else _t(getattr(params, f), device, np.float32))
                           for f in TraceParams._fields})

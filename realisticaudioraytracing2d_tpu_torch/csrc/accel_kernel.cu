@@ -72,6 +72,14 @@
 //    uniforms with tile positions and is only statistically equal).
 //  * Bands (K7): up to 8 energies per ray in registers; the NEE and energy
 //    cutoffs use the loudest band, as the plain trace does.
+//  * Directive sources and microphones: a template flag of both kernels
+//    (trace_common.cuh), the microphone table [L, C_m] in shared memory
+//    beside the listeners, the source row [C_s] too (K7). K8 weights the
+//    emission at bounce 0 by ray id = slot, reading the source row from
+//    global memory (its shared memory is written after emission), so the
+//    gain rides with the ray's energy through every re-sort; the JAX K8
+//    pre-weights emission on the host because its sort permutes state
+//    columns.
 //  * IR: the u64 fixed-point [L, T, K] accumulator and per-call scale of
 //    the bounce kernel; K8 accumulates over its B launches and converts
 //    once at the end (art_fixed_to_float).
@@ -207,7 +215,8 @@ __device__ __forceinline__ bool occluded(const WallTable& w, const Boxes& bx,
 }
 
 // Shared memory of a block: super boxes, then (K8) the block's visit order
-// and its sort keys, then the listeners.
+// and its sort keys, then the listeners, then (directive) the microphone
+// table [L, n_mic] and the source row [n_src].
 __device__ __forceinline__ Boxes load_boxes(const float4* aabb,
                                             const float4* saabb,
                                             bool with_order, int n_clusters,
@@ -215,7 +224,13 @@ __device__ __forceinline__ Boxes load_boxes(const float4* aabb,
                                             const float* listeners,
                                             int n_listeners, float4* smem,
                                             int** s_order, unsigned** s_keys,
-                                            const float** s_lis) {
+                                            const float** s_lis,
+                                            const float* mic_c = nullptr,
+                                            int n_mic = 0,
+                                            const float* src_c = nullptr,
+                                            int n_src = 0,
+                                            const float** s_mic = nullptr,
+                                            const float** s_src = nullptr) {
   const int n_super = n_clusters / group;
   float4* s_sup = smem;
   int* order = reinterpret_cast<int*>(s_sup + n_super);
@@ -226,6 +241,13 @@ __device__ __forceinline__ Boxes load_boxes(const float4* aabb,
     s_sup[i] = saabb[i];
   for (int i = threadIdx.x; i < 2 * n_listeners; i += blockDim.x)
     lis[i] = listeners[i];
+  if (s_mic != nullptr) {
+    float* mic = lis + 2 * n_listeners;
+    stage(mic_c, n_listeners * n_mic, mic);
+    stage(src_c, n_src, mic + n_listeners * n_mic);
+    *s_mic = mic;
+    *s_src = mic + n_listeners * n_mic;
+  }
   *s_order = order;
   *s_keys = keys;
   *s_lis = lis;
@@ -234,10 +256,11 @@ __device__ __forceinline__ Boxes load_boxes(const float4* aabb,
 }
 
 size_t smem_bytes(int n_clusters, int group, bool with_order,
-                  int n_listeners) {
+                  int n_listeners, int n_mic, int n_src) {
   const size_t n_super = n_clusters / group;
   return 16 * n_super + (with_order ? 8 * n_super : 0) +
-         8 * static_cast<size_t>(n_listeners);
+         4 * (2 * static_cast<size_t>(n_listeners) +
+              static_cast<size_t>(n_listeners) * n_mic + n_src);
 }
 
 // The global wall table as the kernels read it: geo [Wp, 4], and cc and
@@ -251,12 +274,14 @@ __device__ __forceinline__ WallTable global_table(const float* rows,
 // K7: grid (ceil(R / 256), F); thread = (ray, frame), all bounces. A warp
 // stays in the bounce loop until its last ray is dead, so that every lane
 // joins the nearest-wall sweep's votes.
-template <int kMaxK, bool kEarlyOut>
+template <int kMaxK, bool kEarlyOut, bool kDirective>
 __global__ void __launch_bounds__(kAccelThreads) accel_frames_kernel(
     const float* __restrict__ walls, const float4* __restrict__ geo,
     int n_walls, int n_bands, const float4* __restrict__ aabb,
     const float4* __restrict__ saabb, int n_clusters, int group,
     int cluster_size, const float* __restrict__ listeners, int n_listeners,
+    const float* __restrict__ src_c, int n_src,
+    const float* __restrict__ mic_c, int n_mic,
     const float* __restrict__ scal, float sr, uint32_t key0, uint32_t key1,
     int n_rays, int max_bounces, int ir_length,
     const double* __restrict__ scale, unsigned long long* __restrict__ acc,
@@ -265,14 +290,19 @@ __global__ void __launch_bounds__(kAccelThreads) accel_frames_kernel(
   const float* s_lis;
   int* s_order;
   unsigned* s_keys;
+  const float* s_mic = nullptr;
+  const float* s_src = nullptr;
   const Boxes bx = load_boxes(aabb, saabb, false, n_clusters, group,
                               cluster_size, listeners, n_listeners, smem,
-                              &s_order, &s_keys, &s_lis);
+                              &s_order, &s_keys, &s_lis, mic_c, n_mic, src_c,
+                              n_src, kDirective ? &s_mic : nullptr,
+                              kDirective ? &s_src : nullptr);
   __syncthreads();
   const WallTable table = global_table(walls, geo, n_walls);
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   const int frame = blockIdx.y;
-  const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3]};
+  const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3], s_mic,
+                      n_mic};
   const Sink sink{acc, ir_length, n_bands, sr, *scale};
   Work work;
   auto occl = [&](float sx, float sy, float vdx, float vdy, float dist,
@@ -281,21 +311,20 @@ __global__ void __launch_bounds__(kAccelThreads) accel_frames_kernel(
                                work);
   };
   bool alive = ray < n_rays;
-  Ray<kMaxK> r = emit_ray<kMaxK>(
+  Ray<kMaxK> r = emit_ray<kMaxK, kDirective>(
       alive ? ray : 0, n_rays,
       philox_uniforms(ray, frame, max_bounces, 0, key0, key1).u0, scal[0],
-      scal[1], scal[3], scal[4]);
+      scal[1], scal[3], scal[4], s_src, n_src);
   for (int b = 0; b < max_bounces; ++b) {
     if (!__any_sync(kFullMask, alive)) break;
     int hit;
     const float closest = nearest<kEarlyOut>(
         table, bx, alive, make_probe(r.px, r.py, r.dx, r.dy), hit, work);
     if (alive)
-      alive = finish_bounce<kMaxK>(r, closest, hit, table, lis, sink, occl,
-                                   [&] {
-                                     return philox_uniforms(ray, frame, b, 0,
-                                                            key0, key1);
-                                   });
+      alive = finish_bounce<kMaxK, kDirective>(
+          r, closest, hit, table, lis, sink, occl, [&] {
+            return philox_uniforms(ray, frame, b, 0, key0, key1);
+          });
   }
   if (work_out != nullptr) add_work(work, work_out);
 }
@@ -381,12 +410,14 @@ __device__ __forceinline__ void order_super_boxes(const Boxes& bx, bool live,
 // depth -1 = dead). Bounce 0 emits ray id = slot; a later bounce reads the
 // ray at perm[slot] of state_in / istate_in. Either writes the ray to
 // `slot` of state_out / istate_out and its next sort key to keys_out.
-template <bool kEarlyOut>
+template <bool kEarlyOut, bool kDirective>
 __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
     const float* __restrict__ walls, const float4* __restrict__ geo,
     int n_walls, const float4* __restrict__ aabb,
     const float4* __restrict__ saabb, int n_clusters, int group,
     int cluster_size, const float* __restrict__ listeners, int n_listeners,
+    const float* __restrict__ src_c, int n_src,
+    const float* __restrict__ mic_c, int n_mic,
     const float* __restrict__ scal, const float* __restrict__ bounds,
     float sr, uint32_t key0, uint32_t key1, int n_rays, int n_slots,
     int max_bounces, int bounce, int ir_length,
@@ -417,17 +448,22 @@ __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
   const float* s_lis;
   int* s_order;
   unsigned* s_keys;
+  const float* s_mic = nullptr;
+  const float* s_src = nullptr;
   const Boxes bx = load_boxes(aabb, saabb, true, n_clusters, group,
                               cluster_size, listeners, n_listeners, smem,
-                              &s_order, &s_keys, &s_lis);
+                              &s_order, &s_keys, &s_lis, mic_c, n_mic, src_c,
+                              n_src, kDirective ? &s_mic : nullptr,
+                              kDirective ? &s_src : nullptr);
   const WallTable table = global_table(walls, geo, n_walls);
   const int ray = id % n_rays, frame = id / n_rays;
   Ray<1> r;
   if (bounce == 0 || !live) {
-    r = emit_ray<1>(
+    // the source row from global memory: shared memory is not ready yet
+    r = emit_ray<1, kDirective>(
         ray, n_rays,
         philox_uniforms(ray, frame, max_bounces, 0, key0, key1).u0, scal[0],
-        scal[1], scal[3], scal[4]);
+        scal[1], scal[3], scal[4], src_c, n_src);
   } else {
     const float* s = state_in + from;
     r.px = s[0];
@@ -447,9 +483,10 @@ __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
   const float closest = nearest<kEarlyOut>(
       table, bx, live, make_probe(r.px, r.py, r.dx, r.dy), hit, work);
   if (live) {
-    const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3]};
+    const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3],
+                        s_mic, n_mic};
     const Sink sink{acc, ir_length, 1, sr, *scale};
-    const bool alive = finish_bounce<1>(
+    const bool alive = finish_bounce<1, kDirective>(
         r, closest, hit, table, lis, sink,
         [&](float sx, float sy, float vdx, float vdy, float dist,
             float limit) {
@@ -473,6 +510,14 @@ __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
   if (work_out != nullptr) add_work(work, work_out);
 }
 
+// Both patterns or neither, each of an odd count.
+bool patterns_ok(const float* src_c, int n_src, const float* mic_c,
+                 int n_mic) {
+  if (src_c == nullptr && mic_c == nullptr) return true;
+  return src_c != nullptr && mic_c != nullptr && n_src >= 1 &&
+         n_src % 2 == 1 && n_mic >= 1 && n_mic % 2 == 1;
+}
+
 bool boxes_ok(int n_walls, int n_clusters, int group, int cluster_size,
               int n_listeners) {
   return n_clusters >= 1 && group >= 1 && cluster_size >= 1 &&
@@ -490,40 +535,45 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int kMaxK, bool kEarlyOut>
+template <int kMaxK, bool kEarlyOut, bool kDirective>
 cudaError_t launch_frames(const float* walls, const float* geo, int n_walls,
                           int n_bands, const float* aabb, const float* saabb,
                           int n_clusters, int group, int cluster_size,
                           const float* listeners, int n_listeners,
-                          const float* scal, float sr, uint32_t key0,
+                          const float* src_c, int n_src, const float* mic_c,
+                          int n_mic, const float* scal, float sr, uint32_t key0,
                           uint32_t key1, int n_rays, int max_bounces,
                           int n_frames, int ir_length, const double* scale,
                           unsigned long long* acc, float* out,
                           unsigned long long* work, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n_clusters, group, false, n_listeners);
-  cudaError_t err = allow_smem(accel_frames_kernel<kMaxK, kEarlyOut>, smem);
+  const size_t smem = smem_bytes(n_clusters, group, false, n_listeners,
+                                 n_mic, n_src);
+  cudaError_t err =
+      allow_smem(accel_frames_kernel<kMaxK, kEarlyOut, kDirective>, smem);
   if (err != cudaSuccess) return err;
   const size_t n = static_cast<size_t>(n_listeners) * ir_length * n_bands;
   err = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * n, stream);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_rays + kAccelThreads - 1) / kAccelThreads, n_frames);
-  accel_frames_kernel<kMaxK, kEarlyOut><<<grid, kAccelThreads, smem, stream>>>(
+  accel_frames_kernel<kMaxK, kEarlyOut, kDirective>
+      <<<grid, kAccelThreads, smem, stream>>>(
       walls, reinterpret_cast<const float4*>(geo), n_walls, n_bands,
       reinterpret_cast<const float4*>(aabb),
       reinterpret_cast<const float4*>(saabb), n_clusters, group,
-      cluster_size, listeners, n_listeners, scal, sr, key0, key1, n_rays,
+      cluster_size, listeners, n_listeners, src_c, n_src, mic_c, n_mic, scal, sr, key0, key1, n_rays,
       max_bounces, ir_length, scale, acc, work);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_fixed_to_float(acc, scale, out, n, n, stream);
 }
 
-template <bool kEarlyOut>
+template <bool kEarlyOut, bool kDirective>
 cudaError_t launch_bounce(const float* walls, const float* geo, int n_walls,
                           const float* aabb, const float* saabb,
                           int n_clusters, int group, int cluster_size,
                           const float* listeners, int n_listeners,
-                          const float* scal, const float* bounds, float sr,
+                          const float* src_c, int n_src, const float* mic_c,
+                          int n_mic, const float* scal, const float* bounds, float sr,
                           uint32_t key0, uint32_t key1, int n_rays,
                           int n_slots, int max_bounces, int bounce,
                           int ir_length, const double* scale,
@@ -532,15 +582,18 @@ cudaError_t launch_bounce(const float* walls, const float* geo, int n_walls,
                           int* istate_out, long long* keys_out,
                           unsigned long long* acc, unsigned long long* work,
                           cudaStream_t stream) {
-  const size_t smem = smem_bytes(n_clusters, group, true, n_listeners);
-  const cudaError_t err = allow_smem(accel_bounce_kernel<kEarlyOut>, smem);
+  const size_t smem = smem_bytes(n_clusters, group, true, n_listeners,
+                                 n_mic, n_src);
+  const cudaError_t err =
+      allow_smem(accel_bounce_kernel<kEarlyOut, kDirective>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_slots + kAccelThreads - 1) / kAccelThreads);
-  accel_bounce_kernel<kEarlyOut><<<grid, kAccelThreads, smem, stream>>>(
+  accel_bounce_kernel<kEarlyOut, kDirective>
+      <<<grid, kAccelThreads, smem, stream>>>(
       walls, reinterpret_cast<const float4*>(geo), n_walls,
       reinterpret_cast<const float4*>(aabb),
       reinterpret_cast<const float4*>(saabb), n_clusters, group,
-      cluster_size, listeners, n_listeners, scal, bounds, sr, key0, key1,
+      cluster_size, listeners, n_listeners, src_c, n_src, mic_c, n_mic, scal, bounds, sr, key0, key1,
       n_rays, n_slots, max_bounces, bounce, ir_length, scale, perm, state_in,
       istate_in, state_out, istate_out, keys_out, acc, work);
   return cudaGetLastError();
@@ -557,33 +610,43 @@ extern "C" {
 // listeners [L, 2], scal [5] = (source x, source y, listener radius, speed
 // of sound, input gain), all device f32; scale one device double, acc
 // [L, T, K] u64 scratch; work, if not null, three device u64 (wall tests,
-// wall sweeps, slab tests). 1 <= K <= 8. Returns a cudaError_t code (0 =
+// wall sweeps, slab tests). 1 <= K <= 8. src_c [n_src] and mic_c
+// [L, n_mic] (device f32, n odd) are the source and microphone patterns of
+// a directive trace, both null for omni. Returns a cudaError_t code (0 =
 // launched).
 int art_accel_frames(const float* walls, const float* geo, int n_walls,
                      int n_bands, const float* aabb, const float* saabb,
                      int n_clusters, int group, int cluster_size,
                      const float* listeners, int n_listeners,
-                     const float* scal, float sr, unsigned int key0,
+                     const float* src_c, int n_src, const float* mic_c,
+                     int n_mic, const float* scal, float sr, unsigned int key0,
                      unsigned int key1, int n_rays, int max_bounces,
                      int n_frames, int ir_length, const double* scale,
                      unsigned long long* acc, float* out, int early_out,
                      unsigned long long* work, void* stream) {
   if (!boxes_ok(n_walls, n_clusters, group, cluster_size, n_listeners) ||
       n_bands < 1 || n_bands > kMaxBands || n_rays < 1 || n_frames < 1 ||
-      n_frames > 65535 || max_bounces < 1 || ir_length < 1)
+      n_frames > 65535 || max_bounces < 1 || ir_length < 1 ||
+      !patterns_ok(src_c, n_src, mic_c, n_mic))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool directive = src_c != nullptr;
+  if (!directive) n_src = n_mic = 0;
   const auto s = static_cast<cudaStream_t>(stream);
-#define ART_FRAMES(K, E)                                                     \
-  launch_frames<K, E>(walls, geo, n_walls, n_bands, aabb, saabb, n_clusters, \
-                      group, cluster_size, listeners, n_listeners, scal, sr, \
-                      key0, key1, n_rays, max_bounces, n_frames, ir_length,  \
-                      scale, acc, out, work, s)
+#define ART_FRAMES(K, E, D)                                                  \
+  launch_frames<K, E, D>(walls, geo, n_walls, n_bands, aabb, saabb,          \
+                         n_clusters, group, cluster_size, listeners,         \
+                         n_listeners, src_c, n_src, mic_c, n_mic, scal, sr,  \
+                         key0, key1, n_rays, max_bounces, n_frames,          \
+                         ir_length, scale, acc, out, work, s)
+#define ART_FRAMES_D(K, E) \
+  (directive ? ART_FRAMES(K, E, true) : ART_FRAMES(K, E, false))
   cudaError_t err;
   if (n_bands == 1)
-    err = early_out ? ART_FRAMES(1, true) : ART_FRAMES(1, false);
+    err = early_out ? ART_FRAMES_D(1, true) : ART_FRAMES_D(1, false);
   else
-    err = early_out ? ART_FRAMES(kMaxBands, true)
-                    : ART_FRAMES(kMaxBands, false);
+    err = early_out ? ART_FRAMES_D(kMaxBands, true)
+                    : ART_FRAMES_D(kMaxBands, false);
+#undef ART_FRAMES_D
 #undef ART_FRAMES
   return static_cast<int>(err);
 }
@@ -603,7 +666,8 @@ int art_accel_frames(const float* walls, const float* geo, int n_walls,
 int art_accel_bounce(const float* walls, const float* geo, int n_walls,
                      const float* aabb, const float* saabb, int n_clusters,
                      int group, int cluster_size, const float* listeners,
-                     int n_listeners, const float* scal, const float* bounds,
+                     int n_listeners, const float* src_c, int n_src,
+                     const float* mic_c, int n_mic, const float* scal, const float* bounds,
                      float sr, unsigned int key0, unsigned int key1,
                      int n_rays, int n_slots, int max_bounces, int bounce,
                      int ir_length, const double* scale,
@@ -617,17 +681,54 @@ int art_accel_bounce(const float* walls, const float* geo, int n_walls,
       ir_length < 1 || state_out == nullptr || istate_out == nullptr ||
       keys_out == nullptr || state_out == state_in ||
       (bounce > 0 && (perm == nullptr || state_in == nullptr ||
-                      istate_in == nullptr)))
+                      istate_in == nullptr)) ||
+      !patterns_ok(src_c, n_src, mic_c, n_mic))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool directive = src_c != nullptr;
+  if (!directive) n_src = n_mic = 0;
   const auto s = static_cast<cudaStream_t>(stream);
-#define ART_BOUNCE(E)                                                        \
-  launch_bounce<E>(walls, geo, n_walls, aabb, saabb, n_clusters, group,      \
-                   cluster_size, listeners, n_listeners, scal, bounds, sr,   \
-                   key0, key1, n_rays, n_slots, max_bounces, bounce,         \
-                   ir_length, scale, perm, state_in, istate_in, state_out,   \
-                   istate_out, keys_out, acc, work, s)
-  const cudaError_t err = early_out ? ART_BOUNCE(true) : ART_BOUNCE(false);
+#define ART_BOUNCE(E, D)                                                     \
+  launch_bounce<E, D>(walls, geo, n_walls, aabb, saabb, n_clusters, group,   \
+                      cluster_size, listeners, n_listeners, src_c, n_src,    \
+                      mic_c, n_mic, scal, bounds, sr, key0, key1, n_rays,    \
+                      n_slots, max_bounces, bounce, ir_length, scale, perm,  \
+                      state_in, istate_in, state_out, istate_out, keys_out,  \
+                      acc, work, s)
+  cudaError_t err;
+  if (directive)
+    err = early_out ? ART_BOUNCE(true, true) : ART_BOUNCE(false, true);
+  else
+    err = early_out ? ART_BOUNCE(true, false) : ART_BOUNCE(false, false);
 #undef ART_BOUNCE
+  return static_cast<int>(err);
+}
+
+// The registers and local (stack) bytes per thread of K7 (which = 7:
+// accel_frames_kernel<n_bands == 1 ? 1 : 8, early_out, directive>) or K8
+// (which = 8: accel_bounce_kernel<early_out, directive>) into out[2]
+// (cudaFuncGetAttributes). Returns a cudaError_t code.
+int art_accel_attributes(int which, int n_bands, int early_out,
+                         int directive, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+#define ART_K7(K, E, D) cudaFuncGetAttributes(&a, accel_frames_kernel<K, E, D>)
+#define ART_K7_D(K, E) (directive ? ART_K7(K, E, true) : ART_K7(K, E, false))
+#define ART_K7_E(K) (early_out ? ART_K7_D(K, true) : ART_K7_D(K, false))
+#define ART_K8(E, D) cudaFuncGetAttributes(&a, accel_bounce_kernel<E, D>)
+#define ART_K8_D(E) (directive ? ART_K8(E, true) : ART_K8(E, false))
+  if (which == 7)
+    err = n_bands == 1 ? ART_K7_E(1) : ART_K7_E(kMaxBands);
+  else if (which == 8)
+    err = early_out ? ART_K8_D(true) : ART_K8_D(false);
+#undef ART_K8_D
+#undef ART_K8
+#undef ART_K7_E
+#undef ART_K7_D
+#undef ART_K7
+  if (err == cudaSuccess) {
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.localSizeBytes);
+  }
   return static_cast<int>(err);
 }
 

@@ -14,8 +14,12 @@
 // All three compute the same thing (emission, every bounce of _bounce_step
 // and the IR binning of _hist_listener) and differ only in where the
 // uniforms come from and in the batch axis, so they are one template,
-// frames_ir_kernel<kHostUniforms>, whose grid z axis is the batch entry:
-// K3 and K4 are its E = 1 case. The semantics are those of the plain
+// frames_ir_kernel<kHostUniforms, kDirective>, whose grid z axis is the
+// batch entry: K3 and K4 are its E = 1 case. kDirective adds the source
+// and microphone patterns (_fourier_gain, _src_gain and the mic rows of
+// pack_listeners in the JAX kernels): per entry a source row [C_s] and a
+// microphone table [L, C_m], so each source of a mixdown carries its own
+// aim. The semantics are those of the plain
 // oracle ops/trace.py::_bounce + ops/ir.py::scatter_hits of this package;
 // the TPU layout (rays on lanes, one-hot MXU gather, two-level bf16
 // histogram, K9's [Rg, Wp, 8] blocks and its seed plan) is not carried
@@ -34,7 +38,8 @@
 //    WallTable (trace_common.cuh): the geometry of a wall as one float4
 //    (ax, ay, v2x, v2y), cc, and six attribute rows (nx, ny, abs, scat,
 //    trans, ior): 44 B per wall, plus its listener table (<= 16
-//    listeners). The tables are [E or 1, 11, W] and [E, L, 2]; a wall
+//    listeners) and, when directive, its entry's pattern rows (C_s + L *
+//    C_m floats). The tables are [E or 1, 11, W] and [E, L, 2]; a wall
 //    stride of 0 shares one scene among all entries (the mixdown) without
 //    copying it. The attribute gather is an indexed shared-memory load.
 //    The 227 KB a block can use caps a scene at kMaxWalls = 5280 walls;
@@ -105,15 +110,17 @@ constexpr int kAttrRows = kWallFields - 5;  // NX .. IOR
 constexpr int kMaxWalls =
     (kMaxSmemBytes - 2 * kMaxListeners * 4) / (kWallFields * 4);
 
-template <bool kHostUniforms>
+template <bool kHostUniforms, bool kDirective>
 __device__ __forceinline__ Work trace_ray(
     const WallTable& walls, const float* s_lis, int n_listeners,
+    const float* s_src, int n_src, const float* s_mic, int n_mic,
     const float* scal, float sr, const float* emit, const float* u,
     uint32_t key0, uint32_t key1, uint32_t entry_id, int ray, int frame,
     int n_frames, int entry, int n_rays, int max_bounces, int ir_length,
     double scale, unsigned long long* acc) {
   const float radius = scal[2];
-  const Listeners lis{s_lis, n_listeners, radius * radius, scal[3]};
+  const Listeners lis{s_lis, n_listeners, radius * radius, scal[3], s_mic,
+                      n_mic};
   const Sink sink{acc, ir_length, 1, sr, scale};
   const int n_walls = walls.n;
   Work work;
@@ -144,8 +151,8 @@ __device__ __forceinline__ Work trace_ray(
           ? emit[(static_cast<size_t>(entry) * n_frames + frame) * n_rays +
                  ray]
           : draw(max_bounces).u0;
-  Ray<1> r = emit_ray<1>(ray, n_rays, jitter0, scal[0], scal[1], scal[3],
-                         scal[4]);
+  Ray<1> r = emit_ray<1, kDirective>(ray, n_rays, jitter0, scal[0], scal[1],
+                                     scal[3], scal[4], s_src, n_src);
 
   for (int b = 0; b < max_bounces; ++b) {
     // --- nearest wall: the lowest index among the smallest distances -------
@@ -155,17 +162,20 @@ __device__ __forceinline__ Work trace_ray(
                  closest, best);
     work.tests += n_walls;
     ++work.sweeps;
-    if (!finish_bounce<1>(r, closest, closest < kInf ? best : -1, walls, lis,
-                          sink, occluded, [&] { return draw(b); }))
+    if (!finish_bounce<1, kDirective>(r, closest, closest < kInf ? best : -1,
+                                      walls, lis, sink, occluded,
+                                      [&] { return draw(b); }))
       break;
   }
   return work;
 }
 
-template <bool kHostUniforms>
+template <bool kHostUniforms, bool kDirective>
 __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
     const float* __restrict__ walls, long long wall_stride, int n_walls,
     const float* __restrict__ listeners, int n_listeners,
+    const float* __restrict__ src_c, int n_src,
+    const float* __restrict__ mic_c, int n_mic,
     const float* __restrict__ scal, float sr,
     const float* __restrict__ emit, const float* __restrict__ u,
     uint32_t key0, uint32_t key1, uint32_t entry_offset, int n_rays,
@@ -183,13 +193,22 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
   float* s_lis = smem + wall_table_floats(n_walls, kAttrRows);  // [L][2]
   for (int i = threadIdx.x; i < 2 * n_listeners; i += blockDim.x)
     s_lis[i] = listeners[i];
+  // this entry's pattern rows: source [n_src], microphones [L, n_mic]
+  float* s_src = s_lis + 2 * n_listeners;
+  float* s_mic = s_src + n_src;
+  if constexpr (kDirective) {
+    stage(src_c + static_cast<size_t>(entry) * n_src, n_src, s_src);
+    stage(mic_c + static_cast<size_t>(entry) * n_listeners * n_mic,
+          n_listeners * n_mic, s_mic);
+  }
   __syncthreads();
 
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   Work work;
   if (ray < n_rays)
-    work = trace_ray<kHostUniforms>(
-        table, s_lis, n_listeners, scal + kScalFields * entry, sr, emit, u,
+    work = trace_ray<kHostUniforms, kDirective>(
+        table, s_lis, n_listeners, s_src, n_src, s_mic, n_mic,
+        scal + kScalFields * entry, sr, emit, u,
         key0, key1, entry_offset + static_cast<uint32_t>(entry), ray,
         blockIdx.y, gridDim.y, entry, n_rays, max_bounces, ir_length,
         scales[entry],
@@ -198,9 +217,11 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
     add_work(work, work_out);
 }
 
-template <bool kHostUniforms>
+template <bool kHostUniforms, bool kDirective>
 cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
-                   const float* listeners, int n_listeners, const float* scal,
+                   const float* listeners, int n_listeners,
+                   const float* src_c, int n_src, const float* mic_c,
+                   int n_mic, const float* scal,
                    float sr, const float* emit, const float* u, uint32_t key0,
                    uint32_t key1, uint32_t entry_offset, int n_entries,
                    int n_rays, int max_bounces, int n_frames, int ir_length,
@@ -208,10 +229,12 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
                    unsigned long long* work, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kWallFields * static_cast<size_t>(n_walls) +
-                       2 * static_cast<size_t>(n_listeners));
+                       2 * static_cast<size_t>(n_listeners) + n_src +
+                       static_cast<size_t>(n_listeners) * n_mic);
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        frames_ir_kernel<kHostUniforms>,
+        frames_ir_kernel<kHostUniforms, kDirective>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
@@ -221,10 +244,11 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
                                     stream);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_rays + kThreads - 1) / kThreads, n_frames, n_entries);
-  frames_ir_kernel<kHostUniforms><<<grid, kThreads, smem, stream>>>(
-      walls, wall_stride, n_walls, listeners, n_listeners, scal, sr, emit, u,
-      key0, key1, entry_offset, n_rays, max_bounces, ir_length, scales, acc,
-      work);
+  frames_ir_kernel<kHostUniforms, kDirective>
+      <<<grid, kThreads, smem, stream>>>(
+          walls, wall_stride, n_walls, listeners, n_listeners, src_c, n_src,
+          mic_c, n_mic, scal, sr, emit, u, key0, key1, entry_offset, n_rays,
+          max_bounces, ir_length, scales, acc, work);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_fixed_to_float(acc, scales, out, n, per_entry, stream);
@@ -240,38 +264,67 @@ extern "C" {
 // with counter word 3 = entry_offset + e (K4 is E = 1, offset 0; K9 any
 // E). walls is [E or 1, 11, W] (see WallField) with wall_stride 11 * W or
 // 0 (shared), listeners [E, L, 2], scal [E, 5] = (source x, source y,
-// listener radius, speed of sound, input gain), all device f32; scales
-// [E] device doubles, acc [E, L, T] u64 scratch; work, if not null,
-// three device u64 to which the launch adds the wall tests it made, the
-// wall sweeps (nearest or occlusion) they belong to and its slab tests
-// (none). Returns a cudaError_t code
-// (0 = launched).
+// listener radius, speed of sound, input gain), all device f32. src_c
+// [E, n_src] and mic_c [E, L, n_mic] (device f32, n odd) are the source
+// and microphone patterns of a directive trace, both null for omni (the
+// reference's emission and pickup). scales [E] device doubles, acc
+// [E, L, T] u64 scratch; work, if not null, three device u64 to which the
+// launch adds the wall tests it made, the wall sweeps (nearest or
+// occlusion) they belong to and its slab tests (none). Returns a
+// cudaError_t code (0 = launched).
 int art_trace_frames_ir(int host_uniforms, const float* walls,
                         long long wall_stride, int n_walls,
                         const float* listeners, int n_listeners,
-                        const float* scal, float sr, const float* emit,
-                        const float* u, unsigned int key0, unsigned int key1,
-                        unsigned int entry_offset, int n_entries, int n_rays,
-                        int max_bounces, int n_frames, int ir_length,
-                        const double* scales, unsigned long long* acc,
-                        float* out, unsigned long long* work, void* stream) {
+                        const float* src_c, int n_src, const float* mic_c,
+                        int n_mic, const float* scal, float sr,
+                        const float* emit, const float* u, unsigned int key0,
+                        unsigned int key1, unsigned int entry_offset,
+                        int n_entries, int n_rays, int max_bounces,
+                        int n_frames, int ir_length, const double* scales,
+                        unsigned long long* acc, float* out,
+                        unsigned long long* work, void* stream) {
+  const bool directive = src_c != nullptr || mic_c != nullptr;
   if (n_walls < 1 || n_walls > kMaxWalls || n_listeners < 1 ||
       n_listeners > kMaxListeners || n_rays < 1 || n_frames < 1 ||
       n_frames > 65535 || n_entries < 1 || n_entries > 65535 ||
       max_bounces < 1 || ir_length < 1 ||
-      (wall_stride != 0 && wall_stride != kWallFields * n_walls))
+      (wall_stride != 0 && wall_stride != kWallFields * n_walls) ||
+      (directive && (src_c == nullptr || mic_c == nullptr || n_src < 1 ||
+                     n_src % 2 != 1 || n_mic < 1 || n_mic % 2 != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!directive) n_src = n_mic = 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      host_uniforms
-          ? launch<true>(walls, wall_stride, n_walls, listeners, n_listeners,
-                         scal, sr, emit, u, key0, key1, entry_offset,
-                         n_entries, n_rays, max_bounces, n_frames, ir_length,
-                         scales, acc, out, work, s)
-          : launch<false>(walls, wall_stride, n_walls, listeners, n_listeners,
-                          scal, sr, emit, u, key0, key1, entry_offset,
-                          n_entries, n_rays, max_bounces, n_frames, ir_length,
-                          scales, acc, out, work, s);
+#define ART_FRAMES(H, D)                                                     \
+  launch<H, D>(walls, wall_stride, n_walls, listeners, n_listeners, src_c,   \
+               n_src, mic_c, n_mic, scal, sr, emit, u, key0, key1,           \
+               entry_offset, n_entries, n_rays, max_bounces, n_frames,       \
+               ir_length, scales, acc, out, work, s)
+  cudaError_t err;
+  if (host_uniforms)
+    err = directive ? ART_FRAMES(true, true) : ART_FRAMES(true, false);
+  else
+    err = directive ? ART_FRAMES(false, true) : ART_FRAMES(false, false);
+#undef ART_FRAMES
+  return static_cast<int>(err);
+}
+
+// The registers and local (stack) bytes per thread of one instantiation
+// of frames_ir_kernel into out[2] (cudaFuncGetAttributes). Returns a
+// cudaError_t code.
+int art_frames_attributes(int host_uniforms, int directive, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  if (host_uniforms)
+    err = directive ? cudaFuncGetAttributes(&a, frames_ir_kernel<true, true>)
+                    : cudaFuncGetAttributes(&a, frames_ir_kernel<true, false>);
+  else
+    err = directive ? cudaFuncGetAttributes(&a, frames_ir_kernel<false, true>)
+                    : cudaFuncGetAttributes(&a,
+                                            frames_ir_kernel<false, false>);
+  if (err == cudaSuccess) {
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.localSizeBytes);
+  }
   return static_cast<int>(err);
 }
 

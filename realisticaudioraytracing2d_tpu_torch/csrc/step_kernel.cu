@@ -7,8 +7,8 @@
 //     the raw hit rows of ONE bounce out; one listener, one band), and
 //   _make_bounce_hist_kernel (K6, through trace_frame_ir_fused: the same
 //     bounce with the binning of its hits in the kernel).
-// Both are one template, bounce_step_kernel<kRows, kHostUniforms>, over
-// where a hit goes: RowSink (K5) or the fixed-point Sink (K6) of
+// Both are one template, bounce_step_kernel<kRows, kHostUniforms,
+// kDirective>, over where a hit goes: RowSink (K5) or the fixed-point Sink (K6) of
 // trace_common.cuh, whose finish_bounce is the bounce itself, shared with
 // K3/K4/K9 and K7/K8, so the physics cannot drift. The semantics are those
 // of the plain oracle ops/trace.py::_bounce, one bounce at a time on an
@@ -33,6 +33,12 @@
 //    the few walls it leaves.
 //  * Uniforms: host u[R, 3] of this bounce and emit[R] (bounce 0), or
 //    Philox by counter (ray, frame, bounce, 0) as K4 draws them.
+//  * kDirective: bounce 0 weights the emission by the source pattern and
+//    every hit is weighted by its listener's microphone pattern, as in
+//    K3/K4 (trace_common.cuh), the coefficients staged in shared memory
+//    beside the listeners. The JAX K5/K6 refuse microphone patterns only
+//    because of their TPU row layout; here a row holds the weighted
+//    energy the plain trace's hit holds.
 //  * K5 zeroes its ray's column of the [8, R] rows before the bounce, dead
 //    rays included, so a hit that did not happen reads as zeros with
 //    valid = 0 (the JAX kernel writes stale values with valid = 0 there).
@@ -57,10 +63,12 @@ constexpr int kStepMaxWalls =
     (kStepMaxSmemBytes - 2 * kMaxListeners * 4) / (kWallFields * 4);
 constexpr int kHitRows = 8;
 
-template <bool kRows, bool kHostUniforms>
+template <bool kRows, bool kHostUniforms, bool kDirective>
 __global__ void __launch_bounds__(kStepThreads) bounce_step_kernel(
     const float* __restrict__ walls, int n_walls,
     const float* __restrict__ listeners, int n_listeners,
+    const float* __restrict__ src_c, int n_src,
+    const float* __restrict__ mic_c, int n_mic,
     const float* __restrict__ scal, float sr, const float* __restrict__ emit,
     const float* __restrict__ u, uint32_t key0, uint32_t key1, int frame,
     int n_rays, int max_bounces, int bounce, int ir_length,
@@ -75,6 +83,12 @@ __global__ void __launch_bounds__(kStepThreads) bounce_step_kernel(
   float* s_lis = smem + kWallFields * n_walls;  // [L][2]
   for (int i = threadIdx.x; i < 2 * n_listeners; i += blockDim.x)
     s_lis[i] = listeners[i];
+  float* s_src = s_lis + 2 * n_listeners;  // [n_src], then [L, n_mic]
+  float* s_mic = s_src + n_src;
+  if constexpr (kDirective) {
+    stage(src_c, n_src, s_src);
+    stage(mic_c, n_listeners * n_mic, s_mic);
+  }
   __syncthreads();
 
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
@@ -94,8 +108,8 @@ __global__ void __launch_bounds__(kStepThreads) bounce_step_kernel(
             kHostUniforms
                 ? emit[ray]
                 : philox_uniforms(ray, frame, max_bounces, 0, key0, key1).u0;
-        r = emit_ray<1>(ray, n_rays, jitter, scal[0], scal[1], scal[3],
-                        scal[4]);
+        r = emit_ray<1, kDirective>(ray, n_rays, jitter, scal[0], scal[1],
+                                    scal[3], scal[4], s_src, n_src);
       } else {
         r.px = s[0];
         r.py = s[n];
@@ -130,16 +144,17 @@ __global__ void __launch_bounds__(kStepThreads) bounce_step_kernel(
           return {u[3 * ray], u[3 * ray + 1], u[3 * ray + 2]};
         return philox_uniforms(ray, frame, bounce, 0, key0, key1);
       };
-      const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3]};
+      const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3],
+                          s_mic, n_mic};
       bool alive;
       if constexpr (kRows) {
         const RowSink sink{rows, n_rays, ray};
-        alive = finish_bounce<1>(r, closest, hit, table, lis, sink,
-                                 occluded, draw);
+        alive = finish_bounce<1, kDirective>(r, closest, hit, table, lis,
+                                             sink, occluded, draw);
       } else {
         const Sink sink{acc, ir_length, 1, sr, *scale};
-        alive = finish_bounce<1>(r, closest, hit, table, lis, sink,
-                                 occluded, draw);
+        alive = finish_bounce<1, kDirective>(r, closest, hit, table, lis,
+                                             sink, occluded, draw);
       }
       s[0] = r.px;
       s[n] = r.py;
@@ -156,10 +171,11 @@ __global__ void __launch_bounds__(kStepThreads) bounce_step_kernel(
     add_work(work, work_out);
 }
 
-template <bool kRows, bool kHostUniforms>
+template <bool kRows, bool kHostUniforms, bool kDirective>
 cudaError_t launch_step(const float* walls, int n_walls,
                         const float* listeners, int n_listeners,
-                        const float* scal, float sr, const float* emit,
+                        const float* src_c, int n_src, const float* mic_c,
+                        int n_mic, const float* scal, float sr, const float* emit,
                         const float* u, uint32_t key0, uint32_t key1,
                         int frame, int n_rays, int max_bounces, int bounce,
                         int ir_length, const double* scale, float* state,
@@ -167,17 +183,20 @@ cudaError_t launch_step(const float* walls, int n_walls,
                         unsigned long long* work, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kWallFields * static_cast<size_t>(n_walls) +
-                       2 * static_cast<size_t>(n_listeners));
+                       2 * static_cast<size_t>(n_listeners) + n_src +
+                       static_cast<size_t>(n_listeners) * n_mic);
+  if (smem > kStepMaxSmemBytes) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bounce_step_kernel<kRows, kHostUniforms>,
+        bounce_step_kernel<kRows, kHostUniforms, kDirective>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int grid = (n_rays + kStepThreads - 1) / kStepThreads;
-  bounce_step_kernel<kRows, kHostUniforms><<<grid, kStepThreads, smem,
-                                             stream>>>(
-      walls, n_walls, listeners, n_listeners, scal, sr, emit, u, key0, key1,
+  bounce_step_kernel<kRows, kHostUniforms, kDirective>
+      <<<grid, kStepThreads, smem, stream>>>(
+      walls, n_walls, listeners, n_listeners, src_c, n_src, mic_c, n_mic,
+      scal, sr, emit, u, key0, key1,
       frame, n_rays, max_bounces, bounce, ir_length, scale, state, depth,
       rows, acc, work);
   return cudaGetLastError();
@@ -199,12 +218,15 @@ extern "C" {
 // delay, energy, valid, NEE delay, energy, valid, 0, 0) and acc, scale and
 // ir_length are unused; otherwise (K6) its hits add to acc [L, T] u64
 // under *scale (zeroed by the caller before bounce 0, converted by
-// art_fixed_to_float after the last). work, if not null, three device u64
-// (wall tests, wall sweeps, slab tests). Returns a cudaError_t code
+// art_fixed_to_float after the last). src_c [n_src] and mic_c [L, n_mic]
+// (device f32, n odd) are the source and microphone patterns of a
+// directive trace, both null for omni. work, if not null, three device
+// u64 (wall tests, wall sweeps, slab tests). Returns a cudaError_t code
 // (0 = launched).
 int art_bounce_step(int host_uniforms, const float* walls, int n_walls,
                     const float* listeners, int n_listeners,
-                    const float* scal, float sr, const float* emit,
+                    const float* src_c, int n_src, const float* mic_c,
+                    int n_mic, const float* scal, float sr, const float* emit,
                     const float* u, unsigned int key0, unsigned int key1,
                     int frame, int n_rays, int max_bounces, int bounce,
                     int ir_length, const double* scale, float* state,
@@ -218,17 +240,49 @@ int art_bounce_step(int host_uniforms, const float* walls, int n_walls,
       (!want_rows && (acc == nullptr || scale == nullptr || ir_length < 1)) ||
       (host_uniforms && (u == nullptr || (bounce == 0 && emit == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool directive = src_c != nullptr || mic_c != nullptr;
+  if (directive && (src_c == nullptr || mic_c == nullptr || n_src < 1 ||
+                    n_src % 2 != 1 || n_mic < 1 || n_mic % 2 != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!directive) n_src = n_mic = 0;
   const auto s = static_cast<cudaStream_t>(stream);
-#define ART_STEP(R, H)                                                       \
-  launch_step<R, H>(walls, n_walls, listeners, n_listeners, scal, sr, emit,  \
-                    u, key0, key1, frame, n_rays, max_bounces, bounce,       \
-                    ir_length, scale, state, depth, rows, acc, work, s)
+#define ART_STEP(R, H, D)                                                    \
+  launch_step<R, H, D>(walls, n_walls, listeners, n_listeners, src_c, n_src, \
+                       mic_c, n_mic, scal, sr, emit, u, key0, key1, frame,   \
+                       n_rays, max_bounces, bounce, ir_length, scale, state, \
+                       depth, rows, acc, work, s)
+#define ART_STEP_D(R, H)                                                     \
+  (directive ? ART_STEP(R, H, true) : ART_STEP(R, H, false))
   cudaError_t err;
   if (want_rows)
-    err = host_uniforms ? ART_STEP(true, true) : ART_STEP(true, false);
+    err = host_uniforms ? ART_STEP_D(true, true) : ART_STEP_D(true, false);
   else
-    err = host_uniforms ? ART_STEP(false, true) : ART_STEP(false, false);
+    err = host_uniforms ? ART_STEP_D(false, true) : ART_STEP_D(false, false);
+#undef ART_STEP_D
 #undef ART_STEP
+  return static_cast<int>(err);
+}
+
+// The registers and local (stack) bytes per thread of one instantiation
+// of bounce_step_kernel into out[2] (cudaFuncGetAttributes). Returns a
+// cudaError_t code.
+int art_step_attributes(int rows, int host_uniforms, int directive,
+                        int* out) {
+  cudaFuncAttributes a;
+#define ART_ATTR(R, H, D) cudaFuncGetAttributes(&a, bounce_step_kernel<R, H, D>)
+#define ART_ATTR_D(R, H) \
+  (directive ? ART_ATTR(R, H, true) : ART_ATTR(R, H, false))
+  cudaError_t err;
+  if (rows)
+    err = host_uniforms ? ART_ATTR_D(true, true) : ART_ATTR_D(true, false);
+  else
+    err = host_uniforms ? ART_ATTR_D(false, true) : ART_ATTR_D(false, false);
+#undef ART_ATTR_D
+#undef ART_ATTR
+  if (err == cudaSuccess) {
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.localSizeBytes);
+  }
   return static_cast<int>(err);
 }
 

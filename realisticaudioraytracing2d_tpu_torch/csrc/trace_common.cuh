@@ -15,6 +15,18 @@
 // where a ray's state lives between bounces, and where a hit goes: into
 // the fixed-point IR (Sink) or, as a raw record, into hit rows (RowSink).
 //
+// Directive sources and microphones (ops/directivity.py) are one template
+// flag, kDirective, of emit_ray and finish_bounce, as kHostUniforms is one
+// of the bounce kernel: the omni instantiations compile to the code they
+// had before it. A directive kernel weights a ray's energy at emission by
+// the source pattern at its direction, and each hit by the listener's
+// microphone pattern at the direction the sound arrives from (-d at
+// direct capture, bounce point - listener at NEE, after the NEE cutoff,
+// which tests the path and not the pickup). The series is evaluated from
+// the direction's cosine and sine by the angle-addition recurrence of
+// fourier_gain, the operations of ops/directivity.py::fourier_gain in its
+// order; the kernels stage the coefficients in shared memory.
+//
 // The semantics are those of the plain oracle ops/trace.py::_bounce +
 // ops/ir.py::scatter_hits, in its IEEE operation order: '/', sqrtf,
 // sincosf, asinf, no fast math, and the build passes --fmad=false, so a
@@ -133,13 +145,42 @@ struct RowSink {
   static constexpr int n_bands = 1;
 };
 
-// The listeners of one entry: xy [L, 2], radius^2, rest-frame speed c.
+// The listeners of one entry: xy [L, 2], radius^2, rest-frame speed c,
+// and (directive kernels only) the microphone patterns mic [L, n_mic].
 struct Listeners {
   const float* xy;
   int n;
   float r2;
   float c;
+  const float* mic = nullptr;
+  int n_mic = 0;
 };
+
+// The clamped Fourier power-gain series c[0] + sum_n c[2n-1] cos(n a) +
+// c[2n] sin(n a) of n_c = 2M + 1 coefficients, from c1 = cos a and s1 =
+// sin a by the angle-addition recurrence: ops/directivity.py::fourier_gain,
+// the same operations in the same order.
+__device__ __forceinline__ float fourier_gain(float c1, float s1,
+                                             const float* c, int n_c) {
+  float g = c[0];
+  const int m = (n_c - 1) / 2;
+  float cn = c1, sn = s1;
+  for (int n = 1; n <= m; ++n) {
+    g = g + c[2 * n - 1] * cn + c[2 * n] * sn;
+    if (n < m) {
+      const float cn_next = cn * c1 - sn * s1;
+      sn = sn * c1 + cn * s1;
+      cn = cn_next;
+    }
+  }
+  return fmaxf(g, 0.0f);
+}
+
+// Copy `n` floats from global `src` into shared `dst`; every thread of
+// the block calls it, the caller synchronises.
+__device__ __forceinline__ void stage(const float* src, int n, float* dst) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
 
 __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
                                               uint32_t k1) {
@@ -368,12 +409,15 @@ __device__ __forceinline__ void deposit(const RowSink& s, int slot, int /*l*/,
 }
 
 // A ray leaving the source (ops/trace.py::_emit): stratified angle
-// (ray + jitter) / R * 2pi, energy `gain` in every band.
-template <int kMaxK>
+// (ray + jitter) / R * 2pi, energy `gain` in every band; a directive
+// source weights it by its pattern src_c[n_src] at the ray's direction.
+template <int kMaxK, bool kDirective = false>
 __device__ __forceinline__ Ray<kMaxK> emit_ray(int ray, int n_rays,
                                                float jitter, float src_x,
                                                float src_y, float c,
-                                               float gain) {
+                                               float gain,
+                                               const float* src_c = nullptr,
+                                               int n_src = 0) {
   Ray<kMaxK> r;
   const float angle =
       (static_cast<float>(ray) + jitter) / static_cast<float>(n_rays) *
@@ -381,6 +425,8 @@ __device__ __forceinline__ Ray<kMaxK> emit_ray(int ray, int n_rays,
   r.px = src_x;
   r.py = src_y;
   sincosf(angle, &r.dy, &r.dx);
+  if constexpr (kDirective) gain = gain * fourier_gain(r.dx, r.dy, src_c,
+                                                       n_src);
 #pragma unroll
   for (int k = 0; k < kMaxK; ++k) r.en[k] = gain;
   r.tm = 0.0f;
@@ -394,10 +440,12 @@ __device__ __forceinline__ Ray<kMaxK> emit_ray(int ray, int n_rays,
 // (-1: escaped) on wall table `w`. occluded(sx, sy, vdx, vdy,
 // dist, limit) runs one occlusion sweep and returns true when a wall
 // blocks the shadow ray before `limit`; draw() gives this bounce's three
-// uniforms; `sink` (Sink or RowSink) takes the hits. Returns false when
-// the ray dies (escaped, or every band under the energy cutoff); the ray
-// is then left as it was.
-template <int kMaxK, class SinkT, class Occluded, class Draw>
+// uniforms; `sink` (Sink or RowSink) takes the hits, each weighted by the
+// listener's microphone pattern when kDirective. Returns false when the
+// ray dies (escaped, or every band under the energy cutoff); the ray is
+// then left as it was.
+template <int kMaxK, bool kDirective = false, class SinkT, class Occluded,
+          class Draw>
 __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
                                               int hit, const WallTable& w,
                                               const Listeners& lis,
@@ -421,6 +469,12 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
       float e[kMaxK];
 #pragma unroll
       for (int k = 0; k < kMaxK; ++k) e[k] = r.en[k] / att;
+      if constexpr (kDirective) {  // the sound arrives from -d
+        const float g = fourier_gain(-r.dx, -r.dy, lis.mic + l * lis.n_mic,
+                                     lis.n_mic);
+#pragma unroll
+        for (int k = 0; k < kMaxK; ++k) e[k] = e[k] * g;
+      }
       deposit<kMaxK>(sink, 0, l, r.tm + t_lis / r.sp, e);
     }
   }
@@ -465,8 +519,17 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
       if (!(e_max > kNeeCutoff)) continue;
       const float vdx = (lx - sx) / dist_l, vdy = (ly - sy) / dist_l;
       // The listener leg uses the rest-frame speed c, not the current one.
-      if (!occluded(sx, sy, vdx, vdy, dist_l, dist_l - kOcclusionSlack))
+      if (!occluded(sx, sy, vdx, vdy, dist_l, dist_l - kOcclusionSlack)) {
+        // the pickup, only for a hit that lands: the sound arrives from
+        // the bounce point, -(t / dist_l)
+        if constexpr (kDirective) {
+          const float g = fourier_gain(-(tx / dist_l), -(ty / dist_l),
+                                       lis.mic + l * lis.n_mic, lis.n_mic);
+#pragma unroll
+          for (int k = 0; k < kMaxK; ++k) e[k] = e[k] * g;
+        }
         deposit<kMaxK>(sink, 1, l, ntm + dist_l / c, e);
+      }
     }
   }
 

@@ -15,6 +15,10 @@ once and keeps for later calls on the same scene tensors:
   each block visiting the super boxes near to far from its own rays, K =
   1; it replaces ``::trace_frames_ir_accel_sorted``.
 
+Both take directive sources and microphones (``TraceParams.directivity`` /
+``mic_directivity``) through the kernels' directive instantiation, as the
+bounce kernel does (``bounce_kernel.pattern_tables``).
+
 Both return the frame-SUMMED IR ``[L, T, K]`` float32 and draw Philox
 numbers in the kernel under the key of ``seed``, counter (ray, frame,
 bounce, 0): the numbers K4 draws, so on a sorted scene K7 (K = 1) and K8
@@ -42,17 +46,19 @@ from ...models.scene import Scene
 from .. import accel, rng
 from ..ir import scatter_hits
 from ..trace import (Hits, TraceParams, _bounce, _check_supported, _emit,
-                     _RayState)
+                     _RayState, check_patterns)
 from . import bounce_kernel as bk
 from . import build
 
 MAX_BANDS = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FRAMES_ARGTYPES = (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P,
+_FRAMES_ARGTYPES = (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P,
+                    _I, _P,
                     ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, _I, _I,
                     _I, _I, _P, _P, _P, _I, _P, _P)
-_BOUNCE_ARGTYPES = (_P, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P,
+_BOUNCE_ARGTYPES = (_P, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I,
+                    _P, _P,
                     ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, _I, _I,
                     _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P)
 # scenes whose sorted tables prepare() keeps
@@ -154,17 +160,26 @@ def check_accel_supported(scene: Scene, params: TraceParams,
         raise NotImplementedError(
             f"the cluster kernels trace at most {max_bands} band(s) (scene "
             f"has K={scene.n_bands}); wider bands are still to port "
-            "(ROADMAP queue 2). backend='plain' traces them.")
+            "(ROADMAP queue 2 A2). backend='plain' traces them.")
     bk.check_single_source(params)
-    if params.directivity is not None or params.mic_directivity is not None:
-        raise NotImplementedError(
-            "directive sources/microphones are still to port to the "
-            "cluster kernels (ROADMAP queue 1, item 8)")
+    check_patterns(params)
     if params.listeners.shape[0] > bk.MAX_LISTENERS:
         raise NotImplementedError(
             f"{params.listeners.shape[0]} listeners exceed the kernels' "
             f"{bk.MAX_LISTENERS}-listener table; blocked listener launches "
-            "are still to port")
+            "are still to port (ROADMAP queue 2 A3)")
+
+
+def _patterns(params: TraceParams):
+    """The kernel arguments of the patterns: (source ptr, C_s, microphone
+    ptr, C_m) and the tables that keep them alive; nulls for omni."""
+    src, mic = bk.pattern_tables(params.directivity, params.mic_directivity,
+                                 1, params.listeners.shape[0],
+                                 params.listeners.device)
+    if src is None:
+        return (None, 0, None, 0), ()
+    return (src.data_ptr(), src.shape[-1], mic.data_ptr(),
+            mic.shape[-1]), (src, mic)
 
 
 def _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms):
@@ -302,10 +317,12 @@ def trace_frames_ir_accel(scene: Scene, params: TraceParams, seed: int,
     acc = torch.empty((n_l, ir_length, n_k), dtype=torch.int64, device=dev)
     out = torch.empty((n_l, ir_length, n_k), dtype=torch.float32, device=dev)
     key = rng.seed_key(seed)
+    pats, _keep = _patterns(params)
     err = _fn("art_accel_frames", _FRAMES_ARGTYPES)(
         prep.walls.data_ptr(), prep.geo.data_ptr(), prep.walls.shape[1], n_k,
         prep.aabb.data_ptr(), prep.saabb.data_ptr(), prep.n_clusters,
-        prep.group, prep.cluster_size, lis.data_ptr(), n_l, scal.data_ptr(),
+        prep.group, prep.cluster_size, lis.data_ptr(), n_l, *pats,
+        scal.data_ptr(),
         float(sample_rate), key[0], key[1], n_rays, max_bounces, n_frames,
         ir_length, scale.data_ptr(), acc.data_ptr(), out.data_ptr(),
         int(early_out),
@@ -360,6 +377,7 @@ def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
     keys = torch.empty(n, dtype=torch.int64, device=dev)
     acc = torch.zeros((n_l, ir_length), dtype=torch.int64, device=dev)
     key = rng.seed_key(seed)
+    pats, _keep = _patterns(params)
     fn = _fn("art_accel_bounce", _BOUNCE_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     perm = None
@@ -368,9 +386,10 @@ def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
         err = fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
                  prep.walls.shape[1], prep.aabb.data_ptr(),
                  prep.saabb.data_ptr(), prep.n_clusters, prep.group,
-                 prep.cluster_size, lis.data_ptr(), n_l, scal.data_ptr(),
-                 prep.bounds.data_ptr(), float(sample_rate), key[0], key[1],
-                 n_rays, n, max_bounces, b, ir_length, scale.data_ptr(),
+                 prep.cluster_size, lis.data_ptr(), n_l, *pats,
+                 scal.data_ptr(), prep.bounds.data_ptr(), float(sample_rate),
+                 key[0], key[1], n_rays, n, max_bounces, b, ir_length,
+                 scale.data_ptr(),
                  perm.data_ptr() if perm is not None else None,
                  state[src].data_ptr(), istate[src].data_ptr(),
                  state[dst].data_ptr(), istate[dst].data_ptr(),

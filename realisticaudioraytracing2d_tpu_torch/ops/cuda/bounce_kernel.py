@@ -28,6 +28,14 @@ one launch per bounce with the ray state in device memory between them:
 :func:`trace_accumulate_fused` is the JAX function's ``exact_scatter``
 route: a K5 pass per listener and a float scatter of its rows.
 
+Every entry point takes directive sources and microphones
+(``TraceParams.directivity`` / ``mic_directivity``; K9 per-entry tables):
+the kernels' directive instantiation weights emission and every hit by
+the patterns, evaluated by ``ops/directivity.py::fourier_gain``'s
+recurrence, and an omni-coded pattern ``[1.]`` gives the omni bits. When
+only one of the two patterns is given, the other goes to the kernel as
+``[1.]``.
+
 K3 and K4 return the frame-SUMMED IR ``[L, T, 1]`` float32, K9
 ``[E, L, T, 1]``. On a CUDA scene they launch the kernel or raise; on a
 CPU scene they run their plain version, :func:`trace_frames_ir_plain`
@@ -50,9 +58,10 @@ import torch
 from ...models.scene import Scene
 from .. import rng
 from ..ir import IRState, add_rows, scatter_hits
+from ..directivity import max_gain
 from ..trace import (Hits, TraceParams, _bounce, _check_supported as
-                     _check_trace_supported, _emit, check_single_source,
-                     trace_hits_only)
+                     _check_trace_supported, _emit, check_patterns,
+                     check_single_source, trace_hits_only)
 from . import build
 
 MAX_LISTENERS = 16
@@ -62,7 +71,11 @@ MAX_WALLS = (232448 - 2 * MAX_LISTENERS * 4) // (11 * 4)
 # batch entries ride the grid's z axis
 MAX_ENTRIES = 65535
 
+# the shared memory a block can use, in floats
+SMEM_FLOATS = 232448 // 4
+
 _ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
              ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
@@ -79,26 +92,32 @@ def _kernel_fn():
 
 
 def _check_supported(n_bands: int, n_walls: int, n_listeners: int,
-                     directive: bool, batch: bool = False) -> None:
+                     pattern_floats: int = 0, batch: bool = False) -> None:
+    """``pattern_floats``: the floats of one entry's directive patterns
+    (``C_s + L * C_m``, 0 for omni), which share the block's shared
+    memory with the wall table."""
     if n_bands != 1:
         raise NotImplementedError(
             f"the CUDA bounce kernel traces K=1 only (scene has K="
             f"{n_bands}); K3/K4/K9 with bands are still to port (ROADMAP "
-            "queue 2). backend='accel' traces up to 8 bands through the "
+            "queue 2 A2). backend='accel' traces up to 8 bands through the "
             "cluster kernel K7, backend='plain' any.")
-    if directive:
+    if n_walls <= MAX_WALLS and pattern_floats and (
+            11 * n_walls + 2 * n_listeners + pattern_floats > SMEM_FLOATS):
         raise NotImplementedError(
-            "directive sources/microphones are still to port to the CUDA "
-            "bounce kernel (ROADMAP queue 1, item 8)")
+            f"{n_walls} walls and {pattern_floats} pattern coefficients "
+            "exceed a block's shared memory; trace fewer harmonics, or the "
+            "scene with backend='accel' (the cluster kernels)")
     if n_listeners > MAX_LISTENERS:
         raise NotImplementedError(
             f"{n_listeners} listeners exceed the kernel's {MAX_LISTENERS}-"
-            "listener table; blocked listener launches are still to port")
+            "listener table; blocked listener launches are still to port "
+            "(ROADMAP queue 2 A3)")
     if n_walls > MAX_WALLS and batch:
         raise NotImplementedError(
             f"{n_walls} walls exceed the bounce kernel's shared-memory "
             f"limit of {MAX_WALLS}; sweeps and mixdowns of such scenes are "
-            "still to port (ROADMAP queue 2), the cluster kernels K7/K8 "
+            "still to port (ROADMAP queue 2 A4), the cluster kernels K7/K8 "
             "trace one such scene")
     if n_walls > MAX_WALLS:
         raise ValueError(
@@ -108,25 +127,79 @@ def _check_supported(n_bands: int, n_walls: int, n_listeners: int,
             "engine.trace_accumulate routes them there")
 
 
+def _pattern_floats(src, mic) -> int:
+    return 0 if src is None else src.shape[-1] + mic[0].numel()
+
+
 def check_kernel_supported(scene: Scene, params: TraceParams) -> None:
     """Raise for a configuration the kernel does not take
     (``NotImplementedError`` for what is still to port, ``ValueError`` for
     a scene past :data:`MAX_WALLS`, which ``engine.trace_accumulate``
-    sends to the cluster kernels). Such configurations are never rerouted
-    to the plain path."""
+    sends to the cluster kernels, or for patterns of the wrong shape).
+    Such configurations are never rerouted to the plain path."""
     check_single_source(params)
-    _check_supported(scene.n_bands, scene.n_walls,
-                     params.listeners.shape[0],
-                     params.directivity is not None
-                     or params.mic_directivity is not None)
+    check_patterns(params)
+    n_l = params.listeners.shape[0]
+    src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
+                              n_l, scene.device)
+    _check_supported(scene.n_bands, scene.n_walls, n_l,
+                     _pattern_floats(src, mic))
 
 
-def check_batch_supported(scenes: Scene, listeners: torch.Tensor) -> None:
+def check_batch_supported(scenes: Scene, listeners: torch.Tensor,
+                          src: Optional[torch.Tensor] = None,
+                          mic: Optional[torch.Tensor] = None) -> None:
     """:func:`check_kernel_supported` for a batch (K9): stacked scenes
-    ``[E or 1, W, ...]`` and listeners ``[E, L, 2]``. The batch path
-    takes no directivity argument, so omni is the only case."""
+    ``[E or 1, W, ...]``, listeners ``[E, L, 2]`` and the per-entry
+    pattern tables of :func:`pattern_tables`."""
     _check_supported(scenes.n_bands, scenes.n_walls, listeners.shape[-2],
-                     False, batch=True)
+                     _pattern_floats(src, mic), batch=True)
+
+
+def pattern_tables(directivity, mic_directivity, n_entries: int,
+                   n_listeners: int, device):
+    """The kernels' per-entry pattern tables, source ``[E, C_s]`` and
+    microphones ``[E, L, C_m]`` (float32, contiguous), broadcast from
+    ``directivity`` ``[C]`` or ``[E, C]`` and ``mic_directivity`` ``[C]``,
+    ``[L, C]`` or ``[E, L, C]`` as the JAX ``trace_rooms_ir_mega`` does;
+    a missing one is omni-coded (``[1.]``, the gain 1 exactly).
+    ``(None, None)`` when neither is given: the omni kernels."""
+    if directivity is None and mic_directivity is None:
+        return None, None
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    one = torch.ones(1, dtype=torch.float32, device=device)
+    src = one if directivity is None else f32(directivity)
+    mic = one if mic_directivity is None else f32(mic_directivity)
+    for name, c, lead in (("directivity", src, ((), (1,), (n_entries,))),
+                          ("mic_directivity", mic,
+                           ((), (n_listeners,), (n_entries, n_listeners)))):
+        if c.dim() == 0 or tuple(c.shape[:-1]) not in lead \
+                or c.shape[-1] % 2 != 1:
+            raise ValueError(
+                f"{name} must be [C]" + "".join(
+                    f" or [{', '.join(map(str, d))}, C]" for d in lead[1:])
+                + f" with an odd C; got {tuple(c.shape)}")
+    src = torch.broadcast_to(src.reshape(-1, src.shape[-1]) if src.dim() == 2
+                             else src[None], (n_entries, src.shape[-1]))
+    if mic.dim() == 1:
+        mic = mic[None, None]
+    elif mic.dim() == 2:
+        mic = mic[None]
+    mic = torch.broadcast_to(mic, (n_entries, n_listeners, mic.shape[-1]))
+    return src.contiguous(), mic.contiguous()
+
+
+def pattern_gain_bound(src: Optional[torch.Tensor],
+                       mic: Optional[torch.Tensor]):
+    """Each entry's bound of the source gain times the loudest
+    microphone gain (``[E]`` float64; 1.0 for omni), which the fixed-point
+    scale allows for."""
+    if src is None:
+        return 1.0
+    return max_gain(src) * max_gain(mic).amax(-1)
 
 
 def _check_tensor(name, x, device, shape=None, dtype=torch.float32):
@@ -156,7 +229,7 @@ def pack_walls(scene: Scene) -> torch.Tensor:
 
 def fixed_point_scales(sources: torch.Tensor, listeners: torch.Tensor,
                        gains: torch.Tensor, n_frames: int, n_rays: int,
-                       max_bounces: int) -> torch.Tensor:
+                       max_bounces: int, pattern_gain=1.0) -> torch.Tensor:
     """Each batch entry's fixed-point scale ``S_e`` (float64 ``[E]`` on the
     inputs' device; computed there, so no host sync) for sources
     ``[E, 2]``, listeners ``[E, L, 2]`` and gains ``[E]``.
@@ -169,10 +242,15 @@ def fixed_point_scales(sources: torch.Tensor, listeners: torch.Tensor,
     two that keeps that worst-case sum below 2^62, so no u64 bin
     overflows and ``S_e`` itself is exact. Each entry gets its own: a
     room whose listener sits near its source has a large NEE bound and a
-    small ``S_e`` without coarsening the others."""
+    small ``S_e`` without coarsening the others. A directive entry's
+    hits are weighted by at most ``pattern_gain`` (``[E]`` or a number,
+    :func:`pattern_gain_bound`); omni and omni-coded patterns give 1 and
+    the omni scale."""
     d2 = ((listeners.double() - sources.double()[:, None]) ** 2
           ).sum(-1).amin(-1).clamp(min=1e-12)
     e_max = gains.double() * torch.clamp(0.5 / d2, min=1.0)
+    if not isinstance(pattern_gain, float):
+        e_max = e_max * pattern_gain
     # clamped at 1 so a zero gain still gives a finite S (at most 2^62)
     bound = (float(n_frames * n_rays * 2 * max_bounces) * e_max).clamp(min=1.0)
     return torch.exp2(torch.floor(62.0 - torch.log2(bound)))
@@ -182,22 +260,35 @@ def fixed_point_scale(params: TraceParams, n_frames: int, n_rays: int,
                       max_bounces: int) -> torch.Tensor:
     """The single-scene kernel's (K3, K4) scale ``S``: a 0-d float64
     tensor, :func:`fixed_point_scales` of the one entry of ``params``."""
+    src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
+                              params.listeners.shape[0],
+                              params.listeners.device)
     return fixed_point_scales(params.source[None], params.listeners[None],
                               params.input_gain.reshape(1), n_frames, n_rays,
-                              max_bounces)[0]
+                              max_bounces, pattern_gain_bound(src, mic))[0]
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
 
 
 def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
             entry_offset, n_frames, n_rays, max_bounces, sample_rate,
-            ir_length, scales, work_counts):
+            ir_length, scales, work_counts, src=None, mic=None):
     """One launch over ``E = listeners.shape[0]`` entries: walls
     ``[E or 1, 11, W]``, listeners ``[E, L, 2]``, scal ``[E, 5]``, scales
-    ``[E]`` float64, all on one CUDA device. Returns ``[E, L, T, 1]``."""
+    ``[E]`` float64, and for a directive launch the pattern tables ``src``
+    ``[E, C_s]`` and ``mic`` ``[E, L, C_m]``, all on one CUDA device.
+    Returns ``[E, L, T, 1]``."""
     dev = walls.device
     n_e, n_l = listeners.shape[:2]
     for name, x in (("walls", walls), ("listeners", listeners),
                     ("scalars", scal)):
         _check_tensor(name, x, dev)
+    if src is not None:
+        _check_tensor("source patterns", src, dev, (n_e, src.shape[-1]))
+        _check_tensor("microphone patterns", mic, dev,
+                      (n_e, n_l, mic.shape[-1]))
     _check_tensor("scales", scales, dev, (n_e,), torch.float64)
     if work_counts is not None:
         _check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
@@ -208,7 +299,10 @@ def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
     err = _kernel_fn()(
         int(host_uniforms), walls.data_ptr(),
         0 if walls.shape[0] == 1 else 11 * n_walls, n_walls,
-        listeners.data_ptr(), n_l, scal.data_ptr(), float(sample_rate),
+        listeners.data_ptr(), n_l, _ptr(src),
+        0 if src is None else src.shape[-1], _ptr(mic),
+        0 if mic is None else mic.shape[-1], scal.data_ptr(),
+        float(sample_rate),
         emit.data_ptr() if emit is not None else None,
         u.data_ptr() if u is not None else None, key[0], key[1],
         int(entry_offset) & 0xFFFFFFFF, n_e, n_rays, max_bounces, n_frames,
@@ -234,10 +328,12 @@ def _launch_scene(host_uniforms, scene, params, emit, u, key, n_frames,
     check_kernel_supported(scene, params)
     scal = pack_scalars(params)
     scales = fixed_point_scale(params, n_frames, n_rays, max_bounces)
+    src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
+                              params.listeners.shape[0], scene.device)
     return _launch(host_uniforms, pack_walls(scene)[None],
                    params.listeners.contiguous()[None], scal[None], emit, u,
                    key, 0, n_frames, n_rays, max_bounces, sample_rate,
-                   ir_length, scales[None], work_counts)[0]
+                   ir_length, scales[None], work_counts, src, mic)[0]
 
 
 def trace_frames_ir_plain(scene: Scene, params: TraceParams,
@@ -350,12 +446,15 @@ def trace_rooms_ir_mega_plain(scenes: Scene, sources, listeners, seed: int,
                               ir_length: int, listener_radius=0.5,
                               speed_of_sound=343.0, input_gain=1.0,
                               entry_offset: int = 0,
-                              uniforms=None) -> torch.Tensor:
+                              uniforms=None, directivity=None,
+                              mic_directivity=None) -> torch.Tensor:
     """Plain version of K9: :func:`trace_frames_ir_plain` for each entry
     ``e`` on the Philox numbers the kernel draws for it
     (``philox_uniforms(seed, ..., entry=entry_offset + e)``), or on host
     uniforms ``uniforms = (emit[E, F, R], u[E, F, B, R, 3])`` (the JAX
-    parity tests pass JAX's). Returns the frame-summed ``[E, L, T, K]``."""
+    parity tests pass JAX's), with entry ``e``'s patterns (see
+    :func:`trace_rooms_ir_mega`). Returns the frame-summed
+    ``[E, L, T, K]``."""
     src, lis, radius, c, gain = _batch_inputs(
         scenes, sources, listeners, listener_radius, speed_of_sound,
         input_gain)
@@ -369,11 +468,15 @@ def trace_rooms_ir_mega_plain(scenes: Scene, sources, listeners, seed: int,
                              f"u{list(want[1])}; got {tuple(emit.shape)} and "
                              f"{tuple(u.shape)}")
     shared = scenes.a.shape[0] == 1
+    d_tab, m_tab = pattern_tables(directivity, mic_directivity, n_e,
+                                  lis.shape[1], scenes.device)
     irs = []
     for e in range(n_e):
-        params = TraceParams(source=src[e], listeners=lis[e],
-                             listener_radius=radius[e],
-                             speed_of_sound=c[e], input_gain=gain[e])
+        params = TraceParams(
+            source=src[e], listeners=lis[e], listener_radius=radius[e],
+            speed_of_sound=c[e], input_gain=gain[e],
+            directivity=None if directivity is None else d_tab[e],
+            mic_directivity=None if mic_directivity is None else m_tab[e])
         if uniforms is None:
             emit_e, u_e = rng.philox_uniforms(
                 seed, n_frames, max_bounces, n_rays, scenes.device,
@@ -391,7 +494,8 @@ def trace_rooms_ir_mega(scenes: Scene, sources, listeners, seed: int,
                         sample_rate: int, ir_length: int,
                         listener_radius=0.5, speed_of_sound=343.0,
                         input_gain=1.0, entry_offset: int = 0,
-                        uniforms=None,
+                        uniforms=None, directivity=None,
+                        mic_directivity=None,
                         work_counts: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """K9: ``E`` batch entries x ``n_frames`` frames in ONE launch, uniforms
@@ -404,14 +508,19 @@ def trace_rooms_ir_mega(scenes: Scene, sources, listeners, seed: int,
     ``listeners`` ``[E, 2]`` or ``[E, L, 2]``; ``listener_radius``,
     ``speed_of_sound`` and ``input_gain`` a scalar or ``[E]``. Entry ``e``
     draws Philox counter word 3 = ``entry_offset + e``, its global id, so
-    a batch cut into pieces draws the same rays as the whole. CPU scenes
-    run :func:`trace_rooms_ir_mega_plain`, which alone takes host
+    a batch cut into pieces draws the same rays as the whole.
+    ``directivity`` (``[C]`` shared or ``[E, C]`` per entry: each source
+    of a mixdown can carry its own aim) and ``mic_directivity`` (``[C]``,
+    ``[L, C]`` or ``[E, L, C]``) go to the kernel as per-entry tables; a
+    block reads its own entry's rows. CPU scenes run
+    :func:`trace_rooms_ir_mega_plain`, which alone takes host
     ``uniforms``; the kernel draws its own numbers and refuses them."""
     kw = dict(n_rays=n_rays, max_bounces=max_bounces,
               sample_rate=sample_rate, ir_length=ir_length,
               listener_radius=listener_radius,
               speed_of_sound=speed_of_sound, input_gain=input_gain,
-              entry_offset=entry_offset)
+              entry_offset=entry_offset, directivity=directivity,
+              mic_directivity=mic_directivity)
     if scenes.device.type != "cuda":
         return trace_rooms_ir_mega_plain(scenes, sources, listeners, seed,
                                          n_frames, uniforms=uniforms, **kw)
@@ -421,17 +530,20 @@ def trace_rooms_ir_mega(scenes: Scene, sources, listeners, seed: int,
     src, lis, radius, c, gain = _batch_inputs(
         scenes, sources, listeners, listener_radius, speed_of_sound,
         input_gain)
-    check_batch_supported(scenes, lis)
+    d_tab, m_tab = pattern_tables(directivity, mic_directivity,
+                                  src.shape[0], lis.shape[1], scenes.device)
+    check_batch_supported(scenes, lis, d_tab, m_tab)
     if src.shape[0] > MAX_ENTRIES:
         raise ValueError(f"{src.shape[0]} entries exceed the grid's "
                          f"{MAX_ENTRIES}; split the batch (entry_offset "
                          "keeps the streams)")
     scal = torch.stack([src[:, 0], src[:, 1], radius, c, gain], dim=-1)
-    scales = fixed_point_scales(src, lis, gain, n_frames, n_rays, max_bounces)
+    scales = fixed_point_scales(src, lis, gain, n_frames, n_rays, max_bounces,
+                                pattern_gain_bound(d_tab, m_tab))
     out = _launch(False, pack_walls(scenes), lis.contiguous(),
                   scal.contiguous(), None, None, rng.seed_key(seed),
                   entry_offset, n_frames, n_rays, max_bounces, sample_rate,
-                  ir_length, scales, work_counts)
+                  ir_length, scales, work_counts, d_tab, m_tab)
     trace_rooms_ir_mega.launches += 1
     return out
 
@@ -444,6 +556,8 @@ HIT_ROWS = 8
 
 _STEP_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_void_p,
                   ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -489,6 +603,10 @@ def _run_steps(scene, params, emit, u, key, n_rays, max_bounces, *,
     scal = pack_scalars(params)
     for name, x in (("walls", walls), ("listeners", lis), ("scalars", scal)):
         _check_tensor(name, x, dev)
+    src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
+                              lis.shape[0], dev)
+    n_src = 0 if src is None else src.shape[-1]
+    n_mic = 0 if mic is None else mic.shape[-1]
     if work_counts is not None:
         _check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
     state = torch.empty((8, n_rays), dtype=torch.float32, device=dev)
@@ -498,7 +616,8 @@ def _run_steps(scene, params, emit, u, key, n_rays, max_bounces, *,
     for b in range(max_bounces):
         err = step(
             int(host), walls.data_ptr(), walls.shape[-1], lis.data_ptr(),
-            lis.shape[0], scal.data_ptr(), float(sample_rate),
+            lis.shape[0], _ptr(src), n_src, _ptr(mic), n_mic,
+            scal.data_ptr(), float(sample_rate),
             emit.data_ptr() if host else None,
             u[b].data_ptr() if host else None, key[0], key[1], 0, n_rays,
             max_bounces, b, ir_length,
@@ -707,8 +826,12 @@ def trace_accumulate_fused(scene: Scene, params: TraceParams, state: IRState,
     for f in range(emit.shape[0]):
         if exact_scatter:
             irs = []
+            mic = params.mic_directivity
             for l0 in range(params.listeners.shape[0]):
-                p1 = params._replace(listeners=params.listeners[l0:l0 + 1])
+                p1 = params._replace(
+                    listeners=params.listeners[l0:l0 + 1],
+                    mic_directivity=(mic[l0:l0 + 1] if mic is not None
+                                     and mic.dim() == 2 else mic))
                 irs.append(scatter_hits_rows(
                     trace_fused_rows(scene, p1, emit[f], u[f]), sample_rate,
                     ir_length))

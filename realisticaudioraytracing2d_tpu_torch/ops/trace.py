@@ -30,6 +30,7 @@ import torch
 from ..device import resolve
 from ..models.scene import Scene
 from .cuda import trace_kernel as tk
+from .directivity import fourier_gain
 from .geometry import (EPS, INF, PI, dot2, nearest_hit, normalize,
                        pairwise_ray_segment_t, ray_circle_intersect, reflect,
                        refract, rotate)
@@ -42,8 +43,12 @@ OCCLUSION_SLACK = 0.1      # checkVis tolerance, Raytrace2D.compute:44
 
 class TraceParams(NamedTuple):
     """Trace inputs that are not shapes. Every tensor lies on one device.
-    ``directivity`` / ``mic_directivity`` exist for field parity with the
-    JAX package; the port does not trace them yet."""
+    ``directivity``: the source's Fourier power-gain coefficients ``[C]``
+    (``ops/directivity.py``; ``[S, C]`` per source in a mixdown), weighted
+    at emission; ``mic_directivity``: ``[C]`` shared or ``[L, C]`` per
+    listener, weighted at direct capture and NEE by the direction the
+    sound arrives from. None is the reference's omni emission and
+    pickup."""
 
     source: torch.Tensor           # [2] source position ([S, 2]: mixdown)
     listeners: torch.Tensor        # [L, 2] listener centers
@@ -123,19 +128,34 @@ def check_single_source(params: TraceParams) -> None:
             "parallel.multisource.trace_sources_mixdown")
 
 
+def check_patterns(params: TraceParams) -> None:
+    """Raise ``ValueError`` unless the patterns of a single-source
+    ``params`` have their shapes: ``directivity`` ``[C]``,
+    ``mic_directivity`` ``[C]`` or ``[L, C]``, each with an odd C."""
+    n_l = params.listeners.shape[0]
+    for name, c, dims in (("directivity", params.directivity, ((),)),
+                          ("mic_directivity", params.mic_directivity,
+                           ((), (n_l,)))):
+        if c is None:
+            continue
+        if tuple(c.shape[:-1]) not in dims or c.dim() == 0 \
+                or c.shape[-1] % 2 != 1:
+            raise ValueError(
+                f"{name} must be [2M+1]" + (" or [L, 2M+1]" if len(dims) > 1
+                                           else "")
+                + f" (L = {n_l}); got {tuple(c.shape)}")
+
+
 def _check_supported(params: TraceParams,
                      transmission_surrogate: bool = False) -> None:
-    """Raise for trace features the port has not reached yet, and for a
-    batch of sources."""
+    """Raise for trace features the port has not reached yet, for a
+    batch of sources and for patterns of the wrong shape."""
     check_single_source(params)
-    if params.directivity is not None or params.mic_directivity is not None:
-        raise NotImplementedError(
-            "source/microphone directivity is not ported yet "
-            "(ROADMAP queue 1, item 8: ops/directivity.py)")
+    check_patterns(params)
     if transmission_surrogate:
         raise NotImplementedError(
             "transmission_surrogate belongs to the differentiable path, "
-            "not ported yet (ROADMAP queue 1, item 14: diff.py)")
+            "not ported yet (ROADMAP queue 1, item 9: diff.py)")
 
 
 def emission_angle(n_rays: int, emit_jitter: torch.Tensor) -> torch.Tensor:
@@ -153,14 +173,19 @@ def emission_angle(n_rays: int, emit_jitter: torch.Tensor) -> torch.Tensor:
 
 def _emit(params: TraceParams, n_rays: int, n_bands: int,
           emit_jitter: torch.Tensor) -> _RayState:
-    """Stratified-jittered angular emission (:func:`emission_angle`)."""
+    """Stratified-jittered angular emission (:func:`emission_angle`),
+    each ray's energy weighted by the source pattern at its direction."""
     dev = emit_jitter.device
     angle = emission_angle(n_rays, emit_jitter)
     direction = torch.stack([torch.cos(angle), torch.sin(angle)], dim=-1)
+    gain = params.input_gain.expand(n_rays)
+    if params.directivity is not None:
+        gain = gain * fourier_gain(direction[:, 0], direction[:, 1],
+                                   params.directivity)
     return _RayState(
         pos=params.source.expand(n_rays, 2).clone(),
         dir=direction,
-        energy=params.input_gain.expand(n_rays, n_bands).clone(),
+        energy=gain[:, None].expand(n_rays, n_bands).clone(),
         time=torch.zeros(n_rays, dtype=torch.float32, device=dev),
         dist=torch.zeros(n_rays, dtype=torch.float32, device=dev),
         speed=params.speed_of_sound.expand(n_rays).clone(),
@@ -199,6 +224,11 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
     total_d = st.dist[:, None] + t_lis
     direct_energy = st.energy[:, None, :] / \
         torch.clamp(total_d * total_d, min=1.0)[..., None]  # [R, L, K]
+    mic = params.mic_directivity
+    if mic is not None:
+        # the sound arrives from -(ray direction)
+        direct_energy = direct_energy * fourier_gain(
+            -st.dir[:, 0:1], -st.dir[:, 1:2], mic)[..., None]
     direct_delay = st.time[:, None] + t_lis / st.speed[:, None]
 
     # --- advance to the wall (compute:92-94) --------------------------------
@@ -234,14 +264,19 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
 
     eff_sign = torch.where(dot2(st.dir, w_n) > 0.0, -1.0, 1.0)  # [R]
     eff_n = w_n * eff_sign[:, None]
-    cos_t = torch.clamp(dot2(eff_n[:, None, :],
-                             to_lis / dist_lis[..., None]), min=0.0)
+    unit = to_lis / dist_lis[..., None]                       # [R, L, 2]
+    cos_t = torch.clamp(dot2(eff_n[:, None, :], unit), min=0.0)
     total_d_nee = dist[:, None] + dist_lis
     geom = cos_t * 0.5 / (total_d_nee * total_d_nee)          # [R, L]
     nee_energy = st.energy[:, None, :] * (1.0 - w_abs)[:, None, :] \
         * geom[..., None]                                     # [R, L, K]
     nee_valid = hit_wall[:, None] & (st.depth == 0)[:, None] & visible \
         & (nee_energy.amax(dim=-1) > NEE_CONTRIB_CUTOFF)
+    if mic is not None:
+        # after the cutoff, which tests the path and not the pickup; the
+        # sound arrives from the bounce point, -unit
+        nee_energy = nee_energy * fourier_gain(
+            -unit[..., 0], -unit[..., 1], mic)[..., None]
     # Listener leg uses the *rest-frame* speed of sound, matching the
     # reference (compute:114 divides by speedOfSound, not curSpeed).
     nee_delay = time[:, None] + dist_lis / c

@@ -6,7 +6,7 @@ become the S entries of one launch of the rooms-batched kernel K9, which
 reads the one wall table with stride 0, and the IRs are mixed down by a
 sum over sources at the listeners (exact, since an IR is linear in hit
 energy). The mesh-sharded ``trace_sources_mixdown_sharded`` is not ported
-yet (ROADMAP queue 1, item 13).
+yet (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -35,11 +35,13 @@ def trace_sources_mixdown(scene: Scene, params: TraceParams, seed: int, *,
     scene; ``"plain"`` runs the plain version on either. ``uniforms =
     (emit[S, 1, R], u[S, 1, B, R, 3])`` replace the draws on the plain path
     (the parity tests pass JAX's). The sum over sources runs on the
-    device in one fixed order, so one seed gives a bit-identical mixdown."""
-    if params.directivity is not None or params.mic_directivity is not None:
-        raise NotImplementedError(
-            "directive sources/microphones are still to port (ROADMAP "
-            "queue 1, item 8)")
+    device in one fixed order, so one seed gives a bit-identical mixdown.
+
+    ``params.directivity`` may be ``[C]`` (every source shares the
+    pattern) or ``[S, C]`` (per-source aims, e.g. a steered speaker
+    array); ``params.mic_directivity`` (``[C]`` or ``[L, C]``) applies to
+    every source. Both run in the kernel, each source's block reading its
+    own rows."""
     sources = params.source.reshape(-1, 2)
     n_src = sources.shape[0]
     shared = Scene(*(x[None] for x in scene))        # leading dim 1
@@ -50,5 +52,7 @@ def trace_sources_mixdown(scene: Scene, params: TraceParams, seed: int, *,
                       ir_length=ir_length,
                       listener_radius=params.listener_radius,
                       speed_of_sound=params.speed_of_sound,
-                      input_gain=params.input_gain)
+                      input_gain=params.input_gain,
+                      directivity=params.directivity,
+                      mic_directivity=params.mic_directivity)
     return irs.sum(dim=0)                            # [L, T, K]

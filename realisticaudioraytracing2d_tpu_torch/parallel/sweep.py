@@ -5,7 +5,7 @@ a batch of procedurally generated rooms (a stacked :class:`Scene`) is
 traced in ONE launch of the rooms-batched kernel K9 on the card, or
 through its plain version on the CPU, into the ``[n_rooms, L, T, K]`` IR
 dataset. The mesh-sharded ``sweep_rooms_sharded`` is not ported yet
-(ROADMAP queue 1, item 13): the target is one card.
+(ROADMAP queue 1, item 10): the target is one card.
 
 Room ``i`` draws the Philox stream of entry ``room_offset + i``, its
 global id, so a sweep of rows 4-7 with ``room_offset=4`` equals rows 4-7
@@ -48,8 +48,8 @@ def sweep_rooms(scenes: Scene, sources, listeners, seed: int, *,
                 input_gain: float = 1.0, backend: str = "auto",
                 room_offset: int = 0,
                 uniforms: Optional[Tuple[torch.Tensor,
-                                         torch.Tensor]] = None
-                ) -> torch.Tensor:
+                                         torch.Tensor]] = None,
+                directivity=None, mic_directivity=None) -> torch.Tensor:
     """Sweep a room batch: returns frame-normalized IRs ``[n_rooms, L, T,
     K]``. ``scenes`` is stacked (leading room axis), ``sources``
     ``[n_rooms, 2]``, ``listeners`` ``[n_rooms, 2]`` or ``[n_rooms, L, 2]``.
@@ -59,13 +59,17 @@ def sweep_rooms(scenes: Scene, sources, listeners, seed: int, *,
     (the JAX package's ``backend="jnp"``). ``uniforms = (emit[R, F, n],
     u[R, F, B, n, 3])`` replace the Philox draws on the plain path (the
     parity tests pass JAX's); the kernel draws its own numbers, so a CUDA
-    scene with ``backend="auto"`` refuses them."""
+    scene with ``backend="auto"`` refuses them. ``directivity`` (``[C]``
+    shared or ``[n_rooms, C]`` per room) and ``mic_directivity`` (``[C]``,
+    ``[L, C]`` or ``[n_rooms, L, C]``) weight emission and pickup in the
+    kernel, as on the single-scene paths."""
     irs = trace_batch(scenes, sources, listeners, seed, n_frames,
                       backend=backend, uniforms=uniforms, n_rays=n_rays,
                       max_bounces=max_bounces, sample_rate=sample_rate,
                       ir_length=ir_length, listener_radius=listener_radius,
                       speed_of_sound=speed_of_sound, input_gain=input_gain,
-                      entry_offset=room_offset)
+                      entry_offset=room_offset, directivity=directivity,
+                      mic_directivity=mic_directivity)
     # in place, and by a tensor: torch on CUDA divides by a host scalar as
     # a multiply by its reciprocal (ROADMAP section 3)
     return irs.div_(irs.new_tensor(float(n_frames)))

@@ -14,10 +14,14 @@ overlap-add ring, ``Assets/Script/AudioManager.cs:45-69``). Per chunk,
 3. overlap-adds the wet chunk with its reverb tail into the ring and
    drains exactly one chunk (add-then-zero).
 
-Where the JAX step donates its state buffers, this one updates the
-preallocated :class:`StreamState` in place. Binaural, per-arrival Doppler,
-shared-rate Doppler, diffraction and air absorption raise
-``NotImplementedError`` (ROADMAP queue 1, items 8-10).
+The fresh chunk IR takes the JAX step's physics addenda before the
+crossfade (:func:`_augment_ir`): edge diffraction (``ops/diffraction.py``,
+its visibility sweeps through the kernel K2 on the card) and ISO 9613-1
+air absorption (``ops/air.py``). Directive sources and microphones ride
+in ``params``. Where the JAX step donates its state buffers, this one
+updates the preallocated :class:`StreamState` in place. Binaural,
+per-arrival Doppler and shared-rate Doppler raise ``NotImplementedError``
+(ROADMAP queue 1, items 4 and 5).
 """
 
 from __future__ import annotations
@@ -34,6 +38,31 @@ from .ops import convolve as cv
 from .ops import ir as irm
 from .ops.rng import mix_seed
 from .ops.trace import TraceParams
+
+
+def _augment_ir(cur_ir: torch.Tensor, scene: Scene, params: TraceParams,
+                sample_rate: int, diffraction, air_alpha,
+                plain: bool = False) -> torch.Tensor:
+    """The optional physics addenda on a freshly traced, normalized chunk
+    IR (the JAX package's ``streaming.py::_augment_ir``): edge diffraction
+    (``diffraction`` falsy, 1, or 2 = edge-to-edge double diffraction),
+    then ISO 9613-1 air absorption (``air_alpha``: dB/m, per band or a
+    number; None for none), which attenuates the diffracted paths too.
+    The air curve multiplies by the float32 reciprocals of the sample
+    rate and 10, as XLA computes the jitted JAX step with a static
+    sample rate. ``plain`` runs diffraction's visibility sweeps as the
+    plain version, not K2, on a CUDA scene (``backend="plain"``)."""
+    if diffraction:
+        from .ops.diffraction import diffraction_ir
+        cur_ir = cur_ir + diffraction_ir(
+            scene, params, sample_rate=sample_rate,
+            ir_length=cur_ir.shape[-2], order=int(diffraction),
+            use_kernels=False if plain else None)
+    if air_alpha is not None:
+        from .ops.air import apply_air_absorption
+        cur_ir = apply_air_absorption(cur_ir, sample_rate, air_alpha,
+                                      params.speed_of_sound, reciprocal=True)
+    return cur_ir
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -135,12 +164,15 @@ def _crossfaded_wet(chunk: torch.Tensor, ir_prev: torch.Tensor,
 def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
                  dry_chunk: torch.Tensor, *, seed: int, n_rays: int,
                  max_bounces: int, sample_rate: int,
-                 frames_per_chunk: int = 1, uniforms=None,
+                 frames_per_chunk: int = 1, diffraction=False,
+                 air_alpha=None, uniforms=None,
                  backend: str = "auto") -> Tuple[torch.Tensor, StreamState]:
-    """One streaming step: retrace -> crossfaded convolution -> overlap-add
-    -> drain. Returns ``(out_chunk[L, N], state)``; ``state`` is updated in
-    place. Chunk ``i`` traces with seed ``mix_seed(seed, i)`` unless
-    ``uniforms`` (``emit[F, R]``, ``u[F, B, R, 3]``) are given."""
+    """One streaming step: retrace -> physics addenda -> crossfaded
+    convolution -> overlap-add -> drain. Returns ``(out_chunk[L, N],
+    state)``; ``state`` is updated in place. Chunk ``i`` traces with seed
+    ``mix_seed(seed, i)`` unless ``uniforms`` (``emit[F, R]``,
+    ``u[F, B, R, 3]``) are given. ``diffraction`` (falsy, 1 or 2) and
+    ``air_alpha`` (dB/m, or None) as in :func:`_augment_ir`."""
     from .engine import trace_accumulate
     n = dry_chunk.shape[-1]
     l, t, k = state.prev_ir.shape
@@ -151,7 +183,9 @@ def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
         n_rays=n_rays, max_bounces=max_bounces, sample_rate=sample_rate,
         n_frames=frames_per_chunk, seed=mix_seed(seed, state.chunk_index),
         uniforms=uniforms, backend=backend)
-    cur_ir = ir_state.normalized()                            # [L, T, K]
+    cur_ir = _augment_ir(ir_state.normalized(), scene, params, sample_rate,
+                         diffraction, air_alpha,
+                         plain=backend == "plain")            # [L, T, K]
 
     # The first chunk has no predecessor: fade in from the current IR.
     prev_ir = cur_ir if state.chunk_index == 0 else state.prev_ir
@@ -170,7 +204,9 @@ class Streamer:
     """Host-side driver of the streaming loop (the reference's
     ``StartStreaming``, ``RayTraceManager.cs:125-133``). Poses may change
     every chunk. ``seed`` names the random stream; ``uniforms_fn(i) ->
-    (emit[F, R], u[F, B, R, 3])`` replaces chunk ``i``'s draws."""
+    (emit[F, R], u[F, B, R, 3])`` replaces chunk ``i``'s draws.
+    ``diffraction`` (False, 1 or 2) and ``air_alpha`` add edge
+    diffraction and air absorption to every chunk's IR."""
 
     def __init__(self, scene: Scene, config: EngineConfig, seed: int = 0,
                  n_listeners: int = 1, frames_per_chunk: int = 1,
@@ -178,12 +214,10 @@ class Streamer:
                  diffraction: bool = False, air_alpha=None,
                  binaural: bool = False):
         if binaural:
-            raise _not_ported("binaural streaming", 9)
-        if diffraction:
-            raise _not_ported("edge diffraction", 8)
-        if air_alpha is not None:
-            raise _not_ported("air absorption", 8)
+            raise _not_ported("binaural streaming", 4)
         self.scene = scene
+        self.diffraction = diffraction
+        self.air_alpha = air_alpha
         self.config = config
         self.seed = int(seed)
         self.n_listeners = n_listeners
@@ -211,8 +245,9 @@ class Streamer:
             dry_chunk, seed=self.seed, n_rays=self.config.sim.ray_count,
             max_bounces=self.config.sim.max_bounces,
             sample_rate=self.config.audio.sample_rate,
-            frames_per_chunk=self.frames_per_chunk, uniforms=uniforms,
-            backend=self.backend)
+            frames_per_chunk=self.frames_per_chunk,
+            diffraction=self.diffraction, air_alpha=self.air_alpha,
+            uniforms=uniforms, backend=self.backend)
         return out
 
     def stream_clip(self, dry: torch.Tensor, params_fn, scene_fn=None,
@@ -233,9 +268,9 @@ class Streamer:
         chunk ``i``; a truthy ``"stop"`` silences the dry feed from chunk
         ``i``, flushes ``ir_length`` worth of chunks and ends the stream."""
         if facing_fn is not None:
-            raise _not_ported("binaural head facing", 9)
+            raise _not_ported("binaural head facing", 4)
         if doppler:
-            raise _not_ported("Doppler streaming", 10)
+            raise _not_ported("Doppler streaming", 5)
         n = self.config.audio.chunk_samples
         total = dry.shape[-1]
         if loop is None:

@@ -3,7 +3,7 @@
 WAV (PCM) read/write is stdlib-only (wave + numpy), copied from
 ``realisticaudioraytracing2d_tpu/utils/audio_io.py``. The JAX package's
 mp3 path goes through its native codec binding, which is not ported yet
-(ROADMAP queue 1, item 15).
+(ROADMAP queue 1, item 8: `native/`).
 
 Plus generators for synthetic dry clips used by tests and the chip smoke.
 """

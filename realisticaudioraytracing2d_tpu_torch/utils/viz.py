@@ -7,8 +7,9 @@ texture (``Raytrace2D.compute:174-189``), the legacy spectrogram view
 walls/normals/source/listener/ray paths (``RayTraceManager.cs:261-279``).
 All renderers are NumPy producing [H, W, 3] float images; tensors come to
 the host once (:func:`_host`); :func:`~.png.write_png` dumps them.
-``decay_curve_image`` and ``diffraction_polylines`` of the JAX module wait
-for ``analysis.py`` and ``ops/diffraction.py``.
+:func:`diffraction_polylines` gives the valid diffraction paths for
+:func:`render_scene`'s ``extra_paths``. ``decay_curve_image`` of the JAX
+module waits for ``analysis.py``.
 """
 
 from __future__ import annotations
@@ -156,6 +157,30 @@ def render_scene(scene: Scene, source=None, listener=None,
     if listener is not None:
         canvas.circle(_host(listener), listener_radius, CYAN)
     return canvas.img
+
+
+def diffraction_polylines(scene: Scene, params, band_freqs=None,
+                          order: int = 1):
+    """World-space polylines of the valid diffraction paths of listener
+    0: ``[S, E, L]`` triples (and ``[S, E1, E2, L]`` for order 2), for
+    :func:`render_scene`'s ``extra_paths``."""
+    from ..ops import diffraction as dfr
+    if band_freqs is None:
+        from ..ops.air import band_frequencies
+        band_freqs = band_frequencies(scene.n_bands)
+    pts, _ = dfr.edge_table(scene)
+    pts = _host(pts)
+    src = _host(params.source)
+    lis = _host(params.listeners).reshape(-1, 2)[0]
+    polys = []
+    _, _, valid = dfr.diffraction_paths(scene, params, band_freqs)
+    for e in np.flatnonzero(_host(valid)[0]):
+        polys.append(np.stack([src, pts[e], lis]))
+    if order >= 2:
+        _, _, valid2 = dfr.diffraction_paths2(scene, params, band_freqs)
+        for e1, e2 in zip(*np.nonzero(_host(valid2)[0])):
+            polys.append(np.stack([src, pts[e1], pts[e2], lis]))
+    return polys
 
 
 def render_trajectory(scene: Scene, true_path, est_path, listener=None,

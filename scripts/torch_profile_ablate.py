@@ -18,7 +18,19 @@ edited part cost). Variants:
   for 2 or 4 resident blocks of 256 per SM (at most 128 or 64 registers);
 * ``unroll2``, ``unroll8``: the filter loop's unroll factor (4);
 * ``accel3``, ``accel5``: the cluster kernels' ``__launch_bounds__`` asks
-  for 3 or 5 resident blocks per SM (at most 85 or 51 registers).
+  for 3 or 5 resident blocks per SM (at most 85 or 51 registers);
+* ``gain1``: the directive kernels' pattern gain (``fourier_gain``)
+  returns 1 without evaluating the series: with ``--directive``, what the
+  series itself costs beside the rest of the directive instantiation;
+* ``cse``: NEE's direction to the listener (``tx / dist_l``, ``ty /
+  dist_l``) is divided once and shared by the cosine and the microphone
+  gain, instead of being written twice;
+* ``gainunroll``: the series loop of ``fourier_gain`` is unrolled by 4
+  (its trip count is the harmonics of the pattern, known at run time).
+
+``--directive`` runs every call with a cardioid source (padded to 5
+coefficients) and a figure-eight microphone (5), so the kernels' directive
+instantiations are timed; without it, the omni ones.
 
 ``--layouts 16x32 32x16 ...`` also times K8 (``base``) under other cluster
 layouts (walls per cluster x clusters per super box) than the port's
@@ -61,7 +73,17 @@ CITY_FRAMES, CITY_GAIN = 4, 100.0
 
 FASTDIV = (r"= (.*) / safe;", r"= __fdividef(\1, safe);")
 NOATOMIC = (r"if \(q\) atomicAdd\(bin \+ k, q\);", "if (q) bin[k] = q;")
+GAIN1 = (r"return fmaxf\(g, 0\.0f\);", "return 1.0f;")
+CSE = ((r"const float cos_t = fmaxf\(enx \* \(tx / dist_l\) \+ eny \* "
+        r"\(ty / dist_l\),\s*0\.0f\);",
+        "const float ux = tx / dist_l, uy = ty / dist_l;\n"
+        "      const float cos_t = fmaxf(enx * ux + eny * uy, 0.0f);"),
+       (r"fourier_gain\(-\(tx / dist_l\), -\(ty / dist_l\),",
+        "fourier_gain(-ux, -uy,"))
+GAINUNROLL = (r"\n  for \(int n = 1; n <= m; \+\+n\) \{",
+              "\n#pragma unroll 4\n  for (int n = 1; n <= m; ++n) {")
 VARIANTS = {"base": (), "fastdiv": (FASTDIV,), "noatomic": (NOATOMIC,),
+            "gain1": (GAIN1,), "cse": CSE, "gainunroll": (GAINUNROLL,),
             "fastdiv+noatomic": (FASTDIV, NOATOMIC),
             **{f"blocks{n}": ((r"__launch_bounds__\(kThreads\)",
                                f"__launch_bounds__(kThreads, {n})"),)
@@ -123,6 +145,9 @@ def main():
                     help="variants to build beside base (default: all)")
     ap.add_argument("--layouts", nargs="*", default=(),
                     help="cluster layouts to time K8 under, as SIZExGROUP")
+    ap.add_argument("--directive", action="store_true",
+                    help="time the directive kernels (cardioid source, "
+                         "figure-eight microphone)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import torch
@@ -163,19 +188,31 @@ def main():
     city_p = art.TraceParams.make(city.source, city.listener,
                                   city.listener_radius, 343.0, CITY_GAIN,
                                   device=dev)
+    pats = {}
+    if args.directive:
+        from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
+        pats = dict(directivity=torch.as_tensor(np.pad(dv.cardioid(0.7),
+                                                       (0, 2)), device=dev),
+                    mic_directivity=torch.as_tensor(dv.figure_eight(0.3),
+                                                    device=dev))
+        smoll_p, city_p = (pp._replace(**pats) for pp in (smoll_p, city_p))
+    print(f"patterns: {'directive' if pats else 'omni'}", flush=True)
 
     def calls(counts=None):
         c = {} if counts is None else {"work_counts": counts}
         return {
             "K9 sweep": (lambda: bk.trace_rooms_ir_mega(
-                scenes, src, lis, 0, FRAMES, **kw, **c), 2,
+                scenes, src, lis, 0, FRAMES, **kw, **pats, **c), 2,
                 "frames_ir_kernel"),
             "K9 mixdown": (lambda: bk.trace_rooms_ir_mega(
                 shared, mix_p.source, mix_p.listeners.expand(N_SOURCES, -1, 2),
-                7, 1, **mix_kw, **c), 5, "frames_ir_kernel"),
+                7, 1, **mix_kw, **pats, **c), 5, "frames_ir_kernel"),
             "K4 15k x 5": (lambda: bk.trace_frames_ir_mega(
                 smoll.scene, smoll_p, 5, 1, **kw, **c), 10,
                 "frames_ir_kernel"),
+            "K4 131k x 8 x 8": (lambda: bk.trace_frames_ir_mega(
+                smoll.scene, smoll_p, 5, 8, n_rays=131072, max_bounces=8,
+                sample_rate=SR, ir_length=T, **c), 3, "frames_ir_kernel"),
             "K8 early_out": (lambda: ak.trace_frames_ir_accel_sorted(
                 city.scene, city_p, 5, CITY_FRAMES, **CITY, **c), 2,
                 "accel_bounce_kernel"),

@@ -313,9 +313,11 @@ def test_accel_support_checks():
     with pytest.raises(NotImplementedError, match="1 band"):
         ak.check_accel_supported(_city(n_bands=8)[0].scene, params,
                                  max_bands=1)
-    with pytest.raises(NotImplementedError, match="directive"):
+    ak.check_accel_supported(room.scene, params._replace(
+        directivity=torch.ones(3), mic_directivity=torch.ones(5)))
+    with pytest.raises(ValueError, match="mic_directivity"):
         ak.check_accel_supported(
-            room.scene, params._replace(directivity=torch.ones(3)))
+            room.scene, params._replace(mic_directivity=torch.ones(2, 3)))
     many = TraceParams.make(room.source, np.zeros((17, 2), np.float32),
                             device=CPU)
     with pytest.raises(NotImplementedError, match="listeners"):

@@ -116,9 +116,15 @@ def test_kernel_support_checks():
     with pytest.raises(NotImplementedError, match="K=1"):
         bk.check_kernel_supported(
             rooms.smoll_room(n_bands=4, device="cpu").scene, p)
-    with pytest.raises(NotImplementedError, match="directive"):
+    bk.check_kernel_supported(room.scene, p._replace(
+        directivity=torch.ones(3), mic_directivity=torch.ones(1, 5)))
+    with pytest.raises(ValueError, match="directivity"):
         bk.check_kernel_supported(room.scene,
-                                  p._replace(directivity=torch.ones(3)))
+                                  p._replace(directivity=torch.ones(4)))
+    # the patterns share a block's shared memory with the wall table
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        bk.check_kernel_supported(room.scene.pad_to(bk.MAX_WALLS), p._replace(
+            directivity=torch.ones(201)))
     many = TraceParams.make(room.source, np.zeros((17, 2), np.float32),
                             device="cpu")
     with pytest.raises(NotImplementedError, match="listeners"):

@@ -7,7 +7,15 @@ must write its images and a checkpoint that ``--ir-in`` resumes (the frame
 count continues), holding exactly the engine's IR; ``bake`` and ``bake
 --legacy`` must write a WAV with a reverb tail after each click. The flags
 default as the JAX CLI's do, and the JAX flags whose modules are not
-ported are rejected by argparse."""
+ported are rejected by argparse.
+
+The directive, diffraction and air flags (``--directivity``,
+``--mic-directivity``, ``--stereo-aim``, ``--diffraction[-order]``,
+``--air*``) parse as the JAX CLI's; ``cli trace`` with all of them, fed
+JAX's frame uniforms, prints JAX's IR energy within rtol 1e-4 and its
+peak bin, the same diffraction and air lines, and checkpoints the raw IR
+within the trace parity limits of ``test_torch_directivity.py`` (rtol
+1e-4 plus atol 3e-5 of the largest bin)."""
 
 import argparse
 import dataclasses
@@ -17,7 +25,7 @@ import zlib
 import numpy as np
 import pytest
 import torch
-from torch_parity import CPU
+from torch_parity import CPU, jax_frame_uniforms
 
 import realisticaudioraytracing2d_tpu_torch as art
 from realisticaudioraytracing2d_tpu import cli as jax_cli
@@ -159,10 +167,7 @@ def test_cli_bake_writes_a_reverberant_wav(tmp_path, capsys, mode):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--scene-json", "x.json"], ["--directivity", "cardioid"],
-    ["--mic-directivity", "cardioid"], ["--stereo-aim", "30"],
-    ["--diffraction"], ["--diffraction-order", "2"], ["--air"],
-    ["--air-temp", "10"], ["--spatial-out", "x.npz"]])
+    ["--scene-json", "x.json"], ["--spatial-out", "x.npz"]])
 def test_cli_rejects_flags_that_are_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.build_parser().parse_args(["trace", *flag])
@@ -194,3 +199,86 @@ def test_cli_trace_and_bake_flags_default_as_jax():
     port = cli.build_parser().parse_args(["trace"])
     assert (port.debug_rays, port.gain, port.out, port.ir_in) == (100, None,
                                                                   None, None)
+
+
+@pytest.mark.parametrize("flag, attr, value", [
+    (["--directivity", "cardioid:30"], "directivity", "cardioid:30"),
+    (["--mic-directivity", "figure8"], "mic_directivity", "figure8"),
+    (["--stereo-aim", "30"], "stereo_aim", 30.0),
+    (["--diffraction"], "diffraction", True),
+    (["--diffraction-order", "2"], "diffraction_order", 2),
+    (["--air"], "air", True),
+    (["--air-temp", "10"], "air_temp", 10.0),
+    (["--air-humidity", "70"], "air_humidity", 70.0)])
+def test_cli_parses_the_pattern_diffraction_and_air_flags(flag, attr, value):
+    ref = argparse.ArgumentParser()
+    jax_cli._common(ref)
+    jax_cli._air_args(ref)
+    want = ref.parse_args(flag)
+    for cmd in (["trace"], ["bake", "--in", "a.wav", "--out", "b.wav"]):
+        port = cli.build_parser().parse_args(cmd + flag)
+        assert getattr(port, attr) == getattr(want, attr) == value
+    default = cli.build_parser().parse_args(["trace"])
+    assert getattr(default, attr) == getattr(ref.parse_args([]), attr)
+
+
+def _said_numbers(said):
+    import re
+    energy = float(re.search(r"IR energy ([0-9.eE+-]+),", said).group(1))
+    peak = int(re.search(r"peak bin (\d+)", said).group(1))
+    lines = [ln for ln in said.splitlines()
+             if ln.startswith(("diffraction:", "air absorption:"))]
+    return energy, peak, lines
+
+
+def test_cli_trace_with_patterns_diffraction_and_air_matches_jax(
+        tmp_path, capsys, monkeypatch):
+    import jax
+    from realisticaudioraytracing2d_tpu.utils import checkpoint as jax_ckpt
+    args = ["trace", "--room", "smoll", "--rays", "256", "--bounces", "4",
+            "--sample-rate", "8000", "--reverb", "0.256", "--frames", "2",
+            "--seed", "3", "--directivity", "cardioid:90", "--stereo", "0.2",
+            "--stereo-aim", "45", "--diffraction", "--diffraction-order",
+            "2", "--air"]
+    jax_npz, port_npz = str(tmp_path / "j.npz"), str(tmp_path / "p.npz")
+    jax_cli.main(args + ["--ir-out", jax_npz])
+    want = _said_numbers(capsys.readouterr().out)
+    # the port traces JAX's draws of that seed (fold_in(key, frame))
+    emit, u = jax_frame_uniforms(jax.random.PRNGKey(3), 2, 4, 256)
+    trace_frames = art.Engine.trace_frames
+    monkeypatch.setattr(art.Engine, "trace_frames", lambda self, p, seed=0,
+                        n_frames=1, state=None: trace_frames(
+                            self, p, n_frames=n_frames, state=state,
+                            uniforms=(emit, u)))
+    cli.main(args + ["--device", CPU, "--ir-out", port_npz])
+    got = _said_numbers(capsys.readouterr().out)
+    assert got[2] == want[2] and len(got[2]) == 2
+    assert got[1] == want[1]
+    assert want[0] > 0 and abs(got[0] - want[0]) <= 1e-4 * want[0]
+    raw = ckpt.load_ir_state(port_npz, device=CPU)
+    raw_j = jax_ckpt.load_ir_state(jax_npz)
+    assert raw.frames == int(raw_j.frames) == 2
+    ref = np.asarray(raw_j.sum)
+    assert ref.shape == (2, 2048, 1) and ref.sum() > 0
+    np.testing.assert_allclose(raw.sum.numpy(), ref, rtol=1e-4,
+                               atol=3e-5 * ref.max())
+
+
+def test_cli_bake_stereo_xy_pair_and_air(tmp_path, capsys):
+    dry, wet = str(tmp_path / "dry.wav"), str(tmp_path / "wet.wav")
+    write_wav(dry, click_clip(0.5, 8000, click_times=(0.1,)), 8000)
+    cli.main(["bake", *SMALL, "--in", dry, "--out", wet, "--stereo", "0.2",
+              "--stereo-aim", "60", "--directivity", "figure8:45",
+              "--diffraction", "--air"])
+    said = capsys.readouterr().out
+    assert "air absorption:" in said and "diffraction: added" in said
+    x, rate = read_wav(wet)
+    assert rate == 8000 and x.shape[1] == 2 and np.isfinite(x).all()
+    assert not np.allclose(x[:, 0], x[:, 1])   # the pair aims apart
+    # --legacy ignores diffraction and air, as in JAX
+    cli.main(["bake", *SMALL, "--in", dry, "--out", wet, "--legacy",
+              "--directivity", "cardioid", "--air"])
+    assert "air absorption" not in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="needs --stereo"):
+        cli.main(["bake", *SMALL, "--in", dry, "--out", wet, "--stereo-aim",
+                  "30"])

@@ -163,9 +163,11 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda_device):
                                 ir_length=4800)
     scene, params = _setup(cuda_device)
     emit, u = rng.philox_uniforms(0, 1, 2, 256, cuda_device)
+    # patterns run in the kernel (test_directive_kernels_match_plain); a
+    # pattern of the wrong shape is refused
     directive = params._replace(
-        directivity=torch.ones(3, device=cuda_device))
-    with pytest.raises(NotImplementedError, match="directive"):
+        directivity=torch.ones(4, device=cuda_device))
+    with pytest.raises(ValueError, match="directivity"):
         bk.trace_frames_ir_whole(scene, directive, emit, u,
                                  sample_rate=48000, ir_length=4800)
     with pytest.raises(ValueError, match="emit"):
@@ -411,7 +413,8 @@ def test_k8_refuses_buffers_it_cannot_ping_pong(cuda_device):
         return fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
                   prep.walls.shape[1], prep.aabb.data_ptr(),
                   prep.saabb.data_ptr(), prep.n_clusters, prep.group,
-                  prep.cluster_size, None, 1, None, prep.bounds.data_ptr(),
+                  prep.cluster_size, None, 1, None, 0, None, 0, None,
+                  prep.bounds.data_ptr(),
                   16000.0, 0, 0, n, n, 2, bounce, 100, None, perm_ptr,
                   state[src].data_ptr(), istate[src].data_ptr(),
                   state[dst].data_ptr(), istate[dst].data_ptr(),
@@ -692,3 +695,158 @@ def test_float_scatters_are_deterministic_on_the_card(cuda_device):
     np.testing.assert_allclose(to_numpy(ir), to_numpy(cpu), rtol=1e-5,
                                atol=1e-9)
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+# --- directive sources and microphones, diffraction and air -------------------
+
+def _patterns(device):
+    """A cardioid source padded to C = 5 and a figure-eight microphone."""
+    from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
+    return (torch.as_tensor(np.pad(dv.cardioid(0.7), (0, 2)), device=device),
+            torch.as_tensor(dv.figure_eight(0.3), device=device))
+
+
+def _omni_coded(params):
+    one = torch.ones(1, device=params.source.device)
+    return params._replace(directivity=one, mic_directivity=one)
+
+
+@cuda
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K5", "K6", "K9"])
+def test_directive_kernels_match_plain(cuda_device, kernel):
+    scene, params = _setup(cuda_device)
+    src, mic = _patterns(cuda_device)
+    p = params._replace(directivity=src, mic_directivity=mic)
+    emit, u = rng.philox_uniforms(4, 2, 5, 15000, cuda_device)
+    one = dict(n_rays=15000, max_bounces=5, **KW)
+    if kernel == "K3":
+        runs = [lambda q: bk.trace_frames_ir_whole(scene, q, emit, u, **KW),
+                lambda q: bk.trace_frames_ir_plain(scene, q, emit, u, **KW)]
+    elif kernel == "K4":
+        runs = [lambda q: bk.trace_frames_ir_mega(scene, q, 4, 2, **one),
+                lambda q: bk.trace_frames_ir_mega_plain(scene, q, 4, 2,
+                                                        **one)]
+    elif kernel == "K5":
+        runs = [lambda q: bk.trace_fused_rows(scene, q, emit[0], u[0]),
+                lambda q: bk.trace_fused_rows_plain(scene, q, emit[0], u[0])]
+    elif kernel == "K6":
+        runs = [lambda q: bk.trace_frame_ir_fused(scene, q, emit[0], u[0],
+                                                  **KW),
+                lambda q: bk.trace_frame_ir_fused_plain(scene, q, emit[0],
+                                                        u[0], **KW)]
+    else:
+        shared, srcs, lis, _ = _mixdown_batch(cuda_device)
+        from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
+        aims = torch.as_tensor(np.stack([np.pad(dv.cardioid(0.8 * i), (0, 2))
+                                         for i in range(8)]),
+                               device=cuda_device)
+        kw = dict(directivity=aims, mic_directivity=mic, **one)
+        runs = [lambda q: bk.trace_rooms_ir_mega(shared, srcs, lis, 4, 1,
+                                                 **kw),
+                lambda q: bk.trace_rooms_ir_mega_plain(shared, srcs, lis, 4,
+                                                       1, **kw)]
+    got, want = runs[0](p), runs[1](p)
+    torch.cuda.synchronize()
+    if kernel == "K5":
+        assert torch.equal(got, want) and float(got[:, 4].sum()) > 0
+    else:
+        _assert_close_irs(got, want)
+    if kernel != "K9":    # omni-coded patterns give the omni bits
+        assert torch.equal(runs[0](_omni_coded(params)), runs[0](params))
+    if kernel == "K6":    # and K6 == K3 holds for directive traces too
+        assert torch.equal(got, bk.trace_frames_ir_whole(
+            scene, p, emit[:1], u[:1], **KW))
+
+
+@cuda
+def test_directive_cluster_kernels_equal_k4_and_plain(cuda_device):
+    scene, params = _city(cuda_device, 1200)
+    src, mic = _patterns(cuda_device)
+    p = params._replace(directivity=src, mic_directivity=mic)
+    k4 = bk.trace_frames_ir_mega(ak.prepare(scene).scene, p, 7, 2,
+                                 **ACCEL_KW)
+    k7 = ak.trace_frames_ir_accel(scene, p, 7, 2, **ACCEL_KW)
+    k8 = ak.trace_frames_ir_accel_sorted(scene, p, 7, 2, **ACCEL_KW)
+    torch.cuda.synchronize()
+    assert float(k4.sum()) > 0 and torch.equal(k4, k7) and torch.equal(k4, k8)
+    _assert_close_irs(k8, ak.trace_frames_ir_accel_sorted_plain(
+        scene, p, 7, 2, **ACCEL_KW))
+    assert torch.equal(ak.trace_frames_ir_accel_sorted(
+        scene, _omni_coded(params), 7, 2, **ACCEL_KW),
+        ak.trace_frames_ir_accel_sorted(scene, params, 7, 2, **ACCEL_KW))
+    banded, bparams = _city(cuda_device, 1200, n_bands=8)
+    bp = bparams._replace(directivity=src, mic_directivity=mic)
+    _assert_close_irs(ak.trace_frames_ir_accel(banded, bp, 7, 2, **ACCEL_KW),
+                      ak.trace_frames_ir_accel_plain(banded, bp, 7, 2,
+                                                     **ACCEL_KW))
+    assert torch.equal(ak.trace_frames_ir_accel(
+        banded, _omni_coded(bparams), 7, 2, **ACCEL_KW),
+        ak.trace_frames_ir_accel(banded, bparams, 7, 2, **ACCEL_KW))
+
+
+@cuda
+def test_mixdown_per_source_aims_equal_single_source_launches(cuda_device):
+    from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
+    shared, srcs, lis, scene = _mixdown_batch(cuda_device)
+    aims = torch.as_tensor(np.stack([dv.cardioid(0.8 * i) for i in range(8)]),
+                           device=cuda_device)
+    mic = torch.as_tensor(np.stack([dv.cardioid(0.5), dv.cardioid(-0.5)]),
+                          device=cuda_device)
+    kw = dict(n_rays=15000, max_bounces=5, **KW)
+    mix = trace_sources_mixdown(scene, TraceParams.make(
+        srcs, lis[0], directivity=aims, mic_directivity=mic,
+        device=cuda_device), 7, **kw)
+    singles = [bk.trace_rooms_ir_mega(
+        shared, srcs[s:s + 1], lis[s:s + 1], 7, 1, entry_offset=s,
+        directivity=aims[s:s + 1], mic_directivity=mic, **kw)[0]
+        for s in range(8)]
+    # source 0's launch is K4's
+    assert torch.equal(singles[0], bk.trace_frames_ir_mega(
+        scene, TraceParams.make(srcs[0], lis[0], directivity=aims[0],
+                                mic_directivity=mic, device=cuda_device),
+        7, 1, **kw))
+    _assert_close_irs(mix, sum(singles))
+
+
+@cuda
+@pytest.mark.parametrize("order", [1, 2])
+def test_diffraction_through_k2_equals_its_plain_version(cuda_device, order):
+    from realisticaudioraytracing2d_tpu_torch.models.materials import \
+        AudioMaterial
+    from realisticaudioraytracing2d_tpu_torch.ops import diffraction as dfr
+    room = rooms.smoll_room(device=cuda_device)
+    room.builder.add_segment((-18.0, 6.0), (-15.0, 6.0), (0.0, 1.0),
+                             AudioMaterial(0.9, 0.5, 0.0, 1.0))
+    scene = room.builder.build(device=cuda_device)
+    src, mic = _patterns(cuda_device)
+    p = TraceParams.make(room.source, [[-16.0, 3.0], [0.0, -3.68]],
+                         directivity=src, mic_directivity=mic,
+                         device=cuda_device)
+    before = tk.occlusion_min.launches
+    got = dfr.diffraction_ir(scene, p, order=order, **KW)
+    assert tk.occlusion_min.launches == before + (3 if order == 1 else 7)
+    want = dfr.diffraction_ir(scene, p, order=order, use_kernels=False, **KW)
+    assert float(got[0].sum()) > 0 and torch.equal(got, want)
+
+
+@cuda
+def test_stream_with_patterns_diffraction_and_air_matches_plain(cuda_device):
+    from realisticaudioraytracing2d_tpu_torch.ops import air
+    room = rooms.smoll_room(device=cuda_device)
+    cfg = art.smoll_room_config(ray_count=4096)
+    src, mic = _patterns(cuda_device)
+    p = art.Engine(room.scene, cfg).params(
+        room.source, [[-0.1, -3.68], [0.1, -3.68]], directivity=src,
+        mic_directivity=mic)
+    alpha = air.iso9613_alpha(air.band_frequencies(1))
+    dry = torch.zeros(48000, device=cuda_device)
+    dry[4800] = 1.0
+    outs = []
+    for backend in ("auto", "plain"):
+        s = art.Streamer(room.scene, cfg, seed=3, n_listeners=2,
+                         diffraction=1, air_alpha=alpha, backend=backend)
+        outs.append(to_numpy(s.stream_clip(dry, lambda i: p,
+                                           total_chunks=4)))
+    assert np.abs(outs[1]).max() > 0
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-4,
+                               atol=1e-6 * np.abs(outs[1]).max())

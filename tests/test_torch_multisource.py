@@ -96,9 +96,11 @@ def test_mixdown_refuses_what_it_does_not_take():
     kw = dict(n_rays=16, max_bounces=1, sample_rate=SR, ir_length=64)
     with pytest.raises(ValueError, match="backend"):
         trace_sources_mixdown(room.scene, params, 0, backend="jnp", **kw)
-    with pytest.raises(NotImplementedError, match="directive"):
+    # per-source patterns need one row per source
+    with pytest.raises(ValueError, match="directivity"):
         trace_sources_mixdown(
-            room.scene, params._replace(directivity=torch.ones(3)), 0, **kw)
+            room.scene, params._replace(directivity=torch.ones(3, 3)), 0,
+            **kw)
 
 
 @pytest.mark.parametrize("path", ["trace_frames_ir_mega", "engine"])

@@ -179,9 +179,9 @@ def test_rows_refuse_what_they_do_not_take(setup):
                                        device="cpu")
     with pytest.raises(ValueError, match="n_bands == 1"):
         bk._check_rows_supported(banded, params)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="directivity"):
         bk.trace_fused_rows(scene, params._replace(
-            directivity=torch.ones(3)), emit, u)
+            directivity=torch.ones(2)), emit, u)
     before = bk.trace_fused_rows.launches, bk.trace_frame_ir_fused.launches
     bk.trace_fused_rows(scene, params, emit, u)
     assert (bk.trace_fused_rows.launches,

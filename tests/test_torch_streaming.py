@@ -158,13 +158,13 @@ def test_loop_controls_and_moving_obstacle(setup):
 
 def test_unported_stream_modes_raise(setup):
     _, cfg, scene = setup
-    for kw, item in (({"binaural": True}, "item 9"),
-                     ({"diffraction": True}, "item 8"),
-                     ({"air_alpha": [0.1]}, "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            art.Streamer(scene, cfg, **kw)
-    s = art.Streamer(scene, cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # diffraction and air are ported (tests/test_torch_air_diffraction.py)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        art.Streamer(scene, cfg, binaural=True)
+    s = art.Streamer(scene, cfg, diffraction=1, air_alpha=[0.1])
+    with pytest.raises(NotImplementedError, match="item 4"):
+        s.stream_clip(torch.zeros(10), lambda i: None, facing_fn=lambda i: 0)
+    with pytest.raises(NotImplementedError, match="item 5"):
         s.stream_clip(torch.zeros(10), lambda i: None, doppler=True)
 
 

@@ -114,11 +114,14 @@ def test_trace_hits_only_and_unported_features_raise():
     assert tuple(hits.valid.shape) == (3, 2, 64, 1)
     with pytest.raises(ValueError):
         tt.trace(scene, p, emit, torch.rand(3, 32, 3))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tt.trace(scene, p._replace(directivity=torch.ones(3)), emit, u)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tt.trace(scene, p._replace(mic_directivity=torch.ones(3)), emit, u)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # patterns are traced (tests/test_torch_directivity.py); their shapes
+    # are checked: an odd coefficient count, one row per listener
+    with pytest.raises(ValueError, match="directivity"):
+        tt.trace(scene, p._replace(directivity=torch.ones(2)), emit, u)
+    with pytest.raises(ValueError, match="mic_directivity"):
+        tt.trace(scene, p._replace(mic_directivity=torch.ones(2, 3)), emit,
+                 u)
+    with pytest.raises(NotImplementedError, match="item 9"):
         tt.trace(scene, p, emit, u, transmission_surrogate=True)
     with pytest.raises(ValueError, match="n_debug"):
         tt.trace(scene, p, emit, u, n_debug=65)
