@@ -21,6 +21,10 @@ every kernel against its plain PyTorch version:
   defaults (SmollRoom 15,000 rays x 5 bounces x 8 frames, 72,000 bins, 100
   debug rays; Big Room; the legacy IR of 562 time bins x 128 slots),
   through the wall sweeps K1/K2 and the per-bounce step kernel K5/K6.
+* frequency bands, many listeners and batches of large scenes: the stream
+  and ``cli bake`` at 8 octave bands, ``cli sweep --rooms 1024 --bands
+  8``, a grid of 64 listeners, the 40,008-wall city at 32 bands through
+  K7, and a sweep and a mixdown of 10,008-wall cities through K8.
 
 Phases:
 
@@ -118,6 +122,35 @@ Phases:
    its plain version, orders 1 and 2. 11g: ``cli trace`` and ``cli bake``
    with ``--directivity --stereo --stereo-aim --diffraction --air``, and
    ``cli bake --legacy`` with patterns, their launch counts;
+12. bands, any listener count and batches past 5,280 walls. 12a: K3, K4
+   and K9 at 8, 32 and 512 bands (the register buckets 8 and 32, and the
+   scratch past them) against their plain twins on the same numbers, and
+   K4 at the bench frame (131,072 x 8) at 8 and 32; a K-band scene whose
+   bands all carry band 0's absorption gives K copies of the one-band IR
+   bit for bit (K4; K7 against K8); K4 == K7 bit for bit on the sorted
+   4,808-wall city at 8 and 32 bands; registers and local bytes of every
+   bucket. 12b: ``Streamer.stream_clip`` on SmollRoom at 8 octave bands
+   with ISO 9613-1 air per band, omni and with a cardioid source (35 K4
+   launches each), against its ``backend="plain"`` twin, with its ms per
+   chunk (median, p99). 12c: ``cli bake --bands 8`` (one K4 launch) and
+   ``cli sweep --rooms 1024 --bands 8`` (one K9 launch, 2.2 GiB of f32
+   IRs; the rooms' materials are broadband, so every band equals band 0
+   bit for bit). 12d: a grid of 64 listeners on SmollRoom at 8 bands
+   through ``trace_accumulate`` (one K4 launch) and on the 10,008-wall
+   city through K8 and K7 (8 bands); where 16 fit a block (SmollRoom
+   padded to 5,280 walls: ``trace_accumulate`` launches K4 4 times; the
+   city with a ~3,600-coefficient microphone pattern), the 4 listener
+   blocks == the calls on their slices of 16, bit for bit; K4 and K8
+   against their plain twins. 12f: entry e of K8/K7
+   draws entry e of K9 (bit for bit on the sorted 4,808-wall city);
+   ``sweep_rooms`` over 8 copies of the 10,008-wall city with distinct
+   listeners (8 K8 calls) and a 16-source ``trace_sources_mixdown`` in it
+   (16 K8 calls, the scene sorted once) against single K8 calls with the
+   same entry ids, bit for bit, and against the plain twin. 12e: the
+   32-band 40,008-wall city through ``trace_accumulate(auto)`` (one K7
+   launch) as in 8d, at full shape against its plain version. [12t]:
+   device times of K3, K4, K9 and K7 at 1, 8 and 32 bands, and of K4 and
+   K8 with 64 listeners beside their bounds;
 5. timings with CUDA events after a warm-up, device times from the
    profiler, and each kernel's bound (the larger of its bytes over 3.35
    TB/s and its FP32 operations over 67 TFLOP/s, the operations counted
@@ -244,12 +277,15 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(torch, fn, reps, name="frames_ir_kernel"):
+def kernel_device_ms(torch, fn, reps, name="frames_ir_kernel",
+                     launches=None):
     """Device time per call of ``fn`` of the kernels whose name holds
     ``name`` (all of a call's launches: one for K3/K4/K7/K9, one per
     bounce for K8), over ``reps`` calls, from the profiler's CUDA events
     (None if it records none in three tries). The wrapper's own small
-    launches are left out."""
+    launches are left out. With ``launches`` (per call), a reading that
+    holds another number of launches is dropped and retried too: a
+    reading now and then misses one."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -261,7 +297,7 @@ def kernel_device_ms(torch, fn, reps, name="frames_ir_kernel"):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and name in e.name]
-        if us:
+        if us and (launches is None or len(us) == launches * reps):
             return sum(us) / reps / 1e3
     return None
 
@@ -352,6 +388,588 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(log):
+    """One entry per kernel instantiation of the build log: its name with
+    its template arguments (frames_ir_kernel<host, directive, K>, K = 0:
+    the scratch instantiation), registers and spill bytes."""
+    out = []
+    name = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            mangled = m.group(1)
+            # the last length-prefixed identifier ending in _kernel (the
+            # file's name comes first in an anonymous namespace's prefix)
+            base = re.findall(r"\d+([a-z][a-z_]*_kernel)", mangled)
+            args = re.findall(r"L([bi])(\d+)E", mangled)
+            name = (base[-1] if base else mangled) + (
+                "<" + ",".join(v for _, v in args) + ">" if args else "")
+        elif name and "spill stores" in ln:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", ln)
+            out.append([name, None, int(spill.group(1)),
+                        int(spill.group(2))])
+        elif name and "Used" in ln and "registers" in ln and out \
+                and out[-1][0] == name and out[-1][1] is None:
+            out[-1][1] = int(re.search(r"Used (\d+) registers",
+                                       ln).group(1))
+    return [f"{n} {r} regs, spill {st}/{ld} B" for n, r, st, ld in out]
+
+
+def bands_phase(c):
+    """Phase 12a-12c: frequency bands through K3, K4, K9 and K7, the banded
+    stream and the banded CLI, at full width. ``c`` holds the objects of
+    main(). Returns the launch counts of its paths and its readings."""
+    torch, art, bk, ak, rng, cli = (c[k] for k in (
+        "torch", "art", "bk", "ak", "rng", "cli"))
+    dev, counted, only, same_numbers = (c[k] for k in (
+        "dev", "counted", "only", "same_numbers"))
+    from realisticaudioraytracing2d_tpu_torch.ops import air
+    from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
+    from realisticaudioraytracing2d_tpu_torch.utils.audio_io import \
+        click_clip, write_wav
+    kw = dict(sample_rate=SR, ir_length=T)
+    one = dict(n_rays=RAYS, max_bounces=BOUNCES, **kw)
+    city_run = dict(n_rays=BIG_RAYS, max_bounces=CITY_BOUNCES,
+                    sample_rate=CITY_SR, ir_length=CITY_T)
+    slice_launches = {k: 0 for k in ("K3", "K4", "K9", "K7", "K8")}
+    readings = {}
+
+    def add(launched):
+        for k in slice_launches:
+            slice_launches[k] += launched.get(k, 0)
+
+    def smoll(n_bands, listeners=None):
+        room = art.rooms.smoll_room(n_bands=n_bands, device=dev)
+        return room.scene, art.TraceParams.make(
+            room.source, room.listener if listeners is None else listeners,
+            device=dev)
+
+    def city(n_boxes, n_bands=1):
+        room = art.rooms.city_scene(n_boxes, n_bands=n_bands, device=dev)
+        return room.scene, art.TraceParams.make(
+            room.source, room.listener, room.listener_radius, 343.0,
+            CITY_GAIN, device=dev)
+
+    # 12a. K3, K4 and K9 at 8, 32 and 512 bands against their plain twins
+    # on the same numbers; registers and spills of every bucket
+    gen = torch.Generator(device=dev).manual_seed(12)
+    host = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
+    for n_bands in (8, 32, 512):
+        sc, p = smoll(n_bands)
+        same_numbers(f"[12a] K3 vs plain K={n_bands}, {RAYS} x {BOUNCES} x 1"
+                     " frame", "K3",
+                     bk.trace_frames_ir_whole(sc, p, *host, **kw),
+                     bk.trace_frames_ir_plain(sc, p, *host, **kw))
+        same_numbers(f"[12a] K4 vs plain K={n_bands}, {RAYS} x {BOUNCES} x 2"
+                     " frames", "K4",
+                     bk.trace_frames_ir_mega(sc, p, 21, 2, **one),
+                     bk.trace_frames_ir_mega_plain(sc, p, 21, 2, **one))
+        scenes, src, lis = art.rooms.random_rooms(4, seed=12, n_bands=n_bands,
+                                                  device=dev)
+        k9 = bk.trace_rooms_ir_mega(scenes, src, lis, 22, 2, entry_offset=100,
+                                    **one)
+        plain9 = bk.trace_rooms_ir_mega_plain(scenes, src, lis, 22, 2,
+                                              entry_offset=100, **one)
+        for e in range(4):
+            if float(plain9[e].sum()) > 0:
+                same_numbers(f"[12a] K9 vs plain K={n_bands}, room {e} of 4,"
+                             f" {RAYS} x {BOUNCES} x 2 frames", "K9",
+                             k9[e], plain9[e])
+        del k9, plain9
+    # the bench frame (131,072 x 8) at 8 and 32 bands through K4
+    for n_bands in (8, 32):
+        sc, p = smoll(n_bands)
+        big = dict(n_rays=BIG_RAYS, max_bounces=BIG_BOUNCES, **kw)
+        same_numbers(f"[12a] K4 vs plain K={n_bands}, the bench frame "
+                     f"{BIG_RAYS} x {BIG_BOUNCES} x 2 frames", "K4",
+                     bk.trace_frames_ir_mega(sc, p, 26, 2, **big),
+                     bk.trace_frames_ir_mega_plain(sc, p, 26, 2, **big))
+    # equal bands: K copies of the one-band bits (K4; K7 against K8)
+    sc1, p1 = smoll(1)
+    ir1 = bk.trace_frames_ir_mega(sc1, p1, 23, 2, **one)
+    city1, pc1 = city(1200)
+    k8_1 = ak.trace_frames_ir_accel_sorted(city1, pc1, 23, CITY_FRAMES,
+                                           **city_run)
+    equal = {}
+    for n_bands in (8, 32, 40):
+        same = sc1._replace(absorption=sc1.absorption.expand(
+            -1, n_bands).contiguous())
+        irk = bk.trace_frames_ir_mega(same, p1, 23, 2, **one)
+        csame = city1._replace(absorption=city1.absorption.expand(
+            -1, n_bands).contiguous())
+        k7k = ak.trace_frames_ir_accel(csame, pc1, 23, CITY_FRAMES,
+                                       **city_run)
+        torch.cuda.synchronize()
+        equal[f"K4 K={n_bands}"] = all(torch.equal(irk[..., k], ir1[..., 0])
+                                       for k in range(n_bands))
+        equal[f"K7 K={n_bands} vs K8"] = all(
+            torch.equal(k7k[..., k], k8_1[..., 0]) for k in range(n_bands))
+    print(f"[12a] a K-band scene whose bands all carry band 0's absorption "
+          f"== K copies of the one-band IR, bit for bit: {equal}",
+          flush=True)
+    check(all(equal.values()) and float(ir1.sum()) > 0
+          and float(k8_1.sum()) > 0, "12a: equal bands == one band")
+    del ir1, k8_1, irk, k7k
+    # K4 == K7 bit for bit on the sorted 4,808-wall banded city
+    for n_bands in (8, 32):
+        cb, pb = city(1200, n_bands)
+        sorted_b = ak.prepare(cb).scene
+        k4b = bk.trace_frames_ir_mega(sorted_b, pb, 24, CITY_FRAMES,
+                                      **city_run)
+        k7b = ak.trace_frames_ir_accel(cb, pb, 24, CITY_FRAMES, **city_run)
+        torch.cuda.synchronize()
+        ok = torch.equal(k4b, k7b)
+        print(f"[12a] sorted city_scene(1200), {sorted_b.n_walls} walls, "
+              f"K={n_bands}, {BIG_RAYS} x {CITY_BOUNCES} x {CITY_FRAMES} "
+              f"frames: K4 == K7 bit for bit: {ok}; energy of band 0 / "
+              f"{n_bands - 1}: {float(k4b[..., 0].sum()):.4e} / "
+              f"{float(k4b[..., -1].sum()):.4e}", flush=True)
+        check(ok and float(k4b[..., -1].sum()) > 0, "12a: K4 == K7 banded")
+        del k4b, k7b
+    lib = c["build"].load_library()
+    regs = {}
+    for kname, fn_name, lead in (
+            ("K3", "art_frames_attributes", (1,)),
+            ("K4/K9", "art_frames_attributes", (0,)),
+            ("K7", "art_accel_attributes", (7,))):
+        for n_bands in (1, 8, 32, 512):
+            for d in (0, 1):
+                out = (ctypes.c_int * 2)()
+                args = (lead + (n_bands, d) if kname != "K7"
+                        else lead + (n_bands, 1, d))
+                check(getattr(lib, fn_name)(*args, out) == 0,
+                      f"12a: {fn_name}{args}")
+                regs[kname, n_bands, d] = (out[0], out[1])
+    print("[12a] registers / local bytes per thread by band bucket (K = 512 "
+          "is the scratch instantiation, and so is K7's K = 32), omni | "
+          "directive: " + "; ".join(
+              f"{k} K={n}: {regs[k, n, 0][0]}/{regs[k, n, 0][1]} B | "
+              f"{regs[k, n, 1][0]}/{regs[k, n, 1][1]} B"
+              for k in ("K3", "K4/K9", "K7") for n in (1, 8, 32, 512)),
+          flush=True)
+    readings["regs"] = regs
+
+    # 12b. the banded stream: SmollRoom, 8 octave bands, air per band; and
+    # the same with a cardioid source (kDirective x bands)
+    clicks = (0.1, 0.7, 1.3)
+    dry = torch.as_tensor(click_clip(2.0, SR, click_times=clicks),
+                          device=dev)
+    n_chunks = 20 + 15
+    sc8, p8 = smoll(8)
+    cfg8 = art.smoll_room_config(n_bands=8, ray_count=RAYS)
+    alpha8 = air.iso9613_alpha(air.band_frequencies(8))
+    cardioid = np.pad(dv.cardioid(0.7), (0, 2))
+    for name, pp in (("omni", p8), ("cardioid source", p8._replace(
+            directivity=torch.as_tensor(cardioid, dtype=torch.float32,
+                                        device=dev)))):
+        chunk_ms = []
+        t_last = [0.0]
+
+        def tick(i, st):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            chunk_ms.append((now - t_last[0]) * 1e3)
+            t_last[0] = now
+
+        def stream(backend, on_chunk=None):
+            streamer = art.Streamer(sc8, cfg8, seed=17, air_alpha=alpha8,
+                                    backend=backend)
+            t_last[0] = time.perf_counter()
+            return streamer.stream_clip(dry, lambda i: pp, on_chunk=on_chunk)
+
+        wet, launched = counted(lambda: stream("auto", tick))
+        check(launched == only(K4=n_chunks),
+              f"12b: banded stream launches {launched}")
+        add(launched)
+        wet_plain, launched_p = counted(lambda: stream("plain"))
+        check(launched_p == only(), f"12b: plain twin launched {launched_p}")
+        out, out_p = wet.cpu().numpy(), wet_plain.cpu().numpy()
+        gap = float(np.abs(out - out_p).max())
+        steady = np.asarray(chunk_ms[1:])
+        print(f"[12b] banded stream ({name}): SmollRoom K=8 (octaves "
+              f"{air.band_frequencies(8)[0]:.0f}-"
+              f"{air.band_frequencies(8)[-1]:.0f} Hz), air per band, "
+              f"{n_chunks} chunks -> {out.shape}, launches {launched}; vs its"
+              f" plain twin: max abs {gap:.3e} of peak "
+              f"{np.abs(out_p).max():.3e}; ms per 100 ms chunk (synced, "
+              f"chunks 1..): median {np.median(steady):.3f}, p99 "
+              f"{np.percentile(steady, 99):.3f}", flush=True)
+        check(out.shape == (1, n_chunks * CHUNK) and np.isfinite(out).all()
+              and np.abs(out).max() > 0, "12b: stream finite, peak > 0")
+        check(np.allclose(out, out_p, rtol=1e-4,
+                          atol=1e-6 * np.abs(out_p).max()),
+              "12b: banded stream == its plain twin")
+        readings[f"stream {name}"] = (float(np.median(steady)),
+                                      float(np.percentile(steady, 99)))
+
+    # 12c. the CLI: bake --bands 8 and sweep --rooms 1024 --bands 8
+    with tempfile.TemporaryDirectory() as tmp:
+        dry_wav, wet_wav = (os.path.join(tmp, n) for n in ("d.wav", "w.wav"))
+        write_wav(dry_wav, click_clip(1.0, 44100, click_times=(0.1, 0.6)),
+                  44100)
+        t0 = time.perf_counter()
+        _, baked = counted(lambda: cli.main(
+            ["bake", "--room", "smoll", "--bands", "8", "--in", dry_wav,
+             "--out", wet_wav]))
+        secs_b = time.perf_counter() - t0
+        check(baked == only(K4=1), f"12c: cli bake --bands 8 launches "
+              f"{baked}")
+        add(baked)
+        path = os.path.join(tmp, "irs.npz")
+        t0 = time.perf_counter()
+        _, swept = counted(lambda: cli.main(
+            ["sweep", "--rooms", str(SWEEP_ROOMS), "--bands", "8", "--out",
+             path]))
+        secs_s = time.perf_counter() - t0
+        check(swept == only(K9=1), f"12c: cli sweep --bands 8 launches "
+              f"{swept}")
+        add(swept)
+        with np.load(path) as npz:
+            irs = npz["irs"]
+        check(irs.shape == (SWEEP_ROOMS, 1, T, 8) and np.isfinite(irs).all()
+              and (irs.reshape(SWEEP_ROOMS, -1).sum(-1) > 0).mean() > 0.9,
+              f"12c: sweep npz {irs.shape}")
+        # random_rooms' materials are broadband, so every band of a room
+        # carries band 0's IR: the equal-bands oracle at full width
+        copies = all(np.array_equal(irs[..., k], irs[..., 0])
+                     for k in range(1, 8))
+        print(f"[12c] cli bake --room smoll --bands 8: {secs_b:.2f} s, "
+              f"launches {baked}; cli sweep --rooms {SWEEP_ROOMS} --bands 8: "
+              f"{secs_s:.2f} s, launches {swept}, irs {irs.shape} "
+              f"({irs.nbytes / 2 ** 30:.2f} GiB f32); the rooms' materials "
+              f"are broadband: the 8 bands of every room equal band 0 bit "
+              f"for bit: {copies}", flush=True)
+        check(copies, "12c: broadband rooms give equal bands")
+        del irs
+
+    return slice_launches, readings
+
+
+def listeners_batches_phase(c):
+    """Phase 12d and 12f: 64 listeners through K4, K8 and K7, and batches
+    of scenes past 5,280 walls through K8 (see bands_phase). Returns the
+    launch counts and the readings of the 64-listener runs."""
+    torch, art, bk, ak = (c[k] for k in ("torch", "art", "bk", "ak"))
+    dev, counted, only, same_numbers = (c[k] for k in (
+        "dev", "counted", "only", "same_numbers"))
+    Scene = c["Scene"]
+    from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
+    from realisticaudioraytracing2d_tpu_torch.parallel.multisource import \
+        trace_sources_mixdown
+    from realisticaudioraytracing2d_tpu_torch.parallel.sweep import \
+        sweep_rooms
+    kw = dict(sample_rate=SR, ir_length=T)
+    one = dict(n_rays=RAYS, max_bounces=BOUNCES, **kw)
+    city_run = dict(n_rays=BIG_RAYS, max_bounces=CITY_BOUNCES,
+                    sample_rate=CITY_SR, ir_length=CITY_T)
+    slice_launches = {k: 0 for k in ("K3", "K4", "K9", "K7", "K8")}
+    readings = {}
+
+    def add(launched):
+        for k in slice_launches:
+            slice_launches[k] += launched.get(k, 0)
+
+    def smoll(n_bands, listeners):
+        room = art.rooms.smoll_room(n_bands=n_bands, device=dev)
+        return room.scene, art.TraceParams.make(room.source, listeners,
+                                                device=dev)
+
+    def city(n_boxes, n_bands=1):
+        room = art.rooms.city_scene(n_boxes, n_bands=n_bands, device=dev)
+        return room.scene, art.TraceParams.make(
+            room.source, room.listener, room.listener_radius, 343.0,
+            CITY_GAIN, device=dev)
+
+    # 12d. many listeners: a grid of 64 on SmollRoom at K = 8 through K4
+    # (one launch), and on the 10,008-wall city through K8 / K7. Where a
+    # block's shared memory holds 16 of them (SmollRoom padded to the
+    # 5,280-wall limit; the city with a microphone pattern of ~3,600
+    # coefficients), the call runs 4 blocks and equals the calls on each
+    # block's slice of listeners bit for bit
+    grid = torch.stack(torch.meshgrid(torch.linspace(-16, 16, 8),
+                                      torch.linspace(-4, 7, 8),
+                                      indexing="ij"), -1).reshape(-1, 2)
+    sc64, p64 = smoll(8, grid.to(dev))
+    st64, launched = counted(lambda: art.trace_accumulate(
+        sc64, p64, art.IRState.zeros(T, 64, 8, device=dev), n_frames=1,
+        seed=31, n_rays=RAYS, max_bounces=BOUNCES, sample_rate=SR))
+    check(launched == only(K4=1), f"12d: 64 listeners launches {launched}")
+    add(launched)
+    ir64 = st64.sum
+    same_numbers("[12d] K4 64 listeners K=8 vs plain, 15k x 5 x 1 frame",
+                 "K4", ir64, bk.trace_frames_ir_mega_plain(sc64, p64, 31, 1,
+                                                           **one))
+    heard = int((ir64.sum((1, 2)) > 0).sum())
+    padded = sc64.pad_to(bk.MAX_WALLS)
+    check(bk.listener_block(padded.n_walls) == 16, "12d: 16 listeners "
+          "fit beside 5,280 walls")
+    st_pad, launched = counted(lambda: art.trace_accumulate(
+        padded, p64, art.IRState.zeros(T, 64, 8, device=dev), n_frames=1,
+        seed=31, n_rays=RAYS, max_bounces=BOUNCES, sample_rate=SR))
+    check(launched == only(K4=4), f"12d: 4 listener blocks launch "
+          f"{launched}")
+    add(launched)
+
+    def slices(run, params, mic=None):
+        return torch.cat([run(params._replace(
+            listeners=params.listeners[l0:l0 + 16],
+            mic_directivity=None if mic is None else mic[l0:l0 + 16]))
+            for l0 in range(0, 64, 16)])
+
+    k4_parts = slices(lambda p: bk.trace_frames_ir_mega(padded, p, 31, 1,
+                                                        **one), p64)
+    city10, pc10 = city(2500)
+    ears = pc10.listeners + grid.to(dev) * 0.5
+    pc64 = pc10._replace(listeners=ears)
+    k8_64 = ak.trace_frames_ir_accel_sorted(city10, pc64, 32, 1, **one)
+    city10b, pc10b = city(2500, 8)
+    k7_64 = ak.trace_frames_ir_accel(city10b, pc10b._replace(listeners=ears),
+                                     33, 1, **one)
+    blocks_ok = {"K4": torch.equal(st_pad.sum, k4_parts)}
+    n_mic = {}
+    for name, fn, sc, pc, seed in (
+            ("K8", ak.trace_frames_ir_accel_sorted, city10, pc64, 32),
+            ("K7", ak.trace_frames_ir_accel, city10b,
+             pc10b._replace(listeners=ears), 33)):
+        prep = ak.prepare(sc)
+        boxes = prep.n_clusters // prep.group * (
+            6 if name == "K8" else 4) + 24
+        m = (bk.SMEM_FLOATS - boxes - 1) // 16 - 2
+        m -= 1 - m % 2
+        n_mic[name] = m
+        mic = torch.as_tensor(np.pad(dv.cardioid(0.7), (0, m - 3)),
+                              dtype=torch.float32,
+                              device=dev).expand(64, -1).contiguous()
+        pm = pc._replace(mic_directivity=mic)
+        check(ak._listener_step(prep, name == "K8", 1, m) == 16,
+              f"12d: 16 {name} listeners fit beside a {m}-term pattern")
+        run = (lambda p, fn=fn, sc=sc, seed=seed:  # noqa: E731
+               fn(sc, p, seed, 1, **one))
+        before = fn.launches
+        whole = run(pm)
+        check(fn.launches - before == 4 * (BOUNCES if name == "K8" else 1),
+              f"12d: {name} runs 4 listener blocks")
+        blocks_ok[name] = torch.equal(whole, slices(run, pm, mic))
+        del whole
+    torch.cuda.synchronize()
+    print(f"[12d] 64 listeners: K4 IR {tuple(ir64.shape)} "
+          f"({ir64.numel() * 8 / 1e6:.0f} MB of u64), {heard} listeners hear"
+          f" the source; 4 listener blocks == the calls on their slices of "
+          f"16, bit for bit: {blocks_ok} (K4 on SmollRoom padded to 5,280 "
+          f"walls; K8 and K7 with microphone patterns of {n_mic} "
+          f"coefficients); the city's 64 listeners hear "
+          f"{int((k8_64.sum((1, 2)) > 0).sum())} (K8) and "
+          f"{int((k7_64.sum((1, 2)) > 0).sum())} (K7)", flush=True)
+    check(all(blocks_ok.values()) and heard >= 32
+          and float(k8_64.sum()) > 0, "12d: listener blocks == slices")
+    same_numbers("[12d] K8 64 listeners vs plain, city_scene(2500), "
+                 f"{RAYS} x {BOUNCES} x 1 frame", "K8", k8_64,
+                 ak.trace_frames_ir_accel_sorted_plain(
+                     city10, pc64, 32, 1, ray_chunk=PLAIN_ELEMENTS // (
+                         city10.n_walls * 64), **one))
+    readings.update(sc=sc64, p=p64, city=city10, pc=pc64)
+    del st64, ir64, st_pad, k4_parts, k7_64
+
+    # 12f. batches past 5,280 walls: entry e of K8/K7 draws entry e's
+    # numbers of K9 (bit for bit on the sorted 4,808-wall city); a sweep of
+    # 8 copies of the 10,008-wall city with distinct listeners; a 16-source
+    # mixdown in it
+    city1, pc1 = city(1200)
+    sorted1 = Scene(*(x[None] for x in ak.prepare(city1).scene))
+    k9e = bk.trace_rooms_ir_mega(sorted1, pc1.source[None],
+                                 pc1.listeners[None], 25, CITY_FRAMES,
+                                 entry_offset=3, input_gain=CITY_GAIN,
+                                 listener_radius=pc1.listener_radius,
+                                 **city_run)[0]
+    k8e = ak.trace_frames_ir_accel_sorted(city1, pc1, 25, CITY_FRAMES,
+                                          entry=3, **city_run)
+    k7e = ak.trace_frames_ir_accel(city1, pc1, 25, CITY_FRAMES, entry=3,
+                                   **city_run)
+    k8_0 = ak.trace_frames_ir_accel_sorted(city1, pc1, 25, CITY_FRAMES,
+                                           **city_run)
+    torch.cuda.synchronize()
+    entry_ok = torch.equal(k9e, k8e) and torch.equal(k9e, k7e) \
+        and not torch.equal(k8e, k8_0)
+    print(f"[12f] entry 3 on the sorted city_scene(1200): K9 (entry_offset "
+          f"3) == K8 (entry=3) == K7 (entry=3) bit for bit, != entry 0: "
+          f"{entry_ok}", flush=True)
+    check(entry_ok and float(k9e.sum()) > 0, "12f: entry ids")
+    del k9e, k8e, k7e, k8_0
+    n_e, frames = 8, 2
+    offsets = torch.tensor([[float(i % 4) - 1.5, float(i // 4) - 0.5]
+                            for i in range(n_e)], device=dev)
+    sweep_lis = (pc10.listeners + offsets)[:, None]          # [8, 1, 2]
+    copies = Scene.stack([city10] * n_e)
+    src8 = pc10.source[None].expand(n_e, 2)
+    sweep_kw = dict(input_gain=CITY_GAIN, room_offset=40,
+                    listener_radius=float(pc10.listener_radius), **one)
+    builds = ak.prepare.builds
+    t0 = time.perf_counter()
+    swept8, launched = counted(lambda: sweep_rooms(
+        copies, src8, sweep_lis, 26, n_frames=frames, **sweep_kw))
+    secs_8 = time.perf_counter() - t0
+    n_builds = ak.prepare.builds - builds
+    check(launched == only(K8=n_e * BOUNCES),
+          f"12f: large sweep launches {launched}")
+    add(launched)
+    singles = [ak.trace_frames_ir_accel_sorted(
+        city10, pc10._replace(listeners=sweep_lis[e]), 26, frames,
+        entry=40 + e, **one) for e in range(n_e)]
+    div = torch.tensor(float(frames), device=dev)
+    single_ok = all(torch.equal(swept8[e], singles[e] / div)
+                    for e in range(n_e))
+    heard8 = [float(x) for x in swept8.sum((1, 2, 3))]
+    print(f"[12f] sweep of {n_e} copies of city_scene(2500) "
+          f"({city10.n_walls} walls) with distinct listeners, {RAYS} x "
+          f"{BOUNCES} x {frames} frames: {secs_8:.3f} s, launches {launched}"
+          f", prepare built {n_builds} tables; each room == a single K8 "
+          f"call with entry 40 + e: {single_ok}; energies {heard8}",
+          flush=True)
+    check(single_ok and sum(x > 0 for x in heard8) >= n_e // 2,
+          "12f: large sweep == single calls")
+    plain8 = ak.trace_rooms_ir_accel_plain(
+        copies, src8, sweep_lis, 26, frames, entry_offset=40,
+        input_gain=CITY_GAIN, listener_radius=float(pc10.listener_radius),
+        ray_chunk=PLAIN_ELEMENTS // city10.n_walls, **one)
+    for e in range(n_e):
+        if heard8[e] > 0:
+            same_numbers(f"[12f] large sweep room {e} vs plain", "K8",
+                         swept8[e] * div, plain8[e])
+    del swept8, singles, plain8
+    n_s = 16
+    srcs = pc10.source[None] + torch.tensor(
+        [[float(i % 4) - 1.5, float(i // 4) - 1.5] for i in range(n_s)],
+        device=dev) * 0.5
+    ears2 = pc10.listeners + torch.tensor([[-0.2, 0.0], [0.2, 0.0]],
+                                          device=dev)
+    pmix = art.TraceParams.make(srcs, ears2, input_gain=CITY_GAIN,
+                                device=dev)
+    ak.prepare(city10)         # the sweep's copies pushed it out of the cache
+    builds = ak.prepare.builds
+    mix, launched = counted(lambda: trace_sources_mixdown(city10, pmix, 27,
+                                                          **one))
+    check(launched == only(K8=n_s * BOUNCES) and
+          ak.prepare.builds == builds,
+          f"12f: large mixdown launches {launched}, prepare builds "
+          f"{ak.prepare.builds - builds}")
+    add(launched)
+    singles = torch.stack([ak.trace_frames_ir_accel_sorted(
+        city10, pmix._replace(source=srcs[s]), 27, 1, entry=s, **one)
+        for s in range(n_s)]).sum(0)
+    mix_plain = ak.trace_rooms_ir_accel_plain(
+        city10, srcs, ears2.expand(n_s, 2, 2), 27, 1, input_gain=CITY_GAIN,
+        ray_chunk=PLAIN_ELEMENTS // (2 * city10.n_walls), **one).sum(0)
+    torch.cuda.synchronize()
+    print(f"[12f] {n_s}-source mixdown in city_scene(2500), 2 ears: IR "
+          f"{tuple(mix.shape)}, launches {launched}, no new sort; == the sum"
+          f" of {n_s} single K8 calls (entry s): {torch.equal(mix, singles)}",
+          flush=True)
+    check(torch.equal(mix, singles), "12f: large mixdown == single calls")
+    same_numbers("[12f] large mixdown vs plain", "K8", mix, mix_plain)
+    del mix, singles, mix_plain
+    return slice_launches, readings
+
+
+def bands_timings(c, readings):
+    """The [12t] lines: device time of K3, K4, K9 and K7 at 1, 8 and 32
+    bands, and K4 and K8 with 64 listeners, each beside its bound (the
+    wall tests and sweeps the kernel reports, plus two FP32 operations
+    per band of each hit; the K u64 atomics of a hit are counted apart:
+    they land in L2)."""
+    torch, art, bk, ak, rng = (c[k] for k in ("torch", "art", "bk", "ak",
+                                               "rng"))
+    from realisticaudioraytracing2d_tpu_torch.ops import trace as tt
+    dev, card, work = c["dev"], c["card"], c["work"]
+    kw = dict(sample_rate=SR, ir_length=T)
+    one = dict(n_rays=RAYS, max_bounces=BOUNCES, **kw)
+    city_run = dict(n_rays=BIG_RAYS, max_bounces=CITY_BOUNCES,
+                    sample_rate=CITY_SR, ir_length=CITY_T)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
+    ears = np.array([[-0.2, -3.68], [0.2, -3.68]], np.float32)
+    g = np.random.default_rng(13)
+    mix_src = np.stack([g.uniform(-15, 15, N_SOURCES),
+                        g.uniform(-3, 8, N_SOURCES)], -1).astype(np.float32)
+    cities = c["city_bands"]
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
+
+    def device_ms(fn, reps, name="frames_ir_kernel", launches=1):
+        """The median of three profiler readings that each hold all the
+        launches of their calls."""
+        got = [kernel_device_ms(torch, fn, reps, name, launches)
+               for _ in range(3)]
+        return None if None in got else float(np.median(got))
+
+    rows = {}
+    for n_bands in (1, 8, 32):
+        room = art.rooms.smoll_room(n_bands=n_bands, device=dev)
+        sc = room.scene
+        p = art.TraceParams.make(room.source, room.listener, device=dev)
+        shared = c["Scene"](*(x[None] for x in sc))
+        lis64 = torch.as_tensor(ears, device=dev)[None].expand(N_SOURCES, 2,
+                                                               2)
+        csc, pc = cities[n_bands]
+        rows[n_bands] = {
+            "K3": device_ms(lambda: bk.trace_frames_ir_whole(
+                sc, p, emit, u, **kw), 10),
+            "K4": device_ms(lambda: bk.trace_frames_ir_mega(
+                sc, p, 5, 1, **one), 10),
+            "K4 131k x 8 x 8": device_ms(
+                lambda: bk.trace_frames_ir_mega(
+                    sc, p, 6, BIG_FRAMES, n_rays=BIG_RAYS,
+                    max_bounces=BIG_BOUNCES, **kw), 3),
+            "K9 mixdown": device_ms(
+                lambda: bk.trace_rooms_ir_mega(
+                    shared, mix_src, lis64, 7, 1, **one), 5),
+            "K7 40,008 walls": device_ms(
+                lambda: ak.trace_frames_ir_accel(
+                    csc, pc, 5, CITY_FRAMES, **city_run), 2,
+                "accel_frames_kernel")}
+    print(f"[12t] device ms per call on {card} (profiler, the median of "
+          "three readings) at K = 1 / 8 / 32 bands: " + "; ".join(
+              f"{k} {' / '.join(fmt(rows[n][k]) for n in (1, 8, 32))}"
+              for k in rows[1]), flush=True)
+    # 64 listeners: K4 on SmollRoom (K = 8), K8 on the 10,008-wall city
+    r64 = readings["64"]
+    out = {"rows": rows}
+    for key, fn, kname, scene, p, seed in (
+            ("K4", bk.trace_frames_ir_mega, "frames_ir_kernel", r64["sc"],
+             r64["p"], 31),
+            ("K8", ak.trace_frames_ir_accel_sorted, "accel_bounce_kernel",
+             r64["city"], r64["pc"], 32)):
+        n_bands = scene.n_bands
+        ms = cuda_ms(torch, lambda: fn(scene, p, seed, 1, **one), 5)
+        dev_ms = device_ms(lambda: fn(scene, p, seed, 1, **one), 3, kname,
+                           BOUNCES if key == "K8" else 1)
+        w = work(lambda n: fn(scene, p, seed, 1, work_counts=n, **one))
+        traced = scene if key == "K4" else ak.prepare(scene).scene
+        e1, u1 = rng.philox_uniforms(seed, 1, BOUNCES, RAYS, dev)
+        hits = tt.trace_hits_only(traced, p, e1[0], u1[0], use_kernels=True)
+        n_hits = int(hits.valid.sum())
+        n_l = p.listeners.shape[0]
+        n_bytes = 4 * ((10 + n_bands) * scene.n_walls + 2 * n_l + 5
+                       + n_l * T * n_bands)
+        ops_ms = (w[0] * OPS_PER_TEST + w[1] * OPS_PER_SWEEP
+                  + w[2] * OPS_PER_SLAB + 2 * n_bands * n_hits) \
+            / PEAK_FP32 * 1e3
+        bytes_ms = n_bytes / PEAK_BYTES * 1e3
+        bnd = (ops_ms, "operations") if ops_ms >= bytes_ms else \
+            (bytes_ms, "bytes")
+        print(f"[12t] {key} 64 listeners, K={n_bands}, {scene.n_walls} walls,"
+              f" {RAYS} x {BOUNCES} x 1 frame on {card}: {ms:.3f} ms per call"
+              f" (CUDA events), device {fmt(dev_ms)} ms; {w[0]} wall tests, "
+              f"{w[1]} sweeps, {w[2]} slab tests, {n_hits} hits x {n_bands} "
+              f"bands ({n_hits * n_bands} u64 atomics, not in the bound); "
+              f"bound {bnd[0]:.6f} ms ({bnd[1]}; {FMAD_NOTE}), device at "
+              f"{'not measured' if dev_ms is None else f'{bnd[0] / dev_ms * 100:.1f}%'}"
+              " of it", flush=True)
+        out[key] = dict(ms=ms, device_ms=dev_ms, work=w, hits=n_hits,
+                        bound=bnd)
+    return out
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -390,10 +1008,12 @@ def main():
     # --- 1. build ------------------------------------------------------------
     secs = build.build()
     build.load_library()
-    ptxas = [ln.strip() for ln in build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+    # every instantiation: bounce frames_ir_kernel<host, directive, K> and
+    # accel_frames_kernel<K, early_out, directive> by band bucket (K = 0:
+    # the scratch), accel_bounce_kernel<early_out, directive>, the step
+    # and sweep kernels
     print(f"[1] build: {secs:.1f} s ({build.library_path().name}); "
-          + " | ".join(ptxas), flush=True)
+          + " | ".join(ptxas_lines(build.build_log())), flush=True)
 
     def setup(room_fn, cfg):
         room = room_fn(device=dev)
@@ -1425,9 +2045,9 @@ def main():
 
     # 11c. registers: the omni instantiations keep the parent's
     lib = build.load_library()
-    attr_calls = {"K3": ("art_frames_attributes", (1,)),
-                  "K4": ("art_frames_attributes", (0,)),
-                  "K9": ("art_frames_attributes", (0,)),
+    attr_calls = {"K3": ("art_frames_attributes", (1, 1)),
+                  "K4": ("art_frames_attributes", (0, 1)),
+                  "K9": ("art_frames_attributes", (0, 1)),
                   "K5": ("art_step_attributes", (1, 1)),
                   "K6": ("art_step_attributes", (0, 1)),
                   "K7": ("art_accel_attributes", (7, 8, 1)),
@@ -1560,6 +2180,25 @@ def main():
           f"cardioid source and a figure-eight mic: {secs_l:.3f} s, "
           f"launches {launched_l}, {[f'{r:.3g}' for r in ratios_l]}",
           flush=True)
+
+    # --- 12. bands, many listeners, batches past 5,280 walls ---------------
+    ctx = dict(torch=torch, art=art, bk=bk, ak=ak, rng=rng, cli=cli, dev=dev,
+               counted=counted, only=only, same_numbers=same_numbers,
+               Scene=Scene, build=build, card=card, work=work)
+    band_launches, band_readings = bands_phase(ctx)
+    launches_d, band_readings["64"] = listeners_batches_phase(ctx)
+    for k, n in launches_d.items():
+        band_launches[k] += n
+    # 12e. the 40,008-wall city at 32 bands through K7, at full shape
+    scene_32, p_32, secs = city(10000, n_bands=32)
+    ir_32 = large_scene("[12e]", "K7", scene_32, p_32, 49, secs, n_bands=32,
+                        plain=ak.trace_frames_ir_accel_plain)
+    check(ir_32[..., -1].sum() < ir_32[..., 0].sum(),
+          "12e: highest band quieter than the lowest")
+    del ir_32
+    scene_d1 = scene_d._replace(absorption=scene_d.absorption[:, :1])
+    ctx["city_bands"] = {1: (scene_d1, p_d), 8: (scene_d, p_d),
+                         32: (scene_32, p_32)}
 
     # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
@@ -1873,7 +2512,11 @@ def main():
               f"alternating: {', '.join(fmt(x) for x in dev_d)}; medians "
               f"{fmt(med[0])} / {fmt(med[1])}, directive over omni {ratio}",
               flush=True)
+    band_timing = bands_timings(ctx, band_readings)
+    del scene_32, p_32, scene_d1, band_timing
     launches.update(city_launches)
+    for k, n in band_launches.items():   # the slice's paths ([12])
+        launches[k] += n
 
     names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),
              "K4": ("bounce_kernel K4 (in-kernel Philox)", 563,
@@ -1881,7 +2524,7 @@ def main():
              "K9": ("bounce_kernel K9 (rooms-batched, in-kernel Philox)",
                     656, KERNEL_SOURCE),
              "K7": ("accel_kernel K7 (cluster early-out, all bounces, "
-                    "K <= 8 bands)", 1869, ACCEL_SOURCE),
+                    "any K bands)", 1869, ACCEL_SOURCE),
              "K8": ("accel_kernel K8 (cluster early-out per bounce, Morton "
                     "re-sort)", 2154, ACCEL_SOURCE),
              "K1": ("trace_kernel K1 (nearest wall of each ray)", 75,

@@ -3,7 +3,7 @@
 // Replaces two TPU kernels of the JAX package
 // (realisticaudioraytracing2d_tpu/ops/pallas/bounce_kernel.py):
 //   _make_accel_kernel (K7, through trace_frames_ir_accel): emission, every
-//     bounce and the IR binning of F frames in one launch, K <= 8 bands;
+//     bounce and the IR binning of F frames in one launch, any K bands;
 //   _make_accel_bounce_kernel (K8, through trace_frames_ir_accel_sorted):
 //     one bounce of every ray of F frames per launch, the ray state in
 //     global memory; between launches the rays are re-sorted along a
@@ -65,13 +65,25 @@
 //    table, and an occlusion sweep stops at the first blocker it meets,
 //    so early_out on or off gives the same bits, and K7 (K = 1) and K8 on
 //    a sorted scene give K4's.
-//  * Random numbers: Philox-4x32-10, counter (ray, frame, bounce, 0), as
-//    K4. K8 carries each ray's original (frame, ray) id through the
-//    re-sorts and draws by it, so sorting never changes a ray's numbers:
-//    K8 equals K4 bit for bit on a sorted scene (JAX's K8 pairs host
-//    uniforms with tile positions and is only statistically equal).
-//  * Bands (K7): up to 8 energies per ray in registers; the NEE and energy
-//    cutoffs use the loudest band, as the plain trace does.
+//  * Random numbers: Philox-4x32-10, counter (ray, frame, bounce, entry),
+//    as K4 (entry 0) and K9: a batch of large scenes (a sweep, a mixdown)
+//    launches one entry at a time with its global entry id, so entry e
+//    draws what entry e of K9 draws. K8 carries each ray's original
+//    (frame, ray) id through the re-sorts and draws by it, so sorting
+//    never changes a ray's numbers: K8 equals K4 bit for bit on a sorted
+//    scene (JAX's K8 pairs host uniforms with tile positions and is only
+//    statistically equal).
+//  * Bands (K7): the energies of a ray in registers for K <= 8 (buckets
+//    1, 8: the smallest that holds K), past that in a device scratch
+//    (trace_common.cuh, kWideK; a 32-band bucket took 128 registers and
+//    spilled, and measured 1.25x the scratch's time on the 40,008-wall
+//    city: PERF.md), the launch then running its frames in
+//    chunks whose energies fit the scratch; the NEE and energy cutoffs use
+//    the loudest band, as the plain trace does. The absorption of bands
+//    1.. is read from the global table, for the hit wall only.
+//  * Listeners: a table sized from the launch in shared memory beside the
+//    super boxes (8 B a listener); a caller whose listeners do not fit
+//    launches them in blocks over the same random numbers (the wrapper).
 //  * Directive sources and microphones: a template flag of both kernels
 //    (trace_common.cuh), the microphone table [L, C_m] in shared memory
 //    beside the listeners, the source row [C_s] too (K7). K8 weights the
@@ -102,16 +114,19 @@
 // ablation that replaces them moves nothing) and neither do the atomics.
 // Measured shares: PERF.md.
 
+#include <algorithm>
+
 #include "trace_common.cuh"
 
 namespace {
 
 constexpr int kAccelThreads = 256;
 constexpr int kAccelWarps = kAccelThreads / 32;
-constexpr int kMaxBands = 8;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB per block on sm_90
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr long long kDeadKey = 0xFFFFFFFFll;
+// K7's largest register bucket of a ray's band energies (by_bucket)
+constexpr int kAccelLargestBucket = 8;
 
 struct Boxes {
   const float4* cl;   // [C] cluster boxes (xmin, ymin, xmax, ymax), global
@@ -267,13 +282,15 @@ size_t smem_bytes(int n_clusters, int group, bool with_order,
 // the attribute rows inside the wrapper's rows [11 + K - 1, Wp].
 __device__ __forceinline__ WallTable global_table(const float* rows,
                                                   const float4* geo, int n) {
-  return {geo, rows + static_cast<size_t>(CC) * n,
-          rows + static_cast<size_t>(NX) * n, n};
+  const float* attr = rows + static_cast<size_t>(NX) * n;
+  return {geo, rows + static_cast<size_t>(CC) * n, attr, n, attr};
 }
 
 // K7: grid (ceil(R / 256), F); thread = (ray, frame), all bounces. A warp
 // stays in the bounce loop until its last ray is dead, so that every lane
-// joins the nearest-wall sweep's votes.
+// joins the nearest-wall sweep's votes. A wide kernel (kMaxK == kWideK)
+// runs frames frame0 + blockIdx.y, its energies in scratch [K, gridDim.y *
+// gridDim.x * 256].
 template <int kMaxK, bool kEarlyOut, bool kDirective>
 __global__ void __launch_bounds__(kAccelThreads) accel_frames_kernel(
     const float* __restrict__ walls, const float4* __restrict__ geo,
@@ -283,7 +300,8 @@ __global__ void __launch_bounds__(kAccelThreads) accel_frames_kernel(
     const float* __restrict__ src_c, int n_src,
     const float* __restrict__ mic_c, int n_mic,
     const float* __restrict__ scal, float sr, uint32_t key0, uint32_t key1,
-    int n_rays, int max_bounces, int ir_length,
+    uint32_t entry, int n_rays, int max_bounces, int ir_length, int frame0,
+    float* __restrict__ scratch,
     const double* __restrict__ scale, unsigned long long* __restrict__ acc,
     unsigned long long* __restrict__ work_out) {
   extern __shared__ float4 smem[];
@@ -300,7 +318,14 @@ __global__ void __launch_bounds__(kAccelThreads) accel_frames_kernel(
   __syncthreads();
   const WallTable table = global_table(walls, geo, n_walls);
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-  const int frame = blockIdx.y;
+  int frame = blockIdx.y;
+  WideBands wide{};
+  if constexpr (kMaxK == kWideK) {
+    frame += frame0;
+    wide = {scratch + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                       blockIdx.x) * blockDim.x + threadIdx.x,
+            static_cast<size_t>(gridDim.y) * gridDim.x * blockDim.x};
+  }
   const Listeners lis{s_lis, n_listeners, scal[2] * scal[2], scal[3], s_mic,
                       n_mic};
   const Sink sink{acc, ir_length, n_bands, sr, *scale};
@@ -313,8 +338,8 @@ __global__ void __launch_bounds__(kAccelThreads) accel_frames_kernel(
   bool alive = ray < n_rays;
   Ray<kMaxK> r = emit_ray<kMaxK, kDirective>(
       alive ? ray : 0, n_rays,
-      philox_uniforms(ray, frame, max_bounces, 0, key0, key1).u0, scal[0],
-      scal[1], scal[3], scal[4], s_src, n_src);
+      philox_uniforms(ray, frame, max_bounces, entry, key0, key1).u0,
+      scal[0], scal[1], scal[3], scal[4], s_src, n_src, wide, n_bands);
   for (int b = 0; b < max_bounces; ++b) {
     if (!__any_sync(kFullMask, alive)) break;
     int hit;
@@ -323,7 +348,7 @@ __global__ void __launch_bounds__(kAccelThreads) accel_frames_kernel(
     if (alive)
       alive = finish_bounce<kMaxK, kDirective>(
           r, closest, hit, table, lis, sink, occl, [&] {
-            return philox_uniforms(ray, frame, b, 0, key0, key1);
+            return philox_uniforms(ray, frame, b, entry, key0, key1);
           });
   }
   if (work_out != nullptr) add_work(work, work_out);
@@ -419,8 +444,8 @@ __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
     const float* __restrict__ src_c, int n_src,
     const float* __restrict__ mic_c, int n_mic,
     const float* __restrict__ scal, const float* __restrict__ bounds,
-    float sr, uint32_t key0, uint32_t key1, int n_rays, int n_slots,
-    int max_bounces, int bounce, int ir_length,
+    float sr, uint32_t key0, uint32_t key1, uint32_t entry, int n_rays,
+    int n_slots, int max_bounces, int bounce, int ir_length,
     const double* __restrict__ scale, const long long* __restrict__ perm,
     const float* __restrict__ state_in, const int* __restrict__ istate_in,
     float* __restrict__ state_out, int* __restrict__ istate_out,
@@ -462,8 +487,8 @@ __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
     // the source row from global memory: shared memory is not ready yet
     r = emit_ray<1, kDirective>(
         ray, n_rays,
-        philox_uniforms(ray, frame, max_bounces, 0, key0, key1).u0, scal[0],
-        scal[1], scal[3], scal[4], src_c, n_src);
+        philox_uniforms(ray, frame, max_bounces, entry, key0, key1).u0,
+        scal[0], scal[1], scal[3], scal[4], src_c, n_src);
   } else {
     const float* s = state_in + from;
     r.px = s[0];
@@ -493,7 +518,9 @@ __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
           return occluded<kEarlyOut>(table, bx, sx, sy, vdx, vdy, dist, limit,
                                      work);
         },
-        [&] { return philox_uniforms(ray, frame, bounce, 0, key0, key1); });
+        [&] {
+          return philox_uniforms(ray, frame, bounce, entry, key0, key1);
+        });
     float* s = state_out + slot;
     s[0] = r.px;
     s[n] = r.py;
@@ -523,7 +550,7 @@ bool boxes_ok(int n_walls, int n_clusters, int group, int cluster_size,
   return n_clusters >= 1 && group >= 1 && cluster_size >= 1 &&
          n_clusters % group == 0 &&
          static_cast<long long>(n_clusters) * cluster_size == n_walls &&
-         n_listeners >= 1 && n_listeners <= kMaxListeners;
+         n_listeners >= 1;
 }
 
 template <class Kernel>
@@ -542,28 +569,45 @@ cudaError_t launch_frames(const float* walls, const float* geo, int n_walls,
                           const float* listeners, int n_listeners,
                           const float* src_c, int n_src, const float* mic_c,
                           int n_mic, const float* scal, float sr, uint32_t key0,
-                          uint32_t key1, int n_rays, int max_bounces,
-                          int n_frames, int ir_length, const double* scale,
-                          unsigned long long* acc, float* out,
-                          unsigned long long* work, cudaStream_t stream) {
+                          uint32_t key1, uint32_t entry, int n_rays,
+                          int max_bounces, int n_frames, int ir_length,
+                          float* scratch, long long scratch_floats,
+                          const double* scale, unsigned long long* acc,
+                          float* out, unsigned long long* work,
+                          int* launched, cudaStream_t stream) {
+  const auto kernel = accel_frames_kernel<kMaxK, kEarlyOut, kDirective>;
   const size_t smem = smem_bytes(n_clusters, group, false, n_listeners,
                                  n_mic, n_src);
-  cudaError_t err =
-      allow_smem(accel_frames_kernel<kMaxK, kEarlyOut, kDirective>, smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const size_t n = static_cast<size_t>(n_listeners) * ir_length * n_bands;
   err = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * n, stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_rays + kAccelThreads - 1) / kAccelThreads, n_frames);
-  accel_frames_kernel<kMaxK, kEarlyOut, kDirective>
-      <<<grid, kAccelThreads, smem, stream>>>(
-      walls, reinterpret_cast<const float4*>(geo), n_walls, n_bands,
-      reinterpret_cast<const float4*>(aabb),
-      reinterpret_cast<const float4*>(saabb), n_clusters, group,
-      cluster_size, listeners, n_listeners, src_c, n_src, mic_c, n_mic, scal, sr, key0, key1, n_rays,
-      max_bounces, ir_length, scale, acc, work);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const int gx = (n_rays + kAccelThreads - 1) / kAccelThreads;
+  // a register bucket takes every frame at once; the wide kernel takes
+  // chunks of frames whose energies fit the scratch
+  int chunk = n_frames;
+  if constexpr (kMaxK == kWideK) {
+    const long long per_frame = static_cast<long long>(gx) * kAccelThreads *
+                                n_bands;
+    if (scratch == nullptr || scratch_floats < per_frame)
+      return cudaErrorInvalidValue;
+    chunk = static_cast<int>(std::min<long long>(n_frames,
+                                                 scratch_floats / per_frame));
+  }
+  for (int f0 = 0; f0 < n_frames; f0 += chunk) {
+    const dim3 grid(gx, std::min(chunk, n_frames - f0));
+    kernel<<<grid, kAccelThreads, smem, stream>>>(
+        walls, reinterpret_cast<const float4*>(geo), n_walls, n_bands,
+        reinterpret_cast<const float4*>(aabb),
+        reinterpret_cast<const float4*>(saabb), n_clusters, group,
+        cluster_size, listeners, n_listeners, src_c, n_src, mic_c, n_mic,
+        scal, sr, key0, key1, entry, n_rays, max_bounces, ir_length, f0,
+        scratch, scale, acc, work);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
   return launch_fixed_to_float(acc, scale, out, n, n, stream);
 }
 
@@ -574,7 +618,7 @@ cudaError_t launch_bounce(const float* walls, const float* geo, int n_walls,
                           const float* listeners, int n_listeners,
                           const float* src_c, int n_src, const float* mic_c,
                           int n_mic, const float* scal, const float* bounds, float sr,
-                          uint32_t key0, uint32_t key1, int n_rays,
+                          uint32_t key0, uint32_t key1, uint32_t entry, int n_rays,
                           int n_slots, int max_bounces, int bounce,
                           int ir_length, const double* scale,
                           const long long* perm, const float* state_in,
@@ -594,7 +638,7 @@ cudaError_t launch_bounce(const float* walls, const float* geo, int n_walls,
       reinterpret_cast<const float4*>(aabb),
       reinterpret_cast<const float4*>(saabb), n_clusters, group,
       cluster_size, listeners, n_listeners, src_c, n_src, mic_c, n_mic, scal, bounds, sr, key0, key1,
-      n_rays, n_slots, max_bounces, bounce, ir_length, scale, perm, state_in,
+      entry, n_rays, n_slots, max_bounces, bounce, ir_length, scale, perm, state_in,
       istate_in, state_out, istate_out, keys_out, acc, work);
   return cudaGetLastError();
 }
@@ -604,15 +648,20 @@ cudaError_t launch_bounce(const float* walls, const float* geo, int n_walls,
 extern "C" {
 
 // K7: the frame-summed IR out[L, T, K] (f32) of n_frames frames of n_rays
-// rays, drawn in the kernel under (key0, key1). walls [10 + K, W] (see
-// WallField; W = n_clusters * cluster_size, Morton-sorted), geo [W, 4] =
-// (ax, ay, v2x, v2y) of the same walls, aabb [C, 4], saabb [C / group, 4],
-// listeners [L, 2], scal [5] = (source x, source y, listener radius, speed
-// of sound, input gain), all device f32; scale one device double, acc
-// [L, T, K] u64 scratch; work, if not null, three device u64 (wall tests,
-// wall sweeps, slab tests). 1 <= K <= 8. src_c [n_src] and mic_c
-// [L, n_mic] (device f32, n odd) are the source and microphone patterns of
-// a directive trace, both null for omni. Returns a cudaError_t code (0 =
+// rays, drawn in the kernel under (key0, key1) with counter word 3 =
+// entry. walls [10 + K, W] (see WallField; W = n_clusters * cluster_size,
+// Morton-sorted), geo [W, 4] = (ax, ay, v2x, v2y) of the same walls, aabb
+// [C, 4], saabb [C / group, 4], listeners [L, 2] (any L whose table fits
+// beside the super boxes in shared memory), scal [5] = (source x, source
+// y, listener radius, speed of sound, input gain), all device f32; scale
+// one device double, acc [L, T, K] u64 scratch; work, if not null, three
+// device u64 (wall tests, wall sweeps, slab tests). K >= 1: K <= 8 keeps
+// a ray's energies in registers, a larger K needs scratch, scratch_floats
+// >= ceil(R / 256) * 256 * K device floats (more lets a launch take more
+// frames at once). src_c [n_src] and mic_c [L, n_mic] (device f32, n odd)
+// are the source and microphone patterns of a directive trace, both null
+// for omni. *launched (host) receives the kernel's launches: one, or one
+// per chunk of frames for the scratch. Returns a cudaError_t code (0 =
 // launched).
 int art_accel_frames(const float* walls, const float* geo, int n_walls,
                      int n_bands, const float* aabb, const float* saabb,
@@ -620,35 +669,36 @@ int art_accel_frames(const float* walls, const float* geo, int n_walls,
                      const float* listeners, int n_listeners,
                      const float* src_c, int n_src, const float* mic_c,
                      int n_mic, const float* scal, float sr, unsigned int key0,
-                     unsigned int key1, int n_rays, int max_bounces,
-                     int n_frames, int ir_length, const double* scale,
-                     unsigned long long* acc, float* out, int early_out,
-                     unsigned long long* work, void* stream) {
+                     unsigned int key1, unsigned int entry, int n_rays,
+                     int max_bounces, int n_frames, int ir_length,
+                     float* scratch, long long scratch_floats,
+                     const double* scale, unsigned long long* acc, float* out,
+                     int early_out, unsigned long long* work, int* launched,
+                     void* stream) {
   if (!boxes_ok(n_walls, n_clusters, group, cluster_size, n_listeners) ||
-      n_bands < 1 || n_bands > kMaxBands || n_rays < 1 || n_frames < 1 ||
-      n_frames > 65535 || max_bounces < 1 || ir_length < 1 ||
+      n_bands < 1 || n_rays < 1 || n_frames < 1 || n_frames > 65535 ||
+      max_bounces < 1 || ir_length < 1 ||
       !patterns_ok(src_c, n_src, mic_c, n_mic))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool directive = src_c != nullptr;
   if (!directive) n_src = n_mic = 0;
   const auto s = static_cast<cudaStream_t>(stream);
-#define ART_FRAMES(K, E, D)                                                  \
+  *launched = 0;
+  const auto go = [&](auto bucket) {
+    constexpr int K = decltype(bucket)::value;
+#define ART_FRAMES(E, D)                                                     \
   launch_frames<K, E, D>(walls, geo, n_walls, n_bands, aabb, saabb,          \
                          n_clusters, group, cluster_size, listeners,         \
                          n_listeners, src_c, n_src, mic_c, n_mic, scal, sr,  \
-                         key0, key1, n_rays, max_bounces, n_frames,          \
-                         ir_length, scale, acc, out, work, s)
-#define ART_FRAMES_D(K, E) \
-  (directive ? ART_FRAMES(K, E, true) : ART_FRAMES(K, E, false))
-  cudaError_t err;
-  if (n_bands == 1)
-    err = early_out ? ART_FRAMES_D(1, true) : ART_FRAMES_D(1, false);
-  else
-    err = early_out ? ART_FRAMES_D(kMaxBands, true)
-                    : ART_FRAMES_D(kMaxBands, false);
-#undef ART_FRAMES_D
+                         key0, key1, entry, n_rays, max_bounces, n_frames,   \
+                         ir_length, scratch, scratch_floats, scale, acc,     \
+                         out, work, launched, s)
+    if (early_out)
+      return directive ? ART_FRAMES(true, true) : ART_FRAMES(true, false);
+    return directive ? ART_FRAMES(false, true) : ART_FRAMES(false, false);
 #undef ART_FRAMES
-  return static_cast<int>(err);
+  };
+  return static_cast<int>(by_bucket<kAccelLargestBucket>(n_bands, go));
 }
 
 // K8: one bounce (0 .. max_bounces - 1) of the n_slots = F * R rays. A
@@ -669,7 +719,7 @@ int art_accel_bounce(const float* walls, const float* geo, int n_walls,
                      int n_listeners, const float* src_c, int n_src,
                      const float* mic_c, int n_mic, const float* scal, const float* bounds,
                      float sr, unsigned int key0, unsigned int key1,
-                     int n_rays, int n_slots, int max_bounces, int bounce,
+                     unsigned int entry, int n_rays, int n_slots, int max_bounces, int bounce,
                      int ir_length, const double* scale,
                      const long long* perm, const float* state_in,
                      const int* istate_in, float* state_out, int* istate_out,
@@ -690,8 +740,8 @@ int art_accel_bounce(const float* walls, const float* geo, int n_walls,
 #define ART_BOUNCE(E, D)                                                     \
   launch_bounce<E, D>(walls, geo, n_walls, aabb, saabb, n_clusters, group,   \
                       cluster_size, listeners, n_listeners, src_c, n_src,    \
-                      mic_c, n_mic, scal, bounds, sr, key0, key1, n_rays,    \
-                      n_slots, max_bounces, bounce, ir_length, scale, perm,  \
+                      mic_c, n_mic, scal, bounds, sr, key0, key1, entry,     \
+                      n_rays, n_slots, max_bounces, bounce, ir_length, scale, perm,  \
                       state_in, istate_in, state_out, istate_out, keys_out,  \
                       acc, work, s)
   cudaError_t err;
@@ -703,28 +753,31 @@ int art_accel_bounce(const float* walls, const float* geo, int n_walls,
   return static_cast<int>(err);
 }
 
-// The registers and local (stack) bytes per thread of K7 (which = 7:
-// accel_frames_kernel<n_bands == 1 ? 1 : 8, early_out, directive>) or K8
-// (which = 8: accel_bounce_kernel<early_out, directive>) into out[2]
-// (cudaFuncGetAttributes). Returns a cudaError_t code.
+// The registers and local (stack) bytes per thread of K7 (which = 7: the
+// accel_frames_kernel<bucket of n_bands, early_out, directive> a launch of
+// n_bands takes) or K8 (which = 8: accel_bounce_kernel<early_out,
+// directive>) into out[2] (cudaFuncGetAttributes). Returns a cudaError_t
+// code.
 int art_accel_attributes(int which, int n_bands, int early_out,
                          int directive, int* out) {
   cudaFuncAttributes a;
   cudaError_t err = cudaErrorInvalidValue;
-#define ART_K7(K, E, D) cudaFuncGetAttributes(&a, accel_frames_kernel<K, E, D>)
-#define ART_K7_D(K, E) (directive ? ART_K7(K, E, true) : ART_K7(K, E, false))
-#define ART_K7_E(K) (early_out ? ART_K7_D(K, true) : ART_K7_D(K, false))
+  const auto k7 = [&](auto bucket) {
+    constexpr int K = decltype(bucket)::value;
+#define ART_K7(E, D) cudaFuncGetAttributes(&a, accel_frames_kernel<K, E, D>)
+    if (early_out)
+      return directive ? ART_K7(true, true) : ART_K7(true, false);
+    return directive ? ART_K7(false, true) : ART_K7(false, false);
+#undef ART_K7
+  };
 #define ART_K8(E, D) cudaFuncGetAttributes(&a, accel_bounce_kernel<E, D>)
 #define ART_K8_D(E) (directive ? ART_K8(E, true) : ART_K8(E, false))
-  if (which == 7)
-    err = n_bands == 1 ? ART_K7_E(1) : ART_K7_E(kMaxBands);
+  if (which == 7 && n_bands >= 1)
+    err = by_bucket<kAccelLargestBucket>(n_bands, k7);
   else if (which == 8)
     err = early_out ? ART_K8_D(true) : ART_K8_D(false);
 #undef ART_K8_D
 #undef ART_K8
-#undef ART_K7_E
-#undef ART_K7_D
-#undef ART_K7
   if (err == cudaSuccess) {
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.localSizeBytes);

@@ -12,10 +12,11 @@
 //     with its own wall table or one shared table, listeners, source,
 //     gain, radius, speed of sound and fixed-point scale).
 // All three compute the same thing (emission, every bounce of _bounce_step
-// and the IR binning of _hist_listener) and differ only in where the
-// uniforms come from and in the batch axis, so they are one template,
-// frames_ir_kernel<kHostUniforms, kDirective>, whose grid z axis is the
-// batch entry: K3 and K4 are its E = 1 case. kDirective adds the source
+// and the IR binning of _hist_listener, K bands and L listeners) and
+// differ only in where the uniforms come from and in the batch axis, so
+// they are one template, frames_ir_kernel<kHostUniforms, kDirective,
+// kMaxK>, whose grid z axis is the batch entry: K3 and K4 are its E = 1
+// case. kDirective adds the source
 // and microphone patterns (_fourier_gain, _src_gain and the mic rows of
 // pack_listeners in the JAX kernels): per entry a source row [C_s] and a
 // microphone table [L, C_m], so each source of a mixdown carries its own
@@ -37,13 +38,28 @@
 //  * Each block packs its entry's wall table into shared memory as a
 //    WallTable (trace_common.cuh): the geometry of a wall as one float4
 //    (ax, ay, v2x, v2y), cc, and six attribute rows (nx, ny, abs, scat,
-//    trans, ior): 44 B per wall, plus its listener table (<= 16
-//    listeners) and, when directive, its entry's pattern rows (C_s + L *
-//    C_m floats). The tables are [E or 1, 11, W] and [E, L, 2]; a wall
-//    stride of 0 shares one scene among all entries (the mixdown) without
-//    copying it. The attribute gather is an indexed shared-memory load.
-//    The 227 KB a block can use caps a scene at kMaxWalls = 5280 walls;
-//    larger scenes go to the cluster kernels K7/K8 (accel_kernel.cu).
+//    trans, ior): 44 B per wall at any band count, plus its listener
+//    table (8 B a listener, sized from the launch) and, when directive,
+//    its entry's pattern rows (C_s + L * C_m floats). The tables are
+//    [E or 1, 10 + K, W] and [E, L, 2]; a wall stride of 0 shares one
+//    scene among all entries (the mixdown) without copying it. The
+//    attribute gather is an indexed shared-memory load. The 227 KB a
+//    block can use caps a scene at kMaxWalls = 5280 walls beside 16
+//    listeners; larger scenes go to the cluster kernels K7/K8
+//    (accel_kernel.cu). Listeners that do not fit beside a table run in
+//    blocks, one launch each (the wrapper), over the same random numbers
+//    and scale: ray physics never reads the listener table, so the blocks
+//    give the whole launch's bits.
+//  * Bands: the absorption of bands 1 .. K-1 (rows 11 .. of the wrapper's
+//    table) is read from global memory, for the hit wall only, once per
+//    bounce (5,280 walls x 31 bands = 655 KB, resident in L2), so the
+//    shared table and kMaxWalls do not depend on K. A ray's K energies
+//    live in registers for K <= 32 (the buckets 1, 8, 32 of
+//    trace_common.cuh::by_bucket: the launch takes the smallest that holds
+//    K and loops to K); past that in a device scratch laid out band-major
+//    by thread (kWideK), the launch running its (entry, frame) planes in
+//    chunks whose energies fit the scratch. The omni K = 1 instantiations
+//    compile to the code they had before bands (the same registers).
 //  * Nearest wall and occlusion: scan_nearest / scan_blocker of
 //    trace_common.cuh. A division-free filter over 32 walls at a time
 //    leaves a mask of the few walls the ray's line can cross, and only
@@ -51,16 +67,17 @@
 //    (is the wall within reach?) and then to the exact test with its two
 //    IEEE divides, so the lowest index wins among equal distances (the
 //    oracle's argmin) and an occlusion sweep stops at the first blocker.
-//  * 77 registers a thread, so three blocks of 256 share an SM. (Asking
-//    the compiler for two or four resident blocks through
-//    __launch_bounds__ measured the same on the 1,024-room sweep.)
+//  * 64 registers a thread at K = 1 (omni), so four blocks of 256 share an
+//    SM; more in the larger buckets (PERF.md). (Asking the compiler for
+//    two or four resident blocks through __launch_bounds__ measured the
+//    same on the 1,024-room sweep.)
 //    Padding walls are degenerate (a == b, so v2 == 0): dotp == 0 marks
 //    them parallel to every ray and they never hit, as in the oracle.
 //  * Arithmetic is IEEE: '/', sqrtf, sincosf, asinf, no fast math, and the
 //    build passes --fmad=false so no multiply-add is contracted. The
 //    diffuse direction keeps the oracle's form, asin then rotate.
-//  * IR binning: each valid hit adds llrint(e * S_e) into an unsigned
-//    64-bit [E, L, T] accumulator with atomicAdd in global memory (a
+//  * IR binning: each valid hit adds llrint(e * S_e) per band into an
+//    unsigned 64-bit [E, L, T, K] accumulator with atomicAdd in global memory (a
 //    72,000-bin f32 IR is 288 KB, more than a block's shared memory).
 //    Integer addition is associative, so the same inputs give a
 //    bit-identical IR whatever order the atomics land in, at any E. S_e is
@@ -100,6 +117,8 @@
 // deposits' atomics are an eighth of the sweep's time. Measured shares:
 // PERF.md.
 
+#include <algorithm>
+
 #include "trace_common.cuh"
 
 namespace {
@@ -107,21 +126,27 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kAttrRows = kWallFields - 5;  // NX .. IOR
-constexpr int kMaxWalls =
-    (kMaxSmemBytes - 2 * kMaxListeners * 4) / (kWallFields * 4);
+// The largest register bucket of a ray's band energies (by_bucket): past
+// it the scratch, which measured 1.12-2.0x slower at 32 bands (PERF.md).
+constexpr int kLargestBucket = 32;
+// The largest wall table that leaves room for 16 listeners beside it (the
+// routing limit: larger scenes go to the cluster kernels). A launch sizes
+// its listener table from its listener count; a caller whose listeners do
+// not fit beside the walls launches them in blocks (the wrapper).
+constexpr int kMaxWalls = (kMaxSmemBytes - 2 * 16 * 4) / (kWallFields * 4);
 
-template <bool kHostUniforms, bool kDirective>
+template <bool kHostUniforms, bool kDirective, int kMaxK>
 __device__ __forceinline__ Work trace_ray(
     const WallTable& walls, const float* s_lis, int n_listeners,
     const float* s_src, int n_src, const float* s_mic, int n_mic,
     const float* scal, float sr, const float* emit, const float* u,
     uint32_t key0, uint32_t key1, uint32_t entry_id, int ray, int frame,
     int n_frames, int entry, int n_rays, int max_bounces, int ir_length,
-    double scale, unsigned long long* acc) {
+    int n_bands, WideBands wide, double scale, unsigned long long* acc) {
   const float radius = scal[2];
   const Listeners lis{s_lis, n_listeners, radius * radius, scal[3], s_mic,
                       n_mic};
-  const Sink sink{acc, ir_length, 1, sr, scale};
+  const Sink sink{acc, ir_length, n_bands, sr, scale};
   const int n_walls = walls.n;
   Work work;
 
@@ -151,8 +176,9 @@ __device__ __forceinline__ Work trace_ray(
           ? emit[(static_cast<size_t>(entry) * n_frames + frame) * n_rays +
                  ray]
           : draw(max_bounces).u0;
-  Ray<1> r = emit_ray<1, kDirective>(ray, n_rays, jitter0, scal[0], scal[1],
-                                     scal[3], scal[4], s_src, n_src);
+  Ray<kMaxK> r = emit_ray<kMaxK, kDirective>(
+      ray, n_rays, jitter0, scal[0], scal[1], scal[3], scal[4], s_src, n_src,
+      wide, n_bands);
 
   for (int b = 0; b < max_bounces; ++b) {
     // --- nearest wall: the lowest index among the smallest distances -------
@@ -162,34 +188,57 @@ __device__ __forceinline__ Work trace_ray(
                  closest, best);
     work.tests += n_walls;
     ++work.sweeps;
-    if (!finish_bounce<1, kDirective>(r, closest, closest < kInf ? best : -1,
-                                      walls, lis, sink, occluded,
-                                      [&] { return draw(b); }))
+    if (!finish_bounce<kMaxK, kDirective>(r, closest,
+                                          closest < kInf ? best : -1, walls,
+                                          lis, sink, occluded,
+                                          [&] { return draw(b); }))
       break;
   }
   return work;
 }
 
-template <bool kHostUniforms, bool kDirective>
+// Grid (ceil(R / 256), F, E) for a register bucket; a wide kernel (kMaxK ==
+// kWideK) runs over planes (entry, frame) = divmod(plane0 + blockIdx.y,
+// n_frames_all) on a grid (ceil(R / 256), planes, 1), its energies in
+// `scratch` [K, gridDim.y * gridDim.x * 256].
+template <bool kHostUniforms, bool kDirective, int kMaxK>
 __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
     const float* __restrict__ walls, long long wall_stride, int n_walls,
-    const float* __restrict__ listeners, int n_listeners,
+    int n_bands, const float* __restrict__ listeners, int n_listeners,
     const float* __restrict__ src_c, int n_src,
     const float* __restrict__ mic_c, int n_mic,
     const float* __restrict__ scal, float sr,
     const float* __restrict__ emit, const float* __restrict__ u,
     uint32_t key0, uint32_t key1, uint32_t entry_offset, int n_rays,
-    int max_bounces, int ir_length,
-    const double* __restrict__ scales,
+    int max_bounces, int ir_length, int plane0, int n_frames_all,
+    float* __restrict__ scratch, const double* __restrict__ scales,
     unsigned long long* __restrict__ acc,
     unsigned long long* __restrict__ work_out) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int entry = blockIdx.z;
+  int entry, frame, n_frames;
+  WideBands wide{};
+  if constexpr (kMaxK == kWideK) {
+    const int plane = plane0 + static_cast<int>(blockIdx.y);
+    entry = plane / n_frames_all;
+    frame = plane - entry * n_frames_all;
+    n_frames = n_frames_all;
+    const size_t stride =
+        static_cast<size_t>(gridDim.y) * gridDim.x * blockDim.x;
+    wide = {scratch + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                       blockIdx.x) * blockDim.x + threadIdx.x,
+            stride};
+  } else {
+    entry = blockIdx.z;
+    frame = blockIdx.y;
+    n_frames = gridDim.y;
+  }
+  const int nk = kMaxK == 1 ? 1 : n_bands;
   walls += entry * wall_stride;  // stride 0: one scene shared by all entries
   listeners += static_cast<size_t>(entry) * 2 * n_listeners;
-  const WallTable table = load_wall_table(walls, n_walls, 0, n_walls,
-                                          kAttrRows, smem);
+  WallTable table = load_wall_table(walls, n_walls, 0, n_walls, kAttrRows,
+                                    smem);
+  table.band_rows = walls + NX * n_walls;  // bands 1.., global (L2)
   float* s_lis = smem + wall_table_floats(n_walls, kAttrRows);  // [L][2]
   for (int i = threadIdx.x; i < 2 * n_listeners; i += blockDim.x)
     s_lis[i] = listeners[i];
@@ -206,27 +255,30 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   Work work;
   if (ray < n_rays)
-    work = trace_ray<kHostUniforms, kDirective>(
+    work = trace_ray<kHostUniforms, kDirective, kMaxK>(
         table, s_lis, n_listeners, s_src, n_src, s_mic, n_mic,
         scal + kScalFields * entry, sr, emit, u,
         key0, key1, entry_offset + static_cast<uint32_t>(entry), ray,
-        blockIdx.y, gridDim.y, entry, n_rays, max_bounces, ir_length,
+        frame, n_frames, entry, n_rays, max_bounces, ir_length, nk, wide,
         scales[entry],
-        acc + static_cast<size_t>(entry) * n_listeners * ir_length);
+        acc + static_cast<size_t>(entry) * n_listeners * ir_length * nk);
   if (work_out != nullptr)  // every thread of the block reaches this point
     add_work(work, work_out);
 }
 
-template <bool kHostUniforms, bool kDirective>
+template <bool kHostUniforms, bool kDirective, int kMaxK>
 cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
-                   const float* listeners, int n_listeners,
+                   int n_bands, const float* listeners, int n_listeners,
                    const float* src_c, int n_src, const float* mic_c,
                    int n_mic, const float* scal,
                    float sr, const float* emit, const float* u, uint32_t key0,
                    uint32_t key1, uint32_t entry_offset, int n_entries,
                    int n_rays, int max_bounces, int n_frames, int ir_length,
+                   float* scratch, long long scratch_floats,
                    const double* scales, unsigned long long* acc, float* out,
-                   unsigned long long* work, cudaStream_t stream) {
+                   unsigned long long* work, int* launched,
+                   cudaStream_t stream) {
+  const auto kernel = frames_ir_kernel<kHostUniforms, kDirective, kMaxK>;
   const size_t smem =
       sizeof(float) * (kWallFields * static_cast<size_t>(n_walls) +
                        2 * static_cast<size_t>(n_listeners) + n_src +
@@ -234,23 +286,48 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        frames_ir_kernel<kHostUniforms, kDirective>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const size_t per_entry = static_cast<size_t>(n_listeners) * ir_length;
+  const size_t per_entry =
+      static_cast<size_t>(n_listeners) * ir_length * n_bands;
   const size_t n = per_entry * n_entries;
   cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * n,
                                     stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_rays + kThreads - 1) / kThreads, n_frames, n_entries);
-  frames_ir_kernel<kHostUniforms, kDirective>
-      <<<grid, kThreads, smem, stream>>>(
-          walls, wall_stride, n_walls, listeners, n_listeners, src_c, n_src,
-          mic_c, n_mic, scal, sr, emit, u, key0, key1, entry_offset, n_rays,
-          max_bounces, ir_length, scales, acc, work);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const int gx = (n_rays + kThreads - 1) / kThreads;
+  if constexpr (kMaxK == kWideK) {
+    // planes (entry, frame) in chunks whose energies fit the scratch
+    const long long per_plane = static_cast<long long>(gx) * kThreads *
+                                n_bands;
+    if (scratch == nullptr || scratch_floats < per_plane)
+      return cudaErrorInvalidValue;
+    const long long planes = static_cast<long long>(n_entries) * n_frames;
+    const long long chunk = std::min<long long>(65535,
+                                                scratch_floats / per_plane);
+    for (long long p0 = 0; p0 < planes; p0 += chunk) {
+      const dim3 grid(gx, static_cast<unsigned>(std::min(chunk, planes - p0)));
+      kernel<<<grid, kThreads, smem, stream>>>(
+          walls, wall_stride, n_walls, n_bands, listeners, n_listeners, src_c,
+          n_src, mic_c, n_mic, scal, sr, emit, u, key0, key1, entry_offset,
+          n_rays, max_bounces, ir_length, static_cast<int>(p0), n_frames,
+          scratch, scales, acc, work);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      ++*launched;
+    }
+  } else {
+    const dim3 grid(gx, n_frames, n_entries);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        walls, wall_stride, n_walls, n_bands, listeners, n_listeners, src_c,
+        n_src, mic_c, n_mic, scal, sr, emit, u, key0, key1, entry_offset,
+        n_rays, max_bounces, ir_length, 0, n_frames, nullptr, scales, acc,
+        work);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
   return launch_fixed_to_float(acc, scales, out, n, per_entry, stream);
 }
 
@@ -258,69 +335,86 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
 
 extern "C" {
 
-// Frame-summed IRs out[E, L, T] (f32) of n_frames frames for each of
+// Frame-summed IRs out[E, L, T, K] (f32) of n_frames frames for each of
 // n_entries batch entries. host_uniforms != 0 reads emit[E, F, R] and
 // u[E, F, B, R, 3] (K3); otherwise draws Philox numbers under (key0, key1)
 // with counter word 3 = entry_offset + e (K4 is E = 1, offset 0; K9 any
-// E). walls is [E or 1, 11, W] (see WallField) with wall_stride 11 * W or
-// 0 (shared), listeners [E, L, 2], scal [E, 5] = (source x, source y,
-// listener radius, speed of sound, input gain), all device f32. src_c
-// [E, n_src] and mic_c [E, L, n_mic] (device f32, n odd) are the source
-// and microphone patterns of a directive trace, both null for omni (the
-// reference's emission and pickup). scales [E] device doubles, acc
-// [E, L, T] u64 scratch; work, if not null, three device u64 to which the
-// launch adds the wall tests it made, the wall sweeps (nearest or
-// occlusion) they belong to and its slab tests (none). Returns a
-// cudaError_t code (0 = launched).
+// E). walls is [E or 1, 10 + K, W] (see WallField; the absorption of bands
+// 1 .. K-1 in rows 11 ..) with wall_stride (10 + K) * W or 0 (shared),
+// listeners [E, L, 2] (any L whose table fits beside the walls in shared
+// memory), scal [E, 5] = (source x, source y, listener radius, speed of
+// sound, input gain), all device f32. src_c [E, n_src] and mic_c [E, L,
+// n_mic] (device f32, n odd) are the source and microphone patterns of a
+// directive trace, both null for omni (the reference's emission and
+// pickup). K <= 32 keeps a ray's energies in registers; a larger K needs
+// scratch, scratch_floats >= ceil(R / 256) * 256 * K device floats (more
+// lets one launch take more (entry, frame) planes). scales [E] device
+// doubles, acc [E, L, T, K] u64 scratch; work, if not null, three device
+// u64 to which the launch adds the wall tests it made, the wall sweeps
+// (nearest or occlusion) they belong to and its slab tests (none).
+// *launched (host) receives the launches of the trace kernel: one, or
+// one per chunk of planes for the scratch. Returns a cudaError_t code (0 =
+// launched).
 int art_trace_frames_ir(int host_uniforms, const float* walls,
-                        long long wall_stride, int n_walls,
+                        long long wall_stride, int n_walls, int n_bands,
                         const float* listeners, int n_listeners,
                         const float* src_c, int n_src, const float* mic_c,
                         int n_mic, const float* scal, float sr,
                         const float* emit, const float* u, unsigned int key0,
                         unsigned int key1, unsigned int entry_offset,
                         int n_entries, int n_rays, int max_bounces,
-                        int n_frames, int ir_length, const double* scales,
+                        int n_frames, int ir_length, float* scratch,
+                        long long scratch_floats, const double* scales,
                         unsigned long long* acc, float* out,
-                        unsigned long long* work, void* stream) {
+                        unsigned long long* work, int* launched,
+                        void* stream) {
   const bool directive = src_c != nullptr || mic_c != nullptr;
-  if (n_walls < 1 || n_walls > kMaxWalls || n_listeners < 1 ||
-      n_listeners > kMaxListeners || n_rays < 1 || n_frames < 1 ||
-      n_frames > 65535 || n_entries < 1 || n_entries > 65535 ||
-      max_bounces < 1 || ir_length < 1 ||
-      (wall_stride != 0 && wall_stride != kWallFields * n_walls) ||
+  if (n_walls < 1 || n_walls > kMaxWalls || n_bands < 1 || n_listeners < 1 ||
+      n_rays < 1 || n_frames < 1 || n_frames > 65535 || n_entries < 1 ||
+      n_entries > 65535 || max_bounces < 1 || ir_length < 1 ||
+      (wall_stride != 0 &&
+       wall_stride != static_cast<long long>(kWallFields + n_bands - 1) *
+                          n_walls) ||
       (directive && (src_c == nullptr || mic_c == nullptr || n_src < 1 ||
                      n_src % 2 != 1 || n_mic < 1 || n_mic % 2 != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!directive) n_src = n_mic = 0;
   const auto s = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  const auto go = [&](auto bucket) {
+    constexpr int K = decltype(bucket)::value;
 #define ART_FRAMES(H, D)                                                     \
-  launch<H, D>(walls, wall_stride, n_walls, listeners, n_listeners, src_c,   \
-               n_src, mic_c, n_mic, scal, sr, emit, u, key0, key1,           \
-               entry_offset, n_entries, n_rays, max_bounces, n_frames,       \
-               ir_length, scales, acc, out, work, s)
-  cudaError_t err;
-  if (host_uniforms)
-    err = directive ? ART_FRAMES(true, true) : ART_FRAMES(true, false);
-  else
-    err = directive ? ART_FRAMES(false, true) : ART_FRAMES(false, false);
+  launch<H, D, K>(walls, wall_stride, n_walls, n_bands, listeners,           \
+                  n_listeners, src_c, n_src, mic_c, n_mic, scal, sr, emit,   \
+                  u, key0, key1, entry_offset, n_entries, n_rays,            \
+                  max_bounces, n_frames, ir_length, scratch, scratch_floats, \
+                  scales, acc, out, work, launched, s)
+    if (host_uniforms)
+      return directive ? ART_FRAMES(true, true) : ART_FRAMES(true, false);
+    return directive ? ART_FRAMES(false, true) : ART_FRAMES(false, false);
 #undef ART_FRAMES
-  return static_cast<int>(err);
+  };
+  return static_cast<int>(by_bucket<kLargestBucket>(n_bands, go));
 }
 
-// The registers and local (stack) bytes per thread of one instantiation
-// of frames_ir_kernel into out[2] (cudaFuncGetAttributes). Returns a
-// cudaError_t code.
-int art_frames_attributes(int host_uniforms, int directive, int* out) {
+// The registers and local (stack) bytes per thread of the instantiation
+// of frames_ir_kernel that a launch of n_bands takes, into out[2]
+// (cudaFuncGetAttributes). Returns a cudaError_t code.
+int art_frames_attributes(int host_uniforms, int n_bands, int directive,
+                          int* out) {
+  if (n_bands < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;
-  cudaError_t err;
-  if (host_uniforms)
-    err = directive ? cudaFuncGetAttributes(&a, frames_ir_kernel<true, true>)
-                    : cudaFuncGetAttributes(&a, frames_ir_kernel<true, false>);
-  else
-    err = directive ? cudaFuncGetAttributes(&a, frames_ir_kernel<false, true>)
-                    : cudaFuncGetAttributes(&a,
-                                            frames_ir_kernel<false, false>);
+  const auto get = [&](auto bucket) {
+    constexpr int K = decltype(bucket)::value;
+    if (host_uniforms)
+      return directive
+                 ? cudaFuncGetAttributes(&a, frames_ir_kernel<true, true, K>)
+                 : cudaFuncGetAttributes(&a, frames_ir_kernel<true, false, K>);
+    return directive
+               ? cudaFuncGetAttributes(&a, frames_ir_kernel<false, true, K>)
+               : cudaFuncGetAttributes(&a, frames_ir_kernel<false, false, K>);
+  };
+  const cudaError_t err = by_bucket<kLargestBucket>(n_bands, get);
   if (err == cudaSuccess) {
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.localSizeBytes);

@@ -59,6 +59,9 @@ namespace {
 
 constexpr int kStepThreads = 256;
 constexpr int kStepMaxSmemBytes = 232448;  // 227 KB per block on sm_90
+// K5/K6 take at most 16 listeners (the JAX kernels 4; engine.trace_hits
+// sends larger requests for hits to K1/K2)
+constexpr int kMaxListeners = 16;
 constexpr int kStepMaxWalls =
     (kStepMaxSmemBytes - 2 * kMaxListeners * 4) / (kWallFields * 4);
 constexpr int kHitRows = 8;

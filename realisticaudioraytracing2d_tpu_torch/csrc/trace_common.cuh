@@ -39,6 +39,19 @@
 // and integer addition is associative, so the IR of a seed is
 // bit-identical whatever order the atomics land in.
 //
+// Bands. A ray carries K energies; the physics is the same for every band
+// but the wall absorption (keep = 1 - absorption of the hit wall's band
+// k), and the NEE and energy cutoffs look at the loudest band. The
+// energies of a ray live in registers (Ray<kMaxK>, kMaxK one of the
+// buckets the kernels instantiate, of which n_bands are used) or, past the
+// largest bucket, in a device scratch (Ray<kWideK>: WideBands, band k of
+// the thread at scratch[k * stride + thread], coalesced), for any K. The
+// absorption of bands k >= 1 is read once per bounce, for the hit wall
+// only, from the global rows the wrapper passes (WallTable::band_rows), so
+// a shared-memory table holds six attribute rows at any K. Both forms make
+// the same IEEE operations per band in the same order, so a bucket and the
+// scratch give the same bits.
+//
 // Design of the wall test. The exact test costs two IEEE divides, each a
 // sequence of a dozen or more instructions around a reciprocal, and a
 // ray's line crosses the extent of only a few walls of a scene. So a scan
@@ -65,6 +78,8 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -77,22 +92,27 @@ constexpr float kNeeCutoff = 1e-5f;
 constexpr float kOcclusionSlack = 0.1f;
 constexpr int kWallFields = 11;
 constexpr int kScalFields = 5;
-constexpr int kMaxListeners = 16;
+// kMaxK of the instantiation that keeps a ray's energies in a device
+// scratch instead of registers (any K).
+constexpr int kWideK = 0;
 
 // Rows of the wrappers' wall table, and of its attribute part alone.
 enum WallField { AX, AY, V2X, V2Y, CC, NX, NY, ABS, SCAT, TRANS, IOR };
 enum WallAttr { A_NX, A_NY, A_ABS, A_SCAT, A_TRANS, A_IOR };
 
 // A wall table as the kernels read it: geo[i] = (ax, ay, v2x, v2y) and
-// cc[i] of wall i, and the attribute rows attr[row * n + i] (WallAttr;
-// the absorption of band k >= 1 is row 5 + k). In shared memory the three
-// parts are packed by load_wall_table (44 B per wall); the cluster
-// kernels read a global table whose geo plane the wrapper built.
+// cc[i] of wall i, the attribute rows attr[row * n + i] (WallAttr), and
+// the absorption of band k >= 1 at band_rows[(5 + k) * n + i]. In shared
+// memory the first three parts are packed by load_wall_table (44 B per
+// wall) and band_rows points at the attribute rows of the wrapper's
+// global table; the cluster kernels read a global table whose geo plane
+// the wrapper built, and band_rows == attr.
 struct WallTable {
   const float4* geo;
   const float* cc;
   const float* attr;
   int n;
+  const float* band_rows = nullptr;
 };
 
 // What a sweep knows of its ray before it meets a wall.
@@ -121,6 +141,36 @@ template <int kMaxK>
 struct Ray {
   float px, py, dx, dy, tm, ds, sp;
   float en[kMaxK];
+  int dep;
+};
+
+// Call f(std::integral_constant<int, kMaxK>) with the instantiation a
+// launch of n_bands takes: the smallest register bucket that holds it (1,
+// 8 and kLargest: 32 for the bounce kernel, 8 for K7, where 128 registers
+// and their spills made bucket 32 slower than the scratch), or the
+// scratch, kWideK (the wrappers' BAND_BUCKETS mirror it).
+template <int kLargest, class F>
+cudaError_t by_bucket(int n_bands, F f) {
+  if (n_bands == 1) return f(std::integral_constant<int, 1>{});
+  if (n_bands <= 8) return f(std::integral_constant<int, 8>{});
+  if (n_bands <= kLargest) return f(std::integral_constant<int, kLargest>{});
+  return f(std::integral_constant<int, kWideK>{});
+}
+
+// The energies of one ray in a device scratch: band k at p[k * stride].
+struct WideBands {
+  float* p;
+  size_t stride;
+  __device__ __forceinline__ float& operator[](int k) const {
+    return p[static_cast<size_t>(k) * stride];
+  }
+};
+
+// A ray whose energies live in the scratch (any number of bands).
+template <>
+struct Ray<kWideK> {
+  float px, py, dx, dy, tm, ds, sp;
+  WideBands en;
   int dep;
 };
 
@@ -368,11 +418,11 @@ __device__ __forceinline__ void normalize2(float& x, float& y) {
   y *= inv;
 }
 
-// Absorption of band k of wall i (attribute row A_ABS for band 0, 5 + k
-// after).
+// Absorption of band k of wall i (attribute row A_ABS for band 0, row
+// 5 + k of band_rows after).
 __device__ __forceinline__ float band_absorption(const WallTable& w, int i,
                                                  int k) {
-  return w.attr[(k == 0 ? A_ABS : 5 + k) * w.n + i];
+  return (k == 0 ? w.attr : w.band_rows)[(k == 0 ? A_ABS : 5 + k) * w.n + i];
 }
 
 // Add each band's energy e[k] of one hit at `delay` to listener l's bin.
@@ -397,6 +447,23 @@ __device__ __forceinline__ void deposit(const Sink& s, int /*slot*/, int l,
   }
 }
 
+// deposit for a ray whose energies live in the scratch: band(k) gives band
+// k's energy of the hit, computed as the register form computes e[k].
+template <class Band>
+__device__ __forceinline__ void deposit_bands(const Sink& s, int l,
+                                              float delay, Band band) {
+  const float fb = floorf(delay * s.sr);
+  if (!(fb >= 0.0f && fb < static_cast<float>(s.ir_length))) return;
+  unsigned long long* bin =
+      s.acc + (static_cast<size_t>(l) * s.ir_length + static_cast<int>(fb)) *
+                  s.n_bands;
+  for (int k = 0; k < s.n_bands; ++k) {
+    const unsigned long long q = static_cast<unsigned long long>(
+        llrint(static_cast<double>(band(k)) * s.scale));
+    if (q) atomicAdd(bin + k, q);
+  }
+}
+
 // Store one hit as a record: rows 3 * slot .. 3 * slot + 2 of the ray's
 // column (one listener, band 0).
 template <int kMaxK>
@@ -411,13 +478,17 @@ __device__ __forceinline__ void deposit(const RowSink& s, int slot, int /*l*/,
 // A ray leaving the source (ops/trace.py::_emit): stratified angle
 // (ray + jitter) / R * 2pi, energy `gain` in every band; a directive
 // source weights it by its pattern src_c[n_src] at the ray's direction.
+// A wide ray (kMaxK == kWideK) takes its scratch `wide` and fills its
+// n_bands energies there.
 template <int kMaxK, bool kDirective = false>
 __device__ __forceinline__ Ray<kMaxK> emit_ray(int ray, int n_rays,
                                                float jitter, float src_x,
                                                float src_y, float c,
                                                float gain,
                                                const float* src_c = nullptr,
-                                               int n_src = 0) {
+                                               int n_src = 0,
+                                               WideBands wide = {},
+                                               int n_bands = 1) {
   Ray<kMaxK> r;
   const float angle =
       (static_cast<float>(ray) + jitter) / static_cast<float>(n_rays) *
@@ -427,8 +498,13 @@ __device__ __forceinline__ Ray<kMaxK> emit_ray(int ray, int n_rays,
   sincosf(angle, &r.dy, &r.dx);
   if constexpr (kDirective) gain = gain * fourier_gain(r.dx, r.dy, src_c,
                                                        n_src);
+  if constexpr (kMaxK == kWideK) {
+    r.en = wide;
+    for (int k = 0; k < n_bands; ++k) r.en[k] = gain;
+  } else {
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) r.en[k] = gain;
+    for (int k = 0; k < kMaxK; ++k) r.en[k] = gain;
+  }
   r.tm = 0.0f;
   r.ds = 0.0f;
   r.sp = c;
@@ -453,6 +529,7 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
                                               Occluded occluded, Draw draw) {
   const int nk = sink.n_bands;
   const float c = lis.c;
+  constexpr int kRegK = kMaxK == kWideK ? 1 : kMaxK;  // register arrays
   // --- direct listener capture, outside walls only -------------------------
   if (r.dep == 0) {
     for (int l = 0; l < lis.n; ++l) {
@@ -466,16 +543,27 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
       if (!(t_lis < closest && t_lis < kInf)) continue;
       const float total_d = r.ds + t_lis;
       const float att = fmaxf(total_d * total_d, 1.0f);
-      float e[kMaxK];
+      if constexpr (kMaxK == kWideK) {
+        float g = 1.0f;  // the sound arrives from -d
+        if constexpr (kDirective)
+          g = fourier_gain(-r.dx, -r.dy, lis.mic + l * lis.n_mic, lis.n_mic);
+        deposit_bands(sink, l, r.tm + t_lis / r.sp, [&](int k) {
+          float e = r.en[k] / att;
+          if constexpr (kDirective) e = e * g;
+          return e;
+        });
+      } else {
+        float e[kRegK];
 #pragma unroll
-      for (int k = 0; k < kMaxK; ++k) e[k] = r.en[k] / att;
-      if constexpr (kDirective) {  // the sound arrives from -d
-        const float g = fourier_gain(-r.dx, -r.dy, lis.mic + l * lis.n_mic,
-                                     lis.n_mic);
+        for (int k = 0; k < kMaxK; ++k) e[k] = r.en[k] / att;
+        if constexpr (kDirective) {  // the sound arrives from -d
+          const float g = fourier_gain(-r.dx, -r.dy, lis.mic + l * lis.n_mic,
+                                       lis.n_mic);
 #pragma unroll
-        for (int k = 0; k < kMaxK; ++k) e[k] = e[k] * g;
+          for (int k = 0; k < kMaxK; ++k) e[k] = e[k] * g;
+        }
+        deposit<kMaxK>(sink, 0, l, r.tm + t_lis / r.sp, e);
       }
-      deposit<kMaxK>(sink, 0, l, r.tm + t_lis / r.sp, e);
     }
   }
   if (hit < 0) return false;  // escaped: dead from here on
@@ -489,10 +577,14 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
   const float w_scat = w.attr[A_SCAT * n + hit];
   const float w_trans = w.attr[A_TRANS * n + hit];
   const float w_ior = w.attr[A_IOR * n + hit];
-  float keep[kMaxK];  // 1 - absorption, per band
+  float keep[kRegK];  // 1 - absorption, per band (registers)
 #pragma unroll
   for (int k = 0; k < kMaxK; ++k)
     keep[k] = k < nk ? 1.0f - band_absorption(w, hit, k) : 0.0f;
+  // the same for a wide ray, read when needed
+  const auto keep_of = [&](int k) {
+    return 1.0f - band_absorption(w, hit, k);
+  };
   const float d_dot_n = r.dx * w_nx + r.dy * w_ny;
 
   // --- NEE with occlusion (shadow ray offset along the UNflipped normal,
@@ -509,12 +601,19 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
                                 0.0f);
       const float total_dn = nds + dist_l;
       const float geom = cos_t * 0.5f / (total_dn * total_dn);
-      float e[kMaxK];
+      float e[kRegK];
       float e_max = 0.0f;
+      if constexpr (kMaxK == kWideK) {
+        for (int k = 0; k < nk; ++k) {
+          const float ek = r.en[k] * keep_of(k) * geom;
+          e_max = k == 0 ? ek : fmaxf(e_max, ek);
+        }
+      } else {
 #pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        e[k] = r.en[k] * keep[k] * geom;
-        if (k < nk) e_max = k == 0 ? e[k] : fmaxf(e_max, e[k]);
+        for (int k = 0; k < kMaxK; ++k) {
+          e[k] = r.en[k] * keep[k] * geom;
+          if (k < nk) e_max = k == 0 ? e[k] : fmaxf(e_max, e[k]);
+        }
       }
       if (!(e_max > kNeeCutoff)) continue;
       const float vdx = (lx - sx) / dist_l, vdy = (ly - sy) / dist_l;
@@ -522,24 +621,43 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
       if (!occluded(sx, sy, vdx, vdy, dist_l, dist_l - kOcclusionSlack)) {
         // the pickup, only for a hit that lands: the sound arrives from
         // the bounce point, -(t / dist_l)
-        if constexpr (kDirective) {
-          const float g = fourier_gain(-(tx / dist_l), -(ty / dist_l),
-                                       lis.mic + l * lis.n_mic, lis.n_mic);
+        if constexpr (kMaxK == kWideK) {
+          float g = 1.0f;
+          if constexpr (kDirective)
+            g = fourier_gain(-(tx / dist_l), -(ty / dist_l),
+                             lis.mic + l * lis.n_mic, lis.n_mic);
+          deposit_bands(sink, l, ntm + dist_l / c, [&](int k) {
+            float ek = r.en[k] * keep_of(k) * geom;
+            if constexpr (kDirective) ek = ek * g;
+            return ek;
+          });
+        } else {
+          if constexpr (kDirective) {
+            const float g = fourier_gain(-(tx / dist_l), -(ty / dist_l),
+                                         lis.mic + l * lis.n_mic, lis.n_mic);
 #pragma unroll
-          for (int k = 0; k < kMaxK; ++k) e[k] = e[k] * g;
+            for (int k = 0; k < kMaxK; ++k) e[k] = e[k] * g;
+          }
+          deposit<kMaxK>(sink, 1, l, ntm + dist_l / c, e);
         }
-        deposit<kMaxK>(sink, 1, l, ntm + dist_l / c, e);
       }
     }
   }
 
   // --- absorption + cutoff (on the loudest band) ----------------------------
-  float nen[kMaxK];
+  float nen[kRegK];
   float n_max = 0.0f;
+  if constexpr (kMaxK == kWideK) {
+    for (int k = 0; k < nk; ++k) {
+      const float nk_e = r.en[k] * keep_of(k);
+      n_max = k == 0 ? nk_e : fmaxf(n_max, nk_e);
+    }
+  } else {
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    nen[k] = r.en[k] * keep[k];
-    if (k < nk) n_max = k == 0 ? nen[k] : fmaxf(n_max, nen[k]);
+    for (int k = 0; k < kMaxK; ++k) {
+      nen[k] = r.en[k] * keep[k];
+      if (k < nk) n_max = k == 0 ? nen[k] : fmaxf(n_max, nen[k]);
+    }
   }
   if (!(n_max >= kEnergyCutoff)) return false;
 
@@ -584,8 +702,12 @@ __device__ __forceinline__ bool finish_bounce(Ray<kMaxK>& r, float closest,
   r.py = npy + (transmit ? ndy * kEps : ney * kEps);
   r.dx = ndx;
   r.dy = ndy;
+  if constexpr (kMaxK == kWideK) {
+    for (int k = 0; k < nk; ++k) r.en[k] = r.en[k] * keep_of(k);
+  } else {
 #pragma unroll
-  for (int k = 0; k < kMaxK; ++k) r.en[k] = nen[k];
+    for (int k = 0; k < kMaxK; ++k) r.en[k] = nen[k];
+  }
   r.tm = ntm;
   r.ds = nds;
   if (transmit) {

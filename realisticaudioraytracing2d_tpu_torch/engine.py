@@ -11,10 +11,10 @@ Routing of :func:`trace_accumulate` (the JAX package's
 * a CUDA scene of at most ``MAX_WALLS`` (5,280) walls goes to the bounce
   kernel (``ops/cuda/bounce_kernel.py``: K4 with in-kernel Philox numbers
   for a seed, K3 when uniforms are given), which keeps the whole wall
-  table in one block's shared memory;
+  table in one block's shared memory, at any band count;
 * a larger CUDA scene goes to the cluster kernels
   (``ops/cuda/accel_kernel.py``): K8, with the Morton re-sort of the rays
-  between bounces, for K = 1, and K7 for 1 < K <= 8 bands;
+  between bounces, for K = 1, and K7 for any K > 1;
 * ``backend="accel"`` forces the cluster path on any scene (K8 at K = 1,
   K7 at K > 1), so both can be held against K4 on one scene. The port's
   backend values are part of its API and mirror the JAX engine's
@@ -24,9 +24,11 @@ Routing of :func:`trace_accumulate` (the JAX package's
   kernels' plain versions), and ``backend="plain"`` forces the plain path
   on either device (the JAX package's ``backend="jnp"``).
 
-A configuration the chosen kernel does not take raises on CUDA (a banded
-scene under the wall limit does, until K3/K4 get bands); it is never
-rerouted.
+Every kernel takes any listener count (listener blocks where a block's
+shared memory is too small for all of them). What a kernel does not take
+raises on CUDA and is never rerouted: host ``uniforms`` on a route whose
+kernel draws its own numbers, and patterns too large for a block's shared
+memory; both messages name ``backend='plain'``.
 
 Routing of a request for hit RECORDS (:func:`trace_hits`: the legacy
 spectro-IR, anything that consumes individual hits instead of a binned

@@ -164,6 +164,28 @@ def combined_transfer(ir: torch.Tensor, n_fft: int) -> torch.Tensor:
     return (h * masks).sum(dim=-2)
 
 
+def convolve_banded(x: torch.Tensor, ir_banded: torch.Tensor,
+                    accum_count=1, gate_eps: Optional[float] = EPS
+                    ) -> torch.Tensor:
+    """Wet audio ``[N+T]`` from a banded IR ``[T, K]``: split the dry
+    signal into K frequency bands (the zero-phase brickwall filterbank of
+    :func:`band_filterbank`), convolve band k with IR band k, and sum.
+    The JAX package's ``convolve_banded``: its operations in its order
+    (K band-limited inverse FFTs, summed), where :func:`apply_ir` sums the
+    masked transfer functions first."""
+    if gate_eps is not None:
+        x = gate_input(x, gate_eps)
+    t_ir, k = ir_banded.shape
+    out_length = x.shape[-1] + t_ir
+    n_fft = _next_pow2(out_length)
+    spec = torch.fft.rfft(x, n_fft)                          # [F]
+    masks = band_filterbank(x.shape[-1], k, n_fft).to(x.device)   # [K, F]
+    h = torch.fft.rfft(ir_banded.T, n_fft)                   # [K, F]
+    y = torch.fft.irfft(spec[None, :] * masks * h, n_fft)    # [K, n_fft]
+    y = torch.sum(y, dim=0)[:out_length]
+    return _divide(y, _count(accum_count))
+
+
 def apply_ir(x: torch.Tensor, ir: torch.Tensor, accum_count=1,
              gate_eps: Optional[float] = EPS) -> torch.Tensor:
     """Convolve mono input ``x[N]`` with an IR of shape ``[T]``, ``[T, K]``

@@ -6,8 +6,10 @@ that :func:`prepare` Morton-sorts and boxes (:func:`..accel.cluster_scene`)
 once and keeps for later calls on the same scene tensors:
 
 * :func:`trace_frames_ir_accel` (K7): every bounce of ``n_frames`` frames
-  in one launch, 1 <= K <= 8 bands; it replaces ``ops/pallas/
-  bounce_kernel.py::trace_frames_ir_accel`` of the JAX package;
+  in one launch, any K bands (the energies in registers up to 8 bands,
+  in a device scratch past that: :data:`BAND_BUCKETS`); it
+  replaces ``ops/pallas/bounce_kernel.py::trace_frames_ir_accel`` of the
+  JAX package;
 * :func:`trace_frames_ir_accel_sorted` (K8): one launch per bounce over
   all frames' rays, the rays re-sorted along a Morton curve of their
   positions between launches (the kernel writes the keys, the wrapper
@@ -17,21 +19,32 @@ once and keeps for later calls on the same scene tensors:
 
 Both take directive sources and microphones (``TraceParams.directivity`` /
 ``mic_directivity``) through the kernels' directive instantiation, as the
-bounce kernel does (``bounce_kernel.pattern_tables``).
+bounce kernel does (``bounce_kernel.pattern_tables``), and any listener
+count: listeners past what one block's shared memory holds beside the
+super boxes run in blocks, one launch (K7) or one call's launches (K8)
+each, over the same random numbers and scale, so the blocks give the
+whole launch's bits.
 
 Both return the frame-SUMMED IR ``[L, T, K]`` float32 and draw Philox
 numbers in the kernel under the key of ``seed``, counter (ray, frame,
-bounce, 0): the numbers K4 draws, so on a sorted scene K7 (K = 1) and K8
-equal K4 bit for bit. ``early_out=False`` visits every cluster (the
-brute-force yardstick) and gives the same bits.
+bounce, entry): with ``entry=0`` the numbers K4 draws, so on a sorted
+scene K7 (K = 1) and K8 equal K4 bit for bit. ``early_out=False`` visits
+every cluster (the brute-force yardstick) and gives the same bits.
+
+:func:`trace_rooms_ir_accel` is the batched path of scenes past the bounce
+kernel's wall limit (sweeps and mixdowns): one K8 (K = 1) or K7 call per
+entry, entry ``e`` drawing the numbers of entry ``entry_offset + e``, as
+K9 and its plain version do.
 
 On a CUDA scene they launch the kernel or raise; on a CPU scene they run
 their plain version, :func:`trace_frames_ir_accel_plain` (the plain trace
 + scatter on the sorted scene) and :func:`trace_frames_ir_accel_sorted_plain`
 (the same bounce by bounce on the re-sorted rays), which are also what the
 kernels are held against on the card. Each entry point counts its
-launches in ``.launches``: one per K7 call, ``max_bounces`` per K8 call;
-``prepare.builds`` counts the scenes :func:`prepare` really sorted.
+launches in ``.launches``: one per K7 call (one per chunk of frames where
+the scratch takes them in chunks), ``max_bounces`` per K8 call (each per
+listener block); ``prepare.builds`` counts the scenes
+:func:`prepare` really sorted.
 """
 
 from __future__ import annotations
@@ -50,19 +63,19 @@ from ..trace import (Hits, TraceParams, _bounce, _check_supported, _emit,
 from . import bounce_kernel as bk
 from . import build
 
-MAX_BANDS = 8
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _FRAMES_ARGTYPES = (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P,
-                    _I, _P,
-                    ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, _I, _I,
-                    _I, _I, _P, _P, _P, _I, _P, _P)
+                    _I, _P, ctypes.c_float, _U, _U, _U, _I, _I, _I, _I, _P,
+                    ctypes.c_longlong, _P, _P, _P, _I, _P,
+                    ctypes.POINTER(ctypes.c_int), _P)
 _BOUNCE_ARGTYPES = (_P, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I,
-                    _P, _P,
-                    ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, _I, _I,
-                    _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P)
+                    _P, _P, ctypes.c_float, _U, _U, _U, _I, _I, _I, _I, _I,
+                    _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P)
 # scenes whose sorted tables prepare() keeps
 PREPARED_SCENES = 8
+# K7's register buckets of a ray's band energies (csrc/accel_kernel.cu::
+# kAccelLargestBucket); past the last one the device scratch
+BAND_BUCKETS = (1, 8)
 
 
 def _fn(name, argtypes):
@@ -96,18 +109,9 @@ class AccelScene(NamedTuple):
         return self.aabb.shape[0]
 
 
-def pack_walls_banded(scene: Scene) -> torch.Tensor:
-    """:func:`.bounce_kernel.pack_walls` ``[11, W]`` with the absorption
-    of bands 1 .. K-1 appended as rows 11 .. 9 + K."""
-    walls = bk.pack_walls(scene)
-    if scene.n_bands == 1:
-        return walls
-    return torch.cat([walls, scene.absorption[:, 1:].T], dim=0).contiguous()
-
-
 def _build(scene: Scene, cs: int, group: int) -> AccelScene:
     scene_s, aabb = accel.cluster_scene(scene, cs, group)
-    walls = pack_walls_banded(scene_s)
+    walls = bk.pack_walls_banded(scene_s)
     return AccelScene(scene_s, walls, walls[:4].T.contiguous(),
                       aabb.contiguous(),
                       accel.super_aabbs(aabb, group).contiguous(),
@@ -152,40 +156,47 @@ def prepare(scene: Scene) -> AccelScene:
     return prep
 
 
-def check_accel_supported(scene: Scene, params: TraceParams,
-                          max_bands: int = MAX_BANDS) -> None:
-    """Raise for a configuration the cluster kernels do not take; such a
-    configuration is never rerouted to the plain path."""
-    if scene.n_bands > max_bands:
-        raise NotImplementedError(
-            f"the cluster kernels trace at most {max_bands} band(s) (scene "
-            f"has K={scene.n_bands}); wider bands are still to port "
-            "(ROADMAP queue 2 A2). backend='plain' traces them.")
+def check_accel_supported(scene: Scene, params: TraceParams) -> None:
+    """Raise for a configuration the cluster kernels do not take (a batch
+    of sources, patterns of the wrong shape); such a configuration is
+    never rerouted to the plain path. Any band and listener count
+    passes."""
     bk.check_single_source(params)
     check_patterns(params)
-    if params.listeners.shape[0] > bk.MAX_LISTENERS:
+
+
+def check_sorted_supported(scene: Scene, params: TraceParams) -> None:
+    """:func:`check_accel_supported` for K8, which traces one band, as the
+    JAX ``trace_frames_ir_accel_sorted`` does (K7 traces banded scenes;
+    ``engine.trace_accumulate`` routes them there)."""
+    if scene.n_bands != 1:
+        raise ValueError(
+            f"K8 traces 1 band (scene has K={scene.n_bands}); K7 "
+            "(trace_frames_ir_accel) traces banded scenes")
+    check_accel_supported(scene, params)
+
+
+def _listener_step(prep: "AccelScene", sorted_kernel: bool, n_src: int,
+                   n_mic: int) -> int:
+    """Listeners per launch: what one block's shared memory holds beside
+    the super boxes (16 B each; K8 adds its visit order and keys, 8 B)
+    and the order reduction's 96 B."""
+    n_super = prep.n_clusters // prep.group
+    boxes = n_super * (6 if sorted_kernel else 4) + 24
+    step = bk.listener_block(0, n_src, n_mic, table_floats=boxes)
+    if step < 1:
         raise NotImplementedError(
-            f"{params.listeners.shape[0]} listeners exceed the kernels' "
-            f"{bk.MAX_LISTENERS}-listener table; blocked listener launches "
-            "are still to port (ROADMAP queue 2 A3)")
+            f"{n_super} super boxes and {n_src} + {n_mic} pattern "
+            "coefficients exceed a block's shared memory; backend='plain' "
+            "traces them")
+    return step
 
 
-def _patterns(params: TraceParams):
-    """The kernel arguments of the patterns: (source ptr, C_s, microphone
-    ptr, C_m) and the tables that keep them alive; nulls for omni."""
-    src, mic = bk.pattern_tables(params.directivity, params.mic_directivity,
-                                 1, params.listeners.shape[0],
-                                 params.listeners.device)
-    if src is None:
-        return (None, 0, None, 0), ()
-    return (src.data_ptr(), src.shape[-1], mic.data_ptr(),
-            mic.shape[-1]), (src, mic)
-
-
-def _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms):
+def _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms,
+              entry=0):
     if uniforms is None:
         return rng.philox_uniforms(seed, n_frames, max_bounces, n_rays,
-                                   scene.device)
+                                   scene.device, entry=entry)
     emit, u = uniforms
     if emit.shape != (n_frames, n_rays) or \
             u.shape != (n_frames, max_bounces, n_rays, 3):
@@ -244,16 +255,17 @@ def trace_frames_ir_accel_plain(scene: Scene, params: TraceParams, seed: int,
                                 n_frames: int, *, n_rays: int,
                                 max_bounces: int, sample_rate: int,
                                 ir_length: int, uniforms=None,
-                                ray_chunk: Optional[int] = None
-                                ) -> torch.Tensor:
+                                ray_chunk: Optional[int] = None,
+                                entry: int = 0) -> torch.Tensor:
     """Plain version of K7: :func:`.bounce_kernel.trace_frames_ir_plain`
     on the :func:`..accel.cluster_scene`-sorted scene, fed the Philox
-    numbers the kernel draws for ``seed`` or host ``uniforms = (emit[F,
-    R], u[F, B, R, 3])``. Returns ``[L, T, K]``. With ``ray_chunk`` the
-    same trace runs each bounce over slices of that many rays (a
-    ``[131072, 40008]`` f32 temporary would take 21 GB), scattering the
-    hits bounce by bounce."""
-    emit, u = _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms)
+    numbers the kernel draws for ``seed`` and ``entry`` or host
+    ``uniforms = (emit[F, R], u[F, B, R, 3])``. Returns ``[L, T, K]``.
+    With ``ray_chunk`` the same trace runs each bounce over slices of that
+    many rays (a ``[131072, 40008]`` f32 temporary would take 21 GB),
+    scattering the hits bounce by bounce."""
+    emit, u = _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms,
+                        entry)
     prep = prepare(scene)
     if ray_chunk is None:
         return bk.trace_frames_ir_plain(prep.scene, params, emit, u,
@@ -270,15 +282,16 @@ def trace_frames_ir_accel_sorted_plain(scene: Scene, params: TraceParams,
                                        n_rays: int, max_bounces: int,
                                        sample_rate: int, ir_length: int,
                                        uniforms=None,
-                                       ray_chunk: Optional[int] = None
-                                       ) -> torch.Tensor:
+                                       ray_chunk: Optional[int] = None,
+                                       entry: int = 0) -> torch.Tensor:
     """Plain version of K8: the ``F * R`` rays of all frames bounce by
     bounce through ``ops/trace.py::_bounce`` on the sorted scene, each fed
-    the numbers of its original (frame, ray) id, their hits scattered
-    after every bounce, and the rays re-sorted by
+    the numbers of its original (frame, ray) id (and ``entry``), their
+    hits scattered after every bounce, and the rays re-sorted by
     :func:`..accel.morton_ray_keys` between bounces. ``ray_chunk`` runs
     each bounce over slices of that many rays. Returns ``[L, T, K]``."""
-    emit, u = _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms)
+    emit, u = _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms,
+                        entry)
     _check_supported(params)
     return _trace_rays_plain(prepare(scene), params, emit, u, resort=True,
                              ray_chunk=ray_chunk, sample_rate=sample_rate,
@@ -288,55 +301,92 @@ def trace_frames_ir_accel_sorted_plain(scene: Scene, params: TraceParams,
 def trace_frames_ir_accel(scene: Scene, params: TraceParams, seed: int,
                           n_frames: int, *, n_rays: int, max_bounces: int,
                           sample_rate: int, ir_length: int,
-                          early_out: bool = True,
+                          early_out: bool = True, entry: int = 0,
                           work_counts: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """K7: ``n_frames`` frames of any wall count and 1 <= K <= 8 bands in
-    one launch -> frame-summed IR ``[L, T, K]``. CPU scenes run
+    """K7: ``n_frames`` frames of any wall count and any K bands in one
+    launch -> frame-summed IR ``[L, T, K]``. CPU scenes run
     :func:`trace_frames_ir_accel_plain`.
 
-    ``work_counts``: an int64 CUDA tensor ``[3]`` to which the launch adds
-    the wall tests, wall sweeps and slab tests it really made."""
+    ``entry``: Philox counter word 3, the global id of a batch entry (0:
+    K4's numbers). ``work_counts``: an int64 CUDA tensor ``[3]`` to which
+    the launch adds the wall tests, wall sweeps and slab tests it really
+    made."""
     if scene.device.type != "cuda":
         return trace_frames_ir_accel_plain(
             scene, params, seed, n_frames, n_rays=n_rays,
             max_bounces=max_bounces, sample_rate=sample_rate,
-            ir_length=ir_length)
+            ir_length=ir_length, entry=entry)
     check_accel_supported(scene, params)
     prep = prepare(scene)
     dev = scene.device
     n_l, n_k = params.listeners.shape[0], scene.n_bands
-    lis = params.listeners.contiguous()
     scal = bk.pack_scalars(params)
-    for name, x in (("listeners", lis), ("scalars", scal)):
-        bk._check_tensor(name, x, dev)
+    bk._check_tensor("scalars", scal, dev)
+    bk._check_tensor("listeners", params.listeners, dev)
     if work_counts is not None:
         bk._check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
     scale = bk.fixed_point_scale(params, n_frames, n_rays,
                                  max_bounces).reshape(1)
-    acc = torch.empty((n_l, ir_length, n_k), dtype=torch.int64, device=dev)
-    out = torch.empty((n_l, ir_length, n_k), dtype=torch.float32, device=dev)
     key = rng.seed_key(seed)
-    pats, _keep = _patterns(params)
-    err = _fn("art_accel_frames", _FRAMES_ARGTYPES)(
-        prep.walls.data_ptr(), prep.geo.data_ptr(), prep.walls.shape[1], n_k,
-        prep.aabb.data_ptr(), prep.saabb.data_ptr(), prep.n_clusters,
-        prep.group, prep.cluster_size, lis.data_ptr(), n_l, *pats,
-        scal.data_ptr(),
-        float(sample_rate), key[0], key[1], n_rays, max_bounces, n_frames,
-        ir_length, scale.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        int(early_out),
-        work_counts.data_ptr() if work_counts is not None else None,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _check(err, "accel kernel K7")
-    trace_frames_ir_accel.launches += 1
-    return out
+    scratch, n_scratch = None, 0
+    if bk.band_bucket(n_k, BAND_BUCKETS) == 0:
+        per_frame = -(-n_rays // 256) * 256 * n_k
+        n_scratch = max(per_frame, min(per_frame * n_frames,
+                                       bk.SCRATCH_FLOATS))
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    fn = _fn("art_accel_frames", _FRAMES_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = []
+    for p_b, l0, n_b in _blocks(prep, params, False):
+        (src_p, n_src, mic_p, n_mic), _keep = p_b
+        lis = params.listeners[l0:l0 + n_b].contiguous()
+        acc = torch.empty((n_b, ir_length, n_k), dtype=torch.int64,
+                          device=dev)
+        out = torch.empty((n_b, ir_length, n_k), dtype=torch.float32,
+                          device=dev)
+        launched = ctypes.c_int(0)
+        err = fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
+                 prep.walls.shape[1], n_k, prep.aabb.data_ptr(),
+                 prep.saabb.data_ptr(), prep.n_clusters, prep.group,
+                 prep.cluster_size, lis.data_ptr(), n_b, src_p, n_src,
+                 mic_p, n_mic, scal.data_ptr(), float(sample_rate), key[0],
+                 key[1], int(entry) & 0xFFFFFFFF, n_rays, max_bounces,
+                 n_frames, ir_length, bk._ptr(scratch), n_scratch,
+                 scale.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                 int(early_out),
+                 work_counts.data_ptr() if work_counts is not None else None,
+                 ctypes.byref(launched), stream)
+        _check(err, "accel kernel K7")
+        trace_frames_ir_accel.launches += launched.value
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _blocks(prep: AccelScene, params: TraceParams, sorted_kernel: bool):
+    """The listener blocks of a K7/K8 call: (pattern arguments and the
+    tables that keep them alive, first listener, count) of each."""
+    src, mic = bk.pattern_tables(params.directivity, params.mic_directivity,
+                                 1, params.listeners.shape[0],
+                                 params.listeners.device)
+    n_src, n_mic = bk._pattern_sizes(src, mic)
+    n_l = params.listeners.shape[0]
+    step = _listener_step(prep, sorted_kernel, n_src, n_mic)
+    for l0 in range(0, n_l, step):
+        n_b = min(step, n_l - l0)
+        if src is None:
+            yield ((None, 0, None, 0), ()), l0, n_b
+        else:
+            mic_b = mic[0, l0:l0 + n_b].contiguous()
+            yield ((src.data_ptr(), n_src, mic_b.data_ptr(), n_mic),
+                   (src, mic_b)), l0, n_b
 
 
 def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
                                  seed: int, n_frames: int, *, n_rays: int,
                                  max_bounces: int, sample_rate: int,
                                  ir_length: int, early_out: bool = True,
+                                 entry: int = 0,
                                  work_counts: Optional[torch.Tensor] = None,
                                  keys_out: Optional[list] = None
                                  ) -> torch.Tensor:
@@ -349,24 +399,23 @@ def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
     ``perm[s]`` of the buffer the last one wrote. Each block orders the
     super boxes near to far from its own rays in the kernel; the order
     changes only the speed. CPU scenes run
-    :func:`trace_frames_ir_accel_sorted_plain`. ``work_counts`` as for
-    :func:`trace_frames_ir_accel`, summed over the launches. ``keys_out``,
-    a list, receives after each launch ``(state[8, N], istate[2, N],
-    keys[N])`` as the kernel left them (clones: a check of the in-kernel
-    keys against :func:`..accel.morton_ray_keys`)."""
+    :func:`trace_frames_ir_accel_sorted_plain`. ``entry`` and
+    ``work_counts`` as for :func:`trace_frames_ir_accel` (a listener
+    block reruns every bounce on the same rays). ``keys_out``, a list, receives after each launch
+    ``(state[8, N], istate[2, N], keys[N])`` as the kernel left them
+    (clones: a check of the in-kernel keys against
+    :func:`..accel.morton_ray_keys`)."""
     if scene.device.type != "cuda":
         return trace_frames_ir_accel_sorted_plain(
             scene, params, seed, n_frames, n_rays=n_rays,
             max_bounces=max_bounces, sample_rate=sample_rate,
-            ir_length=ir_length)
-    check_accel_supported(scene, params, max_bands=1)
+            ir_length=ir_length, entry=entry)
+    check_sorted_supported(scene, params)
     prep = prepare(scene)
     dev = scene.device
-    n_l = params.listeners.shape[0]
-    lis = params.listeners.contiguous()
     scal = bk.pack_scalars(params)
-    for name, x in (("listeners", lis), ("scalars", scal)):
-        bk._check_tensor(name, x, dev)
+    bk._check_tensor("scalars", scal, dev)
+    bk._check_tensor("listeners", params.listeners, dev)
     if work_counts is not None:
         bk._check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
     scale = bk.fixed_point_scale(params, n_frames, n_rays,
@@ -375,39 +424,135 @@ def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
     state = torch.empty((2, 8, n), dtype=torch.float32, device=dev)
     istate = torch.empty((2, 2, n), dtype=torch.int32, device=dev)
     keys = torch.empty(n, dtype=torch.int64, device=dev)
-    acc = torch.zeros((n_l, ir_length), dtype=torch.int64, device=dev)
     key = rng.seed_key(seed)
-    pats, _keep = _patterns(params)
     fn = _fn("art_accel_bounce", _BOUNCE_ARGTYPES)
+    convert = _fn("art_fixed_to_float", (_P, _P, _P, ctypes.c_longlong, _P))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    perm = None
-    for b in range(max_bounces):
-        src, dst = (b + 1) % 2, b % 2
-        err = fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
-                 prep.walls.shape[1], prep.aabb.data_ptr(),
-                 prep.saabb.data_ptr(), prep.n_clusters, prep.group,
-                 prep.cluster_size, lis.data_ptr(), n_l, *pats,
-                 scal.data_ptr(), prep.bounds.data_ptr(), float(sample_rate),
-                 key[0], key[1], n_rays, n, max_bounces, b, ir_length,
-                 scale.data_ptr(),
-                 perm.data_ptr() if perm is not None else None,
-                 state[src].data_ptr(), istate[src].data_ptr(),
-                 state[dst].data_ptr(), istate[dst].data_ptr(),
-                 keys.data_ptr(), acc.data_ptr(), int(early_out),
-                 work_counts.data_ptr() if work_counts is not None else None,
-                 stream)
-        _check(err, "accel kernel K8")
-        trace_frames_ir_accel_sorted.launches += 1
-        if keys_out is not None:
-            keys_out.append((state[dst].clone(), istate[dst].clone(),
-                             keys.clone()))
-        if b + 1 < max_bounces:
-            perm = torch.sort(keys).indices
-    out = torch.empty((n_l, ir_length, 1), dtype=torch.float32, device=dev)
-    _check(_fn("art_fixed_to_float", (_P, _P, _P, ctypes.c_longlong, _P))(
-        acc.data_ptr(), scale.data_ptr(), out.data_ptr(), acc.numel(),
-        stream), "fixed-to-float")
-    return out
+    outs = []
+    for pats, l0, n_b in _blocks(prep, params, True):
+        lis = params.listeners[l0:l0 + n_b].contiguous()
+        acc = torch.zeros((n_b, ir_length), dtype=torch.int64, device=dev)
+        perm = None
+        for b in range(max_bounces):
+            src, dst = (b + 1) % 2, b % 2
+            err = fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
+                     prep.walls.shape[1], prep.aabb.data_ptr(),
+                     prep.saabb.data_ptr(), prep.n_clusters, prep.group,
+                     prep.cluster_size, lis.data_ptr(), n_b, *pats[0],
+                     scal.data_ptr(), prep.bounds.data_ptr(),
+                     float(sample_rate), key[0], key[1],
+                     int(entry) & 0xFFFFFFFF, n_rays, n, max_bounces, b,
+                     ir_length, scale.data_ptr(),
+                     perm.data_ptr() if perm is not None else None,
+                     state[src].data_ptr(), istate[src].data_ptr(),
+                     state[dst].data_ptr(), istate[dst].data_ptr(),
+                     keys.data_ptr(), acc.data_ptr(), int(early_out),
+                     work_counts.data_ptr() if work_counts is not None
+                     else None, stream)
+            _check(err, "accel kernel K8")
+            trace_frames_ir_accel_sorted.launches += 1
+            if keys_out is not None:
+                keys_out.append((state[dst].clone(), istate[dst].clone(),
+                                 keys.clone()))
+            if b + 1 < max_bounces:
+                perm = torch.sort(keys).indices
+        out = torch.empty((n_b, ir_length, 1), dtype=torch.float32,
+                          device=dev)
+        _check(convert(acc.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                       acc.numel(), stream), "fixed-to-float")
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _accel_entries(scenes: Scene, sources, listeners, kw):
+    """The scene, params and entry id of each entry of a large-scene
+    batch: ``scenes`` stacked ``[E, W, ...]`` or one scene (unstacked, or
+    stacked with a leading 1) that every entry shares, which is then
+    prepared once."""
+    shared = scenes.a.dim() == 2 or scenes.a.shape[0] == 1
+    one = scenes if scenes.a.dim() == 2 else (
+        scenes.row(0) if shared else None)
+    stacked = scenes if scenes.a.dim() == 3 else Scene(
+        *(x[None] for x in scenes))
+    src, lis, radius, c, gain = bk._batch_inputs(
+        stacked, sources, listeners, kw["listener_radius"],
+        kw["speed_of_sound"], kw["input_gain"])
+    entries = bk.batch_params(src, lis, radius, c, gain, kw["directivity"],
+                              kw["mic_directivity"], scenes.device)
+    for e, params in enumerate(entries):
+        yield (one if shared else scenes.row(e)), params, \
+            kw["entry_offset"] + e
+
+
+def _rooms_kw(listener_radius, speed_of_sound, input_gain, entry_offset,
+              directivity, mic_directivity):
+    return dict(listener_radius=listener_radius,
+                speed_of_sound=speed_of_sound, input_gain=input_gain,
+                entry_offset=entry_offset, directivity=directivity,
+                mic_directivity=mic_directivity)
+
+
+def trace_rooms_ir_accel_plain(scenes: Scene, sources, listeners, seed: int,
+                               n_frames: int, *, n_rays: int,
+                               max_bounces: int, sample_rate: int,
+                               ir_length: int, listener_radius=0.5,
+                               speed_of_sound=343.0, input_gain=1.0,
+                               entry_offset: int = 0, directivity=None,
+                               mic_directivity=None,
+                               ray_chunk: Optional[int] = None
+                               ) -> torch.Tensor:
+    """Plain version of :func:`trace_rooms_ir_accel`: each entry through
+    :func:`trace_frames_ir_accel_sorted_plain` (K = 1) or
+    :func:`trace_frames_ir_accel_plain` on the numbers of entry
+    ``entry_offset + e``. Returns ``[E, L, T, K]``."""
+    kw = _rooms_kw(listener_radius, speed_of_sound, input_gain, entry_offset,
+                   directivity, mic_directivity)
+    irs = []
+    for scene, params, entry in _accel_entries(scenes, sources, listeners,
+                                               kw):
+        plain = (trace_frames_ir_accel_sorted_plain if scene.n_bands == 1
+                 else trace_frames_ir_accel_plain)
+        irs.append(plain(scene, params, seed, n_frames, n_rays=n_rays,
+                         max_bounces=max_bounces, sample_rate=sample_rate,
+                         ir_length=ir_length, ray_chunk=ray_chunk,
+                         entry=entry))
+    return torch.stack(irs)
+
+
+def trace_rooms_ir_accel(scenes: Scene, sources, listeners, seed: int,
+                         n_frames: int, *, n_rays: int, max_bounces: int,
+                         sample_rate: int, ir_length: int,
+                         listener_radius=0.5, speed_of_sound=343.0,
+                         input_gain=1.0, entry_offset: int = 0,
+                         directivity=None, mic_directivity=None
+                         ) -> torch.Tensor:
+    """The batched paths (sweep, mixdown) on scenes past the bounce
+    kernel's wall limit: one K8 call (K = 1) or one K7 launch per entry,
+    entry ``e`` drawing the Philox numbers of entry ``entry_offset + e``
+    (the numbers it draws in K9 and in
+    :func:`.bounce_kernel.trace_rooms_ir_mega_plain`). The arguments are
+    :func:`.bounce_kernel.trace_rooms_ir_mega`'s; ``scenes`` may also be
+    one unstacked scene that every entry shares. Each distinct scene is
+    sorted by :func:`prepare` (which keeps the last
+    :data:`PREPARED_SCENES`); a shared scene is sorted once. Returns the
+    frame-summed ``[E, L, T, K]``. CPU scenes run
+    :func:`trace_rooms_ir_accel_plain`."""
+    kw = _rooms_kw(listener_radius, speed_of_sound, input_gain, entry_offset,
+                   directivity, mic_directivity)
+    if scenes.device.type != "cuda":
+        return trace_rooms_ir_accel_plain(
+            scenes, sources, listeners, seed, n_frames, n_rays=n_rays,
+            max_bounces=max_bounces, sample_rate=sample_rate,
+            ir_length=ir_length, **kw)
+    irs = []
+    for scene, params, entry in _accel_entries(scenes, sources, listeners,
+                                               kw):
+        kernel = (trace_frames_ir_accel_sorted if scene.n_bands == 1
+                  else trace_frames_ir_accel)
+        irs.append(kernel(scene, params, seed, n_frames, n_rays=n_rays,
+                          max_bounces=max_bounces, sample_rate=sample_rate,
+                          ir_length=ir_length, entry=entry))
+    return torch.stack(irs)
 
 
 trace_frames_ir_accel.launches = 0

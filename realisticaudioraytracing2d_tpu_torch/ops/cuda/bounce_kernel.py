@@ -36,8 +36,16 @@ recurrence, and an omni-coded pattern ``[1.]`` gives the omni bits. When
 only one of the two patterns is given, the other goes to the kernel as
 ``[1.]``.
 
-K3 and K4 return the frame-SUMMED IR ``[L, T, 1]`` float32, K9
-``[E, L, T, 1]``. On a CUDA scene they launch the kernel or raise; on a
+K3, K4 and K9 take any band count K (a ray's K energies in registers up to
+32 bands, :data:`BAND_BUCKETS`, past that in a device scratch) and any
+listener count: where a scene's listeners and its wall table do not fit
+one block's shared memory together, the wrapper launches the listeners in
+blocks over the same random numbers and the same fixed-point scale, which
+reproduces the whole launch bit for bit (ray physics never reads the
+listener table). K5 and K6 take one band, as in the JAX package.
+
+K3 and K4 return the frame-SUMMED IR ``[L, T, K]`` float32, K9
+``[E, L, T, K]``. On a CUDA scene they launch the kernel or raise; on a
 CPU scene they run their plain version, :func:`trace_frames_ir_plain`
 (the oracle trace + scatter, summed over frames),
 :func:`trace_frames_ir_mega_plain` and :func:`trace_rooms_ir_mega_plain`
@@ -45,7 +53,9 @@ CPU scene they run their plain version, :func:`trace_frames_ir_plain`
 and :func:`trace_frame_ir_fused_plain` (``ops/trace.py::_bounce`` one
 bounce at a time on an explicit state), which are also what the kernels
 are held against on the card. Each entry point counts its launches in
-``.launches`` (K5 and K6: one per bounce).
+``.launches`` (K5 and K6: one per bounce; K3, K4 and K9 one per listener
+block, or one per chunk of (entry, frame) planes where the scratch takes
+them in chunks).
 """
 
 from __future__ import annotations
@@ -64,24 +74,32 @@ from ..trace import (Hits, TraceParams, _bounce, _check_supported as
                      check_single_source, trace_hits_only)
 from . import build
 
-MAX_LISTENERS = 16
-# 44 B per wall in the 227 KB of shared memory a block can use, beside
-# the listener table (kMaxWalls in csrc/bounce_kernel.cu)
-MAX_WALLS = (232448 - 2 * MAX_LISTENERS * 4) // (11 * 4)
+# 44 B per wall in the 227 KB of shared memory a block can use, leaving
+# room for 16 listeners (kMaxWalls in csrc/bounce_kernel.cu): the routing
+# limit, past which scenes go to the cluster kernels
+MAX_WALLS = (232448 - 2 * 16 * 4) // (11 * 4)
 # batch entries ride the grid's z axis
 MAX_ENTRIES = 65535
+# the register buckets of a ray's band energies in K3/K4/K9
+# (trace_common.cuh::by_bucket): a launch takes the smallest that holds K;
+# past the last one the energies live in a device scratch
+BAND_BUCKETS = (1, 8, 32)
+# the most floats of band scratch a launch allocates (1 GiB); a launch
+# whose (entry, frame) planes need more runs them in chunks
+SCRATCH_FLOATS = 1 << 28
 
 # the shared memory a block can use, in floats
 SMEM_FLOATS = 232448 // 4
 
 _ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p)
+             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p)
 
 
 def _kernel_fn():
@@ -91,69 +109,69 @@ def _kernel_fn():
     return fn
 
 
-def _check_supported(n_bands: int, n_walls: int, n_listeners: int,
-                     pattern_floats: int = 0, batch: bool = False) -> None:
-    """``pattern_floats``: the floats of one entry's directive patterns
-    (``C_s + L * C_m``, 0 for omni), which share the block's shared
-    memory with the wall table."""
-    if n_bands != 1:
+def listener_block(n_walls: int, n_src: int = 0, n_mic: int = 0,
+                   table_floats: Optional[int] = None) -> int:
+    """The most listeners one block's shared memory takes beside a wall
+    table of ``n_walls`` walls (``table_floats`` floats in place of the
+    bounce kernel's ``11 * n_walls``) and the patterns of a directive
+    trace (``n_src`` source and ``n_mic`` microphone coefficients per
+    listener; 0 for omni): 2 floats per listener, plus ``n_mic``. A launch
+    with more listeners runs them in blocks of this size. 0: not even one
+    listener fits."""
+    used = (11 * n_walls if table_floats is None else table_floats) + n_src
+    return max(0, (SMEM_FLOATS - used) // (2 + n_mic))
+
+
+def band_bucket(n_bands: int, buckets: Optional[tuple] = None) -> int:
+    """The register bucket of ``buckets`` (default :data:`BAND_BUCKETS`)
+    a launch of ``n_bands`` bands takes (0: the device scratch)."""
+    return next((b for b in buckets or BAND_BUCKETS if n_bands <= b), 0)
+
+
+def _check_supported(n_walls: int, n_src: int = 0, n_mic: int = 0) -> None:
+    """``n_src`` / ``n_mic``: the source and per-listener microphone
+    coefficients of a directive trace (0 for omni), which share the
+    block's shared memory with the wall table."""
+    if n_walls <= MAX_WALLS and not listener_block(n_walls, n_src, n_mic):
         raise NotImplementedError(
-            f"the CUDA bounce kernel traces K=1 only (scene has K="
-            f"{n_bands}); K3/K4/K9 with bands are still to port (ROADMAP "
-            "queue 2 A2). backend='accel' traces up to 8 bands through the "
-            "cluster kernel K7, backend='plain' any.")
-    if n_walls <= MAX_WALLS and pattern_floats and (
-            11 * n_walls + 2 * n_listeners + pattern_floats > SMEM_FLOATS):
-        raise NotImplementedError(
-            f"{n_walls} walls and {pattern_floats} pattern coefficients "
+            f"{n_walls} walls and {n_src} + {n_mic} pattern coefficients "
             "exceed a block's shared memory; trace fewer harmonics, or the "
-            "scene with backend='accel' (the cluster kernels)")
-    if n_listeners > MAX_LISTENERS:
-        raise NotImplementedError(
-            f"{n_listeners} listeners exceed the kernel's {MAX_LISTENERS}-"
-            "listener table; blocked listener launches are still to port "
-            "(ROADMAP queue 2 A3)")
-    if n_walls > MAX_WALLS and batch:
-        raise NotImplementedError(
-            f"{n_walls} walls exceed the bounce kernel's shared-memory "
-            f"limit of {MAX_WALLS}; sweeps and mixdowns of such scenes are "
-            "still to port (ROADMAP queue 2 A4), the cluster kernels K7/K8 "
-            "trace one such scene")
+            "scene with backend='accel' (the cluster kernels) or "
+            "backend='plain'")
     if n_walls > MAX_WALLS:
         raise ValueError(
             f"{n_walls} walls exceed the bounce kernel's shared-memory "
             f"limit of {MAX_WALLS}; the cluster kernels K7/K8 "
             "(ops/cuda/accel_kernel.py) trace such scenes, and "
-            "engine.trace_accumulate routes them there")
+            "engine.trace_accumulate, sweep_rooms and "
+            "trace_sources_mixdown route them there")
 
 
-def _pattern_floats(src, mic) -> int:
-    return 0 if src is None else src.shape[-1] + mic[0].numel()
+def _pattern_sizes(src, mic):
+    return (0, 0) if src is None else (src.shape[-1], mic.shape[-1])
 
 
 def check_kernel_supported(scene: Scene, params: TraceParams) -> None:
     """Raise for a configuration the kernel does not take
-    (``NotImplementedError`` for what is still to port, ``ValueError`` for
-    a scene past :data:`MAX_WALLS`, which ``engine.trace_accumulate``
-    sends to the cluster kernels, or for patterns of the wrong shape).
-    Such configurations are never rerouted to the plain path."""
+    (``NotImplementedError`` for patterns too large for a block's shared
+    memory, ``ValueError`` for a scene past :data:`MAX_WALLS`, which
+    ``engine.trace_accumulate`` sends to the cluster kernels, or for
+    patterns of the wrong shape). Such configurations are never rerouted
+    to the plain path. Any band and listener count passes."""
     check_single_source(params)
     check_patterns(params)
-    n_l = params.listeners.shape[0]
     src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
-                              n_l, scene.device)
-    _check_supported(scene.n_bands, scene.n_walls, n_l,
-                     _pattern_floats(src, mic))
+                              params.listeners.shape[0], scene.device)
+    _check_supported(scene.n_walls, *_pattern_sizes(src, mic))
 
 
-def check_batch_supported(scenes: Scene, listeners: torch.Tensor,
+def check_batch_supported(scenes: Scene,
                           src: Optional[torch.Tensor] = None,
                           mic: Optional[torch.Tensor] = None) -> None:
     """:func:`check_kernel_supported` for a batch (K9): stacked scenes
-    ``[E or 1, W, ...]``, listeners ``[E, L, 2]`` and the per-entry
-    pattern tables of :func:`pattern_tables`."""
-    _check_supported(scenes.n_bands, scenes.n_walls, listeners.shape[-2],
-                     _pattern_floats(src, mic), batch=True)
+    ``[E or 1, W, ...]`` and the per-entry pattern tables of
+    :func:`pattern_tables`."""
+    _check_supported(scenes.n_walls, *_pattern_sizes(src, mic))
 
 
 def pattern_tables(directivity, mic_directivity, n_entries: int,
@@ -212,6 +230,17 @@ def _check_tensor(name, x, device, shape=None, dtype=torch.float32):
                          f"got {tuple(x.shape)}")
 
 
+def pack_walls_banded(scene: Scene) -> torch.Tensor:
+    """The kernels' wall table ``[..., 10 + K, W]``: :func:`pack_walls`
+    with the absorption of bands 1 .. K-1 appended as rows 11 .. 9 + K
+    (read from global memory, for the hit wall only)."""
+    walls = pack_walls(scene)
+    if scene.n_bands == 1:
+        return walls
+    return torch.cat([walls, scene.absorption[..., 1:].transpose(-1, -2)],
+                     dim=-2).contiguous()
+
+
 def pack_walls(scene: Scene) -> torch.Tensor:
     """Wall table ``[..., 11, W]``: ax, ay, v2x, v2y, cc, nx, ny,
     absorption, scattering, transmission, ior (the kernel's shared-memory
@@ -245,7 +274,15 @@ def fixed_point_scales(sources: torch.Tensor, listeners: torch.Tensor,
     small ``S_e`` without coarsening the others. A directive entry's
     hits are weighted by at most ``pattern_gain`` (``[E]`` or a number,
     :func:`pattern_gain_bound`); omni and omni-coded patterns give 1 and
-    the omni scale."""
+    the omni scale.
+
+    The same scale serves every band. Each band has its own u64 bins, and
+    band ``k``'s energy starts at the gain, as band 0's does, and is then
+    multiplied only by what band 0's is (distances, the NEE geometry, the
+    patterns) and by its own ``keep = 1 - absorption`` at each wall, which
+    is at most 1 for an absorption in [0, 1] (every material's): so no
+    band's hit can exceed the bound above, and a K-band IR has the
+    one-band scale."""
     d2 = ((listeners.double() - sources.double()[:, None]) ** 2
           ).sum(-1).amin(-1).clamp(min=1e-12)
     e_max = gains.double() * torch.clamp(0.5 / d2, min=1.0)
@@ -274,12 +311,17 @@ def _ptr(x: Optional[torch.Tensor]):
 
 def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
             entry_offset, n_frames, n_rays, max_bounces, sample_rate,
-            ir_length, scales, work_counts, src=None, mic=None):
+            ir_length, scales, work_counts, src=None, mic=None, n_bands=1,
+            counter=None):
     """One launch over ``E = listeners.shape[0]`` entries: walls
-    ``[E or 1, 11, W]``, listeners ``[E, L, 2]``, scal ``[E, 5]``, scales
-    ``[E]`` float64, and for a directive launch the pattern tables ``src``
-    ``[E, C_s]`` and ``mic`` ``[E, L, C_m]``, all on one CUDA device.
-    Returns ``[E, L, T, 1]``."""
+    ``[E or 1, 10 + K, W]`` (:func:`pack_walls_banded`), listeners
+    ``[E, L, 2]``, scal ``[E, 5]``, scales ``[E]`` float64, and for a
+    directive launch the pattern tables ``src`` ``[E, C_s]`` and ``mic``
+    ``[E, L, C_m]``, all on one CUDA device. Listeners that do not fit one
+    block's shared memory beside the walls (:func:`listener_block`) run in
+    blocks, one call each; ``counter.launches`` counts the trace kernel's
+    launches (more than one a call where the scratch takes the planes in
+    chunks). Returns ``[E, L, T, K]``."""
     dev = walls.device
     n_e, n_l = listeners.shape[:2]
     for name, x in (("walls", walls), ("listeners", listeners),
@@ -293,25 +335,46 @@ def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
     if work_counts is not None:
         _check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
     n_walls = walls.shape[-1]
-    acc = torch.empty((n_e, n_l, ir_length), dtype=torch.int64, device=dev)
-    out = torch.empty((n_e, n_l, ir_length, 1), dtype=torch.float32,
-                      device=dev)
-    err = _kernel_fn()(
-        int(host_uniforms), walls.data_ptr(),
-        0 if walls.shape[0] == 1 else 11 * n_walls, n_walls,
-        listeners.data_ptr(), n_l, _ptr(src),
-        0 if src is None else src.shape[-1], _ptr(mic),
-        0 if mic is None else mic.shape[-1], scal.data_ptr(),
-        float(sample_rate),
-        emit.data_ptr() if emit is not None else None,
-        u.data_ptr() if u is not None else None, key[0], key[1],
-        int(entry_offset) & 0xFFFFFFFF, n_e, n_rays, max_bounces, n_frames,
-        ir_length, scales.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        work_counts.data_ptr() if work_counts is not None else None,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"bounce kernel launch failed: cudaError {err}")
-    return out
+    n_src, n_mic = _pattern_sizes(src, mic)
+    step = listener_block(n_walls, n_src, n_mic)
+    if step < 1:
+        raise ValueError("no listener fits a block beside the walls")
+    scratch = None
+    n_scratch = 0
+    if band_bucket(n_bands) == 0:
+        plane = -(-n_rays // 256) * 256 * n_bands
+        n_scratch = max(plane, min(plane * n_e * n_frames, SCRATCH_FLOATS))
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    fn = _kernel_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = []
+    for l0 in range(0, n_l, step):
+        lis = listeners[:, l0:l0 + step].contiguous()
+        mic_b = None if mic is None else mic[:, l0:l0 + step].contiguous()
+        n_b = lis.shape[1]
+        acc = torch.empty((n_e, n_b, ir_length, n_bands), dtype=torch.int64,
+                          device=dev)
+        out = torch.empty((n_e, n_b, ir_length, n_bands),
+                          dtype=torch.float32, device=dev)
+        launched = ctypes.c_int(0)
+        err = fn(
+            int(host_uniforms), walls.data_ptr(),
+            0 if walls.shape[0] == 1 else (10 + n_bands) * n_walls, n_walls,
+            n_bands, lis.data_ptr(), n_b, _ptr(src), n_src, _ptr(mic_b),
+            n_mic, scal.data_ptr(), float(sample_rate),
+            emit.data_ptr() if emit is not None else None,
+            u.data_ptr() if u is not None else None, key[0], key[1],
+            int(entry_offset) & 0xFFFFFFFF, n_e, n_rays, max_bounces,
+            n_frames, ir_length, _ptr(scratch), n_scratch, scales.data_ptr(),
+            acc.data_ptr(), out.data_ptr(),
+            work_counts.data_ptr() if work_counts is not None else None,
+            ctypes.byref(launched), stream)
+        if err != 0:
+            raise RuntimeError(f"bounce kernel launch failed: cudaError {err}")
+        if counter is not None:
+            counter.launches += launched.value
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def pack_scalars(params: TraceParams) -> torch.Tensor:
@@ -323,17 +386,19 @@ def pack_scalars(params: TraceParams) -> torch.Tensor:
 
 
 def _launch_scene(host_uniforms, scene, params, emit, u, key, n_frames,
-                  n_rays, max_bounces, sample_rate, ir_length, work_counts):
+                  n_rays, max_bounces, sample_rate, ir_length, work_counts,
+                  counter):
     """K3/K4: one scene, one entry."""
     check_kernel_supported(scene, params)
     scal = pack_scalars(params)
     scales = fixed_point_scale(params, n_frames, n_rays, max_bounces)
     src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
                               params.listeners.shape[0], scene.device)
-    return _launch(host_uniforms, pack_walls(scene)[None],
+    return _launch(host_uniforms, pack_walls_banded(scene)[None],
                    params.listeners.contiguous()[None], scal[None], emit, u,
                    key, 0, n_frames, n_rays, max_bounces, sample_rate,
-                   ir_length, scales[None], work_counts, src, mic)[0]
+                   ir_length, scales[None], work_counts, src, mic,
+                   scene.n_bands, counter)[0]
 
 
 def trace_frames_ir_plain(scene: Scene, params: TraceParams,
@@ -368,7 +433,7 @@ def trace_frames_ir_whole(scene: Scene, params: TraceParams,
                           work_counts: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """K3: ``F`` frames with host uniforms ``emit[F, R]``, ``u[F, B, R, 3]``
-    -> frame-summed IR ``[L, T, 1]``. CUDA scenes launch the kernel; CPU
+    -> frame-summed IR ``[L, T, K]``. CUDA scenes launch the kernel; CPU
     scenes run :func:`trace_frames_ir_plain`."""
     if scene.device.type != "cuda":
         return trace_frames_ir_plain(scene, params, emit, u,
@@ -378,11 +443,10 @@ def trace_frames_ir_whole(scene: Scene, params: TraceParams,
     max_bounces = u.shape[1]
     _check_tensor("emit", emit, scene.device, (n_frames, n_rays))
     _check_tensor("u", u, scene.device, (n_frames, max_bounces, n_rays, 3))
-    out = _launch_scene(True, scene, params, emit.contiguous(),
-                        u.contiguous(), (0, 0), n_frames, n_rays,
-                        max_bounces, sample_rate, ir_length, work_counts)
-    trace_frames_ir_whole.launches += 1
-    return out
+    return _launch_scene(True, scene, params, emit.contiguous(),
+                         u.contiguous(), (0, 0), n_frames, n_rays,
+                         max_bounces, sample_rate, ir_length, work_counts,
+                         trace_frames_ir_whole)
 
 
 def trace_frames_ir_mega(scene: Scene, params: TraceParams, seed: int,
@@ -392,7 +456,7 @@ def trace_frames_ir_mega(scene: Scene, params: TraceParams, seed: int,
                          ) -> torch.Tensor:
     """K4: ``n_frames`` frames in one launch, uniforms drawn in the kernel
     (Philox-4x32-10 under the key of ``seed``) -> frame-summed IR
-    ``[L, T, 1]``. CPU scenes run :func:`trace_frames_ir_mega_plain`.
+    ``[L, T, K]``. CPU scenes run :func:`trace_frames_ir_mega_plain`.
 
     ``work_counts`` (K3, K4 and K9 alike): an int64 CUDA tensor ``[3]`` to
     which the launch adds the wall tests it really made, the wall sweeps
@@ -404,11 +468,10 @@ def trace_frames_ir_mega(scene: Scene, params: TraceParams, seed: int,
             scene, params, seed, n_frames, n_rays=n_rays,
             max_bounces=max_bounces, sample_rate=sample_rate,
             ir_length=ir_length)
-    out = _launch_scene(False, scene, params, None, None, rng.seed_key(seed),
-                        n_frames, n_rays, max_bounces, sample_rate,
-                        ir_length, work_counts)
-    trace_frames_ir_mega.launches += 1
-    return out
+    return _launch_scene(False, scene, params, None, None,
+                         rng.seed_key(seed), n_frames, n_rays, max_bounces,
+                         sample_rate, ir_length, work_counts,
+                         trace_frames_ir_mega)
 
 
 def _batch_inputs(scenes: Scene, sources, listeners, listener_radius,
@@ -440,6 +503,21 @@ def _batch_inputs(scenes: Scene, sources, listeners, listener_radius,
     return (src, lis, *per_entry)
 
 
+def batch_params(src, lis, radius, c, gain, directivity, mic_directivity,
+                 device) -> list:
+    """The :class:`..trace.TraceParams` of each entry of a batch (the
+    per-entry inputs of :func:`_batch_inputs` and the patterns broadcast
+    by :func:`pattern_tables`)."""
+    d_tab, m_tab = pattern_tables(directivity, mic_directivity,
+                                  src.shape[0], lis.shape[1], device)
+    return [TraceParams(
+        source=src[e], listeners=lis[e], listener_radius=radius[e],
+        speed_of_sound=c[e], input_gain=gain[e],
+        directivity=None if directivity is None else d_tab[e],
+        mic_directivity=None if mic_directivity is None else m_tab[e])
+        for e in range(src.shape[0])]
+
+
 def trace_rooms_ir_mega_plain(scenes: Scene, sources, listeners, seed: int,
                               n_frames: int, *, n_rays: int,
                               max_bounces: int, sample_rate: int,
@@ -468,15 +546,10 @@ def trace_rooms_ir_mega_plain(scenes: Scene, sources, listeners, seed: int,
                              f"u{list(want[1])}; got {tuple(emit.shape)} and "
                              f"{tuple(u.shape)}")
     shared = scenes.a.shape[0] == 1
-    d_tab, m_tab = pattern_tables(directivity, mic_directivity, n_e,
-                                  lis.shape[1], scenes.device)
+    entries = batch_params(src, lis, radius, c, gain, directivity,
+                           mic_directivity, scenes.device)
     irs = []
-    for e in range(n_e):
-        params = TraceParams(
-            source=src[e], listeners=lis[e], listener_radius=radius[e],
-            speed_of_sound=c[e], input_gain=gain[e],
-            directivity=None if directivity is None else d_tab[e],
-            mic_directivity=None if mic_directivity is None else m_tab[e])
+    for e, params in enumerate(entries):
         if uniforms is None:
             emit_e, u_e = rng.philox_uniforms(
                 seed, n_frames, max_bounces, n_rays, scenes.device,
@@ -499,8 +572,9 @@ def trace_rooms_ir_mega(scenes: Scene, sources, listeners, seed: int,
                         work_counts: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """K9: ``E`` batch entries x ``n_frames`` frames in ONE launch, uniforms
-    drawn in the kernel -> frame-SUMMED IRs ``[E, L, T, 1]`` (the contract
-    of the JAX ``trace_rooms_ir_mega``).
+    drawn in the kernel -> frame-SUMMED IRs ``[E, L, T, K]`` (the contract
+    of the JAX ``trace_rooms_ir_mega``); listeners past what one block's
+    shared memory takes run in blocks, one launch each.
 
     ``scenes`` is stacked with a leading dim of ``E`` (a room dataset) or
     1 (one scene every entry shares: a multi-source batch, whose wall
@@ -532,7 +606,7 @@ def trace_rooms_ir_mega(scenes: Scene, sources, listeners, seed: int,
         input_gain)
     d_tab, m_tab = pattern_tables(directivity, mic_directivity,
                                   src.shape[0], lis.shape[1], scenes.device)
-    check_batch_supported(scenes, lis, d_tab, m_tab)
+    check_batch_supported(scenes, d_tab, m_tab)
     if src.shape[0] > MAX_ENTRIES:
         raise ValueError(f"{src.shape[0]} entries exceed the grid's "
                          f"{MAX_ENTRIES}; split the batch (entry_offset "
@@ -540,12 +614,11 @@ def trace_rooms_ir_mega(scenes: Scene, sources, listeners, seed: int,
     scal = torch.stack([src[:, 0], src[:, 1], radius, c, gain], dim=-1)
     scales = fixed_point_scales(src, lis, gain, n_frames, n_rays, max_bounces,
                                 pattern_gain_bound(d_tab, m_tab))
-    out = _launch(False, pack_walls(scenes), lis.contiguous(),
-                  scal.contiguous(), None, None, rng.seed_key(seed),
-                  entry_offset, n_frames, n_rays, max_bounces, sample_rate,
-                  ir_length, scales, work_counts, d_tab, m_tab)
-    trace_rooms_ir_mega.launches += 1
-    return out
+    return _launch(False, pack_walls_banded(scenes), lis.contiguous(),
+                   scal.contiguous(), None, None, rng.seed_key(seed),
+                   entry_offset, n_frames, n_rays, max_bounces, sample_rate,
+                   ir_length, scales, work_counts, d_tab, m_tab,
+                   scenes.n_bands, trace_rooms_ir_mega)
 
 
 # --- the per-bounce step kernel: K5 (hit rows) and K6 (in-kernel binning) ----

@@ -5,8 +5,11 @@ trace_sources_mixdown``: S simultaneous sources share one scene. They
 become the S entries of one launch of the rooms-batched kernel K9, which
 reads the one wall table with stride 0, and the IRs are mixed down by a
 sum over sources at the listeners (exact, since an IR is linear in hit
-energy). The mesh-sharded ``trace_sources_mixdown_sharded`` is not ported
-yet (ROADMAP queue 1, item 10).
+energy). On a scene past the bounce kernel's wall limit (5,280 walls) the
+sources go through the cluster kernels instead, one K8 (K = 1) or K7 call
+per source on the one sorted scene. The mesh-sharded
+``trace_sources_mixdown_sharded`` is not ported yet (ROADMAP queue 1,
+item 10).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 
 from ..models.scene import Scene
 from ..ops.trace import TraceParams
-from .sweep import trace_batch
+from .sweep import large_on_card, trace_batch
 
 
 def trace_sources_mixdown(scene: Scene, params: TraceParams, seed: int, *,
@@ -31,8 +34,9 @@ def trace_sources_mixdown(scene: Scene, params: TraceParams, seed: int, *,
     ``[L, T, K]`` at the shared listeners ``params.listeners``.
 
     Source ``s`` draws the Philox stream of entry ``s``. ``backend="auto"``
-    launches K9 once on a CUDA scene and runs its plain version on a CPU
-    scene; ``"plain"`` runs the plain version on either. ``uniforms =
+    launches K9 once on a CUDA scene (one K8 or K7 call per source past
+    5,280 walls, on the scene sorted once) and runs its plain version on a
+    CPU scene; ``"plain"`` runs the plain version on either. ``uniforms =
     (emit[S, 1, R], u[S, 1, B, R, 3])`` replace the draws on the plain path
     (the parity tests pass JAX's). The sum over sources runs on the
     device in one fixed order, so one seed gives a bit-identical mixdown.
@@ -44,7 +48,10 @@ def trace_sources_mixdown(scene: Scene, params: TraceParams, seed: int, *,
     own rows."""
     sources = params.source.reshape(-1, 2)
     n_src = sources.shape[0]
-    shared = Scene(*(x[None] for x in scene))        # leading dim 1
+    # leading dim 1; the cluster route takes the scene itself, so that its
+    # sorted tables are found again (ops/cuda/accel_kernel.py::prepare)
+    shared = (scene if backend == "auto" and large_on_card(scene)
+              else Scene(*(x[None] for x in scene)))
     listeners = params.listeners.expand(n_src, -1, 2)
     irs = trace_batch(shared, sources, listeners, seed, 1, backend=backend,
                       uniforms=uniforms, n_rays=n_rays,

@@ -4,7 +4,10 @@ Port of ``realisticaudioraytracing2d_tpu/parallel/sweep.py::sweep_rooms``:
 a batch of procedurally generated rooms (a stacked :class:`Scene`) is
 traced in ONE launch of the rooms-batched kernel K9 on the card, or
 through its plain version on the CPU, into the ``[n_rooms, L, T, K]`` IR
-dataset. The mesh-sharded ``sweep_rooms_sharded`` is not ported yet
+dataset. Rooms past the bounce kernel's wall limit (5,280 walls) go
+through the cluster kernels on the card instead, one K8 (K = 1) or K7 call
+per room (``ops/cuda/accel_kernel.py::trace_rooms_ir_accel``), where the
+JAX package runs them through jnp. The mesh-sharded ``sweep_rooms_sharded`` is not ported yet
 (ROADMAP queue 1, item 10): the target is one card.
 
 Room ``i`` draws the Philox stream of entry ``room_offset + i``, its
@@ -19,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..models.scene import Scene
+from ..ops.cuda import accel_kernel as ak
 from ..ops.cuda import bounce_kernel as bk
 
 _BACKENDS = ("auto", "plain")
@@ -30,15 +34,35 @@ def trace_batch(scenes: Scene, sources, listeners, seed: int, n_frames: int,
                 **kw) -> torch.Tensor:
     """The batched paths' choice of backend: the plain version of K9
     (:func:`..ops.cuda.bounce_kernel.trace_rooms_ir_mega_plain`) with
-    ``backend="plain"``, else the K9 wrapper, which itself runs the plain
-    version on a CPU scene. Returns the frame-summed ``[E, L, T, K]``."""
+    ``backend="plain"``; else, for CUDA scenes past
+    :data:`..ops.cuda.bounce_kernel.MAX_WALLS` walls, the cluster kernels
+    entry by entry (:func:`..ops.cuda.accel_kernel.trace_rooms_ir_accel`,
+    which, as every kernel, draws its own numbers and refuses
+    ``uniforms``); else the K9 wrapper, which itself runs the plain
+    version on a CPU scene. ``scenes`` is stacked (``[E or 1, W, ...]``);
+    the cluster route also takes one unstacked scene that every entry
+    shares. Returns the frame-summed ``[E, L, T, K]``."""
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got "
                          f"{backend!r}")
-    fn = (bk.trace_rooms_ir_mega_plain if backend == "plain"
-          else bk.trace_rooms_ir_mega)
-    return fn(scenes, sources, listeners, seed, n_frames, uniforms=uniforms,
-              **kw)
+    if backend == "plain":
+        return bk.trace_rooms_ir_mega_plain(scenes, sources, listeners, seed,
+                                            n_frames, uniforms=uniforms,
+                                            **kw)
+    if large_on_card(scenes):
+        if uniforms is not None:
+            raise ValueError("the kernels draw their own numbers: "
+                             "uniforms= needs backend='plain'")
+        return ak.trace_rooms_ir_accel(scenes, sources, listeners, seed,
+                                       n_frames, **kw)
+    return bk.trace_rooms_ir_mega(scenes, sources, listeners, seed, n_frames,
+                                  uniforms=uniforms, **kw)
+
+
+def large_on_card(scenes: Scene) -> bool:
+    """Does a batch go to the cluster kernels: a CUDA scene past the
+    bounce kernel's wall limit."""
+    return scenes.device.type == "cuda" and scenes.n_walls > bk.MAX_WALLS
 
 
 def sweep_rooms(scenes: Scene, sources, listeners, seed: int, *,
@@ -54,9 +78,10 @@ def sweep_rooms(scenes: Scene, sources, listeners, seed: int, *,
     K]``. ``scenes`` is stacked (leading room axis), ``sources``
     ``[n_rooms, 2]``, ``listeners`` ``[n_rooms, 2]`` or ``[n_rooms, L, 2]``.
 
-    ``backend="auto"`` launches K9 once on a CUDA scene and runs its plain
-    version on a CPU scene; ``"plain"`` runs the plain version on either
-    (the JAX package's ``backend="jnp"``). ``uniforms = (emit[R, F, n],
+    ``backend="auto"`` launches K9 once on a CUDA scene (one K8 or K7 call
+    per room past 5,280 walls) and runs its plain version on a CPU scene;
+    ``"plain"`` runs the plain version on either (the JAX package's
+    ``backend="jnp"``). ``uniforms = (emit[R, F, n],
     u[R, F, B, n, 3])`` replace the Philox draws on the plain path (the
     parity tests pass JAX's); the kernel draws its own numbers, so a CUDA
     scene with ``backend="auto"`` refuses them. ``directivity`` (``[C]``

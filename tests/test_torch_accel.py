@@ -307,21 +307,64 @@ def test_unknown_backend_raises():
 def test_accel_support_checks():
     room, params = _city()
     ak.check_accel_supported(room.scene, params)
-    wide = rooms.city_scene(10, n_bands=9, device=CPU).scene
-    with pytest.raises(NotImplementedError, match="8 band"):
-        ak.check_accel_supported(wide, params)
-    with pytest.raises(NotImplementedError, match="1 band"):
-        ak.check_accel_supported(_city(n_bands=8)[0].scene, params,
-                                 max_bands=1)
+    # K7 takes any band count; K8 one band, as the JAX K8
+    for k in (9, 32, 512):
+        ak.check_accel_supported(
+            rooms.city_scene(10, n_bands=k, device=CPU).scene, params)
+    ak.check_sorted_supported(room.scene, params)
+    with pytest.raises(ValueError, match="1 band"):
+        ak.check_sorted_supported(_city(n_bands=8)[0].scene, params)
     ak.check_accel_supported(room.scene, params._replace(
         directivity=torch.ones(3), mic_directivity=torch.ones(5)))
     with pytest.raises(ValueError, match="mic_directivity"):
         ak.check_accel_supported(
             room.scene, params._replace(mic_directivity=torch.ones(2, 3)))
+    # any listener count: blocks beside the super boxes; patterns too
+    # large for a block's shared memory are refused
     many = TraceParams.make(room.source, np.zeros((17, 2), np.float32),
                             device=CPU)
-    with pytest.raises(NotImplementedError, match="listeners"):
-        ak.check_accel_supported(room.scene, many)
+    ak.check_accel_supported(room.scene, many)
+    prep = ak.prepare(room.scene)
+    assert ak._listener_step(prep, True, 0, 0) > 10000
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        ak._listener_step(prep, False, 60001, 1)
+
+
+def _smem_bytes(prep, sorted_kernel, n_listeners, n_src, n_mic):
+    """The dynamic shared memory of a K7 (``sorted_kernel`` False) or K8
+    launch, as ``csrc/accel_kernel.cu::smem_bytes`` counts it, plus the 96
+    B of the super-box order's block reduction."""
+    n_super = prep.n_clusters // prep.group
+    return (16 * n_super + (8 * n_super if sorted_kernel else 0)
+            + 4 * (2 * n_listeners + n_listeners * n_mic + n_src) + 96)
+
+
+@pytest.mark.parametrize("sorted_kernel", [False, True])
+@pytest.mark.parametrize("n_src,n_mic", [(0, 0), (1, 5), (9, 3621)])
+def test_listener_step_fills_a_block(sorted_kernel, n_src, n_mic):
+    # K7/K8 listener blocks: the most listeners whose table fits the 227
+    # KB of a block beside the super boxes, and the blocks cover the
+    # listeners in order
+    room, _ = _city()
+    prep = ak.prepare(room.scene)
+    step = ak._listener_step(prep, sorted_kernel, n_src, n_mic)
+    assert _smem_bytes(prep, sorted_kernel, step, n_src, n_mic) <= 232448
+    assert _smem_bytes(prep, sorted_kernel, step + 1, n_src, n_mic) > 232448
+    if n_mic:
+        assert step == 16 if n_mic == 3621 else step > 1000
+        mic = torch.ones(n_mic)
+        src = torch.ones(n_src)
+    else:
+        mic = src = None
+    n_l = 2 * step + 3
+    params = TraceParams.make(room.source, np.zeros((n_l, 2), np.float32),
+                              device=CPU)._replace(directivity=src,
+                                                   mic_directivity=mic)
+    blocks = list(ak._blocks(prep, params, sorted_kernel))
+    assert [(l0, n) for _, l0, n in blocks] == [(0, step), (step, step),
+                                                (2 * step, 3)]
+    for (args, _), l0, n in blocks:
+        assert args[1:4:2] == ((n_src, n_mic) if n_mic else (0, 0))
 
 
 def test_banded_wall_table_layout():

@@ -113,9 +113,10 @@ def test_kernel_support_checks():
     room = rooms.smoll_room(device="cpu")
     p = TraceParams.make(room.source, room.listener, device="cpu")
     bk.check_kernel_supported(room.scene, p)
-    with pytest.raises(NotImplementedError, match="K=1"):
+    # any band count: registers up to 32 bands, a device scratch past that
+    for k in (4, 8, 32, 512):
         bk.check_kernel_supported(
-            rooms.smoll_room(n_bands=4, device="cpu").scene, p)
+            rooms.smoll_room(n_bands=k, device="cpu").scene, p)
     bk.check_kernel_supported(room.scene, p._replace(
         directivity=torch.ones(3), mic_directivity=torch.ones(1, 5)))
     with pytest.raises(ValueError, match="directivity"):
@@ -125,10 +126,15 @@ def test_kernel_support_checks():
     with pytest.raises(NotImplementedError, match="shared memory"):
         bk.check_kernel_supported(room.scene.pad_to(bk.MAX_WALLS), p._replace(
             directivity=torch.ones(201)))
-    many = TraceParams.make(room.source, np.zeros((17, 2), np.float32),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="listeners"):
+    # any listener count: blocks of what a block's shared memory holds
+    for n_l in (17, 64, 1000):
+        many = TraceParams.make(room.source, np.zeros((n_l, 2), np.float32),
+                                device="cpu")
         bk.check_kernel_supported(room.scene, many)
+        bk.check_kernel_supported(room.scene.pad_to(bk.MAX_WALLS), many)
+    assert bk.listener_block(bk.MAX_WALLS) == 16
+    assert bk.listener_block(28) > 1000
+    assert bk.listener_block(bk.MAX_WALLS, 5, 5) == (32 - 5) // (2 + 5)
     with pytest.raises(ValueError, match="K7/K8"):
         bk.check_kernel_supported(room.scene.pad_to(bk.MAX_WALLS + 1), p)
     assert bk.MAX_WALLS == 5280

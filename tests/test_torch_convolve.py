@@ -95,3 +95,45 @@ def test_peak_downmix_resample_load_match_jax(rng):
             np.asarray(jcv.load_samples(jnp.asarray(x), src, dst)),
             rtol=1e-6, atol=1e-6)
     assert cv.downmix_mono(torch.ones(4)).shape == (4,)
+
+
+# --- banded synthesis: convolve_banded ----------------------------------------
+
+@pytest.mark.parametrize("n_bands,accum,gate", [(1, 1, 1e-4), (4, 3, None),
+                                                (8, 1, 1e-4), (32, 2, None)])
+def test_convolve_banded_matches_jax(rng, n_bands, accum, gate):
+    x = rng.uniform(-1, 1, 300).astype(np.float32)
+    x[::7] = 5e-5                                   # below the input gate
+    ir = rng.uniform(0, 0.4, (150, n_bands)).astype(np.float32)
+    got = cv.convolve_banded(to_torch(x), to_torch(ir), accum, gate)
+    assert tuple(got.shape) == (450,)
+    _fft_close(got, jcv.convolve_banded(jnp.asarray(x), jnp.asarray(ir),
+                                        accum, gate))
+
+
+def test_convolve_banded_flat_ir_equals_scalar(rng):
+    # all K bands share one IR: banded synthesis == the plain FFT convolution
+    # (the oracle of tests/test_convolve.py)
+    x = rng.uniform(-1, 1, 200).astype(np.float32)
+    ir = rng.uniform(0, 0.3, 100).astype(np.float32)
+    banded = to_torch(np.tile(ir[:, None], (1, 4)))
+    got = cv.convolve_banded(to_torch(x), banded, accum_count=1,
+                             gate_eps=None)
+    want = cv.convolve_fft(to_torch(x), to_torch(ir), accum_count=1,
+                           gate_eps=None)
+    np.testing.assert_allclose(to_numpy(got), to_numpy(want), rtol=1e-3,
+                               atol=1e-4)
+
+
+def test_convolve_banded_highband_removes_lows():
+    # energy only in the top band: a pure low-frequency input comes out
+    # strongly attenuated against a flat IR
+    n = 512
+    x = to_torch(np.sin(2 * np.pi * np.arange(n) * 2 / n).astype(np.float32))
+    ir_hi = np.zeros((64, 4), np.float32)
+    ir_hi[0, 3] = 1.0
+    ir_flat = np.zeros((64, 4), np.float32)
+    ir_flat[0, :] = 1.0
+    out_hi = cv.convolve_banded(x, to_torch(ir_hi), gate_eps=None)
+    out_flat = cv.convolve_banded(x, to_torch(ir_flat), gate_eps=None)
+    assert float(out_hi.abs().max()) < 0.1 * float(out_flat.abs().max())

@@ -7,7 +7,13 @@ mixdown on the card, and the wrappers' refusals; then the hit-record
 path: the wall sweeps (K1, K2 of ``csrc/trace_kernel.cu``) and the
 per-bounce step kernel (K5, K6 of ``csrc/step_kernel.cu``) against their
 plain versions, K6 == K3 == K4 bit for bit, the routing of a request for
-hits by listener, band and wall count, and the float scatters' determinism.
+hits by listener, band and wall count, and the float scatters' determinism;
+then the banded and many-listener paths: K3/K4/K9 at 8, 32 and 512 bands
+and K7 at 32 and 40 against their plain versions, equal bands == one band
+bit for bit, K4 == K7 on a sorted banded city, listener blocks == the
+whole launch bit for bit (K3, K4, K9, K7, K8), the sweep and mixdown of
+scenes past 5,280 walls against single K8/K7 calls, and a banded stream
+with air absorption against its plain twin.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
 file imports no JAX, so it runs on a machine without it:
@@ -24,6 +30,8 @@ one sorted scene, give the same bits. K1, K2 and K5 hand out the plain
 version's own numbers (distances, indices, hit records): equal bit for
 bit, since both make the same IEEE operations and a minimum does not
 depend on its order."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -156,12 +164,20 @@ def test_stream_on_the_card_runs_through_the_kernel(cuda_device):
 
 @cuda
 def test_wrappers_raise_on_what_the_kernel_does_not_take(cuda_device):
+    # bands and listeners run (the banded and blocked tests below); what
+    # is still refused: patterns past a block's shared memory, patterns of
+    # the wrong shape, tensors on another device
     scene, params = _setup(cuda_device, n_bands=4)
-    with pytest.raises(NotImplementedError, match="K=1"):
-        bk.trace_frames_ir_mega(scene, params, 0, 1, n_rays=256,
-                                max_bounces=2, sample_rate=48000,
-                                ir_length=4800)
+    ir = bk.trace_frames_ir_mega(scene, params, 0, 1, n_rays=256,
+                                 max_bounces=2, sample_rate=48000,
+                                 ir_length=4800)
+    assert tuple(ir.shape) == (1, 4800, 4)
     scene, params = _setup(cuda_device)
+    huge = params._replace(directivity=torch.ones(201, device=cuda_device))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        bk.trace_frames_ir_mega(scene.pad_to(bk.MAX_WALLS), huge, 0, 1,
+                                n_rays=256, max_bounces=2, sample_rate=48000,
+                                ir_length=4800)
     emit, u = rng.philox_uniforms(0, 1, 2, 256, cuda_device)
     # patterns run in the kernel (test_directive_kernels_match_plain); a
     # pattern of the wrong shape is refused
@@ -277,14 +293,19 @@ def test_mixdown_on_the_card_runs_one_rooms_launch(cuda_device):
 @cuda
 def test_rooms_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     kw = dict(n_rays=256, max_bounces=2, sample_rate=48000, ir_length=4800)
+    # bands and any listener count run; host uniforms are still refused
     scenes, src, lis = rooms.random_rooms(2, seed=0, n_bands=4,
                                           device=cuda_device)
-    with pytest.raises(NotImplementedError, match="K=1"):
-        bk.trace_rooms_ir_mega(scenes, src, lis, 0, 1, **kw)
+    assert tuple(bk.trace_rooms_ir_mega(scenes, src, lis, 0, 1, **kw).shape
+                 ) == (2, 1, 4800, 4)
     scenes, src, lis = rooms.random_rooms(2, seed=0, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="listeners"):
-        bk.trace_rooms_ir_mega(scenes, src, np.zeros((2, 17, 2), np.float32),
-                               0, 1, **kw)
+    assert tuple(bk.trace_rooms_ir_mega(
+        scenes, src, np.zeros((2, 17, 2), np.float32), 0, 1, **kw).shape
+                 ) == (2, 17, 4800, 1)
+    with pytest.raises(ValueError, match="backend='plain'"):
+        bk.trace_rooms_ir_mega(scenes, src, lis, 0, 1,
+                               uniforms=rng.philox_uniforms(
+                                   0, 1, 2, 256, cuda_device), **kw)
     with pytest.raises(ValueError, match="backend='plain'"):
         sweep_rooms(scenes, src, lis, 0,
                     uniforms=rng.philox_uniforms(0, 1, 2, 256, cuda_device),
@@ -314,6 +335,7 @@ def _launch_counts():
 
 @cuda
 @pytest.mark.parametrize("kernel,n_bands", [("K7", 1), ("K7", 8),
+                                            ("K7", 32), ("K7", 40),
                                             ("K8", 1)])
 def test_accel_kernels_match_plain(cuda_device, kernel, n_bands):
     scene, params = _city(cuda_device, 300, n_bands)
@@ -385,8 +407,7 @@ def test_routing_by_wall_and_band_count(cuda_device):
     assert run(small, p_small, backend="accel") == (0, 0, 0, 5)
     small_banded, p_sb = _city(cuda_device, 300, 4)
     assert run(small_banded, p_sb, 4, backend="accel") == (0, 0, 1, 0)
-    with pytest.raises(NotImplementedError, match="K=1"):
-        run(small_banded, p_sb, 4)
+    assert run(small_banded, p_sb, 4) == (0, 1, 0, 0)        # K4, banded
     with pytest.raises(ValueError, match="K7/K8"):
         bk.trace_frames_ir_mega(big, p_big, 0, 1, **ACCEL_KW)
     with pytest.raises(ValueError, match="uniforms"):
@@ -415,7 +436,7 @@ def test_k8_refuses_buffers_it_cannot_ping_pong(cuda_device):
                   prep.saabb.data_ptr(), prep.n_clusters, prep.group,
                   prep.cluster_size, None, 1, None, 0, None, 0, None,
                   prep.bounds.data_ptr(),
-                  16000.0, 0, 0, n, n, 2, bounce, 100, None, perm_ptr,
+                  16000.0, 0, 0, 0, n, n, 2, bounce, 100, None, perm_ptr,
                   state[src].data_ptr(), istate[src].data_ptr(),
                   state[dst].data_ptr(), istate[dst].data_ptr(),
                   keys.data_ptr(), None, 1, None, None)
@@ -850,3 +871,307 @@ def test_stream_with_patterns_diffraction_and_air_matches_plain(cuda_device):
     assert np.abs(outs[1]).max() > 0
     np.testing.assert_allclose(outs[0], outs[1], rtol=1e-4,
                                atol=1e-6 * np.abs(outs[1]).max())
+
+
+# --- bands, listener blocks and batches of large scenes -----------------------
+
+def _listener_grid(device, n=64):
+    """n listeners on a grid across SmollRoom."""
+    xy = torch.stack(torch.meshgrid(torch.linspace(-16, 16, 8),
+                                    torch.linspace(-4, 7, n // 8),
+                                    indexing="ij"), -1).reshape(-1, 2)
+    return xy.to(device)
+
+
+@cuda
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K9"])
+@pytest.mark.parametrize("n_bands", [8, 32, 512])
+def test_banded_bounce_kernels_match_plain(cuda_device, kernel, n_bands):
+    scene, params = _setup(cuda_device, n_bands=n_bands)
+    kw = dict(n_rays=15000, max_bounces=5, **KW)
+    if kernel == "K3":
+        emit, u = rng.philox_uniforms(6, 2, 5, 15000, cuda_device)
+        got = bk.trace_frames_ir_whole(scene, params, emit, u, **KW)
+        want = bk.trace_frames_ir_plain(scene, params, emit, u, **KW)
+    elif kernel == "K4":
+        got = bk.trace_frames_ir_mega(scene, params, 6, 2, **kw)
+        want = bk.trace_frames_ir_mega_plain(scene, params, 6, 2, **kw)
+    else:
+        scenes, src, lis = rooms.random_rooms(3, seed=5, n_bands=n_bands,
+                                              device=cuda_device)
+        got = bk.trace_rooms_ir_mega(scenes, src, lis, 6, 2,
+                                     entry_offset=4, **kw)
+        want = bk.trace_rooms_ir_mega_plain(scenes, src, lis, 6, 2,
+                                            entry_offset=4, **kw)
+        got, want = got[0], want[0]
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.shape[-1] == n_bands
+    for k in (0, n_bands // 2, n_bands - 1):
+        _assert_close_irs(got[..., k], want[..., k])
+
+
+@cuda
+@pytest.mark.parametrize("n_bands", [8, 32, 40])
+def test_equal_bands_give_the_one_band_bits(cuda_device, n_bands):
+    scene, params = _setup(cuda_device)
+    same = scene._replace(
+        absorption=scene.absorption.expand(-1, n_bands).contiguous())
+    kw = dict(n_rays=15000, max_bounces=5, **KW)
+    one = bk.trace_frames_ir_mega(scene, params, 3, 2, **kw)
+    many = bk.trace_frames_ir_mega(same, params, 3, 2, **kw)
+    city, p_city = _city(cuda_device, 300)
+    city_same = city._replace(
+        absorption=city.absorption.expand(-1, n_bands).contiguous())
+    k8 = ak.trace_frames_ir_accel_sorted(city, p_city, 3, 2, **ACCEL_KW)
+    k7 = ak.trace_frames_ir_accel(city_same, p_city, 3, 2, **ACCEL_KW)
+    torch.cuda.synchronize()
+    assert float(one.sum()) > 0 and float(k8.sum()) > 0
+    for k in range(n_bands):
+        assert torch.equal(many[..., k], one[..., 0])
+        assert torch.equal(k7[..., k], k8[..., 0])
+
+
+@cuda
+@pytest.mark.parametrize("n_bands", [8, 32])
+def test_k4_equals_k7_on_a_sorted_banded_city(cuda_device, n_bands):
+    scene, params = _city(cuda_device, 1200, n_bands)
+    sorted_scene = ak.prepare(scene).scene
+    k4 = bk.trace_frames_ir_mega(sorted_scene, params, 8, 2, **ACCEL_KW)
+    k7 = ak.trace_frames_ir_accel(scene, params, 8, 2, **ACCEL_KW)
+    torch.cuda.synchronize()
+    assert float(k4[..., -1].sum()) > 0 and torch.equal(k7, k4)
+
+
+def _big_mic_pattern(prep, sorted_kernel, n_listeners):
+    """A cardioid microphone pattern padded with zero harmonics to so many
+    coefficients that only about 16 listeners fit one K7/K8 block beside
+    ``prep``'s super boxes (``[n_listeners, C]``)."""
+    from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
+    boxes = prep.n_clusters // prep.group * (6 if sorted_kernel else 4) + 24
+    n_mic = (bk.SMEM_FLOATS - boxes - 1) // 16 - 2
+    n_mic -= 1 - n_mic % 2
+    c = np.pad(dv.cardioid(0.7), (0, n_mic - 3)).astype(np.float32)
+    return torch.as_tensor(np.tile(c, (n_listeners, 1)))
+
+
+@cuda
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K9", "K7", "K8"])
+def test_listener_blocks_equal_calls_on_their_slices(cuda_device, kernel):
+    """64 listeners where a block's shared memory holds 16: the call runs
+    4 blocks of launches and equals, bit for bit, the calls on each
+    block's slice of listeners (one launch each). K3/K4/K9: SmollRoom
+    padded to the 5,280-wall limit; K7/K8: a city with a microphone
+    pattern of some 3,600 coefficients (a cardioid and zero harmonics)."""
+    grid = _listener_grid(cuda_device)
+    mic = None
+    if kernel in ("K7", "K8"):
+        scene, params = _city(cuda_device, 300, 1 if kernel == "K8" else 4)
+        grid = params.listeners + grid * 0.5
+        mic = _big_mic_pattern(ak.prepare(scene), kernel == "K8",
+                               64).to(cuda_device)
+        step = ak._listener_step(ak.prepare(scene), kernel == "K8", 1,
+                                 mic.shape[-1])
+        fn = (ak.trace_frames_ir_accel if kernel == "K7"
+              else ak.trace_frames_ir_accel_sorted)
+        run = lambda p: fn(scene, p, 2, 2, **ACCEL_KW)  # noqa: E731
+    else:
+        scene, params = _setup(cuda_device, n_bands=4)
+        scene = scene.pad_to(bk.MAX_WALLS)
+        step = bk.listener_block(scene.n_walls)
+        kw = dict(n_rays=4096, max_bounces=5, **KW)
+        if kernel == "K3":
+            emit, u = rng.philox_uniforms(2, 1, 5, 4096, cuda_device)
+            run = lambda p: bk.trace_frames_ir_whole(  # noqa: E731
+                scene, p, emit, u, **KW)
+        elif kernel == "K4":
+            run = lambda p: bk.trace_frames_ir_mega(  # noqa: E731
+                scene, p, 2, 1, **kw)
+        else:
+            run = lambda p: bk.trace_rooms_ir_mega(  # noqa: E731
+                Scene.stack([scene]), p.source[None], p.listeners[None], 2,
+                1, mic_directivity=p.mic_directivity, **kw)[0]
+    assert step == 16
+    wrapper = {"K3": bk.trace_frames_ir_whole, "K4": bk.trace_frames_ir_mega,
+               "K9": bk.trace_rooms_ir_mega,
+               "K7": ak.trace_frames_ir_accel,
+               "K8": ak.trace_frames_ir_accel_sorted}[kernel]
+    per_call = 5 if kernel == "K8" else 1
+    before = wrapper.launches
+    whole = run(params._replace(listeners=grid, mic_directivity=mic))
+    mid = wrapper.launches
+    parts = [run(params._replace(
+        listeners=grid[l0:l0 + 16],
+        mic_directivity=None if mic is None else mic[l0:l0 + 16]))
+        for l0 in range(0, 64, 16)]
+    torch.cuda.synchronize()
+    assert mid - before == 4 * per_call
+    assert wrapper.launches - mid == 4 * per_call
+    assert tuple(whole.shape[:1]) == (64,)
+    assert whole.shape[-1] == scene.n_bands
+    heard = int((whole.sum((1, 2)) > 0).sum())
+    assert heard >= (1 if kernel in ("K7", "K8") else 16)
+    assert torch.equal(whole, torch.cat(parts))
+
+
+@cuda
+@pytest.mark.parametrize("kernel", ["K4", "K9", "K7"])
+def test_scratch_chunks_are_counted_and_equal_one_launch(cuda_device,
+                                                         monkeypatch,
+                                                         kernel):
+    """Past the largest register bucket the energies live in a device
+    scratch; a call whose planes (frames, or entries x frames) do not fit
+    it runs them in chunks. Each chunk is a launch of its own, counted in
+    ``.launches``, and the IR equals the one-launch call bit for bit."""
+    n_bands = 40
+    if kernel == "K7":
+        scene, params = _city(cuda_device, 300, n_bands)
+        wrapper = ak.trace_frames_ir_accel
+        run = lambda: wrapper(scene, params, 3, 5, **ACCEL_KW)  # noqa: E731
+        per_plane = -(-ACCEL_KW["n_rays"] // 256) * 256 * n_bands
+    else:
+        scene, params = _setup(cuda_device, n_bands=n_bands)
+        kw = dict(n_rays=4096, max_bounces=5, **KW)
+        per_plane = 4096 * n_bands
+        if kernel == "K4":
+            wrapper = bk.trace_frames_ir_mega
+            run = lambda: wrapper(scene, params, 3, 5, **kw)  # noqa: E731
+        else:
+            wrapper = bk.trace_rooms_ir_mega
+            run = lambda: wrapper(  # noqa: E731
+                Scene.stack([scene]), params.source[None].expand(2, 2),
+                params.listeners[None].expand(2, -1, 2), 3, 3, **kw)
+    before = wrapper.launches
+    one = run()
+    mid = wrapper.launches
+    monkeypatch.setattr(bk, "SCRATCH_FLOATS", 2 * per_plane)
+    chunked = run()
+    torch.cuda.synchronize()
+    assert mid - before == 1
+    assert wrapper.launches - mid == 3     # 5 or 2 x 3 planes, 2 a launch
+    assert float(one.sum()) > 0 and torch.equal(one, chunked)
+
+
+@cuda
+def test_large_scene_sweep_and_mixdown_match_single_calls(cuda_device):
+    cities = [rooms.city_scene(1500, seed=s, device=cuda_device)
+              for s in (1, 2)]
+    scenes = Scene.stack([c.scene for c in cities])
+    src = np.stack([c.source for c in cities])
+    lis = np.stack([c.listener for c in cities])
+    assert scenes.n_walls > bk.MAX_WALLS
+    kw = dict(n_rays=4096, max_bounces=5, sample_rate=16000, ir_length=24000)
+    before = _launch_counts()
+    swept = sweep_rooms(scenes, src, lis, 4, n_frames=2, input_gain=100.0,
+                        room_offset=3, **kw)
+    counts = tuple(a - b for a, b in zip(_launch_counts(), before))
+    assert counts == (0, 0, 0, 2 * 5)                 # K8 per room
+    for e, city in enumerate(cities):
+        p = TraceParams.make(city.source, city.listener, input_gain=100.0,
+                             device=cuda_device)
+        one = ak.trace_frames_ir_accel_sorted(city.scene, p, 4, 2,
+                                              entry=3 + e, **kw)
+        assert float(one.sum()) > 0
+        assert torch.equal(swept[e], one / torch.tensor(2.0,
+                                                        device=cuda_device))
+    # the mixdown: 4 sources in one city, K7 at 4 bands, one sort
+    banded = rooms.city_scene(1500, seed=1, n_bands=4, device=cuda_device)
+    params = TraceParams.make(
+        banded.source[None] + np.array([[0.0, 0.0], [3.0, 0.0], [0.0, 3.0],
+                                        [-3.0, 0.0]], np.float32),
+        banded.listener[None] + np.array([[0.0, 0.0], [1.0, 0.0]],
+                                         np.float32),
+        input_gain=100.0, device=cuda_device)
+    srcs = params.source
+    builds = ak.prepare.builds
+    mix = trace_sources_mixdown(banded.scene, params, 9, **kw)
+    assert ak.prepare.builds - builds <= 1
+    singles = [ak.trace_frames_ir_accel(
+        banded.scene, params._replace(source=srcs[s]), 9, 1, entry=s, **kw)
+        for s in range(4)]
+    plain = ak.trace_rooms_ir_accel_plain(
+        banded.scene, srcs, params.listeners.expand(4, 2, 2), 9, 1,
+        input_gain=100.0, ray_chunk=1024, **kw).sum(0)
+    torch.cuda.synchronize()
+    assert tuple(mix.shape) == (2, 24000, 4)
+    assert torch.equal(mix, torch.stack(singles).sum(0))
+    for k in (0, 3):
+        _assert_close_irs(mix[..., k], plain[..., k])
+
+
+@cuda
+def test_banded_stream_with_air_matches_plain(cuda_device):
+    scene, params = _setup(cuda_device, n_bands=8)
+    cfg = art.smoll_room_config(n_bands=8)
+    from realisticaudioraytracing2d_tpu_torch.ops import air
+    alpha = air.iso9613_alpha(air.band_frequencies(8))
+    dry = torch.zeros(9600, device=cuda_device)
+    dry[100] = 1.0
+    outs = {}
+    for backend in ("auto", "plain"):
+        before = bk.trace_frames_ir_mega.launches
+        outs[backend] = art.Streamer(scene, cfg, seed=4, air_alpha=alpha,
+                                     backend=backend).stream_clip(
+            dry, lambda i: params, total_chunks=4)
+        torch.cuda.synchronize()
+        assert bk.trace_frames_ir_mega.launches - before == (
+            4 if backend == "auto" else 0)
+    got, want = to_numpy(outs["auto"]), to_numpy(outs["plain"])
+    assert got.shape == (1, 4 * 4800) and np.abs(want).max() > 0
+    # the limits of the directive stream's test above
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-6 * np.abs(want).max())
+
+
+@cuda
+@pytest.mark.parametrize("n_bands,n_listeners", [(1, 1), (8, 16), (32, 24),
+                                                 (512, 64)])
+def test_entry_points_take_any_band_and_listener_count(
+        cuda_device, tmp_path, n_bands, n_listeners):
+    """Each entry point of the banded and many-listener paths runs on the
+    card through its kernel and raises nowhere."""
+    from realisticaudioraytracing2d_tpu_torch import cli
+    room = rooms.smoll_room(n_bands=n_bands, device=cuda_device)
+    lis = _listener_grid(cuda_device)[:n_listeners]
+    p = TraceParams.make(room.source, lis, device=cuda_device)
+    kw = dict(n_rays=2048, max_bounces=5, sample_rate=16000,
+              ir_length=8000)
+    k4 = bk.trace_frames_ir_mega.launches
+    st = art.trace_accumulate(
+        room.scene, p, art.IRState.zeros(8000, n_listeners, n_bands,
+                                         device=cuda_device),
+        n_frames=2, seed=1, n_rays=2048, max_bounces=5, sample_rate=16000)
+    cfg = art.smoll_room_config(n_bands=n_bands, ray_count=2048)
+    cfg = dataclasses.replace(cfg, audio=dataclasses.replace(
+        cfg.audio, sample_rate=16000, reverb_duration=0.5))
+    out = art.Streamer(room.scene, cfg, seed=2, n_listeners=n_listeners
+                       ).stream_clip(torch.ones(3200, device=cuda_device),
+                                     lambda i: p, total_chunks=2)
+    assert bk.trace_frames_ir_mega.launches == k4 + 3
+    assert tuple(st.sum.shape) == (n_listeners, 8000, n_bands)
+    assert tuple(out.shape) == (n_listeners, 3200)
+    scenes, src, _ = rooms.random_rooms(2, seed=1, n_bands=n_bands,
+                                        device=cuda_device)
+    k9 = bk.trace_rooms_ir_mega.launches
+    swept = sweep_rooms(scenes, src, lis[None].expand(2, -1, -1), 3, **kw)
+    mix = trace_sources_mixdown(room.scene, p._replace(
+        source=torch.as_tensor(src, device=cuda_device)), 4, **kw)
+    torch.cuda.synchronize()
+    assert bk.trace_rooms_ir_mega.launches == k9 + 2
+    assert tuple(swept.shape) == (2, n_listeners, 8000, n_bands)
+    assert tuple(mix.shape) == (n_listeners, 8000, n_bands)
+    for x in (st.sum, out, swept, mix):
+        assert bool(torch.isfinite(x).all()) and float(x.abs().sum()) > 0
+    small = ["--rays", "2048", "--sample-rate", "16000", "--reverb", "0.5",
+             "--bands", str(n_bands), "--device", "cuda"]
+    wav = str(tmp_path / "dry.wav")
+    from realisticaudioraytracing2d_tpu_torch.utils.audio_io import (
+        click_clip, write_wav)
+    write_wav(wav, click_clip(0.5, 16000, click_times=(0.1,)), 16000)
+    cli.main(["trace", "--room", "smoll", *small, "--ir-out",
+              str(tmp_path / "ir.npz")])
+    cli.main(["bake", "--room", "smoll", *small, "--in", wav, "--out",
+              str(tmp_path / "wet.wav")])
+    cli.main(["sweep", "--rooms", "2", *small, "--out",
+              str(tmp_path / "irs.npz")])
+    assert np.load(tmp_path / "irs.npz")["irs"].shape == (2, 1, 8000,
+                                                          n_bands)
