@@ -16,7 +16,8 @@ every kernel against its plain PyTorch version:
   the procedural city of 40,008 and 100,016 walls at 131,072 rays x 6
   bounces x 4 frames, 16 kHz, 24,000 bins, gain 100, through
   ``trace_accumulate(backend="auto")`` and the cluster kernel K8, the
-  8-band city through K7, and the stream on a 10,008-wall city through K8;
+  8-band city through K7 (the banded instantiations of K8's kernel), and the
+  stream on a 10,008-wall city through K8;
 * the hit-record path, ``cli trace`` and ``cli bake [--legacy]`` at their
   defaults (SmollRoom 15,000 rays x 5 bounces x 8 frames, 72,000 bins, 100
   debug rays; Big Room; the legacy IR of 562 time bins x 128 slots),
@@ -73,9 +74,11 @@ Phases:
 8c. the 100,016-wall city: the same, its listener enclosed (an IR of
    zeros), then with a second listener in the open: ``early_out=False``
    bit-identical and K8 against its plain version at full shape;
-8d. the 8-band 40,008-wall city through ``backend="auto"``: one K7
-   launch, ``early_out`` off bit-identical, K7 against its plain version
-   at full shape, the highest band quieter than the lowest;
+8d. the 8-band 40,008-wall city through ``backend="auto"``: 6 K7
+   launches (one per bounce, the rays re-sorted between them),
+   ``early_out`` off bit-identical, K7 against its plain version at full
+   shape, its sweeps those of the kernel before the redesign
+   (PARENT_WORK), the highest band quieter than the lowest;
 9. the stream on ``city_scene(2500)`` (10,008 walls) at the shipped audio
    settings (15,000 x 5, 48 kHz, 72,000 bins, 4,800-sample chunks): 20
    chunks of clicks + 15 tail chunks through K8 (5 launches per chunk, no
@@ -108,10 +111,11 @@ Phases:
    on the same numbers, within the limits of the phase that covers its
    omni form; K4 == K7 == K8 on a sorted city, directive; K6 == K3. 11b:
    omni-coded patterns ([1.]) through each directive kernel give the omni
-   bits. 11c: registers per thread (cudaFuncGetAttributes) of the omni
-   kernels equal the parent's (PARENT_REGS), the directive ones printed
-   with their local bytes; in [5], each kernel's device time omni vs
-   directive. 11d: the directive mixdown equals the sum of 64
+   bits. 11c: registers and local bytes per thread
+   (cudaFuncGetAttributes) of the omni kernels equal the parent's
+   (PARENT_REGS), the directive ones printed, and the ptxas registers and
+   spills of every one-band instantiation the parent built equal its
+   (PARENT_PTXAS); in [5], each kernel's device time omni vs directive. 11d: the directive mixdown equals the sum of 64
    single-source launches (E = 1, entry offset s; source 0's is K4 bit
    for bit). 11e: 2.0 s of clicks through ``Streamer.stream_clip`` on
    SmollRoom with an opaque barrier below the source, a cardioid source,
@@ -147,10 +151,14 @@ Phases:
    listeners (8 K8 calls) and a 16-source ``trace_sources_mixdown`` in it
    (16 K8 calls, the scene sorted once) against single K8 calls with the
    same entry ids, bit for bit, and against the plain twin. 12e: the
-   32-band 40,008-wall city through ``trace_accumulate(auto)`` (one K7
-   launch) as in 8d, at full shape against its plain version. [12t]:
+   32-band 40,008-wall city through ``trace_accumulate(auto)`` (6 K7
+   launches) as in 8d, at full shape against its plain version. [12t]:
    device times of K3, K4, K9 and K7 at 1, 8 and 32 bands, and of K4 and
-   K8 with 64 listeners beside their bounds;
+   K8 with 64 listeners beside their bounds; K7 at 1, 8 and 32 bands on
+   the 40,008-wall city and at the city stream's shape (8 bands) beside
+   the times of the kernel it replaced (PARENT_K7_MS) and its bound; K3
+   and K4 at the stream's shape and the 64-listener K4 call with lane
+   groups of 1 and 4 beside the parent's (PARENT_K4_MS);
 5. timings with CUDA events after a warm-up, device times from the
    profiler, and each kernel's bound (the larger of its bytes over 3.35
    TB/s and its FP32 operations over 67 TFLOP/s, the operations counted
@@ -166,7 +174,8 @@ Phases:
 In the JSON line, K3 and K4 are timed at the stream's shape, K9 at the
 mixdown's, K8 at the city stream's (15,000 x 5 x 1 frame, 10,008 walls)
 and K7 at the banded city's (131,072 x 6 x 4 frames, 8 bands, 40,008
-walls; its plain time is that of the comparison over slices of rays), so
+walls, 6 launches and 5 sorts a call; its plain time is that of the
+comparison over slices of rays), so
 that ``ms``, ``plain_ms`` and ``bound_ms`` are of one call; K8's
 full-width times are in the [8] lines. K1 and K2 are timed on the rays
 ``cli trace --scene-out`` gives them (15,000 rays at bounce 3, 24 walls),
@@ -242,13 +251,58 @@ PARENT_WORK = {
     "mixdown": (229654632, 9769042, 0),
     "[8b]": (502510022, 4183180, 778329724),
     "[8c]": (1116307395, 4080241, 900722562),
-    "K8": (11022114, 104896, 10667717)}
+    "K8": (11022114, 104896, 10667717),
+    # the all-bounces K7 the sorted one replaced (the same run as
+    # PARENT_K7_MS): the same ray paths at every band count
+    "[8d]": (1382343260, 4183180, 1221852587),
+    "[12e]": (1382343260, 4183180, 1221852587)}
 WORK_TOLERANCE = 0.01
-# Registers per thread of the omni kernels before the directive flag was
-# added (ptxas of the parent commit, built by this machine's nvcc for
-# sm_90a; NVIDIA H100 80GB HBM3): the flag must leave them as they were.
-PARENT_REGS = {"K3": 64, "K4": 64, "K9": 64, "K5": 61, "K6": 62, "K7": 64,
-               "K8": 48}
+# Registers and local (stack) bytes per thread of the omni one-band
+# kernels before the directive flag was added (cudaFuncGetAttributes of
+# the commit before it, built by this machine's nvcc for sm_90a; NVIDIA
+# H100 80GB HBM3): the later designs must leave them as they were. K3/K4/
+# K9's entries are the lane group G = 1; K7 is the banded instantiations
+# of K8's kernel, new code with no earlier build to hold, so K8's entry
+# covers its one-band instantiation, which K7 at K = 1 launches.
+PARENT_REGS = {"K3": (64, 48), "K4": (64, 64), "K9": (64, 64),
+               "K5": (61, 32), "K6": (62, 32), "K8": (48, 120)}
+# Registers, spill stores and spill loads (bytes) of every one-band
+# instantiation that the commit before the K7 / lane-group redesign built
+# (its ptxas lines from scripts/torch_redesign_k7_k4.py --parent on
+# NVIDIA H100 80GB HBM3), under this build's names: K3/K4/K9 at G = 1
+# (frames_ir_kernel<host, directive, 1, 1>; the parent's <host, directive,
+# 1>), K8 (accel_bounce_kernel<1, early_out, directive>; the parent's
+# <early_out, directive>), K5/K6 and K1/K2 (unchanged templates). The
+# redesign must leave each as it was.
+PARENT_PTXAS = {
+    "frames_ir_kernel<0,0,1,1>": (64, 28, 32),
+    "frames_ir_kernel<0,1,1,1>": (78, 0, 0),
+    "frames_ir_kernel<1,0,1,1>": (64, 16, 20),
+    "frames_ir_kernel<1,1,1,1>": (77, 0, 0),
+    "accel_bounce_kernel<1,0,0>": (64, 12, 16),
+    "accel_bounce_kernel<1,0,1>": (80, 0, 0),
+    "accel_bounce_kernel<1,1,0>": (48, 120, 184),
+    "accel_bounce_kernel<1,1,1>": (64, 96, 156),
+    "bounce_step_kernel<0,0,0>": (62, 0, 0),
+    "bounce_step_kernel<0,0,1>": (64, 0, 0),
+    "bounce_step_kernel<0,1,0>": (62, 0, 0),
+    "bounce_step_kernel<0,1,1>": (64, 4, 4),
+    "bounce_step_kernel<1,0,0>": (61, 0, 0),
+    "bounce_step_kernel<1,0,1>": (64, 0, 0),
+    "bounce_step_kernel<1,1,0>": (61, 0, 0),
+    "bounce_step_kernel<1,1,1>": (64, 0, 0),
+    "wall_sweep_kernel<0>": (38, 0, 0),
+    "wall_sweep_kernel<1>": (38, 0, 0)}
+# Device ms per call of the kernels the sorted K7 and the lane groups of
+# K3/K4 replaced, on NVIDIA H100 80GB HBM3, 700.00 W
+# (scripts/torch_redesign_k7_k4.py --parent, the mean of its two parent
+# runs): the all-bounces K7 at this script's K7 shapes (seed 5), K3/K4
+# before lane groups.
+PARENT_K7_MS = {"40,008 walls K=1": 30.5659, "40,008 walls K=8": 28.9250,
+                "40,008 walls K=32": 29.5611,
+                "city stream 15k x 5 x 1, K=8": 1.8062}
+PARENT_K4_MS = {"K4 15k x 5 x 1": 0.0322, "K3 15k x 5 x 1": 0.0330,
+                "K4 64 listeners K=8": 0.9840}
 FMAD_NOTE = ("at the 67 TFLOP/s peak; the build's --fmad=false contracts no "
              "multiply-add, so at most half of it is reachable")
 
@@ -280,8 +334,8 @@ def cuda_ms(torch, fn, reps):
 def kernel_device_ms(torch, fn, reps, name="frames_ir_kernel",
                      launches=None):
     """Device time per call of ``fn`` of the kernels whose name holds
-    ``name`` (all of a call's launches: one for K3/K4/K7/K9, one per
-    bounce for K8), over ``reps`` calls, from the profiler's CUDA events
+    ``name`` (all of a call's launches: one for K3/K4/K9, one per
+    bounce for K7/K8), over ``reps`` calls, from the profiler's CUDA events
     (None if it records none in three tries). The wrapper's own small
     launches are left out. With ``launches`` (per call), a reading that
     holds another number of launches is dropped and retried too: a
@@ -388,11 +442,11 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def ptxas_lines(log):
-    """One entry per kernel instantiation of the build log: its name with
-    its template arguments (frames_ir_kernel<host, directive, K>, K = 0:
-    the scratch instantiation), registers and spill bytes."""
-    out = []
+def ptxas_table(log):
+    """{kernel<template args>: (registers, spill stores, spill loads)} of
+    each kernel instantiation of the build log (frames_ir_kernel<host,
+    directive, K, lanes>, K = 0: the scratch instantiation)."""
+    out = {}
     name = None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -407,13 +461,19 @@ def ptxas_lines(log):
         elif name and "spill stores" in ln:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", ln)
-            out.append([name, None, int(spill.group(1)),
-                        int(spill.group(2))])
-        elif name and "Used" in ln and "registers" in ln and out \
-                and out[-1][0] == name and out[-1][1] is None:
-            out[-1][1] = int(re.search(r"Used (\d+) registers",
-                                       ln).group(1))
-    return [f"{n} {r} regs, spill {st}/{ld} B" for n, r, st, ld in out]
+            out[name] = [None, int(spill.group(1)), int(spill.group(2))]
+        elif name and "Used" in ln and "registers" in ln \
+                and out.get(name, [0])[0] is None:
+            out[name][0] = int(re.search(r"Used (\d+) registers",
+                                         ln).group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def ptxas_lines(log):
+    """One entry per kernel instantiation of the build log: its name with
+    its template arguments, registers and spill bytes."""
+    return [f"{n} {r} regs, spill {st}/{ld} B"
+            for n, (r, st, ld) in ptxas_table(log).items()]
 
 
 def bands_phase(c):
@@ -532,7 +592,7 @@ def bands_phase(c):
     for kname, fn_name, lead in (
             ("K3", "art_frames_attributes", (1,)),
             ("K4/K9", "art_frames_attributes", (0,)),
-            ("K7", "art_accel_attributes", (7,))):
+            ("K7", "art_accel_attributes", ())):
         for n_bands in (1, 8, 32, 512):
             for d in (0, 1):
                 out = (ctypes.c_int * 2)()
@@ -542,8 +602,8 @@ def bands_phase(c):
                       f"12a: {fn_name}{args}")
                 regs[kname, n_bands, d] = (out[0], out[1])
     print("[12a] registers / local bytes per thread by band bucket (K = 512 "
-          "is the scratch instantiation, and so is K7's K = 32), omni | "
-          "directive: " + "; ".join(
+          "is the scratch instantiation, and so is K7's K = 32, K7's K = 1 "
+          "K8's kernel), omni | directive: " + "; ".join(
               f"{k} K={n}: {regs[k, n, 0][0]}/{regs[k, n, 0][1]} B | "
               f"{regs[k, n, 1][0]}/{regs[k, n, 1][1]} B"
               for k in ("K3", "K4/K9", "K7") for n in (1, 8, 32, 512)),
@@ -733,8 +793,7 @@ def listeners_batches_phase(c):
             ("K7", ak.trace_frames_ir_accel, city10b,
              pc10b._replace(listeners=ears), 33)):
         prep = ak.prepare(sc)
-        boxes = prep.n_clusters // prep.group * (
-            6 if name == "K8" else 4) + 24
+        boxes = prep.n_clusters // prep.group * 6 + 24
         m = (bk.SMEM_FLOATS - boxes - 1) // 16 - 2
         m -= 1 - m % 2
         n_mic[name] = m
@@ -742,13 +801,13 @@ def listeners_batches_phase(c):
                               dtype=torch.float32,
                               device=dev).expand(64, -1).contiguous()
         pm = pc._replace(mic_directivity=mic)
-        check(ak._listener_step(prep, name == "K8", 1, m) == 16,
+        check(ak._listener_step(prep, 1, m) == 16,
               f"12d: 16 {name} listeners fit beside a {m}-term pattern")
         run = (lambda p, fn=fn, sc=sc, seed=seed:  # noqa: E731
                fn(sc, p, seed, 1, **one))
         before = fn.launches
         whole = run(pm)
-        check(fn.launches - before == 4 * (BOUNCES if name == "K8" else 1),
+        check(fn.launches - before == 4 * BOUNCES,
               f"12d: {name} runs 4 listener blocks")
         blocks_ok[name] = torch.equal(whole, slices(run, pm, mic))
         del whole
@@ -927,11 +986,13 @@ def bands_timings(c, readings):
             "K7 40,008 walls": device_ms(
                 lambda: ak.trace_frames_ir_accel(
                     csc, pc, 5, CITY_FRAMES, **city_run), 2,
-                "accel_frames_kernel")}
+                "accel_bounce_kernel", CITY_BOUNCES)}
     print(f"[12t] device ms per call on {card} (profiler, the median of "
           "three readings) at K = 1 / 8 / 32 bands: " + "; ".join(
               f"{k} {' / '.join(fmt(rows[n][k]) for n in (1, 8, 32))}"
               for k in rows[1]), flush=True)
+    k7 = k7_against_parent(c, rows, device_ms)
+    shapes = k4_lane_groups(c, readings, device_ms)
     # 64 listeners: K4 on SmollRoom (K = 8), K8 on the 10,008-wall city
     r64 = readings["64"]
     out = {"rows": rows}
@@ -968,7 +1029,114 @@ def bands_timings(c, readings):
               " of it", flush=True)
         out[key] = dict(ms=ms, device_ms=dev_ms, work=w, hits=n_hits,
                         bound=bnd)
+    out.update(k7=k7, shapes=shapes)
     return out
+
+
+def k7_against_parent(c, rows, device_ms):
+    """The [12t] K7 lines: the sorted K7 at 1, 8 and 32 bands on the
+    40,008-wall city (``rows``) and at the city stream's shape (8 bands),
+    each beside the device time of the all-bounces kernel it replaced
+    (PARENT_K7_MS) and its bound from this run's work counts."""
+    torch, art, ak = c["torch"], c["art"], c["ak"]
+    dev, card, work = c["dev"], c["card"], c["work"]
+    city_run = dict(n_rays=BIG_RAYS, max_bounces=CITY_BOUNCES,
+                    sample_rate=CITY_SR, ir_length=CITY_T)
+    one = dict(n_rays=RAYS, max_bounces=BOUNCES, sample_rate=SR,
+               ir_length=T)
+    room = art.rooms.city_scene(2500, n_bands=8, device=dev)
+    stream = (room.scene, art.TraceParams.make(
+        room.source, room.listener, room.listener_radius, 343.0, CITY_GAIN,
+        device=dev))
+    calls = {f"40,008 walls K={k}": (*c["city_bands"][k], CITY_FRAMES,
+                                     city_run, rows[k]["K7 40,008 walls"])
+             for k in (1, 8, 32)}
+    calls["city stream 15k x 5 x 1, K=8"] = (*stream, 1, one, None)
+    out = {}
+    for key, (scene, p, frames, run, dev_ms) in calls.items():
+        def call(**a):
+            return ak.trace_frames_ir_accel(scene, p, 5, frames, **run, **a)
+        if dev_ms is None:
+            dev_ms = device_ms(call, 5, "accel_bounce_kernel",
+                               run["max_bounces"])
+        w = work(lambda n: call(work_counts=n))
+        prep = ak.prepare(scene)
+        n_k, n_l = scene.n_bands, p.listeners.shape[0]
+        n_bytes = 4 * (prep.walls.numel() + prep.aabb.numel()
+                       + prep.saabb.numel() + 2 * n_l + 5
+                       + n_l * run["ir_length"] * n_k)
+        bnd = bound(w, n_bytes)
+        parent = PARENT_K7_MS[key]
+        # the old kernel's bound, from its work counts on the same call
+        old = ("" if key.startswith("city") else
+               f", its bound {bound(PARENT_WORK['[8d]'], n_bytes)[0]:.4f}")
+        check(dev_ms is not None, f"[12t] K7 {key}: device time read")
+        print(f"[12t] K7 {key} on {card}: device {dev_ms:.4f} ms per call "
+              f"({run['max_bounces']} launches; the kernel it replaced: "
+              f"{parent:.4f}, {parent / dev_ms:.2f}x{old}); {w[0]} wall "
+              f"tests, {w[1]} sweeps, {w[2]} slab tests -> bound "
+              f"{bnd[0]:.6f} ms "
+              f"({bnd[1]}), device at {bnd[0] / dev_ms * 100:.1f}% of it",
+              flush=True)
+        check(dev_ms <= parent * 1.05, f"[12t] K7 {key}: {dev_ms:.4f} ms no "
+              f"slower than the kernel it replaced ({parent:.4f})")
+        out[key] = dict(device_ms=dev_ms, parent_ms=parent, work=w,
+                        bound=bnd)
+    return out
+
+
+def k4_lane_groups(c, readings, device_ms):
+    """The [12t] K3/K4 lines: device ms at the stream's shape
+    (15,000 x 5 x 1 frame) and of the 64-listener K4 call with lane groups
+    of 1 and 4 beside the parent's (PARENT_K4_MS); both give the same IR
+    bit for bit."""
+    torch, art, bk, rng = (c[k] for k in ("torch", "art", "bk", "rng"))
+    dev, card = c["dev"], c["card"]
+    one = dict(n_rays=RAYS, max_bounces=BOUNCES, sample_rate=SR,
+               ir_length=T)
+    room = art.rooms.smoll_room(device=dev)
+    sc, p = room.scene, art.TraceParams.make(room.source, room.listener,
+                                             device=dev)
+    emit, u = rng.philox_uniforms(13, 1, BOUNCES, RAYS, dev)
+    r64 = readings["64"]
+    calls = {"K4 15k x 5 x 1": lambda: bk.trace_frames_ir_mega(sc, p, 5, 1,
+                                                                **one),
+             "K3 15k x 5 x 1": lambda: bk.trace_frames_ir_whole(
+                 sc, p, emit, u, sample_rate=SR, ir_length=T),
+             "K4 64 listeners K=8": lambda: bk.trace_frames_ir_mega(
+                 r64["sc"], r64["p"], 31, 1, **one)}
+    chosen = {k: bk.lane_group(RAYS, n) for k, n in
+              (("K4 15k x 5 x 1", 1), ("K3 15k x 5 x 1", 1),
+               ("K4 64 listeners K=8", 8))}
+    want = {k: fn() for k, fn in calls.items()}
+    lane_group = bk.lane_group
+    out = {}
+    groups = (1, bk.LANE_GROUP)
+    try:
+        for g in groups:
+            bk.lane_group = lambda n, k, g=g: g
+            for key, fn in calls.items():
+                same = torch.equal(fn(), want[key])
+                check(same, f"[12t] {key} lanes {g}: the chosen group's "
+                      "bits")
+                out[key, g] = device_ms(fn, 10 if "64" not in key else 3)
+    finally:
+        bk.lane_group = lane_group
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
+    for key in calls:
+        parent = PARENT_K4_MS[key]
+        print(f"[12t] {key} on {card}, device ms per call by lanes per ray "
+              f"(chosen {chosen[key]}; the kernel before lane groups: "
+              f"{parent:.4f}): " + ", ".join(
+                  f"G={g} {fmt(out[key, g])}" for g in groups)
+              + "; both == the chosen one bit for bit", flush=True)
+        got = out[key, chosen[key]]
+        check(got is not None and got <= parent * 1.05,
+              f"[12t] {key}: {fmt(got)} ms no slower than before ({parent})")
+    return {f"{k} G={g}": v for (k, g), v in out.items()}
+
 
 def main():
     sys.path.insert(0, HERE)
@@ -1008,9 +1176,9 @@ def main():
     # --- 1. build ------------------------------------------------------------
     secs = build.build()
     build.load_library()
-    # every instantiation: bounce frames_ir_kernel<host, directive, K> and
-    # accel_frames_kernel<K, early_out, directive> by band bucket (K = 0:
-    # the scratch), accel_bounce_kernel<early_out, directive>, the step
+    # every instantiation: bounce frames_ir_kernel<host, directive, K, G>
+    # by band bucket (K = 0: the scratch) and lane group G,
+    # accel_bounce_kernel<K, early_out, directive> (K7 and K8), the step
     # and sweep kernels
     print(f"[1] build: {secs:.1f} s ({build.library_path().name}); "
           + " | ".join(ptxas_lines(build.build_log())), flush=True)
@@ -1366,15 +1534,13 @@ def main():
         and time it with early_out on and off. ``silent``: the listener is
         enclosed, so an IR of zeros is right."""
         fn = wrappers[key]
-        kname = "accel_bounce_kernel" if key == "K8" else \
-            "accel_frames_kernel"
+        kname = "accel_bounce_kernel"
         ir, launched = counted(lambda: art.trace_accumulate(
             scene, p, art.IRState.zeros(CITY_T, p.listeners.shape[0],
                                         n_bands, device=dev),
             n_frames=CITY_FRAMES, seed=seed, n_rays=BIG_RAYS,
             max_bounces=CITY_BOUNCES, sample_rate=CITY_SR).sum)
-        n_launch = CITY_BOUNCES if key == "K8" else 1
-        check(launched == only(**{key: n_launch}),
+        check(launched == only(**{key: CITY_BOUNCES}),
               f"{tag}: launch counts {launched}")
         city_launches[key] += launched[key]
         g = ir.cpu().numpy()
@@ -1396,7 +1562,7 @@ def main():
         off = cuda_ms(torch, lambda: fn(scene, p, 5, early_out=False, **run),
                       1)
         dev_on = kernel_device_ms(torch, lambda: fn(scene, p, 5, **run), 2,
-                                  kname)
+                                  kname, CITY_BOUNCES)
         w_on = work(lambda n: fn(scene, p, 5, work_counts=n, **run))
         w_off = work(lambda n: fn(scene, p, 5, early_out=False,
                                   work_counts=n, **run))
@@ -1407,8 +1573,19 @@ def main():
                        + n_l * CITY_T * n_bands)
         check(w_on[1] == w_off[1], f"{tag}: early_out on and off made the "
               f"same sweeps ({w_on[1]}, {w_off[1]}): the same ray paths")
-        if tag in PARENT_WORK:
+        if tag in PARENT_WORK and key == "K8":
             check_work(tag, w_on, PARENT_WORK[tag], exact=False)
+        elif tag in PARENT_WORK:
+            # K7: the ray paths, and so the sweeps, of the kernel it
+            # replaced; each block's near-to-far box order tightens a lane's
+            # closest hit sooner, so it tests fewer walls and boxes
+            want = PARENT_WORK[tag]
+            print(f"{tag} work against the kernel before the redesign: "
+                  f"sweeps {w_on[1]} / {want[1]}, wall tests "
+                  f"{w_on[0] / want[0]:.3f}x, slab tests "
+                  f"{w_on[2] / want[2]:.3f}x", flush=True)
+            check(w_on[1] == want[1], f"{tag}: sweeps {w_on[1]} == "
+                  f"{want[1]}")
         bnd = bound(w_on, n_bytes)
         brute_tests = BIG_RAYS * CITY_BOUNCES * 2 * scene.n_walls * CITY_FRAMES
         low = "; the highest band carries less energy than the lowest" \
@@ -2043,15 +2220,15 @@ def main():
     check(all(omni_bits.values()) and len(omni_bits) == 7,
           "11b: omni-coded patterns give the omni bits")
 
-    # 11c. registers: the omni instantiations keep the parent's
+    # 11c. registers and local bytes: the omni instantiations keep the
+    # parent's
     lib = build.load_library()
     attr_calls = {"K3": ("art_frames_attributes", (1, 1)),
                   "K4": ("art_frames_attributes", (0, 1)),
                   "K9": ("art_frames_attributes", (0, 1)),
                   "K5": ("art_step_attributes", (1, 1)),
                   "K6": ("art_step_attributes", (0, 1)),
-                  "K7": ("art_accel_attributes", (7, 8, 1)),
-                  "K8": ("art_accel_attributes", (8, 1, 1))}
+                  "K8": ("art_accel_attributes", (1, 1))}
     regs = {}
     for k, (fn_name, args) in attr_calls.items():
         fn = getattr(lib, fn_name)
@@ -2061,11 +2238,23 @@ def main():
             regs[k, d] = (out[0], out[1])
     print("[11c] registers / local bytes per thread (cudaFuncGetAttributes), "
           "omni (the parent's) -> directive: " + "; ".join(
-              f"{k} {regs[k, 0][0]} ({PARENT_REGS[k]}) / {regs[k, 0][1]} B -> "
-              f"{regs[k, 1][0]} / {regs[k, 1][1]} B" for k in attr_calls),
+              f"{k} {regs[k, 0][0]} / {regs[k, 0][1]} B ({PARENT_REGS[k][0]}"
+              f" / {PARENT_REGS[k][1]} B) -> {regs[k, 1][0]} / "
+              f"{regs[k, 1][1]} B" for k in attr_calls),
           flush=True)
-    check(all(regs[k, 0][0] == PARENT_REGS[k] for k in attr_calls),
-          "11c: the omni kernels keep the parent's registers")
+    check(all(regs[k, 0] == PARENT_REGS[k] for k in attr_calls),
+          "11c: the omni kernels keep the parent's registers and local "
+          "bytes")
+    table = ptxas_table(build.build_log())
+    moved = {k: table.get(k) for k, v in PARENT_PTXAS.items()
+             if table.get(k) != v}
+    print(f"[11c] ptxas registers / spill stores / spill loads of the "
+          f"{len(PARENT_PTXAS)} one-band instantiations the parent built "
+          f"(PARENT_PTXAS): equal to the parent's: {not moved}; "
+          + "; ".join(f"{k} {table.get(k)}" for k in PARENT_PTXAS
+                      if k.startswith("frames") or k.startswith("accel")),
+          flush=True)
+    check(not moved, f"11c: ptxas lines moved from the parent's: {moved}")
 
     # 11e. the stream: SmollRoom with an opaque barrier below the source
     # (the slant wall's ends lie outside the room, so it casts no shadow
@@ -2245,11 +2434,23 @@ def main():
 
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f} ms"
+    # the bench frame's bounds: K4 over 8 frames, K3 over one
+    w_big = {"K4": work(lambda n: bk.trace_frames_ir_mega(
+        sc, p, 6, nf, work_counts=n, **big, **kw)),
+        "K3": work(lambda n: bk.trace_frames_ir_whole(
+            sc, p, emit8, u8, work_counts=n, **kw))}
+    big_bytes = 4 * (11 * smoll.scene.n_walls + 2 + 5 + T)
+    b_big = {"K4": bound(w_big["K4"], big_bytes),
+             "K3": bound(w_big["K3"], big_bytes + 4 * BIG_RAYS
+                         * (1 + 3 * BIG_BOUNCES))}
     print(f"    kernel device time per launch (profiler): K3 {RAYS} x "
           f"{BOUNCES} {fmt(dev_ms['K3'])}, K4 {fmt(dev_ms['K4'])}, K4 "
           f"{BIG_RAYS} x {BIG_BOUNCES} x {nf} frames {fmt(dev_ms['K4 big'])}"
-          "; the per-call times above include the wrapper's host work",
-          flush=True)
+          "; the per-call times above include the wrapper's host work; "
+          "bounds at the bench frame: " + "; ".join(
+              f"{k} ({'8 frames' if k == 'K4' else '1 frame'}) {w[0]} wall "
+              f"tests, {w[1]} sweeps -> {b_big[k][0]:.6f} ms "
+              f"({b_big[k][1]})" for k, w in w_big.items()), flush=True)
 
     # the sweep and the mixdown: wrapper calls (CUDA events), K9's device
     # time (profiler), and the wall tests and sweeps the kernel made for
@@ -2490,7 +2691,7 @@ def main():
             scene_9, pick(p_9, d), 5, 1, **one), "accel_bounce_kernel"),
         "K7": (lambda d: ak.trace_frames_ir_accel(
             scene_d, pick(p_d, d), 5, CITY_FRAMES, **city_run),
-            "accel_frames_kernel"),
+            "accel_bounce_kernel"),
         "K5": (lambda d: bk.trace_fused_rows(sc, pick(p, d), e1, u1),
                "bounce_step_kernel"),
         "K6": (lambda d: bk.trace_frame_ir_fused(sc, pick(p, d), e1, u1,
@@ -2523,8 +2724,8 @@ def main():
                     KERNEL_SOURCE),
              "K9": ("bounce_kernel K9 (rooms-batched, in-kernel Philox)",
                     656, KERNEL_SOURCE),
-             "K7": ("accel_kernel K7 (cluster early-out, all bounces, "
-                    "any K bands)", 1869, ACCEL_SOURCE),
+             "K7": ("accel_kernel K7 (cluster early-out per bounce, Morton "
+                    "re-sort, any K bands)", 1869, ACCEL_SOURCE),
              "K8": ("accel_kernel K8 (cluster early-out per bounce, Morton "
                     "re-sort)", 2154, ACCEL_SOURCE),
              "K1": ("trace_kernel K1 (nearest wall of each ray)", 75,

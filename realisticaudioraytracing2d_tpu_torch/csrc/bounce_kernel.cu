@@ -15,8 +15,8 @@
 // and the IR binning of _hist_listener, K bands and L listeners) and
 // differ only in where the uniforms come from and in the batch axis, so
 // they are one template, frames_ir_kernel<kHostUniforms, kDirective,
-// kMaxK>, whose grid z axis is the batch entry: K3 and K4 are its E = 1
-// case. kDirective adds the source
+// kMaxK, kLanes>, whose grid z axis is the batch entry: K3 and K4 are its
+// E = 1 case. kDirective adds the source
 // and microphone patterns (_fourier_gain, _src_gain and the mic rows of
 // pack_listeners in the JAX kernels): per entry a source row [C_s] and a
 // microphone table [L, C_m], so each source of a mixdown carries its own
@@ -29,12 +29,30 @@
 // cluster kernels K7/K8 of accel_kernel.cu.
 //
 // Design:
-//  * One thread per (ray, frame, entry); its state (pos, dir, energy,
-//    time, distance, speed, depth) lives in registers. Grid
-//    (ceil(R/256), F, E): entries on z keep F and E each under the 65,535
-//    limit of those axes. (A block that carried its tile of rays through
-//    all frames of its entry, loading the table once, measured the same
-//    on the 1,024-room sweep: a 28-wall table is 1.2 KB.)
+//  * kLanes = G neighbouring threads per (ray, frame, entry), G = 1 where
+//    the grid fills the card; its state (pos, dir, energy, time, distance,
+//    speed, depth) lives in registers. Grid (ceil(R * G / 256), F, E):
+//    entries on z keep F and E each under the 65,535 limit of those axes.
+//    (A block that carried its tile of rays through all frames of its
+//    entry, loading the table once, measured the same on the 1,024-room
+//    sweep: a 28-wall table is 1.2 KB.)
+//  * Lane groups, for small grids: the stream's 15,000 rays are 59 blocks
+//    of 256 for 132 SMs, and each ray's bounces are one serial chain of
+//    scans, so the device time is that chain's latency on half the card.
+//    With G = kLaneGroup = 4 (the wrapper takes it while R * F * E * 4
+//    threads stay under 16 warps per SM), the G lanes of a group hold the
+//    same ray: each scans its own contiguous 1 / G of the walls
+//    (scan_nearest, scan_blocker), and the group combines the results
+//    with shuffles over its own lanes (LaneGroup of trace_common.cuh): the
+//    nearest wall lexicographically, smaller distance first and then lower
+//    index, the occlusion sweep by the lowest blocker index, which is
+//    exactly what one ascending scan of the whole table gives. The rest of
+//    the bounce (emission, Philox or the host uniforms, finish_bounce, the
+//    patterns) runs on all G lanes, which hold the same state and draw the
+//    same numbers, so they take the same branches and stay converged for
+//    the shuffles; only a group's lead lane deposits (GroupSink) and
+//    counts work. G = 4 gives the G = 1 bits and work counts; G = 1 is
+//    the kernel before lane groups (LaneGroup<1> compiles to its code).
 //  * Each block packs its entry's wall table into shared memory as a
 //    WallTable (trace_common.cuh): the geometry of a wall as one float4
 //    (ax, ay, v2x, v2y), cc, and six attribute rows (nx, ny, abs, scat,
@@ -67,10 +85,10 @@
 //    (is the wall within reach?) and then to the exact test with its two
 //    IEEE divides, so the lowest index wins among equal distances (the
 //    oracle's argmin) and an occlusion sweep stops at the first blocker.
-//  * 64 registers a thread at K = 1 (omni), so four blocks of 256 share an
-//    SM; more in the larger buckets (PERF.md). (Asking the compiler for
-//    two or four resident blocks through __launch_bounds__ measured the
-//    same on the 1,024-room sweep.)
+//  * 64 registers a thread at K = 1 (omni, G = 1), so four blocks of 256
+//    share an SM; more in the larger buckets and lane groups (PERF.md).
+//    (Asking the compiler for two or four resident blocks through
+//    __launch_bounds__ measured the same on the 1,024-room sweep.)
 //    Padding walls are degenerate (a == b, so v2 == 0): dotp == 0 marks
 //    them parallel to every ray and they never hit, as in the oracle.
 //  * Arithmetic is IEEE: '/', sqrtf, sincosf, asinf, no fast math, and the
@@ -114,8 +132,11 @@
 // walls and loud enough, the bounces of the rays that still live), and the
 // rest of a bounce (Philox, sincosf, asinf, a dozen IEEE divides and square
 // roots, the double-precision deposit) is a fifth of the instructions; the
-// deposits' atomics are an eighth of the sweep's time. Measured shares:
-// PERF.md.
+// deposits' atomics are an eighth of the sweep's time. At a small grid
+// (the stream's one frame of 15,000 rays) the bound is not the issue rate
+// but the latency of each ray's serial chain of bounces on the few SMs
+// its blocks occupy; lane groups split the chain's scans over G lanes and
+// spread the grid over the card. Measured shares: PERF.md.
 
 #include <algorithm>
 
@@ -124,6 +145,10 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Lanes per (ray, frame, entry) of a launch too small to fill the card
+// (the wrapper's LANE_GROUP); groups of 2 and 8 and 64-thread blocks
+// without groups were slower at the stream's 15,000 rays (PERF.md).
+constexpr int kLaneGroup = 4;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kAttrRows = kWallFields - 5;  // NX .. IOR
 // The largest register bucket of a ray's band energies (by_bucket): past
@@ -135,7 +160,7 @@ constexpr int kLargestBucket = 32;
 // not fit beside the walls launches them in blocks (the wrapper).
 constexpr int kMaxWalls = (kMaxSmemBytes - 2 * 16 * 4) / (kWallFields * 4);
 
-template <bool kHostUniforms, bool kDirective, int kMaxK>
+template <bool kHostUniforms, bool kDirective, int kMaxK, int kLanes>
 __device__ __forceinline__ Work trace_ray(
     const WallTable& walls, const float* s_lis, int n_listeners,
     const float* s_src, int n_src, const float* s_mic, int n_mic,
@@ -146,9 +171,12 @@ __device__ __forceinline__ Work trace_ray(
   const float radius = scal[2];
   const Listeners lis{s_lis, n_listeners, radius * radius, scal[3], s_mic,
                       n_mic};
-  const Sink sink{acc, ir_length, n_bands, sr, scale};
   const int n_walls = walls.n;
   Work work;
+  // kLanes > 1: this lane's part of each scan, and whether it is the lane
+  // that deposits and counts; kLanes = 1 scans the whole table
+  const LaneGroup<kLanes> group = LaneGroup<kLanes>::mine(n_walls);
+  const auto sink = group.sink(Sink{acc, ir_length, n_bands, sr, scale});
 
   auto draw = [&](int bounce) -> Uniforms {
     if (kHostUniforms) {
@@ -163,10 +191,18 @@ __device__ __forceinline__ Work trace_ray(
   // the shadow ray before `limit`.
   auto occluded = [&](float sx, float sy, float vdx, float vdy, float,
                       float limit) {
-    const int blocker = scan_blocker(walls, 0, n_walls,
-                                     make_probe(sx, sy, vdx, vdy), limit);
-    work.tests += blocker < 0 ? n_walls : blocker + 1;
-    ++work.sweeps;
+    int blocker;
+    if constexpr (kLanes == 1)
+      blocker = scan_blocker(walls, 0, n_walls, make_probe(sx, sy, vdx, vdy),
+                             limit);
+    else
+      blocker = group.min_blocker(
+          scan_blocker(walls, group.lo, group.count,
+                       make_probe(sx, sy, vdx, vdy), limit));
+    if (group.lead()) {
+      work.tests += blocker < 0 ? n_walls : blocker + 1;
+      ++work.sweeps;
+    }
     return blocker >= 0;
   };
 
@@ -184,10 +220,18 @@ __device__ __forceinline__ Work trace_ray(
     // --- nearest wall: the lowest index among the smallest distances -------
     float closest = kInf;
     int best = 0x7fffffff;
-    scan_nearest(walls, 0, n_walls, make_probe(r.px, r.py, r.dx, r.dy),
-                 closest, best);
-    work.tests += n_walls;
-    ++work.sweeps;
+    if constexpr (kLanes == 1) {
+      scan_nearest(walls, 0, n_walls, make_probe(r.px, r.py, r.dx, r.dy),
+                   closest, best);
+    } else {
+      scan_nearest(walls, group.lo, group.count,
+                   make_probe(r.px, r.py, r.dx, r.dy), closest, best);
+      group.min_hit(closest, best);
+    }
+    if (group.lead()) {
+      work.tests += n_walls;
+      ++work.sweeps;
+    }
     if (!finish_bounce<kMaxK, kDirective>(r, closest,
                                           closest < kInf ? best : -1, walls,
                                           lis, sink, occluded,
@@ -197,11 +241,12 @@ __device__ __forceinline__ Work trace_ray(
   return work;
 }
 
-// Grid (ceil(R / 256), F, E) for a register bucket; a wide kernel (kMaxK ==
-// kWideK) runs over planes (entry, frame) = divmod(plane0 + blockIdx.y,
+// Grid (ceil(R * kLanes / 256), F, E) for a register bucket, kLanes lanes
+// per (ray, frame, entry); a wide kernel (kMaxK == kWideK, kLanes = 1)
+// runs over planes (entry, frame) = divmod(plane0 + blockIdx.y,
 // n_frames_all) on a grid (ceil(R / 256), planes, 1), its energies in
 // `scratch` [K, gridDim.y * gridDim.x * 256].
-template <bool kHostUniforms, bool kDirective, int kMaxK>
+template <bool kHostUniforms, bool kDirective, int kMaxK, int kLanes>
 __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
     const float* __restrict__ walls, long long wall_stride, int n_walls,
     int n_bands, const float* __restrict__ listeners, int n_listeners,
@@ -252,10 +297,11 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
   }
   __syncthreads();
 
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  // a lane group's lanes are neighbours and share one ray
+  const int ray = (blockIdx.x * blockDim.x + threadIdx.x) / kLanes;
   Work work;
   if (ray < n_rays)
-    work = trace_ray<kHostUniforms, kDirective, kMaxK>(
+    work = trace_ray<kHostUniforms, kDirective, kMaxK, kLanes>(
         table, s_lis, n_listeners, s_src, n_src, s_mic, n_mic,
         scal + kScalFields * entry, sr, emit, u,
         key0, key1, entry_offset + static_cast<uint32_t>(entry), ray,
@@ -266,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
     add_work(work, work_out);
 }
 
-template <bool kHostUniforms, bool kDirective, int kMaxK>
+template <bool kHostUniforms, bool kDirective, int kMaxK, int kLanes>
 cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
                    int n_bands, const float* listeners, int n_listeners,
                    const float* src_c, int n_src, const float* mic_c,
@@ -278,7 +324,8 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
                    const double* scales, unsigned long long* acc, float* out,
                    unsigned long long* work, int* launched,
                    cudaStream_t stream) {
-  const auto kernel = frames_ir_kernel<kHostUniforms, kDirective, kMaxK>;
+  const auto kernel = frames_ir_kernel<kHostUniforms, kDirective, kMaxK,
+                                       kLanes>;
   const size_t smem =
       sizeof(float) * (kWallFields * static_cast<size_t>(n_walls) +
                        2 * static_cast<size_t>(n_listeners) + n_src +
@@ -296,7 +343,8 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
   cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(unsigned long long) * n,
                                     stream);
   if (err != cudaSuccess) return err;
-  const int gx = (n_rays + kThreads - 1) / kThreads;
+  const int gx = static_cast<int>(
+      (static_cast<long long>(n_rays) * kLanes + kThreads - 1) / kThreads);
   if constexpr (kMaxK == kWideK) {
     // planes (entry, frame) in chunks whose energies fit the scratch
     const long long per_plane = static_cast<long long>(gx) * kThreads *
@@ -331,6 +379,21 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
   return launch_fixed_to_float(acc, scales, out, n, per_entry, stream);
 }
 
+// Call f(std::integral_constant<int, K>{}, std::integral_constant<int,
+// G>{}) with the band bucket of n_bands (by_bucket) and G = lanes, 1 or
+// kLaneGroup; the wide kernel runs G = 1 only.
+template <class F>
+cudaError_t by_shape(int n_bands, int lanes, F f) {
+  return by_bucket<kLargestBucket>(n_bands, [&](auto bucket) {
+    if (lanes == 1) return f(bucket, std::integral_constant<int, 1>{});
+    if constexpr (decltype(bucket)::value != kWideK) {
+      if (lanes == kLaneGroup)
+        return f(bucket, std::integral_constant<int, kLaneGroup>{});
+    }
+    return cudaErrorInvalidValue;
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -348,13 +411,14 @@ extern "C" {
 // directive trace, both null for omni (the reference's emission and
 // pickup). K <= 32 keeps a ray's energies in registers; a larger K needs
 // scratch, scratch_floats >= ceil(R / 256) * 256 * K device floats (more
-// lets one launch take more (entry, frame) planes). scales [E] device
-// doubles, acc [E, L, T, K] u64 scratch; work, if not null, three device
-// u64 to which the launch adds the wall tests it made, the wall sweeps
-// (nearest or occlusion) they belong to and its slab tests (none).
-// *launched (host) receives the launches of the trace kernel: one, or
-// one per chunk of planes for the scratch. Returns a cudaError_t code (0 =
-// launched).
+// lets one launch take more (entry, frame) planes). lanes (1, or 4 up to
+// 32 bands) neighbouring threads share one (ray, frame, entry), each
+// scanning 1 / lanes of the walls: the same IR at either. scales [E]
+// device doubles, acc [E, L, T, K] u64 scratch; work, if not null, three
+// device u64 to which the launch adds the wall tests it made, the wall
+// sweeps (nearest or occlusion) they belong to and its slab tests (none). *launched (host) receives the launches of
+// the trace kernel: one, or one per chunk of planes for the scratch.
+// Returns a cudaError_t code (0 = launched).
 int art_trace_frames_ir(int host_uniforms, const float* walls,
                         long long wall_stride, int n_walls, int n_bands,
                         const float* listeners, int n_listeners,
@@ -363,10 +427,10 @@ int art_trace_frames_ir(int host_uniforms, const float* walls,
                         const float* emit, const float* u, unsigned int key0,
                         unsigned int key1, unsigned int entry_offset,
                         int n_entries, int n_rays, int max_bounces,
-                        int n_frames, int ir_length, float* scratch,
-                        long long scratch_floats, const double* scales,
-                        unsigned long long* acc, float* out,
-                        unsigned long long* work, int* launched,
+                        int n_frames, int ir_length, int lanes,
+                        float* scratch, long long scratch_floats,
+                        const double* scales, unsigned long long* acc,
+                        float* out, unsigned long long* work, int* launched,
                         void* stream) {
   const bool directive = src_c != nullptr || mic_c != nullptr;
   if (n_walls < 1 || n_walls > kMaxWalls || n_bands < 1 || n_listeners < 1 ||
@@ -381,25 +445,25 @@ int art_trace_frames_ir(int host_uniforms, const float* walls,
   if (!directive) n_src = n_mic = 0;
   const auto s = static_cast<cudaStream_t>(stream);
   *launched = 0;
-  const auto go = [&](auto bucket) {
-    constexpr int K = decltype(bucket)::value;
+  return static_cast<int>(by_shape(n_bands, lanes, [&](auto k, auto g) {
+    constexpr int K = decltype(k)::value, G = decltype(g)::value;
 #define ART_FRAMES(H, D)                                                     \
-  launch<H, D, K>(walls, wall_stride, n_walls, n_bands, listeners,           \
-                  n_listeners, src_c, n_src, mic_c, n_mic, scal, sr, emit,   \
-                  u, key0, key1, entry_offset, n_entries, n_rays,            \
-                  max_bounces, n_frames, ir_length, scratch, scratch_floats, \
-                  scales, acc, out, work, launched, s)
+  launch<H, D, K, G>(walls, wall_stride, n_walls, n_bands, listeners,        \
+                     n_listeners, src_c, n_src, mic_c, n_mic, scal, sr, emit,\
+                     u, key0, key1, entry_offset, n_entries, n_rays,         \
+                     max_bounces, n_frames, ir_length, scratch,              \
+                     scratch_floats, scales, acc, out, work, launched, s)
     if (host_uniforms)
       return directive ? ART_FRAMES(true, true) : ART_FRAMES(true, false);
     return directive ? ART_FRAMES(false, true) : ART_FRAMES(false, false);
 #undef ART_FRAMES
-  };
-  return static_cast<int>(by_bucket<kLargestBucket>(n_bands, go));
+  }));
 }
 
 // The registers and local (stack) bytes per thread of the instantiation
-// of frames_ir_kernel that a launch of n_bands takes, into out[2]
-// (cudaFuncGetAttributes). Returns a cudaError_t code.
+// of frames_ir_kernel that a launch of n_bands takes without lane groups
+// (G = 1), into out[2] (cudaFuncGetAttributes). Returns a cudaError_t
+// code.
 int art_frames_attributes(int host_uniforms, int n_bands, int directive,
                           int* out) {
   if (n_bands < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -408,11 +472,13 @@ int art_frames_attributes(int host_uniforms, int n_bands, int directive,
     constexpr int K = decltype(bucket)::value;
     if (host_uniforms)
       return directive
-                 ? cudaFuncGetAttributes(&a, frames_ir_kernel<true, true, K>)
-                 : cudaFuncGetAttributes(&a, frames_ir_kernel<true, false, K>);
+                 ? cudaFuncGetAttributes(&a, frames_ir_kernel<true, true, K, 1>)
+                 : cudaFuncGetAttributes(&a,
+                                         frames_ir_kernel<true, false, K, 1>);
     return directive
-               ? cudaFuncGetAttributes(&a, frames_ir_kernel<false, true, K>)
-               : cudaFuncGetAttributes(&a, frames_ir_kernel<false, false, K>);
+               ? cudaFuncGetAttributes(&a, frames_ir_kernel<false, true, K, 1>)
+               : cudaFuncGetAttributes(&a,
+                                       frames_ir_kernel<false, false, K, 1>);
   };
   const cudaError_t err = by_bucket<kLargestBucket>(n_bands, get);
   if (err == cudaSuccess) {

@@ -464,6 +464,91 @@ __device__ __forceinline__ void deposit_bands(const Sink& s, int l,
   }
 }
 
+// The sink of a lane group (bounce_kernel.cu, kLanes > 1): the lanes of a
+// group carry the same ray and make the same hits; only the group's lead
+// lane deposits them.
+struct GroupSink : Sink {
+  bool lead;
+};
+
+template <int kMaxK>
+__device__ __forceinline__ void deposit(const GroupSink& s, int slot, int l,
+                                        float delay, const float* e) {
+  if (s.lead) deposit<kMaxK>(static_cast<const Sink&>(s), slot, l, delay, e);
+}
+
+template <class Band>
+__device__ __forceinline__ void deposit_bands(const GroupSink& s, int l,
+                                              float delay, Band band) {
+  if (s.lead) deposit_bands(static_cast<const Sink&>(s), l, delay, band);
+}
+
+// kLanes (4) neighbouring lanes of a warp that carry one ray. Each scans
+// its own contiguous 1 / kLanes of a wall table, [lo, lo + count); the
+// group then combines the results with shuffles over its own lanes, so the
+// other groups of the warp may be elsewhere. Every lane of the group holds
+// the same ray and so takes the same branches around the calls; only the
+// lead lane deposits (sink) and counts work.
+template <int kLanes>
+struct LaneGroup {
+  unsigned mask;  // the group's lanes in the warp
+  int rank;       // this lane's place in the group
+  int lo, count;  // this lane's walls of the table
+
+  // The group of the calling lane, over a table of n walls.
+  __device__ __forceinline__ static LaneGroup mine(int n) {
+    const int lane = static_cast<int>(threadIdx.x & 31);
+    const int rank = lane & (kLanes - 1);
+    const int per = (n + kLanes - 1) / kLanes;
+    const int lo = min(n, rank * per);
+    return {((1u << kLanes) - 1u) << (lane & ~(kLanes - 1)), rank, lo,
+            min(n, lo + per) - lo};
+  }
+
+  __device__ __forceinline__ bool lead() const { return rank == 0; }
+
+  __device__ __forceinline__ GroupSink sink(const Sink& s) const {
+    return {s, lead()};
+  }
+
+  // (closest, best) of the group: the smallest distance, and among equal
+  // distances the lowest index, the result of one ascending scan of the
+  // whole table (each wall's distance is the same whichever lane tests
+  // it).
+  __device__ __forceinline__ void min_hit(float& closest, int& best) const {
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+      const float t = __shfl_xor_sync(mask, closest, off, kLanes);
+      const int i = __shfl_xor_sync(mask, best, off, kLanes);
+      if (t < closest || (t == closest && i < best)) {
+        closest = t;
+        best = i;
+      }
+    }
+  }
+
+  // The lowest of the group's blocker indices (-1: none), the first
+  // blocker of one ascending scan of the whole table.
+  __device__ __forceinline__ int min_blocker(int blocker) const {
+    unsigned u = static_cast<unsigned>(blocker);  // -1 sorts last
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+      u = min(u, __shfl_xor_sync(mask, u, off, kLanes));
+    return static_cast<int>(u);
+  }
+};
+
+// One lane per ray (no lane group): it scans the whole table itself and
+// deposits through the plain sink.
+template <>
+struct LaneGroup<1> {
+  __device__ __forceinline__ static LaneGroup mine(int) { return {}; }
+  __device__ __forceinline__ static constexpr bool lead() { return true; }
+  __device__ __forceinline__ static const Sink& sink(const Sink& s) {
+    return s;
+  }
+};
+
 // Store one hit as a record: rows 3 * slot .. 3 * slot + 2 of the ray's
 // column (one listener, band 0).
 template <int kMaxK>

@@ -13,15 +13,16 @@ Routing of :func:`trace_accumulate` (the JAX package's
   for a seed, K3 when uniforms are given), which keeps the whole wall
   table in one block's shared memory, at any band count;
 * a larger CUDA scene goes to the cluster kernels
-  (``ops/cuda/accel_kernel.py``): K8, with the Morton re-sort of the rays
-  between bounces, for K = 1, and K7 for any K > 1;
+  (``ops/cuda/accel_kernel.py``), one launch per bounce with the Morton
+  re-sort of the rays between launches: K8 for K = 1, K7 (the same
+  kernel's banded instantiations) for any K > 1;
 * ``backend="accel"`` forces the cluster path on any scene (K8 at K = 1,
   K7 at K > 1), so both can be held against K4 on one scene. The port's
   backend values are part of its API and mirror the JAX engine's
   (``"auto"``, ``"accel"``, and ``"plain"`` for its ``"jnp"``), so code
   written for one engine names the same routes on the other;
 * a CPU scene runs the plain path (``backend="accel"``: the cluster
-  kernels' plain versions), and ``backend="plain"`` forces the plain path
+  kernels' plain version), and ``backend="plain"`` forces the plain path
   on either device (the JAX package's ``backend="jnp"``).
 
 Every kernel takes any listener count (listener blocks where a block's
@@ -105,20 +106,18 @@ def trace_accumulate(scene: Scene, params: TraceParams, state: irm.IRState,
 
 def _trace_accel(scene: Scene, params: TraceParams, seed: int,
                  n_frames: int, uniforms, **kw) -> torch.Tensor:
-    """The cluster path: K8 for K = 1, K7 for banded scenes, or their
-    plain versions on a CPU scene. Host ``uniforms`` reach only the plain
-    versions: the kernels draw their own numbers."""
-    sorted_path = scene.n_bands == 1
+    """The cluster path: K8 for K = 1, K7 for banded scenes (both the
+    sorted bounce kernel), or their plain version on a CPU scene. Host
+    ``uniforms`` reach only the plain version: the kernels draw their own
+    numbers."""
     if scene.device.type != "cuda":
-        plain = (ak.trace_frames_ir_accel_sorted_plain if sorted_path
-                 else ak.trace_frames_ir_accel_plain)
-        return plain(scene, params, seed, n_frames, uniforms=uniforms, **kw)
+        return ak.trace_frames_ir_accel_sorted_plain(
+            scene, params, seed, n_frames, uniforms=uniforms, **kw)
     if uniforms is not None:
         raise ValueError("the cluster kernels draw their own numbers: "
                          "uniforms= needs backend='plain'")
-    kernel = (ak.trace_frames_ir_accel_sorted if sorted_path
-              else ak.trace_frames_ir_accel)
-    return kernel(scene, params, seed, n_frames, **kw)
+    return ak.trace_frames_ir_accel_sorted(scene, params, seed, n_frames,
+                                           **kw)
 
 
 def trace_hits(scene: Scene, params: TraceParams, emit: torch.Tensor,

@@ -1,35 +1,39 @@
 """Cluster-early-out kernels of the large-scene path: wrappers, plain
 versions and launch counts.
 
-Two entry points launch the kernels of ``csrc/accel_kernel.cu`` on a scene
-that :func:`prepare` Morton-sorts and boxes (:func:`..accel.cluster_scene`)
-once and keeps for later calls on the same scene tensors:
+One entry point, :func:`trace_frames_ir_accel_sorted`, launches the sorted
+bounce kernel of ``csrc/accel_kernel.cu`` on a scene that :func:`prepare`
+Morton-sorts and boxes (:func:`..accel.cluster_scene`) once and keeps for
+later calls on the same scene tensors: one launch per bounce over all
+frames' rays, the rays re-sorted along a Morton curve of their positions
+between launches (the kernel writes the keys, the wrapper sorts them, the
+next launch reads its rays through the permutation), each block visiting
+the super boxes near to far from its own rays. It covers two TPU kernels
+of the JAX package (``ops/pallas/bounce_kernel.py``):
 
-* :func:`trace_frames_ir_accel` (K7): every bounce of ``n_frames`` frames
-  in one launch, any K bands (the energies in registers up to 8 bands,
-  in a device scratch past that: :data:`BAND_BUCKETS`); it
-  replaces ``ops/pallas/bounce_kernel.py::trace_frames_ir_accel`` of the
-  JAX package;
-* :func:`trace_frames_ir_accel_sorted` (K8): one launch per bounce over
-  all frames' rays, the rays re-sorted along a Morton curve of their
-  positions between launches (the kernel writes the keys, the wrapper
-  sorts them, the next launch reads its rays through the permutation) and
-  each block visiting the super boxes near to far from its own rays, K =
-  1; it replaces ``::trace_frames_ir_accel_sorted``.
+* K8 (``::trace_frames_ir_accel_sorted``): the kernel's one-band
+  instantiation, K = 1;
+* K7 (``::trace_frames_ir_accel``): its banded instantiations, any K: a
+  ray's K energies ride with it in an energy buffer (in registers for
+  K <= 8, :data:`BAND_BUCKETS`; past that the kernel works on them in
+  place), and frames whose energies would exceed
+  :data:`.bounce_kernel.SCRATCH_FLOATS` run in passes of B launches.
+  :func:`trace_frames_ir_accel` keeps the JAX name and calls the same
+  function.
 
-Both take directive sources and microphones (``TraceParams.directivity`` /
-``mic_directivity``) through the kernels' directive instantiation, as the
-bounce kernel does (``bounce_kernel.pattern_tables``), and any listener
-count: listeners past what one block's shared memory holds beside the
-super boxes run in blocks, one launch (K7) or one call's launches (K8)
-each, over the same random numbers and scale, so the blocks give the
-whole launch's bits.
+The kernel takes directive sources and microphones
+(``TraceParams.directivity`` / ``mic_directivity``) through its directive
+instantiation, as the bounce kernel does
+(``bounce_kernel.pattern_tables``), and any listener count: listeners
+past what one block's shared memory holds beside the super boxes run in
+blocks, one call's launches each, over the same random
+numbers and scale, so the blocks give the whole launch's bits.
 
-Both return the frame-SUMMED IR ``[L, T, K]`` float32 and draw Philox
-numbers in the kernel under the key of ``seed``, counter (ray, frame,
-bounce, entry): with ``entry=0`` the numbers K4 draws, so on a sorted
-scene K7 (K = 1) and K8 equal K4 bit for bit. ``early_out=False`` visits
-every cluster (the brute-force yardstick) and gives the same bits.
+They return the frame-SUMMED IR ``[L, T, K]`` and draw Philox numbers in
+the kernel under the key of ``seed``, counter (ray, frame, bounce,
+entry): with ``entry=0`` the numbers K4 draws, so on a sorted scene K7
+and K8 equal K4 bit for bit. ``early_out=False`` visits every cluster (the
+brute-force yardstick) and gives the same bits.
 
 :func:`trace_rooms_ir_accel` is the batched path of scenes past the bounce
 kernel's wall limit (sweeps and mixdowns): one K8 (K = 1) or K7 call per
@@ -37,13 +41,14 @@ entry, entry ``e`` drawing the numbers of entry ``entry_offset + e``, as
 K9 and its plain version do.
 
 On a CUDA scene they launch the kernel or raise; on a CPU scene they run
-their plain version, :func:`trace_frames_ir_accel_plain` (the plain trace
-+ scatter on the sorted scene) and :func:`trace_frames_ir_accel_sorted_plain`
-(the same bounce by bounce on the re-sorted rays), which are also what the
-kernels are held against on the card. Each entry point counts its
-launches in ``.launches``: one per K7 call (one per chunk of frames where
-the scratch takes them in chunks), ``max_bounces`` per K8 call (each per
-listener block); ``prepare.builds`` counts the scenes
+their plain version, :func:`trace_frames_ir_accel_sorted_plain` (the plain
+trace bounce by bounce on the re-sorted rays), which is also what the
+kernels are held against on the card; :func:`trace_frames_ir_accel_plain`
+(the plain trace + scatter on the sorted scene, rays in their emission
+order) is the tests' reference for the unsorted order. The launches
+count by instantiation, K8's in ``trace_frames_ir_accel_sorted.launches``
+and K7's in ``trace_frames_ir_accel.launches``: ``max_bounces`` per
+listener block and pass of frames; ``prepare.builds`` counts the scenes
 :func:`prepare` really sorted.
 """
 
@@ -64,17 +69,15 @@ from . import bounce_kernel as bk
 from . import build
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-_FRAMES_ARGTYPES = (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P,
-                    _I, _P, ctypes.c_float, _U, _U, _U, _I, _I, _I, _I, _P,
-                    ctypes.c_longlong, _P, _P, _P, _I, _P,
-                    ctypes.POINTER(ctypes.c_int), _P)
-_BOUNCE_ARGTYPES = (_P, _P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _I,
-                    _P, _P, ctypes.c_float, _U, _U, _U, _I, _I, _I, _I, _I,
-                    _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P)
+_BOUNCE_ARGTYPES = (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P,
+                    _I, _P, _P, ctypes.c_float, _U, _U, _U, _I, _I, _I, _I,
+                    _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                    _P)
 # scenes whose sorted tables prepare() keeps
 PREPARED_SCENES = 8
 # K7's register buckets of a ray's band energies (csrc/accel_kernel.cu::
-# kAccelLargestBucket); past the last one the device scratch
+# kAccelLargestBucket); past the last one the wide kernel, which works on
+# the energies in place in the energy buffer
 BAND_BUCKETS = (1, 8)
 
 
@@ -165,24 +168,12 @@ def check_accel_supported(scene: Scene, params: TraceParams) -> None:
     check_patterns(params)
 
 
-def check_sorted_supported(scene: Scene, params: TraceParams) -> None:
-    """:func:`check_accel_supported` for K8, which traces one band, as the
-    JAX ``trace_frames_ir_accel_sorted`` does (K7 traces banded scenes;
-    ``engine.trace_accumulate`` routes them there)."""
-    if scene.n_bands != 1:
-        raise ValueError(
-            f"K8 traces 1 band (scene has K={scene.n_bands}); K7 "
-            "(trace_frames_ir_accel) traces banded scenes")
-    check_accel_supported(scene, params)
-
-
-def _listener_step(prep: "AccelScene", sorted_kernel: bool, n_src: int,
-                   n_mic: int) -> int:
+def _listener_step(prep: "AccelScene", n_src: int, n_mic: int) -> int:
     """Listeners per launch: what one block's shared memory holds beside
-    the super boxes (16 B each; K8 adds its visit order and keys, 8 B)
-    and the order reduction's 96 B."""
+    the super boxes (16 B each), their visit order and keys (8 B each) and
+    the order reduction's 96 B."""
     n_super = prep.n_clusters // prep.group
-    boxes = n_super * (6 if sorted_kernel else 4) + 24
+    boxes = n_super * 6 + 24
     step = bk.listener_block(0, n_src, n_mic, table_floats=boxes)
     if step < 1:
         raise NotImplementedError(
@@ -257,7 +248,8 @@ def trace_frames_ir_accel_plain(scene: Scene, params: TraceParams, seed: int,
                                 ir_length: int, uniforms=None,
                                 ray_chunk: Optional[int] = None,
                                 entry: int = 0) -> torch.Tensor:
-    """Plain version of K7: :func:`.bounce_kernel.trace_frames_ir_plain`
+    """The unsorted reference of K7 and K8 (the tests'; the JAX K7's
+    order): :func:`.bounce_kernel.trace_frames_ir_plain`
     on the :func:`..accel.cluster_scene`-sorted scene, fed the Philox
     numbers the kernel draws for ``seed`` and ``entry`` or host
     ``uniforms = (emit[F, R], u[F, B, R, 3])``. Returns ``[L, T, K]``.
@@ -284,8 +276,8 @@ def trace_frames_ir_accel_sorted_plain(scene: Scene, params: TraceParams,
                                        uniforms=None,
                                        ray_chunk: Optional[int] = None,
                                        entry: int = 0) -> torch.Tensor:
-    """Plain version of K8: the ``F * R`` rays of all frames bounce by
-    bounce through ``ops/trace.py::_bounce`` on the sorted scene, each fed
+    """Plain version of K7 and K8: the ``F * R`` rays of all frames bounce
+    by bounce through ``ops/trace.py::_bounce`` on the sorted scene, each fed
     the numbers of its original (frame, ray) id (and ``entry``), their
     hits scattered after every bounce, and the rays re-sorted by
     :func:`..accel.morton_ray_keys` between bounces. ``ray_chunk`` runs
@@ -304,66 +296,20 @@ def trace_frames_ir_accel(scene: Scene, params: TraceParams, seed: int,
                           early_out: bool = True, entry: int = 0,
                           work_counts: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """K7: ``n_frames`` frames of any wall count and any K bands in one
-    launch -> frame-summed IR ``[L, T, K]``. CPU scenes run
-    :func:`trace_frames_ir_accel_plain`.
-
-    ``entry``: Philox counter word 3, the global id of a batch entry (0:
-    K4's numbers). ``work_counts``: an int64 CUDA tensor ``[3]`` to which
-    the launch adds the wall tests, wall sweeps and slab tests it really
-    made."""
-    if scene.device.type != "cuda":
-        return trace_frames_ir_accel_plain(
-            scene, params, seed, n_frames, n_rays=n_rays,
-            max_bounces=max_bounces, sample_rate=sample_rate,
-            ir_length=ir_length, entry=entry)
-    check_accel_supported(scene, params)
-    prep = prepare(scene)
-    dev = scene.device
-    n_l, n_k = params.listeners.shape[0], scene.n_bands
-    scal = bk.pack_scalars(params)
-    bk._check_tensor("scalars", scal, dev)
-    bk._check_tensor("listeners", params.listeners, dev)
-    if work_counts is not None:
-        bk._check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
-    scale = bk.fixed_point_scale(params, n_frames, n_rays,
-                                 max_bounces).reshape(1)
-    key = rng.seed_key(seed)
-    scratch, n_scratch = None, 0
-    if bk.band_bucket(n_k, BAND_BUCKETS) == 0:
-        per_frame = -(-n_rays // 256) * 256 * n_k
-        n_scratch = max(per_frame, min(per_frame * n_frames,
-                                       bk.SCRATCH_FLOATS))
-        scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    fn = _fn("art_accel_frames", _FRAMES_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    outs = []
-    for p_b, l0, n_b in _blocks(prep, params, False):
-        (src_p, n_src, mic_p, n_mic), _keep = p_b
-        lis = params.listeners[l0:l0 + n_b].contiguous()
-        acc = torch.empty((n_b, ir_length, n_k), dtype=torch.int64,
-                          device=dev)
-        out = torch.empty((n_b, ir_length, n_k), dtype=torch.float32,
-                          device=dev)
-        launched = ctypes.c_int(0)
-        err = fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
-                 prep.walls.shape[1], n_k, prep.aabb.data_ptr(),
-                 prep.saabb.data_ptr(), prep.n_clusters, prep.group,
-                 prep.cluster_size, lis.data_ptr(), n_b, src_p, n_src,
-                 mic_p, n_mic, scal.data_ptr(), float(sample_rate), key[0],
-                 key[1], int(entry) & 0xFFFFFFFF, n_rays, max_bounces,
-                 n_frames, ir_length, bk._ptr(scratch), n_scratch,
-                 scale.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                 int(early_out),
-                 work_counts.data_ptr() if work_counts is not None else None,
-                 ctypes.byref(launched), stream)
-        _check(err, "accel kernel K7")
-        trace_frames_ir_accel.launches += launched.value
-        outs.append(out)
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+    """K7: ``n_frames`` frames of any wall count and any K bands ->
+    frame-summed IR ``[L, T, K]``. K7 is the banded instantiations of the
+    sorted bounce kernel, so this is :func:`trace_frames_ir_accel_sorted`
+    (the name mirrors the JAX package's ``trace_frames_ir_accel``); its
+    launches at K > 1 count in ``trace_frames_ir_accel.launches``, those at
+    K = 1 in K8's."""
+    return trace_frames_ir_accel_sorted(
+        scene, params, seed, n_frames, n_rays=n_rays,
+        max_bounces=max_bounces, sample_rate=sample_rate,
+        ir_length=ir_length, early_out=early_out, entry=entry,
+        work_counts=work_counts)
 
 
-def _blocks(prep: AccelScene, params: TraceParams, sorted_kernel: bool):
+def _blocks(prep: AccelScene, params: TraceParams):
     """The listener blocks of a K7/K8 call: (pattern arguments and the
     tables that keep them alive, first listener, count) of each."""
     src, mic = bk.pattern_tables(params.directivity, params.mic_directivity,
@@ -371,7 +317,7 @@ def _blocks(prep: AccelScene, params: TraceParams, sorted_kernel: bool):
                                  params.listeners.device)
     n_src, n_mic = bk._pattern_sizes(src, mic)
     n_l = params.listeners.shape[0]
-    step = _listener_step(prep, sorted_kernel, n_src, n_mic)
+    step = _listener_step(prep, n_src, n_mic)
     for l0 in range(0, n_l, step):
         n_b = min(step, n_l - l0)
         if src is None:
@@ -382,6 +328,105 @@ def _blocks(prep: AccelScene, params: TraceParams, sorted_kernel: bool):
                    (src, mic_b)), l0, n_b
 
 
+def energy_rows(n_bands: int) -> int:
+    """Floats per ray of K7's energy buffer: K padded to a multiple of 4
+    (the register bucket's ray-major rows, read by 16-byte loads; the
+    wide kernel keeps its K bands band-major in the same buffer); 0 at
+    K = 1, whose energy rides in the state."""
+    return 0 if n_bands == 1 else -(-n_bands // 4) * 4
+
+
+def frames_per_pass(n_bands: int, n_frames: int, n_rays: int) -> int:
+    """The frames one pass of B launches takes: all of them, unless the
+    two energy buffers of K > 1 bands would exceed
+    :data:`.bounce_kernel.SCRATCH_FLOATS`; then as many as fit (at least
+    one)."""
+    per_frame = 2 * n_rays * energy_rows(n_bands)
+    if per_frame == 0:
+        return n_frames
+    return max(1, min(n_frames, bk.SCRATCH_FLOATS // per_frame))
+
+
+def _run_sorted(scene, params, seed, n_frames, n_rays, max_bounces,
+                sample_rate, ir_length, early_out, entry, work_counts,
+                keys_out) -> torch.Tensor:
+    """The launches of a K7/K8 call. For each listener block and each pass
+    of frames (:func:`frames_per_pass`): ``max_bounces`` launches over the
+    pass's rays; a launch writes every ray to its slot of a second state
+    buffer (and, at K > 1, its energies to a second energy buffer, of
+    :func:`energy_rows` floats a ray) together with its next sort key, and
+    between two launches the wrapper only sorts the keys. All passes add
+    to one u64 accumulator, converted once. The launches count in K8's
+    ``.launches`` at K = 1 and in K7's past it."""
+    check_accel_supported(scene, params)
+    prep = prepare(scene)
+    dev = scene.device
+    n_k = scene.n_bands
+    counter = (trace_frames_ir_accel_sorted if n_k == 1
+               else trace_frames_ir_accel)
+    scal = bk.pack_scalars(params)
+    bk._check_tensor("scalars", scal, dev)
+    bk._check_tensor("listeners", params.listeners, dev)
+    if work_counts is not None:
+        bk._check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
+    scale = bk.fixed_point_scale(params, n_frames, n_rays,
+                                 max_bounces).reshape(1)
+    chunk = frames_per_pass(n_k, n_frames, n_rays)
+    n = chunk * n_rays
+    state = torch.empty((2, 8, n), dtype=torch.float32, device=dev)
+    istate = torch.empty((2, 2, n), dtype=torch.int32, device=dev)
+    kp = energy_rows(n_k)
+    energy = torch.empty((2, n * kp), dtype=torch.float32,
+                         device=dev) if kp else None
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    key = rng.seed_key(seed)
+    fn = _fn("art_accel_bounce", _BOUNCE_ARGTYPES)
+    convert = _fn("art_fixed_to_float", (_P, _P, _P, ctypes.c_longlong, _P))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = []
+    for pats, l0, n_b in _blocks(prep, params):
+        lis = params.listeners[l0:l0 + n_b].contiguous()
+        acc = torch.zeros((n_b, ir_length, n_k), dtype=torch.int64,
+                          device=dev)
+        for f0 in range(0, n_frames, chunk):
+            n_pass = min(chunk, n_frames - f0) * n_rays
+            perm = None
+            for b in range(max_bounces):
+                src, dst = (b + 1) % 2, b % 2
+                err = fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
+                         prep.walls.shape[1], n_k, prep.aabb.data_ptr(),
+                         prep.saabb.data_ptr(), prep.n_clusters, prep.group,
+                         prep.cluster_size, lis.data_ptr(), n_b, *pats[0],
+                         scal.data_ptr(), prep.bounds.data_ptr(),
+                         float(sample_rate), key[0], key[1],
+                         int(entry) & 0xFFFFFFFF, n_rays, f0 * n_rays,
+                         n_pass, max_bounces, b, ir_length,
+                         scale.data_ptr(),
+                         perm.data_ptr() if perm is not None else None,
+                         state[src].data_ptr(), istate[src].data_ptr(),
+                         state[dst].data_ptr(), istate[dst].data_ptr(),
+                         bk._ptr(None if energy is None else energy[src]),
+                         bk._ptr(None if energy is None else energy[dst]),
+                         keys.data_ptr(), acc.data_ptr(),
+                         int(early_out),
+                         work_counts.data_ptr() if work_counts is not None
+                         else None, stream)
+                _check(err, "accel kernel")
+                counter.launches += 1
+                if keys_out is not None:
+                    keys_out.append((state[dst, :, :n_pass].clone(),
+                                     istate[dst, :, :n_pass].clone(),
+                                     keys[:n_pass].clone()))
+                if b + 1 < max_bounces:
+                    perm = torch.sort(keys[:n_pass]).indices
+        out = torch.empty((n_b, ir_length, n_k), dtype=torch.float32,
+                          device=dev)
+        _check(convert(acc.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                       acc.numel(), stream), "fixed-to-float")
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
                                  seed: int, n_frames: int, *, n_rays: int,
                                  max_bounces: int, sample_rate: int,
@@ -390,78 +435,36 @@ def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
                                  work_counts: Optional[torch.Tensor] = None,
                                  keys_out: Optional[list] = None
                                  ) -> torch.Tensor:
-    """K8: ``max_bounces`` launches over the ``F * R`` rays of all frames,
-    K = 1 -> frame-summed IR ``[L, T, 1]``. A launch writes every ray to
-    its slot of a second state buffer together with its next sort key
-    (:func:`..accel.morton_ray_keys`, computed in the kernel; dead rays
+    """K8 and K7: ``max_bounces`` launches over the ``F * R`` rays of all
+    frames -> frame-summed IR ``[L, T, K]``, through the sorted bounce
+    kernel's one-band instantiation (K8; the JAX K8 traces K = 1) or its
+    banded ones (K7, any K: a ray's K energies ride with it in an energy
+    buffer, in registers for K <= 8). A launch writes every
+    ray to its slot of a second state buffer together with its next sort
+    key (:func:`..accel.morton_ray_keys`, computed in the kernel; dead rays
     last); between two launches the wrapper only sorts the keys (one
     ``torch.sort``), and the next launch reads slot ``s``'s ray at
     ``perm[s]`` of the buffer the last one wrote. Each block orders the
     super boxes near to far from its own rays in the kernel; the order
     changes only the speed. CPU scenes run
-    :func:`trace_frames_ir_accel_sorted_plain`. ``entry`` and
-    ``work_counts`` as for :func:`trace_frames_ir_accel` (a listener
-    block reruns every bounce on the same rays). ``keys_out``, a list, receives after each launch
-    ``(state[8, N], istate[2, N], keys[N])`` as the kernel left them
-    (clones: a check of the in-kernel keys against
+    :func:`trace_frames_ir_accel_sorted_plain`.
+
+    ``entry``: Philox counter word 3, the global id of a batch entry (0:
+    K4's numbers). ``work_counts``: an int64 CUDA tensor ``[3]`` to which
+    the launches add the wall tests, wall sweeps and slab tests they
+    really made (a listener block reruns every bounce on the same rays).
+    ``keys_out``, a list,
+    receives after each launch ``(state[8, N], istate[2, N], keys[N])`` as
+    the kernel left them (clones: a check of the in-kernel keys against
     :func:`..accel.morton_ray_keys`)."""
     if scene.device.type != "cuda":
         return trace_frames_ir_accel_sorted_plain(
             scene, params, seed, n_frames, n_rays=n_rays,
             max_bounces=max_bounces, sample_rate=sample_rate,
             ir_length=ir_length, entry=entry)
-    check_sorted_supported(scene, params)
-    prep = prepare(scene)
-    dev = scene.device
-    scal = bk.pack_scalars(params)
-    bk._check_tensor("scalars", scal, dev)
-    bk._check_tensor("listeners", params.listeners, dev)
-    if work_counts is not None:
-        bk._check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
-    scale = bk.fixed_point_scale(params, n_frames, n_rays,
-                                 max_bounces).reshape(1)
-    n = n_frames * n_rays
-    state = torch.empty((2, 8, n), dtype=torch.float32, device=dev)
-    istate = torch.empty((2, 2, n), dtype=torch.int32, device=dev)
-    keys = torch.empty(n, dtype=torch.int64, device=dev)
-    key = rng.seed_key(seed)
-    fn = _fn("art_accel_bounce", _BOUNCE_ARGTYPES)
-    convert = _fn("art_fixed_to_float", (_P, _P, _P, ctypes.c_longlong, _P))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    outs = []
-    for pats, l0, n_b in _blocks(prep, params, True):
-        lis = params.listeners[l0:l0 + n_b].contiguous()
-        acc = torch.zeros((n_b, ir_length), dtype=torch.int64, device=dev)
-        perm = None
-        for b in range(max_bounces):
-            src, dst = (b + 1) % 2, b % 2
-            err = fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
-                     prep.walls.shape[1], prep.aabb.data_ptr(),
-                     prep.saabb.data_ptr(), prep.n_clusters, prep.group,
-                     prep.cluster_size, lis.data_ptr(), n_b, *pats[0],
-                     scal.data_ptr(), prep.bounds.data_ptr(),
-                     float(sample_rate), key[0], key[1],
-                     int(entry) & 0xFFFFFFFF, n_rays, n, max_bounces, b,
-                     ir_length, scale.data_ptr(),
-                     perm.data_ptr() if perm is not None else None,
-                     state[src].data_ptr(), istate[src].data_ptr(),
-                     state[dst].data_ptr(), istate[dst].data_ptr(),
-                     keys.data_ptr(), acc.data_ptr(), int(early_out),
-                     work_counts.data_ptr() if work_counts is not None
-                     else None, stream)
-            _check(err, "accel kernel K8")
-            trace_frames_ir_accel_sorted.launches += 1
-            if keys_out is not None:
-                keys_out.append((state[dst].clone(), istate[dst].clone(),
-                                 keys.clone()))
-            if b + 1 < max_bounces:
-                perm = torch.sort(keys).indices
-        out = torch.empty((n_b, ir_length, 1), dtype=torch.float32,
-                          device=dev)
-        _check(convert(acc.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                       acc.numel(), stream), "fixed-to-float")
-        outs.append(out)
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+    return _run_sorted(scene, params, seed, n_frames, n_rays, max_bounces,
+                       sample_rate, ir_length, early_out, entry, work_counts,
+                       keys_out)
 
 
 def _accel_entries(scenes: Scene, sources, listeners, kw):
@@ -502,20 +505,17 @@ def trace_rooms_ir_accel_plain(scenes: Scene, sources, listeners, seed: int,
                                ray_chunk: Optional[int] = None
                                ) -> torch.Tensor:
     """Plain version of :func:`trace_rooms_ir_accel`: each entry through
-    :func:`trace_frames_ir_accel_sorted_plain` (K = 1) or
-    :func:`trace_frames_ir_accel_plain` on the numbers of entry
+    :func:`trace_frames_ir_accel_sorted_plain` on the numbers of entry
     ``entry_offset + e``. Returns ``[E, L, T, K]``."""
     kw = _rooms_kw(listener_radius, speed_of_sound, input_gain, entry_offset,
                    directivity, mic_directivity)
     irs = []
     for scene, params, entry in _accel_entries(scenes, sources, listeners,
                                                kw):
-        plain = (trace_frames_ir_accel_sorted_plain if scene.n_bands == 1
-                 else trace_frames_ir_accel_plain)
-        irs.append(plain(scene, params, seed, n_frames, n_rays=n_rays,
-                         max_bounces=max_bounces, sample_rate=sample_rate,
-                         ir_length=ir_length, ray_chunk=ray_chunk,
-                         entry=entry))
+        irs.append(trace_frames_ir_accel_sorted_plain(
+            scene, params, seed, n_frames, n_rays=n_rays,
+            max_bounces=max_bounces, sample_rate=sample_rate,
+            ir_length=ir_length, ray_chunk=ray_chunk, entry=entry))
     return torch.stack(irs)
 
 
@@ -527,7 +527,7 @@ def trace_rooms_ir_accel(scenes: Scene, sources, listeners, seed: int,
                          directivity=None, mic_directivity=None
                          ) -> torch.Tensor:
     """The batched paths (sweep, mixdown) on scenes past the bounce
-    kernel's wall limit: one K8 call (K = 1) or one K7 launch per entry,
+    kernel's wall limit: one K8 (K = 1) or K7 call per entry,
     entry ``e`` drawing the Philox numbers of entry ``entry_offset + e``
     (the numbers it draws in K9 and in
     :func:`.bounce_kernel.trace_rooms_ir_mega_plain`). The arguments are
@@ -547,11 +547,10 @@ def trace_rooms_ir_accel(scenes: Scene, sources, listeners, seed: int,
     irs = []
     for scene, params, entry in _accel_entries(scenes, sources, listeners,
                                                kw):
-        kernel = (trace_frames_ir_accel_sorted if scene.n_bands == 1
-                  else trace_frames_ir_accel)
-        irs.append(kernel(scene, params, seed, n_frames, n_rays=n_rays,
-                          max_bounces=max_bounces, sample_rate=sample_rate,
-                          ir_length=ir_length, entry=entry))
+        irs.append(trace_frames_ir_accel_sorted(
+            scene, params, seed, n_frames, n_rays=n_rays,
+            max_bounces=max_bounces, sample_rate=sample_rate,
+            ir_length=ir_length, entry=entry))
     return torch.stack(irs)
 
 

@@ -42,7 +42,10 @@ listener count: where a scene's listeners and its wall table do not fit
 one block's shared memory together, the wrapper launches the listeners in
 blocks over the same random numbers and the same fixed-point scale, which
 reproduces the whole launch bit for bit (ray physics never reads the
-listener table). K5 and K6 take one band, as in the JAX package.
+listener table). K5 and K6 take one band, as in the JAX package. A K3,
+K4 or K9 launch too small to fill the card (the stream's one frame of
+15,000 rays) runs in lane groups, 4 threads per ray that split its wall
+scans (:func:`lane_group`), with the same IR bit for bit.
 
 K3 and K4 return the frame-SUMMED IR ``[L, T, K]`` float32, K9
 ``[E, L, T, K]``. On a CUDA scene they launch the kernel or raise; on a
@@ -90,6 +93,13 @@ SCRATCH_FLOATS = 1 << 28
 
 # the shared memory a block can use, in floats
 SMEM_FLOATS = 232448 // 4
+# The lane group of K3/K4/K9 (csrc/bounce_kernel.cu::kLaneGroup): lanes
+# per (ray, frame, entry) of a launch whose items times LANE_GROUP stay
+# within LANE_THREADS, 16 warps per SM of an H100's 132
+# (scripts/torch_redesign_k7_k4.py times groups of 2, 4 and 8 and 64-thread
+# blocks without groups: PERF.md)
+LANE_GROUP = 4
+LANE_THREADS = 132 * 16 * 32
 
 _ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -97,6 +107,7 @@ _ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.POINTER(ctypes.c_int), ctypes.c_void_p)
@@ -120,6 +131,18 @@ def listener_block(n_walls: int, n_src: int = 0, n_mic: int = 0,
     listener fits."""
     used = (11 * n_walls if table_floats is None else table_floats) + n_src
     return max(0, (SMEM_FLOATS - used) // (2 + n_mic))
+
+
+def lane_group(n_items: int, n_bands: int) -> int:
+    """Lanes per (ray, frame, entry) of a K3/K4/K9 launch of ``n_items``
+    such items: :data:`LANE_GROUP` where its ``n_items * LANE_GROUP``
+    threads stay within :data:`LANE_THREADS`, so that a small grid spreads
+    over the card with lanes that split each ray's scans; 1 for a larger
+    grid and for the scratch past 32 bands (the kernel before lane
+    groups). Either gives the same IR bit for bit."""
+    if band_bucket(n_bands) != 0 and n_items * LANE_GROUP <= LANE_THREADS:
+        return LANE_GROUP
+    return 1
 
 
 def band_bucket(n_bands: int, buckets: Optional[tuple] = None) -> int:
@@ -317,7 +340,8 @@ def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
     ``[E or 1, 10 + K, W]`` (:func:`pack_walls_banded`), listeners
     ``[E, L, 2]``, scal ``[E, 5]``, scales ``[E]`` float64, and for a
     directive launch the pattern tables ``src`` ``[E, C_s]`` and ``mic``
-    ``[E, L, C_m]``, all on one CUDA device. Listeners that do not fit one
+    ``[E, L, C_m]``, all on one CUDA device, in the lane groups of
+    :func:`lane_group`. Listeners that do not fit one
     block's shared memory beside the walls (:func:`listener_block`) run in
     blocks, one call each; ``counter.launches`` counts the trace kernel's
     launches (more than one a call where the scratch takes the planes in
@@ -339,6 +363,7 @@ def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
     step = listener_block(n_walls, n_src, n_mic)
     if step < 1:
         raise ValueError("no listener fits a block beside the walls")
+    lanes = lane_group(n_rays * n_frames * n_e, n_bands)
     scratch = None
     n_scratch = 0
     if band_bucket(n_bands) == 0:
@@ -365,8 +390,8 @@ def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
             emit.data_ptr() if emit is not None else None,
             u.data_ptr() if u is not None else None, key[0], key[1],
             int(entry_offset) & 0xFFFFFFFF, n_e, n_rays, max_bounces,
-            n_frames, ir_length, _ptr(scratch), n_scratch, scales.data_ptr(),
-            acc.data_ptr(), out.data_ptr(),
+            n_frames, ir_length, lanes, _ptr(scratch), n_scratch,
+            scales.data_ptr(), acc.data_ptr(), out.data_ptr(),
             work_counts.data_ptr() if work_counts is not None else None,
             ctypes.byref(launched), stream)
         if err != 0:

@@ -173,7 +173,7 @@ def device_ms(torch, fn, reps, wrapper):
     readings that holds all its launches (``wrapper.launches`` counts them:
     the scratch may take a call's planes in several)."""
     from torch.profiler import ProfilerActivity, profile
-    name = ("accel_frames_kernel" if "accel" in wrapper.__name__
+    name = ("accel_bounce_kernel" if "accel" in wrapper.__name__
             else "frames_ir_kernel")
     before = wrapper.launches
     fn()

@@ -218,7 +218,7 @@ def main():
                 "accel_bounce_kernel"),
             "K7 8 bands": (lambda: ak.trace_frames_ir_accel(
                 banded.scene, city_p, 5, CITY_FRAMES, **CITY, **c), 1,
-                "accel_frames_kernel"),
+                "accel_bounce_kernel"),
             "K8 brute": (lambda: ak.trace_frames_ir_accel_sorted(
                 city.scene, city_p, 5, CITY_FRAMES, early_out=False, **CITY,
                 **c), 1, "accel_bounce_kernel"),

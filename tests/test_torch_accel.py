@@ -185,6 +185,63 @@ def test_accel_plain_matches_jax_kernel_interpret(n_bands):
         assert got[..., -1].sum() < got[..., 0].sum()
 
 
+@pytest.mark.parametrize("n_bands", [1, 8, 32])
+def test_sorted_plain_equals_the_unsorted_plain_at_any_band_count(n_bands):
+    # K7's plain twin (the rays re-sorted between bounces) against the
+    # unsorted reference on the same Philox numbers: the same hits, so only
+    # the float summation order of the scatter moves (SAME_ENERGY /
+    # SAME_L1 of chip_smoke.py, 1e-5)
+    room, params = _city(n_bands=n_bands)
+    got = to_numpy(ak.trace_frames_ir_accel_sorted_plain(
+        room.scene, params, 12, 2, **KW))
+    want = to_numpy(ak.trace_frames_ir_accel_plain(room.scene, params, 12, 2,
+                                                   **KW))
+    assert got.shape == want.shape == (1, T, n_bands)
+    assert (want[..., -1] != 0).sum() > 100
+    for k in range(n_bands):
+        g, w = got[..., k], want[..., k]
+        assert abs(g.sum() - w.sum()) / w.sum() < 1e-5
+        assert _l1(g, w) < 1e-5
+    if n_bands > 1:   # the materials' high-frequency rolloff
+        assert got[..., -1].sum() < got[..., 0].sum()
+
+
+def test_banded_sorted_plain_matches_jax_k7_interpret():
+    # the port's K7 re-sorts its rays between bounces; the JAX K7 keeps
+    # them in emission order. Each ray draws the numbers of its original
+    # (frame, ray) id, so on JAX's uniforms the two make the same hits:
+    # the limits of test_accel_plain_matches_jax_kernel_interpret
+    room, params = _city(n_bands=8)
+    ref, p = _jax_city(n_bands=8)
+    key = jax.random.PRNGKey(2)
+    want = np.asarray(jax_bk.trace_frames_ir_accel(
+        ref.scene, p, key, n_frames=1, in_kernel_rng=False, **KW))
+    emit, u = jax_rng.bounce_uniforms(key, KW["max_bounces"], KW["n_rays"])
+    got = to_numpy(ak.trace_frames_ir_accel_sorted_plain(
+        room.scene, params, 0, 1, uniforms=(to_torch(emit)[None],
+                                            to_torch(u)[None]), **KW))
+    assert got.shape == want.shape == (1, T, 8)
+    assert (want != 0).sum() > 100
+    for k in (0, 7):
+        assert abs(got[..., k].sum() - want[..., k].sum()) \
+            / want[..., k].sum() < 1e-2
+        assert _l1(got[..., k], want[..., k]) < 2e-2
+
+
+def test_energy_buffer_rows_and_frame_passes(monkeypatch):
+    # K7's energy rows: K padded to a multiple of 4 (16-byte loads), none
+    # at K = 1; frames run in passes whose two energy buffers fit the
+    # scratch cap, at least one frame a pass
+    assert [ak.energy_rows(k) for k in (1, 2, 4, 5, 8, 32, 33, 512)] == \
+        [0, 4, 4, 8, 8, 32, 36, 512]
+    assert ak.frames_per_pass(1, 4, 131072) == 4
+    assert ak.frames_per_pass(32, 4, 131072) == 4
+    assert ak.frames_per_pass(512, 4, 131072) == 2
+    monkeypatch.setattr(bk, "SCRATCH_FLOATS", 1000)
+    assert ak.frames_per_pass(8, 4, 131072) == 1
+    assert ak.frames_per_pass(1, 4, 131072) == 4
+
+
 def test_sorted_plain_has_the_plain_trace_hits():
     room, params = _city()
     kw = dict(KW, max_bounces=4)
@@ -251,9 +308,9 @@ def test_trace_accumulate_accel_runs_the_plain_accel_version(n_bands):
         room.scene, params, art.IRState.zeros(T, 1, n_bands, device=CPU),
         n_frames=2, seed=5, backend="accel", **{k: KW[k] for k in (
             "n_rays", "max_bounces", "sample_rate")})
-    plain = (ak.trace_frames_ir_accel_sorted_plain if n_bands == 1
-             else ak.trace_frames_ir_accel_plain)
-    want = plain(room.scene, params, 5, 2, **KW)
+    # K8 (K = 1) and K7 (K > 1) share one plain version
+    want = ak.trace_frames_ir_accel_sorted_plain(room.scene, params, 5, 2,
+                                                 **KW)
     assert st.frames == 2 and float(st.sum.sum()) > 0
     assert torch.equal(st.sum, want)
     assert (ak.trace_frames_ir_accel.launches,
@@ -307,13 +364,13 @@ def test_unknown_backend_raises():
 def test_accel_support_checks():
     room, params = _city()
     ak.check_accel_supported(room.scene, params)
-    # K7 takes any band count; K8 one band, as the JAX K8
+    # K7 and K8, one sorted kernel, take any band count (the JAX K8 one)
     for k in (9, 32, 512):
-        ak.check_accel_supported(
-            rooms.city_scene(10, n_bands=k, device=CPU).scene, params)
-    ak.check_sorted_supported(room.scene, params)
-    with pytest.raises(ValueError, match="1 band"):
-        ak.check_sorted_supported(_city(n_bands=8)[0].scene, params)
+        banded = rooms.city_scene(10, n_bands=k, device=CPU).scene
+        ak.check_accel_supported(banded, params)
+    with pytest.raises(ValueError, match="one source"):
+        ak.check_accel_supported(_city(n_bands=8)[0].scene, params._replace(
+            source=torch.zeros(2, 2)))
     ak.check_accel_supported(room.scene, params._replace(
         directivity=torch.ones(3), mic_directivity=torch.ones(5)))
     with pytest.raises(ValueError, match="mic_directivity"):
@@ -325,31 +382,32 @@ def test_accel_support_checks():
                             device=CPU)
     ak.check_accel_supported(room.scene, many)
     prep = ak.prepare(room.scene)
-    assert ak._listener_step(prep, True, 0, 0) > 10000
+    assert ak._listener_step(prep, 0, 0) > 10000
     with pytest.raises(NotImplementedError, match="shared memory"):
-        ak._listener_step(prep, False, 60001, 1)
+        ak._listener_step(prep, 60001, 1)
 
 
-def _smem_bytes(prep, sorted_kernel, n_listeners, n_src, n_mic):
-    """The dynamic shared memory of a K7 (``sorted_kernel`` False) or K8
-    launch, as ``csrc/accel_kernel.cu::smem_bytes`` counts it, plus the 96
-    B of the super-box order's block reduction."""
+def _smem_bytes(prep, n_listeners, n_src, n_mic):
+    """The dynamic shared memory of a K7/K8 launch, as
+    ``csrc/accel_kernel.cu::smem_bytes`` counts it (super boxes, their
+    visit order and keys), plus the 96 B of the order's block
+    reduction."""
     n_super = prep.n_clusters // prep.group
-    return (16 * n_super + (8 * n_super if sorted_kernel else 0)
-            + 4 * (2 * n_listeners + n_listeners * n_mic + n_src) + 96)
+    return (24 * n_super + 4 * (2 * n_listeners + n_listeners * n_mic
+                                + n_src) + 96)
 
 
-@pytest.mark.parametrize("sorted_kernel", [False, True])
+@pytest.mark.parametrize("n_bands", [1, 8])
 @pytest.mark.parametrize("n_src,n_mic", [(0, 0), (1, 5), (9, 3621)])
-def test_listener_step_fills_a_block(sorted_kernel, n_src, n_mic):
+def test_listener_step_fills_a_block(n_bands, n_src, n_mic):
     # K7/K8 listener blocks: the most listeners whose table fits the 227
     # KB of a block beside the super boxes, and the blocks cover the
-    # listeners in order
-    room, _ = _city()
+    # listeners in order, at any band count
+    room, _ = _city(n_bands=n_bands)
     prep = ak.prepare(room.scene)
-    step = ak._listener_step(prep, sorted_kernel, n_src, n_mic)
-    assert _smem_bytes(prep, sorted_kernel, step, n_src, n_mic) <= 232448
-    assert _smem_bytes(prep, sorted_kernel, step + 1, n_src, n_mic) > 232448
+    step = ak._listener_step(prep, n_src, n_mic)
+    assert _smem_bytes(prep, step, n_src, n_mic) <= 232448
+    assert _smem_bytes(prep, step + 1, n_src, n_mic) > 232448
     if n_mic:
         assert step == 16 if n_mic == 3621 else step > 1000
         mic = torch.ones(n_mic)
@@ -360,7 +418,7 @@ def test_listener_step_fills_a_block(sorted_kernel, n_src, n_mic):
     params = TraceParams.make(room.source, np.zeros((n_l, 2), np.float32),
                               device=CPU)._replace(directivity=src,
                                                    mic_directivity=mic)
-    blocks = list(ak._blocks(prep, params, sorted_kernel))
+    blocks = list(ak._blocks(prep, params))
     assert [(l0, n) for _, l0, n in blocks] == [(0, step), (step, step),
                                                 (2 * step, 3)]
     for (args, _), l0, n in blocks:

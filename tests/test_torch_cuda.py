@@ -339,12 +339,11 @@ def _launch_counts():
                                             ("K8", 1)])
 def test_accel_kernels_match_plain(cuda_device, kernel, n_bands):
     scene, params = _city(cuda_device, 300, n_bands)
-    fn, plain = ((ak.trace_frames_ir_accel, ak.trace_frames_ir_accel_plain)
-                 if kernel == "K7" else
-                 (ak.trace_frames_ir_accel_sorted,
-                  ak.trace_frames_ir_accel_sorted_plain))
+    fn = (ak.trace_frames_ir_accel if kernel == "K7"
+          else ak.trace_frames_ir_accel_sorted)
     got = fn(scene, params, 21, 2, **ACCEL_KW)
-    want = plain(scene, params, 21, 2, **ACCEL_KW)
+    want = ak.trace_frames_ir_accel_sorted_plain(scene, params, 21, 2,
+                                                 **ACCEL_KW)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (1, 24000, n_bands)
     for k in range(n_bands):
@@ -403,10 +402,10 @@ def test_routing_by_wall_and_band_count(cuda_device):
     assert big.n_walls > bk.MAX_WALLS
     assert run(small, p_small) == (0, 1, 0, 0)               # K4
     assert run(big, p_big) == (0, 0, 0, 5)                   # K8, B launches
-    assert run(banded, p_banded, 4) == (0, 0, 1, 0)          # K7
+    assert run(banded, p_banded, 4) == (0, 0, 5, 0)          # K7, B launches
     assert run(small, p_small, backend="accel") == (0, 0, 0, 5)
     small_banded, p_sb = _city(cuda_device, 300, 4)
-    assert run(small_banded, p_sb, 4, backend="accel") == (0, 0, 1, 0)
+    assert run(small_banded, p_sb, 4, backend="accel") == (0, 0, 5, 0)
     assert run(small_banded, p_sb, 4) == (0, 1, 0, 0)        # K4, banded
     with pytest.raises(ValueError, match="K7/K8"):
         bk.trace_frames_ir_mega(big, p_big, 0, 1, **ACCEL_KW)
@@ -430,19 +429,28 @@ def test_k8_refuses_buffers_it_cannot_ping_pong(cuda_device):
     keys = torch.empty(n, dtype=torch.int64, device=cuda_device)
     perm = torch.arange(n, device=cuda_device)
 
-    def launch(bounce, perm_ptr, src, dst):
+    energy = torch.empty((2, n * 8 + 4), device=cuda_device)
+
+    def launch(bounce, perm_ptr, src, dst, n_bands=1, e_src=0, e_dst=1,
+               shift=0):
+        en = (None, None) if n_bands == 1 else (
+            energy[e_src].data_ptr() + shift, energy[e_dst].data_ptr())
         return fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
-                  prep.walls.shape[1], prep.aabb.data_ptr(),
+                  prep.walls.shape[1], n_bands, prep.aabb.data_ptr(),
                   prep.saabb.data_ptr(), prep.n_clusters, prep.group,
                   prep.cluster_size, None, 1, None, 0, None, 0, None,
                   prep.bounds.data_ptr(),
-                  16000.0, 0, 0, 0, n, n, 2, bounce, 100, None, perm_ptr,
+                  16000.0, 0, 0, 0, n, 0, n, 2, bounce, 100, None, perm_ptr,
                   state[src].data_ptr(), istate[src].data_ptr(),
-                  state[dst].data_ptr(), istate[dst].data_ptr(),
+                  state[dst].data_ptr(), istate[dst].data_ptr(), *en,
                   keys.data_ptr(), None, 1, None, None)
 
     assert launch(1, perm.data_ptr(), 0, 0) == 1    # cudaErrorInvalidValue
     assert launch(1, None, 0, 1) == 1
+    # K > 1: the energies ping-pong between two buffers as well, and the
+    # register bucket's rows take 16-byte loads
+    assert launch(1, perm.data_ptr(), 0, 1, 8, 0, 0) == 1
+    assert launch(1, perm.data_ptr(), 0, 1, 8, shift=4) == 1
 
 
 @cuda
@@ -942,12 +950,12 @@ def test_k4_equals_k7_on_a_sorted_banded_city(cuda_device, n_bands):
     assert float(k4[..., -1].sum()) > 0 and torch.equal(k7, k4)
 
 
-def _big_mic_pattern(prep, sorted_kernel, n_listeners):
+def _big_mic_pattern(prep, n_listeners):
     """A cardioid microphone pattern padded with zero harmonics to so many
     coefficients that only about 16 listeners fit one K7/K8 block beside
     ``prep``'s super boxes (``[n_listeners, C]``)."""
     from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
-    boxes = prep.n_clusters // prep.group * (6 if sorted_kernel else 4) + 24
+    boxes = prep.n_clusters // prep.group * 6 + 24
     n_mic = (bk.SMEM_FLOATS - boxes - 1) // 16 - 2
     n_mic -= 1 - n_mic % 2
     c = np.pad(dv.cardioid(0.7), (0, n_mic - 3)).astype(np.float32)
@@ -967,10 +975,8 @@ def test_listener_blocks_equal_calls_on_their_slices(cuda_device, kernel):
     if kernel in ("K7", "K8"):
         scene, params = _city(cuda_device, 300, 1 if kernel == "K8" else 4)
         grid = params.listeners + grid * 0.5
-        mic = _big_mic_pattern(ak.prepare(scene), kernel == "K8",
-                               64).to(cuda_device)
-        step = ak._listener_step(ak.prepare(scene), kernel == "K8", 1,
-                                 mic.shape[-1])
+        mic = _big_mic_pattern(ak.prepare(scene), 64).to(cuda_device)
+        step = ak._listener_step(ak.prepare(scene), 1, mic.shape[-1])
         fn = (ak.trace_frames_ir_accel if kernel == "K7"
               else ak.trace_frames_ir_accel_sorted)
         run = lambda p: fn(scene, p, 2, 2, **ACCEL_KW)  # noqa: E731
@@ -995,7 +1001,7 @@ def test_listener_blocks_equal_calls_on_their_slices(cuda_device, kernel):
                "K9": bk.trace_rooms_ir_mega,
                "K7": ak.trace_frames_ir_accel,
                "K8": ak.trace_frames_ir_accel_sorted}[kernel]
-    per_call = 5 if kernel == "K8" else 1
+    per_call = 5 if kernel in ("K7", "K8") else 1
     before = wrapper.launches
     whole = run(params._replace(listeners=grid, mic_directivity=mic))
     mid = wrapper.launches
@@ -1019,19 +1025,23 @@ def test_scratch_chunks_are_counted_and_equal_one_launch(cuda_device,
                                                          monkeypatch,
                                                          kernel):
     """Past the largest register bucket the energies live in a device
-    scratch; a call whose planes (frames, or entries x frames) do not fit
-    it runs them in chunks. Each chunk is a launch of its own, counted in
-    ``.launches``, and the IR equals the one-launch call bit for bit."""
+    scratch (K4/K9) or in K7's energy buffers; a call whose planes (frames,
+    or entries x frames) do not fit it runs them in chunks (K7: passes of
+    frames, B launches each). Each chunk's launches are counted in
+    ``.launches``, and the IR equals the one-chunk call bit for bit."""
     n_bands = 40
     if kernel == "K7":
         scene, params = _city(cuda_device, 300, n_bands)
         wrapper = ak.trace_frames_ir_accel
         run = lambda: wrapper(scene, params, 3, 5, **ACCEL_KW)  # noqa: E731
-        per_plane = -(-ACCEL_KW["n_rays"] // 256) * 256 * n_bands
+        # two frames' two energy buffers a pass
+        cap = 2 * 2 * ACCEL_KW["n_rays"] * ak.energy_rows(n_bands)
+        per_call = ACCEL_KW["max_bounces"]
     else:
         scene, params = _setup(cuda_device, n_bands=n_bands)
         kw = dict(n_rays=4096, max_bounces=5, **KW)
-        per_plane = 4096 * n_bands
+        cap = 2 * 4096 * n_bands
+        per_call = 1
         if kernel == "K4":
             wrapper = bk.trace_frames_ir_mega
             run = lambda: wrapper(scene, params, 3, 5, **kw)  # noqa: E731
@@ -1043,11 +1053,12 @@ def test_scratch_chunks_are_counted_and_equal_one_launch(cuda_device,
     before = wrapper.launches
     one = run()
     mid = wrapper.launches
-    monkeypatch.setattr(bk, "SCRATCH_FLOATS", 2 * per_plane)
+    monkeypatch.setattr(bk, "SCRATCH_FLOATS", cap)
     chunked = run()
     torch.cuda.synchronize()
-    assert mid - before == 1
-    assert wrapper.launches - mid == 3     # 5 or 2 x 3 planes, 2 a launch
+    assert mid - before == per_call
+    # 5 frames or 2 x 3 planes, 2 a chunk
+    assert wrapper.launches - mid == 3 * per_call
     assert float(one.sum()) > 0 and torch.equal(one, chunked)
 
 
@@ -1175,3 +1186,88 @@ def test_entry_points_take_any_band_and_listener_count(
               str(tmp_path / "irs.npz")])
     assert np.load(tmp_path / "irs.npz")["irs"].shape == (2, 1, 8000,
                                                           n_bands)
+
+
+# --- the redesigned K7 (sorted, banded) and K3/K4 lane groups ----------------
+
+@cuda
+def test_k7_at_one_band_is_k8(cuda_device):
+    """K7 at K = 1 launches K8's instantiation: the same bits, work counts
+    and launches per call, counted as K8's."""
+    scene, params = _city(cuda_device, 1500)
+    work = [torch.zeros(3, dtype=torch.int64, device=cuda_device)
+            for _ in range(2)]
+    counts = _launch_counts()
+    k7 = ak.trace_frames_ir_accel(scene, params, 6, 2, work_counts=work[0],
+                                  **ACCEL_KW)
+    k8 = ak.trace_frames_ir_accel_sorted(scene, params, 6, 2,
+                                         work_counts=work[1], **ACCEL_KW)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launch_counts(), counts)) == \
+        (0, 0, 0, 10)
+    assert float(k8.sum()) > 0 and torch.equal(k7, k8)
+    assert torch.equal(work[0], work[1])
+
+
+@cuda
+@pytest.mark.parametrize("n_bands", [5, 33])
+def test_k7_band_counts_off_the_row_width_match_plain(cuda_device, n_bands):
+    """K bands that do not fill the energy buffer's rows of K rounded up
+    to 4: the register bucket's padding bands (K = 5) and the wide
+    kernel's band-major planes (K = 33) against the plain twin, band by
+    band, and the launches counted as K7's."""
+    scene, params = _city(cuda_device, 300, n_bands)
+    before = ak.trace_frames_ir_accel.launches
+    got = ak.trace_frames_ir_accel(scene, params, 4, 2, **ACCEL_KW)
+    want = ak.trace_frames_ir_accel_sorted_plain(scene, params, 4, 2,
+                                                 **ACCEL_KW)
+    torch.cuda.synchronize()
+    assert ak.trace_frames_ir_accel.launches - before == \
+        ACCEL_KW["max_bounces"]
+    assert tuple(got.shape) == (1, 24000, n_bands)
+    assert float(got[..., -1].sum()) > 0
+    for k in range(n_bands):
+        _assert_close_irs(got[..., k], want[..., k])
+
+
+def _listeners(device, n):
+    """SmollRoom's listener and n - 1 more around it."""
+    grid = _listener_grid(device)
+    return (grid[:n] * 0.25 + torch.tensor([0.0, -3.68], device=device))
+
+
+@cuda
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("n_bands", [1, 8, 32])
+@pytest.mark.parametrize("n_listeners", [1, 4, 64])
+@pytest.mark.parametrize("directive", [False, True])
+def test_lane_groups_give_the_one_lane_bits(cuda_device, monkeypatch,
+                                            kernel, n_bands, n_listeners,
+                                            directive):
+    """K3 and K4 in lane groups of 4 equal G = 1 bit for bit, with the
+    same work counts."""
+    scene, params = _setup(cuda_device, n_bands=n_bands)
+    params = params._replace(listeners=_listeners(cuda_device, n_listeners))
+    if directive:
+        src, mic = _patterns(cuda_device)
+        params = params._replace(directivity=src, mic_directivity=mic)
+    emit, u = rng.philox_uniforms(9, 1, 5, 15000, cuda_device)
+
+    def run(work):
+        if kernel == "K3":
+            return bk.trace_frames_ir_whole(scene, params, emit, u,
+                                            work_counts=work, **KW)
+        return bk.trace_frames_ir_mega(scene, params, 9, 1, n_rays=15000,
+                                       max_bounces=5, work_counts=work, **KW)
+
+    out = {}
+    for lanes in (1, bk.LANE_GROUP):
+        monkeypatch.setattr(bk, "lane_group", lambda n, k, g=lanes: g)
+        work = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+        out[lanes] = (run(work), work)
+    torch.cuda.synchronize()
+    ir1, w1 = out[1]
+    assert float(ir1.sum()) > 0
+    for lanes, (ir, w) in out.items():
+        assert torch.equal(ir, ir1), lanes
+        assert torch.equal(w, w1), lanes
