@@ -21,7 +21,8 @@ every kernel against its plain PyTorch version:
 * the hit-record path, ``cli trace`` and ``cli bake [--legacy]`` at their
   defaults (SmollRoom 15,000 rays x 5 bounces x 8 frames, 72,000 bins, 100
   debug rays; Big Room; the legacy IR of 562 time bins x 128 slots),
-  through the wall sweeps K1/K2 and the per-bounce step kernel K5/K6.
+  through the wall sweeps K1/K2, K5's hit rows (the bounce loop of K3 with
+  a row sink, one launch a frame) and K6 (K3/K4's launch at one frame).
 * frequency bands, many listeners and batches of large scenes: the stream
   and ``cli bake`` at 8 octave bands, ``cli sweep --rooms 1024 --bands
   8``, a grid of 64 listeners, the 40,008-wall city at 32 bands through
@@ -94,29 +95,33 @@ Phases:
    energies equal under it, the debug paths of 100 rays equal. 10c: K5's
    rows equal the plain rows and its hits the plain hits; its rows binned
    in float against K3's IR within SAME_ENERGY / SAME_L1; reruns
-   bit-identical; B launches per frame. 10d: K6 == K3 bit for bit (one and
+   bit-identical; one launch per frame. 10d: K6 == K3 bit for bit (one and
    two listeners, and at 131,072 x 8), with a seed == K4, and against its
-   plain version. 10e: ``cli trace --room smoll`` at its defaults with
+   plain version; one launch a call, counted as K6's and not as K3's or
+   K4's. 10e: ``cli trace --room smoll`` at its defaults with
    every output, resumed with ``--ir-in`` (16 frames, held against a fresh
    16-frame run: energy within 2%), ``cli trace --room big``, ``--stereo``,
    ``cli bake`` and ``cli bake --legacy`` (twice: the same bytes) on a
    click clip, ``trace_accumulate_fused`` with and without
    ``exact_scatter``; the launch counts are reset before and read after
-   each; the float scatters of the path rerun bit-identical;
+   each (K5 and K6 one launch a frame); the float scatters of the path
+   rerun bit-identical;
 11. directive sources and microphones, diffraction and air. 11a: each of
    K3, K4 (stream shape and 131,072 x 8 x 8), K9 (the 64-source mixdown,
    each source aimed its own way), K7 (the 8-band 4,808-wall city at full
    shape), K8 (the city stream's shape), K5 and K6 with a cardioid source
    (padded to C = 5) and a figure-eight microphone against its plain twin
    on the same numbers, within the limits of the phase that covers its
-   omni form; K4 == K7 == K8 on a sorted city, directive; K6 == K3. 11b:
+   omni form (K5 and K6 one launch each); K4 == K7 == K8 on a sorted city,
+   directive; K6 == K3. 11b:
    omni-coded patterns ([1.]) through each directive kernel give the omni
    bits. 11c: registers and local bytes per thread
    (cudaFuncGetAttributes) of the omni kernels equal the parent's
    (PARENT_REGS), the directive ones printed, and the ptxas registers and
    spills of every one-band instantiation the parent built equal its
-   (PARENT_PTXAS); in [5], each kernel's device time omni vs directive. 11d: the directive mixdown equals the sum of 64
-   single-source launches (E = 1, entry offset s; source 0's is K4 bit
+   (PARENT_PTXAS), K5's frame_rows_kernel printed beside K3's; in [5],
+   each kernel's device time omni vs directive. 11d: the directive
+   mixdown equals the sum of 64 single-source launches (E = 1, entry offset s; source 0's is K4 bit
    for bit). 11e: 2.0 s of clicks through ``Streamer.stream_clip`` on
    SmollRoom with an opaque barrier below the source, a cardioid source,
    an XY cardioid pair and a third listener in the barrier's shadow,
@@ -158,7 +163,10 @@ Phases:
    the 40,008-wall city and at the city stream's shape (8 bands) beside
    the times of the kernel it replaced (PARENT_K7_MS) and its bound; K3
    and K4 at the stream's shape and the 64-listener K4 call with lane
-   groups of 1 and 4 beside the parent's (PARENT_K4_MS);
+   groups of 1 and 4 beside the parent's (PARENT_K4_MS); K5 and K6 at
+   15,000 x 5 and 131,072 x 8 (one frame, SmollRoom) beside the
+   per-bounce step kernel they replaced (PARENT_K5_MS, PARENT_K6_MS) and
+   their bounds;
 5. timings with CUDA events after a warm-up, device times from the
    profiler, and each kernel's bound (the larger of its bytes over 3.35
    TB/s and its FP32 operations over 67 TFLOP/s, the operations counted
@@ -179,8 +187,8 @@ comparison over slices of rays), so
 that ``ms``, ``plain_ms`` and ``bound_ms`` are of one call; K8's
 full-width times are in the [8] lines. K1 and K2 are timed on the rays
 ``cli trace --scene-out`` gives them (15,000 rays at bounce 3, 24 walls),
-K5 and K6 at one 15,000 x 5 frame; their times at 131,072 rays and on the
-city are in the [5] lines.
+K5 and K6 at one 15,000 x 5 frame; their times at 131,072 rays are in the
+[5] and [12t] lines.
 
 Prints one JSON line of kernels, the card line, and last the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1).
@@ -205,7 +213,6 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/bounce_kernel.cu"
 ACCEL_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/accel_kernel.cu"
-STEP_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/step_kernel.cu"
 SWEEP_SOURCE = "realisticaudioraytracing2d_tpu_torch/csrc/trace_kernel.cu"
 PALLAS = "realisticaudioraytracing2d_tpu/ops/pallas/bounce_kernel.py"
 PALLAS_SWEEPS = "realisticaudioraytracing2d_tpu/ops/pallas/trace_kernel.py"
@@ -263,17 +270,21 @@ WORK_TOLERANCE = 0.01
 # H100 80GB HBM3): the later designs must leave them as they were. K3/K4/
 # K9's entries are the lane group G = 1; K7 is the banded instantiations
 # of K8's kernel, new code with no earlier build to hold, so K8's entry
-# covers its one-band instantiation, which K7 at K = 1 launches.
+# covers its one-band instantiation, which K7 at K = 1 launches. K5's and
+# K6's per-bounce step kernel went with its template: K6 launches K3's or
+# K4's instantiation, and K5's frame_rows_kernel is new code ([11c]
+# prints it beside K3's).
 PARENT_REGS = {"K3": (64, 48), "K4": (64, 64), "K9": (64, 64),
-               "K5": (61, 32), "K6": (62, 32), "K8": (48, 120)}
+               "K8": (48, 120)}
 # Registers, spill stores and spill loads (bytes) of every one-band
 # instantiation that the commit before the K7 / lane-group redesign built
 # (its ptxas lines from scripts/torch_redesign_k7_k4.py --parent on
 # NVIDIA H100 80GB HBM3), under this build's names: K3/K4/K9 at G = 1
 # (frames_ir_kernel<host, directive, 1, 1>; the parent's <host, directive,
 # 1>), K8 (accel_bounce_kernel<1, early_out, directive>; the parent's
-# <early_out, directive>), K5/K6 and K1/K2 (unchanged templates). The
-# redesign must leave each as it was.
+# <early_out, directive>) and K1/K2 (an unchanged template). The redesign
+# must leave each as it was. The lines of the per-bounce step kernel
+# (bounce_step_kernel<rows, host, directive>) went with its template.
 PARENT_PTXAS = {
     "frames_ir_kernel<0,0,1,1>": (64, 28, 32),
     "frames_ir_kernel<0,1,1,1>": (78, 0, 0),
@@ -283,14 +294,6 @@ PARENT_PTXAS = {
     "accel_bounce_kernel<1,0,1>": (80, 0, 0),
     "accel_bounce_kernel<1,1,0>": (48, 120, 184),
     "accel_bounce_kernel<1,1,1>": (64, 96, 156),
-    "bounce_step_kernel<0,0,0>": (62, 0, 0),
-    "bounce_step_kernel<0,0,1>": (64, 0, 0),
-    "bounce_step_kernel<0,1,0>": (62, 0, 0),
-    "bounce_step_kernel<0,1,1>": (64, 4, 4),
-    "bounce_step_kernel<1,0,0>": (61, 0, 0),
-    "bounce_step_kernel<1,0,1>": (64, 0, 0),
-    "bounce_step_kernel<1,1,0>": (61, 0, 0),
-    "bounce_step_kernel<1,1,1>": (64, 0, 0),
     "wall_sweep_kernel<0>": (38, 0, 0),
     "wall_sweep_kernel<1>": (38, 0, 0)}
 # Device ms per call of the kernels the sorted K7 and the lane groups of
@@ -303,6 +306,13 @@ PARENT_K7_MS = {"40,008 walls K=1": 30.5659, "40,008 walls K=8": 28.9250,
                 "city stream 15k x 5 x 1, K=8": 1.8062}
 PARENT_K4_MS = {"K4 15k x 5 x 1": 0.0322, "K3 15k x 5 x 1": 0.0330,
                 "K4 64 listeners K=8": 0.9840}
+# Device ms per call of the per-bounce step kernel that K5 and K6 replaced
+# (one launch per bounce, the ray state in device memory between them), on
+# NVIDIA H100 80GB HBM3, 700.00 W (scripts/torch_redesign_k5_k6.py
+# --parent, the mean of its two parent runs): one SmollRoom frame with
+# host uniforms.
+PARENT_K5_MS = {"15k x 5": 0.0401, "131k x 8": 0.1294}
+PARENT_K6_MS = {"15k x 5": 0.0437, "131k x 8": 0.1311}
 FMAD_NOTE = ("at the 67 TFLOP/s peak; the build's --fmad=false contracts no "
              "multiply-add, so at most half of it is reachable")
 
@@ -382,6 +392,14 @@ def busy_share(torch, fn, call_ms):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
     return busy, busy / call_ms, [e.name for e in events]
+
+
+def rows_bytes(n_walls, n_rays, n_bounces):
+    """The bytes K5 must move, each once: its wall table [11, W], the
+    listener and the scalars in, its host uniforms emit [R] and u [B, R, 3]
+    in, and its f32 rows [B, 8, R] out."""
+    return 4 * (11 * n_walls + 2 + 5 + n_rays * (1 + 3 * n_bounces)
+                + 8 * n_rays * n_bounces)
 
 
 def bound(counts, n_bytes):
@@ -993,6 +1011,7 @@ def bands_timings(c, readings):
               for k in rows[1]), flush=True)
     k7 = k7_against_parent(c, rows, device_ms)
     shapes = k4_lane_groups(c, readings, device_ms)
+    frame = k5_k6_against_parent(c, device_ms)
     # 64 listeners: K4 on SmollRoom (K = 8), K8 on the 10,008-wall city
     r64 = readings["64"]
     out = {"rows": rows}
@@ -1029,7 +1048,7 @@ def bands_timings(c, readings):
               " of it", flush=True)
         out[key] = dict(ms=ms, device_ms=dev_ms, work=w, hits=n_hits,
                         bound=bnd)
-    out.update(k7=k7, shapes=shapes)
+    out.update(k7=k7, shapes=shapes, frame=frame)
     return out
 
 
@@ -1082,6 +1101,52 @@ def k7_against_parent(c, rows, device_ms):
               f"slower than the kernel it replaced ({parent:.4f})")
         out[key] = dict(device_ms=dev_ms, parent_ms=parent, work=w,
                         bound=bnd)
+    return out
+
+
+def k5_k6_against_parent(c, device_ms):
+    """The [12t] K5/K6 lines: device ms per call of K5 (frame_rows_kernel)
+    and K6 (K3's frames_ir_kernel at one frame) on one SmollRoom frame
+    with host uniforms at 15,000 x 5 and 131,072 x 8, beside the
+    per-bounce step kernel they replaced (PARENT_K5_MS, PARENT_K6_MS) and
+    their bounds from this run's work counts; each at most 1.05x the
+    parent's."""
+    torch, art, bk, rng = (c[k] for k in ("torch", "art", "bk", "rng"))
+    dev, card, work = c["dev"], c["card"], c["work"]
+    room = art.rooms.smoll_room(device=dev)
+    sc, p = room.scene, art.TraceParams.make(room.source, room.listener,
+                                             device=dev)
+    w = sc.n_walls
+    out = {}
+    for shape, n_rays, n_b in (("15k x 5", RAYS, BOUNCES),
+                               ("131k x 8", BIG_RAYS, BIG_BOUNCES)):
+        emit, u = rng.philox_uniforms(27, 1, n_b, n_rays, dev)
+        e1, u1 = emit[0], u[0]
+        calls = {
+            "K5": (lambda e1=e1, u1=u1, **a: bk.trace_fused_rows(
+                sc, p, e1, u1, **a), "frame_rows_kernel", PARENT_K5_MS,
+                rows_bytes(w, n_rays, n_b)),
+            "K6": (lambda e1=e1, u1=u1, **a: bk.trace_frame_ir_fused(
+                sc, p, e1, u1, sample_rate=SR, ir_length=T, **a),
+                "frames_ir_kernel", PARENT_K6_MS,
+                4 * (11 * w + 2 + 5 + T + n_rays * (1 + 3 * n_b)))}
+        for k, (fn, kname, parent_ms, n_bytes) in calls.items():
+            dev_ms = device_ms(fn, 10 if n_rays == RAYS else 5, kname)
+            ms = cuda_ms(torch, fn, 10)
+            bnd = bound(work(lambda n, fn=fn: fn(work_counts=n)), n_bytes)
+            parent = parent_ms[shape]
+            check(dev_ms is not None, f"[12t] {k} {shape}: device time read")
+            print(f"[12t] {k} {shape} x 1 frame on {card}: device "
+                  f"{dev_ms:.4f} ms per call, one launch (the per-bounce "
+                  f"step kernel it replaced, {n_b} launches: {parent:.4f}, "
+                  f"{parent / dev_ms:.2f}x); {ms:.4f} ms per call (CUDA "
+                  f"events); bound {bnd[0]:.6f} ms ({bnd[1]}), device at "
+                  f"{bnd[0] / dev_ms * 100:.1f}% of it", flush=True)
+            check(dev_ms <= parent * 1.05, f"[12t] {k} {shape}: "
+                  f"{dev_ms:.4f} ms no slower than the step kernel "
+                  f"({parent:.4f})")
+            out[k, shape] = dict(device_ms=dev_ms, ms=ms, parent_ms=parent,
+                                 bound=bnd)
     return out
 
 
@@ -1848,7 +1913,7 @@ def main():
         e1, u1 = emit[0], u[0]
         rows, launched = counted(lambda: bk.trace_fused_rows(sc, smoll_p, e1,
                                                              u1))
-        check(launched == only(K5=n_b), f"10c: K5 launch counts {launched}")
+        check(launched == only(K5=1), f"10c: K5 launch counts {launched}")
         rows_p = bk.trace_fused_rows_plain(sc, smoll_p, e1, u1)
         errs["K5"] = max(errs["K5"], float((rows - rows_p).abs().max()))
         check(torch.equal(rows, rows_p), "10c: K5 rows == plain rows")
@@ -1872,8 +1937,9 @@ def main():
         n_l = p.listeners.shape[0]
         k6, launched = counted(lambda: bk.trace_frame_ir_fused(
             sc, p, emit[0], u[0], **kw))
-        check(launched == only(K6=BOUNCES),
-              f"10d: K6 launch counts {launched}")
+        check(launched == only(K6=1),
+              f"10d: K6 launch counts {launched} (K3/K4's instantiation, "
+              "counted as K6's)")
         seeded = bk.trace_frame_ir_fused(sc, p, seed=23, n_rays=RAYS,
                                          max_bounces=BOUNCES, **kw)
         k3 = bk.trace_frames_ir_whole(sc, p, emit, u, **kw)
@@ -1948,7 +2014,7 @@ def main():
             ["trace", "--room", "smoll", "--out", f("ir.png"), "--scene-out",
              f("scene.png"), "--spectro-out", f("spectro.png"), "--ir-out",
              f("ir.npz")])
-        check(launched == only(K4=1, K5=BOUNCES, K1=BOUNCES, K2=BOUNCES),
+        check(launched == only(K4=1, K5=1, K1=BOUNCES, K2=BOUNCES),
               f"10e: cli trace launch counts {launched}")
         for k in cli_launches:
             cli_launches[k] += launched[k]
@@ -2022,7 +2088,7 @@ def main():
         said, launched, cli_secs["bake --legacy"] = run_cli(
             ["bake", "--room", "smoll", "--in", f("dry.wav"), "--out",
              f("legacy.wav"), "--legacy"])
-        check(launched == only(K5=8 * BOUNCES)
+        check(launched == only(K5=8)
               and "baked 48000 samples" in said,
               f"10e: cli bake --legacy launch counts {launched}")
         cli_launches["K5"] += launched["K5"]
@@ -2039,7 +2105,7 @@ def main():
               f"{[f'{r:.3g}' for r in ratios_l]}, rerun byte-identical; "
               "seconds per command "
               f"{({k: round(v, 3) for k, v in cli_secs.items()})}", flush=True)
-    # the step-kernel accumulate entry point: K6 per frame, and the
+    # the fused accumulate entry point: K6 per frame, and the
     # exact_scatter route (a K5 pass per listener, binned in float)
     emit, u = rng.philox_uniforms(25, 2, BOUNCES, RAYS, dev)
     k3_two = bk.trace_frames_ir_whole(sc, smoll_p2, emit, u, **kw)
@@ -2047,7 +2113,7 @@ def main():
         got, launched = counted(lambda: bk.trace_accumulate_fused(
             sc, smoll_p2, art.IRState.zeros(T, 2, device=dev), emit, u,
             sample_rate=SR, exact_scatter=exact))
-        n_launch = 2 * BOUNCES * (2 if exact else 1)
+        n_launch = 2 * (2 if exact else 1)   # a frame: K6 once, K5 per ear
         check(launched == only(**{key: n_launch}) and got.frames == 2,
               f"10e: trace_accumulate_fused(exact_scatter={exact}) launch "
               f"counts {launched}")
@@ -2122,14 +2188,18 @@ def main():
     omni_bits["K4"] = torch.equal(
         bk.trace_frames_ir_mega(sc, omni_coded(smoll_p), chunk0, 1, **one),
         bk.trace_frames_ir_mega(sc, smoll_p, chunk0, 1, **one))
-    rows = bk.trace_fused_rows(sc, sd, emit[0], u[0])
+    rows, launched = counted(lambda: bk.trace_fused_rows(sc, sd, emit[0],
+                                                         u[0]))
+    check(launched == only(K5=1), f"11a: K5 directive launches {launched}")
     rows_p = bk.trace_fused_rows_plain(sc, sd, emit[0], u[0])
     errs["K5"] = max(errs["K5"], float((rows - rows_p).abs().max()))
     check(torch.equal(rows, rows_p), "11a: K5 directive rows == plain rows")
     omni_bits["K5"] = torch.equal(
         bk.trace_fused_rows(sc, omni_coded(smoll_p), emit[0], u[0]),
         bk.trace_fused_rows(sc, smoll_p, emit[0], u[0]))
-    k6 = bk.trace_frame_ir_fused(sc, sd, emit[0], u[0], **kw)
+    k6, launched = counted(lambda: bk.trace_frame_ir_fused(
+        sc, sd, emit[0], u[0], **kw))
+    check(launched == only(K6=1), f"11a: K6 directive launches {launched}")
     check(torch.equal(k6, bk.trace_frames_ir_whole(sc, sd, emit[:1], u[:1],
                                                    **kw)),
           "11a: K6 == K3 bit for bit, directive")
@@ -2226,8 +2296,6 @@ def main():
     attr_calls = {"K3": ("art_frames_attributes", (1, 1)),
                   "K4": ("art_frames_attributes", (0, 1)),
                   "K9": ("art_frames_attributes", (0, 1)),
-                  "K5": ("art_step_attributes", (1, 1)),
-                  "K6": ("art_step_attributes", (0, 1)),
                   "K8": ("art_accel_attributes", (1, 1))}
     regs = {}
     for k, (fn_name, args) in attr_calls.items():
@@ -2255,6 +2323,15 @@ def main():
                       if k.startswith("frames") or k.startswith("accel")),
           flush=True)
     check(not moved, f"11c: ptxas lines moved from the parent's: {moved}")
+    # K5's kernel is new code: its lines beside K3's G = 1 omni one
+    rows_lines = {k: v for k, v in table.items()
+                  if k.startswith("frame_rows_kernel")}
+    print("[11c] ptxas registers / spill stores / spill loads of K5's "
+          "frame_rows_kernel<directive, lanes>: " + "; ".join(
+              f"{k} {v}" for k, v in rows_lines.items())
+          + f"; K3's frames_ir_kernel<1,0,1,1> "
+          f"{table.get('frames_ir_kernel<1,0,1,1>')}", flush=True)
+    check(len(rows_lines) == 4, f"11c: four K5 instantiations {rows_lines}")
 
     # 11e. the stream: SmollRoom with an opaque barrier below the source
     # (the slant wall's ends lie outside the room, so it casts no shadow
@@ -2356,7 +2433,7 @@ def main():
             ["bake", "--room", "smoll", "--in", g("dry.wav"), "--out",
              g("legacy.wav"), "--legacy", "--directivity", "cardioid:90",
              "--mic-directivity", "figure8:45"])
-        check(launched_l == only(K5=8 * BOUNCES),
+        check(launched_l == only(K5=8),
               f"11g: cli bake --legacy launch counts {launched_l}")
         ratios_l = tails(g("legacy.wav"), hit_clicks)
         for lb in (launched_b, launched_l):
@@ -2579,33 +2656,41 @@ def main():
         n_work[k] = (RAYS * w, RAYS, 0)
         bounds[k] = bound(n_work[k], RAYS * (16 + out_bytes) + 20 * w)
     e1, u1 = (x[0] for x in rng.philox_uniforms(26, 1, BOUNCES, RAYS, dev))
-    steps = {"K5": (lambda **a: bk.trace_fused_rows(sc, p, e1, u1, **a),
-                    lambda: bk.trace_fused_rows_plain(sc, p, e1, u1)),
+    frame = {"K5": (lambda **a: bk.trace_fused_rows(sc, p, e1, u1, **a),
+                    lambda: bk.trace_fused_rows_plain(sc, p, e1, u1),
+                    "frame_rows_kernel"),
              "K6": (lambda **a: bk.trace_frame_ir_fused(sc, p, e1, u1, **kw,
                                                         **a),
                     lambda: bk.trace_frame_ir_fused_plain(sc, p, e1, u1,
-                                                          **kw))}
-    # bytes beside the tables: the uniforms in, and between the B launches
-    # the ray state (8 f32 + 1 i32 per ray) written B times and read B - 1
-    # times; K5 writes 8 f32 rows per ray and bounce, K6 the f32 IR
-    step_bytes = 4 * RAYS * (1 + 3 * BOUNCES) + 36 * RAYS * (2 * BOUNCES - 1)
-    for k, (fn, plain) in steps.items():
+                                                          **kw),
+                    "frames_ir_kernel")}
+    for k, (fn, plain, kname) in frame.items():
         times[k] = (cuda_ms(torch, fn, 20), cuda_ms(torch, plain, 5))
-        dev_ms[k] = kernel_device_ms(torch, fn, 10, "bounce_step_kernel")
+        dev_ms[k] = kernel_device_ms(torch, fn, 10, kname)
         n_work[k] = work(lambda n: fn(work_counts=n))
-    bounds["K5"] = bound(n_work["K5"], 4 * (11 * w + 2 + 5) + step_bytes
-                         + 32 * RAYS * BOUNCES)
-    bounds["K6"] = bound(n_work["K6"], one_bytes + step_bytes)
+    # K5: the table, its host uniforms in and its rows out (8 f32 per ray
+    # and bounce); K6 is K3 at one frame. The per-bounce step kernel they
+    # replaced also moved the ray state between its B launches (8 f32 +
+    # 1 i32 per ray, written B times and read B - 1 times): its bound
+    # counted that too, printed beside.
+    bounds["K5"] = bound(n_work["K5"], rows_bytes(w, RAYS, BOUNCES))
+    bounds["K6"] = bound(n_work["K6"], one_bytes
+                         + 4 * RAYS * (1 + 3 * BOUNCES))
+    old_state = 36 * RAYS * (2 * BOUNCES - 1)
+    old_bounds = {"K5": bound(n_work["K5"], rows_bytes(w, RAYS, BOUNCES)
+                              + old_state),
+                  "K6": bound(n_work["K6"], one_bytes
+                              + 4 * RAYS * (1 + 3 * BOUNCES) + old_state)}
     for k, shape in (("K1", f"{RAYS} rays x {w} walls"),
                      ("K2", f"{RAYS} shadow rays x {w} walls"),
-                     ("K5", f"{RAYS} x {BOUNCES} x 1 frame, {BOUNCES} "
-                            "launches"),
-                     ("K6", f"{RAYS} x {BOUNCES} x 1 frame, {BOUNCES} "
-                            "launches")):
+                     ("K5", f"{RAYS} x {BOUNCES} x 1 frame, one launch"),
+                     ("K6", f"{RAYS} x {BOUNCES} x 1 frame, one launch")):
+        old = (f" (the per-bounce step kernel's: "
+               f"{old_bounds[k][0]:.6f})" if k in old_bounds else "")
         print(f"    {k} at {shape}: {times[k][0]:.4f} ms per call vs plain "
               f"{times[k][1]:.4f}; device {fmt(dev_ms[k])} per call; "
               f"{n_work[k][0]} wall tests, {n_work[k][1]} sweeps -> bound "
-              f"{bounds[k][0]:.6f} ms ({bounds[k][1]})", flush=True)
+              f"{bounds[k][0]:.6f} ms ({bounds[k][1]}){old}", flush=True)
     # the same kernels at the bench frame's 131,072 rays, and K1/K2 on the
     # 10,008-wall city with two listeners (plain over slices of rays)
     e8, u8b = emit8[0], u8[0]
@@ -2614,15 +2699,15 @@ def main():
                                                         **kw),
                        "frames_ir_kernel"),
         "K5": (lambda: bk.trace_fused_rows(sc, p, e8, u8b),
-               "bounce_step_kernel"),
+               "frame_rows_kernel"),
         "K6": (lambda: bk.trace_frame_ir_fused(sc, p, e8, u8b, **kw),
-               "bounce_step_kernel")}
+               "frames_ir_kernel")}
     wide_ms = {k: (cuda_ms(torch, fn, 5), kernel_device_ms(torch, fn, 3, name))
                for k, (fn, name) in wide.items()}
     wide_plain = cuda_ms(torch, lambda: bk.trace_fused_rows_plain(
         sc, p, e8, u8b), 2)
-    print(f"[5] step kernel on {card} at {BIG_RAYS} x {BIG_BOUNCES} x 1 frame"
-          f", {w} walls, ms per call [device]: "
+    print(f"[5] K3, K5 and K6 on {card} at {BIG_RAYS} x {BIG_BOUNCES} x 1 "
+          f"frame, {w} walls, ms per call [device]: "
           + ", ".join(f"{k} {v[0]:.4f} [{fmt(v[1])}]"
                       for k, v in wide_ms.items())
           + f"; K5's plain version {wide_plain:.3f}", flush=True)
@@ -2693,9 +2778,9 @@ def main():
             scene_d, pick(p_d, d), 5, CITY_FRAMES, **city_run),
             "accel_bounce_kernel"),
         "K5": (lambda d: bk.trace_fused_rows(sc, pick(p, d), e1, u1),
-               "bounce_step_kernel"),
+               "frame_rows_kernel"),
         "K6": (lambda d: bk.trace_frame_ir_fused(sc, pick(p, d), e1, u1,
-                                                 **kw), "bounce_step_kernel")}
+                                                 **kw), "frames_ir_kernel")}
     dir_runs["K4 131k x 8 x 8"] = (
         lambda d: bk.trace_frames_ir_mega(sc, pick(p, d), 6, nf, **big, **kw),
         "frames_ir_kernel")
@@ -2732,10 +2817,11 @@ def main():
                     SWEEP_SOURCE),
              "K2": ("trace_kernel K2 (occlusion minimum of each shadow ray)",
                     82, SWEEP_SOURCE),
-             "K5": ("step_kernel K5 (one bounce per launch, hit rows out)",
-                    180, STEP_SOURCE),
-             "K6": ("step_kernel K6 (one bounce per launch, in-kernel "
-                    "binning)", 1291, STEP_SOURCE)}
+             "K5": ("bounce_kernel K5 (frame_rows_kernel: a frame's "
+                    "bounces in one launch, hit rows out)", 180,
+                    KERNEL_SOURCE),
+             "K6": ("bounce_kernel K6 (K3/K4's frames_ir_kernel at one "
+                    "frame, in-kernel binning)", 1291, KERNEL_SOURCE)}
     # ms/plain_ms/bound of one call each: K3 and K4 at the stream's shape
     # (15k x 5 x 1 frame), K9 at the mixdown's (64 entries x 15k x 5), K8
     # at the city stream's, K7 at the banded city's, K1/K2 on the 15,000

@@ -9,8 +9,8 @@ hand-written cluster kernels (``csrc/accel_kernel.cu``). It also sweeps
 room datasets and mixes down many sources through the bounce kernel's
 batched mode (:mod:`.parallel`), and hands out individual hit records
 (debug ray paths, the legacy time x frequency IR) through the wall-sweep
-kernels (``csrc/trace_kernel.cu``) and the per-bounce step kernel
-(``csrc/step_kernel.cu``). Every path takes directive sources and
+kernels (``csrc/trace_kernel.cu``) and the bounce kernel's hit-row mode
+(``csrc/bounce_kernel.cu``). Every path takes directive sources and
 microphones (:mod:`.ops.directivity`); the stream and the CLI add edge
 diffraction (:mod:`.ops.diffraction`) and air absorption
 (:mod:`.ops.air`). It imports no JAX.

@@ -1,7 +1,7 @@
 // Monte-Carlo bounce kernel for Hopper (sm_90a): whole frames, batched
-// over rooms or sources.
+// over rooms or sources, binned into the IR or handed out as hit rows.
 //
-// Replaces three TPU kernels of the JAX package
+// Replaces five TPU kernels of the JAX package
 // (realisticaudioraytracing2d_tpu/ops/pallas/bounce_kernel.py):
 //   _make_frame_hist_kernel (K3, through trace_frame_ir_whole: uniforms
 //     drawn on the host),
@@ -10,13 +10,17 @@
 //   _make_rooms_mega_kernel (K9, through trace_rooms_ir_mega: K4 over a
 //     batch of E entries, rooms of a sweep or sources of a mixdown, each
 //     with its own wall table or one shared table, listeners, source,
-//     gain, radius, speed of sound and fixed-point scale).
-// All three compute the same thing (emission, every bounce of _bounce_step
-// and the IR binning of _hist_listener, K bands and L listeners) and
-// differ only in where the uniforms come from and in the batch axis, so
-// they are one template, frames_ir_kernel<kHostUniforms, kDirective,
-// kMaxK, kLanes>, whose grid z axis is the batch entry: K3 and K4 are its
-// E = 1 case. kDirective adds the source
+//     gain, radius, speed of sound and fixed-point scale),
+//   _make_bounce_hist_kernel (K6, through trace_frame_ir_fused: one frame,
+//     binned in the kernel): K3's or K4's launch at one frame, and
+//   _bounce_kernel (K5, through trace_fused_rows: one frame's raw hit rows,
+//     one listener, one band): frame_rows_kernel, below.
+// The first three compute the same thing (emission, every bounce of
+// _bounce_step and the IR binning of _hist_listener, K bands and L
+// listeners) and differ only in where the uniforms come from and in the
+// batch axis, so they are one template, frames_ir_kernel<kHostUniforms,
+// kDirective, kMaxK, kLanes>, whose grid z axis is the batch entry: K3 and
+// K4 are its E = 1 case. kDirective adds the source
 // and microphone patterns (_fourier_gain, _src_gain and the mic rows of
 // pack_listeners in the JAX kernels): per entry a source row [C_s] and a
 // microphone table [L, C_m], so each source of a mixdown carries its own
@@ -119,6 +123,18 @@
 //    counter; this kernel makes no slab tests), so a bound can be computed
 //    from this run's data.
 //
+//  * K5, frame_rows_kernel<kDirective, kLanes>: trace_ray's loop of all
+//    B bounces with a RowSink (trace_common.cuh) in place of the IR sink,
+//    host uniforms, one listener, one band, in K3's lane groups. The JAX
+//    kernel and the port's first design ran one launch per bounce with the
+//    ray state [8, R] + depth [R] in device memory between launches; here
+//    the state stays in registers and the table is loaded once per block.
+//    A bounce's column of the rows [B, 8, R] is written once per element
+//    (the hits as they land, zeros in the rest at the end of the bounce),
+//    and a ray that dies writes zeros into the columns of the bounces it
+//    does not reach, so no memset runs. In a lane group the lead lane
+//    stores the rows, as it deposits into the IR.
+//
 // What bounds it: instruction rate in the wall pass. The work is
 // O(R * W * B * (1 + L)) intersection tests of 13 FP32 operations each
 // (two of them divides), plus 3 per sweep for the ray's own cross product
@@ -136,7 +152,9 @@
 // (the stream's one frame of 15,000 rays) the bound is not the issue rate
 // but the latency of each ray's serial chain of bounces on the few SMs
 // its blocks occupy; lane groups split the chain's scans over G lanes and
-// spread the grid over the card. Measured shares: PERF.md.
+// spread the grid over the card. K5 adds its rows, 32 B per ray and bounce
+// (33.5 MB at 131,072 x 8), which with its host uniforms (4 B per ray and
+// 12 per ray and bounce) make its bound bytes. Measured shares: PERF.md.
 
 #include <algorithm>
 
@@ -160,14 +178,17 @@ constexpr int kLargestBucket = 32;
 // not fit beside the walls launches them in blocks (the wrapper).
 constexpr int kMaxWalls = (kMaxSmemBytes - 2 * 16 * 4) / (kWallFields * 4);
 
-template <bool kHostUniforms, bool kDirective, int kMaxK, int kLanes>
+// One ray of one frame of one entry, all its bounces; its hits go to
+// `hits`, a Sink (the IR: K3, K4, K6, K9) or a RowSink (K5's rows).
+template <bool kHostUniforms, bool kDirective, int kMaxK, int kLanes,
+          class SinkT>
 __device__ __forceinline__ Work trace_ray(
     const WallTable& walls, const float* s_lis, int n_listeners,
     const float* s_src, int n_src, const float* s_mic, int n_mic,
-    const float* scal, float sr, const float* emit, const float* u,
-    uint32_t key0, uint32_t key1, uint32_t entry_id, int ray, int frame,
-    int n_frames, int entry, int n_rays, int max_bounces, int ir_length,
-    int n_bands, WideBands wide, double scale, unsigned long long* acc) {
+    const float* scal, const float* emit, const float* u, uint32_t key0,
+    uint32_t key1, uint32_t entry_id, int ray, int frame, int n_frames,
+    int entry, int n_rays, int max_bounces, int n_bands, WideBands wide,
+    const SinkT& hits) {
   const float radius = scal[2];
   const Listeners lis{s_lis, n_listeners, radius * radius, scal[3], s_mic,
                       n_mic};
@@ -176,7 +197,7 @@ __device__ __forceinline__ Work trace_ray(
   // kLanes > 1: this lane's part of each scan, and whether it is the lane
   // that deposits and counts; kLanes = 1 scans the whole table
   const LaneGroup<kLanes> group = LaneGroup<kLanes>::mine(n_walls);
-  const auto sink = group.sink(Sink{acc, ir_length, n_bands, sr, scale});
+  const auto sink = group.sink(hits);
 
   auto draw = [&](int bounce) -> Uniforms {
     if (kHostUniforms) {
@@ -232,11 +253,11 @@ __device__ __forceinline__ Work trace_ray(
       work.tests += n_walls;
       ++work.sweeps;
     }
-    if (!finish_bounce<kMaxK, kDirective>(r, closest,
-                                          closest < kInf ? best : -1, walls,
-                                          lis, sink, occluded,
-                                          [&] { return draw(b); }))
-      break;
+    const bool alive = finish_bounce<kMaxK, kDirective>(
+        r, closest, closest < kInf ? best : -1, walls, lis, sink, occluded,
+        [&] { return draw(b); });
+    end_bounce(sink, b, alive);
+    if (!alive) break;
   }
   return work;
 }
@@ -303,13 +324,86 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
   if (ray < n_rays)
     work = trace_ray<kHostUniforms, kDirective, kMaxK, kLanes>(
         table, s_lis, n_listeners, s_src, n_src, s_mic, n_mic,
-        scal + kScalFields * entry, sr, emit, u,
-        key0, key1, entry_offset + static_cast<uint32_t>(entry), ray,
-        frame, n_frames, entry, n_rays, max_bounces, ir_length, nk, wide,
-        scales[entry],
-        acc + static_cast<size_t>(entry) * n_listeners * ir_length * nk);
+        scal + kScalFields * entry, emit, u, key0, key1,
+        entry_offset + static_cast<uint32_t>(entry), ray, frame, n_frames,
+        entry, n_rays, max_bounces, nk, wide,
+        Sink{acc + static_cast<size_t>(entry) * n_listeners * ir_length * nk,
+             ir_length, nk, sr, scales[entry]});
   if (work_out != nullptr)  // every thread of the block reaches this point
     add_work(work, work_out);
+}
+
+// K5's resident blocks per SM, asked of the compiler: with one lane a ray
+// (a grid that fills the card) 4 blocks of 256, which holds it to K3's 64
+// registers without spilling (asked for 1 it takes 84, 3 blocks fit an
+// SM, and 131,072 x 8 ran 13% slower); in lane groups 1 (83 registers, no
+// spills; held to 64 they spill and ran 4% slower at 15,000 rays).
+// scripts/torch_redesign_k5_k6.py times both alternatives.
+template <int kLanes>
+constexpr int kRowsMinBlocks = kLanes == 1 ? 4 : 1;
+
+// K5: the hit rows [B, 8, R] of one frame, host uniforms emit [R] and u
+// [B, R, 3], one listener, one band; kLanes lanes per ray, as K3. The
+// frame's rays go through trace_ray with a RowSink in place of the IR.
+template <bool kDirective, int kLanes>
+__global__ void __launch_bounds__(kThreads, kRowsMinBlocks<kLanes>)
+    frame_rows_kernel(
+    const float* __restrict__ walls, int n_walls,
+    const float* __restrict__ listener, const float* __restrict__ src_c,
+    int n_src, const float* __restrict__ mic_c, int n_mic,
+    const float* __restrict__ scal, const float* __restrict__ emit,
+    const float* __restrict__ u, int n_rays, int max_bounces,
+    float* __restrict__ rows, unsigned long long* __restrict__ work_out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const WallTable table = load_wall_table(walls, n_walls, 0, n_walls,
+                                          kAttrRows, smem);
+  float* s_lis = smem + wall_table_floats(n_walls, kAttrRows);  // [1][2]
+  float* s_src = s_lis + 2;
+  float* s_mic = s_src + n_src;
+  stage(listener, 2, s_lis);
+  if constexpr (kDirective) {
+    stage(src_c, n_src, s_src);
+    stage(mic_c, n_mic, s_mic);
+  }
+  __syncthreads();
+
+  const int ray = (blockIdx.x * blockDim.x + threadIdx.x) / kLanes;
+  Work work;
+  if (ray < n_rays)
+    work = trace_ray<true, kDirective, 1, kLanes>(
+        table, s_lis, 1, s_src, n_src, s_mic, n_mic, scal, emit, u, 0, 0, 0,
+        ray, 0, 1, 0, n_rays, max_bounces, 1, WideBands{},
+        RowSink{rows + ray, n_rays, max_bounces, 0u});
+  if (work_out != nullptr)  // every thread of the block reaches this point
+    add_work(work, work_out);
+}
+
+template <bool kDirective, int kLanes>
+cudaError_t launch_rows(const float* walls, int n_walls,
+                        const float* listener, const float* src_c, int n_src,
+                        const float* mic_c, int n_mic, const float* scal,
+                        const float* emit, const float* u, int n_rays,
+                        int max_bounces, float* rows,
+                        unsigned long long* work, cudaStream_t stream) {
+  const auto kernel = frame_rows_kernel<kDirective, kLanes>;
+  const size_t smem =
+      sizeof(float) *
+      (kWallFields * static_cast<size_t>(n_walls) + 2 + n_src + n_mic);
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int grid = static_cast<int>(
+      (static_cast<long long>(n_rays) * kLanes + kThreads - 1) / kThreads);
+  kernel<<<grid, kThreads, smem, stream>>>(walls, n_walls, listener, src_c,
+                                           n_src, mic_c, n_mic, scal, emit,
+                                           u, n_rays, max_bounces, rows,
+                                           work);
+  return cudaGetLastError();
 }
 
 template <bool kHostUniforms, bool kDirective, int kMaxK, int kLanes>
@@ -458,6 +552,42 @@ int art_trace_frames_ir(int host_uniforms, const float* walls,
     return directive ? ART_FRAMES(false, true) : ART_FRAMES(false, false);
 #undef ART_FRAMES
   }));
+}
+
+// K5: the hit rows [B, 8, R] f32 (per bounce direct delay, energy,
+// valid, NEE delay, energy, valid, two rows of zeros; zeros where no hit
+// was made and in every bounce after a ray dies) of one frame of n_rays
+// rays with host uniforms emit [R] and u [B, R, 3], one listener [1, 2]
+// and one band: walls [11, W] and scal [5] as for art_trace_frames_ir,
+// src_c [n_src] and mic_c [n_mic] the patterns of a directive trace (both
+// null for omni). lanes 1 or 4 as there: the same rows at either. work,
+// if not null, three device u64, as there (K3's counts on the same
+// uniforms). One launch; returns a cudaError_t code (0 = launched).
+int art_trace_frame_rows(const float* walls, int n_walls,
+                         const float* listener, const float* src_c,
+                         int n_src, const float* mic_c, int n_mic,
+                         const float* scal, const float* emit, const float* u,
+                         int n_rays, int max_bounces, int lanes, float* rows,
+                         unsigned long long* work, void* stream) {
+  const bool directive = src_c != nullptr || mic_c != nullptr;
+  if (n_walls < 1 || n_walls > kMaxWalls || n_rays < 1 || max_bounces < 1 ||
+      emit == nullptr || u == nullptr || rows == nullptr ||
+      (lanes != 1 && lanes != kLaneGroup) ||
+      (directive && (src_c == nullptr || mic_c == nullptr || n_src < 1 ||
+                     n_src % 2 != 1 || n_mic < 1 || n_mic % 2 != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!directive) n_src = n_mic = 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+#define ART_ROWS(D, G)                                                       \
+  launch_rows<D, G>(walls, n_walls, listener, src_c, n_src, mic_c, n_mic,    \
+                    scal, emit, u, n_rays, max_bounces, rows, work, s)
+  cudaError_t err;
+  if (lanes == 1)
+    err = directive ? ART_ROWS(true, 1) : ART_ROWS(false, 1);
+  else
+    err = directive ? ART_ROWS(true, kLaneGroup) : ART_ROWS(false, kLaneGroup);
+#undef ART_ROWS
+  return static_cast<int>(err);
 }
 
 // The registers and local (stack) bytes per thread of the instantiation

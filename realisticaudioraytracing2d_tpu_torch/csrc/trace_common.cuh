@@ -1,6 +1,6 @@
-// Ray physics shared by the bounce kernel (bounce_kernel.cu: K3, K4, K9),
-// the cluster kernels (accel_kernel.cu: K7, K8), the per-bounce step kernel
-// (step_kernel.cu: K5, K6) and the wall sweeps (trace_kernel.cu: K1, K2).
+// Ray physics shared by the bounce kernels (bounce_kernel.cu: K3, K4, K9,
+// K6 as K3/K4 at one frame, and K5's hit rows), the cluster kernels
+// (accel_kernel.cu: K7, K8) and the wall sweeps (trace_kernel.cu: K1, K2).
 //
 // What is here: the constants of the reference kernel, Philox-4x32-10 and
 // its 24-bit uniforms, the ray-segment test (filter + wall_exact) and
@@ -12,7 +12,8 @@
 // The kernels differ only in how they find the nearest wall and run the
 // occlusion sweep (a full scan of a shared-memory table, or a two-level
 // box early-out over a global one), where their random numbers come from,
-// where a ray's state lives between bounces, and where a hit goes: into
+// where a ray's state lives between bounces (registers, or the cluster
+// kernels' buffers between their launches), and where a hit goes: into
 // the fixed-point IR (Sink) or, as a raw record, into hit rows (RowSink).
 //
 // Directive sources and microphones (ops/directivity.py) are one template
@@ -184,16 +185,23 @@ struct Sink {
 };
 
 // Where hits go instead when the caller wants the records themselves (K5):
-// the [8, R] f32 rows of one bounce, one listener, one band: direct
-// delay, energy, valid, then NEE delay, energy, valid, then two rows of
-// padding. A ray's column is zeroed before its bounce, so the rows of a
-// hit that did not happen are zeros.
+// the rows [B, 8, R] f32 of one frame, one listener, one band; per bounce
+// direct delay, energy, valid, then NEE delay, energy, valid, then two
+// rows of padding. A RowSink serves one ray: `col` is the ray's column of
+// the current bounce (rows + bounce * 8 * R + ray) and `stored` the slots
+// (bit 0 direct, bit 1 NEE) deposited there. end_bounce stores zeros in
+// the rest of the column and moves on to the next bounce, and, when the
+// ray dies, stores zeros in the columns of every later bounce: each
+// element of the rows is written once, and the rows of a hit that did not
+// happen are zeros.
 struct RowSink {
-  float* rows;
+  mutable float* col;
   int n_rays;
-  int ray;
+  int n_bounces;
+  mutable unsigned stored;
   static constexpr int n_bands = 1;
 };
+constexpr int kHitRows = 8;
 
 // The listeners of one entry: xy [L, 2], radius^2, rest-frame speed c,
 // and (directive kernels only) the microphone patterns mic [L, n_mic].
@@ -464,23 +472,66 @@ __device__ __forceinline__ void deposit_bands(const Sink& s, int l,
   }
 }
 
-// The sink of a lane group (bounce_kernel.cu, kLanes > 1): the lanes of a
-// group carry the same ray and make the same hits; only the group's lead
-// lane deposits them.
-struct GroupSink : Sink {
+// Store one hit as a record: rows 3 * slot .. 3 * slot + 2 of the ray's
+// column of this bounce (one listener, band 0).
+template <int kMaxK>
+__device__ __forceinline__ void deposit(const RowSink& s, int slot, int /*l*/,
+                                        float delay, const float* e) {
+  float* col = s.col + static_cast<size_t>(3 * slot) * s.n_rays;
+  col[0] = delay;
+  col[s.n_rays] = e[0];
+  col[2 * static_cast<size_t>(s.n_rays)] = 1.0f;
+  s.stored |= 1u << slot;
+}
+
+// The end of a ray's bounce `bounce`, after which it lives on (alive) or
+// is dead: the IR sink has nothing to do.
+__device__ __forceinline__ void end_bounce(const Sink&, int, bool) {}
+
+// The row sink completes the bounce's column (zeros where no hit was
+// stored, and the padding) and moves on; a ray that died leaves zeros in
+// the columns of the bounces it does not reach.
+__device__ __forceinline__ void end_bounce(const RowSink& s, int bounce,
+                                           bool alive) {
+  const size_t n = s.n_rays;
+#pragma unroll
+  for (int row = 0; row < 6; ++row)
+    if (!(s.stored >> (row / 3) & 1u)) s.col[row * n] = 0.0f;
+  s.col[6 * n] = 0.0f;
+  s.col[7 * n] = 0.0f;
+  s.col += kHitRows * n;
+  s.stored = 0;
+  if (alive) return;
+  for (int b = bounce + 1; b < s.n_bounces; ++b, s.col += kHitRows * n) {
+#pragma unroll
+    for (int row = 0; row < kHitRows; ++row) s.col[row * n] = 0.0f;
+  }
+}
+
+// The sink of a lane group (bounce_kernel.cu, kLanes > 1) around a Sink or
+// a RowSink: the lanes of a group carry the same ray and make the same
+// hits; only the group's lead lane deposits them and stores its rows.
+template <class S>
+struct GroupSink : S {
   bool lead;
 };
 
-template <int kMaxK>
-__device__ __forceinline__ void deposit(const GroupSink& s, int slot, int l,
-                                        float delay, const float* e) {
-  if (s.lead) deposit<kMaxK>(static_cast<const Sink&>(s), slot, l, delay, e);
+template <int kMaxK, class S>
+__device__ __forceinline__ void deposit(const GroupSink<S>& s, int slot,
+                                        int l, float delay, const float* e) {
+  if (s.lead) deposit<kMaxK>(static_cast<const S&>(s), slot, l, delay, e);
 }
 
-template <class Band>
-__device__ __forceinline__ void deposit_bands(const GroupSink& s, int l,
+template <class S, class Band>
+__device__ __forceinline__ void deposit_bands(const GroupSink<S>& s, int l,
                                               float delay, Band band) {
-  if (s.lead) deposit_bands(static_cast<const Sink&>(s), l, delay, band);
+  if (s.lead) deposit_bands(static_cast<const S&>(s), l, delay, band);
+}
+
+template <class S>
+__device__ __forceinline__ void end_bounce(const GroupSink<S>& s, int bounce,
+                                           bool alive) {
+  if (s.lead) end_bounce(static_cast<const S&>(s), bounce, alive);
 }
 
 // kLanes (4) neighbouring lanes of a warp that carry one ray. Each scans
@@ -507,7 +558,8 @@ struct LaneGroup {
 
   __device__ __forceinline__ bool lead() const { return rank == 0; }
 
-  __device__ __forceinline__ GroupSink sink(const Sink& s) const {
+  template <class S>
+  __device__ __forceinline__ GroupSink<S> sink(const S& s) const {
     return {s, lead()};
   }
 
@@ -544,21 +596,11 @@ template <>
 struct LaneGroup<1> {
   __device__ __forceinline__ static LaneGroup mine(int) { return {}; }
   __device__ __forceinline__ static constexpr bool lead() { return true; }
-  __device__ __forceinline__ static const Sink& sink(const Sink& s) {
+  template <class S>
+  __device__ __forceinline__ static const S& sink(const S& s) {
     return s;
   }
 };
-
-// Store one hit as a record: rows 3 * slot .. 3 * slot + 2 of the ray's
-// column (one listener, band 0).
-template <int kMaxK>
-__device__ __forceinline__ void deposit(const RowSink& s, int slot, int /*l*/,
-                                        float delay, const float* e) {
-  float* col = s.rows + static_cast<size_t>(3 * slot) * s.n_rays + s.ray;
-  col[0] = delay;
-  col[s.n_rays] = e[0];
-  col[2 * static_cast<size_t>(s.n_rays)] = 1.0f;
-}
 
 // A ray leaving the source (ops/trace.py::_emit): stratified angle
 // (ray + jitter) / R * 2pi, energy `gain` in every band; a directive

@@ -36,7 +36,7 @@ spectro-IR, anything that consumes individual hits instead of a binned
 IR), by device and shape:
 
 * a CUDA scene with one listener, one band and at most ``MAX_WALLS`` walls
-  goes to the per-bounce step kernel K5 (``bounce_kernel.trace_fused``);
+  goes to the hit-row kernel K5 (``bounce_kernel.trace_fused``);
 * any other CUDA scene (more listeners, bands, or walls) goes to the plain
   trace with its two rays x walls passes in the kernels K1 and K2
   (``ops/trace.py::trace(use_kernels=True)``), as do the debug ray paths

@@ -13,17 +13,19 @@ Three entry points launch the one whole-frame CUDA template of
   each with its own tables, random stream and fixed-point scale; it
   replaces ``::trace_rooms_ir_mega``.
 
-Two more launch the per-bounce step template of ``csrc/step_kernel.cu``,
-one launch per bounce with the ray state in device memory between them:
+Two more serve one frame:
 
 * :func:`trace_fused_rows` (K5) returns the raw hit rows ``[B, 8, R]`` of
   one frame (one listener, one band), the hit-record form that
   :func:`scatter_hits_rows` bins and :func:`trace_fused` turns into
-  :class:`..trace.Hits`; it replaces ``::trace_fused_rows``;
-* :func:`trace_frame_ir_fused` (K6) bins each bounce's hits in the kernel
-  and returns one frame's IR ``[L, T, 1]``, bit-identical to K3 on the
-  same uniforms and to K4 on the same seed; it replaces
-  ``::trace_frame_ir_fused``.
+  :class:`..trace.Hits`; it replaces ``::trace_fused_rows``. Its kernel,
+  ``frame_rows_kernel``, runs the same bounce loop as K3 (all B bounces
+  of a ray in one launch, in lane groups) and stores each bounce's hits
+  as rows in place of binning them;
+* :func:`trace_frame_ir_fused` (K6) returns one frame's IR ``[L, T, 1]``
+  binned in the kernel; it replaces ``::trace_frame_ir_fused``, and it is
+  K3's launch at one frame (K4's with a seed), so it equals K3 on the
+  same uniforms and K4 on the same seed bit for bit.
 
 :func:`trace_accumulate_fused` is the JAX function's ``exact_scatter``
 route: a K5 pass per listener and a float scatter of its rows.
@@ -42,10 +44,11 @@ listener count: where a scene's listeners and its wall table do not fit
 one block's shared memory together, the wrapper launches the listeners in
 blocks over the same random numbers and the same fixed-point scale, which
 reproduces the whole launch bit for bit (ray physics never reads the
-listener table). K5 and K6 take one band, as in the JAX package. A K3,
-K4 or K9 launch too small to fill the card (the stream's one frame of
-15,000 rays) runs in lane groups, 4 threads per ray that split its wall
-scans (:func:`lane_group`), with the same IR bit for bit.
+listener table). K5 and K6 take one band, as in the JAX package, and K6
+at most 16 listeners. A K3, K4, K5 or K9 launch too small to fill the
+card (the stream's one frame of 15,000 rays) runs in lane groups, 4
+threads per ray that split its wall scans (:func:`lane_group`), with the
+same bits.
 
 K3 and K4 return the frame-SUMMED IR ``[L, T, K]`` float32, K9
 ``[E, L, T, K]``. On a CUDA scene they launch the kernel or raise; on a
@@ -56,7 +59,7 @@ CPU scene they run their plain version, :func:`trace_frames_ir_plain`
 and :func:`trace_frame_ir_fused_plain` (``ops/trace.py::_bounce`` one
 bounce at a time on an explicit state), which are also what the kernels
 are held against on the card. Each entry point counts its launches in
-``.launches`` (K5 and K6: one per bounce; K3, K4 and K9 one per listener
+``.launches`` (K5 and K6: one per call; K3, K4 and K9 one per listener
 block, or one per chunk of (entry, frame) planes where the scratch takes
 them in chunks).
 """
@@ -646,32 +649,26 @@ def trace_rooms_ir_mega(scenes: Scene, sources, listeners, seed: int,
                    scenes.n_bands, trace_rooms_ir_mega)
 
 
-# --- the per-bounce step kernel: K5 (hit rows) and K6 (in-kernel binning) ----
+# --- one frame: K5 (hit rows) and K6 (K3/K4 at one frame) --------------------
 
 # hit-row indices of the [B, 8, R] rows (rows 6 and 7 are zero padding)
 HD_DELAY, HD_EN, HD_VAL, HN_DELAY, HN_EN, HN_VAL = range(6)
 HIT_ROWS = 8
+# K6 takes at most 16 listeners (the JAX kernel 4), one band
+MAX_FUSED_LISTENERS = 16
 
-_STEP_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+_ROWS_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_void_p,
-                  ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_void_p)
-_CONVERT_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_longlong, ctypes.c_void_p)
+                  ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
 
 
-def _step_fns():
-    lib = build.load_library()
-    step, convert = lib.art_bounce_step, lib.art_fixed_to_float
-    step.argtypes, step.restype = _STEP_ARGTYPES, ctypes.c_int
-    convert.argtypes, convert.restype = _CONVERT_ARGTYPES, ctypes.c_int
-    return step, convert
+def _rows_fn():
+    fn = build.load_library().art_trace_frame_rows
+    fn.argtypes = _ROWS_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check_uniforms(scene, emit, u):
@@ -686,49 +683,17 @@ def _check_uniforms(scene, emit, u):
     return n_rays, max_bounces
 
 
-def _run_steps(scene, params, emit, u, key, n_rays, max_bounces, *,
-               rows=None, acc=None, scale=None, sample_rate=0.0,
-               ir_length=0, work_counts=None, counter):
-    """Launch the step kernel once per bounce on a fresh ray state. Host
-    uniforms ``emit[R]``, ``u[B, R, 3]``, or, with both None, Philox
-    numbers under ``key`` (frame 0). Hits go to ``rows[B, 8, R]`` (K5) or
-    into the u64 accumulator ``acc[L, T]`` under ``scale`` (K6).
-    ``counter`` is the entry point whose ``.launches`` counts them."""
-    dev = scene.device
-    step, _ = _step_fns()
-    walls = pack_walls(scene)
-    lis = params.listeners.contiguous()
-    scal = pack_scalars(params)
-    for name, x in (("walls", walls), ("listeners", lis), ("scalars", scal)):
-        _check_tensor(name, x, dev)
-    src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
-                              lis.shape[0], dev)
-    n_src = 0 if src is None else src.shape[-1]
-    n_mic = 0 if mic is None else mic.shape[-1]
-    if work_counts is not None:
-        _check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
-    state = torch.empty((8, n_rays), dtype=torch.float32, device=dev)
-    depth = torch.empty(n_rays, dtype=torch.int32, device=dev)
-    host = emit is not None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for b in range(max_bounces):
-        err = step(
-            int(host), walls.data_ptr(), walls.shape[-1], lis.data_ptr(),
-            lis.shape[0], _ptr(src), n_src, _ptr(mic), n_mic,
-            scal.data_ptr(), float(sample_rate),
-            emit.data_ptr() if host else None,
-            u[b].data_ptr() if host else None, key[0], key[1], 0, n_rays,
-            max_bounces, b, ir_length,
-            scale.data_ptr() if scale is not None else None,
-            state.data_ptr(), depth.data_ptr(),
-            rows[b].data_ptr() if rows is not None else None,
-            acc.data_ptr() if acc is not None else None,
-            work_counts.data_ptr() if work_counts is not None else None,
-            stream)
-        if err != 0:
-            raise RuntimeError(f"bounce step kernel launch failed at bounce "
-                               f"{b}: cudaError {err}")
-        counter.launches += 1
+def _check_fused_supported(scene: Scene, params: TraceParams) -> None:
+    """K6 and :func:`trace_accumulate_fused` take one band, as the JAX
+    ``trace_frame_ir_fused`` does, and at most :data:`MAX_FUSED_LISTENERS`
+    listeners, on any device; K3/K4 take any band and listener count."""
+    n_l = params.listeners.shape[0]
+    if scene.n_bands != 1 or n_l > MAX_FUSED_LISTENERS:
+        raise ValueError(
+            f"trace_frame_ir_fused takes one band and at most "
+            f"{MAX_FUSED_LISTENERS} listeners, got {scene.n_bands} bands and "
+            f"{n_l} listeners; trace_frames_ir_whole / trace_frames_ir_mega "
+            "take any")
 
 
 def _check_rows_supported(scene: Scene, params: TraceParams) -> None:
@@ -787,17 +752,38 @@ def trace_fused_rows(scene: Scene, params: TraceParams, emit: torch.Tensor,
     """K5: one frame with host uniforms ``emit[R]``, ``u[B, R, 3]`` -> raw
     hit rows ``[B, 8, R]`` float32 (rows: direct delay/energy/valid, NEE
     delay/energy/valid, two of padding), the form
-    :func:`scatter_hits_rows` consumes; one launch per bounce. One
-    listener, one band. CPU scenes run :func:`trace_fused_rows_plain`."""
+    :func:`scatter_hits_rows` consumes: all B bounces in one launch of the
+    bounce loop K3 runs, in its lane groups (:func:`lane_group`), with the
+    hits stored as rows. The rows of a hit that did not happen, and of
+    every bounce after a ray dies, are zeros. One listener, one band.
+    ``work_counts`` as for :func:`trace_frames_ir_mega`: K3's counts on the
+    same uniforms. CPU scenes run :func:`trace_fused_rows_plain`."""
     if scene.device.type != "cuda":
         return trace_fused_rows_plain(scene, params, emit, u)
     _check_rows_supported(scene, params)
     n_rays, max_bounces = _check_uniforms(scene, emit, u)
+    dev = scene.device
+    walls = pack_walls(scene)
+    lis = params.listeners.contiguous()
+    scal = pack_scalars(params)
+    for name, x in (("walls", walls), ("listeners", lis), ("scalars", scal)):
+        _check_tensor(name, x, dev)
+    src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
+                              1, dev)
+    n_src, n_mic = _pattern_sizes(src, mic)
+    if work_counts is not None:
+        _check_tensor("work_counts", work_counts, dev, (3,), torch.int64)
+    emit, u = emit.contiguous(), u.contiguous()
     rows = torch.empty((max_bounces, HIT_ROWS, n_rays), dtype=torch.float32,
-                       device=scene.device)
-    _run_steps(scene, params, emit.contiguous(), u.contiguous(), (0, 0),
-               n_rays, max_bounces, rows=rows, work_counts=work_counts,
-               counter=trace_fused_rows)
+                       device=dev)
+    err = _rows_fn()(
+        walls.data_ptr(), walls.shape[-1], lis.data_ptr(), _ptr(src), n_src,
+        _ptr(mic), n_mic, scal.data_ptr(), emit.data_ptr(), u.data_ptr(),
+        n_rays, max_bounces, lane_group(n_rays, 1), rows.data_ptr(),
+        _ptr(work_counts), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hit-row kernel launch failed: cudaError {err}")
+    trace_fused_rows.launches += 1
     return rows
 
 
@@ -864,20 +850,22 @@ def trace_frame_ir_fused(scene: Scene, params: TraceParams,
                          sample_rate: int, ir_length: int,
                          work_counts: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """K6: ONE frame -> IR ``[L, T, 1]`` with the binning inside the
-    per-bounce kernel (one launch per bounce, hits never reach device
-    memory as records). Either host uniforms ``emit[R]``, ``u[B, R, 3]``
-    or, the counterpart of the JAX function's ``in_kernel_rng``, a
-    ``seed`` with ``n_rays`` and ``max_bounces``: the kernel then draws
-    frame 0 of that seed's Philox stream. The accumulator and its scale
-    are K3's, so the IR equals :func:`trace_frames_ir_whole` of the same
-    one frame bit for bit, and with a seed
-    ``trace_frames_ir_mega(seed, 1)``. CPU scenes run
+    """K6: ONE frame -> IR ``[L, T, 1]`` binned in the kernel (hits never
+    reach device memory as records). Either host uniforms ``emit[R]``,
+    ``u[B, R, 3]`` or, the counterpart of the JAX function's
+    ``in_kernel_rng``, a ``seed`` with ``n_rays`` and ``max_bounces``: the
+    kernel then draws frame 0 of that seed's Philox stream. It is K3's
+    launch at one frame (K4's with a seed), counted here: the IR equals
+    :func:`trace_frames_ir_whole` of the same one frame bit for bit, and
+    with a seed ``trace_frames_ir_mega(seed, 1)``. One band and at most
+    :data:`MAX_FUSED_LISTENERS` listeners, as the JAX contract (4
+    listeners there), on any device. CPU scenes run
     :func:`trace_frame_ir_fused_plain` (on the seed's Philox numbers)."""
     if (seed is None) == (emit is None and u is None):
         raise ValueError("give either host uniforms (emit, u) or a seed")
     if seed is not None and (n_rays is None or max_bounces is None):
         raise ValueError("a seed needs n_rays and max_bounces")
+    _check_fused_supported(scene, params)
     if scene.device.type != "cuda":
         if seed is not None:
             emit, u = rng.philox_uniforms(seed, 1, max_bounces, n_rays,
@@ -886,39 +874,30 @@ def trace_frame_ir_fused(scene: Scene, params: TraceParams,
         return trace_frame_ir_fused_plain(scene, params, emit, u,
                                           sample_rate=sample_rate,
                                           ir_length=ir_length)
-    check_kernel_supported(scene, params)
-    key = (0, 0)
     if seed is None:
         n_rays, max_bounces = _check_uniforms(scene, emit, u)
-        emit, u = emit.contiguous(), u.contiguous()
-    else:
-        key = rng.seed_key(seed)
-    dev = scene.device
-    n_l = params.listeners.shape[0]
-    scale = fixed_point_scale(params, 1, n_rays, max_bounces).reshape(1)
-    acc = torch.zeros((n_l, ir_length), dtype=torch.int64, device=dev)
-    out = torch.empty((n_l, ir_length, 1), dtype=torch.float32, device=dev)
-    _run_steps(scene, params, emit, u, key, n_rays, max_bounces, acc=acc,
-               scale=scale, sample_rate=sample_rate, ir_length=ir_length,
-               work_counts=work_counts, counter=trace_frame_ir_fused)
-    _, convert = _step_fns()
-    err = convert(acc.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                  acc.numel(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"IR conversion launch failed: cudaError {err}")
-    return out
+        return _launch_scene(True, scene, params, emit.contiguous()[None],
+                             u.contiguous()[None], (0, 0), 1, n_rays,
+                             max_bounces, sample_rate, ir_length,
+                             work_counts, trace_frame_ir_fused)
+    return _launch_scene(False, scene, params, None, None,
+                         rng.seed_key(seed), 1, n_rays, max_bounces,
+                         sample_rate, ir_length, work_counts,
+                         trace_frame_ir_fused)
 
 
 def trace_accumulate_fused(scene: Scene, params: TraceParams, state: IRState,
                            emit: torch.Tensor, u: torch.Tensor, *,
                            sample_rate: int, exact_scatter: bool = False
                            ) -> IRState:
-    """Step-kernel counterpart of ``engine.trace_accumulate`` for host
+    """Fused-kernel counterpart of ``engine.trace_accumulate`` for host
     uniforms ``emit[F, R]``, ``u[F, B, R, 3]``: each frame through K6
     (:func:`trace_frame_ir_fused`), or, with ``exact_scatter``, a K5 pass
     per listener (the ray paths do not depend on the listener) whose rows
     :func:`scatter_hits_rows` bins in float32, the route of the JAX
-    ``trace_accumulate_fused(exact_scatter=True)``. One band."""
+    ``trace_accumulate_fused(exact_scatter=True)``. K6's contract on either
+    route: one band, at most :data:`MAX_FUSED_LISTENERS` listeners."""
+    _check_fused_supported(scene, params)
     ir_length = state.ir_length
     total = state.sum
     for f in range(emit.shape[0]):

@@ -45,7 +45,7 @@ FRAMES, DEBUG_RAYS = 8, 100
 def kind(name):
     """Group a device event by what launched it."""
     low = name.lower()
-    for mine in ("bounce_step_kernel", "wall_sweep_kernel",
+    for mine in ("frame_rows_kernel", "wall_sweep_kernel",
                  "frames_ir_kernel", "fixed_to_float"):
         if mine in name:
             return mine

@@ -5,9 +5,11 @@ against their plain PyTorch versions, their determinism, their launch
 counts, the engine's routing by wall and band count, the sweep and the
 mixdown on the card, and the wrappers' refusals; then the hit-record
 path: the wall sweeps (K1, K2 of ``csrc/trace_kernel.cu``) and the
-per-bounce step kernel (K5, K6 of ``csrc/step_kernel.cu``) against their
-plain versions, K6 == K3 == K4 bit for bit, the routing of a request for
-hits by listener, band and wall count, and the float scatters' determinism;
+one-frame kernels (K5's hit rows, ``frame_rows_kernel`` of
+``csrc/bounce_kernel.cu``, in either lane group; K6, K3/K4's launch at one
+frame) against their plain versions, K6 == K3 == K4 bit for bit, K6's
+refusals, the routing of a request for hits by listener, band and wall
+count, and the float scatters' determinism;
 then the banded and many-listener paths: K3/K4/K9 at 8, 32 and 512 bands
 and K7 at 32 and 40 against their plain versions, equal bands == one band
 bit for bit, K4 == K7 on a sorted banded city, listener blocks == the
@@ -532,7 +534,7 @@ def test_cuda_city_never_runs_the_plain_version(cuda_device, monkeypatch):
     assert bool(torch.isfinite(out).all()) and float(out.abs().max()) > 0
 
 
-# --- the hit-record path: K1, K2 (wall sweeps), K5, K6 (per-bounce step) -----
+# --- the hit-record path: K1, K2 (wall sweeps), K5, K6 (one frame) -----------
 
 def _hit_counts():
     return (tk.nearest_hit.launches, tk.occlusion_min.launches,
@@ -607,7 +609,7 @@ def test_rows_kernel_equals_the_plain_rows(cuda_device, room_fn, gain):
     before = _hit_counts()
     rows = bk.trace_fused_rows(scene, params, emit, u)
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(_hit_counts(), before)) == (0, 0, 5, 0)
+    assert tuple(a - b for a, b in zip(_hit_counts(), before)) == (0, 0, 1, 0)
     want = bk.trace_fused_rows_plain(scene, params, emit, u)
     assert tuple(rows.shape) == (5, 8, 15000)
     assert int((want[:, [2, 5]] > 0.5).sum()) > 500
@@ -631,12 +633,15 @@ def test_fused_ir_kernel_is_k3_and_k4_bit_for_bit(cuda_device, n_listeners):
     params = _two_ears(room, cuda_device)
     params = params._replace(listeners=params.listeners[:n_listeners])
     emit, u = rng.philox_uniforms(12, 1, 5, 15000, cuda_device)
-    before = _hit_counts()
+    before = _hit_counts(), _launch_counts()
     k6 = bk.trace_frame_ir_fused(room.scene, params, emit[0], u[0], **KW)
     seeded = bk.trace_frame_ir_fused(room.scene, params, seed=12,
                                      n_rays=15000, max_bounces=5, **KW)
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(_hit_counts(), before)) == (0, 0, 0, 10)
+    # one launch a call, K3's or K4's instantiation, counted as K6's
+    assert tuple(a - b for a, b in zip(_hit_counts(), before[0])) == \
+        (0, 0, 0, 2)
+    assert _launch_counts() == before[1]
     k3 = bk.trace_frames_ir_whole(room.scene, params, emit, u, **KW)
     k4 = bk.trace_frames_ir_mega(room.scene, params, 12, 1, n_rays=15000,
                                  max_bounces=5, **KW)
@@ -652,6 +657,108 @@ def test_fused_ir_kernel_is_k3_and_k4_bit_for_bit(cuda_device, n_listeners):
         emit, u, sample_rate=48000, exact_scatter=True)
     assert state.frames == 1
     _assert_close_irs(state.sum, k3)
+
+
+def _open_corridor(device):
+    """Two parallel walls 6 m apart, open at both ends, a listener between
+    them: the rays that leave along the corridor escape at once, the
+    others after a few bounces."""
+    builder = art.SceneBuilder()
+    mat = art.AudioMaterial(0.2, 0.3, 0.0, 1.0)
+    builder.add_segment((-4.0, -3.0), (4.0, -3.0), (0.0, 1.0), mat)
+    builder.add_segment((-4.0, 3.0), (4.0, 3.0), (0.0, -1.0), mat)
+    return builder.build(device=device), TraceParams.make(
+        [0.0, 0.0], [1.5, 1.0], device=device)
+
+
+def _rows_case(device, case):
+    if case == "open corridor":
+        return _open_corridor(device)
+    room_fn, gain = (rooms.big_room, 100.0) if case.startswith("Big") else \
+        (rooms.smoll_room, 1.0)
+    scene, params = _setup(device, room_fn=room_fn, gain=gain)
+    if case.endswith("directive"):
+        src, mic = _patterns(device)
+        params = params._replace(directivity=src, mic_directivity=mic)
+    return scene, params
+
+
+@cuda
+@pytest.mark.parametrize("case,n_rays,n_bounces", [
+    ("SmollRoom", 15000, 5), ("Big Room", 15000, 5),
+    ("SmollRoom", 131072, 8), ("SmollRoom directive", 15000, 5),
+    ("open corridor", 15000, 5)])
+def test_rows_kernel_is_the_plain_rows_in_either_lane_group(
+        cuda_device, monkeypatch, case, n_rays, n_bounces):
+    """K5's rows equal the plain rows bit for bit with one lane a ray and
+    in lane groups of 4, whichever ``lane_group`` picks, with the same
+    work counts; on the open corridor the rows of the bounces after a ray
+    escapes are zeros in both (no memset runs)."""
+    scene, params = _rows_case(cuda_device, case)
+    emit, u = rng.philox_uniforms(8, 1, n_bounces, n_rays, cuda_device)
+    emit, u = emit[0], u[0]
+    want = bk.trace_fused_rows_plain(scene, params, emit, u)
+    assert int((want[:, [2, 5]] > 0.5).sum()) > 100
+    out = {}
+    for lanes in (1, bk.LANE_GROUP):
+        monkeypatch.setattr(bk, "lane_group", lambda n, k, g=lanes: g)
+        work = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+        before = bk.trace_fused_rows.launches
+        out[lanes] = bk.trace_fused_rows(scene, params, emit, u,
+                                         work_counts=work), work
+        torch.cuda.synchronize()
+        assert bk.trace_fused_rows.launches == before + 1
+    for lanes, (rows, work) in out.items():
+        assert torch.equal(rows, want), lanes
+        assert torch.equal(work, out[1][1]), lanes
+    if case == "open corridor":    # most rays die before the last bounce
+        assert float((want[-1, [2, 5]] > 0.5).float().mean()) < 0.1
+        assert float((want[0, [2, 5]] > 0.5).float().mean()) > 0.2
+
+
+@cuda
+@pytest.mark.parametrize("room_fn,gain", [(rooms.smoll_room, 1.0),
+                                          (rooms.big_room, 100.0)])
+def test_rows_kernel_work_counts_are_k3s(cuda_device, room_fn, gain):
+    """K5 runs K3's bounce loop: the same wall tests and sweeps on the same
+    uniforms."""
+    scene, params = _setup(cuda_device, room_fn=room_fn, gain=gain)
+    emit, u = rng.philox_uniforms(14, 1, 5, 15000, cuda_device)
+    work = {k: torch.zeros(3, dtype=torch.int64, device=cuda_device)
+            for k in ("K5", "K3")}
+    bk.trace_fused_rows(scene, params, emit[0], u[0], work_counts=work["K5"])
+    bk.trace_frames_ir_whole(scene, params, emit, u, work_counts=work["K3"],
+                             **KW)
+    torch.cuda.synchronize()
+    assert int(work["K3"][1]) > 15000
+    assert torch.equal(work["K5"], work["K3"])
+
+
+@cuda
+def test_fused_ir_refuses_bands_and_17_listeners_on_the_card(cuda_device):
+    """K6 routes to K3/K4's launch, which takes any band and listener
+    count, so its wrapper refuses what the JAX contract refuses before
+    anything launches."""
+    room = rooms.smoll_room(device=cuda_device)
+    emit, u = rng.philox_uniforms(2, 1, 4, 256, cuda_device)
+    banded = rooms.smoll_room(n_bands=2, device=cuda_device)
+    p1 = TraceParams.make(room.source, room.listener, device=cuda_device)
+    p17 = p1._replace(listeners=_listeners(cuda_device, 17))
+    before = _hit_counts(), _launch_counts()
+    for scene, params, what in ((banded.scene, p1, "one band"),
+                                (room.scene, p17, "16 listeners")):
+        with pytest.raises(ValueError, match=what):
+            bk.trace_frame_ir_fused(scene, params, emit[0], u[0], **KW)
+        with pytest.raises(ValueError, match=what):
+            bk.trace_frame_ir_fused(scene, params, seed=2, n_rays=256,
+                                    max_bounces=4, **KW)
+        with pytest.raises(ValueError, match=what):
+            bk.trace_accumulate_fused(
+                scene, params, art.IRState.zeros(
+                    72000, params.listeners.shape[0], scene.n_bands,
+                    device=cuda_device),
+                emit, u, sample_rate=48000)
+    assert (_hit_counts(), _launch_counts()) == before
 
 
 @cuda
@@ -676,7 +783,7 @@ def test_hit_requests_route_by_listeners_bands_and_walls(cuda_device,
 
     room = rooms.smoll_room(device=cuda_device)
     mono = TraceParams.make(room.source, room.listener, device=cuda_device)
-    assert run(room.scene, mono) == (0, 0, 4, 0)                   # K5
+    assert run(room.scene, mono) == (0, 0, 1, 0)                   # K5
     assert run(room.scene, _two_ears(room, cuda_device)) == (4, 4, 0, 0)
     banded = rooms.smoll_room(n_bands=4, device=cuda_device)
     assert run(banded.scene, mono) == (4, 4, 0, 0)                 # K1/K2

@@ -1,6 +1,7 @@
-"""PyTorch port: the per-bounce step kernel's wrappers and plain versions
-(K5 ``trace_fused_rows`` / ``trace_fused`` / ``scatter_hits_rows``, K6
-``trace_frame_ir_fused``, and the ``exact_scatter`` route).
+"""PyTorch port: the one-frame kernels' wrappers and plain versions (K5
+``trace_fused_rows`` / ``trace_fused`` / ``scatter_hits_rows``, K6
+``trace_frame_ir_fused``, and the ``exact_scatter`` route), their
+contract (one band; K6 at most 16 listeners) and K5's launch plan.
 
 On the CPU the wrappers run the plain versions (``ops/trace.py::_bounce``
 one bounce at a time on an explicit state), held here against JAX's
@@ -25,6 +26,8 @@ import torch
 from torch_parity import jax_frame_uniforms, to_numpy, to_torch
 
 from realisticaudioraytracing2d_tpu.models import rooms as jax_rooms
+from realisticaudioraytracing2d_tpu.models.materials import AudioMaterial
+from realisticaudioraytracing2d_tpu.models.scene import SceneBuilder
 from realisticaudioraytracing2d_tpu.ops import rng as jax_rng
 from realisticaudioraytracing2d_tpu.ops.ir import IRState as JaxIRState
 from realisticaudioraytracing2d_tpu.ops.pallas import bounce_kernel as jax_bk
@@ -196,3 +199,114 @@ def test_engine_routes_hits_on_the_cpu_to_the_plain_trace(setup):
     e2, u2 = rng.philox_uniforms(5, 3, B, 64, "cpu")
     e1, u1 = rng.philox_uniforms(5, 1, B, 64, "cpu", first_frame=2)
     assert torch.equal(e1[0], e2[2]) and torch.equal(u1[0], u2[2])
+
+
+def test_fused_ir_refuses_bands_like_jax(setup):
+    """K6 and its accumulate entry point take one band, as the JAX
+    ``trace_frame_ir_fused`` does, on the CPU as on the card (the kernel
+    would otherwise be handed one band of a banded scene)."""
+    room, p, key, _, params, emit, u = setup
+    banded_j = jax_rooms.smoll_room(n_bands=2).scene
+    banded = convert.scene_from_arrays(banded_j, device="cpu")
+    with pytest.raises(ValueError, match="one band"):
+        jax_bk.trace_frame_ir_fused(banded_j, p, key, n_rays=R, max_bounces=B,
+                                    sample_rate=SR, ir_length=T)
+    kw = dict(sample_rate=SR, ir_length=T)
+    with pytest.raises(ValueError, match="one band"):
+        bk.trace_frame_ir_fused(banded, params, emit, u, **kw)
+    with pytest.raises(ValueError, match="one band"):
+        bk.trace_frame_ir_fused(banded, params, seed=3, n_rays=R,
+                                max_bounces=B, **kw)
+    for exact in (False, True):
+        with pytest.raises(ValueError, match="one band"):
+            bk.trace_accumulate_fused(
+                banded, params, irm.IRState.zeros(T, 1, 2, device="cpu"),
+                emit[None], u[None], sample_rate=SR, exact_scatter=exact)
+
+
+def test_fused_ir_refuses_more_than_16_listeners(setup):
+    room, _, _, scene, params, emit, u = setup
+    grid = np.stack(np.meshgrid(np.linspace(-2, 2, 17), [0.0]), -1)
+    lis = (room.listener + grid.reshape(-1, 2)).astype(np.float32)
+    kw = dict(sample_rate=SR, ir_length=T)
+    e, v = emit[:64], u[:, :64]
+    p16 = params._replace(listeners=to_torch(lis[:16]))
+    assert tuple(bk.trace_frame_ir_fused(scene, p16, e, v, **kw).shape) == \
+        (16, T, 1)
+    p17 = params._replace(listeners=to_torch(lis))
+    with pytest.raises(ValueError, match="16 listeners"):
+        bk.trace_frame_ir_fused(scene, p17, e, v, **kw)
+    with pytest.raises(ValueError, match="16 listeners"):
+        bk.trace_frame_ir_fused(scene, p17, seed=3, n_rays=64,
+                                max_bounces=B, **kw)
+    for exact in (False, True):
+        with pytest.raises(ValueError, match="16 listeners"):
+            bk.trace_accumulate_fused(
+                scene, p17, irm.IRState.zeros(T, 17, 1, device="cpu"),
+                e[None], v[None], sample_rate=SR, exact_scatter=exact)
+
+
+def _open_corridor():
+    """Two parallel walls 6 m apart, open at both ends: the rays that leave
+    along the corridor escape at once, the others after a few bounces."""
+    mat = AudioMaterial(0.2, 0.3, 0.0, 1.0)
+    builder = SceneBuilder()
+    builder.add_segment((-4.0, -3.0), (4.0, -3.0), (0.0, 1.0), mat)
+    builder.add_segment((-4.0, 3.0), (4.0, 3.0), (0.0, -1.0), mat)
+    return builder.build()
+
+
+def test_rows_after_a_ray_dies_are_zeros():
+    """On a scene where most rays escape before bounce B, the plain rows of
+    every bounce after a ray dies, and of every hit that did not happen,
+    are zeros (the kernel writes the same, with no memset). Where a hit
+    is valid the rows are JAX's ``trace_fused_rows`` in interpret mode
+    within the JAX package's own limits between its K5 and its trace;
+    JAX leaves stale values where valid = 0, so only valid rows compare."""
+    scene_j = _open_corridor()
+    p = JaxTraceParams.make(np.array([0.0, 0.0], np.float32),
+                            np.array([1.5, 1.0], np.float32), 0.5, 343.0,
+                            1.0)
+    key = jax.random.PRNGKey(5)
+    emit_j, u_j = jax_rng.bounce_uniforms(key, B, R)
+    scene = convert.scene_from_arrays(scene_j, device="cpu")
+    params = convert.params_from_arrays(p, device="cpu")
+    emit, u = to_torch(emit_j), to_torch(u_j)
+    rows = bk.trace_fused_rows(scene, params, emit, u)
+    # when each ray dies: alive after bounce b, from the plain state
+    st = tt._emit(params, R, 1, emit)
+    alive = []
+    for b in range(B):
+        st, _ = tt._bounce(scene, params, st, u[b])
+        alive.append(st.alive)
+    alive = torch.stack(alive)                                   # [B, R]
+    dead_before = torch.cat([torch.zeros_like(alive[:1]), ~alive[:-1]])
+    assert 0.2 < float(dead_before[-1].float().mean()) < 0.95
+    assert float(rows.permute(0, 2, 1)[dead_before].abs().sum()) == 0.0
+    for v, cols in ((rows[:, 2], rows[:, 0:2]), (rows[:, 5], rows[:, 3:5])):
+        assert float((cols * (v == 0)[:, None]).abs().sum()) == 0.0
+    assert float(rows[:, 6:].abs().sum()) == 0.0
+    rows_j = np.asarray(jax_bk.trace_fused_rows(scene_j, p, key, n_rays=R,
+                                                max_bounces=B, tile_r=256))
+    got = to_numpy(rows)
+    vt, vj = got[:, [2, 5]] > 0.5, rows_j[:, [2, 5]] > 0.5
+    assert vt.sum() > 100 and (vt != vj).mean() < 5e-3
+    both = vt & vj
+    np.testing.assert_allclose(got[:, [0, 3]][both], rows_j[:, [0, 3]][both],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got[:, [1, 4]][both], rows_j[:, [1, 4]][both],
+                               rtol=1e-2, atol=1e-9)
+
+
+@pytest.mark.parametrize("n_rays,lanes", [
+    (15000, 4),              # the stream's and the CLI's frame: 235 blocks
+    (16896, 4),              # the largest frame that takes lane groups
+    (16897, 1),
+    (131072, 1),             # the bench frame: 512 blocks of one lane a ray
+])
+def test_rows_launch_plan(n_rays, lanes):
+    """K5 launches in K3's lane groups for one frame of one band: 4 lanes a
+    ray while its ``n_rays * 4`` threads stay within 16 warps per SM of
+    the card's 132, in blocks of 256."""
+    assert bk.lane_group(n_rays, 1) == lanes
+    assert (n_rays * bk.LANE_GROUP <= bk.LANE_THREADS) == (lanes > 1)
