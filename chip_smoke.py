@@ -86,10 +86,16 @@ Phases:
    K3/K4; ``prepare`` sorts the walls once for the whole stream), K8
    against its plain version at the stream's shape, the chunk time and
    the device-busy share of a chunk;
-10. the hit-record path. 10a: K1 and K2 against their plain versions on
-   the rays of a real trace (SmollRoom and Big Room at 131,072 rays,
-   bounce 0 and bounce 3; the 10,008-wall city with two listeners, the
-   plain versions over slices of rays): distances and indices equal. 10b:
+10. the hit-record path. 10a: K1 and K2 on both routes (the brute sweep
+   and the box walk over ``prepare``'s sorted tables) against their plain
+   versions on the rays of a real trace at 131,072 rays, bounce 0 and
+   before bounce 3 (SmollRoom, Big Room, and the 10,008-, 40,008- and
+   100,016-wall cities with two listeners; the plain versions over slices
+   of rays), without and with ``alive`` and K2's ``limit``: distances,
+   indices and minima equal; the box walk's ray keys equal
+   ``morton_ray_keys``. 10a': ``engine.trace_hits`` on the 10,008-wall
+   city with two listeners (counts reset and read: 5 box-walk launches of
+   K1 and of K2, nothing else), its hits == the plain trace's. 10b:
    ``trace(use_kernels=True)`` against the plain trace at 15,000 x 5 and
    131,072 x 8, one and two listeners: ``valid`` equal, delays and
    energies equal under it, the debug paths of 100 rays equal. 10c: K5's
@@ -126,9 +132,10 @@ Phases:
    SmollRoom with an opaque barrier below the source, a cardioid source,
    an XY cardioid pair and a third listener in the barrier's shadow,
    diffraction order 1 and ISO 9613-1 air (counts reset and read: 35 K4
-   and 105 K2 launches) against its ``backend="plain"`` twin; diffraction
+   and 35 K2 launches, one a chunk for all its visibility sweeps) against
+   its ``backend="plain"`` twin; diffraction
    adds energy in the shadow. 11f: ``diffraction_ir`` through K2 equals
-   its plain version, orders 1 and 2. 11g: ``cli trace`` and ``cli bake``
+   its plain version, orders 1 and 2 (one and two K2 launches). 11g: ``cli trace`` and ``cli bake``
    with ``--directivity --stereo --stereo-aim --diffraction --air``, and
    ``cli bake --legacy`` with patterns, their launch counts;
 12. bands, any listener count and batches past 5,280 walls. 12a: K3, K4
@@ -186,9 +193,12 @@ walls, 6 launches and 5 sorts a call; its plain time is that of the
 comparison over slices of rays), so
 that ``ms``, ``plain_ms`` and ``bound_ms`` are of one call; K8's
 full-width times are in the [8] lines. K1 and K2 are timed on the rays
-``cli trace --scene-out`` gives them (15,000 rays at bounce 3, 24 walls),
-K5 and K6 at one 15,000 x 5 frame; their times at 131,072 rays are in the
-[5] and [12t] lines.
+``cli trace --scene-out`` gives them (15,000 rays at bounce 3, 24 walls:
+the brute sweep), K1b and K2b (their box walk) on 131,072 rays of the
+10,008-wall city with two listeners before bounce 3, each as the trace
+calls them (its alive rays, each shadow ray up to its listener), K5 and
+K6 at one 15,000 x 5 frame; their times at 131,072 rays are in the [5]
+and [12t] lines.
 
 Prints one JSON line of kernels, the card line, and last the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code 1).
@@ -282,9 +292,14 @@ PARENT_REGS = {"K3": (64, 48), "K4": (64, 64), "K9": (64, 64),
 # NVIDIA H100 80GB HBM3), under this build's names: K3/K4/K9 at G = 1
 # (frames_ir_kernel<host, directive, 1, 1>; the parent's <host, directive,
 # 1>), K8 (accel_bounce_kernel<1, early_out, directive>; the parent's
-# <early_out, directive>) and K1/K2 (an unchanged template). The redesign
-# must leave each as it was. The lines of the per-bounce step kernel
-# (bounce_step_kernel<rows, host, directive>) went with its template.
+# <early_out, directive>). The redesign must leave each as it was. The
+# lines of the per-bounce step kernel (bounce_step_kernel<rows, host,
+# directive>) went with its template. K1/K2's entries are those of their
+# redesign's own build (on the same card): the brute sweep at one lane a
+# ray and in lane groups of 4 (wall_sweep_kernel<want_index, lanes>), the
+# box walk (box_sweep_kernel<want_index>) and its key kernel; the template
+# before it (wall_sweep_kernel<want_index>) had 38 registers and no
+# spills.
 PARENT_PTXAS = {
     "frames_ir_kernel<0,0,1,1>": (64, 28, 32),
     "frames_ir_kernel<0,1,1,1>": (78, 0, 0),
@@ -294,8 +309,13 @@ PARENT_PTXAS = {
     "accel_bounce_kernel<1,0,1>": (80, 0, 0),
     "accel_bounce_kernel<1,1,0>": (48, 120, 184),
     "accel_bounce_kernel<1,1,1>": (64, 96, 156),
-    "wall_sweep_kernel<0>": (38, 0, 0),
-    "wall_sweep_kernel<1>": (38, 0, 0)}
+    "wall_sweep_kernel<0,1>": (38, 0, 0),
+    "wall_sweep_kernel<1,1>": (40, 0, 0),
+    "wall_sweep_kernel<0,4>": (39, 0, 0),
+    "wall_sweep_kernel<1,4>": (40, 0, 0),
+    "box_sweep_kernel<0>": (48, 0, 0),
+    "box_sweep_kernel<1>": (48, 0, 0),
+    "ray_keys_kernel": (17, 0, 0)}
 # Device ms per call of the kernels the sorted K7 and the lane groups of
 # K3/K4 replaced, on NVIDIA H100 80GB HBM3, 700.00 W
 # (scripts/torch_redesign_k7_k4.py --parent, the mean of its two parent
@@ -315,6 +335,22 @@ PARENT_K5_MS = {"15k x 5": 0.0401, "131k x 8": 0.1294}
 PARENT_K6_MS = {"15k x 5": 0.0437, "131k x 8": 0.1311}
 FMAD_NOTE = ("at the 67 TFLOP/s peak; the build's --fmad=false contracts no "
              "multiply-add, so at most half of it is reachable")
+
+
+class BoxWalkCount:
+    """A wall sweep's box-walk launches (``.box_launches``) under the name
+    every other wrapper counts in, ``.launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.box_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.box_launches = n
 
 
 def check(ok, what):
@@ -1207,7 +1243,7 @@ def main():
     sys.path.insert(0, HERE)
     import torch
     import realisticaudioraytracing2d_tpu_torch as art
-    from realisticaudioraytracing2d_tpu_torch import cli
+    from realisticaudioraytracing2d_tpu_torch import cli, engine
     from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
     from realisticaudioraytracing2d_tpu_torch.ops import accel
     from realisticaudioraytracing2d_tpu_torch.ops import ir as irm
@@ -1263,7 +1299,8 @@ def main():
           "frames", flush=True)
     kw = dict(sample_rate=SR, ir_length=T)
     errs = {"K3": 0.0, "K4": 0.0, "K9": 0.0, "K7": 0.0, "K8": 0.0,
-            "K1": 0.0, "K2": 0.0, "K5": 0.0, "K6": 0.0}
+            "K1": 0.0, "K2": 0.0, "K5": 0.0, "K6": 0.0, "K1b": 0.0,
+            "K2b": 0.0}
 
     def same_numbers(tag, kernel, got, want):
         """Kernel vs plain on the same uniforms: energy, first nonzero bin,
@@ -1372,11 +1409,15 @@ def main():
                  bk.trace_frames_ir_whole(smoll.scene, smoll_p, *fixed, **kw),
                  bk.trace_frames_ir_plain(smoll.scene, smoll_p, *fixed, **kw))
 
+    # K1 and K2 count by route: brute force in .launches, the box walk in
+    # .box_launches (K1b, K2b)
     wrappers = {"K3": bk.trace_frames_ir_whole, "K4": bk.trace_frames_ir_mega,
                 "K9": bk.trace_rooms_ir_mega, "K7": ak.trace_frames_ir_accel,
                 "K8": ak.trace_frames_ir_accel_sorted, "K1": tk.nearest_hit,
                 "K2": tk.occlusion_min, "K5": bk.trace_fused_rows,
-                "K6": bk.trace_frame_ir_fused}
+                "K6": bk.trace_frame_ir_fused,
+                "K1b": BoxWalkCount(tk.nearest_hit),
+                "K2b": BoxWalkCount(tk.occlusion_min)}
 
     def only(**n):
         """The launch counts of a run that launched only ``n``."""
@@ -1824,62 +1865,132 @@ def main():
     LATER = 3
 
     def ray_states(scene, p, n_rays, seed):
-        """(origin, direction) of the rays of a real trace of ``seed`` at
-        bounce 0 and before bounce ``LATER``."""
+        """The ray states of a real trace of ``seed`` at bounce 0 and before
+        bounce ``LATER`` (K1/K2 on the route the scene takes)."""
         emit, u = rng.philox_uniforms(seed, 1, LATER, n_rays, dev)
-        walls = tk.pack_walls(scene)
+        walls = tk.sweep_walls(scene)
         st = tt._emit(p, n_rays, scene.n_bands, emit[0])
-        first = (st.pos, st.dir)
+        first = st
         for b in range(LATER):
             st, _ = tt._bounce(scene, p, st, u[0, b], walls)
-        return first, (st.pos, st.dir)
+        return first, st
 
     def shadow_rays(p, o):
         """The shadow rays from ``o[R, 2]`` to every listener: ``[R, L, 2]``
-        origins and unit directions, the occlusion pass's input shape."""
+        origins and unit directions, the occlusion pass's input shape, and
+        the limits ``[R, L]``: the distance to the listener less the NEE
+        slack."""
         to_lis = p.listeners[None] - o[:, None]
-        d = to_lis / to_lis.norm(dim=-1, keepdim=True).clamp(min=1e-10)
-        return o[:, None].expand_as(d).contiguous(), d
+        dist = to_lis.norm(dim=-1)
+        d = to_lis / dist[..., None].clamp(min=1e-10)
+        return (o[:, None].expand_as(d).contiguous(), d,
+                dist - tt.OCCLUSION_SLACK)
 
-    # 10a. K1 and K2 against their plain versions on the rays of a trace
+    # 10a. K1 and K2 on both routes against their plain versions on the
+    # rays of a trace (bounce 0 and before bounce LATER), without and with
+    # the masks (the state's alive rays) and K2's limits (each shadow ray
+    # up to its listener); the plain versions over slices of rays, their
+    # masked results by the same torch.where they apply
     sweep_tests = {"K1": 0, "K2": 0}
+    scene_40, p_40, _ = city(10000)
+    scene_100, p_100, _ = city(25002)
+    p_100 = p_100._replace(listeners=torch.stack(
+        [p_100.listeners[0], free_spot(scene_100, p_100.source)]))
+    p_40 = p_40._replace(listeners=torch.stack(
+        [p_40.listeners[0], free_spot(scene_40, p_40.source)]))
+    inf = torch.tensor(1e8, device=dev)
     for name, scene, p in (("SmollRoom", sc, smoll_p),
                            ("Big Room", big_room.scene, big_p),
                            ("city_scene(2500), 2 listeners", scene_9,
-                            p_9two)):
-        walls = tk.pack_walls(scene)
+                            p_9two),
+                           ("city_scene(10000), 2 listeners", scene_40,
+                            p_40),
+                           ("city_scene(25002), 2 listeners", scene_100,
+                            p_100)):
+        packed = tk.pack_walls(scene)
+        prep = ak.prepare(scene)
+        routes = {"K1": tk.SweepWalls(packed), "K1b": tk.SweepWalls(packed,
+                                                                   prep)}
         n_l = p.listeners.shape[0]
         step = max(256, PLAIN_ELEMENTS // (scene.n_walls * n_l))
-        for at, (o, d) in zip((0, LATER), ray_states(scene, p, BIG_RAYS, 20)):
-            t, idx = tk.nearest_hit(o, d, walls)
-            so, sd = shadow_rays(p, o)
-            occ = tk.occlusion_min(so, sd, walls)
+        for at, st in zip((0, LATER), ray_states(scene, p, BIG_RAYS, 20)):
+            o, d, alive = st.pos, st.dir, st.alive
+            so, sd, limit = shadow_rays(p, o)
+            a2 = alive[:, None].expand(-1, n_l).contiguous()
+            keys = tk.ray_keys(o, alive, prep.bounds)
+            check(torch.equal(keys, accel.morton_ray_keys(
+                o[:, 0], o[:, 1], alive, prep.bounds[:2], prep.bounds[2:])),
+                f"10a {name} bounce {at}: ray_keys == morton_ray_keys")
+            got = {k: (tk.nearest_hit(o, d, w), tk.nearest_hit(o, d, w, alive),
+                       tk.occlusion_min(so, sd, w),
+                       tk.occlusion_min(so, sd, w, a2, limit))
+                   for k, w in routes.items()}
             torch.cuda.synchronize()
-            equal = True
+            equal = {k: True for k in routes}
             for r0 in range(0, BIG_RAYS, step):
                 sl = slice(r0, r0 + step)
-                t_p, idx_p = tk.nearest_hit_plain(o[sl], d[sl], walls)
-                occ_p = tk.occlusion_min_plain(so[sl], sd[sl], walls)
-                errs["K1"] = max(errs["K1"], float((t[sl] - t_p).abs().max()))
-                errs["K2"] = max(errs["K2"],
-                                 float((occ[sl] - occ_p).abs().max()))
-                equal &= torch.equal(t[sl], t_p) and torch.equal(
-                    idx[sl], idx_p) and torch.equal(occ[sl], occ_p)
+                t_p, idx_p = tk.nearest_hit_plain(o[sl], d[sl], packed)
+                occ_p = tk.occlusion_min_plain(so[sl], sd[sl], packed)
+                want = ((t_p, idx_p),
+                        (torch.where(alive[sl], t_p, inf),
+                         torch.where(alive[sl], idx_p, -1)), occ_p,
+                        torch.where(a2[sl] & (occ_p < limit[sl]), occ_p, inf))
+                for k, (full, masked, occ, occ_ml) in got.items():
+                    kk = "K2b" if k == "K1b" else "K2"
+                    errs[k] = max(errs[k],
+                                  float((full[0][sl] - t_p).abs().max()))
+                    errs[kk] = max(errs[kk],
+                                   float((occ[sl] - occ_p).abs().max()))
+                    equal[k] &= all(torch.equal(g[sl], w) for g, w in (
+                        *zip(full, want[0]), *zip(masked, want[1]),
+                        (occ, want[2]), (occ_ml, want[3])))
             sweep_tests["K1"] += BIG_RAYS * scene.n_walls
             sweep_tests["K2"] += BIG_RAYS * n_l * scene.n_walls
+            idx = got["K1"][0][1]
+            occ = got["K1"][2]
             hit = float((idx >= 0).float().mean())
             blocked = float((occ < 1e8).float().mean())
             print(f"[10a] K1/K2 vs plain, {name}, {scene.n_walls} walls, "
-                  f"{BIG_RAYS} rays at bounce {at} (plain over slices of "
-                  f"{step} rays): distances, indices and occlusion minima "
-                  f"equal: {equal}; {hit:.3f} of the rays hit a wall, "
+                  f"{BIG_RAYS} rays at bounce {at} ({int(alive.sum())} "
+                  f"alive; plain over slices of {step} rays): distances, "
+                  "indices and occlusion minima equal, without and with "
+                  f"alive / limit, brute / box walk: {equal['K1']} / "
+                  f"{equal['K1b']}; the box walk's ray keys == "
+                  f"morton_ray_keys; {hit:.3f} of the rays hit a wall, "
                   f"{blocked:.3f} of the {BIG_RAYS * n_l} shadow rays cross "
                   "one", flush=True)
-            check(equal, f"10a {name} bounce {at}: K1/K2 == plain")
+            check(equal["K1"] and equal["K1b"],
+                  f"10a {name} bounce {at}: K1/K2 == plain on both routes")
             check(hit > 0.5, f"10a {name} bounce {at}: most rays hit a wall")
-    print(f"[10a] wall tests compared: K1 {sweep_tests['K1']}, K2 "
-          f"{sweep_tests['K2']}; max abs error K1 {errs['K1']}, K2 "
-          f"{errs['K2']}", flush=True)
+            del got, so, sd, limit, a2
+    del scene_40, p_40, scene_100, p_100
+    print(f"[10a] wall tests compared per route: K1 {sweep_tests['K1']}, K2 "
+          f"{sweep_tests['K2']}; max abs error brute K1 {errs['K1']}, K2 "
+          f"{errs['K2']}; box walk K1 {errs['K1b']}, K2 {errs['K2b']}",
+          flush=True)
+
+    # 10a'. the user path past BOX_WALK_MIN_WALLS: hit records on the
+    # 10,008-wall city with two listeners through engine.trace_hits (the
+    # box walk of K1 and K2 at every bounce), held against the plain trace
+    check(scene_9.n_walls >= tk.BOX_WALK_MIN_WALLS
+          and sc.n_walls < tk.BOX_WALK_MIN_WALLS,
+          "10a': the city takes the box walk, SmollRoom the brute sweep")
+    e9, u9 = (x[0] for x in rng.philox_uniforms(24, 1, BOUNCES, RAYS, dev))
+    city_hits, launched = counted(lambda: engine.trace_hits(
+        scene_9, p_9two, e9, u9))
+    check(launched == only(K1b=BOUNCES, K2b=BOUNCES),
+          f"10a': engine.trace_hits on the city, launch counts {launched}")
+    for k in ("K1b", "K2b"):
+        launches[k] = launched[k]
+    v = tt.trace_hits_only(scene_9, p_9two, e9, u9)
+    check(int(v.valid.sum()) > 0 and torch.equal(city_hits.valid, v.valid)
+          and torch.equal(city_hits.delay[v.valid], v.delay[v.valid])
+          and torch.equal(city_hits.energy[v.valid], v.energy[v.valid]),
+          "10a': the city's hit records == the plain trace's")
+    print(f"[10a'] engine.trace_hits, city_scene(2500), 2 listeners, {RAYS} x "
+          f"{BOUNCES}: launches {launched}; {int(v.valid.sum())} valid hits, "
+          "== the plain trace's", flush=True)
+    del city_hits, v
 
     # 10b. trace(use_kernels=True) against the plain trace
     def hits_equal(tag, got, want):
@@ -2317,10 +2428,10 @@ def main():
     moved = {k: table.get(k) for k, v in PARENT_PTXAS.items()
              if table.get(k) != v}
     print(f"[11c] ptxas registers / spill stores / spill loads of the "
-          f"{len(PARENT_PTXAS)} one-band instantiations the parent built "
-          f"(PARENT_PTXAS): equal to the parent's: {not moved}; "
-          + "; ".join(f"{k} {table.get(k)}" for k in PARENT_PTXAS
-                      if k.startswith("frames") or k.startswith("accel")),
+          f"{len(PARENT_PTXAS)} instantiations of PARENT_PTXAS (the "
+          "one-band K3/K4/K9/K8 the parent built, K1/K2's of their "
+          f"redesign): equal: {not moved}; "
+          + "; ".join(f"{k} {table.get(k)}" for k in PARENT_PTXAS),
           flush=True)
     check(not moved, f"11c: ptxas lines moved from the parent's: {moved}")
     # K5's kernel is new code: its lines beside K3's G = 1 omni one
@@ -2357,7 +2468,7 @@ def main():
             **a).stream_clip(dry, lambda i: p_e))
 
     wet_e, launched_e = stream_e(diffraction=1)
-    check(launched_e == only(K4=n_chunks, K2=3 * n_chunks),
+    check(launched_e == only(K4=n_chunks, K2=n_chunks),  # one a chunk
           f"11e: stream launches {launched_e}")
     wet_plain, launched_p = stream_e(diffraction=1, backend="plain")
     check(launched_p == only(), f"11e: the plain twin launched {launched_p}")
@@ -2399,7 +2510,7 @@ def main():
               f"3 listeners: launches {launched_f}; energy per listener "
               f"{[float(x) for x in d_ir.sum(dim=(1, 2))]}; == plain bit for "
               f"bit: {torch.equal(d_ir, d_plain)}", flush=True)
-        check(launched_f == only(K2=3 if order == 1 else 7)
+        check(launched_f == only(K2=1 if order == 1 else 2)
               and float(d_ir[2].sum()) > 0 and torch.equal(d_ir, d_plain),
               f"11f: diffraction order {order} through K2 == plain")
     del d_ir, d_plain
@@ -2414,7 +2525,7 @@ def main():
         said, launched_g, secs_t = run_cli(
             ["trace", "--room", "smoll", "--out", g("ir.png"), "--scene-out",
              g("scene.png"), *new_flags])
-        check(launched_g == only(K4=1, K1=BOUNCES, K2=BOUNCES + 6)
+        check(launched_g == only(K4=1, K1=BOUNCES, K2=BOUNCES + 2)
               and "air absorption:" in said and "diffraction: added" in said,
               f"11g: cli trace launch counts {launched_g}")
         lit(g("ir.png"), (256, 1024, 3))
@@ -2426,7 +2537,7 @@ def main():
         said, launched_b, secs_b = run_cli(
             ["bake", "--room", "smoll", "--in", g("dry.wav"), "--out",
              g("wet.wav"), *new_flags])
-        check(launched_b == only(K4=1, K2=3),
+        check(launched_b == only(K4=1, K2=1),
               f"11g: cli bake launch counts {launched_b}")
         ratios_b = tails(g("wet.wav"), hit_clicks, n_channels=2)
         said, launched_l, secs_l = run_cli(
@@ -2640,21 +2751,34 @@ def main():
               f" -> bound {bounds[k][0]:.6f} ms ({bounds[k][1]})",
               flush=True)
     # K1 and K2 on the rays cli trace --scene-out gives them (15,000 rays
-    # before bounce 3, SmollRoom's 24 walls, one listener); K5 and K6 at one
-    # 15,000 x 5 frame. A sweep tests every wall, so its work follows from
-    # the shapes: N * W tests in N sweeps.
-    _, (o15, d15) = ray_states(sc, p, RAYS, 0)
-    so15, sd15 = shadow_rays(p, o15)
-    walls_s = tk.pack_walls(sc)
-    sweeps = {"K1": (lambda: tk.nearest_hit(o15, d15, walls_s),
-                     lambda: tk.nearest_hit_plain(o15, d15, walls_s), 8),
-              "K2": (lambda: tk.occlusion_min(so15, sd15, walls_s),
-                     lambda: tk.occlusion_min_plain(so15, sd15, walls_s), 4)}
-    for k, (fn, plain, out_bytes) in sweeps.items():
+    # before bounce 3, SmollRoom's 24 walls, one listener: the brute sweep
+    # in lane groups), called as the trace calls them (the alive rays; each
+    # shadow ray up to its listener); K5 and K6 at one 15,000 x 5 frame.
+    # The work is the kernels' own count; the bytes each input read once
+    # (origins and directions, the mask, K2's limits, the table) and each
+    # output written once.
+    _, st15 = ray_states(sc, p, RAYS, 0)
+    o15, d15, a15 = st15.pos, st15.dir, st15.alive
+    so15, sd15, l15 = shadow_rays(p, o15)
+    a15s = a15[:, None].expand(-1, p.listeners.shape[0])
+    walls_s = tk.sweep_walls(sc)
+    check(walls_s.sorted is None, "[5] SmollRoom takes the brute sweep")
+    sweeps = {
+        "K1": (lambda **a: tk.nearest_hit(o15, d15, walls_s, a15, **a),
+               lambda: tk.nearest_hit_plain(o15, d15, walls_s, a15),
+               RAYS * 25 + 20 * w),
+        "K2": (lambda **a: tk.occlusion_min(so15, sd15, walls_s, a15s, l15,
+                                            **a),
+               lambda: tk.occlusion_min_plain(so15, sd15, walls_s, a15s,
+                                              l15),
+               a15s.numel() * 25 + 20 * w)}
+    for k, (fn, plain, n_bytes) in sweeps.items():
         times[k] = (cuda_ms(torch, fn, 50), cuda_ms(torch, plain, 20))
-        dev_ms[k] = kernel_device_ms(torch, fn, 20, "wall_sweep_kernel")
-        n_work[k] = (RAYS * w, RAYS, 0)
-        bounds[k] = bound(n_work[k], RAYS * (16 + out_bytes) + 20 * w)
+        # one launch a call: a reading that missed one is retried
+        dev_ms[k] = kernel_device_ms(torch, fn, 20, "wall_sweep_kernel",
+                                     launches=1)
+        n_work[k] = work(lambda n: fn(work_counts=n))
+        bounds[k] = bound(n_work[k], n_bytes)
     e1, u1 = (x[0] for x in rng.philox_uniforms(26, 1, BOUNCES, RAYS, dev))
     frame = {"K5": (lambda **a: bk.trace_fused_rows(sc, p, e1, u1, **a),
                     lambda: bk.trace_fused_rows_plain(sc, p, e1, u1),
@@ -2711,42 +2835,81 @@ def main():
           + ", ".join(f"{k} {v[0]:.4f} [{fmt(v[1])}]"
                       for k, v in wide_ms.items())
           + f"; K5's plain version {wide_plain:.3f}", flush=True)
+    # K1 and K2 at 131,072 rays before bounce 3, called as the trace calls
+    # them, on both routes: SmollRoom (the router's brute sweep) and the
+    # 10,008-wall city with two listeners (the router's box walk, whose
+    # times are the JSON line's K1b / K2b); the plain versions over slices
+    # of rays. Brute-equivalent tests/s: R * W over the device time.
     for name, scene, pp in (("SmollRoom", sc, p),
                             ("city_scene(2500), 2 listeners", scene_9,
                              p_9two)):
-        _, (o, d) = ray_states(scene, pp, BIG_RAYS, 20)
-        so, sd = shadow_rays(pp, o)
-        walls_w = tk.pack_walls(scene)
+        _, st = ray_states(scene, pp, BIG_RAYS, 20)
+        o, d, alive = st.pos, st.dir, st.alive
+        so, sd, lim = shadow_rays(pp, o)
         n_l = pp.listeners.shape[0]
+        a2 = alive[:, None].expand(-1, n_l)
+        packed = tk.pack_walls(scene)
+        prep = ak.prepare(scene)
+        routed = tk.sweep_walls(scene).sorted is not None
         step = max(256, PLAIN_ELEMENTS // (scene.n_walls * n_l))
 
-        def plain_sweeps():
+        def plain_k1():
             for r0 in range(0, BIG_RAYS, step):
                 sl = slice(r0, r0 + step)
-                tk.nearest_hit_plain(o[sl], d[sl], walls_w)
-                tk.occlusion_min_plain(so[sl], sd[sl], walls_w)
+                tk.nearest_hit_plain(o[sl], d[sl], packed, alive[sl])
 
-        k1 = (cuda_ms(torch, lambda: tk.nearest_hit(o, d, walls_w), 10),
-              kernel_device_ms(torch, lambda: tk.nearest_hit(o, d, walls_w),
-                               5, "wall_sweep_kernel"))
-        k2 = (cuda_ms(torch, lambda: tk.occlusion_min(so, sd, walls_w), 10),
-              kernel_device_ms(torch, lambda: tk.occlusion_min(so, sd,
-                                                               walls_w),
-                               5, "wall_sweep_kernel"))
-        both_plain = cuda_ms(torch, plain_sweeps, 1)
-        tests = BIG_RAYS * scene.n_walls
-        b1 = bound((tests, BIG_RAYS, 0),
-                   24 * BIG_RAYS + 20 * scene.n_walls)
-        b2 = bound((tests * n_l, BIG_RAYS * n_l, 0),
-                   20 * BIG_RAYS * n_l + 20 * scene.n_walls)
-        print(f"[5] wall sweeps on {card}, {name}, {BIG_RAYS} rays x "
-              f"{scene.n_walls} walls: K1 {k1[0]:.4f} ms per call [device "
-              f"{fmt(k1[1])}], bound {b1[0]:.6f} ms ({b1[1]}); K2 over "
-              f"{BIG_RAYS * n_l} shadow rays {k2[0]:.4f} [{fmt(k2[1])}], "
-              f"bound {b2[0]:.6f} ms ({b2[1]}); both plain versions "
-              f"{both_plain:.3f} ms"
-              + ("" if k1[1] is None else
-                 f"; K1 {tests / k1[1] / 1e9:.3f} T tests/s on the device"),
+        def plain_k2():
+            for r0 in range(0, BIG_RAYS, step):
+                sl = slice(r0, r0 + step)
+                tk.occlusion_min_plain(so[sl], sd[sl], packed, a2[sl],
+                                       lim[sl])
+
+        plain_ms = {"K1": cuda_ms(torch, plain_k1, 1),
+                    "K2": cuda_ms(torch, plain_k2, 1)}
+        table = 4 * 5 * scene.n_walls
+        box_table = 4 * (6 * prep.geo.shape[0] + 4 * prep.aabb.shape[0]
+                         + 4 * prep.saabb.shape[0] + 4)
+        for route, walls_r, kname in (
+                ("brute", tk.SweepWalls(packed), "wall_sweep_kernel"),
+                ("box walk", tk.SweepWalls(packed, prep),
+                 "box_sweep_kernel")):
+            calls = {
+                "K1": (lambda **a: tk.nearest_hit(o, d, walls_r, alive, **a),
+                       BIG_RAYS * 25),
+                "K2": (lambda **a: tk.occlusion_min(so, sd, walls_r, a2, lim,
+                                                    **a),
+                       BIG_RAYS * n_l * 25)}
+            said = []
+            for k, (fn, n_bytes) in calls.items():
+                call = cuda_ms(torch, fn, 10)
+                dv = kernel_device_ms(torch, fn, 5, kname, launches=1)
+                wk = work(lambda n: fn(work_counts=n))
+                bd = bound(wk, n_bytes + (table if route == "brute"
+                                          else box_table))
+                n_rays = BIG_RAYS * (1 if k == "K1" else n_l)
+                said.append(
+                    f"{k} {call:.4f} ms per call [device {fmt(dv)}], work "
+                    f"{wk}, bound {bd[0]:.6f} ms ({bd[1]})"
+                    + ("" if dv is None else
+                       f" = {bd[0] / dv * 100:.1f}% reached, "
+                       f"{n_rays * scene.n_walls / dv / 1e9:.3f} T "
+                       "brute-equivalent tests/s"))
+                if scene is scene_9 and route == "box walk":
+                    kb = k + "b"
+                    times[kb] = (call, plain_ms[k])
+                    dev_ms[kb], n_work[kb], bounds[kb] = dv, wk, bd
+            print(f"[5] wall sweeps on {card}, {name}, {BIG_RAYS} rays x "
+                  f"{scene.n_walls} walls before bounce {LATER}, {route}"
+                  + (" (the router's)" if routed == (route == "box walk")
+                     else "") + ": " + "; ".join(said)
+                  + f"; plain versions K1 {plain_ms['K1']:.3f} ms, K2 "
+                  f"{plain_ms['K2']:.3f} ms", flush=True)
+        del so, sd, lim, a2
+    for k in ("K1b", "K2b"):
+        print(f"    {k} (box walk) at {BIG_RAYS} rays x {scene_9.n_walls} "
+              f"walls, 2 listeners: {times[k][0]:.4f} ms per call vs plain "
+              f"{times[k][1]:.4f}; device {fmt(dev_ms[k])}; work "
+              f"{n_work[k]} -> bound {bounds[k][0]:.6f} ms ({bounds[k][1]})",
               flush=True)
     # trace(use_kernels=True) against the plain trace, one frame
     for n_rays, e_, u_ in ((RAYS, e1, u1), (BIG_RAYS, e8, u8b)):
@@ -2813,10 +2976,16 @@ def main():
                     "re-sort, any K bands)", 1869, ACCEL_SOURCE),
              "K8": ("accel_kernel K8 (cluster early-out per bounce, Morton "
                     "re-sort)", 2154, ACCEL_SOURCE),
-             "K1": ("trace_kernel K1 (nearest wall of each ray)", 75,
+             "K1": ("trace_kernel K1 (nearest wall of each ray; brute "
+                    "sweep, wall_sweep_kernel, up to BOX_WALK_MIN_WALLS)", 75,
                     SWEEP_SOURCE),
-             "K2": ("trace_kernel K2 (occlusion minimum of each shadow ray)",
-                    82, SWEEP_SOURCE),
+             "K2": ("trace_kernel K2 (occlusion minimum of each shadow ray; "
+                    "brute sweep, wall_sweep_kernel)", 82, SWEEP_SOURCE),
+             "K1b": ("trace_kernel K1 (nearest wall of each ray; box walk, "
+                     "box_sweep_kernel, past BOX_WALK_MIN_WALLS)", 75,
+                     SWEEP_SOURCE),
+             "K2b": ("trace_kernel K2 (occlusion minimum of each shadow "
+                     "ray; box walk, box_sweep_kernel)", 82, SWEEP_SOURCE),
              "K5": ("bounce_kernel K5 (frame_rows_kernel: a frame's "
                     "bounces in one launch, hit rows out)", 180,
                     KERNEL_SOURCE),
@@ -2825,19 +2994,22 @@ def main():
     # ms/plain_ms/bound of one call each: K3 and K4 at the stream's shape
     # (15k x 5 x 1 frame), K9 at the mixdown's (64 entries x 15k x 5), K8
     # at the city stream's, K7 at the banded city's, K1/K2 on the 15,000
-    # rays of cli trace --scene-out, K5/K6 at one 15k x 5 frame; the
+    # rays of cli trace --scene-out (brute sweep), K1b/K2b (the box walk)
+    # on 131,072 rays of the 10,008-wall city with two listeners before
+    # bounce 3, K5/K6 at one 15k x 5 frame; the
     # sweep's and the other full-width numbers are in the [5] and [8]
     # lines. No PyTorch call computes a Monte-Carlo trace or a bounce, and
     # none a fused rays x segments min/argmin (the plain versions are
     # several calls: plain_ms), so library_ms is null.
     kernels = [
         {"name": names[k][0], "route": "cuda", "source": names[k][2],
-         "replaces": f"{PALLAS_SWEEPS if k in ('K1', 'K2') else PALLAS}:"
+         "replaces": f"{PALLAS_SWEEPS if k[:2] in ('K1', 'K2') else PALLAS}:"
                      f"{names[k][1]}", "launches": launches[k],
          "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": None}
-        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")]
+        for k in ("K1", "K2", "K1b", "K2b", "K3", "K4", "K5", "K6", "K7",
+                  "K8", "K9")]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -163,10 +163,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Lanes per (ray, frame, entry) of a launch too small to fill the card
-// (the wrapper's LANE_GROUP); groups of 2 and 8 and 64-thread blocks
-// without groups were slower at the stream's 15,000 rays (PERF.md).
-constexpr int kLaneGroup = 4;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB per block on sm_90
 constexpr int kAttrRows = kWallFields - 5;  // NX .. IOR
 // The largest register bucket of a ray's band energies (by_bucket): past

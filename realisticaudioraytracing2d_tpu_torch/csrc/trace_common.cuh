@@ -534,6 +534,12 @@ __device__ __forceinline__ void end_bounce(const GroupSink<S>& s, int bounce,
   if (s.lead) end_bounce(static_cast<const S&>(s), bounce, alive);
 }
 
+// Lanes per ray of a launch too small to fill the card (K3/K4/K9, K5 and
+// the brute wall sweep; the wrappers' LANE_GROUP); groups of 2 and 8 and
+// 64-thread blocks without groups were slower at the stream's 15,000 rays
+// (PERF.md).
+constexpr int kLaneGroup = 4;
+
 // kLanes (4) neighbouring lanes of a warp that carry one ray. Each scans
 // its own contiguous 1 / kLanes of a wall table, [lo, lo + count); the
 // group then combines the results with shuffles over its own lanes, so the

@@ -37,7 +37,7 @@ torch's uint32 support is partial: the keys are built in int64 with
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -116,7 +116,17 @@ def cluster_scene(scene: Scene, cluster_size: int, group: int = 1
                   ) -> Tuple[Scene, torch.Tensor]:
     """Morton-sort a scene's walls and return ``(sorted_scene, aabb)``,
     ``aabb[C, 4]`` = (xmin, ymin, xmax, ymax) per cluster of
-    ``cluster_size`` sorted walls.
+    ``cluster_size`` sorted walls: :func:`cluster_scene_ids` without the
+    ids."""
+    return cluster_scene_ids(scene, cluster_size, group)[:2]
+
+
+def cluster_scene_ids(scene: Scene, cluster_size: int, group: int = 1
+                      ) -> Tuple[Scene, torch.Tensor, torch.Tensor]:
+    """:func:`cluster_scene` and ``ids`` int32 ``[Wp]``, the index in
+    ``scene`` (padded) of each sorted wall: ``sorted_scene.a == scene.a[
+    ids]`` for the real walls. The wall sweeps' box walk keeps the lowest
+    of them among equal distances, the caller's argmin.
 
     The scene is first padded to a multiple of ``cluster_size * group``
     walls. A wall's key interleaves the 16-bit quantized x and y of its
@@ -148,7 +158,7 @@ def cluster_scene(scene: Scene, cluster_size: int, group: int = 1
     aabb = torch.cat([lo_s.reshape(n_clusters, cluster_size, 2).amin(dim=1),
                       hi_s.reshape(n_clusters, cluster_size, 2).amax(dim=1)],
                      dim=-1)
-    return sorted_scene, aabb
+    return sorted_scene, aabb, order.to(torch.int32)
 
 
 def super_aabbs(aabb: torch.Tensor, group: int) -> torch.Tensor:
@@ -257,28 +267,45 @@ def slab_hit(box: torch.Tensor, o: torch.Tensor, inv: torch.Tensor,
 
 def walk_nearest_plain(scene: Scene, aabb: torch.Tensor, group: int,
                        o: torch.Tensor, d: torch.Tensor,
-                       order: torch.Tensor, block: int
+                       order: torch.Tensor, block: int,
+                       ids: Optional[torch.Tensor] = None,
+                       alive: Optional[torch.Tensor] = None,
+                       limit: Optional[torch.Tensor] = None,
+                       want_index: bool = True
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain mirror of the cluster kernels' nearest-wall walk, for the
-    tests: rays ``o[R, 2]``, ``d[R, 2]`` over the sorted ``scene`` and its
-    cluster boxes ``aabb[C, 4]``, each block of ``block`` rays visiting
-    the super boxes in its row of ``order[n_blocks, S]``. A ray tests a
-    cluster's walls only if its own slab tests of the super box and of the
-    cluster box passed against its running closest hit, and keeps the
-    lowest index among equal distances. Returns ``(closest[R], index[R])``
-    (``INF``, -1 on a miss), which must not depend on ``order``."""
+    """Plain mirror of the box walk (K7/K8's nearest-wall search and the
+    wall sweeps' box route, ``csrc/box_walk.cuh``), for the tests: rays
+    ``o[R, 2]``, ``d[R, 2]`` over the sorted ``scene`` and its cluster
+    boxes ``aabb[C, 4]``, each block of ``block`` rays visiting the super
+    boxes in its row of ``order[n_blocks, S]``. A ray tests a cluster's
+    walls only if its own slab tests of the super box and of the cluster
+    box passed against its running closest hit. Among equal distances it
+    keeps the lowest sorted index, or with ``ids[Wp]`` the lowest
+    ``ids`` (the wall sweeps' K1: the caller's index of each sorted wall);
+    without ``want_index`` the minimum alone (K2). A ray whose ``alive`` is
+    False is not walked and gives ``(INF, -1)``; with ``limit[R]`` the
+    running minimum starts at ``min(limit, INF)`` and a ray gives its
+    minimum where it is below the limit, ``INF`` elsewhere. Returns
+    ``(closest[R], index[R])`` (``INF``, -1 on a miss), which must not
+    depend on ``order``."""
     saabb = super_aabbs(aabb, group)
     cs = scene.n_walls // aabb.shape[0]
-    closest = torch.full((o.shape[0],), INF, dtype=o.dtype, device=o.device)
+    key = torch.arange(scene.n_walls, device=o.device) if ids is None \
+        else ids.to(torch.int64)
+    live = torch.ones(o.shape[0], dtype=torch.bool, device=o.device) \
+        if alive is None else alive
+    lim = torch.full((o.shape[0],), INF, dtype=o.dtype, device=o.device) \
+        if limit is None else limit
+    closest = torch.fmin(lim, torch.full_like(lim, INF))
     best = torch.full((o.shape[0],), 2 ** 31 - 1, dtype=torch.int64,
                       device=o.device)
     inv = slab_inv(d)
     for r0 in range(0, o.shape[0], block):
         sl = slice(r0, r0 + block)
-        ob, db, ib = o[sl], d[sl], inv[sl]
+        ob, db, ib, lb = o[sl], d[sl], inv[sl], live[sl]
         cl, be = closest[sl], best[sl]      # views: updated in place
         for ss in order[r0 // block].tolist():
-            in_super = slab_hit(saabb[ss], ob, ib, cl)
+            in_super = lb & slab_hit(saabb[ss], ob, ib, cl)
             for c in range(ss * group, (ss + 1) * group):
                 inside = in_super & slab_hit(aabb[c], ob, ib, cl) \
                     if group > 1 else in_super
@@ -288,8 +315,12 @@ def walk_nearest_plain(scene: Scene, aabb: torch.Tensor, group: int,
                 t = pairwise_ray_segment_t(ob, db, scene.a[lo:lo + cs],
                                            scene.b[lo:lo + cs])
                 for j in range(cs):
-                    better = inside & ((t[:, j] < cl) | ((t[:, j] == cl)
-                                                         & (lo + j < be)))
+                    better = t[:, j] < cl
+                    if want_index:
+                        better = better | ((t[:, j] == cl)
+                                           & (key[lo + j] < be))
+                    better = inside & better
                     cl[better] = t[better, j]
-                    be[better] = lo + j
-    return closest, torch.where(closest < INF, best, -1).to(torch.int32)
+                    be[better] = key[lo + j]
+    out = torch.where(live & (closest < lim), closest, INF)
+    return out, torch.where(out < INF, best, -1).to(torch.int32)

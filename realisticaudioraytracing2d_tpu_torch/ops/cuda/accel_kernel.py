@@ -94,9 +94,11 @@ def _check(err: int, what: str) -> None:
 
 
 class AccelScene(NamedTuple):
-    """A scene ready for the cluster kernels: Morton-sorted and padded to
-    ``C * cluster_size`` walls, its wall table, cluster and super boxes,
-    and the window the rays' sort keys are quantized in."""
+    """A scene ready for the cluster kernels and the wall sweeps' box walk:
+    Morton-sorted and padded to ``C * cluster_size`` walls, its wall table,
+    cluster and super boxes, the window the rays' sort keys are quantized
+    in, and the sort's permutation (``ids``: the caller's index of each
+    sorted wall, which K1 reports)."""
 
     scene: Scene
     walls: torch.Tensor    # [11 + K - 1, Wp] f32 (pack_walls + bands 1..)
@@ -106,6 +108,7 @@ class AccelScene(NamedTuple):
     bounds: torch.Tensor   # [4] f32: accel.scene_bounds lo x, lo y, span x, y
     cluster_size: int
     group: int
+    ids: torch.Tensor      # [Wp] i32: the index in the scene of each wall
 
     @property
     def n_clusters(self) -> int:
@@ -113,13 +116,13 @@ class AccelScene(NamedTuple):
 
 
 def _build(scene: Scene, cs: int, group: int) -> AccelScene:
-    scene_s, aabb = accel.cluster_scene(scene, cs, group)
+    scene_s, aabb, ids = accel.cluster_scene_ids(scene, cs, group)
     walls = bk.pack_walls_banded(scene_s)
     return AccelScene(scene_s, walls, walls[:4].T.contiguous(),
                       aabb.contiguous(),
                       accel.super_aabbs(aabb, group).contiguous(),
                       torch.cat(accel.scene_bounds(aabb)).contiguous(), cs,
-                      group)
+                      group, ids.contiguous())
 
 
 def _scene_key(scene: Scene, layout):

@@ -18,12 +18,14 @@ sound that bends around wall endpoints:
   factor per wedge (:func:`diffraction_paths2`, O(W^3): room-scale
   scenes).
 
-The visibility test :func:`_segment_clear` is an occlusion sweep: on a
-CUDA scene it runs as the hand kernel K2 (``ops/cuda/trace_kernel.py::
-occlusion_min``, the minimum wall distance of each segment's ray) on the
-packed wall table; on the CPU, or with ``use_kernels=False``, as the
-plain ``pairwise_ray_segment_t`` over all walls. Both compute every
-distance in the same IEEE operations, so they judge every segment alike.
+The visibility test :func:`_segments_clear` is an occlusion sweep of all
+the segments a call needs at once: on a CUDA scene one launch of the
+hand kernel K2 (``ops/cuda/trace_kernel.py::occlusion_min``, the minimum
+wall distance of each segment's ray, searched only up to the segment's
+end) per :func:`diffraction_paths` or :func:`diffraction_paths2` call; on
+the CPU, or with ``use_kernels=False``, the plain
+``pairwise_ray_segment_t`` over all walls. Both compute every distance in
+the same IEEE operations, so they judge every segment alike.
 The paths are binned by ``ops/ir.py::add_rows`` (a fixed order on either
 device).
 """
@@ -53,24 +55,41 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_clear(p: torch.Tensor, q: torch.Tensor, scene: Scene,
-                   walls: Optional[torch.Tensor], slack: float = 1e-3
+                   walls: Optional[tk.Walls], slack: float = 1e-3
                    ) -> torch.Tensor:
     """True where the open segment ``p -> q`` (``[..., 2]``) hits no wall.
     ``slack`` trims the far end so that a segment ending on a wall (at an
     edge) does not count that wall; the near end is trimmed by the ray
-    test's own ``t >= EPS``. ``walls`` (``trace_kernel.pack_walls``) runs
-    the sweep as K2, None as the plain all-walls test."""
+    test's own ``t >= EPS``. ``walls`` (``trace_kernel.sweep_walls``) runs
+    the sweep as K2, up to the trimmed end, None as the plain all-walls
+    test."""
     p, q = torch.broadcast_tensors(p, q)
     d = q - p
     length = _norm(d)
     dn = d / torch.clamp(length, min=EPS)[..., None]
     limit = length - slack
     if walls is not None:
-        return ~(tk.occlusion_min(p.contiguous(), dn.contiguous(), walls)
-                 < limit)
+        return ~(tk.occlusion_min(p.contiguous(), dn.contiguous(), walls,
+                                  limit=limit) < limit)
     t = pairwise_ray_segment_t(p, dn, scene.a, scene.b)      # [..., W]
     return ~torch.any(t < limit[..., None], dim=-1)
 
+
+def _segments_clear(segments, scene: Scene, walls: Optional[tk.Walls]
+                    ) -> list:
+    """:func:`_segment_clear` of several families of segments, ``[(p, q),
+    ...]`` with ``p, q`` broadcasting to ``[..., 2]``, in one sweep (one
+    K2 launch): the masks in the families' shapes. Each segment's result
+    is its own, however the families are batched."""
+    ps, qs, shapes = [], [], []
+    for p, q in segments:
+        p, q = torch.broadcast_tensors(p, q)
+        shapes.append(p.shape[:-1])
+        ps.append(p.reshape(-1, 2))
+        qs.append(q.reshape(-1, 2))
+    clear = _segment_clear(torch.cat(ps), torch.cat(qs), scene, walls)
+    parts = clear.split([x.shape[0] for x in ps])
+    return [c.reshape(shape) for c, shape in zip(parts, shapes)]
 
 def edge_table(scene: Scene):
     """Silhouette-edge candidates of a scene: ``(points[E, 2],
@@ -105,7 +124,7 @@ def edge_table(scene: Scene):
 
 def _setup(scene: Scene, params: TraceParams, band_freqs, use_kernels):
     pts, weight = edge_table(scene)
-    walls = tk.pack_walls(scene) if use_kernels else None
+    walls = tk.sweep_walls(scene) if use_kernels else None
     freqs = torch.as_tensor(band_freqs, dtype=torch.float32,
                             device=scene.device)
     return pts, weight, walls, params.listeners.reshape(-1, 2), freqs
@@ -121,17 +140,17 @@ def diffraction_paths(scene: Scene, params: TraceParams, band_freqs,
     """All first-order edge paths: ``(delay[L, E], energy[L, E, K],
     valid[L, E])`` for ``E = 2 W`` candidate edges; ``band_freqs`` maps
     the band axis to Hz (``[K]``). ``use_kernels`` (default: on a CUDA
-    scene) runs the visibility sweeps through K2."""
+    scene) runs the three visibility sweeps through one K2 launch."""
     pts, weight, walls, lis, freqs = _setup(
         scene, params, band_freqs, _use_kernels(scene, use_kernels))
     src = params.source
     c = params.speed_of_sound
     d1 = _norm(pts - src)                                       # [E]
-    src_clear = _segment_clear(src.expand_as(pts), pts, scene, walls)
+    src_clear, direct_clear, leg_clear = _segments_clear(
+        ((src, pts), (src, lis), (pts[None], lis[:, None])), scene,
+        walls)                                  # [E], [L], [L, E]
     d_dir = _norm(lis - src)                                    # [L]
-    direct_blocked = ~_segment_clear(src.expand_as(lis), lis, scene, walls)
-    leg_clear = _segment_clear(pts[None], lis[:, None], scene,
-                               walls)                           # [L, E]
+    direct_blocked = ~direct_clear
     d2 = _norm(lis[:, None] - pts[None])                        # [L, E]
     d_tot = d1[None] + d2
     delta = torch.clamp(d_tot - d_dir[:, None], min=0.0)
@@ -170,22 +189,22 @@ def diffraction_paths2(scene: Scene, params: TraceParams, band_freqs,
     """Second-order (edge-to-edge) paths S -> E1 -> E2 -> L, the Maekawa
     cascade: each wedge its own ``1 / (3 + 20 N)`` with the detour of its
     local triangle. O(W^3) visibility tests (all edge pairs against all
-    walls): room-scale scenes. Returns ``(delay[L, E, E], energy[L, E, E,
-    K], valid[L, E, E])``."""
+    walls): room-scale scenes; the four visibility sweeps are one K2
+    launch. Returns ``(delay[L, E, E], energy[L, E, E, K], valid[L, E,
+    E])``."""
     pts, weight, walls, lis, freqs = _setup(
         scene, params, band_freqs, _use_kernels(scene, use_kernels))
     src = params.source
     c = params.speed_of_sound
     d1 = _norm(pts - src)                                       # [E]
-    src_clear = _segment_clear(src.expand_as(pts), pts, scene, walls)
+    src_clear, pair_clear, direct_clear, leg_clear = _segments_clear(
+        ((src, pts), (pts[:, None, :], pts[None, :, :]), (src, lis),
+         (pts[None], lis[:, None])), scene,
+        walls)                                  # [E], [E, E], [L], [L, E]
     d12 = _norm(pts[:, None, :] - pts[None, :, :])              # [E, E]
-    pair_clear = _segment_clear(pts[:, None, :], pts[None, :, :], scene,
-                                walls)                          # [E, E]
     distinct = d12 > _COINCIDENT_TOL
     s_to_e2 = d1                     # straight source -> E2, per E2
-    direct_blocked = ~_segment_clear(src.expand_as(lis), lis, scene, walls)
-    leg_clear = _segment_clear(pts[None], lis[:, None], scene,
-                               walls)                           # [L, E]
+    direct_blocked = ~direct_clear
     d2 = _norm(lis[:, None] - pts[None])                        # [L, E]
     d_tot = d1[None, :, None] + d12[None] + d2[:, None, :]      # [L, E, E]
     delta1 = torch.clamp(d1[:, None] + d12 - s_to_e2[None, :], min=0.0)

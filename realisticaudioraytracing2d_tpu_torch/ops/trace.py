@@ -17,7 +17,11 @@ draws them from :mod:`.rng`. The hand kernels
 ``use_pallas``, sends the two ``[rays, walls]`` passes of every bounce (the
 nearest-wall search and the NEE occlusion sweep) through the hand kernels
 K1 and K2 (``ops/cuda/trace_kernel.py``), which take any listener, band
-and wall count; the rest of the bounce stays tensor code. ``n_debug > 0``
+and wall count (past ``BOX_WALK_MIN_WALLS`` walls by the box walk); they
+skip the rays whose results no one reads (dead rays; shadow rays off a
+wall no live ray hit, inside walls or under the NEE cutoff) and stop
+each shadow ray at the listener. The rest of the bounce stays tensor
+code. ``n_debug > 0``
 also records :class:`DebugPaths`, the ray-path gizmo of the first rays.
 """
 
@@ -194,22 +198,23 @@ def _emit(params: TraceParams, n_rays: int, n_bands: int,
 
 
 def _bounce(scene: Scene, params: TraceParams, st: _RayState,
-            u: torch.Tensor, walls_packed: Optional[torch.Tensor] = None
+            u: torch.Tensor, walls: Optional[tk.Walls] = None
             ) -> Tuple[_RayState, Tuple]:
     """One bounce for all rays; ``u[R, 3]`` are this bounce's uniforms
     (transmission test / refraction jitter / diffuse angle). When
-    ``walls_packed`` (``trace_kernel.pack_walls``) is given, the two
-    rays x walls passes run as the kernels K1 and K2 (their plain
-    versions on the CPU). Returns the next state and ``(delay, energy,
-    valid, pos, hit_wall)``: the hit records, the position each ray
-    advanced to (offset off the wall, not frozen for a dying ray) and
-    whether it hit a wall."""
+    ``walls`` (``trace_kernel.sweep_walls``) is given, the two rays x
+    walls passes run as the kernels K1 and K2 (their plain versions on the
+    CPU). Returns the next state and ``(delay, energy, valid, pos,
+    hit_wall)``: the hit records, the position each ray advanced to
+    (offset off the wall, not frozen for a dying ray) and whether it hit
+    a wall. A record that is not valid holds what the arithmetic gives for
+    wall 0 where no wall was hit."""
     listeners = params.listeners                     # [L, 2]
     c = params.speed_of_sound
 
     # --- nearest wall (Raytrace2D.compute:69-72) ---------------------------
-    if walls_packed is not None:
-        closest, hit_idx = tk.nearest_hit(st.pos, st.dir, walls_packed)
+    if walls is not None:    # a dead ray is not swept: (INF, -1)
+        closest, hit_idx = tk.nearest_hit(st.pos, st.dir, walls, st.alive)
     else:
         t_wall = pairwise_ray_segment_t(st.pos, st.dir, scene.a, scene.b)
         closest, hit_idx = nearest_hit(t_wall)       # [R], [R]
@@ -237,8 +242,8 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
     time = st.time + adv / st.speed
     dist = st.dist + adv
 
-    # --- gather hit-wall attributes -----------------------------------------
-    widx = torch.clamp(hit_idx, min=0).long()
+    # --- gather hit-wall attributes (wall 0 for a ray that hit none) -------
+    widx = torch.where(hit_wall, hit_idx, 0).long()
     w_n = scene.normal[widx]            # [R, 2]
     w_abs = scene.absorption[widx]      # [R, K]
     w_scat = scene.scattering[widx]     # [R]
@@ -253,14 +258,6 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
     dist_lis = torch.sqrt(torch.clamp(dot2(to_lis, to_lis), min=1e-20))
     vis_dir = (listeners[None, :, :] - nee_src[:, None, :]) \
         / dist_lis[..., None]
-    if walls_packed is not None:
-        occ_min = tk.occlusion_min(nee_src[:, None, :].expand_as(vis_dir),
-                                   vis_dir, walls_packed)    # [R, L]
-    else:
-        t_occ = pairwise_ray_segment_t(nee_src[:, None, :], vis_dir,
-                                       scene.a, scene.b)     # [R, L, W]
-        occ_min = t_occ.min(dim=-1).values
-    visible = occ_min >= dist_lis - OCCLUSION_SLACK
 
     eff_sign = torch.where(dot2(st.dir, w_n) > 0.0, -1.0, 1.0)  # [R]
     eff_n = w_n * eff_sign[:, None]
@@ -270,8 +267,19 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
     geom = cos_t * 0.5 / (total_d_nee * total_d_nee)          # [R, L]
     nee_energy = st.energy[:, None, :] * (1.0 - w_abs)[:, None, :] \
         * geom[..., None]                                     # [R, L, K]
-    nee_valid = hit_wall[:, None] & (st.depth == 0)[:, None] & visible \
-        & (nee_energy.amax(dim=-1) > NEE_CONTRIB_CUTOFF)
+    heard = hit_wall[:, None] & (st.depth == 0)[:, None] \
+        & (nee_energy.amax(dim=-1) > NEE_CONTRIB_CUTOFF)     # [R, L]
+    limit = dist_lis - OCCLUSION_SLACK
+    if walls is not None:
+        # only the shadow rays NEE reads, each only up to its listener:
+        # the minimum where it is below the limit, INF elsewhere
+        occ_min = tk.occlusion_min(nee_src[:, None, :].expand_as(vis_dir),
+                                   vis_dir, walls, heard, limit)
+    else:
+        t_occ = pairwise_ray_segment_t(nee_src[:, None, :], vis_dir,
+                                       scene.a, scene.b)     # [R, L, W]
+        occ_min = t_occ.min(dim=-1).values
+    nee_valid = heard & (occ_min >= limit)
     if mic is not None:
         # after the cutoff, which tests the path and not the pickup; the
         # sound arrives from the bounce point, -unit
@@ -346,7 +354,7 @@ def trace(scene: Scene, params: TraceParams, emit: torch.Tensor,
         raise ValueError(f"u must be [B, {n_rays}, 3], got {tuple(u.shape)}")
     if not 0 <= n_debug <= n_rays:
         raise ValueError(f"n_debug must lie in [0, {n_rays}], got {n_debug}")
-    walls_packed = tk.pack_walls(scene) if use_kernels else None
+    walls = tk.sweep_walls(scene) if use_kernels else None
     st = _emit(params, n_rays, scene.n_bands, emit)
     d = n_debug
     dbg_pos, dbg_energy, dbg_alive = [], [], []
@@ -358,7 +366,7 @@ def trace(scene: Scene, params: TraceParams, emit: torch.Tensor,
     for b in range(u.shape[0]):
         prev = st
         st, (delay, energy, valid, pos, hit_wall) = _bounce(
-            scene, params, st, u[b], walls_packed)
+            scene, params, st, u[b], walls)
         delays.append(delay)
         energies.append(energy)
         valids.append(valid)

@@ -44,6 +44,7 @@ from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
 from realisticaudioraytracing2d_tpu_torch.ops import accel
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import accel_kernel as ak
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import bounce_kernel as bk
+from realisticaudioraytracing2d_tpu_torch.ops.geometry import INF
 from realisticaudioraytracing2d_tpu_torch.ops.trace import TraceParams
 
 SR, T = 8000, 2048
@@ -437,3 +438,129 @@ def test_banded_wall_table_layout():
     scene = convert.scene_from_arrays(_jax_city(n_bands=8)[0].scene,
                                       device=CPU)
     assert torch.equal(ak.prepare(scene).walls, w)
+
+
+# --- the wall sweeps' box walk (K1/K2 past BOX_WALK_MIN_WALLS) ---------------
+
+def _sweep_case(scene, n_rays, seed):
+    """Rays from a numpy seed over a scene: random origins in its box and
+    directions, a third aimed at the midpoint of wall 9 (and its copies in
+    the tie scene), an alive mask and limits."""
+    gen = np.random.default_rng(seed)
+    a = to_numpy(scene.a)
+    lo, hi = a.min(0), a.max(0)
+    o = gen.uniform(lo, hi, (n_rays, 2)).astype(np.float32)
+    ang = gen.uniform(0, 2 * np.pi, n_rays)
+    d = np.stack([np.cos(ang), np.sin(ang)], -1)
+    mid = 0.5 * (a[9] + to_numpy(scene.b)[9])
+    aim = mid - o[:n_rays // 3]
+    d[:n_rays // 3] = aim / np.linalg.norm(aim, axis=-1, keepdims=True)
+    alive = gen.uniform(size=n_rays) > 0.25
+    limit = gen.uniform(0, np.linalg.norm(hi - lo), n_rays)
+    return (to_torch(o), to_torch(d.astype(np.float32)), torch.as_tensor(
+        alive), to_torch(limit.astype(np.float32)))
+
+
+def _tie_scene():
+    """city_scene(62) with 40 copies of wall 9 appended: equal distances
+    on a run of 41 sorted walls, longer than a cluster."""
+    scene = rooms.city_scene(62, device=CPU).scene
+    copies = torch.tensor([9] * 40)
+    return Scene(*(torch.cat([x, x[copies]]) for x in scene))
+
+
+@pytest.mark.parametrize("which", [62, 250, "tie"])
+def test_box_walk_mirror_is_the_plain_sweep_bit_for_bit(which):
+    """The plain mirror of the box walk (``walk_nearest_plain``) on the
+    sorted tables, with the caller's ids as the tie rule, ``alive`` and
+    ``limit`` and the min-only variant of K2, equals ``nearest_hit_plain``
+    / ``occlusion_min_plain`` on the unsorted table bit for bit, in the
+    near-to-far visit order and in its reverse (later clusters first)."""
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
+        trace_kernel as tk
+    scene = _tie_scene() if which == "tie" else \
+        rooms.city_scene(which, device=CPU).scene
+    cs, group = accel.accel_layout(scene.n_walls)
+    sorted_s, aabb, ids = accel.cluster_scene_ids(scene, cs, group)
+    o, d, alive, limit = _sweep_case(scene, 320, 3)
+    packed = tk.pack_walls(scene)
+    block = 64
+    order = accel.block_rank_order(o[:, 0], o[:, 1], alive,
+                                   accel.super_aabbs(aabb, group), block)
+    t_p, idx_p = tk.nearest_hit_plain(o, d, packed)
+    t_m, idx_m = tk.nearest_hit_plain(o, d, packed, alive)
+    occ = tk.occlusion_min_plain(o, d, packed, alive, limit)
+    assert int((idx_p >= 0).sum()) > 160 and int((occ < INF).sum()) > 20
+    for visit in (order, order.flip(1)):
+        walk = dict(scene=sorted_s, aabb=aabb, group=group, o=o, d=d,
+                    order=visit, block=block, ids=ids)
+        t, idx = accel.walk_nearest_plain(**walk)
+        assert torch.equal(t, t_p) and torch.equal(idx, idx_p)
+        t, idx = accel.walk_nearest_plain(**walk, alive=alive)
+        assert torch.equal(t, t_m) and torch.equal(idx, idx_m)
+        t, _ = accel.walk_nearest_plain(**walk, alive=alive, limit=limit,
+                                        want_index=False)
+        assert torch.equal(t, occ)
+    if which == "tie":   # the copies tie with wall 9: its index wins
+        same = (idx_p >= 0) & (scene.a[idx_p.clamp(min=0).long()]
+                               == scene.a[9]).all(-1) \
+            & (scene.b[idx_p.clamp(min=0).long()] == scene.b[9]).all(-1)
+        # ... and the run of copies spans clusters, which the reversed
+        # order visits from the highest id down
+        run = (sorted_s.a == scene.a[9]).all(-1) \
+            & (sorted_s.b == scene.b[9]).all(-1)
+        assert int(run.sum()) == 41 and len(
+            {int(i) // cs for i in torch.nonzero(run)}) >= 3
+        assert int(same.sum()) > 20 and bool((idx_p[same] == 9).all())
+
+
+def test_box_walk_mirror_matches_jax_nearest_hit_pallas_interpret():
+    """The mirror's ``(closest, idx)`` on ``city_scene(62)``'s sorted tables
+    against JAX's ``nearest_hit_pallas`` in interpret mode on the unsorted
+    table, 700 rays: indices equal, distances rtol 5e-5 / atol 1e-4 (the
+    limits of tests/test_torch_trace_kernel.py)."""
+    import jax.numpy as jnp
+    from realisticaudioraytracing2d_tpu.ops.pallas import \
+        trace_kernel as jax_tk
+    scene = rooms.city_scene(62, device=CPU).scene
+    cs, group = accel.accel_layout(scene.n_walls)
+    sorted_s, aabb, ids = accel.cluster_scene_ids(scene, cs, group)
+    o, d, alive, _ = _sweep_case(scene, 700, 4)
+    order = accel.block_rank_order(o[:, 0], o[:, 1],
+                                   torch.ones(700, dtype=torch.bool),
+                                   accel.super_aabbs(aabb, group), 128)
+    t, idx = accel.walk_nearest_plain(sorted_s, aabb, group, o, d, order,
+                                      128, ids=ids)
+    t_j, idx_j = jax_tk.nearest_hit_pallas(
+        jnp.asarray(to_numpy(o)), jnp.asarray(to_numpy(d)),
+        jax_tk.pack_walls(jnp.asarray(to_numpy(scene.a)),
+                          jnp.asarray(to_numpy(scene.b))), tile_r=256)
+    assert int((idx >= 0).sum()) > 350
+    np.testing.assert_array_equal(to_numpy(idx), np.asarray(idx_j))
+    np.testing.assert_allclose(to_numpy(t), np.asarray(t_j), rtol=5e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("n_boxes", [62, 1500])
+def test_prepare_carries_the_ids_that_invert_the_sort(n_boxes):
+    """``prepare``'s ``ids`` are a permutation of the padded scene's walls
+    that gives the sorted scene, and its geo plane and cc row are the
+    caller's packed table (``trace_kernel.pack_walls``) permuted by them,
+    bit for bit; ``cluster_scene`` keeps its two return values."""
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
+        trace_kernel as tk
+    scene = rooms.city_scene(n_boxes, device=CPU).scene
+    prep = ak.prepare(scene)
+    wp = prep.geo.shape[0]
+    ids = prep.ids.long()
+    assert prep.ids.dtype == torch.int32 and tuple(prep.ids.shape) == (wp,)
+    assert torch.equal(torch.sort(ids).values, torch.arange(wp))
+    padded = scene.pad_to(wp)
+    for got, want in zip(prep.scene, padded):
+        assert torch.equal(got, want[ids])
+    packed = tk.pack_walls(padded)
+    assert torch.equal(prep.geo, packed[:4, ids].T)
+    assert torch.equal(prep.walls[4], packed[4, ids])
+    cs, group = prep.cluster_size, prep.group
+    two = accel.cluster_scene(scene, cs, group)
+    assert len(two) == 2 and torch.equal(two[1], prep.aabb)

@@ -187,6 +187,39 @@ def test_diffraction_ir_matches_jax(case):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("kernels", [False, True])
+def test_batched_visibility_sweeps_equal_the_separate_ones(kernels):
+    """``_segments_clear`` (one K2 launch on the card for all of a call's
+    segments) gives each family what ``_segment_clear`` gives it alone,
+    with the plain all-walls test and with K2's plain version and its
+    limit; ``diffraction_ir`` through either is the same, orders 1 and
+    2."""
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
+        trace_kernel as tk
+    scene = convert.scene_from_arrays(_smoll_barrier(), device=CPU)
+    p = convert.params_from_arrays(_params(
+        jart.rooms.smoll_room().source, ((-16.0, 3.0), (0.0, -3.68))),
+        device=CPU)
+    walls = tk.sweep_walls(scene) if kernels else None
+    pts, _ = dfr.edge_table(scene)
+    src, lis = p.source, p.listeners
+    families = ((src, pts), (pts[:, None], pts[None]), (src, lis),
+                (pts[None], lis[:, None]))
+    got = dfr._segments_clear(families, scene, walls)
+    for (a, b), mask in zip(families, got):
+        want = dfr._segment_clear(*torch.broadcast_tensors(a, b), scene,
+                                  walls)
+        assert mask.shape == want.shape and torch.equal(mask, want)
+    assert 0 < int(got[1].sum()) < got[1].numel()
+    for order in (1, 2):
+        on = dfr.diffraction_ir(scene, p, sample_rate=SR, ir_length=SR // 2,
+                                order=order, use_kernels=True)
+        off = dfr.diffraction_ir(scene, p, sample_rate=SR,
+                                 ir_length=SR // 2, order=order,
+                                 use_kernels=False)
+        assert float(on[0].sum()) > 0 and torch.equal(on, off)
+
+
 def test_diffraction_fills_only_the_shadow_and_checks_order():
     scene = convert.scene_from_arrays(_barrier(), device=CPU)
     p = convert.params_from_arrays(_params(), device=CPU)

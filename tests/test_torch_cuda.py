@@ -537,8 +537,16 @@ def test_cuda_city_never_runs_the_plain_version(cuda_device, monkeypatch):
 # --- the hit-record path: K1, K2 (wall sweeps), K5, K6 (one frame) -----------
 
 def _hit_counts():
-    return (tk.nearest_hit.launches, tk.occlusion_min.launches,
+    """Launches of K1 and K2 (both routes), K5 and K6."""
+    return (tk.nearest_hit.launches + tk.nearest_hit.box_launches,
+            tk.occlusion_min.launches + tk.occlusion_min.box_launches,
             bk.trace_fused_rows.launches, bk.trace_frame_ir_fused.launches)
+
+
+def _route_counts():
+    """Launches of K1 and K2 by route: brute force, then the box walk."""
+    return (tk.nearest_hit.launches, tk.occlusion_min.launches,
+            tk.nearest_hit.box_launches, tk.occlusion_min.box_launches)
 
 
 def _two_ears(room, device, **kw):
@@ -546,36 +554,170 @@ def _two_ears(room, device, **kw):
     return TraceParams.make(room.source, ears, device=device, **kw)
 
 
-@cuda
-@pytest.mark.parametrize("n_boxes", [0, 2500])
-def test_wall_sweeps_equal_their_plain_versions(cuda_device, n_boxes):
-    """K1 and K2 on random rays (a count that fills no whole block) against
-    SmollRoom's 24 walls and the 10,008-wall city, whose table is staged
-    through shared memory in ten tiles."""
-    room = rooms.city_scene(n_boxes, device=cuda_device) if n_boxes else \
-        rooms.smoll_room(device=cuda_device)
-    walls = tk.pack_walls(room.scene)
-    n = 5001
-    gen = torch.Generator(device=cuda_device).manual_seed(5)
-    lo = room.scene.a.amin(0)
-    span = room.scene.a.amax(0) - lo
-    o = lo + span * torch.rand((n, 2), generator=gen, device=cuda_device)
-    ang = 6.2831853 * torch.rand(n, generator=gen, device=cuda_device)
+def _sweep_scene(which, device):
+    """SmollRoom, Big Room, ``city_scene(n)``, or "tie": ``city_scene(62)``
+    with 40 copies of wall 9 and of wall 100 appended, so that equal
+    distances span clusters (the copies sort next to their original, the
+    run longer than a cluster)."""
+    if which == "smoll":
+        return rooms.smoll_room(device=device).scene
+    if which == "big":
+        return rooms.big_room(device=device).scene
+    if which == "tie":
+        scene = rooms.city_scene(62, device=device).scene
+        copies = torch.tensor([9] * 40 + [100] * 40, device=device)
+        return Scene(*(torch.cat([x, x[copies]]) for x in scene))
+    return rooms.city_scene(which, device=device).scene
+
+
+def _sweep_rays(scene, n, device, seed):
+    """``n`` rays from random points of the scene's box, in random
+    directions; a third aimed at the midpoints and a sixth at the end
+    points of walls 9 and 100 (the tie scene's copies, shared corners)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lo = scene.a.amin(0)
+    span = scene.a.amax(0) - lo
+    o = lo + span * torch.rand((n, 2), generator=gen, device=device)
+    ang = 6.2831853 * torch.rand(n, generator=gen, device=device)
     d = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
-    before = _hit_counts()
+    k = [9, 100] if scene.n_walls > 100 else [0, 1]
+    mids = 0.5 * (scene.a[k] + scene.b[k])
+    ends = torch.cat([scene.a[k], scene.b[k]])
+    targets = torch.cat([mids.repeat(n // 6, 1), ends.repeat(n // 24, 1)])
+    aim = targets - o[:targets.shape[0]]
+    d[:targets.shape[0]] = aim / aim.norm(dim=-1, keepdim=True)
+    return o, d, gen
+
+
+@cuda
+@pytest.mark.parametrize("route", ["brute", "box"])
+@pytest.mark.parametrize("which", ["smoll", "big", 62, 250, 2500, "tie"])
+def test_wall_sweeps_equal_their_plain_versions(cuda_device, which, route):
+    """K1 and K2 on both routes (the brute sweep over the packed table, the
+    box walk over ``prepare``'s sorted tables), on random rays (a count
+    that fills no whole block) and rays aimed at walls and corners,
+    without and with ``alive`` / ``limit``, against their plain versions:
+    distances, indices (the lowest of the scene's indices among equal
+    distances) and minima equal bit for bit."""
+    scene = _sweep_scene(which, cuda_device)
+    packed = tk.pack_walls(scene)
+    walls = tk.SweepWalls(packed,
+                          ak.prepare(scene) if route == "box" else None)
+    n = 5001
+    o, d, gen = _sweep_rays(scene, n, cuda_device, 5)
+    alive = torch.rand(n, generator=gen, device=cuda_device) > 0.25
+    span = float((scene.a.amax(0) - scene.a.amin(0)).norm())
+    limit = span * torch.rand(n, generator=gen, device=cuda_device)
+    o3, d3, a3, l3 = (x.reshape(n // 3, 3, *x.shape[1:])
+                      for x in (o, d, alive, limit))
+    before = _route_counts()
     t, idx = tk.nearest_hit(o, d, walls)
-    occ = tk.occlusion_min(o.reshape(-1, 3, 2), d.reshape(-1, 3, 2), walls)
+    t_m, idx_m = tk.nearest_hit(o, d, walls, alive)
+    occ = tk.occlusion_min(o3, d3, walls)
+    occ_ml = tk.occlusion_min(o3, d3, walls, a3, l3)
+    occ_l = tk.occlusion_min(o3, d3, walls, limit=l3)
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(_hit_counts(), before)) == (1, 1, 0, 0)
-    t_plain, idx_plain = tk.nearest_hit_plain(o, d, walls)
+    step = (2, 3, 0, 0) if route == "brute" else (0, 0, 2, 3)
+    assert tuple(a - b for a, b in zip(_route_counts(), before)) == step
+    t_p, idx_p = tk.nearest_hit_plain(o, d, walls)
     assert idx.dtype == torch.int32 and int((idx >= 0).sum()) > n // 2
-    assert torch.equal(t, t_plain) and torch.equal(idx, idx_plain)
+    assert torch.equal(t, t_p) and torch.equal(idx, idx_p)
+    t_mp, idx_mp = tk.nearest_hit_plain(o, d, walls, alive)
+    assert torch.equal(t_m, t_mp) and torch.equal(idx_m, idx_mp)
+    assert bool((idx_m[~alive] == -1).all())
     assert tuple(occ.shape) == (n // 3, 3)
-    assert torch.equal(occ.reshape(-1), tk.occlusion_min_plain(o, d, walls))
+    assert torch.equal(occ, tk.occlusion_min_plain(o3, d3, walls))
+    assert torch.equal(occ_ml, tk.occlusion_min_plain(o3, d3, walls, a3, l3))
+    assert torch.equal(occ_l, tk.occlusion_min_plain(o3, d3, walls,
+                                                     limit=l3))
+    below = occ < l3
+    assert 0 < int(below.sum()) < below.numel()
+    assert torch.equal(occ_l[below], occ[below])
+    if which == "tie":     # the copies tie: the original's index wins
+        i = idx.clamp(min=0).long()
+        hit9 = (idx >= 0) & (scene.a[i] == scene.a[9]).all(-1) \
+            & (scene.b[i] == scene.b[9]).all(-1)
+        assert int(hit9.sum()) > 20 and bool((idx[hit9] == 9).all())
     # a ray that leaves the scene misses: distance INF, index -1
-    far = room.scene.a.amax(0)[None] + 10.0
+    far = scene.a.amax(0)[None] + 10.0
     t_far, idx_far = tk.nearest_hit(far, far.new_tensor([[1.0, 0.0]]), walls)
     assert float(t_far) == 1e8 and int(idx_far) == -1
+
+
+@cuda
+@pytest.mark.parametrize("lanes", [1, 4])
+def test_brute_sweep_in_either_lane_group_equals_its_plain_version(
+        cuda_device, monkeypatch, lanes):
+    """The brute route at one lane a ray and in lane groups of 4 (forced
+    through ``bounce_kernel.lane_group``, which the wrapper asks), with and
+    without ``alive`` / ``limit``, on 1,008 walls (one tile) and 4,808 (five
+    tiles): the plain versions' bits."""
+    monkeypatch.setattr(bk, "lane_group", lambda n, k: lanes)
+    for n_boxes in (250, 1200):
+        scene = rooms.city_scene(n_boxes, device=cuda_device).scene
+        walls = tk.SweepWalls(tk.pack_walls(scene))
+        o, d, gen = _sweep_rays(scene, 3001, cuda_device, 6)
+        alive = torch.rand(3001, generator=gen, device=cuda_device) > 0.25
+        limit = 300.0 * torch.rand(3001, generator=gen, device=cuda_device)
+        for a in (None, alive):
+            got = tk.nearest_hit(o, d, walls, a)
+            want = tk.nearest_hit_plain(o, d, walls, a)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+            for lim in (None, limit):
+                assert torch.equal(tk.occlusion_min(o, d, walls, a, lim),
+                                   tk.occlusion_min_plain(o, d, walls, a,
+                                                          lim))
+
+
+@cuda
+def test_ray_keys_are_morton_ray_keys(cuda_device):
+    """The box walk's key kernel: ``accel.morton_ray_keys`` bit for bit,
+    the largest key for a masked ray, points outside the window clamped."""
+    scene = rooms.city_scene(2500, device=cuda_device).scene
+    prep = ak.prepare(scene)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    o = (torch.rand((70001, 2), generator=gen, device=cuda_device) - 0.5) \
+        * 1200.0
+    alive = torch.rand(70001, generator=gen, device=cuda_device) > 0.3
+    lo, span = prep.bounds[:2], prep.bounds[2:]
+    for a in (None, alive):
+        got = tk.ray_keys(o, a, prep.bounds)
+        want = accel.morton_ray_keys(
+            o[:, 0], o[:, 1], torch.ones_like(alive) if a is None else a, lo,
+            span)
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert int((got == 0xFFFFFFFF).sum()) == int((~alive).sum())
+
+
+@cuda
+def test_sweeps_route_by_the_wall_count(cuda_device):
+    """``sweep_walls`` takes the box walk from ``BOX_WALK_MIN_WALLS`` walls
+    and the brute sweep below it (launch counts per route); the trace on
+    either route equals the plain trace."""
+    n_min = tk.BOX_WALK_MIN_WALLS
+    small = rooms.city_scene(max(1, (n_min - 9) // 4), device=cuda_device)
+    large = rooms.city_scene((n_min - 5) // 4, device=cuda_device)
+    assert small.scene.n_walls < n_min <= large.scene.n_walls
+    emit, u = rng.philox_uniforms(3, 1, 4, 4096, cuda_device)
+    for room, box in ((small, False), (large, True)):
+        walls = tk.sweep_walls(room.scene)
+        assert (walls.sorted is not None) == box
+        params = _two_ears(room, cuda_device, input_gain=100.0,
+                           listener_radius=2.0)
+        before = _route_counts()
+        hits, dbg = tt.trace(room.scene, params, emit[0], u[0], n_debug=64,
+                             use_kernels=True)
+        torch.cuda.synchronize()
+        step = (0, 0, 4, 4) if box else (4, 4, 0, 0)
+        assert tuple(a - b for a, b in zip(_route_counts(), before)) == step
+        want, dbg_plain = tt.trace(room.scene, params, emit[0], u[0],
+                                   n_debug=64)
+        v = want.valid
+        assert int(v.sum()) > 0 and torch.equal(hits.valid, v)
+        assert torch.equal(hits.delay[v], want.delay[v])
+        assert torch.equal(hits.energy[v], want.energy[v])
+        for got, plain in zip(dbg, dbg_plain):
+            assert torch.equal(got, plain)
 
 
 @cuda
@@ -788,8 +930,11 @@ def test_hit_requests_route_by_listeners_bands_and_walls(cuda_device,
     banded = rooms.smoll_room(n_bands=4, device=cuda_device)
     assert run(banded.scene, mono) == (4, 4, 0, 0)                 # K1/K2
     big, p_big = _city(cuda_device, 1500)                    # 6,004 walls
-    assert big.n_walls > bk.MAX_WALLS
-    assert run(big, p_big) == (4, 4, 0, 0)
+    assert big.n_walls > bk.MAX_WALLS and big.n_walls >= tk.BOX_WALK_MIN_WALLS
+    boxed = _route_counts()
+    assert run(big, p_big) == (4, 4, 0, 0)                 # by the box walk
+    assert tuple(a - b for a, b in zip(_route_counts(), boxed)) == \
+        (0, 0, 4, 4)
     eng = art.Engine(room.scene, art.smoll_room_config())
     before = _hit_counts()
     _, dbg = eng.trace_debug(mono, seed=1, n_debug=10)
@@ -958,9 +1103,10 @@ def test_diffraction_through_k2_equals_its_plain_version(cuda_device, order):
     p = TraceParams.make(room.source, [[-16.0, 3.0], [0.0, -3.68]],
                          directivity=src, mic_directivity=mic,
                          device=cuda_device)
-    before = tk.occlusion_min.launches
+    before = _hit_counts()[1]
     got = dfr.diffraction_ir(scene, p, order=order, **KW)
-    assert tk.occlusion_min.launches == before + (3 if order == 1 else 7)
+    # all visibility sweeps of a paths call in one launch
+    assert _hit_counts()[1] == before + (1 if order == 1 else 2)
     want = dfr.diffraction_ir(scene, p, order=order, use_kernels=False, **KW)
     assert float(got[0].sum()) > 0 and torch.equal(got, want)
 

@@ -128,3 +128,50 @@ def test_trace_with_kernels_equals_plain_trace(n_listeners):
         assert torch.equal(got, want)
     only = tt.trace_hits_only(room.scene, p, emit[0], u[0], use_kernels=True)
     assert torch.equal(only.energy, h0.energy)
+
+
+def test_masked_and_limited_plain_versions(case):
+    """``alive``: a masked ray gives (INF, -1) (K1) and INF (K2), the others
+    what they gave unmasked; ``limit``: K2's minimum where it is below the
+    limit, INF elsewhere; on the CPU the wrappers are these plain
+    versions."""
+    o, d, a, b = (to_torch(x) for x in case)
+    walls = tk.pack_walls(_scene(*case[2:]))
+    gen = np.random.default_rng(11)
+    alive = torch.as_tensor(gen.uniform(size=o.shape[0]) > 0.3)
+    limit = to_torch(gen.uniform(0, 60, o.shape[0]).astype(np.float32))
+    t, idx = tk.nearest_hit_plain(o, d, walls)
+    t_m, idx_m = tk.nearest_hit(o, d, walls, alive)
+    assert torch.equal(t_m[alive], t[alive])
+    assert torch.equal(idx_m[alive], idx[alive])
+    assert bool((t_m[~alive] == g.INF).all() and (idx_m[~alive] == -1).all())
+    m = tk.occlusion_min_plain(o, d, walls)
+    m_l = tk.occlusion_min(o, d, walls, limit=limit)
+    below = m < limit
+    assert 50 < int(below.sum()) < o.shape[0] - 50
+    assert torch.equal(m_l[below], m[below])
+    assert bool((m_l[~below] == g.INF).all())
+    m_ml = tk.occlusion_min(o, d, walls, alive, limit)
+    assert torch.equal(m_ml, torch.where(alive, m_l, g.INF))
+    # the comparison the callers make does not move: m >= limit
+    assert torch.equal(m_ml >= limit, ~(alive & below))
+    with pytest.raises(ValueError, match="alive must be"):
+        tk.nearest_hit(o, d, walls, alive[:5])
+    with pytest.raises(ValueError, match="limit must be torch.float32"):
+        tk.occlusion_min(o, d, walls, limit=limit.double())
+
+
+def test_trace_with_kernels_equals_plain_trace_on_a_city():
+    """The masks on a city of 256 walls, two listeners: the same bits as
+    the plain trace, hit records and debug paths."""
+    room = rooms.city_scene(62, device="cpu")
+    lis = np.stack([room.listener, room.source + [1.5, 0.5]])
+    p = tt.TraceParams.make(room.source, lis, 2.0, 343.0, 100.0,
+                            device="cpu")
+    emit, u = rng.philox_uniforms(5, 1, 3, 384, "cpu")
+    h0, d0 = tt.trace(room.scene, p, emit[0], u[0], n_debug=16)
+    h1, d1 = tt.trace(room.scene, p, emit[0], u[0], n_debug=16,
+                      use_kernels=True)
+    assert int(h0.valid.sum()) > 10
+    for got, want in zip(tuple(h1) + tuple(d1), tuple(h0) + tuple(d0)):
+        assert torch.equal(got, want)
