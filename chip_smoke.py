@@ -27,6 +27,11 @@ every kernel against its plain PyTorch version:
   and ``cli bake`` at 8 octave bands, ``cli sweep --rooms 1024 --bands
   8``, a grid of 64 listeners, the 40,008-wall city at 32 bands through
   K7, and a sweep and a mixdown of 10,008-wall cities through K8.
+* spatial IRs and the binaural stream: the three- and five-microphone
+  capture (``spatial.trace_spatial``) through the directive K4 and K3 on
+  SmollRoom, K8 and K7 on the 10,008-wall city; the binaural stream with
+  a turning head; ``cli bake --binaural``, ``trace --spatial-out``,
+  ``stream --binaural``, ``analyze`` and ``sweep --metrics-out``.
 
 Phases:
 
@@ -174,8 +179,30 @@ Phases:
    15,000 x 5 and 131,072 x 8 (one frame, SmollRoom) beside the
    per-bounce step kernel they replaced (PARENT_K5_MS, PARENT_K6_MS) and
    their bounds;
+13. spatial IRs and the binaural stream. 13a: the capture of SmollRoom at
+   15,000 x 5 x 1 frame through K4 at orders 1 and 2 and at 8 bands, and
+   through K3 on host uniforms, each microphone's row against the plain
+   version on the same numbers (SAME_ENERGY / SAME_L1; one launch each).
+   13b: 2.0 s of clicks through ``Streamer(binaural=True)`` with the head
+   turning 0.5 rad/s (35 K4 launches): rerun bit-identical; against its
+   ``backend="plain"`` twin, the decoded IRs within ``decode_limit`` (a
+   float32 target bin rounded one spacing over) and the audio within what
+   that IR gap explains; a degenerate head (radius 0, shadow 0) against
+   the mono stream within the fixed-point limit of the two scales (S3 =
+   S1 / 2 under the cardioids); 220 chunks each of the mono and binaural
+   streams timed (median, p99), device-busy ms, cudaLaunchKernel calls and
+   device kernels per chunk, and K4's device time at L = 3 directive
+   against L = 1 omni. 13c: 3 chunks on the 10,008-wall city (15 K8
+   launches), chunk 0's capture against the plain version, and the
+   8-band city's capture through K7 (5 launches). 13d: ``cli bake
+   --binaural 30``, ``trace --spatial-out``, ``stream --binaural 0
+   --head-turn 90 --diffraction --duration 1`` (10 K4 and 10 K2
+   launches), ``analyze --edc-out`` and ``sweep --rooms 64
+   --metrics-out``, each timed and its launches counted;
 5. timings with CUDA events after a warm-up, device times from the
-   profiler, and each kernel's bound (the larger of its bytes over 3.35
+   profiler (every reading holds all the launches of its calls, one for
+   K1-K6 and K9 and one a bounce for K7/K8, or is retried), and each
+   kernel's bound (the larger of its bytes over 3.35
    TB/s and its FP32 operations over 67 TFLOP/s, the operations counted
    from the wall tests, wall sweeps and slab tests the kernel reports it
    made on these inputs). The counts keep one meaning whatever the
@@ -377,19 +404,22 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(torch, fn, reps, name="frames_ir_kernel",
-                     launches=None):
+def kernel_device_ms(torch, fn, reps, name, launches):
     """Device time per call of ``fn`` of the kernels whose name holds
-    ``name`` (all of a call's launches: one for K3/K4/K9, one per
-    bounce for K7/K8), over ``reps`` calls, from the profiler's CUDA events
-    (None if it records none in three tries). The wrapper's own small
-    launches are left out. With ``launches`` (per call), a reading that
-    holds another number of launches is dropped and retried too: a
-    reading now and then misses one."""
+    ``name``, over ``reps`` calls, from the profiler's CUDA events; None
+    if no reading in three tries holds all of the calls' launches. The
+    wrapper's own small launches are left out. ``launches`` is the
+    kernel's launches a call (one for K1-K6 and K9, one a bounce for
+    K7/K8): a reading that holds another number is dropped and retried,
+    since the profiler now and then misses a short launch and such a
+    reading would read low. Misses come in bursts (K5's 0.022 ms launch
+    missed all of three tries once), so it tries up to ten times and
+    prints the event counts of a reading it gives up on."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # a short trace now and then comes back empty
+    seen = []
+    for _ in range(10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -397,8 +427,11 @@ def kernel_device_ms(torch, fn, reps, name="frames_ir_kernel",
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and name in e.name]
-        if us and (launches is None or len(us) == launches * reps):
+        if len(us) == launches * reps:
             return sum(us) / reps / 1e3
+        seen.append(len(us))
+    print(f"    ({name}: no reading held {launches * reps} launches; "
+          f"events seen {seen})", flush=True)
     return None
 
 
@@ -1237,6 +1270,324 @@ def k4_lane_groups(c, readings, device_ms):
         check(got is not None and got <= parent * 1.05,
               f"[12t] {key}: {fmt(got)} ms no slower than before ({parent})")
     return {f"{k} G={g}": v for (k, g), v in out.items()}
+
+
+# The binaural decode's target bin t = bin - shift * sin(phi) is a float32
+# near the bin, spaced 7.8e-3 at 72,000 bins: an input that differs by the
+# kernel's fixed-point rounding can round a t one spacing over, which moves
+# e * spacing of a deposit e to the next bin. A decoded bin is held within
+# DECODE_FLIPS such moves of the largest deposit ((1 + shadow) * max W).
+DECODE_FLIPS = 4
+
+
+def decode_limit(w_max, n_t, shadow=0.6):
+    """The per-bin limit of a decoded ear IR against another decode of
+    inputs that differ by rounding (see DECODE_FLIPS)."""
+    return DECODE_FLIPS * (1.0 + shadow) * w_max * float(
+        np.spacing(np.float32(n_t)))
+
+
+def chunk_profile(torch, fn, n_chunks):
+    """One call of ``fn`` (``n_chunks`` chunks of a stream) under the
+    profiler: (device-busy ms, cudaLaunchKernel calls, device kernels),
+    each per chunk."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    calls = sum(1 for e in events if e.name == "cudaLaunchKernel")
+    return busy / n_chunks, calls / n_chunks, len(kernels) / n_chunks
+
+
+def spatial_phase(c):
+    """Phase 13: spatial captures and the binaural stream at full width
+    (SmollRoom 15,000 x 5, 48 kHz, 72,000 bins, 4,800-sample chunks; the
+    10,008-wall city). ``c`` holds the objects of main(). Returns the
+    launch counts of its paths and its readings."""
+    torch, art, bk, ak, rng, cli = (c[k] for k in (
+        "torch", "art", "bk", "ak", "rng", "cli"))
+    dev, counted, only, same_numbers, card = (c[k] for k in (
+        "dev", "counted", "only", "same_numbers", "card"))
+    from realisticaudioraytracing2d_tpu_torch import spatial as sp
+    from realisticaudioraytracing2d_tpu_torch.utils.audio_io import (
+        click_clip, read_wav, write_wav)
+    one = dict(n_rays=RAYS, max_bounces=BOUNCES, sample_rate=SR,
+               ir_length=T)
+    slice_launches = {k: 0 for k in only()}
+    readings = {}
+
+    def add(launched):
+        for k in slice_launches:
+            slice_launches[k] += launched.get(k, 0)
+
+    room = art.rooms.smoll_room(device=dev)
+    cfg = art.smoll_room_config(ray_count=RAYS)
+    p = art.Engine(room.scene, cfg).params(room.source, room.listener)
+    mics = ("omni", "cardioid 0", "cardioid 90", "1 + cos 2", "1 + sin 2")
+
+    # 13a. the capture through K4 (orders 1 and 2, and 8 bands) and K3
+    # against the plain version on the same numbers, row by row
+    room8 = art.rooms.smoll_room(n_bands=8, device=dev)
+    p8 = art.TraceParams.make(room8.source, room8.listener, device=dev)
+    host = rng.philox_uniforms(42, 1, BOUNCES, RAYS, dev)
+    for tag, kernel, scene, pp, order, draws in (
+            ("K4 order 1", "K4", room.scene, p, 1, dict(seed=41)),
+            ("K4 order 2", "K4", room.scene, p, 2, dict(seed=41)),
+            ("K4 order 1, 8 bands", "K4", room8.scene, p8, 1,
+             dict(seed=43)),
+            ("K3 order 1", "K3", room.scene, p, 1, dict(uniforms=host))):
+        (_, st), launched = counted(lambda: sp.trace_spatial(
+            scene, pp, order=order, **draws, **one))
+        check(launched == only(**{kernel: 1}),
+              f"13a: {tag} launches {launched}")
+        add(launched)
+        _, want = sp.trace_spatial(scene, pp, order=order, backend="plain",
+                                   **draws, **one)
+        check(tuple(st.sum.shape) == (3 if order == 1 else 5, T,
+                                      scene.n_bands),
+              f"13a: {tag} capture {tuple(st.sum.shape)}")
+        for row in range(st.sum.shape[0]):
+            same_numbers(f"[13a] {tag} mic {mics[row]} vs plain, {RAYS} x "
+                         f"{BOUNCES} x 1 frame", kernel, st.sum[row],
+                         want.sum[row])
+
+    # 13b. 35 chunks of clicks through the binaural stream, the head
+    # turning 0.5 rad/s from facing the source: K4 once a chunk; against
+    # its plain twin; bit-identical on a rerun; a degenerate head (radius
+    # 0, shadow 0) against the mono stream
+    clicks = (0.1, 0.7, 1.3)
+    dry = torch.as_tensor(click_clip(2.0, SR, click_times=clicks),
+                          device=dev)
+    n_chunks = 20 + 15
+    src, lis = room.source, room.listener
+    bearing = float(np.arctan2(src[1] - lis[1], src[0] - lis[0]))
+
+    def turn(i):
+        return bearing - 0.05 * i
+
+    def binaural(backend="auto", irs=None, **head):
+        s = art.Streamer(room.scene, cfg, seed=51, binaural=True,
+                         backend=backend, **head)
+        return s.stream_clip(dry, lambda i: p, facing_fn=turn,
+                             on_chunk=None if irs is None else (
+                                 lambda i, st: irs.append(
+                                     st.prev_ir.clone())))
+
+    irs_k, irs_p = [], []
+    wet, launched = counted(lambda: binaural(irs=irs_k))
+    check(launched == only(K4=n_chunks), f"13b: binaural stream launches "
+          f"{launched}")
+    add(launched)
+    again, _ = counted(binaural)
+    check(torch.equal(wet, again), "13b: binaural stream rerun "
+          "bit-identical")
+    wet_p, launched_p = counted(lambda: binaural("plain", irs_p))
+    check(launched_p == only(), f"13b: plain twin launched {launched_p}")
+    out, out_p = wet.cpu().numpy(), wet_p.cpu().numpy()
+    check(out.shape == (2, n_chunks * CHUNK) and np.isfinite(out).all()
+          and np.abs(out).max() > 0, f"13b: stream {out.shape} finite")
+    w_max = max(float(ir.abs().max()) for ir in irs_p)
+    d_ir = max(float((a - b).abs().max()) for a, b in zip(irs_k, irs_p))
+    lim_ir = decode_limit(w_max, T) + 1e-6 * w_max
+    lim = 2e-6 * np.abs(out_p).max() + float(dry.abs().sum()) * d_ir
+    gap = np.abs(out - out_p) - 1e-4 * np.abs(out_p)
+    ears = [float((out[e] ** 2).sum()) for e in (0, 1)]
+    print(f"[13b] binaural stream: SmollRoom, head turning 0.5 rad/s, "
+          f"{n_chunks} chunks -> {out.shape}, launches {launched}, rerun "
+          f"bit-identical; decoded IRs vs the plain twin's: max abs "
+          f"{d_ir:.3e} (limit {lim_ir:.3e} = {DECODE_FLIPS} target-bin "
+          f"spacings of the largest deposit, max W {w_max:.3e}); audio: max"
+          f" abs over rtol 1e-4 {gap.max():.3e} (limit {lim:.3e} = 2e-6 of "
+          f"the peak + sum|dry| x that IR gap); ear energies "
+          f"{ears[0]:.4e} / {ears[1]:.4e}", flush=True)
+    check(d_ir <= lim_ir, "13b: decoded IRs within the decode limit")
+    check(gap.max() <= lim, "13b: binaural stream == its plain twin")
+    del irs_k, irs_p, again, wet_p
+    # the degenerate head: each ear is W, which K4 bins at the scale of
+    # its loudest microphone (S3 = S1 / 2 for the cardioids): a W bin is
+    # within hits * (0.5 / S1 + 0.5 / S3) of the mono bin (hits = R * 2B,
+    # each rounded to half a step) plus 3 float32 roundings of W (the two
+    # conversions and the decode's coh + (W - coh))
+    mono_irs = []
+    mono = art.Streamer(room.scene, cfg, seed=51).stream_clip(
+        dry, lambda i: p, on_chunk=lambda i, st: mono_irs.append(
+            float(st.prev_ir.max())))
+    flat, _ = counted(lambda: binaural(head_radius=0.0, shadow=0.0))
+    mono, flat = mono.cpu().numpy()[0], flat.cpu().numpy()
+    s1 = float(bk.fixed_point_scale(p, 1, RAYS, BOUNCES))
+    s3 = float(bk.fixed_point_scale(sp.spatial_params(p), 1, RAYS, BOUNCES))
+    per_bin = RAYS * 2 * BOUNCES * (0.5 / s1 + 0.5 / s3) \
+        + 3 * 2.0 ** -24 * max(mono_irs)
+    lim_flat = 2e-6 * np.abs(mono).max() + float(dry.abs().sum()) * per_bin
+    gap_flat = float(np.abs(flat - mono[None]).max())
+    print(f"[13b] degenerate head vs the mono stream: max abs {gap_flat:.3e}"
+          f" (limit {lim_flat:.3e}: S1 = 2^{np.log2(s1):.0f}, S3 = 2^"
+          f"{np.log2(s3):.0f}, {RAYS * 2 * BOUNCES} hits of half a step "
+          f"each, 3 float32 roundings of max W {max(mono_irs):.3e}, "
+          f"sum|dry| {float(dry.abs().sum()):g}; peak "
+          f"{np.abs(mono).max():.3e})", flush=True)
+    check(s3 == s1 / 2 and gap_flat <= lim_flat,
+          "13b: degenerate head == mono within the fixed-point limit")
+
+    # timings: >= 200 chunks of each stream (synced per chunk; chunk 0,
+    # the warm-up, left out), the device-busy time and the launches of a
+    # chunk under the profiler, K4 at L = 3 directive against L = 1 omni
+    def timed(streamer, n=221, facing=None):
+        chunk_ms, t_last = [], [0.0]
+
+        def tick(i, st):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            chunk_ms.append((now - t_last[0]) * 1e3)
+            t_last[0] = now
+
+        t_last[0] = time.perf_counter()
+        streamer.stream_clip(dry, lambda i: p, loop=True, total_chunks=n,
+                             on_chunk=tick, facing_fn=facing)
+        steady = np.asarray(chunk_ms[1:])
+        return float(np.median(steady)), float(np.percentile(steady, 99))
+
+    rows = {}
+    for name, make, facing in (
+            ("mono", lambda: art.Streamer(room.scene, cfg, seed=52), None),
+            ("binaural", lambda: art.Streamer(room.scene, cfg, seed=52,
+                                              binaural=True), turn)):
+        med, p99 = timed(make(), facing=facing)
+        busy, calls, kernels = chunk_profile(
+            torch, lambda: make().stream_clip(dry, lambda i: p,
+                                              total_chunks=10,
+                                              facing_fn=facing), 10)
+        rows[name] = (med, p99, busy, calls, kernels)
+    sp_p = sp.spatial_params(p)
+    k4_ms = {}
+    for _ in range(3):       # omni, directive, alternating
+        for name, pp in (("L = 1 omni", p), ("L = 3 directive", sp_p)):
+            k4_ms.setdefault(name, []).append(kernel_device_ms(
+                torch, lambda: bk.trace_frames_ir_mega(room.scene, pp, 5, 1,
+                                                       **one),
+                10, "frames_ir_kernel", 1))
+    k4_med = {k: (None if None in v else float(np.median(v)))
+              for k, v in k4_ms.items()}
+    readings["stream"], readings["K4"] = rows, k4_med
+    print(f"[13b] timings on {card}: ms per 100 ms chunk (synced, 220 "
+          "chunks) median / p99, device busy ms per chunk, cudaLaunchKernel"
+          " and device kernels per chunk (profiler, 10 chunks): " + "; ".join(
+              f"{k} {v[0]:.3f} / {v[1]:.3f}, busy {v[2]:.4f}, "
+              f"{v[3]:.1f} launches, {v[4]:.1f} kernels"
+              for k, v in rows.items())
+          + "; K4 device ms per call at 15,000 x 5 (median of three "
+          "guarded readings): " + ", ".join(
+              f"{k} {'not measured' if v is None else f'{v:.4f}'}"
+              for k, v in k4_med.items()), flush=True)
+
+    # 13c. 3 chunks of the binaural stream on the 10,008-wall city: K8
+    # (5 launches a chunk), the capture of chunk 0 against the plain
+    # version; the 8-band city's capture through K7
+    scene_9, p_9 = c["scene_9"], c["p_9"]
+    t0 = time.perf_counter()
+    city_wet, launched = counted(lambda: art.Streamer(
+        scene_9, cfg, seed=53, binaural=True).stream_clip(
+            dry, lambda i: p_9, total_chunks=3, facing_fn=lambda i: 0.3 * i))
+    city_s = time.perf_counter() - t0
+    check(launched == only(K8=3 * BOUNCES), f"13c: city binaural stream "
+          f"launches {launched}")
+    add(launched)
+    check(tuple(city_wet.shape) == (2, 3 * CHUNK)
+          and bool(torch.isfinite(city_wet).all()), "13c: finite")
+    sp_9 = sp.spatial_params(p_9)
+    chunk0 = rng.mix_seed(53, 0)
+    same_numbers(f"[13c] K8 capture of chunk 0 vs plain, city_scene(2500) "
+                 f"{scene_9.n_walls} walls, {RAYS} x {BOUNCES}", "K8",
+                 ak.trace_frames_ir_accel_sorted(scene_9, sp_9, chunk0, 1,
+                                                 **one),
+                 ak.trace_frames_ir_accel_sorted_plain(scene_9, sp_9, chunk0,
+                                                       1, **one))
+    city8 = art.rooms.city_scene(2500, n_bands=8, device=dev)
+    p_c8 = art.TraceParams.make(city8.source, city8.listener,
+                                city8.listener_radius, 343.0, CITY_GAIN,
+                                device=dev)
+    (_, st8), launched8 = counted(lambda: sp.trace_spatial(
+        city8.scene, p_c8, 54, **one))
+    check(launched8 == only(K7=BOUNCES), f"13c: 8-band city capture "
+          f"launches {launched8}")
+    add(launched8)
+    same_numbers(f"[13c] K7 capture, 8-band city_scene(2500), {RAYS} x "
+                 f"{BOUNCES}, vs plain", "K7", st8.sum,
+                 ak.trace_frames_ir_accel_sorted_plain(
+                     city8.scene, sp.spatial_params(p_c8), 54, 1, **one))
+    print(f"[13c] city binaural stream: 3 chunks in {city_s:.3f} s (the "
+          f"first call included), launches {launched}; the 8-band city's "
+          f"capture launches {launched8}", flush=True)
+    del city8, st8
+
+    # 13d. the CLI: bake --binaural, trace --spatial-out, stream --binaural
+    # with diffraction, analyze, sweep --metrics-out; each timed, its
+    # launches counted
+    cli_s = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(n):
+            return os.path.join(tmp, n)
+
+        write_wav(path("d.wav"), click_clip(1.0, 44100,
+                                            click_times=(0.1, 0.6)), 44100)
+        runs = (
+            ("bake --binaural 30", ["bake", "--room", "smoll", "--in",
+                                    path("d.wav"), "--out", path("b.wav"),
+                                    "--binaural", "30"], dict(K4=1)),
+            ("trace --spatial-out", ["trace", "--room", "smoll",
+                                     "--spatial-out", path("sp.npz")],
+             dict(K4=2)),
+            ("stream --binaural 0 --head-turn 90 --diffraction --duration 1",
+             ["stream", "--room", "smoll", "--in", path("d.wav"), "--out",
+              path("s.wav"), "--binaural", "0", "--head-turn", "90",
+              "--diffraction", "--duration", "1"], dict(K4=10, K2=10)),
+            ("analyze", ["analyze", "--room", "smoll", "--out",
+                         path("r.json"), "--edc-out", path("edc.png")],
+             dict(K4=1)),
+            ("sweep --rooms 64 --metrics-out",
+             ["sweep", "--rooms", "64", "--out", path("irs.npz"),
+              "--metrics-out", path("m.npz")], dict(K9=1)))
+        said = {}
+        for name, argv, want in runs:
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                _, launched = counted(lambda: cli.main(argv))
+            cli_s[name] = time.perf_counter() - t0
+            said[name] = buf.getvalue()
+            check(launched == only(**want), f"13d: cli {name} launches "
+                  f"{launched}")
+            add(launched)
+        x, rate = read_wav(path("b.wav"))
+        check(rate == SR and x.shape == (SR + T, 2) and np.isfinite(x).all()
+              and not np.allclose(x[:, 0], x[:, 1]),
+              f"13d: binaural bake {x.shape}")
+        with np.load(path("sp.npz")) as npz:
+            check(set(npz.files) == {"w", "x", "y", "arrival_angle",
+                                     "diffuseness", "sample_rate"}
+                  and npz["w"].shape == (1, T, 1), "13d: spatial npz")
+        x, rate = read_wav(path("s.wav"))
+        check(x.shape == (10 * CHUNK, 2) and np.abs(x).max() > 0,
+              f"13d: binaural stream wav {x.shape}")
+        with np.load(path("m.npz")) as npz:
+            check(npz["rt60_t20_s"].shape == (64, 1, 1)
+                  and len(npz.files) == 10, "13d: sweep metrics")
+    xrt = re.search(r"\(([0-9.]+)x realtime\)",
+                    said["stream --binaural 0 --head-turn 90 --diffraction "
+                         "--duration 1"]).group(1)
+    bake_line = said["bake --binaural 30"].strip().splitlines()[-1]
+    readings["cli"] = cli_s
+    print(f"[13d] cli on {card}, seconds (launches checked): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in cli_s.items())
+        + f"; stream --binaural {xrt}x realtime; {bake_line}", flush=True)
+    return slice_launches, readings
 
 
 def main():
@@ -2577,6 +2928,10 @@ def main():
     ctx["city_bands"] = {1: (scene_d1, p_d), 8: (scene_d, p_d),
                          32: (scene_32, p_32)}
 
+    # --- 13. spatial captures and the binaural stream ----------------------
+    ctx.update(scene_9=scene_9, p_9=p_9)
+    spatial_launches, _ = spatial_phase(ctx)
+
     # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
     sc, p = smoll.scene, smoll_p
@@ -2597,13 +2952,15 @@ def main():
         sc, p, emit8, u8, **kw), 5)
     big_plain = cuda_ms(torch, lambda: bk.trace_frames_ir_plain(
         sc, p, emit8, u8, **kw), 3)
+    # every reading holds one launch a call (a reading that missed one is
+    # retried), K7/K8's one a bounce
     dev_ms = {
         "K3": kernel_device_ms(torch, lambda: bk.trace_frames_ir_whole(
-            sc, p, emit, u, **kw), 10),
+            sc, p, emit, u, **kw), 10, "frames_ir_kernel", 1),
         "K4": kernel_device_ms(torch, lambda: bk.trace_frames_ir_mega(
-            sc, p, 5, 1, **one), 10),
+            sc, p, 5, 1, **one), 10, "frames_ir_kernel", 1),
         "K4 big": kernel_device_ms(torch, lambda: bk.trace_frames_ir_mega(
-            sc, p, 6, nf, **big, **kw), 3)}
+            sc, p, 6, nf, **big, **kw), 3, "frames_ir_kernel", 1)}
     streamer = art.Streamer(sc, cfg, seed=11)
     streamer.stream_clip(dry, lambda i: p, total_chunks=5)     # warm-up
     torch.cuda.synchronize()
@@ -2650,7 +3007,8 @@ def main():
     torch.cuda.synchronize()
     sweep_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     dev_ms["K9 sweep"] = kernel_device_ms(torch, lambda: bk.trace_rooms_ir_mega(
-        scenes, src, lis, 0, SWEEP_FRAMES, **sweep_kw), 3)
+        scenes, src, lis, 0, SWEEP_FRAMES, **sweep_kw), 3, "frames_ir_kernel",
+        1)
     sweep_work = work(lambda n: bk.trace_rooms_ir_mega(
         scenes, src, lis, 0, SWEEP_FRAMES, work_counts=n, **sweep_kw))
     check_work("sweep", sweep_work, PARENT_WORK["sweep"], exact=True)
@@ -2674,7 +3032,7 @@ def main():
         cuda_ms(torch, lambda: trace_sources_mixdown(
             smoll.scene, mix_p, 7, backend="plain", **sweep_kw), 2))
     dev_ms["K9"] = kernel_device_ms(torch, lambda: bk.trace_rooms_ir_mega(
-        *mix_args, **mix_kw), 10)
+        *mix_args, **mix_kw), 10, "frames_ir_kernel", 1)
     n_work = {
         "K3": work(lambda n: bk.trace_frames_ir_whole(
             sc, p, *fixed, work_counts=n, **kw)),
@@ -2729,7 +3087,7 @@ def main():
     dev_ms["K8"] = kernel_device_ms(
         torch, lambda: ak.trace_frames_ir_accel_sorted(scene_9, p_9, 5, 1,
                                                        **one),
-        5, "accel_bounce_kernel")
+        5, "accel_bounce_kernel", launches=BOUNCES)
     n_work["K8"] = work(lambda n: ak.trace_frames_ir_accel_sorted(
         scene_9, p_9, 5, 1, work_counts=n, **one))
     check_work("K8", n_work["K8"], PARENT_WORK["K8"], exact=False)
@@ -2790,7 +3148,7 @@ def main():
                     "frames_ir_kernel")}
     for k, (fn, plain, kname) in frame.items():
         times[k] = (cuda_ms(torch, fn, 20), cuda_ms(torch, plain, 5))
-        dev_ms[k] = kernel_device_ms(torch, fn, 10, kname)
+        dev_ms[k] = kernel_device_ms(torch, fn, 10, kname, launches=1)
         n_work[k] = work(lambda n: fn(work_counts=n))
     # K5: the table, its host uniforms in and its rows out (8 f32 per ray
     # and bounce); K6 is K3 at one frame. The per-bounce step kernel they
@@ -2826,7 +3184,8 @@ def main():
                "frame_rows_kernel"),
         "K6": (lambda: bk.trace_frame_ir_fused(sc, p, e8, u8b, **kw),
                "frames_ir_kernel")}
-    wide_ms = {k: (cuda_ms(torch, fn, 5), kernel_device_ms(torch, fn, 3, name))
+    wide_ms = {k: (cuda_ms(torch, fn, 5),
+                   kernel_device_ms(torch, fn, 3, name, launches=1))
                for k, (fn, name) in wide.items()}
     wide_plain = cuda_ms(torch, lambda: bk.trace_fused_rows_plain(
         sc, p, e8, u8b), 2)
@@ -2947,12 +3306,14 @@ def main():
     dir_runs["K4 131k x 8 x 8"] = (
         lambda d: bk.trace_frames_ir_mega(sc, pick(p, d), 6, nf, **big, **kw),
         "frames_ir_kernel")
+    per_call = {"K8": BOUNCES, "K7": CITY_BOUNCES}
     for k, (run, kname) in dir_runs.items():
         reps = 2 if k in ("K7", "K4 131k x 8 x 8") else 10
-        dev_d = [kernel_device_ms(torch, lambda: run(d), reps, kname)
+        dev_d = [kernel_device_ms(torch, lambda: run(d), reps, kname,
+                                  launches=per_call.get(k, 1))
                  for d in (False, True) * 3]
-        # the median of three readings of each: one reading now and then
-        # misses a launch
+        # the median of three readings of each, each holding every launch
+        # of its calls
         med = [None if None in dev_d[i::2] else float(np.median(dev_d[i::2]))
                for i in (0, 1)]
         ratio = ("not measured" if None in med else
@@ -2966,6 +3327,8 @@ def main():
     launches.update(city_launches)
     for k, n in band_launches.items():   # the slice's paths ([12])
         launches[k] += n
+    for k, n in spatial_launches.items():   # and [13]'s
+        launches[k] = launches.get(k, 0) + n
 
     names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),
              "K4": ("bounce_kernel K4 (in-kernel Philox)", 563,

@@ -13,7 +13,10 @@ kernels (``csrc/trace_kernel.cu``) and the bounce kernel's hit-row mode
 (``csrc/bounce_kernel.cu``). Every path takes directive sources and
 microphones (:mod:`.ops.directivity`); the stream and the CLI add edge
 diffraction (:mod:`.ops.diffraction`) and air absorption
-(:mod:`.ops.air`). It imports no JAX.
+(:mod:`.ops.air`). :mod:`.spatial` traces spatial (W/X/Y) IRs through
+the same kernels and decodes them to two ears, which the stream does
+per chunk in binaural mode; :mod:`.analysis` computes the ISO 3382 room
+parameters of an IR. It imports no JAX.
 
 Every builder takes ``device=None``, which means :data:`DEFAULT_DEVICE`
 (``"cuda"``); pass ``device="cpu"`` for the plain PyTorch path.
@@ -29,7 +32,7 @@ Quick start::
     wet = eng.bake(torch.as_tensor(dry_audio, device="cuda"), ir_state)
 """
 
-from . import config, parallel, utils
+from . import analysis, config, parallel, spatial, utils
 from .config import (AudioConfig, DebugConfig, EngineConfig, SimConfig,
                      big_room_config, sample_scene_config,
                      smoll_room_config)
@@ -51,9 +54,10 @@ __all__ = [
     "Engine", "EngineConfig", "Hits", "IRState", "MATERIAL_ANECHOIC",
     "MATERIAL_BORDER", "MATERIAL_INTERIOR", "RingBuffer", "Scene",
     "SceneBuilder", "SimConfig", "StreamState", "Streamer", "TraceParams",
-    "Transform2D", "air", "bake_audio", "big_room_config", "config",
+    "Transform2D", "air", "analysis", "bake_audio", "big_room_config", "config",
     "convolve", "diffraction", "directivity", "geometry", "ir",
     "materials", "parallel", "rooms", "sample_scene_config", "scene",
-    "smoll_room_config", "stream_chunk", "trace", "trace_accumulate",
+    "smoll_room_config", "spatial", "stream_chunk", "trace",
+    "trace_accumulate",
     "utils",
 ]

@@ -1,14 +1,19 @@
-"""Command-line entry point of the port: ``trace``, ``bake``, ``sweep``.
+"""Command-line entry point of the port: ``trace``, ``bake``, ``stream``,
+``sweep``, ``analyze``.
 
-Port of three subcommands of ``realisticaudioraytracing2d_tpu/cli.py``.
+Port of five subcommands of ``realisticaudioraytracing2d_tpu/cli.py``.
 Each runs on the card unless ``--device cpu`` asks for the plain version::
 
     python -m realisticaudioraytracing2d_tpu_torch.cli trace --room smoll \\
-        --out ir.png --scene-out scene.png
+        --out ir.png --scene-out scene.png [--spatial-out sp.npz]
     python -m realisticaudioraytracing2d_tpu_torch.cli bake --room smoll \\
-        --in dry.wav --out wet.wav [--legacy]
+        --in dry.wav --out wet.wav [--legacy | --binaural FACING_DEG]
+    python -m realisticaudioraytracing2d_tpu_torch.cli stream --room smoll \\
+        --in dry.wav --out wet.wav [--binaural 0 --head-turn 90]
     python -m realisticaudioraytracing2d_tpu_torch.cli sweep --rooms 1024 \\
-        --out irs.npz
+        --out irs.npz [--metrics-out metrics.npz]
+    python -m realisticaudioraytracing2d_tpu_torch.cli analyze --room smoll \\
+        [--ir-in ir.npz] [--out report.json] [--edc-out edc.png]
 
 * ``trace`` accumulates ``--frames`` Monte-Carlo frames into an IR (the
   whole-frame kernel K4 on the card), prints the JAX CLI's ``traced ...``
@@ -30,10 +35,27 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
   ``--air-temp``, ``--air-humidity``) added to the printed and written
   IR (not to the ``--ir-out`` checkpoint, which keeps the raw
   accumulation; ``bake --legacy`` ignores both), as the JAX CLI does.
+* ``trace --spatial-out`` also traces the three-microphone spatial
+  capture (``spatial.trace_spatial``, the directive K4) and writes W, X,
+  Y, the arrival angle and the diffuseness per bin, and prints the
+  dominant arrivals, as the JAX CLI does; ``bake --binaural FACING_DEG``
+  (``--head-radius M``) bakes through the two-ear decode of that capture.
+* ``stream`` runs ``Streamer.stream_clip`` over a dry WAV (K4 once a
+  chunk; K8 or K7 past 5,280 walls), with the poses drifting at
+  ``--move-listener`` / ``--move-source`` m/s, ``--duration`` seconds
+  (the clip loops) or the clip once with its tail, ``--viz-every`` IR
+  PNGs, and ``--binaural FACING_DEG`` (``--head-turn DEG_S``,
+  ``--head-radius M``) for the binaural stream, and prints the JAX CLI's
+  ``streamed ... x realtime`` line.
 * ``sweep`` writes an IR dataset over procedurally generated rooms through
   the rooms-batched kernel K9 (one launch for the whole dataset): the same
   ``npz`` (``irs`` ``[rooms, 1, T, K]`` frame-normalized, ``sources``,
-  ``listeners``) and ``swept ... rooms/s`` line as the JAX ``sweep``.
+  ``listeners``) and ``swept ... rooms/s`` line as the JAX ``sweep``;
+  ``--metrics-out`` adds the rooms' ISO 3382 metrics (``analysis.
+  analyze_dataset``, on the device of the IRs).
+* ``analyze`` reports the metrics of a saved IR (``--ir-in``) or of a
+  fresh trace as the JAX CLI's JSON (``--out``, else stdout) and plots
+  the Schroeder decay (``--edc-out``).
 
 Draws: frame ``f`` of ``--seed`` is the Philox stream of
 ``ops/rng.py::philox_uniforms``, which K4 draws in the kernel, so the
@@ -44,16 +66,19 @@ The flags and defaults are those the JAX subcommands read, plus
 ``--device`` (default ``cuda``). ``sweep`` accepts the pattern flags and
 ignores them, as the JAX ``sweep`` does. Not ported yet, and therefore
 not accepted (ROADMAP queue 1 names what each waits for):
-``--scene-json`` (item 11), ``--spatial-out``, ``--binaural`` and
-``--head-radius`` (item 4), the bundled default clip of ``bake --in`` and
-mp3 files (item 8), ``sweep --sharded`` (item 10) and ``--metrics-out``
-(item 7), and the other subcommands.
+``--scene-json`` (item 11), ``stream --doppler``,
+``--doppler-per-arrival`` and ``--arrival-*`` (item 5), ``stream
+--pose-feed`` (item 8), the bundled default clip of ``bake --in`` and
+``stream --in`` and mp3 files (item 8), ``sweep --sharded`` (item 10),
+and the subcommands ``live`` (item 8), ``fit``, ``locate`` (item 9) and
+``bench`` (item 11).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 
@@ -236,6 +261,86 @@ def cmd_trace(args) -> None:
     if args.ir_out:
         save_ir_state(args.ir_out, raw_state)
         print(f"wrote {args.ir_out}")
+    if args.spatial_out:
+        _write_spatial(args, room, cfg, p, seed)
+
+
+def _write_spatial(args, room, cfg, p, seed) -> None:
+    """Trace the three-microphone spatial capture and write W/X/Y and the
+    per-bin direction of arrival and diffuseness (npz, the JAX CLI's
+    keys); print the arrival table."""
+    from . import spatial as spm
+    if p.mic_directivity is not None:
+        raise SystemExit("--spatial-out replaces --mic-directivity "
+                         "(steer the spatial IR afterwards instead)")
+    sp_ir, _ = spm.trace_spatial(
+        room.scene, p, seed, n_rays=cfg.sim.ray_count,
+        max_bounces=cfg.sim.max_bounces, sample_rate=cfg.audio.sample_rate,
+        ir_length=cfg.audio.ir_length, n_frames=args.frames)
+
+    def host(x):
+        return x.cpu().numpy()
+
+    np.savez(args.spatial_out, w=host(sp_ir.w), x=host(sp_ir.x),
+             y=host(sp_ir.y), arrival_angle=host(sp_ir.arrival_angle()),
+             diffuseness=host(sp_ir.diffuseness()),
+             sample_rate=cfg.audio.sample_rate)
+    print(f"wrote {args.spatial_out}")
+    arrivals = spm.dominant_arrivals(sp_ir, cfg.audio.sample_rate)
+    for i, a in enumerate(arrivals):
+        print(f"  arrival {i}: t={a['time_s'] * 1e3:7.2f} ms  "
+              f"from {np.degrees(a['bearing_rad']):7.1f} deg  "
+              f"diffuseness {a['diffuseness']:.3f}  "
+              f"energy {a['energy']:.4g}")
+
+
+def _bake_binaural(args, room, cfg, p, n_l, dry) -> None:
+    """``bake --binaural``: the spatial capture of ``--frames`` frames
+    (K4), diffraction and air on it, the two-ear decode at the facing
+    (``max_shift`` from the config's speed of sound in Python floats, as
+    the JAX CLI computes it eagerly), one convolution per ear."""
+    from . import spatial as spm
+    from .engine import trace_accumulate
+    from .ops import ir as irm
+    from .ops.convolve import apply_ir, peak_normalize
+    from .utils.audio_io import write_wav
+    if args.legacy:
+        raise SystemExit("--binaural is not available with --legacy")
+    if args.stereo is not None or p.mic_directivity is not None:
+        raise SystemExit("--binaural replaces --stereo and "
+                         "--mic-directivity (it assigns the ear "
+                         "patterns itself)")
+    if n_l != 1:
+        raise SystemExit("--binaural needs exactly one listener "
+                         "(one head)")
+    spp = spm.spatial_params(p)
+    state = irm.IRState.zeros(cfg.audio.ir_length, spp.listeners.shape[0],
+                              room.scene.n_bands, device=room.scene.device)
+    state = trace_accumulate(room.scene, spp, state,
+                             n_rays=cfg.sim.ray_count,
+                             max_bounces=cfg.sim.max_bounces,
+                             sample_rate=cfg.audio.sample_rate,
+                             n_frames=args.frames, seed=args.seed)
+    state = _apply_diffraction(state, room.scene, spp,
+                               cfg.audio.sample_rate, args)
+    state = _apply_air(state, cfg.audio.sample_rate, cfg.sim.speed_of_sound,
+                       args)
+    lft, rgt = spm.spatial_from_ir(state.normalized()).binaural(
+        cfg.audio.sample_rate, facing=float(np.radians(args.binaural)),
+        head_radius=args.head_radius,
+        speed_of_sound=cfg.sim.speed_of_sound)
+    ears = torch.cat([lft, rgt], dim=0)                    # [2, T, K]
+    t0 = time.perf_counter()
+    wet = apply_ir(dry, ears)
+    if not args.no_normalize:
+        wet = peak_normalize(wet)
+    wet = wet.cpu().numpy()
+    dt = time.perf_counter() - t0
+    write_wav(args.out, wet.T, cfg.audio.sample_rate)
+    xrt = (len(dry) / cfg.audio.sample_rate) / dt
+    print(f"binaural bake (facing {args.binaural:.0f} deg, head "
+          f"{args.head_radius * 100:.1f} cm): {len(dry)} samples in "
+          f"{dt:.3f}s ({xrt:.1f}x realtime) -> {args.out}")
 
 
 def cmd_bake(args) -> None:
@@ -248,6 +353,9 @@ def cmd_bake(args) -> None:
     x, rate = read_wav(args.infile)
     dry = load_samples(torch.as_tensor(x, device=dev), rate,
                        cfg.audio.sample_rate)
+    if args.binaural is not None:
+        _bake_binaural(args, room, cfg, p, n_l, dry)
+        return
     if args.legacy:
         # legacy frequency-binned pipeline (RayTraceManagerComplex +
         # RaytraceOcclusion2D parity): muffled time x freq IR accumulated
@@ -300,13 +408,208 @@ def cmd_sweep(args) -> None:
                       n_rays=args.rays, max_bounces=args.bounces,
                       sample_rate=args.sample_rate, ir_length=ir_len,
                       n_frames=args.frames)
-    irs = irs.cpu().numpy()      # waits for the device
+    irs_dev, irs = irs, irs.cpu().numpy()      # waits for the device
     dt = time.perf_counter() - t0
     np.savez_compressed(args.out, irs=irs, sources=sources,
                         listeners=listeners)
     print(f"swept {args.rooms} rooms in {dt:.2f}s "
           f"({args.rooms / dt:.1f} rooms/s) -> {args.out} "
           f"irs shape {irs.shape}")
+    if args.metrics_out:
+        from .analysis import analyze_dataset
+        # the IRs are frame-normalized by sweep_rooms already
+        metrics = analyze_dataset(irs_dev, args.sample_rate)
+        del irs_dev
+        np.savez_compressed(args.metrics_out, **metrics)
+        rt = metrics["rt60_t20_s"]
+        print(f"metrics -> {args.metrics_out}; RT60(T20) median "
+              f"{np.nanmedian(rt):.3f}s over {np.isfinite(rt).sum()}"
+              f"/{rt.size} decays spanning the fit window")
+
+
+def _air_alpha_arr(args, n_bands: int, dev):
+    """Per-band ISO 9613-1 alpha ``[K]`` (dB/m) for ``--air`` on ``dev``,
+    else None (the stream applies it to every chunk's IR)."""
+    if not args.air:
+        return None
+    from .ops import air
+    freqs = air.band_frequencies(n_bands)
+    alpha = air.iso9613_alpha(freqs, args.air_temp, args.air_humidity)
+    print("air absorption: " + ", ".join(
+        f"{f:.0f} Hz {a * 1000:.1f} dB/km" for f, a in zip(freqs, alpha)))
+    return torch.as_tensor(np.asarray(alpha, np.float32), device=dev)
+
+
+def _trajectory_poses(args, eng, room, listeners, chunk_dt):
+    """``--move-listener`` / ``--move-source`` as a ``params_fn(chunk) ->
+    TraceParams`` of poses drifting linearly at those velocities (m/s)."""
+    vel = np.asarray([float(v) for v in args.move_listener.split(",")]) \
+        if args.move_listener else np.zeros(2)
+    svel = np.asarray([float(v) for v in args.move_source.split(",")]) \
+        if args.move_source else np.zeros(2)
+    directivity = _directivity_arr(args)
+    mic_directivity = _mic_directivity_arr(args)
+
+    def poses(i):
+        drift = (vel * i * chunk_dt).astype(np.float32)
+        sdrift = (svel * i * chunk_dt).astype(np.float32)
+        return eng.params(np.asarray(room.source, np.float32) + sdrift,
+                          listeners + drift, directivity=directivity,
+                          mic_directivity=mic_directivity)
+
+    return poses
+
+
+def _binaural_setup(args, n_l: int, chunk_dt: float):
+    """``--binaural``'s refusals and the per-chunk head facing: ``(enabled,
+    facing_fn)``, ``facing_fn(i)`` in radians at chunk ``i``, turning
+    ``--head-turn`` degrees a second."""
+    if args.binaural is None:
+        return False, None
+    if args.stereo is not None or _mic_directivity_arr(args) is not None:
+        raise SystemExit("--binaural replaces --stereo and "
+                         "--mic-directivity (it assigns the ear "
+                         "patterns itself)")
+    if n_l != 1:
+        raise SystemExit("--binaural needs exactly one listener "
+                         "(one head)")
+    base = float(np.radians(args.binaural))
+    turn = float(np.radians(args.head_turn)) * chunk_dt
+    return True, (lambda i: base + turn * i)
+
+
+def _viz_callback(out_path, every: int):
+    """Every ``every`` chunks, write the chunk's normalized IR waveform as
+    ``<out stem>_ir_NNNN.png`` (the reference's ``DrawIR`` blit while
+    audio streams, ``RayTraceManager.cs:252-258``) on a worker thread;
+    ``cb.flush()`` waits for the writes."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .utils import viz
+
+    stem = os.path.splitext(out_path)[0]
+    pool = ThreadPoolExecutor(max_workers=1)
+
+    def write(i, ir_host):
+        path = f"{stem}_ir_{i:04d}.png"
+        viz.save_image(path, viz.ir_waveform_image(ir_host, 1))
+        print(f"wrote {path}")
+
+    def cb(i, cur_ir):
+        if i % every:
+            return
+        # a host copy now: the stream updates its IR in place
+        pool.submit(write, i, cur_ir[0].detach().to("cpu", copy=True))
+
+    cb.flush = lambda: pool.shutdown(wait=True)
+    return cb
+
+
+def cmd_stream(args) -> None:
+    from .engine import Engine
+    from .ops.convolve import load_samples
+    from .streaming import Streamer
+    from .utils.audio_io import read_wav, write_wav
+
+    dev = torch.device(args.device)
+    room = _build_room(args, dev)
+    cfg = _config(args)
+    listeners, n_l = _listeners(args, room)
+    eng = Engine(room.scene, cfg, n_listeners=n_l)
+    x, rate = read_wav(args.infile)
+    dry = load_samples(torch.as_tensor(x, device=dev), rate,
+                       cfg.audio.sample_rate)
+    chunk_dt = cfg.audio.chunk_duration
+    poses = _trajectory_poses(args, eng, room, listeners, chunk_dt)
+    binaural, facing_fn = _binaural_setup(args, n_l, chunk_dt)
+    streamer = Streamer(room.scene, cfg, seed=args.seed, n_listeners=n_l,
+                        frames_per_chunk=args.frames_per_chunk,
+                        diffraction=(args.diffraction
+                                     and args.diffraction_order),
+                        air_alpha=_air_alpha_arr(args, room.scene.n_bands,
+                                                 dev),
+                        binaural=binaural, head_radius=args.head_radius)
+    on_chunk = None
+    if args.viz_every:
+        viz_cb = _viz_callback(args.out, args.viz_every)
+        on_chunk = lambda i, st: viz_cb(i, st.prev_ir)  # noqa: E731
+    t0 = time.perf_counter()
+    if args.duration is not None:
+        # timed stream: the clip wraps at its end while config.audio.loop
+        # is set (RayTraceManager.cs:74-77), else pads with silence
+        total_chunks = max(1, int(round(args.duration / chunk_dt)))
+        wet = streamer.stream_clip(dry, poses, total_chunks=total_chunks,
+                                   on_chunk=on_chunk, facing_fn=facing_fn)
+    else:
+        # play the clip once and flush the reverb tail
+        wet = streamer.stream_clip(dry, poses, loop=False,
+                                   on_chunk=on_chunk, facing_fn=facing_fn)
+    wet = wet.cpu().numpy()      # waits for the device
+    dt = time.perf_counter() - t0
+    if args.viz_every:
+        viz_cb.flush()
+    write_wav(args.out, wet.T if streamer.n_listeners > 1 else wet[0],
+              cfg.audio.sample_rate)
+    xrt = (wet.shape[-1] / cfg.audio.sample_rate) / dt
+    print(f"streamed {wet.shape[-1]} samples in {dt:.2f}s "
+          f"({xrt:.2f}x realtime) -> {args.out}")
+
+
+def cmd_analyze(args) -> None:
+    """The ISO 3382 report (RT60, EDT, C50/C80, D50, centre time, first
+    arrival) of a saved IRState (``--ir-in``) or of a fresh trace of the
+    configured room, and the Schroeder decay plot (``--edc-out``)."""
+    from . import analysis
+    from .utils.checkpoint import load_ir_state
+
+    dev = torch.device(args.device)
+    if args.ir_in:
+        state = load_ir_state(args.ir_in, device=dev)
+        sample_rate = args.sample_rate
+        src = args.ir_in
+        state = _apply_air(state, sample_rate, args.speed_of_sound, args)
+    else:
+        room, cfg, _, _, eng, p = _setup(args)
+        state = eng.trace_frames(p, seed=args.seed, n_frames=args.frames)
+        state = _apply_diffraction(state, room.scene, p,
+                                   cfg.audio.sample_rate, args)
+        state = _apply_air(state, cfg.audio.sample_rate,
+                           cfg.sim.speed_of_sound, args)
+        sample_rate = cfg.audio.sample_rate
+        src = (f"traced {args.room} ({args.frames} frames x {args.rays} "
+               "rays)")
+    ir = state.normalized()
+    metrics = analysis.analyze_ir(ir, sample_rate,
+                                  speed_of_sound=args.speed_of_sound)
+    n_listeners, _, n_bands = ir.shape
+    report = {"source": src, "sample_rate": sample_rate,
+              "ir_length": int(state.ir_length), "listeners": []}
+    for li in range(n_listeners):
+        bands = []
+        for k in range(n_bands):
+            bands.append({m: (None if np.isnan(v[li, k]) else
+                              round(float(v[li, k]), 6))
+                          for m, v in metrics.items()})
+        report["listeners"].append({"listener": li, "bands": bands})
+    text = json.dumps(report, indent=2)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+        print(f"wrote {args.out}")
+    else:
+        print(text)
+    b0 = report["listeners"][0]["bands"][0]
+    rt = b0["rt60_t20_s"]
+    print(f"listener 0 band 0: RT60(T20) "
+          f"{'n/a (decay exceeds IR length)' if rt is None else f'{rt:.3f} s'}"
+          f", C50 {b0['c50_db']:.1f} dB, D50 {b0['d50']:.3f}, "
+          f"direct {b0['direct_time_s'] * 1e3:.2f} ms "
+          f"({b0['direct_distance_m']:.2f} m)")
+    if args.edc_out:
+        from .utils import viz
+        viz.save_image(args.edc_out, viz.decay_curve_image(ir[0]))
+        print(f"wrote {args.edc_out}")
 
 
 def _common(p, room: bool = True) -> None:
@@ -372,6 +675,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "legacy muffle model for scalar IRs)")
     p.add_argument("--scene-out", default=None, help="scene/ray-path PNG")
     p.add_argument("--ir-out", default=None, help="IR state checkpoint npz")
+    p.add_argument("--spatial-out", default=None, metavar="NPZ",
+                   help="also trace a spatial (W/X/Y intensity) IR and "
+                        "write its channels + per-bin direction-of-"
+                        "arrival/diffuseness; prints the arrival table")
     p.add_argument("--ir-in", default=None,
                    help="resume accumulation from an IR checkpoint npz")
     p.add_argument("--gain", type=float, default=None,
@@ -388,14 +695,72 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-normalize", action="store_true")
     p.add_argument("--legacy", action="store_true",
                    help="use the legacy frequency-binned (muffle) pipeline")
+    p.add_argument("--binaural", type=float, default=None,
+                   metavar="FACING_DEG",
+                   help="stereo bake through a two-ear head model facing "
+                        "FACING_DEG: spatial (W/X/Y) trace, then a "
+                        "DirAC-style ITD+ILD decode (replaces --stereo/"
+                        "--mic-directivity)")
+    p.add_argument("--head-radius", type=float, default=0.0875,
+                   metavar="M", help="binaural head radius (meters)")
     _air_args(p)  # applied on the modern path (ignored with --legacy)
     p.set_defaults(fn=cmd_bake)
+
+    p = sub.add_parser("stream", help="chunked streaming convolution")
+    _common(p)
+    p.add_argument("--in", dest="infile", required=True, help="dry WAV")
+    p.add_argument("--out", required=True)
+    p.add_argument("--move-listener", default=None,
+                   help="listener velocity 'vx,vy' (m/s)")
+    p.add_argument("--move-source", default=None,
+                   help="source velocity 'vx,vy' (m/s); the IR retraces "
+                        "each chunk, so a moving source reverberates "
+                        "correctly")
+    p.add_argument("--frames-per-chunk", type=int, default=1)
+    p.add_argument("--duration", type=float, default=None,
+                   help="stream for this many seconds; the clip loops at "
+                        "its end while audio.loop is set "
+                        "(RayTraceManager.cs:74-77)")
+    p.add_argument("--viz-every", type=int, default=0, metavar="N",
+                   help="write the live IR waveform PNG every N chunks "
+                        "(<out stem>_ir_NNNN.png)")
+    p.add_argument("--binaural", type=float, default=None,
+                   metavar="FACING_DEG",
+                   help="binaural stereo stream: per-chunk spatial trace "
+                        "+ ITD/ILD ear decode, head facing FACING_DEG "
+                        "(replaces --stereo/--mic-directivity)")
+    p.add_argument("--head-turn", type=float, default=0.0, metavar="DEG_S",
+                   help="with --binaural: rotate the head DEG_S deg/s")
+    p.add_argument("--head-radius", type=float, default=0.0875,
+                   metavar="M")
+    _air_args(p)
+    p.set_defaults(fn=cmd_stream)
 
     p = sub.add_parser("sweep", help="IR dataset over procedural rooms")
     p.add_argument("--rooms", type=int, default=64)
     p.add_argument("--out", required=True)
+    p.add_argument("--metrics-out", default=None,
+                   help="also write per-room acoustics metrics "
+                        "(RT60/EDT/C50/C80/D50/... as [rooms, L, K] "
+                        "arrays) in one batched pass")
     _common(p, room=False)
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("analyze", help="room-acoustics metrics (RT60, "
+                       "EDT, C50/C80, D50, centre time, first arrival) "
+                       "from a traced or saved IR")
+    _common(p)
+    p.add_argument("--ir-in", default=None,
+                   help="IRState npz to analyze (e.g. from trace "
+                        "--ir-out; --sample-rate must match it); default: "
+                        "trace the configured room")
+    p.add_argument("--out", default=None,
+                   help="report JSON (default: stdout)")
+    p.add_argument("--edc-out", default=None,
+                   help="Schroeder decay-curve plot PNG")
+    p.add_argument("--speed-of-sound", type=float, default=343.0)
+    _air_args(p)
+    p.set_defaults(fn=cmd_analyze)
     return ap
 
 

@@ -3,8 +3,8 @@
 Each function takes the JAX object, or anything with the same attribute
 names, reads every field with ``np.asarray`` (so this module imports no
 JAX), and returns the port's object on ``device``. This is how the tests
-hand a JAX scene, poses, hits, debug paths, IR and stream state to the
-port.
+hand a JAX scene, poses, hits, debug paths, IR, spatial IR and stream
+state (plain or binaural) to the port.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from .models.scene import Scene
 from .ops.ir import IRState
 from .ops.legacy import LegacyIRState
 from .ops.trace import DebugPaths, Hits, TraceParams
+from .spatial import SpatialIR
 from .streaming import RingBuffer, StreamState
 
 
@@ -50,12 +51,24 @@ def ir_state_from_arrays(state, device=None) -> IRState:
 
 
 def stream_state_from_arrays(state, device=None) -> StreamState:
-    """:class:`StreamState` from a plain-mode JAX ``StreamState``."""
+    """:class:`StreamState` from a plain-mode or binaural JAX
+    ``StreamState`` (a binaural one carries ``prev_facing``)."""
     ring = RingBuffer(_t(state.ring.data, device, np.float32),
                       int(np.asarray(state.ring.read_head)))
+    facing = getattr(state, "prev_facing", None)
     return StreamState(prev_ir=_t(state.prev_ir, device, np.float32),
                        ring=ring,
-                       chunk_index=int(np.asarray(state.chunk_index)))
+                       chunk_index=int(np.asarray(state.chunk_index)),
+                       prev_facing=(None if facing is None
+                                    else _t(facing, device, np.float32)))
+
+
+def spatial_ir_from_arrays(sp_ir, device=None) -> SpatialIR:
+    """:class:`SpatialIR` from a JAX ``SpatialIR`` (``w``, ``x``, ``y``,
+    and ``x2``, ``y2`` of an order-2 capture)."""
+    return SpatialIR(*(None if getattr(sp_ir, f) is None
+                       else _t(getattr(sp_ir, f), device, np.float32)
+                       for f in SpatialIR._fields))
 
 
 def hits_from_arrays(hits, device=None) -> Hits:

@@ -1,10 +1,11 @@
 """Real-time streaming: chunked convolution with live IR updates (PyTorch,
-plain mode).
+plain and binaural modes).
 
-Port of ``realisticaudioraytracing2d_tpu/streaming.py`` in its plain mode
-(the reference's ``FixedUpdate`` chunk clock + ``ProcessChunk`` coroutine,
-``Assets/Script/RayTraceManager.cs:64-123``, and the ``AudioManager``
-overlap-add ring, ``Assets/Script/AudioManager.cs:45-69``). Per chunk,
+Port of ``realisticaudioraytracing2d_tpu/streaming.py`` in its plain and
+binaural modes (the reference's ``FixedUpdate`` chunk clock +
+``ProcessChunk`` coroutine, ``Assets/Script/RayTraceManager.cs:64-123``,
+and the ``AudioManager`` overlap-add ring,
+``Assets/Script/AudioManager.cs:45-69``). Per chunk,
 :func:`stream_chunk`:
 
 1. traces ``frames_per_chunk`` Monte-Carlo frames into a fresh IR (on the
@@ -19,9 +20,15 @@ crossfade (:func:`_augment_ir`): edge diffraction (``ops/diffraction.py``,
 its visibility sweeps through the kernel K2 on the card) and ISO 9613-1
 air absorption (``ops/air.py``). Directive sources and microphones ride
 in ``params``. Where the JAX step donates its state buffers, this one
-updates the preallocated :class:`StreamState` in place. Binaural,
-per-arrival Doppler and shared-rate Doppler raise ``NotImplementedError``
-(ROADMAP queue 1, items 4 and 5).
+updates the preallocated :class:`StreamState` in place.
+
+In binaural mode (``binaural_facing``) the chunk traces the head's
+three-microphone spatial capture (``spatial.binaural_trace_params``: K4
+for a seed, K3 for host uniforms, K8/K7 past 5,280 walls), takes the
+addenda on it, and decodes it to the two ears (``spatial.
+binaural_decode_ir``) before the crossfade; the head's facing may turn
+every chunk. Per-arrival and shared-rate Doppler raise
+``NotImplementedError`` (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -68,7 +75,7 @@ def _augment_ir(cur_ir: torch.Tensor, scene: Scene, params: TraceParams,
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1, item {item}); the "
-        "port streams in plain mode only")
+        "port streams in plain and binaural mode only")
 
 
 class RingBuffer:
@@ -122,23 +129,30 @@ class RingBuffer:
 @dataclass
 class StreamState:
     """Carried state of the stream: the previous chunk's normalized IR, the
-    ring (its read head is the stream position) and the chunk counter."""
+    ring (its read head is the stream position), the chunk counter and,
+    for a binaural stream only, the head facing (radians, a 0-d float32
+    tensor) the previous chunk was decoded with."""
 
     prev_ir: torch.Tensor   # [L, T, K]
     ring: RingBuffer
     chunk_index: int = 0
+    prev_facing: Optional[torch.Tensor] = None
 
 
 def init_stream(ir_length: int, chunk_samples: int, n_listeners: int = 1,
-                n_bands: int = 1, device=None) -> StreamState:
+                n_bands: int = 1, binaural: bool = False,
+                device=None) -> StreamState:
     """Ring sized to hold a chunk + its reverb tail with slack:
-    ``ir_length + 2 * chunk_samples`` (the JAX package's rule)."""
+    ``ir_length + 2 * chunk_samples`` (the JAX package's rule);
+    ``binaural`` allocates the facing carry."""
     device = resolve(device)
     return StreamState(
         prev_ir=torch.zeros((n_listeners, ir_length, n_bands),
                             dtype=torch.float32, device=device),
         ring=RingBuffer.zeros(ir_length + 2 * chunk_samples, n_listeners,
-                              device))
+                              device),
+        prev_facing=(torch.zeros((), dtype=torch.float32, device=device)
+                     if binaural else None))
 
 
 def _crossfaded_wet(chunk: torch.Tensor, ir_prev: torch.Tensor,
@@ -165,27 +179,45 @@ def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
                  dry_chunk: torch.Tensor, *, seed: int, n_rays: int,
                  max_bounces: int, sample_rate: int,
                  frames_per_chunk: int = 1, diffraction=False,
-                 air_alpha=None, uniforms=None,
-                 backend: str = "auto") -> Tuple[torch.Tensor, StreamState]:
+                 air_alpha=None, uniforms=None, backend: str = "auto",
+                 binaural_facing=None, head_radius: float = 0.0875,
+                 shadow: float = 0.6, decorrelate: bool = True
+                 ) -> Tuple[torch.Tensor, StreamState]:
     """One streaming step: retrace -> physics addenda -> crossfaded
     convolution -> overlap-add -> drain. Returns ``(out_chunk[L, N],
     state)``; ``state`` is updated in place. Chunk ``i`` traces with seed
     ``mix_seed(seed, i)`` unless ``uniforms`` (``emit[F, R]``,
     ``u[F, B, R, 3]``) are given. ``diffraction`` (falsy, 1 or 2) and
-    ``air_alpha`` (dB/m, or None) as in :func:`_augment_ir`."""
+    ``air_alpha`` (dB/m, or None) as in :func:`_augment_ir`.
+
+    ``binaural_facing`` (radians, a number or a 0-d tensor) makes the
+    step binaural: ``params`` carry ONE listener (the head) and ``state``
+    TWO channels (the ears); the chunk traces the three-microphone
+    capture ``[3, T, K]``, takes the addenda on it, and decodes it to
+    ``[2, T, K]`` (:func:`..spatial.binaural_decode_ir` with
+    ``head_radius``, ``shadow``, ``decorrelate`` and the traced
+    ``params.speed_of_sound``) before the crossfade."""
+    from . import spatial as spm
     from .engine import trace_accumulate
     n = dry_chunk.shape[-1]
     l, t, k = state.prev_ir.shape
+    binaural = binaural_facing is not None
 
     # 1. retrace: a fresh IR for this chunk (RayTraceManager.cs:82-85)
+    tp = spm.binaural_trace_params(params, l) if binaural else params
     ir_state = trace_accumulate(
-        scene, params, irm.IRState.zeros(t, l, k, device=scene.device),
+        scene, tp, irm.IRState.zeros(t, tp.listeners.shape[0], k,
+                                     device=scene.device),
         n_rays=n_rays, max_bounces=max_bounces, sample_rate=sample_rate,
         n_frames=frames_per_chunk, seed=mix_seed(seed, state.chunk_index),
         uniforms=uniforms, backend=backend)
-    cur_ir = _augment_ir(ir_state.normalized(), scene, params, sample_rate,
+    cur_ir = _augment_ir(ir_state.normalized(), scene, tp, sample_rate,
                          diffraction, air_alpha,
                          plain=backend == "plain")            # [L, T, K]
+    if binaural:                                  # [3, T, K] -> [2, T, K]
+        cur_ir = spm.binaural_decode_ir(
+            cur_ir, sample_rate, binaural_facing, head_radius, shadow,
+            params.speed_of_sound, decorrelate=decorrelate)
 
     # The first chunk has no predecessor: fade in from the current IR.
     prev_ir = cur_ir if state.chunk_index == 0 else state.prev_ir
@@ -196,6 +228,8 @@ def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
     out = state.ring.push(wet, state.ring.read_head).drain(n)
 
     state.prev_ir.copy_(cur_ir)
+    if binaural and state.prev_facing is not None:
+        state.prev_facing.fill_(binaural_facing)
     state.chunk_index += 1
     return out, state
 
@@ -206,27 +240,36 @@ class Streamer:
     every chunk. ``seed`` names the random stream; ``uniforms_fn(i) ->
     (emit[F, R], u[F, B, R, 3])`` replaces chunk ``i``'s draws.
     ``diffraction`` (False, 1 or 2) and ``air_alpha`` add edge
-    diffraction and air absorption to every chunk's IR."""
+    diffraction and air absorption to every chunk's IR. ``binaural``
+    streams one head listener to two ear channels (``n_listeners`` is 2
+    then), decoded with ``head_radius``, ``shadow`` and ``decorrelate``
+    at the facing :meth:`process` is given."""
 
     def __init__(self, scene: Scene, config: EngineConfig, seed: int = 0,
                  n_listeners: int = 1, frames_per_chunk: int = 1,
                  uniforms_fn=None, backend: str = "auto",
                  diffraction: bool = False, air_alpha=None,
-                 binaural: bool = False):
-        if binaural:
-            raise _not_ported("binaural streaming", 4)
+                 binaural: bool = False, head_radius: float = 0.0875,
+                 shadow: float = 0.6, decorrelate: bool = True):
+        if binaural and n_listeners != 1:
+            raise ValueError("binaural streaming takes one head listener")
         self.scene = scene
         self.diffraction = diffraction
         self.air_alpha = air_alpha
         self.config = config
         self.seed = int(seed)
-        self.n_listeners = n_listeners
+        self.n_listeners = 2 if binaural else n_listeners
         self.frames_per_chunk = frames_per_chunk
         self.uniforms_fn = uniforms_fn
         self.backend = backend
+        self.binaural = binaural
+        self.head_radius = head_radius
+        self.shadow = shadow
+        self.decorrelate = decorrelate
         self.state = init_stream(config.audio.ir_length,
-                                 config.audio.chunk_samples, n_listeners,
-                                 scene.n_bands, device=scene.device)
+                                 config.audio.chunk_samples,
+                                 self.n_listeners, scene.n_bands,
+                                 binaural=binaural, device=scene.device)
 
     def reset_ir(self) -> None:
         """The reference's R key (``RayTraceManager.cs:58-61``): drop the
@@ -235,9 +278,11 @@ class Streamer:
         self.state.prev_ir.zero_()
 
     def process(self, dry_chunk: torch.Tensor, params: TraceParams,
-                scene: Optional[Scene] = None) -> torch.Tensor:
+                scene: Optional[Scene] = None,
+                facing: float = 0.0) -> torch.Tensor:
         """One chunk; ``scene`` overrides the bound scene for this chunk
-        (dynamic obstacles, ``RayTraceManager.cs:67``)."""
+        (dynamic obstacles, ``RayTraceManager.cs:67``); ``facing``
+        (radians) steers the decode of a binaural streamer."""
         i = self.state.chunk_index
         uniforms = self.uniforms_fn(i) if self.uniforms_fn else None
         out, self.state = stream_chunk(
@@ -247,7 +292,10 @@ class Streamer:
             sample_rate=self.config.audio.sample_rate,
             frames_per_chunk=self.frames_per_chunk,
             diffraction=self.diffraction, air_alpha=self.air_alpha,
-            uniforms=uniforms, backend=self.backend)
+            uniforms=uniforms, backend=self.backend,
+            binaural_facing=(float(facing) if self.binaural else None),
+            head_radius=self.head_radius, shadow=self.shadow,
+            decorrelate=self.decorrelate)
         return out
 
     def stream_clip(self, dry: torch.Tensor, params_fn, scene_fn=None,
@@ -263,12 +311,12 @@ class Streamer:
         restarts at the clip head for ``total_chunks`` chunks (required);
         when clear, the clip plays once and ``pad_tail`` flushes the reverb
         tail. ``None`` honors ``config.audio.loop`` for timed streams.
-        ``on_chunk(i, state)`` runs after every chunk. ``control_fn(i) ->
-        dict``: a truthy ``"reset_ir"`` applies :meth:`reset_ir` before
-        chunk ``i``; a truthy ``"stop"`` silences the dry feed from chunk
-        ``i``, flushes ``ir_length`` worth of chunks and ends the stream."""
-        if facing_fn is not None:
-            raise _not_ported("binaural head facing", 4)
+        ``on_chunk(i, state)`` runs after every chunk. ``facing_fn(i)``
+        gives a binaural streamer's head facing (radians) at chunk ``i``.
+        ``control_fn(i) -> dict``: a truthy ``"reset_ir"`` applies
+        :meth:`reset_ir` before chunk ``i``; a truthy ``"stop"`` silences
+        the dry feed from chunk ``i``, flushes ``ir_length`` worth of
+        chunks and ends the stream."""
         if doppler:
             raise _not_ported("Doppler streaming", 5)
         n = self.config.audio.chunk_samples
@@ -301,7 +349,9 @@ class Streamer:
             piece = (torch.zeros(n, dtype=dry.dtype, device=dry.device)
                      if stopped else dry_chunk(dry, i, n, loop))
             scene_i = scene_fn(i) if scene_fn is not None else None
-            chunks.append(self.process(piece, params_fn(i), scene_i))
+            facing = facing_fn(i) if facing_fn is not None else 0.0
+            chunks.append(self.process(piece, params_fn(i), scene_i,
+                                       facing=facing))
             if on_chunk is not None:
                 on_chunk(i, self.state)
             i += 1

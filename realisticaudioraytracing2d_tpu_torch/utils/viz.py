@@ -8,8 +8,8 @@ walls/normals/source/listener/ray paths (``RayTraceManager.cs:261-279``).
 All renderers are NumPy producing [H, W, 3] float images; tensors come to
 the host once (:func:`_host`); :func:`~.png.write_png` dumps them.
 :func:`diffraction_polylines` gives the valid diffraction paths for
-:func:`render_scene`'s ``extra_paths``. ``decay_curve_image`` of the JAX
-module waits for ``analysis.py``.
+:func:`render_scene`'s ``extra_paths``; :func:`decay_curve_image` plots
+the Schroeder decay of :func:`..analysis.edc_db`.
 """
 
 from __future__ import annotations
@@ -66,6 +66,36 @@ def ir_spectrogram_image(ir_banded, frames, gain: float | None = None,
         amp = amp * gain
     amp = np.clip(amp, 0.0, 1.0)
     return amp[::-1, :, None] * GREEN
+
+
+def decay_curve_image(ir, db_floor: float = -60.0,
+                      width: int = 1024, height: int = 256) -> np.ndarray:
+    """Schroeder decay curve(s) as a plot: dB EDC against time, one cyan
+    polyline per band, orange gridlines every 10 dB. ``ir`` is ``[T]`` or
+    ``[T, K]``, accumulated or normalized (the EDC is scale-invariant);
+    the curve is computed on the host, as the image is."""
+    from ..analysis import edc_db
+
+    a = _host(ir).astype(np.float32)
+    if a.ndim == 1:
+        a = a[:, None]
+    db = _host(edc_db(torch.from_numpy(np.ascontiguousarray(a.T))))  # [K, T]
+    k, t = db.shape
+    img = np.zeros((height, width, 3), np.float32)
+    for level in range(-10, int(db_floor), -10):
+        y = int(round((level / db_floor) * (height - 1)))
+        img[y, :] = ORANGE * 0.25
+    xs = np.minimum((np.arange(width) * t) // width, t - 1)
+    for band in range(k):
+        ys = np.clip(db[band, xs] / db_floor, 0.0, 1.0) * (height - 1)
+        ys = ys.astype(np.int64)
+        shade = 1.0 if k == 1 else 0.4 + 0.6 * band / (k - 1)
+        img[ys, np.arange(width)] = CYAN * shade
+        # connect vertical jumps so steep decays stay a line
+        for x in range(1, width):
+            lo, hi = sorted((ys[x - 1], ys[x]))
+            img[lo:hi + 1, x] = CYAN * shade
+    return img
 
 
 class SceneCanvas:

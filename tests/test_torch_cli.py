@@ -1,5 +1,5 @@
-"""PyTorch port: the command line's ``trace``, ``bake`` and ``sweep``
-subcommands on the CPU.
+"""PyTorch port: the command line's ``trace``, ``bake``, ``stream``,
+``sweep`` and ``analyze`` subcommands on the CPU.
 
 ``--device cpu`` runs the plain versions. The sweep's npz must hold
 exactly what :func:`sweep_rooms` returns for the same arguments; ``trace``
@@ -15,7 +15,16 @@ The directive, diffraction and air flags (``--directivity``,
 JAX's frame uniforms, prints JAX's IR energy within rtol 1e-4 and its
 peak bin, the same diffraction and air lines, and checkpoints the raw IR
 within the trace parity limits of ``test_torch_directivity.py`` (rtol
-1e-4 plus atol 3e-5 of the largest bin)."""
+1e-4 plus atol 3e-5 of the largest bin).
+
+The spatial and binaural commands, fed JAX's frame uniforms: ``trace
+--spatial-out`` writes JAX's npz keys with W/X/Y within those trace
+limits and JAX's arrival table; ``bake --binaural`` writes JAX's WAV
+within 3 PCM16 steps (the decode's float32 target bins may round one
+spacing over, tests/test_torch_spatial.py) and refuses what JAX refuses;
+``stream --binaural --head-turn`` writes what ``Streamer`` streams; the
+``analyze`` report and ``sweep --metrics-out`` hold the metrics of
+``analysis`` and JAX's within test_torch_analysis.py's limits."""
 
 import argparse
 import dataclasses
@@ -166,24 +175,44 @@ def test_cli_bake_writes_a_reverberant_wav(tmp_path, capsys, mode):
     assert not mono[:400].any()
 
 
-@pytest.mark.parametrize("flag", [
-    ["--scene-json", "x.json"], ["--spatial-out", "x.npz"]])
-def test_cli_rejects_flags_that_are_not_ported(flag, capsys):
+STREAM = ["stream", "--in", "a.wav", "--out", "b.wav"]
+
+
+@pytest.mark.parametrize("cmd, flag", [
+    (["trace"], ["--scene-json", "x.json"]),
+    (STREAM, ["--doppler"]), (STREAM, ["--doppler-per-arrival"]),
+    (STREAM, ["--arrival-taps", "3"]), (STREAM, ["--pose-feed", "-"]),
+    (["sweep", "--out", "x.npz"], ["--sharded"])])
+def test_cli_rejects_flags_that_are_not_ported(cmd, flag, capsys):
     with pytest.raises(SystemExit) as exc:
-        cli.build_parser().parse_args(["trace", *flag])
+        cli.build_parser().parse_args([*cmd, *flag])
     assert exc.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
-def test_cli_bake_rejects_binaural_and_needs_a_clip(capsys):
-    for argv in (["bake", "--in", "a.wav", "--out", "b.wav", "--binaural",
-                  "0"], ["bake", "--out", "b.wav"],
-                 ["bake", "--in", "a.wav", "--out", "b.wav", "--head-radius",
-                  "0.1"]):
-        with pytest.raises(SystemExit) as exc:
-            cli.build_parser().parse_args(argv)
-        assert exc.value.code == 2
+def test_cli_bake_rejects_binaural_and_needs_a_clip(tmp_path, capsys):
+    # --binaural and --head-radius parse now; a bake without a clip does
+    # not (the bundled clip waits for ROADMAP queue 1, item 8)
+    args = cli.build_parser().parse_args(
+        ["bake", "--in", "a.wav", "--out", "b.wav", "--binaural", "30",
+         "--head-radius", "0.1"])
+    assert (args.binaural, args.head_radius) == (30.0, 0.1)
+    assert cli.build_parser().parse_args(
+        ["bake", "--in", "a.wav", "--out", "b.wav"]).head_radius == 0.0875
+    with pytest.raises(SystemExit) as exc:
+        cli.build_parser().parse_args(["bake", "--out", "b.wav"])
+    assert exc.value.code == 2
     capsys.readouterr()
+    # and at run time the JAX CLI's three refusals
+    dry = str(tmp_path / "dry.wav")
+    write_wav(dry, click_clip(0.1, 8000), 8000)
+    for extra, said in ((["--legacy"], "not available with --legacy"),
+                        (["--stereo", "0.2"], "replaces --stereo"),
+                        (["--mic-directivity", "cardioid"],
+                         "replaces --stereo")):
+        with pytest.raises(SystemExit, match=said):
+            cli.main(["bake", *SMALL, "--in", dry, "--out",
+                      str(tmp_path / "w.wav"), "--binaural", "0", *extra])
 
 
 def test_cli_trace_and_bake_flags_default_as_jax():
@@ -282,3 +311,205 @@ def test_cli_bake_stereo_xy_pair_and_air(tmp_path, capsys):
     with pytest.raises(SystemExit, match="needs --stereo"):
         cli.main(["bake", *SMALL, "--in", dry, "--out", wet, "--stereo-aim",
                   "30"])
+
+
+def _jax_draws(monkeypatch, seed, n_frames, n_bounces, n_rays):
+    """Make every port trace draw JAX's frame uniforms of ``seed``
+    (``fold_in(key, frame)``), as the JAX CLI's traces do."""
+    import jax
+    from realisticaudioraytracing2d_tpu_torch import engine
+    uniforms = jax_frame_uniforms(jax.random.PRNGKey(seed), n_frames,
+                                  n_bounces, n_rays)
+    traced = engine.trace_accumulate
+    monkeypatch.setattr(engine, "trace_accumulate", lambda *a, **k:
+                        traced(*a, **dict(k, uniforms=uniforms)))
+
+
+def _arrival_rows(said):
+    import re
+    return [tuple(float(v) for v in m) for m in re.findall(
+        r"arrival \d+: t=\s*([0-9.]+) ms\s+from\s+([-0-9.]+) deg\s+"
+        r"diffuseness ([0-9.]+)\s+energy ([0-9.eE+-]+)", said)]
+
+
+def test_cli_trace_spatial_out_matches_jax(tmp_path, capsys, monkeypatch):
+    args = ["trace", "--room", "smoll", *SMALL[:-2]]
+    jax_npz, port_npz = str(tmp_path / "j.npz"), str(tmp_path / "p.npz")
+    jax_cli.main(args + ["--spatial-out", jax_npz])
+    want_rows = _arrival_rows(capsys.readouterr().out)
+    _jax_draws(monkeypatch, 3, 2, 4, 256)
+    cli.main(args + ["--device", CPU, "--spatial-out", port_npz])
+    said = capsys.readouterr().out
+    assert f"wrote {port_npz}" in said
+    got_rows = _arrival_rows(said)
+    assert len(got_rows) == len(want_rows) == 5
+    for g, w in zip(got_rows, want_rows):
+        assert g[0] == w[0]                                   # ms
+        assert abs(g[1] - w[1]) <= 0.2 and abs(g[2] - w[2]) <= 2e-3
+        assert g[3] == pytest.approx(w[3], rel=1e-3)
+    with np.load(port_npz) as got, np.load(jax_npz) as want:
+        assert set(got.files) == set(want.files) == {
+            "w", "x", "y", "arrival_angle", "diffuseness", "sample_rate"}
+        assert int(got["sample_rate"]) == int(want["sample_rate"]) == 8000
+        peak = float(want["w"].max())
+        assert want["w"].shape == got["w"].shape == (1, 2048, 1) and peak > 0
+        for k in ("w", "x", "y"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       atol=3e-5 * peak, err_msg=k)
+        # angles and diffuseness where a bin holds a clear direction
+        r = np.hypot(want["x"], want["y"])
+        clear = (want["w"] > 1e-2 * peak) & (r > 0.1 * want["w"])
+        assert clear.sum() > 10
+        np.testing.assert_allclose(got["arrival_angle"][clear],
+                                   want["arrival_angle"][clear], atol=1e-2)
+        np.testing.assert_allclose(got["diffuseness"][clear],
+                                   want["diffuseness"][clear], atol=1e-2)
+    with pytest.raises(SystemExit, match="replaces --mic-directivity"):
+        cli.main(args + ["--device", CPU, "--mic-directivity", "cardioid",
+                         "--spatial-out", port_npz])
+
+
+def test_cli_bake_binaural_matches_jax(tmp_path, capsys, monkeypatch):
+    dry = str(tmp_path / "dry.wav")
+    write_wav(dry, click_clip(0.5, 8000, click_times=(0.05, 0.3)), 8000)
+    args = ["bake", "--room", "smoll", *SMALL[:-2], "--in", dry,
+            "--binaural", "30", "--head-radius", "0.1", "--diffraction",
+            "--air"]
+    jax_wav, port_wav = str(tmp_path / "j.wav"), str(tmp_path / "p.wav")
+    jax_cli.main(args + ["--out", jax_wav])
+    capsys.readouterr()
+    _jax_draws(monkeypatch, 3, 2, 4, 256)
+    cli.main(args + ["--device", CPU, "--out", port_wav])
+    said = capsys.readouterr().out
+    assert "binaural bake (facing 30 deg, head 10.0 cm): 4000 samples" \
+        in said and "diffraction: added" in said
+    got, rate = read_wav(port_wav)
+    want, rate_j = read_wav(jax_wav)
+    assert rate == rate_j == 8000 and got.shape == want.shape == (
+        4000 + 2048, 2)
+    assert np.abs(got).max() == pytest.approx(1.0, abs=1e-3)
+    assert not np.allclose(got[:, 0], got[:, 1])   # ITD and ILD
+    np.testing.assert_allclose(got, want, atol=3 / 32767)
+
+
+def test_cli_stream_binaural_head_turn(tmp_path, capsys):
+    dry, out = str(tmp_path / "dry.wav"), str(tmp_path / "st.wav")
+    write_wav(dry, click_clip(0.3, 8000, click_times=(0.05,)), 8000)
+    cli.main(["stream", *SMALL, "--in", dry, "--out", out, "--binaural",
+              "20", "--head-turn", "90", "--head-radius", "0.15",
+              "--duration", "0.5", "--viz-every", "2", "--move-listener",
+              "0.5,0"])
+    said = capsys.readouterr().out
+    assert "streamed 4000 samples in" in said and f"-> {out}" in said
+    for i in (0, 2, 4):
+        assert f"wrote {str(tmp_path / 'st')}_ir_{i:04d}.png" in said
+        assert _read_png(str(tmp_path / f"st_ir_{i:04d}.png")).any()
+    got, rate = read_wav(out)
+    assert rate == 8000 and got.shape == (4000, 2) and np.abs(got).max() > 0
+    assert not np.allclose(got[:, 0], got[:, 1])
+    # what the library streams for the same seed, poses and facing
+    room = rooms.smoll_room(device=CPU)
+    cfg = art.smoll_room_config(ray_count=256)
+    cfg = dataclasses.replace(
+        cfg, sim=dataclasses.replace(cfg.sim, max_bounces=4),
+        audio=dataclasses.replace(cfg.audio, sample_rate=8000,
+                                  reverb_duration=0.256))
+    eng = art.Engine(room.scene, cfg)
+    dt = cfg.audio.chunk_duration
+    wet = art.Streamer(room.scene, cfg, seed=3, binaural=True,
+                       head_radius=0.15).stream_clip(
+        torch.as_tensor(click_clip(0.3, 8000, click_times=(0.05,))),
+        lambda i: eng.params(room.source, room.listener + np.float32(
+            [0.5 * i * dt, 0.0])), total_chunks=5,
+        facing_fn=lambda i: float(np.radians(20.0))
+        + float(np.radians(90.0)) * dt * i)
+    lib = str(tmp_path / "lib.wav")
+    write_wav(lib, wet.numpy().T, 8000)
+    np.testing.assert_array_equal(got, read_wav(lib)[0])
+    with pytest.raises(SystemExit, match="replaces --stereo"):
+        cli.main(["stream", *SMALL, "--in", dry, "--out", out, "--binaural",
+                  "0", "--stereo", "0.2"])
+
+
+def test_cli_stream_and_analyze_flags_default_as_jax():
+    args = cli.build_parser().parse_args(STREAM)
+    assert (args.frames_per_chunk, args.duration, args.viz_every,
+            args.binaural, args.head_turn, args.head_radius,
+            args.move_listener, args.move_source, args.device) == (
+        1, None, 0, None, 0.0, 0.0875, None, None, "cuda")
+    args = cli.build_parser().parse_args(["analyze"])
+    assert (args.ir_in, args.out, args.edc_out, args.speed_of_sound,
+            args.room, args.frames) == (None, None, None, 343.0, "smoll", 8)
+    assert cli.build_parser().parse_args(
+        ["sweep", "--out", "x"]).metrics_out is None
+
+
+def _report_close(got, want):
+    assert got.keys() == want.keys() and len(got["listeners"]) == len(
+        want["listeners"])
+    for lg, lw in zip(got["listeners"], want["listeners"]):
+        for bg, bw in zip(lg["bands"], lw["bands"]):
+            assert bg.keys() == bw.keys()
+            for m in bw:
+                if bw[m] is None:
+                    assert bg[m] is None, m
+                else:
+                    rel = 1e-3 if m in ("rt60_t20_s", "rt60_t30_s",
+                                        "edt_s") else 1e-5
+                    assert bg[m] == pytest.approx(bw[m], rel=rel,
+                                                  abs=2e-6), m
+
+
+def test_cli_analyze_matches_jax(tmp_path, capsys):
+    import json
+    ir_npz = str(tmp_path / "ir.npz")
+    cli.main(["trace", *SMALL, "--stereo", "0.4", "--bands", "2",
+              "--ir-out", ir_npz])
+    capsys.readouterr()
+    jax_json, port_json = str(tmp_path / "j.json"), str(tmp_path / "p.json")
+    edc = str(tmp_path / "edc.png")
+    common = ["analyze", "--ir-in", ir_npz, "--sample-rate", "8000"]
+    jax_cli.main(common + ["--out", jax_json])
+    want_said = capsys.readouterr().out.splitlines()[-1]
+    cli.main(common + ["--device", CPU, "--out", port_json, "--edc-out",
+                       edc])
+    said = capsys.readouterr().out
+    assert f"wrote {port_json}" in said and f"wrote {edc}" in said
+    assert said.splitlines()[-2].split(",")[0] == want_said.split(",")[0]
+    got, want = (json.load(open(f)) for f in (port_json, jax_json))
+    assert got["source"] == ir_npz and got["ir_length"] == 2048
+    assert len(got["listeners"]) == 2 and len(got["listeners"][0][
+        "bands"]) == 2
+    _report_close(got, want)
+    assert _read_png(edc).shape == (256, 1024, 3) and _read_png(edc).any()
+    # without --ir-in: a fresh trace of the room, with air
+    cli.main(["analyze", *SMALL, "--air"])
+    said = capsys.readouterr().out
+    assert "air absorption:" in said and "listener 0 band 0: RT60" in said
+    assert json.loads(said[said.index("{"):said.rindex("}") + 1])[
+        "source"] == "traced smoll (2 frames x 256 rays)"
+
+
+def test_cli_sweep_metrics_out(tmp_path, capsys):
+    from realisticaudioraytracing2d_tpu import analysis as jan
+    from realisticaudioraytracing2d_tpu_torch import analysis as an
+    out, metrics = str(tmp_path / "irs.npz"), str(tmp_path / "m.npz")
+    cli.main(["sweep", "--rooms", "3", "--rays", "128", "--bounces", "4",
+              "--sample-rate", "8000", "--reverb", "0.256", "--frames", "2",
+              "--seed", "5", "--out", out, "--metrics-out", metrics,
+              "--device", CPU])
+    said = capsys.readouterr().out
+    assert f"metrics -> {metrics}; RT60(T20) median" in said
+    with np.load(out) as npz:
+        irs = npz["irs"]
+    want = an.analyze_dataset(irs, 8000, device=CPU)
+    ref = jan.analyze_dataset(irs, 8000)
+    with np.load(metrics) as got:
+        assert set(got.files) == set(want) == set(ref)
+        for k in want:
+            assert got[k].shape == (3, 1, 1)
+            np.testing.assert_array_equal(got[k], want[k])
+            np.testing.assert_array_equal(np.isnan(got[k]), np.isnan(ref[k]))
+            ok = np.isfinite(ref[k])
+            np.testing.assert_allclose(got[k][ok], ref[k][ok], rtol=1e-3,
+                                       atol=1e-6, err_msg=k)

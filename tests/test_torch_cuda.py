@@ -1524,3 +1524,191 @@ def test_lane_groups_give_the_one_lane_bits(cuda_device, monkeypatch,
     for lanes, (ir, w) in out.items():
         assert torch.equal(ir, ir1), lanes
         assert torch.equal(w, w1), lanes
+
+
+# --- spatial captures and the binaural stream --------------------------------
+#
+# The spatial capture is a directive trace with a per-listener microphone
+# table (3 or 5 virtual microphones), so it takes the limits of the
+# kernels' other directive tests. The binaural decode then takes float32
+# target bins ``t = bin - shift * sin(phi)``, whose spacing at 72,000 bins
+# is 7.8e-3: an input that differs by the kernel's fixed-point rounding
+# can round a ``t`` one spacing over and move ``e * spacing`` of a deposit
+# to the next bin (tests/test_torch_spatial.py). Decoded IRs are held per
+# bin within DECODE_FLIPS such moves of the largest deposit; the audio
+# within what its IRs explain: |d out| <= sum |dry| * max |d IR| (the
+# convolution is linear, the crossfade a convex mix), plus 2e-6 of the
+# peak for the FFTs.
+
+DECODE_FLIPS = 4
+
+
+def _decode_limit(w_max, n_t, shadow=0.6):
+    return DECODE_FLIPS * (1.0 + shadow) * w_max * float(
+        np.spacing(np.float32(n_t)))
+
+
+def _click(device, n=48000, at=(4800, 20000)):
+    dry = torch.zeros(n, device=device)
+    dry[list(at)] = 1.0
+    return dry
+
+
+def _binaural_run(scene, cfg, p, dry, n_chunks, **kw):
+    """A binaural stream's audio and its decoded IR of every chunk."""
+    irs = []
+    out = art.Streamer(scene, cfg, binaural=True, **kw).stream_clip(
+        dry, lambda i: p, total_chunks=n_chunks,
+        facing_fn=lambda i: 0.5 - 0.3 * i,
+        on_chunk=lambda i, st: irs.append(st.prev_ir.clone()))
+    torch.cuda.synchronize()
+    return out, irs
+
+
+@cuda
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_spatial_capture_matches_plain(cuda_device, kernel, order):
+    from realisticaudioraytracing2d_tpu_torch import spatial as sp
+    scene, params = _setup(cuda_device)
+    kw = dict(n_rays=15000, max_bounces=5, n_frames=1, order=order, **KW)
+    if kernel == "K3":
+        draws = dict(uniforms=rng.philox_uniforms(3, 1, 5, 15000,
+                                                  cuda_device))
+        counter = bk.trace_frames_ir_whole
+    else:
+        draws = dict(seed=3)
+        counter = bk.trace_frames_ir_mega
+    before = counter.launches
+    got, st = sp.trace_spatial(scene, params, **draws, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _, want = sp.trace_spatial(scene, params, backend="plain", **draws, **kw)
+    n = 3 if order == 1 else 5
+    assert tuple(st.sum.shape) == (n, 72000, 1) and got.order == order
+    for row in range(n):
+        _assert_close_irs(st.sum[row], want.sum[row])
+
+
+@cuda
+@pytest.mark.parametrize("n_bands", [1, 8])
+def test_spatial_capture_on_a_city_matches_plain(cuda_device, n_bands):
+    from realisticaudioraytracing2d_tpu_torch import spatial as sp
+    scene, params = _city(cuda_device, 2500, n_bands)
+    counter = ak.trace_frames_ir_accel_sorted if n_bands == 1 \
+        else ak.trace_frames_ir_accel
+    kw = dict(n_rays=4096, max_bounces=5, sample_rate=16000,
+              ir_length=24000)
+    before = _launch_counts()
+    k = counter.launches
+    _, st = sp.trace_spatial(scene, params, 2, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == k + 5
+    after = _launch_counts()
+    assert after[:2] == before[:2]                   # no K3 / K4
+    want = ak.trace_frames_ir_accel_sorted_plain(
+        scene, sp.spatial_params(params), 2, 1, **kw)
+    assert tuple(st.sum.shape) == (3, 24000, n_bands)
+    for row in range(3):
+        _assert_close_irs(st.sum[row], want[row])
+
+
+@cuda
+def test_binaural_stream_matches_plain(cuda_device):
+    room = rooms.smoll_room(device=cuda_device)
+    cfg = art.smoll_room_config()
+    p = art.Engine(room.scene, cfg).params(room.source, room.listener)
+    dry = _click(cuda_device)
+    runs = {}
+    for backend in ("auto", "plain"):
+        k4, k2 = bk.trace_frames_ir_mega.launches, tk.occlusion_min.launches
+        runs[backend] = _binaural_run(room.scene, cfg, p, dry, 4, seed=5,
+                                      diffraction=1, backend=backend)
+        assert bk.trace_frames_ir_mega.launches - k4 == (
+            4 if backend == "auto" else 0)
+        assert tk.occlusion_min.launches - k2 == (
+            4 if backend == "auto" else 0)
+    (got, irs_k), (want, irs_p) = runs["auto"], runs["plain"]
+    assert tuple(got.shape) == (2, 4 * 4800)
+    w_max = max(float(ir.abs().max()) for ir in irs_p)
+    d_ir = 0.0
+    for a, b in zip(irs_k, irs_p):
+        assert tuple(a.shape) == (2, 72000, 1)
+        d_ir = max(d_ir, float((a - b).abs().max()))
+    assert d_ir <= _decode_limit(w_max, 72000) + 1e-6 * w_max
+    g, w = to_numpy(got), to_numpy(want)
+    assert np.abs(w).max() > 0 and not np.allclose(w[0], w[1])
+    np.testing.assert_allclose(
+        g, w, rtol=1e-4,
+        atol=2e-6 * np.abs(w).max() + float(dry.abs().sum()) * d_ir)
+
+
+@cuda
+def test_binaural_degenerate_head_equals_mono_within_the_fixed_point(
+        cuda_device):
+    """Radius 0 and shadow 0: each ear is the W row of the capture. K4
+    bins the capture at the scale S3 of its loudest microphone (gain 2),
+    the mono trace at S1, each hit rounded to half a step: a bin of W
+    differs from the mono bin by at most hits * (0.5 / S1 + 0.5 / S3),
+    with ``hits`` = R * 2B per frame at most, plus float32 roundings of
+    the two conversions and of the decode's ``coh + (W - coh)`` (3 ulps
+    of W). The audio, a sum of ``|dry|``-weighted bins, within that times
+    ``sum |dry|`` plus 2e-6 of the peak (the JAX test's limit)."""
+    from realisticaudioraytracing2d_tpu_torch import spatial as sp
+    room = rooms.smoll_room(device=cuda_device)
+    cfg = art.smoll_room_config()
+    p = art.Engine(room.scene, cfg).params(room.source, room.listener)
+    dry = _click(cuda_device)
+    mono_irs = []
+    mono = to_numpy(art.Streamer(room.scene, cfg, seed=2).stream_clip(
+        dry, lambda i: p, total_chunks=6,
+        on_chunk=lambda i, st: mono_irs.append(st.prev_ir.clone())))[0]
+    ears, _ = _binaural_run(room.scene, cfg, p, dry, 6, seed=2,
+                            head_radius=0.0, shadow=0.0)
+    ears = to_numpy(ears)
+    s1 = float(bk.fixed_point_scale(p, 1, 15000, 5))
+    s3 = float(bk.fixed_point_scale(sp.spatial_params(p), 1, 15000, 5))
+    assert s3 == s1 / 2                 # the cardioids' gain bound of 2
+    w_max = max(float(ir.max()) for ir in mono_irs)
+    per_bin = 15000 * 2 * 5 * (0.5 / s1 + 0.5 / s3) + 3 * 2.0 ** -24 * w_max
+    limit = 2e-6 * np.abs(mono).max() + float(dry.abs().sum()) * per_bin
+    assert np.abs(mono).max() > 0
+    for ear in ears:
+        np.testing.assert_allclose(ear, mono, rtol=0, atol=limit)
+
+
+@cuda
+def test_binaural_stream_and_decode_are_reproducible(cuda_device):
+    from realisticaudioraytracing2d_tpu_torch import spatial as sp
+    room = rooms.smoll_room(device=cuda_device)
+    cfg = art.smoll_room_config()
+    p = art.Engine(room.scene, cfg).params(room.source, room.listener)
+    dry = _click(cuda_device)
+    a, irs_a = _binaural_run(room.scene, cfg, p, dry, 3, seed=8)
+    b, irs_b = _binaural_run(room.scene, cfg, p, dry, 3, seed=8)
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(irs_a, irs_b))
+    _, st = sp.trace_spatial(room.scene, p, 8, n_rays=15000, max_bounces=5,
+                             **KW)
+    cap = st.normalized()
+    first = sp.binaural_decode_ir(cap, 48000, 0.4, 0.0875, 0.6,
+                                  p.speed_of_sound)
+    again = sp.binaural_decode_ir(cap, 48000, 0.4, 0.0875, 0.6,
+                                  p.speed_of_sound)
+    assert torch.equal(first, again) and float(first.abs().sum()) > 0
+
+
+@cuda
+def test_binaural_city_stream_runs_through_k8(cuda_device):
+    scene, params = _city(cuda_device, 2500)
+    cfg = art.EngineConfig(sim=art.SimConfig(ray_count=4096, max_bounces=5,
+                                             listener_radius=2.0,
+                                             input_gain=100.0))
+    dry = _click(cuda_device, 9600, (100,))
+    before = _launch_counts()
+    out, irs = _binaural_run(scene, cfg, params, dry, 3, seed=1)
+    after = _launch_counts()
+    assert after[3] - before[3] == 3 * 5            # K8, one per bounce
+    assert after[:3] == before[:3]                  # no K3, K4, K7
+    assert tuple(out.shape) == (2, 3 * 4800) and len(irs) == 3
+    assert bool(torch.isfinite(out).all())

@@ -102,6 +102,9 @@ def _imports(path: Path):
 def test_port_imports_no_jax():
     files = sorted(PORT_DIR.rglob("*.py"))
     assert len(files) >= 15
+    # the modules of the spatial and binaural slice are among them
+    assert {"spatial.py", "analysis.py", "streaming.py", "cli.py"} <= {
+        f.name for f in files}
     smoke = PORT_DIR.parent / "chip_smoke.py"
     for path in files + ([smoke] if smoke.exists() else []):
         for mod in _imports(path):
