@@ -32,6 +32,11 @@ every kernel against its plain PyTorch version:
   SmollRoom, K8 and K7 on the 10,008-wall city; the binaural stream with
   a turning head; ``cli bake --binaural``, ``trace --spatial-out``,
   ``stream --binaural``, ``analyze`` and ``sweep --metrics-out``.
+* Doppler streams: ``Streamer.stream_clip(doppler="per_arrival")`` on
+  SmollRoom (mono, and binaural at 8 bands) through K4, the tap tables,
+  matching and synthesis plain tensor code on the card;
+  ``doppler=True`` (the shared-rate dry feed); ``cli stream
+  --doppler-per-arrival`` and ``--doppler``.
 
 Phases:
 
@@ -199,6 +204,22 @@ Phases:
    --head-turn 90 --diffraction --duration 1`` (10 K4 and 10 K2
    launches), ``analyze --edc-out`` and ``sweep --rooms 64
    --metrics-out``, each timed and its launches counted;
+14. Doppler streams. 14a: 2.0 s of clicks through ``Streamer.stream_clip(
+   doppler="per_arrival")`` with the source approaching at 2 m/s (35 K4
+   launches): rerun bit-identical; against its ``backend="plain"`` twin,
+   the tap tables equal chunk by chunk and the audio within
+   ``per_arrival_limit`` (the residual gap through the convolution, the
+   tap windows' gaps through the taps); the taps glide (the stream is not
+   the one without Doppler). 14b: 4 chunks of the binaural x 8-band
+   per-arrival stream (4 K4 launches) against its plain twin: tap tables
+   equal, decoded residuals within ``decode_limit``, the audio within
+   ``per_arrival_limit``. 14c: ``doppler=True`` on a 400 Hz tone, the
+   source receding at 0.1 c: the peak at 360 Hz (400 without Doppler),
+   the JAX test's check. 14d: 220 chunks each of the mono, per-arrival
+   mono and per-arrival binaural streams timed (median, p99), device-busy
+   ms, cudaLaunchKernel calls and device kernels per chunk. 14e: ``cli
+   stream --doppler-per-arrival`` and ``cli stream --doppler`` with
+   ``--move-source 2,0 --duration 1`` (10 K4 launches each), timed;
 5. timings with CUDA events after a warm-up, device times from the
    profiler (every reading holds all the launches of its calls, one for
    K1-K6 and K9 and one a bounce for K7/K8, or is retried), and each
@@ -1306,6 +1327,34 @@ def chunk_profile(torch, fn, n_chunks):
     return busy / n_chunks, calls / n_chunks, len(kernels) / n_chunks
 
 
+def stream_timings(torch, make, dry, params_fn, facing=None,
+                   doppler=False, n=221):
+    """A stream's chunk times and device load: ``n`` chunks of a looped
+    stream from ``make()`` synced after every chunk (chunk 0, the
+    warm-up, left out) for the median and p99 ms per chunk, then 10
+    chunks of a fresh one under the profiler (:func:`chunk_profile`).
+    Returns (median, p99, device-busy ms, cudaLaunchKernel calls, device
+    kernels), the last three per chunk."""
+    chunk_ms, t_last = [], [0.0]
+
+    def tick(i, st):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        chunk_ms.append((now - t_last[0]) * 1e3)
+        t_last[0] = now
+
+    t_last[0] = time.perf_counter()
+    make().stream_clip(dry, params_fn, loop=True, total_chunks=n,
+                       on_chunk=tick, facing_fn=facing, doppler=doppler)
+    steady = np.asarray(chunk_ms[1:])
+    busy, calls, kernels = chunk_profile(
+        torch, lambda: make().stream_clip(dry, params_fn, total_chunks=10,
+                                          facing_fn=facing,
+                                          doppler=doppler), 10)
+    return (float(np.median(steady)), float(np.percentile(steady, 99)),
+            busy, calls, kernels)
+
+
 def spatial_phase(c):
     """Phase 13: spatial captures and the binaural stream at full width
     (SmollRoom 15,000 x 5, 48 kHz, 72,000 bins, 4,800-sample chunks; the
@@ -1436,35 +1485,16 @@ def spatial_phase(c):
     check(s3 == s1 / 2 and gap_flat <= lim_flat,
           "13b: degenerate head == mono within the fixed-point limit")
 
-    # timings: >= 200 chunks of each stream (synced per chunk; chunk 0,
-    # the warm-up, left out), the device-busy time and the launches of a
-    # chunk under the profiler, K4 at L = 3 directive against L = 1 omni
-    def timed(streamer, n=221, facing=None):
-        chunk_ms, t_last = [], [0.0]
-
-        def tick(i, st):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            chunk_ms.append((now - t_last[0]) * 1e3)
-            t_last[0] = now
-
-        t_last[0] = time.perf_counter()
-        streamer.stream_clip(dry, lambda i: p, loop=True, total_chunks=n,
-                             on_chunk=tick, facing_fn=facing)
-        steady = np.asarray(chunk_ms[1:])
-        return float(np.median(steady)), float(np.percentile(steady, 99))
-
+    # timings: >= 200 chunks of each stream, the device-busy time and the
+    # launches of a chunk under the profiler, K4 at L = 3 directive against
+    # L = 1 omni
     rows = {}
     for name, make, facing in (
             ("mono", lambda: art.Streamer(room.scene, cfg, seed=52), None),
             ("binaural", lambda: art.Streamer(room.scene, cfg, seed=52,
                                               binaural=True), turn)):
-        med, p99 = timed(make(), facing=facing)
-        busy, calls, kernels = chunk_profile(
-            torch, lambda: make().stream_clip(dry, lambda i: p,
-                                              total_chunks=10,
-                                              facing_fn=facing), 10)
-        rows[name] = (med, p99, busy, calls, kernels)
+        rows[name] = stream_timings(torch, make, dry, lambda i: p,
+                                    facing=facing)
     sp_p = sp.spatial_params(p)
     k4_ms = {}
     for _ in range(3):       # omni, directive, alternating
@@ -1587,6 +1617,267 @@ def spatial_phase(c):
     print(f"[13d] cli on {card}, seconds (launches checked): " + ", ".join(
         f"{k} {v:.2f}" for k, v in cli_s.items())
         + f"; stream --binaural {xrt}x realtime; {bake_line}", flush=True)
+    return slice_launches, readings
+
+
+def per_arrival_limit(peak, dry, d_res, d_tap, n_taps, n_bands=1,
+                      max_shift=None, shadow=0.6):
+    """The largest gap between two per-arrival streams whose tap tables
+    (bins and validity) are equal, chunk by chunk, and whose traced IRs
+    differ by rounding. The residual convolution moves by at most ``sum
+    |dry| * d_res`` (linear in the residual; the crossfade a convex mix);
+    each tap bin adds its gain's gap times the largest read, ``max |dry|``
+    (a brickwall band of the dry reads no more), over the current and the
+    fading taps' 3 bins in every band. A mono tap's gain is an IR value
+    (gap ``d_tap``). A binaural ear tap's (``max_shift`` given) comes from
+    its W/X/Y window (gap ``d_tap``): the coherent gain ``min(|XY|, W) (1
+    +- shadow sin)`` moves by at most ``5 d_tap`` and its read by ``|d
+    tau| 2 max|dry|`` with ``|d tau| <= max_shift |d sin|`` and ``|d sin|
+    <= 2 d_tap / |XY|``, weighed by a gain of at most ``(1 + shadow)
+    |XY|``; the diffuse gain ``W - coherent`` by ``3 d_tap``. Plus 2e-6 of
+    the peak for the FFTs (the mono stream's own limit)."""
+    if max_shift is None:
+        per_bin = d_tap
+    else:
+        per_bin = (8.0 + 4.0 * (1.0 + shadow) * max_shift) * d_tap
+    rows = 2 * n_taps * 3 * n_bands
+    return (2e-6 * peak + float(dry.abs().sum()) * d_res
+            + rows * float(dry.abs().max()) * per_bin)
+
+
+def doppler_phase(c):
+    """Phase 14: per-arrival and shared-rate Doppler streams at full width
+    (SmollRoom 15,000 x 5, 48 kHz, 72,000 bins, 4,800-sample chunks).
+    ``c`` holds the objects of main(). Returns the launch counts of its
+    paths and its readings."""
+    torch, art, cli = (c[k] for k in ("torch", "art", "cli"))
+    dev, counted, only, card = (c[k] for k in (
+        "dev", "counted", "only", "card"))
+    from realisticaudioraytracing2d_tpu_torch.utils.audio_io import (
+        click_clip, read_wav, write_wav)
+    slice_launches = {k: 0 for k in only()}
+    readings = {}
+
+    def add(launched):
+        for k in slice_launches:
+            slice_launches[k] += launched.get(k, 0)
+
+    room = art.rooms.smoll_room(device=dev)
+    cfg = art.smoll_room_config(ray_count=RAYS)
+    eng = art.Engine(room.scene, cfg)
+    p = eng.params(room.source, room.listener)
+    src = np.float32(room.source)
+    lis = np.float32(room.listener).reshape(-1)[:2]
+    toward = (lis - src) / np.linalg.norm(lis - src)
+    dt = cfg.audio.chunk_duration
+    clicks = (0.1, 0.7, 1.3)
+    dry = torch.as_tensor(click_clip(2.0, SR, click_times=clicks),
+                          device=dev)
+    n_chunks = 20 + 15
+
+    def approaching(engine):
+        def poses(i):          # the source toward the listener at 2 m/s
+            return engine.params(src + np.float32(toward * 2.0 * dt * i),
+                                 lis)
+        return poses
+
+    def run(scene, config, poses, backend="auto", seen=None, n=None, **kw):
+        """A per-arrival stream; ``seen`` collects each chunk's IR and
+        carry (copies: the state is updated in place)."""
+        def grab(i, st):
+            seen.append([st.prev_ir.clone()] + [
+                x.clone() for x in st.arrival.tensors()])
+        return art.Streamer(scene, config, seed=61, backend=backend,
+                            **kw).stream_clip(
+            dry, poses, total_chunks=n, doppler="per_arrival",
+            facing_fn=(lambda i: 0.4 - 0.05 * i) if kw.get("binaural")
+            else None, on_chunk=None if seen is None else grab)
+
+    def tables_and_gaps(tag, seen_k, seen_p):
+        """Check the tap tables equal chunk by chunk; return the IR,
+        residual and tap-window gaps and the live taps' count."""
+        d_ir = d_res = d_tap = 0.0
+        live = 0
+        for a, b in zip(seen_k, seen_p):
+            ir_a, res_a, idx_a, g3_a, val_a = a[:5]
+            ir_b, res_b, idx_b, g3_b, val_b = b[:5]
+            check(torch.equal(idx_a, idx_b) and torch.equal(val_a, val_b),
+                  f"{tag}: tap tables equal, chunk by chunk")
+            live += int(val_a.sum())
+            d_ir = max(d_ir, float((ir_a - ir_b).abs().max()))
+            d_res = max(d_res, float((res_a - res_b).abs().max()))
+            d_tap = max([d_tap] + [float((x - y).abs().max())
+                                   for x, y in zip(a[3:], b[3:])
+                                   if x.dtype == torch.float32])
+        return d_ir, d_res, d_tap, live
+
+    # 14a. 2.0 s of clicks through the per-arrival stream, the source
+    # approaching at 2 m/s: K4 once a chunk; bit-identical on a rerun;
+    # against its plain twin
+    poses = approaching(eng)
+    seen_k, seen_p = [], []
+    wet, launched = counted(lambda: run(room.scene, cfg, poses,
+                                        seen=seen_k))
+    check(launched == only(K4=n_chunks), f"14a: per-arrival stream "
+          f"launches {launched}")
+    add(launched)
+    again, _ = counted(lambda: run(room.scene, cfg, poses))
+    check(torch.equal(wet, again), "14a: per-arrival stream rerun "
+          "bit-identical")
+    wet_p, launched_p = counted(lambda: run(room.scene, cfg, poses,
+                                            backend="plain", seen=seen_p))
+    check(launched_p == only(), f"14a: plain twin launched {launched_p}")
+    d_ir, d_res, d_tap, live = tables_and_gaps("14a", seen_k, seen_p)
+    check(d_res <= d_ir and d_tap <= d_ir, "14a: the residuals and tap "
+          "windows differ only where the IRs do")
+    out, out_p = wet.cpu().numpy(), wet_p.cpu().numpy()
+    check(out.shape == (1, n_chunks * CHUNK) and np.isfinite(out).all()
+          and np.abs(out).max() > 0 and live > 0,
+          f"14a: stream {out.shape} finite, {live} live taps")
+    lim = per_arrival_limit(np.abs(out_p).max(), dry, d_res, d_tap,
+                            art.streaming._ARRIVAL_TAPS)
+    gap = float(np.abs(out - out_p).max())
+    plain_stream = art.Streamer(room.scene, cfg, seed=61).stream_clip(
+        dry, poses).cpu().numpy()
+    moved = float(np.abs(out - plain_stream).max())
+    print(f"[14a] per-arrival stream: SmollRoom, the source approaching at "
+          f"2 m/s, {n_chunks} chunks -> {out.shape}, launches {launched}, "
+          f"rerun bit-identical, {live} live taps over the chunks, tap "
+          f"tables == the plain twin's in every chunk; IR gap {d_ir:.3e}, "
+          f"residual {d_res:.3e}, tap windows {d_tap:.3e}; audio max abs "
+          f"{gap:.3e} (limit {lim:.3e}: sum|dry| x the residual gap + the "
+          f"tap bins' gain gaps x max|dry| + 2e-6 of the peak); against "
+          f"the stream without Doppler {moved:.3e} of peak "
+          f"{np.abs(out).max():.3e}", flush=True)
+    check(gap <= lim, "14a: per-arrival stream == its plain twin")
+    check(moved > lim, "14a: the taps glide (not the plain stream)")
+    del seen_k, seen_p, again, wet_p
+
+    # 14b. the binaural x 8-band per-arrival stream, 4 chunks, against its
+    # plain twin: tap tables equal, decoded residuals within decode_limit
+    room8 = art.rooms.smoll_room(n_bands=8, device=dev)
+    cfg8 = art.smoll_room_config(ray_count=RAYS, n_bands=8)
+    poses8 = approaching(art.Engine(room8.scene, cfg8))
+    seen_k, seen_p = [], []
+    wet8, launched8 = counted(lambda: run(
+        room8.scene, cfg8, poses8, seen=seen_k, n=4, binaural=True))
+    check(launched8 == only(K4=4), f"14b: launches {launched8}")
+    add(launched8)
+    wet8_p, _ = counted(lambda: run(room8.scene, cfg8, poses8,
+                                    backend="plain", seen=seen_p, n=4,
+                                    binaural=True))
+    _, d_res8, d_tap8, live8 = tables_and_gaps("14b", seen_k, seen_p)
+    w_max = max(float(b[1].abs().max()) for b in seen_p)
+    lim_res = decode_limit(w_max, T) + 1e-6 * w_max
+    out8, out8_p = wet8.cpu().numpy(), wet8_p.cpu().numpy()
+    max_shift = 0.0875 / 343.0 * SR
+    lim8 = per_arrival_limit(np.abs(out8_p).max(), dry, d_res8, d_tap8,
+                             art.streaming._ARRIVAL_TAPS, n_bands=8,
+                             max_shift=max_shift)
+    gap8 = float(np.abs(out8 - out8_p).max())
+    print(f"[14b] binaural x 8-band per-arrival stream: 4 chunks -> "
+          f"{out8.shape}, launches {launched8}, {live8} live taps, tap "
+          f"tables == the plain twin's; decoded residual gap {d_res8:.3e} "
+          f"(limit {lim_res:.3e}), tap windows {d_tap8:.3e}; audio max abs "
+          f"{gap8:.3e} (limit {lim8:.3e}); ear energies "
+          f"{float((out8[0] ** 2).sum()):.4e} / "
+          f"{float((out8[1] ** 2).sum()):.4e}", flush=True)
+    check(out8.shape == (2, 4 * CHUNK) and np.isfinite(out8).all()
+          and live8 > 0 and not np.allclose(out8[0], out8[1]),
+          "14b: two distinct, finite ears with live taps")
+    check(d_res8 <= lim_res, "14b: decoded residuals within the decode "
+          "limit")
+    check(gap8 <= lim8, "14b: binaural x 8-band stream == its plain twin")
+    del seen_k, seen_p, room8
+
+    # 14c. doppler=True: a 400 Hz tone, the source receding at 0.1 c down
+    # the listener-source axis, comes out at 360 Hz (the JAX test's check);
+    # without Doppler at 400 Hz
+    f0, v = 400.0, 34.3
+    tone = torch.as_tensor((np.sin(2 * np.pi * f0 * np.arange(
+        int(0.6 * SR)) / SR) * 0.5).astype(np.float32), device=dev)
+
+    def receding(i):
+        return eng.params(src - np.float32(toward * v * dt * i), lis)
+
+    def peak_hz(wet_):
+        seg = wet_.cpu().numpy()[0, int(0.1 * SR):int(0.5 * SR)]
+        spec = np.abs(np.fft.rfft(seg * np.hanning(seg.size)))
+        return float(np.argmax(spec) * SR / seg.size)
+
+    n_tone = -(-tone.shape[-1] // CHUNK) + -(-T // CHUNK)
+    dopp, launched_c = counted(lambda: art.Streamer(
+        room.scene, cfg, seed=62).stream_clip(tone, receding, doppler=True))
+    check(launched_c == only(K4=n_tone), f"14c: launches {launched_c}")
+    add(launched_c)
+    flat = art.Streamer(room.scene, cfg, seed=62).stream_clip(tone,
+                                                              receding)
+    hz, hz_flat = peak_hz(dopp), peak_hz(flat)
+    want_hz = f0 * (1.0 - v / 343.0)
+    print(f"[14c] doppler=True, a {f0:g} Hz tone, the source receding at "
+          f"{v} m/s: peak {hz:.1f} Hz (want {want_hz:.1f} +- 12), without "
+          f"Doppler {hz_flat:.1f} (want {f0:g} +- 12); launches "
+          f"{launched_c}", flush=True)
+    check(abs(hz - want_hz) < 12.0 and abs(hz_flat - f0) < 12.0,
+          "14c: the receding source's pitch is lowered by 1 - v/c")
+
+    # 14d. 220 chunks each of the mono, per-arrival mono and per-arrival
+    # binaural streams (static poses, as [13b]): ms per chunk, device-busy
+    # ms, cudaLaunchKernel calls and device kernels per chunk
+    rows = {}
+    for name, make, facing, doppler in (
+            ("mono", lambda: art.Streamer(room.scene, cfg, seed=63), None,
+             False),
+            ("per-arrival mono", lambda: art.Streamer(room.scene, cfg,
+                                                      seed=63), None,
+             "per_arrival"),
+            ("per-arrival binaural", lambda: art.Streamer(
+                room.scene, cfg, seed=63, binaural=True),
+             lambda i: 0.4 - 0.05 * i, "per_arrival")):
+        rows[name] = stream_timings(torch, make, dry, lambda i: p,
+                                    facing=facing, doppler=doppler)
+    readings["stream"] = rows
+    print(f"[14d] timings on {card}: ms per 100 ms chunk (synced, 220 "
+          "chunks) median / p99, device busy ms per chunk, cudaLaunchKernel"
+          " and device kernels per chunk (profiler, 10 chunks): " + "; ".join(
+              f"{k} {v[0]:.3f} / {v[1]:.3f}, busy {v[2]:.4f}, "
+              f"{v[3]:.1f} launches, {v[4]:.1f} kernels"
+              for k, v in rows.items()), flush=True)
+
+    # 14e. the CLI: stream --doppler-per-arrival and stream --doppler, the
+    # source moving at 2 m/s for 1 s (10 chunks: K4 once a chunk)
+    cli_s = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(n):
+            return os.path.join(tmp, n)
+
+        write_wav(path("d.wav"), click_clip(1.0, 44100,
+                                            click_times=(0.1, 0.6)), 44100)
+        for name, flag in (("stream --doppler-per-arrival",
+                            "--doppler-per-arrival"),
+                           ("stream --doppler", "--doppler")):
+            argv = ["stream", "--room", "smoll", "--in", path("d.wav"),
+                    "--out", path("s.wav"), "--move-source", "2,0",
+                    "--duration", "1", flag]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                _, launched = counted(lambda: cli.main(argv))
+            cli_s[name] = time.perf_counter() - t0
+            check(launched == only(K4=10), f"14e: cli {name} launches "
+                  f"{launched}")
+            add(launched)
+            x, rate = read_wav(path("s.wav"))
+            check(rate == SR and x.shape == (10 * CHUNK,)
+                  and np.isfinite(x).all() and np.abs(x).max() > 0,
+                  f"14e: cli {name} wav {x.shape}")
+            xrt = re.search(r"\(([0-9.]+)x realtime\)",
+                            buf.getvalue()).group(1)
+            cli_s[name] = (cli_s[name], xrt)
+    readings["cli"] = cli_s
+    print(f"[14e] cli on {card} (launches checked: 10 K4 each): "
+          + ", ".join(f"{k} {v[0]:.2f} s ({v[1]}x realtime)"
+                      for k, v in cli_s.items()), flush=True)
     return slice_launches, readings
 
 
@@ -2932,6 +3223,9 @@ def main():
     ctx.update(scene_9=scene_9, p_9=p_9)
     spatial_launches, _ = spatial_phase(ctx)
 
+    # --- 14. per-arrival and shared-rate Doppler streams -------------------
+    doppler_launches, _ = doppler_phase(ctx)
+
     # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
     sc, p = smoll.scene, smoll_p
@@ -3328,6 +3622,8 @@ def main():
     for k, n in band_launches.items():   # the slice's paths ([12])
         launches[k] += n
     for k, n in spatial_launches.items():   # and [13]'s
+        launches[k] = launches.get(k, 0) + n
+    for k, n in doppler_launches.items():   # and [14]'s
         launches[k] = launches.get(k, 0) + n
 
     names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),

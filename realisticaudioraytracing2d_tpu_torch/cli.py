@@ -9,7 +9,8 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
     python -m realisticaudioraytracing2d_tpu_torch.cli bake --room smoll \\
         --in dry.wav --out wet.wav [--legacy | --binaural FACING_DEG]
     python -m realisticaudioraytracing2d_tpu_torch.cli stream --room smoll \\
-        --in dry.wav --out wet.wav [--binaural 0 --head-turn 90]
+        --in dry.wav --out wet.wav [--binaural 0 --head-turn 90] \\
+        [--move-source 2,0 --doppler | --doppler-per-arrival]
     python -m realisticaudioraytracing2d_tpu_torch.cli sweep --rooms 1024 \\
         --out irs.npz [--metrics-out metrics.npz]
     python -m realisticaudioraytracing2d_tpu_torch.cli analyze --room smoll \\
@@ -44,8 +45,12 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
   chunk; K8 or K7 past 5,280 walls), with the poses drifting at
   ``--move-listener`` / ``--move-source`` m/s, ``--duration`` seconds
   (the clip loops) or the clip once with its tail, ``--viz-every`` IR
-  PNGs, and ``--binaural FACING_DEG`` (``--head-turn DEG_S``,
-  ``--head-radius M``) for the binaural stream, and prints the JAX CLI's
+  PNGs, ``--binaural FACING_DEG`` (``--head-turn DEG_S``,
+  ``--head-radius M``) for the binaural stream, ``--doppler`` (the dry
+  feed read at the direct path's rate) or ``--doppler-per-arrival`` (each
+  dominant early arrival gliding at its own rate, tuned by
+  ``--arrival-taps``, ``--arrival-window`` and ``--arrival-match-bins``;
+  with ``--binaural`` and ``--bands`` too), and prints the JAX CLI's
   ``streamed ... x realtime`` line.
 * ``sweep`` writes an IR dataset over procedurally generated rooms through
   the rooms-batched kernel K9 (one launch for the whole dataset): the same
@@ -66,12 +71,10 @@ The flags and defaults are those the JAX subcommands read, plus
 ``--device`` (default ``cuda``). ``sweep`` accepts the pattern flags and
 ignores them, as the JAX ``sweep`` does. Not ported yet, and therefore
 not accepted (ROADMAP queue 1 names what each waits for):
-``--scene-json`` (item 11), ``stream --doppler``,
-``--doppler-per-arrival`` and ``--arrival-*`` (item 5), ``stream
---pose-feed`` (item 8), the bundled default clip of ``bake --in`` and
-``stream --in`` and mp3 files (item 8), ``sweep --sharded`` (item 10),
-and the subcommands ``live`` (item 8), ``fit``, ``locate`` (item 9) and
-``bench`` (item 11).
+``--scene-json`` (item 11), ``stream --pose-feed`` (item 8), the
+bundled default clip of ``bake --in`` and ``stream --in`` and mp3 files
+(item 8), ``sweep --sharded`` (item 10), and the subcommands ``live``
+(item 8), ``fit``, ``locate`` (item 9) and ``bench`` (item 11).
 """
 
 from __future__ import annotations
@@ -478,6 +481,39 @@ def _binaural_setup(args, n_l: int, chunk_dt: float):
     return True, (lambda i: base + turn * i)
 
 
+def _arrival_kwargs(args):
+    """The per-arrival Doppler flags as ``Streamer`` keyword arguments."""
+    return dict(arrival_taps=args.arrival_taps,
+                arrival_window_s=args.arrival_window,
+                arrival_match_bins=args.arrival_match_bins)
+
+
+def _arrival_args(p):
+    from .streaming import (_ARRIVAL_MATCH_BINS, _ARRIVAL_TAPS,
+                            _ARRIVAL_WINDOW_S)
+    p.add_argument("--arrival-taps", type=int, default=_ARRIVAL_TAPS,
+                   metavar="N",
+                   help="per-arrival Doppler: tracked early arrivals per "
+                        f"listener (default {_ARRIVAL_TAPS}; raise for "
+                        "scenes with many comparable early reflections)")
+    p.add_argument("--arrival-window", type=float,
+                   default=_ARRIVAL_WINDOW_S, metavar="S",
+                   help="per-arrival Doppler: early IR window the taps "
+                        f"may live in, seconds (default "
+                        f"{_ARRIVAL_WINDOW_S})")
+    p.add_argument("--arrival-match-bins", type=float,
+                   default=_ARRIVAL_MATCH_BINS, metavar="B",
+                   help="per-arrival Doppler: max IR-bin drift matched "
+                        f"chunk-to-chunk (default "
+                        f"{_ARRIVAL_MATCH_BINS:.0f} = ~0.5 m at 48 kHz)")
+
+
+def _doppler_arg(args):
+    """``--doppler`` / ``--doppler-per-arrival`` as ``stream_clip``'s
+    ``doppler=`` (the flags exclude each other at parse time)."""
+    return "per_arrival" if args.doppler_per_arrival else args.doppler
+
+
 def _viz_callback(out_path, every: int):
     """Every ``every`` chunks, write the chunk's normalized IR waveform as
     ``<out stem>_ir_NNNN.png`` (the reference's ``DrawIR`` blit while
@@ -529,22 +565,26 @@ def cmd_stream(args) -> None:
                                      and args.diffraction_order),
                         air_alpha=_air_alpha_arr(args, room.scene.n_bands,
                                                  dev),
-                        binaural=binaural, head_radius=args.head_radius)
+                        binaural=binaural, head_radius=args.head_radius,
+                        **_arrival_kwargs(args))
     on_chunk = None
     if args.viz_every:
         viz_cb = _viz_callback(args.out, args.viz_every)
         on_chunk = lambda i, st: viz_cb(i, st.prev_ir)  # noqa: E731
+    doppler = _doppler_arg(args)
     t0 = time.perf_counter()
     if args.duration is not None:
         # timed stream: the clip wraps at its end while config.audio.loop
         # is set (RayTraceManager.cs:74-77), else pads with silence
         total_chunks = max(1, int(round(args.duration / chunk_dt)))
         wet = streamer.stream_clip(dry, poses, total_chunks=total_chunks,
-                                   on_chunk=on_chunk, facing_fn=facing_fn)
+                                   on_chunk=on_chunk, facing_fn=facing_fn,
+                                   doppler=doppler)
     else:
         # play the clip once and flush the reverb tail
         wet = streamer.stream_clip(dry, poses, loop=False,
-                                   on_chunk=on_chunk, facing_fn=facing_fn)
+                                   on_chunk=on_chunk, facing_fn=facing_fn,
+                                   doppler=doppler)
     wet = wet.cpu().numpy()      # waits for the device
     dt = time.perf_counter() - t0
     if args.viz_every:
@@ -715,7 +755,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--move-source", default=None,
                    help="source velocity 'vx,vy' (m/s); the IR retraces "
                         "each chunk, so a moving source reverberates "
-                        "correctly")
+                        "correctly; add --doppler for the pitch shift")
+    dop = p.add_mutually_exclusive_group()
+    dop.add_argument("--doppler", action="store_true",
+                     help="fractional-rate dry feed: pitch shifts by "
+                          "1 - v/c from the poses' radial velocity")
+    dop.add_argument("--doppler-per-arrival", action="store_true",
+                     help="per-path Doppler: the direct sound and each "
+                          "dominant early reflection glide at their own "
+                          "rates, derived from the traced IRs (composes "
+                          "with --binaural and banded scenes)")
     p.add_argument("--frames-per-chunk", type=int, default=1)
     p.add_argument("--duration", type=float, default=None,
                    help="stream for this many seconds; the clip loops at "
@@ -733,6 +782,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --binaural: rotate the head DEG_S deg/s")
     p.add_argument("--head-radius", type=float, default=0.0875,
                    metavar="M")
+    _arrival_args(p)
     _air_args(p)
     p.set_defaults(fn=cmd_stream)
 

@@ -4,7 +4,7 @@ Each function takes the JAX object, or anything with the same attribute
 names, reads every field with ``np.asarray`` (so this module imports no
 JAX), and returns the port's object on ``device``. This is how the tests
 hand a JAX scene, poses, hits, debug paths, IR, spatial IR and stream
-state (plain or binaural) to the port.
+state (plain, binaural or per-arrival Doppler) to the port.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from .ops.ir import IRState
 from .ops.legacy import LegacyIRState
 from .ops.trace import DebugPaths, Hits, TraceParams
 from .spatial import SpatialIR
-from .streaming import RingBuffer, StreamState
+from .streaming import ArrivalCarry, RingBuffer, StreamState
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -50,17 +50,34 @@ def ir_state_from_arrays(state, device=None) -> IRState:
                    frames=int(np.asarray(state.frames)))
 
 
+def arrival_carry_from_arrays(carry, device=None) -> ArrivalCarry:
+    """:class:`ArrivalCarry` from a JAX ``ArrivalCarry`` (the tap bins as
+    int64; ``x3``/``y3`` of a binaural one)."""
+    def opt(x):
+        return None if x is None else _t(x, device, np.float32)
+
+    return ArrivalCarry(res=_t(carry.res, device, np.float32),
+                        idx=_t(carry.idx, device, np.int64),
+                        g3=_t(carry.g3, device, np.float32),
+                        val=_t(carry.val, device, bool),
+                        x3=opt(carry.x3), y3=opt(carry.y3))
+
+
 def stream_state_from_arrays(state, device=None) -> StreamState:
-    """:class:`StreamState` from a plain-mode or binaural JAX
-    ``StreamState`` (a binaural one carries ``prev_facing``)."""
+    """:class:`StreamState` from a JAX ``StreamState``: plain, binaural
+    (``prev_facing``) or per-arrival Doppler (``arrival``)."""
     ring = RingBuffer(_t(state.ring.data, device, np.float32),
                       int(np.asarray(state.ring.read_head)))
     facing = getattr(state, "prev_facing", None)
+    arrival = getattr(state, "arrival", None)
     return StreamState(prev_ir=_t(state.prev_ir, device, np.float32),
                        ring=ring,
                        chunk_index=int(np.asarray(state.chunk_index)),
                        prev_facing=(None if facing is None
-                                    else _t(facing, device, np.float32)))
+                                    else _t(facing, device, np.float32)),
+                       arrival=(None if arrival is None
+                                else arrival_carry_from_arrays(arrival,
+                                                               device)))
 
 
 def spatial_ir_from_arrays(sp_ir, device=None) -> SpatialIR:

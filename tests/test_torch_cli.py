@@ -24,7 +24,12 @@ within 3 PCM16 steps (the decode's float32 target bins may round one
 spacing over, tests/test_torch_spatial.py) and refuses what JAX refuses;
 ``stream --binaural --head-turn`` writes what ``Streamer`` streams; the
 ``analyze`` report and ``sweep --metrics-out`` hold the metrics of
-``analysis`` and JAX's within test_torch_analysis.py's limits."""
+``analysis`` and JAX's within test_torch_analysis.py's limits.
+
+``stream --doppler`` and ``--doppler-per-arrival`` (with the
+``--arrival-*`` knobs, defaulting as JAX's) exclude each other at parse
+time as the JAX CLI's do; the per-arrival stream writes what ``Streamer``
+streams for the same knobs, the shared-rate one a changed WAV."""
 
 import argparse
 import dataclasses
@@ -43,6 +48,7 @@ from realisticaudioraytracing2d_tpu_torch.models import rooms
 from realisticaudioraytracing2d_tpu_torch.parallel.sweep import sweep_rooms
 from realisticaudioraytracing2d_tpu_torch.utils import checkpoint as ckpt
 from realisticaudioraytracing2d_tpu_torch.utils.audio_io import (click_clip,
+                                                                 noise_burst,
                                                                  read_wav,
                                                                  write_wav)
 
@@ -179,9 +185,7 @@ STREAM = ["stream", "--in", "a.wav", "--out", "b.wav"]
 
 
 @pytest.mark.parametrize("cmd, flag", [
-    (["trace"], ["--scene-json", "x.json"]),
-    (STREAM, ["--doppler"]), (STREAM, ["--doppler-per-arrival"]),
-    (STREAM, ["--arrival-taps", "3"]), (STREAM, ["--pose-feed", "-"]),
+    (["trace"], ["--scene-json", "x.json"]), (STREAM, ["--pose-feed", "-"]),
     (["sweep", "--out", "x.npz"], ["--sharded"])])
 def test_cli_rejects_flags_that_are_not_ported(cmd, flag, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -429,6 +433,86 @@ def test_cli_stream_binaural_head_turn(tmp_path, capsys):
     with pytest.raises(SystemExit, match="replaces --stereo"):
         cli.main(["stream", *SMALL, "--in", dry, "--out", out, "--binaural",
                   "0", "--stereo", "0.2"])
+
+
+def test_cli_doppler_flags_conflict(capsys):
+    # the two Doppler modes are different physics: argparse refuses both
+    # at once (exit 2), before any work, as the JAX CLI does
+    with pytest.raises(SystemExit) as exc:
+        cli.main([*STREAM, "--doppler", "--doppler-per-arrival"])
+    assert exc.value.code == 2
+    assert "not allowed with" in capsys.readouterr().err
+
+
+def test_cli_arrival_flags_in_help_and_default_as_jax(capsys):
+    with pytest.raises(SystemExit):
+        cli.main(["stream", "--help"])
+    said = capsys.readouterr().out
+    for flag in ("--doppler", "--doppler-per-arrival", "--arrival-taps",
+                 "--arrival-window", "--arrival-match-bins"):
+        assert flag in said
+    port = cli.build_parser().parse_args(STREAM)
+    ref = argparse.ArgumentParser()
+    jax_cli._arrival_args(ref)
+    ref = ref.parse_args([])
+    for flag in ("arrival_taps", "arrival_window", "arrival_match_bins"):
+        assert getattr(port, flag) == getattr(ref, flag), flag
+    assert not port.doppler and not port.doppler_per_arrival
+    assert cli._doppler_arg(cli.build_parser().parse_args(
+        [*STREAM, "--doppler-per-arrival"])) == "per_arrival"
+    assert cli._doppler_arg(cli.build_parser().parse_args(
+        [*STREAM, "--doppler"])) is True
+
+
+def _tiny_stream_config(**audio):
+    cfg = art.smoll_room_config(ray_count=256)
+    return dataclasses.replace(
+        cfg, sim=dataclasses.replace(cfg.sim, max_bounces=4),
+        audio=dataclasses.replace(cfg.audio, sample_rate=8000,
+                                  reverb_duration=0.256, **audio))
+
+
+def test_cli_stream_doppler_per_arrival(tmp_path, capsys):
+    # JAX's test's flags; the WAV is what the library streams for the same
+    # seed, poses and knobs
+    dry, out = str(tmp_path / "dry.wav"), str(tmp_path / "pa.wav")
+    clip = noise_burst(0.2, 8000, seed=3)
+    write_wav(dry, clip, 8000)
+    cli.main(["stream", *SMALL, "--in", dry, "--out", out, "--move-source",
+              "1,0", "--doppler-per-arrival", "--arrival-taps", "8",
+              "--arrival-window", "0.08", "--arrival-match-bins", "48"])
+    assert "streamed" in capsys.readouterr().out
+    got, rate = read_wav(out)
+    assert rate == 8000 and np.abs(got).max() > 0 and np.isfinite(got).all()
+    room = rooms.smoll_room(device=CPU)
+    cfg = _tiny_stream_config()
+    eng = art.Engine(room.scene, cfg)
+    dt = cfg.audio.chunk_duration
+    streamer = art.Streamer(room.scene, cfg, seed=3, arrival_taps=8,
+                            arrival_window_s=0.08, arrival_match_bins=48)
+    wet = streamer.stream_clip(
+        torch.as_tensor(read_wav(dry)[0]), lambda i: eng.params(
+            room.source + np.float32([1.0 * i * dt, 0.0]), room.listener),
+        loop=False, doppler="per_arrival")
+    assert tuple(streamer.state.arrival.idx.shape) == (1, 8)
+    lib = str(tmp_path / "lib.wav")
+    write_wav(lib, wet.numpy()[0], 8000)
+    np.testing.assert_array_equal(got, read_wav(lib)[0])
+
+
+def test_cli_doppler_stream(tmp_path, capsys):
+    # JAX's test: the warped dry feed changes the output
+    dry = str(tmp_path / "dry.wav")
+    write_wav(dry, noise_burst(0.12, 8000, seed=3), 8000)
+    a, b = str(tmp_path / "plain.wav"), str(tmp_path / "dopp.wav")
+    common = ["stream", *SMALL, "--in", dry, "--move-source", "10,0"]
+    cli.main([*common, "--out", a])
+    cli.main([*common, "--out", b, "--doppler"])
+    capsys.readouterr()
+    ya, _ = read_wav(a)
+    yb, _ = read_wav(b)
+    assert ya.shape == yb.shape and np.abs(yb).max() > 0
+    assert not np.allclose(ya, yb)
 
 
 def test_cli_stream_and_analyze_flags_default_as_jax():

@@ -15,7 +15,10 @@ and K7 at 32 and 40 against their plain versions, equal bands == one band
 bit for bit, K4 == K7 on a sorted banded city, listener blocks == the
 whole launch bit for bit (K3, K4, K9, K7, K8), the sweep and mixdown of
 scenes past 5,280 walls against single K8/K7 calls, and a banded stream
-with air absorption against its plain twin.
+with air absorption against its plain twin; then the spatial captures and
+the binaural stream; then the per-arrival Doppler stream (mono and
+binaural) against its plain twins on the card and on the CPU, and the
+shared-rate Doppler feed on the card against the CPU's.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
 file imports no JAX, so it runs on a machine without it:
@@ -1712,3 +1715,125 @@ def test_binaural_city_stream_runs_through_k8(cuda_device):
     assert after[:3] == before[:3]                  # no K3, K4, K7
     assert tuple(out.shape) == (2, 3 * 4800) and len(irs) == 3
     assert bool(torch.isfinite(out).all())
+
+
+# --- per-arrival and shared-rate Doppler -------------------------------------
+#
+# A per-arrival stream through K4 against its plain twin (on the card, and
+# on the CPU: the plain trace draws the same Philox numbers from the seed)
+# must pick the same tap bins in every chunk; its audio then differs only
+# through the IRs, within _per_arrival_limit (chip_smoke.py::
+# per_arrival_limit states the derivation): sum |dry| times the residual
+# gap, plus each tap bin's gain gap times max |dry| over the current and
+# fading taps (a binaural ear tap's gain and ITD come from its W/X/Y
+# window), plus 2e-6 of the peak for the FFTs. On the card the plain twin's
+# IRs are K4's up to the fixed point's rounding; the CPU's differ by the
+# few rays a frame whose paths part at a razor edge where the CPU's and
+# the card's cos/sin round an ulp apart (22-34 of 72,000 bins at 15,000 x
+# 5 on an H100, ROADMAP section 3), which the measured gaps carry.
+
+
+def _per_arrival_limit(peak, dry, d_res, d_tap, n_taps=6, n_bands=1,
+                       max_shift=None, shadow=0.6):
+    per_bin = d_tap if max_shift is None else (
+        8.0 + 4.0 * (1.0 + shadow) * max_shift) * d_tap
+    return (2e-6 * peak + float(dry.abs().sum()) * d_res
+            + 2 * n_taps * 3 * n_bands * float(dry.abs().max()) * per_bin)
+
+
+def _per_arrival_run(device, binaural, backend="auto", n_chunks=4):
+    """A per-arrival stream of clicks on SmollRoom at full width, the
+    source approaching at 2 m/s, and its every chunk's IR and carry."""
+    room = rooms.smoll_room(device=device)
+    cfg = art.smoll_room_config()
+    eng = art.Engine(room.scene, cfg)
+    src = np.float32(room.source)
+    lis = np.float32(room.listener)
+    toward = (lis - src) / np.linalg.norm(lis - src)
+    seen = []
+    out = art.Streamer(room.scene, cfg, seed=9, backend=backend,
+                       binaural=binaural).stream_clip(
+        _click(device), lambda i: eng.params(
+            src + np.float32(toward * 0.2 * i), lis),
+        total_chunks=n_chunks, doppler="per_arrival",
+        facing_fn=(lambda i: 0.4 - 0.1 * i) if binaural else None,
+        on_chunk=lambda i, st: seen.append(
+            [st.prev_ir.clone()] + [x.clone()
+                                    for x in st.arrival.tensors()]))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, seen
+
+
+@cuda
+@pytest.mark.parametrize("binaural", [False, True])
+def test_per_arrival_stream_matches_plain_and_cpu(cuda_device, binaural):
+    before = bk.trace_frames_ir_mega.launches
+    got, seen = _per_arrival_run(cuda_device, binaural)
+    assert bk.trace_frames_ir_mega.launches - before == 4    # one a chunk
+    again, _ = _per_arrival_run(cuda_device, binaural)
+    assert torch.equal(got, again)
+    dry = _click(cuda_device)
+    live = sum(int(s[4].sum()) for s in seen)
+    assert live > 0 and bool(torch.isfinite(got).all())
+    for twin_device, backend in ((cuda_device, "plain"),
+                                 (torch.device("cpu"), "auto")):
+        want, seen_w = _per_arrival_run(twin_device, binaural, backend)
+        d_res = d_tap = 0.0
+        for a, b in zip(seen, seen_w):
+            b = [x.to(cuda_device) for x in b]
+            assert torch.equal(a[2], b[2]) and torch.equal(a[4], b[4])
+            d_res = max(d_res, float((a[1] - b[1]).abs().max()))
+            d_tap = max([d_tap] + [float((x - y).abs().max()) for x, y in
+                                   zip(a[3:], b[3:])
+                                   if x.dtype == torch.float32])
+        g, w = to_numpy(got), to_numpy(want)
+        assert g.shape == w.shape == ((2 if binaural else 1), 4 * 4800)
+        if binaural and twin_device.type == "cuda":
+            # the same capture up to the kernel's rounding: the decode moves
+            # a deposit at most a target-bin spacing
+            w_max = max(float(s[1].abs().max()) for s in seen_w)
+            assert d_res <= _decode_limit(w_max, 72000) + 1e-6 * w_max
+        limit = _per_arrival_limit(
+            np.abs(w).max(), dry, d_res, d_tap,
+            max_shift=(0.0875 / 343.0 * 48000) if binaural else None)
+        gap = float(np.abs(g - w).max())
+        assert gap <= limit, (twin_device.type, backend, gap, limit, d_res,
+                              d_tap)
+
+
+@cuda
+def test_doppler_feed_stream_on_the_card_matches_cpu(cuda_device):
+    # the shared-rate feed rounds once from float64 on either device, so
+    # the warped dry is the CPU's bit for bit; the stream then differs by
+    # the IRs' rounding only
+    outs, irs = {}, {}
+    for dev in (cuda_device, torch.device("cpu")):
+        room = rooms.smoll_room(device=dev)
+        cfg = art.smoll_room_config()
+        eng = art.Engine(room.scene, cfg)
+        dry = torch.from_numpy(np.sin(np.arange(19200) * 0.05).astype(
+            np.float32)).to(dev)
+        src = np.float32(room.source)
+        poses = lambda i: eng.params(src - np.float32([3.0 * i, 0.0]),  # noqa
+                                     room.listener)
+        feed = art.streaming.DopplerFeed(dry, poses, 4800, 48000, 4, False)
+        outs[dev.type] = [to_numpy(feed.chunk(i)) for i in range(4)]
+        seen = []
+        k4 = bk.trace_frames_ir_mega.launches
+        irs[dev.type] = (to_numpy(art.Streamer(room.scene, cfg, seed=4)
+                                  .stream_clip(dry, poses, total_chunks=4,
+                                               doppler=True,
+                                               on_chunk=lambda i, st:
+                                               seen.append(st.prev_ir
+                                                           .clone()))),
+                         seen, dry)
+        if dev.type == "cuda":
+            assert bk.trace_frames_ir_mega.launches - k4 == 4
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    (g, irs_g, dry), (w, irs_w, _) = irs["cuda"], irs["cpu"]
+    d_ir = max(float((a.cpu() - b).abs().max()) for a, b in zip(irs_g, irs_w))
+    np.testing.assert_allclose(
+        g, w, rtol=0,
+        atol=2e-6 * np.abs(w).max() + float(dry.abs().sum()) * d_ir)

@@ -167,7 +167,8 @@ def test_loop_controls_and_moving_obstacle(setup):
 
 def test_unported_stream_modes_raise(setup):
     room, cfg, scene = setup
-    # diffraction, air and binaural are ported; Doppler is item 5
+    # diffraction, air, binaural and Doppler are ported; the refusals that
+    # stay are JAX's own
     with pytest.raises(ValueError, match="one head listener"):
         art.Streamer(scene, cfg, binaural=True, n_listeners=2)
     s = art.Streamer(scene, cfg, diffraction=1, air_alpha=[0.1],
@@ -175,8 +176,6 @@ def test_unported_stream_modes_raise(setup):
     assert s.n_listeners == 2 and tuple(s.state.prev_ir.shape) == (
         2, cfg.audio.ir_length, 1)
     assert s.state.prev_facing is not None
-    with pytest.raises(NotImplementedError, match="item 5"):
-        s.stream_clip(torch.zeros(10), lambda i: None, doppler=True)
     # the binaural chunk step checks its channel counts, as JAX's does
     p = art.TraceParams.make(room.source, room.listener, device="cpu")
     for n_l, pp in ((1, p), (2, art.TraceParams.make(
