@@ -37,6 +37,12 @@ every kernel against its plain PyTorch version:
   matching and synthesis plain tensor code on the card;
   ``doppler=True`` (the shared-rate dry feed); ``cli stream
   --doppler-per-arrival`` and ``--doppler``.
+* the live pipeline: ``LivePlayer`` (a producer thread pushing each wet
+  chunk into the native host ring, an audio thread draining it) on
+  SmollRoom in mono, binaural and per-arrival modes through K4 and on
+  the 10,008-wall city through K8, in integrity and realtime mode,
+  steered by a pose feed written while it plays; ``cli live``, ``cli
+  stream --pose-feed``, ``--scene-json`` and the bundled clip.
 
 Phases:
 
@@ -220,6 +226,29 @@ Phases:
    ms, cudaLaunchKernel calls and device kernels per chunk. 14e: ``cli
    stream --doppler-per-arrival`` and ``cli stream --doppler`` with
    ``--move-source 2,0 --duration 1`` (10 K4 launches each), timed;
+15. the live pipeline. 15a: the native library built by g++ into
+   ``build/torch_native/``; its ring against a NumPy twin
+   (``RingTwin``) over 200 push/drain pairs across the wrap, 2 channels,
+   bit for bit; what ``mp3_probe`` and ``sink_probe`` find. 15b:
+   integrity mode (``realtime=False``), counts reset before each run:
+   2.0 s of clicks + the tail (35 chunks) through ``LivePlayer`` equal
+   ``stream_clip`` of the same seed within 1e-6 (and say whether bit
+   for bit), mono, the binaural head turning 0.5 rad/s and per-arrival
+   Doppler (35 K4 launches each), and 10 chunks on the 10,008-wall city
+   (50 K8 launches). 15c: realtime mode, 3 s each (prime 1), mono,
+   binaural and per-arrival: mono must show no underrun after the
+   prebuffer; each prints its realtime factor, the producer's step ms
+   (p50, p99), peak lead, late samples, and per chunk
+   ``cudaLaunchKernel`` calls, device kernels and busy ms (profiler, 10
+   chunks). 15d: a writer thread appends a pose feed while an integrity
+   run plays (a source move at chunk 5, a listener move at 8, Wall (4)
+   dragged at 10, reset_ir at 12, stop at 20); the run equals
+   ``stream_clip`` under a feed replayed from the finished file. 15e:
+   ``cli live --duration 1`` (mono; ``--binaural 0 --doppler-per-arrival``),
+   ``cli stream --pose-feed``, ``cli bake`` without ``--in`` (the bundled
+   clip), ``cli stream --scene-json`` of SmollRoom exported by the phase
+   (its walls equal SmollRoom's; its WAV equals ``cli live``'s), and
+   ``cli live --play``, which plays or exits with the ALSA message;
 5. timings with CUDA events after a warm-up, device times from the
    profiler (every reading holds all the launches of its calls, one for
    K1-K6 and K9 and one a bounce for K7/K8, or is retried), and each
@@ -1881,6 +1910,349 @@ def doppler_phase(c):
     return slice_launches, readings
 
 
+
+class RingTwin:
+    """The plain reference of the native ring (``AudioManager.cs:45-69``):
+    writes add at their offset mod the size, reads copy and zero from the
+    read head. NumPy, one float32 add per sample as the C++ ring makes."""
+
+    def __init__(self, size, channels):
+        self.data = np.zeros((channels, size), np.float32)
+        self.head = 0
+
+    def push(self, x, offset):
+        idx = (offset + np.arange(x.shape[-1])) % self.data.shape[1]
+        np.add.at(self.data, (slice(None), idx), np.float32(x))
+
+    def drain(self, n):
+        idx = (self.head + np.arange(n)) % self.data.shape[1]
+        out = self.data[:, idx].copy()
+        self.data[:, idx] = 0.0
+        self.head = (self.head + n) % self.data.shape[1]
+        return out
+
+
+def live_phase(c):
+    """Phase 15: the live pipeline at the shipped shape (SmollRoom 15,000 x
+    5, 48 kHz, 72,000 bins, 4,800-sample chunks): the native runtime, the
+    player against the stream in integrity mode, realtime runs, the pose
+    feed written while a run plays, and the CLI. ``c`` holds the objects
+    of main(). Returns the launch counts of its paths and its readings."""
+    torch, art, cli = (c[k] for k in ("torch", "art", "cli"))
+    dev, counted, only, card = (c[k] for k in (
+        "dev", "counted", "only", "card"))
+    import threading
+    from realisticaudioraytracing2d_tpu_torch import native
+    from realisticaudioraytracing2d_tpu_torch.live import LivePlayer
+    from realisticaudioraytracing2d_tpu_torch.posefeed import PoseFeed
+    from realisticaudioraytracing2d_tpu_torch.utils.audio_io import (
+        click_clip, read_wav, write_wav)
+    slice_launches = {k: 0 for k in only()}
+    readings = {}
+    t_phase = time.perf_counter()
+
+    def add(launched):
+        for k in slice_launches:
+            slice_launches[k] += launched.get(k, 0)
+
+    # 15a. the native runtime: built into build/torch_native, its ring
+    # against the NumPy twin across the wrap, 2 channels, bit for bit
+    check(native.available(), "15a: the native library built (g++)")
+    lib = native.library_path()
+    check(lib.exists() and str(lib.parent.resolve()) == os.path.realpath(
+        os.path.join(HERE, "build", "torch_native")),
+        f"15a: library at {lib}")
+    rng_np = np.random.default_rng(15)
+    ring, twin = native.NativeRingBuffer(997, 2), RingTwin(997, 2)
+    offset, drained = 0, 0
+    for _ in range(200):
+        x = rng_np.normal(size=(2, int(rng_np.integers(1, 900)))).astype(
+            np.float32)
+        at = offset + int(rng_np.integers(0, 400))
+        ring.push(x, at)
+        twin.push(x, at)
+        n_d = int(rng_np.integers(1, 500))
+        got, want = ring.drain(n_d), twin.drain(n_d)
+        check(np.array_equal(got, want), "15a: native ring == NumPy twin")
+        offset += n_d
+        drained += n_d
+    check(ring.read_head == twin.head, "15a: read heads equal")
+    mp3, sink = native.mp3_probe(), native.sink_probe()
+    print(f"[15a] native runtime {lib.relative_to(HERE)}: ring == NumPy twin "
+          f"bit for bit over 200 push/drain pairs ({drained} samples, "
+          f"wrapped {drained // 997}x, 2 channels); mp3_probe (decode, "
+          f"encode) = {mp3}; sink_probe = {sink}", flush=True)
+
+    room = art.rooms.smoll_room(device=dev)
+    cfg = art.smoll_room_config(ray_count=RAYS)
+    eng = art.Engine(room.scene, cfg)
+    src = np.float32(room.source)
+    lis = np.float32(room.listener).reshape(-1)[:2]
+    toward = (lis - src) / np.linalg.norm(lis - src)
+    dt = cfg.audio.chunk_duration
+    clicks = (0.1, 0.7, 1.3)
+    dry = torch.as_tensor(click_clip(2.0, SR, click_times=clicks),
+                          device=dev)
+    n_chunks = 20 + 15
+
+    def approaching(i):        # the source toward the listener at 2 m/s
+        return eng.params(src + np.float32(toward * 2.0 * dt * i), lis)
+
+    p = eng.params(room.source, room.listener)
+    modes = {
+        "mono": ({}, dict(params_fn=lambda i: p)),
+        "binaural": (dict(binaural=True),
+                     dict(params_fn=lambda i: p,
+                          facing_fn=lambda i: 0.5 * dt * i)),
+        "per-arrival": ({}, dict(params_fn=approaching,
+                                 doppler="per_arrival")),
+    }
+
+    # 15b. integrity mode: the player == stream_clip of the same seed,
+    # K4 once a chunk; the 10,008-wall city through K8
+    gaps = {}
+    for name, (pkw, rkw) in modes.items():
+        rep, launched = counted(lambda: LivePlayer(
+            room.scene, cfg, seed=71, **pkw).run(
+                dry, total_chunks=n_chunks, loop=False, **rkw))
+        check(launched == only(K4=n_chunks), f"15b: live {name} launches "
+              f"{launched}")
+        add(launched)
+        want = art.Streamer(room.scene, cfg, seed=71, **pkw).stream_clip(
+            dry, loop=False, total_chunks=n_chunks, **rkw).cpu().numpy()
+        check(rep.audio.shape == want.shape and rep.underruns == 0
+              and rep.late_samples == 0 and np.abs(want).max() > 0,
+              f"15b: live {name} {rep.audio.shape}, {rep.summary()}")
+        gaps[name] = (float(np.abs(rep.audio - want).max()),
+                      bool(np.array_equal(rep.audio, want)),
+                      {k: v for k, v in launched.items() if v})
+        check(gaps[name][0] <= 1e-6, f"15b: live {name} == its stream "
+              f"within 1e-6 ({gaps[name][0]:.3e})")
+    scene_9, p_9 = c["scene_9"], c["p_9"]
+    rep9, launched9 = counted(lambda: LivePlayer(scene_9, cfg, seed=72).run(
+        dry, total_chunks=10, loop=False, params_fn=lambda i: p_9))
+    check(launched9 == only(K8=10 * BOUNCES), f"15b: city live launches "
+          f"{launched9}")
+    add(launched9)
+    want9 = art.Streamer(scene_9, cfg, seed=72).stream_clip(
+        dry, lambda i: p_9, loop=False, total_chunks=10).cpu().numpy()
+    gaps["city"] = (float(np.abs(rep9.audio - want9).max()),
+                    bool(np.array_equal(rep9.audio, want9)),
+                    {k: v for k, v in launched9.items() if v})
+    check(gaps["city"][0] <= 1e-6 and np.abs(want9).max() > 0,
+          "15b: city live == its stream within 1e-6")
+    same = {True: "bit-equal", False: "not bit-equal"}
+    print("[15b] integrity mode, live == stream_clip (same seed; limit 1e-6):"
+          + "; ".join(f" {k} max abs {v[0]:.3e} ({same[v[1]]}), launches "
+                      f"{v[2]}" for k, v in gaps.items()), flush=True)
+
+    # 15c. realtime mode, 3 s each (prime 1): mono must show no underrun;
+    # each mode's realtime factor, step ms, lead, late samples, and its
+    # cudaLaunchKernel per chunk (profiler, 10 integrity-mode chunks)
+    rt = {}
+    for name, (pkw, rkw) in modes.items():
+        player = LivePlayer(room.scene, cfg, seed=73, **pkw)
+        rep = player.run(dry, total_chunks=30, loop=True, realtime=True,
+                         prime=1, **rkw)
+        check(rep.chunks == 30 and rep.audio.shape[-1] == 30 * CHUNK,
+              f"15c: realtime {name}: {rep.summary()}")
+        busy, calls, kernels = chunk_profile(torch, lambda: LivePlayer(
+            room.scene, cfg, seed=74, **pkw).run(
+                dry, total_chunks=10, loop=True, **rkw), 10)
+        steps = rep.step_ms[1:]
+        rt[name] = dict(underruns=rep.underruns,
+                        realtime_factor=rep.realtime_factor,
+                        step_p50=float(np.median(steps)),
+                        step_p99=float(np.percentile(steps, 99)),
+                        step_first=float(rep.step_ms[0]),
+                        max_lead=rep.max_lead_samples,
+                        late=rep.late_samples, launches=calls,
+                        kernels=kernels, busy_ms=busy)
+    readings["realtime"] = rt
+    print(f"[15c] realtime, 3 s each (30 chunks, prime 1) on {card}: " +
+          "; ".join(f"{k}: {v['underruns']} underruns, producer "
+                    f"{v['realtime_factor']:.2f}x realtime (the ring's "
+                    f"backpressure included), step ms p50 {v['step_p50']:.3f}"
+                    f" / p99 {v['step_p99']:.3f} (chunk 0 "
+                    f"{v['step_first']:.1f}), peak lead {v['max_lead']} "
+                    f"samples, {v['late']} late samples, "
+                    f"{v['launches']:.1f} cudaLaunchKernel, "
+                    f"{v['kernels']:.1f} device kernels and busy "
+                    f"{v['busy_ms']:.4f} ms a chunk" for k, v in rt.items()),
+          flush=True)
+    check(rt["mono"]["underruns"] == 0, "15c: mono realtime run has no "
+          "underrun after the prebuffer")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(n):
+            return os.path.join(tmp, n)
+
+        # 15d. a writer thread appends the pose feed while an integrity
+        # run plays (each line three chunks before it is due: on_chunk
+        # hands off to the writer and waits for it); the output equals
+        # stream_clip under a feed replayed from the finished file
+        lines = [(5, {"chunk": 5, "source": [-15.0, 6.0]}),
+                 (8, {"chunk": 8, "listener": [2.0, -2.5]}),
+                 (10, {"chunk": 10, "obstacle": "Wall (4)",
+                       "position": [-9.0, 5.0], "angle": 0.2}),
+                 (12, {"chunk": 12, "command": "reset_ir"}),
+                 (20, {"chunk": 20, "command": "stop"})]
+        feed_path = path("feed.jsonl")
+        open(feed_path, "w").close()
+        done = threading.Condition()
+        state = {"chunk": -1, "written": 0}
+
+        def writer():
+            for due, obj in lines:
+                with done:
+                    done.wait_for(lambda: state["chunk"] >= due - 3,
+                                  timeout=60)
+                with open(feed_path, "a") as f:
+                    f.write(json.dumps(obj) + "\n")
+                with done:
+                    state["written"] += 1
+                    done.notify_all()
+
+        def handoff(i, _ir):
+            with done:
+                state["chunk"] = i
+                done.notify_all()
+                need = sum(1 for due, _ in lines if due - 3 <= i)
+                check(done.wait_for(lambda: state["written"] >= need,
+                                    timeout=60), "15d: the writer keeps up")
+
+        def steered(feed):
+            feed.bind_scene(room.builder)
+            return dict(params_fn=lambda i: feed.params(p, i),
+                        scene_fn=lambda i: feed.scene(room.scene, i),
+                        control_fn=feed.control)
+
+        feed = PoseFeed.open(feed_path)
+        wt = threading.Thread(target=writer)
+        wt.start()
+        rep_d, launched_d = counted(lambda: LivePlayer(
+            room.scene, cfg, seed=75).run(dry, total_chunks=40, loop=False,
+                                          on_chunk=handoff, **steered(feed)))
+        wt.join(timeout=60)
+        check(not wt.is_alive() and state["written"] == len(lines),
+              "15d: every feed line written")
+        feed.close()
+        add(launched_d)
+        replay = PoseFeed.open(feed_path)
+        want_d = art.Streamer(room.scene, cfg, seed=75).stream_clip(
+            dry, loop=False, total_chunks=40, **steered(replay)
+        ).cpu().numpy()
+        replay.close()
+        plain_d = art.Streamer(room.scene, cfg, seed=75).stream_clip(
+            dry, lambda i: p, loop=False, total_chunks=40).cpu().numpy()
+        n_d = 20 + 15                   # stopped at 20 + the tail
+        check(rep_d.audio.shape == want_d.shape == (1, n_d * CHUNK),
+              f"15d: {rep_d.summary()}, stream {want_d.shape}")
+        gap_d = float(np.abs(rep_d.audio - want_d).max())
+        moved_d = float(np.abs(rep_d.audio - plain_d[:, :n_d * CHUNK]).max())
+        print(f"[15d] pose feed written while live plays (source at 5, "
+              f"listener at 8, Wall (4) dragged at 10, reset_ir at 12, stop "
+              f"at 20): {rep_d.chunks} chunks, K4 launches "
+              f"{launched_d['K4']}; "
+              f"against stream_clip under the replayed feed max abs "
+              f"{gap_d:.3e} ({same[bool(np.array_equal(rep_d.audio, want_d))]}"
+              f"); against the unsteered stream {moved_d:.3e}", flush=True)
+        check(rep_d.chunks == n_d and launched_d == only(K4=n_d),
+              f"15d: {rep_d.summary()}, launches {launched_d}")
+        check(gap_d <= 1e-6, "15d: steered live == the replayed stream")
+        check(moved_d > 1e-6, "15d: the steering moved the audio")
+
+        # 15e. the CLI: live (mono; binaural per-arrival), stream
+        # --pose-feed, bake with the bundled clip, --scene-json on an
+        # exported SmollRoom, live --play
+        write_wav(path("d.wav"), click_clip(1.0, 44100,
+                                            click_times=(0.1, 0.6)), 44100)
+        spec = {"source": [float(v) for v in room.source],
+                "listener": [float(v) for v in room.listener],
+                "colliders": [dict(
+                    name=col.name, type="box",
+                    position=list(col.transform.position),
+                    angle=col.transform.angle,
+                    scale=list(col.transform.scale),
+                    material=dict(absorption=col.material.absorption,
+                                  scattering=col.material.scattering,
+                                  transmission=col.material.transmission,
+                                  ior=col.material.ior))
+                    for col in room.builder.colliders]}
+        with open(path("scene.json"), "w") as f:
+            json.dump(spec, f)
+        exported = cli.load_scene_json(spec, device=dev)
+        check(all(torch.equal(a, b) for a, b in zip(exported.scene,
+                                                    room.scene)),
+              "15e: the exported SmollRoom loads to its walls")
+        with open(path("cli_feed.jsonl"), "w") as f:
+            f.write(json.dumps({"chunk": 3, "obstacle": "Wall (4)",
+                                "position": [-9.0, 5.0]}) + "\n"
+                    + json.dumps({"chunk": 6, "command": "stop"}) + "\n")
+        runs = [
+            ("live", ["live", "--room", "smoll", "--in", path("d.wav"),
+                      "--duration", "1", "--out", path("l.wav")],
+             only(K4=10), (10 * CHUNK,)),
+            ("live --binaural 0 --doppler-per-arrival",
+             ["live", "--room", "smoll", "--in", path("d.wav"),
+              "--duration", "1", "--binaural", "0", "--move-source", "2,0",
+              "--doppler-per-arrival", "--out", path("l2.wav")],
+             only(K4=10), (10 * CHUNK, 2)),
+            ("stream --pose-feed", ["stream", "--room", "smoll", "--in",
+                                    path("d.wav"), "--pose-feed",
+                                    path("cli_feed.jsonl"), "--out",
+                                    path("s.wav")],
+             only(K4=6 + 15), ((6 + 15) * CHUNK,)),    # stopped at 6
+            ("bake (the bundled clip)", ["bake", "--room", "smoll", "--out",
+                                         path("b.wav")],
+             only(K4=1), (SR + T,)),
+            ("stream --scene-json", ["stream", "--scene-json",
+                                     path("scene.json"), "--in",
+                                     path("d.wav"), "--duration", "1",
+                                     "--out", path("j.wav")],
+             only(K4=10), (10 * CHUNK,))]
+        cli_s = {}
+        for name, argv, want_l, shape in runs:
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                _, launched = counted(lambda: cli.main(argv))
+            cli_s[name] = time.perf_counter() - t0
+            check(launched == want_l, f"15e: cli {name} launches {launched}")
+            add(launched)
+            x, rate = read_wav(argv[argv.index("--out") + 1])
+            check(rate == SR and x.shape == shape and np.isfinite(x).all()
+                  and np.abs(x).max() > 0, f"15e: cli {name} wav {x.shape}")
+            if name.startswith("live"):
+                check("(0 underruns)" in buf.getvalue(), f"15e: cli {name}: "
+                      f"{buf.getvalue().strip()}")
+        # live (integrity mode) hears the stream of the same seed, and the
+        # exported SmollRoom is SmollRoom
+        check(np.array_equal(read_wav(path("l.wav"))[0],
+                             read_wav(path("j.wav"))[0]),
+              "15e: cli live == cli stream --scene-json of the exported room")
+        t0 = time.perf_counter()
+        try:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["live", "--room", "smoll", "--in", path("d.wav"),
+                          "--duration", "1", "--play"])
+            played = f"played: {buf.getvalue().strip()}"
+        except SystemExit as e:
+            # the degrade path: no sound system on this machine
+            check(str(e).startswith("--play: audio sink"), f"15e: --play "
+                  f"exited with {e}")
+            played = f"exited: {e}"
+        cli_s["live --play"] = time.perf_counter() - t0
+    readings["cli"] = cli_s
+    print(f"[15e] cli on {card}, seconds (launches checked): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in cli_s.items()) + f"; live --play {played}",
+        flush=True)
+    print(f"[15] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return slice_launches, readings
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -3226,6 +3598,9 @@ def main():
     # --- 14. per-arrival and shared-rate Doppler streams -------------------
     doppler_launches, _ = doppler_phase(ctx)
 
+    # --- 15. the live pipeline, the pose feed, the native runtime ----------
+    live_launches, _ = live_phase(ctx)
+
     # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
     sc, p = smoll.scene, smoll_p
@@ -3624,6 +3999,8 @@ def main():
     for k, n in spatial_launches.items():   # and [13]'s
         launches[k] = launches.get(k, 0) + n
     for k, n in doppler_launches.items():   # and [14]'s
+        launches[k] = launches.get(k, 0) + n
+    for k, n in live_launches.items():      # and [15]'s
         launches[k] = launches.get(k, 0) + n
 
     names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),

@@ -16,7 +16,11 @@ diffraction (:mod:`.ops.diffraction`) and air absorption
 (:mod:`.ops.air`). :mod:`.spatial` traces spatial (W/X/Y) IRs through
 the same kernels and decodes them to two ears, which the stream does
 per chunk in binaural mode; :mod:`.analysis` computes the ISO 3382 room
-parameters of an IR. It imports no JAX.
+parameters of an IR. :class:`.live.LivePlayer` plays the stream's chunks
+through a producer thread and an audio thread around the native host
+ring (:mod:`.native`: the ring, mp3 codecs, the ALSA sink, built with
+g++ at first use), steered while it plays by :class:`.posefeed.PoseFeed`.
+It imports no JAX.
 
 Every builder takes ``device=None``, which means :data:`DEFAULT_DEVICE`
 (``"cuda"``); pass ``device="cpu"`` for the plain PyTorch path.
@@ -32,12 +36,14 @@ Quick start::
     wet = eng.bake(torch.as_tensor(dry_audio, device="cuda"), ir_state)
 """
 
-from . import analysis, config, parallel, spatial, utils
+from . import (analysis, config, live, native, parallel, posefeed, spatial,
+               utils)
 from .config import (AudioConfig, DebugConfig, EngineConfig, SimConfig,
                      big_room_config, sample_scene_config,
                      smoll_room_config)
 from .device import DEFAULT_DEVICE
 from .engine import Engine, bake_audio, trace_accumulate
+from .live import LivePlayer, LiveReport
 from .models import materials, rooms, scene
 from .models.materials import (MATERIAL_ANECHOIC, MATERIAL_BORDER,
                                MATERIAL_INTERIOR, AudioMaterial)
@@ -45,19 +51,22 @@ from .models.scene import Scene, SceneBuilder, Transform2D
 from .ops import air, convolve, diffraction, directivity, geometry, ir, trace
 from .ops.ir import IRState
 from .ops.trace import Hits, TraceParams
-from .streaming import RingBuffer, Streamer, StreamState, stream_chunk
+from .posefeed import PoseFeed, PoseFeedError
+from .streaming import (RingBuffer, Streamer, StreamState, stream_chunk,
+                        wet_chunk)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "AudioConfig", "AudioMaterial", "DEFAULT_DEVICE", "DebugConfig",
-    "Engine", "EngineConfig", "Hits", "IRState", "MATERIAL_ANECHOIC",
-    "MATERIAL_BORDER", "MATERIAL_INTERIOR", "RingBuffer", "Scene",
+    "Engine", "EngineConfig", "Hits", "IRState", "LivePlayer", "LiveReport",
+    "MATERIAL_ANECHOIC", "MATERIAL_BORDER", "MATERIAL_INTERIOR",
+    "PoseFeed", "PoseFeedError", "RingBuffer", "Scene",
     "SceneBuilder", "SimConfig", "StreamState", "Streamer", "TraceParams",
     "Transform2D", "air", "analysis", "bake_audio", "big_room_config", "config",
-    "convolve", "diffraction", "directivity", "geometry", "ir",
-    "materials", "parallel", "rooms", "sample_scene_config", "scene",
-    "smoll_room_config", "spatial", "stream_chunk", "trace",
-    "trace_accumulate",
+    "convolve", "diffraction", "directivity", "geometry", "ir", "live",
+    "materials", "native", "parallel", "posefeed", "rooms",
+    "sample_scene_config", "scene", "smoll_room_config", "spatial",
+    "stream_chunk", "trace", "trace_accumulate", "wet_chunk",
     "utils",
 ]

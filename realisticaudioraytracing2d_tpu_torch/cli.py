@@ -1,7 +1,7 @@
 """Command-line entry point of the port: ``trace``, ``bake``, ``stream``,
-``sweep``, ``analyze``.
+``live``, ``sweep``, ``analyze``.
 
-Port of five subcommands of ``realisticaudioraytracing2d_tpu/cli.py``.
+Port of six subcommands of ``realisticaudioraytracing2d_tpu/cli.py``.
 Each runs on the card unless ``--device cpu`` asks for the plain version::
 
     python -m realisticaudioraytracing2d_tpu_torch.cli trace --room smoll \\
@@ -10,7 +10,11 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
         --in dry.wav --out wet.wav [--legacy | --binaural FACING_DEG]
     python -m realisticaudioraytracing2d_tpu_torch.cli stream --room smoll \\
         --in dry.wav --out wet.wav [--binaural 0 --head-turn 90] \\
-        [--move-source 2,0 --doppler | --doppler-per-arrival]
+        [--move-source 2,0 --doppler | --doppler-per-arrival] \\
+        [--pose-feed poses.jsonl]
+    python -m realisticaudioraytracing2d_tpu_torch.cli live --room smoll \\
+        --duration 5 --out heard.wav [--realtime | --play] \\
+        [--pose-feed poses.jsonl]
     python -m realisticaudioraytracing2d_tpu_torch.cli sweep --rooms 1024 \\
         --out irs.npz [--metrics-out metrics.npz]
     python -m realisticaudioraytracing2d_tpu_torch.cli analyze --room smoll \\
@@ -50,8 +54,26 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
   feed read at the direct path's rate) or ``--doppler-per-arrival`` (each
   dominant early arrival gliding at its own rate, tuned by
   ``--arrival-taps``, ``--arrival-window`` and ``--arrival-match-bins``;
-  with ``--binaural`` and ``--bands`` too), and prints the JAX CLI's
-  ``streamed ... x realtime`` line.
+  with ``--binaural`` and ``--bands`` too), ``--pose-feed FILE`` (a
+  JSON-lines feed, tailed while the stream runs, that moves the source,
+  the listeners, the head or a named wall and carries the stop/reset_ir
+  verbs: :mod:`.posefeed`), and prints the JAX CLI's ``streamed ... x
+  realtime`` line.
+* ``live`` runs the same chunk step in :class:`.live.LivePlayer`: a
+  producer thread pushes each wet chunk into the native ring while an
+  audio thread drains it ``--dsp-buffer`` samples at a time, on the
+  wall clock with ``--realtime`` or through the ALSA device with
+  ``--play`` (which exits with the ALSA message where there is no sound
+  system), records what the audio thread heard (``--out``) and prints
+  the JAX CLI's ``live: ...`` line with its underruns. It takes
+  ``stream``'s pose, head, Doppler and ``--pose-feed`` flags.
+* Every command but ``sweep`` takes ``--scene-json FILE`` in place of
+  ``--room``: the JAX CLI's exported-collider schema
+  (:func:`load_scene_json`). A collider's ``name`` names it for the pose
+  feed's ``obstacle`` lines.
+* ``--in`` defaults to the bundled clip (``assets/dry_clip.wav``); an
+  ``.mp3`` input or output goes through the system codecs
+  (:mod:`.native`).
 * ``sweep`` writes an IR dataset over procedurally generated rooms through
   the rooms-batched kernel K9 (one launch for the whole dataset): the same
   ``npz`` (``irs`` ``[rooms, 1, T, K]`` frame-normalized, ``sources``,
@@ -70,11 +92,9 @@ A resumed run (``--ir-in``) draws under ``mix_seed(seed, frames so far)``.
 The flags and defaults are those the JAX subcommands read, plus
 ``--device`` (default ``cuda``). ``sweep`` accepts the pattern flags and
 ignores them, as the JAX ``sweep`` does. Not ported yet, and therefore
-not accepted (ROADMAP queue 1 names what each waits for):
-``--scene-json`` (item 11), ``stream --pose-feed`` (item 8), the
-bundled default clip of ``bake --in`` and ``stream --in`` and mp3 files
-(item 8), ``sweep --sharded`` (item 10), and the subcommands ``live``
-(item 8), ``fit``, ``locate`` (item 9) and ``bench`` (item 11).
+not accepted (ROADMAP queue 1 names what each waits for): ``sweep
+--sharded`` (item 10) and the subcommands ``fit``, ``locate`` (item 9)
+and ``bench`` (item 11).
 """
 
 from __future__ import annotations
@@ -91,7 +111,93 @@ import torch
 from .device import DEFAULT_DEVICE
 
 
+def load_scene_json(spec, default_bands: int = 1, device=None):
+    """Build a ``RoomSetup`` from the JAX CLI's exported-collider JSON
+    schema (``realisticaudioraytracing2d_tpu/cli.py::load_scene_json``).
+
+    The schema mirrors the reference's collider flattening inputs
+    (SceneHelper.cs:29-76): a list of colliders, each with a transform
+    (position/angle/scale), a type-specific shape (box: size+offset;
+    polygon: paths; circle: radius+offset+resolution) and a material
+    (absorption/scattering/transmission/ior, optionally band_absorption).
+    Top-level: source, listener (or listeners), listener_radius, n_bands,
+    and optional ``directivity`` / ``mic_directivity`` patterns (a spec
+    string like "cardioid:30", explicit Fourier coefficients, or, for
+    mics, a per-listener list of spec strings). ``boxes: [...]`` is
+    accepted as shorthand for box colliders. A collider's optional
+    ``name`` names it, and the builder rides in the result, so a pose
+    feed's ``obstacle`` lines can move it (the JAX loader keeps
+    neither)."""
+    from .models.materials import AudioMaterial
+    from .models.rooms import RoomSetup
+    from .models.scene import SceneBuilder, Transform2D
+
+    n_bands = int(spec.get("n_bands", default_bands))
+    b = SceneBuilder(n_bands=n_bands)
+
+    def tf_of(c):
+        return Transform2D(position=tuple(c.get("position", (0, 0))),
+                           angle=float(c.get("angle", 0.0)),
+                           scale=tuple(c.get("scale", (1, 1))))
+
+    def mat_of(c):
+        m = dict(c.get("material", {}))
+        if m.get("band_absorption") is not None:
+            m["band_absorption"] = tuple(m["band_absorption"])
+        return AudioMaterial(**m)
+
+    colliders = list(spec.get("colliders", []))
+    colliders += [dict(c, type="box") for c in spec.get("boxes", [])]
+    if not colliders:
+        raise SystemExit("scene json has no colliders/boxes")
+    for c in colliders:
+        kind = c.get("type", "box")
+        name = c.get("name")
+        if kind == "box":
+            b.add_box(mat_of(c), tf_of(c), size=tuple(c.get("size", (1, 1))),
+                      offset=tuple(c.get("offset", (0, 0))), name=name)
+        elif kind == "polygon":
+            b.add_polygon([np.asarray(p, np.float64) for p in c["paths"]],
+                          mat_of(c), tf_of(c), name=name)
+        elif kind == "circle":
+            b.add_circle(mat_of(c), tf_of(c),
+                         radius=float(c.get("radius", 0.5)),
+                         offset=tuple(c.get("offset", (0, 0))),
+                         resolution=int(c.get("resolution", 32)), name=name)
+        else:
+            raise SystemExit(f"unknown collider type {kind!r}")
+    listener = spec.get("listeners", spec.get("listener"))
+
+    def pattern_of(key):
+        # "cardioid:30" / "figure8" / explicit coefficient list; mic
+        # patterns also accept a list of per-listener specs
+        v = spec.get(key)
+        if v is None:
+            return None
+        if isinstance(v, str):
+            return _parse_pattern(v)
+        v = list(v)
+        if v and isinstance(v[0], str):
+            pats = [_parse_pattern(x) for x in v]
+            width = max(len(p) for p in pats)
+            return np.stack([np.pad(p, (0, width - len(p)))
+                             for p in pats])
+        return np.asarray(v, np.float32)
+
+    return RoomSetup(
+        scene=b.build(device=device),
+        source=np.asarray(spec["source"], np.float32),
+        listener=np.asarray(listener, np.float32),
+        listener_radius=float(spec.get("listener_radius", 0.5)),
+        directivity=pattern_of("directivity"),
+        mic_directivity=pattern_of("mic_directivity"), builder=b)
+
+
 def _build_room(args, dev):
+    if getattr(args, "scene_json", None):
+        with open(args.scene_json) as f:
+            spec = json.load(f)
+        return load_scene_json(spec, default_bands=args.bands, device=dev)
     from .models import rooms
     maker = {"smoll": rooms.smoll_room, "big": rooms.big_room,
              "sample": rooms.sample_scene}[args.room]
@@ -112,13 +218,18 @@ def _config(args):
 
 
 def _listeners(args, room):
-    """Listener array + count: honors --stereo (ear pair +-sep/2 on x)."""
+    """Listener array + count: honors --stereo (ear pair +-sep/2 on x)
+    and a multi-listener scene JSON (``listeners: [[..], [..]]``)."""
     base = np.asarray(room.listener, np.float32)
     if args.stereo is not None:
+        if base.ndim > 1:
+            base = base.reshape(-1, 2)[0]
         sep = float(args.stereo)
         ears = np.stack([base - [sep / 2, 0.0],
                          base + [sep / 2, 0.0]]).astype(np.float32)
         return ears, 2
+    if base.ndim > 1:
+        return base.reshape(-1, 2), base.reshape(-1, 2).shape[0]
     return base, 1
 
 
@@ -138,21 +249,29 @@ def _parse_pattern(spec):
                          "omni/cardioid/figure8")
 
 
-def _directivity_arr(args):
-    """--directivity coefficients, or None."""
-    return _parse_pattern(args.directivity)
+def _directivity_arr(args, room=None):
+    """--directivity coefficients, else the scene JSON's pattern, or
+    None."""
+    flag = _parse_pattern(args.directivity)
+    if flag is not None:
+        return flag
+    return getattr(room, "directivity", None)
 
 
-def _mic_directivity_arr(args):
+def _mic_directivity_arr(args, room=None):
     """--stereo-aim's XY cardioid pair (left ear +aim, right ear -aim),
-    else --mic-directivity's coefficients, or None."""
+    else --mic-directivity's coefficients, else the scene JSON's pattern,
+    or None."""
     if args.stereo_aim is not None:
         if args.stereo is None:
             raise SystemExit("--stereo-aim needs --stereo")
         from .ops import directivity as dv
         a = float(args.stereo_aim) * np.pi / 180.0
         return np.stack([dv.cardioid(a), dv.cardioid(-a)])
-    return _parse_pattern(args.mic_directivity)
+    flag = _parse_pattern(args.mic_directivity)
+    if flag is not None:
+        return flag
+    return getattr(room, "mic_directivity", None)
 
 
 def _setup(args):
@@ -164,8 +283,8 @@ def _setup(args):
     listeners, n_l = _listeners(args, room)
     eng = Engine(room.scene, cfg, n_listeners=n_l)
     return room, cfg, listeners, n_l, eng, eng.params(
-        room.source, listeners, directivity=_directivity_arr(args),
-        mic_directivity=_mic_directivity_arr(args))
+        room.source, listeners, directivity=_directivity_arr(args, room),
+        mic_directivity=_mic_directivity_arr(args, room))
 
 
 def _apply_air(state, sample_rate, speed_of_sound, args):
@@ -306,7 +425,7 @@ def _bake_binaural(args, room, cfg, p, n_l, dry) -> None:
     from .engine import trace_accumulate
     from .ops import ir as irm
     from .ops.convolve import apply_ir, peak_normalize
-    from .utils.audio_io import write_wav
+    from .utils.audio_io import write_audio
     if args.legacy:
         raise SystemExit("--binaural is not available with --legacy")
     if args.stereo is not None or p.mic_directivity is not None:
@@ -339,7 +458,7 @@ def _bake_binaural(args, room, cfg, p, n_l, dry) -> None:
         wet = peak_normalize(wet)
     wet = wet.cpu().numpy()
     dt = time.perf_counter() - t0
-    write_wav(args.out, wet.T, cfg.audio.sample_rate)
+    write_audio(args.out, wet.T, cfg.audio.sample_rate)
     xrt = (len(dry) / cfg.audio.sample_rate) / dt
     print(f"binaural bake (facing {args.binaural:.0f} deg, head "
           f"{args.head_radius * 100:.1f} cm): {len(dry)} samples in "
@@ -349,11 +468,11 @@ def _bake_binaural(args, room, cfg, p, n_l, dry) -> None:
 def cmd_bake(args) -> None:
     from .ops import legacy
     from .ops.convolve import apply_ir, load_samples, peak_normalize
-    from .utils.audio_io import read_wav, write_wav
+    from .utils.audio_io import builtin_clip_path, read_audio, write_audio
 
     room, cfg, _, n_l, eng, p = _setup(args)
     dev = room.scene.device
-    x, rate = read_wav(args.infile)
+    x, rate = read_audio(args.infile or builtin_clip_path())
     dry = load_samples(torch.as_tensor(x, device=dev), rate,
                        cfg.audio.sample_rate)
     if args.binaural is not None:
@@ -389,8 +508,8 @@ def cmd_bake(args) -> None:
         wet = eng.bake(dry, state,
                        normalize=not args.no_normalize).cpu().numpy()
         dt = time.perf_counter() - t0
-    write_wav(args.out, wet.T if wet.ndim > 1 else wet,
-              cfg.audio.sample_rate)
+    write_audio(args.out, wet.T if wet.ndim > 1 else wet,
+                cfg.audio.sample_rate)
     xrt = (len(dry) / cfg.audio.sample_rate) / dt
     print(f"baked {len(dry)} samples in {dt:.3f}s ({xrt:.1f}x realtime) "
           f"-> {args.out}")
@@ -450,8 +569,8 @@ def _trajectory_poses(args, eng, room, listeners, chunk_dt):
         if args.move_listener else np.zeros(2)
     svel = np.asarray([float(v) for v in args.move_source.split(",")]) \
         if args.move_source else np.zeros(2)
-    directivity = _directivity_arr(args)
-    mic_directivity = _mic_directivity_arr(args)
+    directivity = _directivity_arr(args, room)
+    mic_directivity = _mic_directivity_arr(args, room)
 
     def poses(i):
         drift = (vel * i * chunk_dt).astype(np.float32)
@@ -463,13 +582,14 @@ def _trajectory_poses(args, eng, room, listeners, chunk_dt):
     return poses
 
 
-def _binaural_setup(args, n_l: int, chunk_dt: float):
+def _binaural_setup(args, room, n_l: int, chunk_dt: float):
     """``--binaural``'s refusals and the per-chunk head facing: ``(enabled,
     facing_fn)``, ``facing_fn(i)`` in radians at chunk ``i``, turning
     ``--head-turn`` degrees a second."""
     if args.binaural is None:
         return False, None
-    if args.stereo is not None or _mic_directivity_arr(args) is not None:
+    if args.stereo is not None \
+            or _mic_directivity_arr(args, room) is not None:
         raise SystemExit("--binaural replaces --stereo and "
                          "--mic-directivity (it assigns the ear "
                          "patterns itself)")
@@ -542,23 +662,66 @@ def _viz_callback(out_path, every: int):
     return cb
 
 
+def _pose_feed_wrap(args, poses, facing_fn, room, binaural=False):
+    """Wrap the trajectory's ``poses`` / ``facing_fn`` with the
+    ``--pose-feed`` JSON-lines channel (a file being appended to, or
+    ``-`` for stdin): live steering of a running stream or live session,
+    the reference's edit-the-scene-while-it-plays loop
+    (RayTraceManager.cs:50-61,67). Returns ``(poses, facing_fn, scene_fn,
+    control_fn)``: the feed also moves named colliders (``obstacle``
+    lines re-flatten through the room's SceneBuilder into the same padded
+    wall count, RayTraceManager.cs:67,246-250) and carries the runtime
+    verbs (``stop`` / ``reset_ir`` = Space / R, RayTraceManager.cs:55-61).
+    A ``facing`` override on a stream that is not binaural has nowhere to
+    go: it warns once instead of vanishing."""
+    path = getattr(args, "pose_feed", None)
+    if not path:
+        return poses, facing_fn, None, None
+    from .posefeed import PoseFeed
+
+    feed = PoseFeed.open(path)
+    if room.builder is not None:
+        feed.bind_scene(room.builder)
+    base_facing = facing_fn if facing_fn is not None else (lambda i: 0.0)
+    warned = []
+
+    def fed_poses(i):
+        p = feed.params(poses(i), i)
+        if not binaural and not warned \
+                and feed.facing(None, i) is not None:
+            import warnings
+            warnings.warn(
+                "pose feed 'facing' override ignored: this stream is not "
+                "binaural (add --binaural to steer the head)",
+                stacklevel=2)
+            warned.append(True)
+        return p
+
+    fed_facing = (lambda i: feed.facing(base_facing(i), i)) \
+        if binaural else None
+    return (fed_poses, fed_facing, lambda i: feed.scene(room.scene, i),
+            feed.control)
+
+
 def cmd_stream(args) -> None:
     from .engine import Engine
     from .ops.convolve import load_samples
     from .streaming import Streamer
-    from .utils.audio_io import read_wav, write_wav
+    from .utils.audio_io import builtin_clip_path, read_audio, write_audio
 
     dev = torch.device(args.device)
     room = _build_room(args, dev)
     cfg = _config(args)
     listeners, n_l = _listeners(args, room)
     eng = Engine(room.scene, cfg, n_listeners=n_l)
-    x, rate = read_wav(args.infile)
+    x, rate = read_audio(args.infile or builtin_clip_path())
     dry = load_samples(torch.as_tensor(x, device=dev), rate,
                        cfg.audio.sample_rate)
     chunk_dt = cfg.audio.chunk_duration
     poses = _trajectory_poses(args, eng, room, listeners, chunk_dt)
-    binaural, facing_fn = _binaural_setup(args, n_l, chunk_dt)
+    binaural, facing_fn = _binaural_setup(args, room, n_l, chunk_dt)
+    poses, facing_fn, scene_fn, control_fn = _pose_feed_wrap(
+        args, poses, facing_fn, room, binaural)
     streamer = Streamer(room.scene, cfg, seed=args.seed, n_listeners=n_l,
                         frames_per_chunk=args.frames_per_chunk,
                         diffraction=(args.diffraction
@@ -577,23 +740,88 @@ def cmd_stream(args) -> None:
         # timed stream: the clip wraps at its end while config.audio.loop
         # is set (RayTraceManager.cs:74-77), else pads with silence
         total_chunks = max(1, int(round(args.duration / chunk_dt)))
-        wet = streamer.stream_clip(dry, poses, total_chunks=total_chunks,
+        wet = streamer.stream_clip(dry, poses, scene_fn=scene_fn,
+                                   total_chunks=total_chunks,
                                    on_chunk=on_chunk, facing_fn=facing_fn,
-                                   doppler=doppler)
+                                   doppler=doppler, control_fn=control_fn)
     else:
         # play the clip once and flush the reverb tail
-        wet = streamer.stream_clip(dry, poses, loop=False,
-                                   on_chunk=on_chunk, facing_fn=facing_fn,
-                                   doppler=doppler)
+        wet = streamer.stream_clip(dry, poses, scene_fn=scene_fn,
+                                   loop=False, on_chunk=on_chunk,
+                                   facing_fn=facing_fn, doppler=doppler,
+                                   control_fn=control_fn)
     wet = wet.cpu().numpy()      # waits for the device
     dt = time.perf_counter() - t0
     if args.viz_every:
         viz_cb.flush()
-    write_wav(args.out, wet.T if streamer.n_listeners > 1 else wet[0],
-              cfg.audio.sample_rate)
+    write_audio(args.out, wet.T if streamer.n_listeners > 1 else wet[0],
+                cfg.audio.sample_rate)
     xrt = (wet.shape[-1] / cfg.audio.sample_rate) / dt
     print(f"streamed {wet.shape[-1]} samples in {dt:.2f}s "
           f"({xrt:.2f}x realtime) -> {args.out}")
+
+
+def cmd_live(args) -> None:
+    """The producer/consumer live pipeline: the stream's chunk step on the
+    device feeding the native ring, an audio thread draining it at DSP
+    cadence (the ``AudioManager.OnAudioFilterRead`` contract,
+    AudioManager.cs:56-69), underruns reported instead of hidden."""
+    from .engine import Engine
+    from .live import LivePlayer
+    from .ops.convolve import load_samples
+    from .utils.audio_io import builtin_clip_path, read_audio, write_audio
+
+    dev = torch.device(args.device)
+    room = _build_room(args, dev)
+    cfg = _config(args)
+    listeners, n_l = _listeners(args, room)
+    eng = Engine(room.scene, cfg, n_listeners=n_l)
+    x, rate = read_audio(args.infile or builtin_clip_path())
+    dry = load_samples(torch.as_tensor(x, device=dev), rate,
+                       cfg.audio.sample_rate)
+    chunk_dt = cfg.audio.chunk_duration
+    total_chunks = max(1, int(round(args.duration / chunk_dt)))
+    binaural, facing_fn = _binaural_setup(args, room, n_l, chunk_dt)
+    poses = _trajectory_poses(args, eng, room, listeners, chunk_dt)
+    poses, facing_fn, scene_fn, control_fn = _pose_feed_wrap(
+        args, poses, facing_fn, room, binaural)
+    player = LivePlayer(room.scene, cfg, seed=args.seed, n_listeners=n_l,
+                        frames_per_chunk=args.frames_per_chunk,
+                        dsp_buffer=args.dsp_buffer,
+                        diffraction=(args.diffraction
+                                     and args.diffraction_order),
+                        air_alpha=_air_alpha_arr(args, room.scene.n_bands,
+                                                 dev),
+                        binaural=binaural, head_radius=args.head_radius,
+                        device=dev, **_arrival_kwargs(args))
+    on_chunk = _viz_callback(args.out or "live.wav", args.viz_every) \
+        if args.viz_every else None
+    sink = None
+    if args.play:
+        from .native import AudioSink
+        try:
+            sink = AudioSink(cfg.audio.sample_rate, player.n_listeners,
+                             device=args.play_device)
+        except RuntimeError as e:
+            raise SystemExit(
+                f"--play: {e} (run without --play to record to a WAV)")
+    try:
+        rep = player.run(dry, total_chunks=total_chunks,
+                         realtime=args.realtime or sink is not None,
+                         params_fn=poses, scene_fn=scene_fn,
+                         on_chunk=on_chunk, facing_fn=facing_fn,
+                         doppler=_doppler_arg(args), sink=sink,
+                         control_fn=control_fn)
+    finally:
+        if sink is not None:
+            sink.close()
+    if on_chunk is not None:
+        on_chunk.flush()
+    if args.out:
+        write_audio(args.out,
+                    rep.audio.T if player.n_listeners > 1 else rep.audio[0],
+                    cfg.audio.sample_rate)
+    print(f"live: {rep.summary()}" + (f" -> {args.out}" if args.out else ""))
 
 
 def cmd_analyze(args) -> None:
@@ -658,6 +886,8 @@ def _common(p, room: bool = True) -> None:
     if room:
         p.add_argument("--room", default="smoll",
                        choices=["smoll", "big", "sample"])
+        p.add_argument("--scene-json", default=None,
+                       help="JSON scene file overriding --room")
     p.add_argument("--rays", type=int, default=15000)
     p.add_argument("--bounces", type=int, default=5)
     p.add_argument("--bands", type=int, default=1)
@@ -682,6 +912,19 @@ def _common(p, room: bool = True) -> None:
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device (default %(default)s; cpu runs the "
                         "plain version)")
+
+
+def _pose_feed_arg(p) -> None:
+    """``stream`` / ``live``: the ``--pose-feed`` channel."""
+    p.add_argument("--pose-feed", default=None, metavar="FILE",
+                   help="steer the running stream: JSON-lines overrides "
+                        "tailed from FILE ('-' = stdin), per line "
+                        "{\"chunk\": i, \"source\": [x,y], "
+                        "\"listener\": [x,y], \"facing\": rad} or "
+                        "{\"obstacle\": name, \"position\": [x,y], "
+                        "\"angle\": rad} (drag a wall mid-stream) or "
+                        "{\"command\": \"stop\"|\"reset_ir\"} "
+                        "(Space/R keys)")
 
 
 def _air_args(p) -> None:
@@ -730,7 +973,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("bake", help="offline convolution bake")
     _common(p)
-    p.add_argument("--in", dest="infile", required=True, help="dry WAV")
+    p.add_argument("--in", dest="infile", default=None,
+                   help="dry WAV or mp3 (default: the bundled "
+                        "assets/dry_clip.wav)")
     p.add_argument("--out", required=True)
     p.add_argument("--no-normalize", action="store_true")
     p.add_argument("--legacy", action="store_true",
@@ -748,7 +993,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("stream", help="chunked streaming convolution")
     _common(p)
-    p.add_argument("--in", dest="infile", required=True, help="dry WAV")
+    p.add_argument("--in", dest="infile", default=None,
+                   help="dry WAV or mp3 (default: the bundled "
+                        "assets/dry_clip.wav)")
     p.add_argument("--out", required=True)
     p.add_argument("--move-listener", default=None,
                    help="listener velocity 'vx,vy' (m/s)")
@@ -765,6 +1012,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "dominant early reflection glide at their own "
                           "rates, derived from the traced IRs (composes "
                           "with --binaural and banded scenes)")
+    _pose_feed_arg(p)
     p.add_argument("--frames-per-chunk", type=int, default=1)
     p.add_argument("--duration", type=float, default=None,
                    help="stream for this many seconds; the clip loops at "
@@ -785,6 +1033,56 @@ def build_parser() -> argparse.ArgumentParser:
     _arrival_args(p)
     _air_args(p)
     p.set_defaults(fn=cmd_stream)
+
+    p = sub.add_parser("live", help="producer/consumer live audio pipeline "
+                                    "(audio thread drains the native ring)")
+    _common(p)
+    p.add_argument("--in", dest="infile", default=None,
+                   help="dry WAV or mp3 (default: the bundled "
+                        "assets/dry_clip.wav)")
+    p.add_argument("--out", default=None,
+                   help="record what the audio thread heard")
+    p.add_argument("--duration", type=float, default=2.0)
+    p.add_argument("--frames-per-chunk", type=int, default=1)
+    p.add_argument("--dsp-buffer", type=int, default=1024,
+                   help="audio callback granularity (reference "
+                        "m_DSPBufferSize = 1024)")
+    p.add_argument("--realtime", action="store_true",
+                   help="pace the audio thread on the wall clock "
+                        "(underruns counted when the producer lags)")
+    p.add_argument("--move-listener", default=None,
+                   help="listener velocity 'vx,vy' (m/s)")
+    p.add_argument("--move-source", default=None,
+                   help="source velocity 'vx,vy' (m/s)")
+    dop = p.add_mutually_exclusive_group()
+    dop.add_argument("--doppler", action="store_true",
+                     help="fractional-rate dry feed (same physics as "
+                          "stream --doppler)")
+    dop.add_argument("--doppler-per-arrival", action="store_true",
+                     help="per-path Doppler (same physics as stream "
+                          "--doppler-per-arrival)")
+    _pose_feed_arg(p)
+    p.add_argument("--play", action="store_true",
+                   help="play through the OS audio device (ALSA through "
+                        "the native sink; implies realtime pacing by the "
+                        "device clock); exits with the reason where no "
+                        "sound system exists")
+    p.add_argument("--play-device", default="default", metavar="PCM",
+                   help="ALSA PCM device name for --play")
+    p.add_argument("--viz-every", type=int, default=0, metavar="N",
+                   help="write the live IR waveform PNG every N chunks "
+                        "(<out stem>_ir_NNNN.png)")
+    p.add_argument("--binaural", type=float, default=None,
+                   metavar="FACING_DEG",
+                   help="binaural live: per-chunk spatial trace + ITD/ILD "
+                        "ear decode, head facing FACING_DEG")
+    p.add_argument("--head-turn", type=float, default=0.0, metavar="DEG_S",
+                   help="with --binaural: rotate the head DEG_S deg/s")
+    p.add_argument("--head-radius", type=float, default=0.0875,
+                   metavar="M")
+    _arrival_args(p)
+    _air_args(p)
+    p.set_defaults(fn=cmd_live)
 
     p = sub.add_parser("sweep", help="IR dataset over procedural rooms")
     p.add_argument("--rooms", type=int, default=64)

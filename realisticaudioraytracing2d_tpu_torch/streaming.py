@@ -656,25 +656,99 @@ def dry_history_window(dry: torch.Tensor, i: int, n: int, early_bins: int,
                                                    loop), loop)
 
 
+def wet_chunk(scene: Scene, params: TraceParams, prev_ir: torch.Tensor,
+              dry_chunk: torch.Tensor, chunk_index: int, *, seed: int,
+              n_rays: int, max_bounces: int, sample_rate: int,
+              frames_per_chunk: int = 1, diffraction=False,
+              air_alpha=None, uniforms=None, backend: str = "auto",
+              binaural_facing=None, head_radius: float = 0.0875,
+              shadow: float = 0.6, decorrelate: bool = True,
+              dry_full: Optional[torch.Tensor] = None,
+              win_start: Optional[int] = None,
+              win_prefix: Optional[int] = None,
+              win_cut: Optional[int] = None, arrival_early: int = 0,
+              arrival_taps: int = _ARRIVAL_TAPS,
+              arrival_match_bins: float = _ARRIVAL_MATCH_BINS,
+              window_loop: bool = False,
+              arrival: Optional[ArrivalCarry] = None, prev_facing=None):
+    """The chunk step before the ring (the JAX live player's
+    ``wet_chunk``, shared here by the stream and the live player):
+    retrace -> physics addenda -> crossfaded convolution, and per-arrival
+    Doppler's taps. Returns ``(wet[L, N+T], taps[L, N] or None,
+    cur_ir[L, T, K], new_carry or None)``: the wet chunk with its reverb
+    tail, the taps of the chunk's own N output samples, the chunk's IR
+    and the new per-arrival carry. It reads but does not change the
+    carried ``prev_ir``, ``arrival`` and ``prev_facing`` (the previous
+    chunk's IR, per-arrival carry and binaural facing). The caller
+    overlap-adds ``wet`` at the chunk's head and then adds the taps to
+    its first N samples: :func:`stream_chunk` through the tensor ring,
+    ``live.LivePlayer`` through the host ring, in the same order, so the
+    two agree bit for bit. Arguments as :func:`stream_chunk`'s;
+    ``chunk_index`` seeds the chunk's draws and marks the first chunk."""
+    from . import spatial as spm
+    from .engine import trace_accumulate
+    n = dry_chunk.shape[-1]
+    l, t, k = prev_ir.shape
+    binaural = binaural_facing is not None
+
+    # 1. retrace: a fresh IR for this chunk (RayTraceManager.cs:82-85)
+    tp = spm.binaural_trace_params(params, l) if binaural else params
+    ir_state = trace_accumulate(
+        scene, tp, irm.IRState.zeros(t, tp.listeners.shape[0], k,
+                                     device=scene.device),
+        n_rays=n_rays, max_bounces=max_bounces, sample_rate=sample_rate,
+        n_frames=frames_per_chunk, seed=mix_seed(seed, chunk_index),
+        uniforms=uniforms, backend=backend)
+    cur_ir = _augment_ir(ir_state.normalized(), scene, tp, sample_rate,
+                         diffraction, air_alpha,
+                         plain=backend == "plain")            # [L, T, K]
+    cur_sp = None
+    if binaural:                                  # [3, T, K] -> [2, T, K]
+        cur_sp = cur_ir
+        cur_ir = spm.binaural_decode_ir(
+            cur_sp, sample_rate, binaural_facing, head_radius, shadow,
+            params.speed_of_sound, decorrelate=decorrelate)
+
+    # The first chunk has no predecessor: fade in from the current IR.
+    is_first = chunk_index == 0
+
+    # 2. convolve + crossfade (per-arrival: the taps leave the convolution)
+    if dry_full is None:
+        prev = cur_ir if is_first else prev_ir
+        return _crossfaded_wet(dry_chunk, prev, cur_ir), None, cur_ir, None
+    if arrival is None:
+        raise ValueError("per-arrival Doppler needs the arrival "
+                         "carry: init_stream(..., arrival_taps=A) "
+                         "(Streamer.process allocates it lazily)")
+    window = _device_window(dry_full, n + arrival_early + 2, win_start,
+                            win_prefix, win_cut, window_loop)
+    if binaural:
+        if prev_facing is None:
+            raise ValueError("binaural per-arrival Doppler needs the "
+                             "facing carry: init_stream(..., "
+                             "binaural=True)")
+        prev_fac = binaural_facing if is_first else prev_facing
+        wet, taps, new_carry = _per_arrival_binaural(
+            dry_chunk, window, arrival, cur_sp, prev_fac, binaural_facing,
+            is_first, n, sample_rate, head_radius, shadow,
+            params.speed_of_sound, decorrelate, arrival_taps,
+            arrival_match_bins)
+    else:
+        wet, taps, new_carry = _per_arrival_parts(
+            dry_chunk, window, arrival, cur_ir, is_first, n, k,
+            arrival_taps, arrival_match_bins)
+    return wet, taps, cur_ir, new_carry
+
+
 def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
-                 dry_chunk: torch.Tensor, *, seed: int, n_rays: int,
-                 max_bounces: int, sample_rate: int,
-                 frames_per_chunk: int = 1, diffraction=False,
-                 air_alpha=None, uniforms=None, backend: str = "auto",
-                 binaural_facing=None, head_radius: float = 0.0875,
-                 shadow: float = 0.6, decorrelate: bool = True,
-                 dry_full: Optional[torch.Tensor] = None,
-                 win_start: Optional[int] = None,
-                 win_prefix: Optional[int] = None,
-                 win_cut: Optional[int] = None, arrival_early: int = 0,
-                 arrival_taps: int = _ARRIVAL_TAPS,
-                 arrival_match_bins: float = _ARRIVAL_MATCH_BINS,
-                 window_loop: bool = False
+                 dry_chunk: torch.Tensor, **kw
                  ) -> Tuple[torch.Tensor, StreamState]:
     """One streaming step: retrace -> physics addenda -> crossfaded
     convolution -> overlap-add -> drain. Returns ``(out_chunk[L, N],
-    state)``; ``state`` is updated in place. Chunk ``i`` traces with seed
-    ``mix_seed(seed, i)`` unless ``uniforms`` (``emit[F, R]``,
+    state)``; ``state`` is updated in place. Keyword arguments (those of
+    :func:`wet_chunk`): ``seed``, ``n_rays``, ``max_bounces``,
+    ``sample_rate`` (required) and the rest below. Chunk ``i`` traces
+    with seed ``mix_seed(seed, i)`` unless ``uniforms`` (``emit[F, R]``,
     ``u[F, B, R, 3]``) are given. ``diffraction`` (falsy, 1 or 2) and
     ``air_alpha`` (dB/m, or None) as in :func:`_augment_ir`.
 
@@ -697,72 +771,23 @@ def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
     carry. It composes with ``binaural_facing`` (taps from the W channel,
     per-tap bearings from X/Y driving per-ear ITD/ILD glides:
     :func:`_per_arrival_binaural`) and with banded scenes."""
-    from . import spatial as spm
-    from .engine import trace_accumulate
-    n = dry_chunk.shape[-1]
-    l, t, k = state.prev_ir.shape
-    binaural = binaural_facing is not None
-
-    # 1. retrace: a fresh IR for this chunk (RayTraceManager.cs:82-85)
-    tp = spm.binaural_trace_params(params, l) if binaural else params
-    ir_state = trace_accumulate(
-        scene, tp, irm.IRState.zeros(t, tp.listeners.shape[0], k,
-                                     device=scene.device),
-        n_rays=n_rays, max_bounces=max_bounces, sample_rate=sample_rate,
-        n_frames=frames_per_chunk, seed=mix_seed(seed, state.chunk_index),
-        uniforms=uniforms, backend=backend)
-    cur_ir = _augment_ir(ir_state.normalized(), scene, tp, sample_rate,
-                         diffraction, air_alpha,
-                         plain=backend == "plain")            # [L, T, K]
-    cur_sp = None
-    if binaural:                                  # [3, T, K] -> [2, T, K]
-        cur_sp = cur_ir
-        cur_ir = spm.binaural_decode_ir(
-            cur_sp, sample_rate, binaural_facing, head_radius, shadow,
-            params.speed_of_sound, decorrelate=decorrelate)
-
-    # The first chunk has no predecessor: fade in from the current IR.
-    is_first = state.chunk_index == 0
-
-    # 2. convolve + crossfade (per-arrival: the taps leave the convolution)
-    taps = new_carry = None
-    if dry_full is not None:
-        if state.arrival is None:
-            raise ValueError("per-arrival Doppler needs the arrival "
-                             "carry: init_stream(..., arrival_taps=A) "
-                             "(Streamer.process allocates it lazily)")
-        window = _device_window(dry_full, n + arrival_early + 2, win_start,
-                                win_prefix, win_cut, window_loop)
-        if binaural:
-            if state.prev_facing is None:
-                raise ValueError("binaural per-arrival Doppler needs the "
-                                 "facing carry: init_stream(..., "
-                                 "binaural=True)")
-            prev_facing = binaural_facing if is_first else state.prev_facing
-            wet, taps, new_carry = _per_arrival_binaural(
-                dry_chunk, window, state.arrival, cur_sp, prev_facing,
-                binaural_facing, is_first, n, sample_rate, head_radius,
-                shadow, params.speed_of_sound, decorrelate, arrival_taps,
-                arrival_match_bins)
-        else:
-            wet, taps, new_carry = _per_arrival_parts(
-                dry_chunk, window, state.arrival, cur_ir, is_first, n, k,
-                arrival_taps, arrival_match_bins)
-    else:
-        prev_ir = cur_ir if is_first else state.prev_ir
-        wet = _crossfaded_wet(dry_chunk, prev_ir, cur_ir)      # [L, N+T]
+    binaural_facing = kw.get("binaural_facing")
+    wet, taps, cur_ir, new_carry = wet_chunk(
+        scene, params, state.prev_ir, dry_chunk, state.chunk_index,
+        arrival=state.arrival, prev_facing=state.prev_facing, **kw)
 
     # 3. overlap-add at the stream position (the read head: both advance
     #    one chunk per step), drain one chunk; the taps belong to exactly
     #    this chunk's output samples
-    out = state.ring.push(wet, state.ring.read_head).drain(n)
+    out = state.ring.push(wet, state.ring.read_head).drain(
+        dry_chunk.shape[-1])
     if taps is not None:
         out = out + taps
 
     state.prev_ir.copy_(cur_ir)
     if new_carry is not None:
         state.arrival.copy_(new_carry)
-    if binaural and state.prev_facing is not None:
+    if binaural_facing is not None and state.prev_facing is not None:
         state.prev_facing.fill_(binaural_facing)
     state.chunk_index += 1
     return out, state

@@ -1,9 +1,13 @@
 """Audio file I/O and synthetic test clips (numpy only).
 
-WAV (PCM) read/write is stdlib-only (wave + numpy), copied from
-``realisticaudioraytracing2d_tpu/utils/audio_io.py``. The JAX package's
-mp3 path goes through its native codec binding, which is not ported yet
-(ROADMAP queue 1, item 8: `native/`).
+Copied from ``realisticaudioraytracing2d_tpu/utils/audio_io.py``. WAV
+(PCM) read/write is stdlib-only (wave + numpy); mp3, the format the
+reference ships its dry clips in, goes through the port's native runtime
+(``native.decode_mp3`` / ``encode_mp3``: the system libmpg123 /
+libmp3lame, opened at run time). :func:`read_audio` / :func:`write_audio`
+dispatch on the file extension. :func:`builtin_clip_path` is the port's
+own copy of the bundled dry clip (``assets/dry_clip.wav``), the default
+``--in`` of the CLI.
 
 Plus generators for synthetic dry clips used by tests and the chip smoke.
 """
@@ -54,6 +58,27 @@ def write_wav(path: str, x: np.ndarray, sample_rate: int) -> None:
         w.writeframes(pcm.tobytes())
 
 
+def read_audio(path: str) -> Tuple[np.ndarray, int]:
+    """Read an audio file: ``.mp3`` through the native system-codec
+    binding, anything else as WAV. Returns ``(samples[N] or [N, C]
+    float32, sample_rate)``."""
+    if path.lower().endswith(".mp3"):
+        from .. import native
+        return native.decode_mp3(path)
+    return read_wav(path)
+
+
+def write_audio(path: str, x: np.ndarray, sample_rate: int) -> None:
+    """Write float32 audio ([-1, 1], shape [N] or [N, C]): ``.mp3``
+    through the native system-codec binding (192 kbps), anything else as
+    PCM16 WAV."""
+    if path.lower().endswith(".mp3"):
+        from .. import native
+        native.encode_mp3(path, np.asarray(x, np.float32), sample_rate)
+        return
+    write_wav(path, x, sample_rate)
+
+
 def click_clip(duration: float, sample_rate: int,
                click_times=(0.05,)) -> np.ndarray:
     """Dirac-ish clicks — ideal for verifying IR delays audibly/numerically."""
@@ -73,3 +98,13 @@ def noise_burst(duration: float, sample_rate: int, seed: int = 0,
     env *= np.minimum(1.0, (n - np.arange(n)) / max(1, n * 0.05))
     return (amplitude * env *
             rng.standard_normal(n).astype(np.float32)).astype(np.float32)
+
+
+def builtin_clip_path() -> str:
+    """Path to the bundled 1 s / 48 kHz dry test clip (two clicks + a
+    plucked arpeggio), the port's copy of the JAX package's. An
+    uncompressed WAV, so ``bake``/``stream``/``live`` work on any host,
+    codec or not."""
+    import os
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets", "dry_clip.wav")

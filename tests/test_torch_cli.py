@@ -1,5 +1,5 @@
 """PyTorch port: the command line's ``trace``, ``bake``, ``stream``,
-``sweep`` and ``analyze`` subcommands on the CPU.
+``live``, ``sweep`` and ``analyze`` subcommands on the CPU.
 
 ``--device cpu`` runs the plain versions. The sweep's npz must hold
 exactly what :func:`sweep_rooms` returns for the same arguments; ``trace``
@@ -29,10 +29,18 @@ spacing over, tests/test_torch_spatial.py) and refuses what JAX refuses;
 ``stream --doppler`` and ``--doppler-per-arrival`` (with the
 ``--arrival-*`` knobs, defaulting as JAX's) exclude each other at parse
 time as the JAX CLI's do; the per-arrival stream writes what ``Streamer``
-streams for the same knobs, the shared-rate one a changed WAV."""
+streams for the same knobs, the shared-rate one a changed WAV.
+
+``live`` (integrity mode) writes what ``stream`` writes for the same seed
+and flags, mono and binaural per-arrival, and prints JAX's ``live:``
+line; ``--scene-json`` builds JAX's scene, poses and patterns from the
+same file, and its named colliders take the pose feed's ``obstacle``
+lines; without ``--in`` the commands read the bundled clip; mp3 goes in
+and out through the system codecs (skipped without them)."""
 
 import argparse
 import dataclasses
+import json
 import struct
 import zlib
 
@@ -185,7 +193,6 @@ STREAM = ["stream", "--in", "a.wav", "--out", "b.wav"]
 
 
 @pytest.mark.parametrize("cmd, flag", [
-    (["trace"], ["--scene-json", "x.json"]), (STREAM, ["--pose-feed", "-"]),
     (["sweep", "--out", "x.npz"], ["--sharded"])])
 def test_cli_rejects_flags_that_are_not_ported(cmd, flag, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -195,18 +202,22 @@ def test_cli_rejects_flags_that_are_not_ported(cmd, flag, capsys):
 
 
 def test_cli_bake_rejects_binaural_and_needs_a_clip(tmp_path, capsys):
-    # --binaural and --head-radius parse now; a bake without a clip does
-    # not (the bundled clip waits for ROADMAP queue 1, item 8)
+    # --binaural and --head-radius parse; a bake without --in bakes the
+    # bundled clip (assets/dry_clip.wav: 1 s at 48 kHz, read at 8 kHz)
     args = cli.build_parser().parse_args(
         ["bake", "--in", "a.wav", "--out", "b.wav", "--binaural", "30",
          "--head-radius", "0.1"])
     assert (args.binaural, args.head_radius) == (30.0, 0.1)
     assert cli.build_parser().parse_args(
         ["bake", "--in", "a.wav", "--out", "b.wav"]).head_radius == 0.0875
-    with pytest.raises(SystemExit) as exc:
-        cli.build_parser().parse_args(["bake", "--out", "b.wav"])
-    assert exc.value.code == 2
-    capsys.readouterr()
+    for sub in (["bake"], ["stream"], ["live"]):
+        assert cli.build_parser().parse_args(
+            [*sub, "--out", "b.wav"]).infile is None
+    cli.main(["bake", *SMALL, "--out", str(tmp_path / "clip.wav")])
+    assert "baked 8000 samples" in capsys.readouterr().out
+    x, rate = read_wav(str(tmp_path / "clip.wav"))
+    assert rate == 8000 and x.shape == (8000 + 2048,)
+    assert np.isfinite(x).all() and np.abs(x).max() > 0
     # and at run time the JAX CLI's three refusals
     dry = str(tmp_path / "dry.wav")
     write_wav(dry, click_clip(0.1, 8000), 8000)
@@ -597,3 +608,105 @@ def test_cli_sweep_metrics_out(tmp_path, capsys):
             ok = np.isfinite(ref[k])
             np.testing.assert_allclose(got[k][ok], ref[k][ok], rtol=1e-3,
                                        atol=1e-6, err_msg=k)
+
+
+# ---- live, the pose feed, --scene-json, the bundled clip and mp3 ----------
+
+
+@pytest.mark.parametrize("mode", [[], ["--binaural", "0",
+                                       "--doppler-per-arrival",
+                                       "--move-source", "2,0"]])
+def test_cli_live_writes_what_stream_streams(tmp_path, capsys, mode):
+    # integrity mode (no --realtime): what the audio thread heard is the
+    # stream of the same seed, sample for sample
+    dry = str(tmp_path / "dry.wav")
+    write_wav(dry, noise_burst(0.25, 8000, seed=3), 8000)
+    live, stream = str(tmp_path / "live.wav"), str(tmp_path / "stream.wav")
+    cli.main(["live", *SMALL, "--in", dry, "--out", live, "--duration",
+              "0.5", *mode])
+    said = capsys.readouterr().out
+    assert said.startswith("live: 5 chunks") and "(0 underruns)" in said
+    cli.main(["stream", *SMALL, "--in", dry, "--out", stream, "--duration",
+              "0.5", *mode])
+    x, rate = read_wav(live)
+    y, _ = read_wav(stream)
+    assert rate == 8000 and x.shape == y.shape == (
+        (4000, 2) if mode else (4000,))
+    assert np.abs(x).max() > 0
+    np.testing.assert_array_equal(x, y)
+
+
+def test_cli_live_flags_default_as_jax():
+    args = cli.build_parser().parse_args(["live"])
+    assert (args.infile, args.out, args.duration, args.frames_per_chunk,
+            args.dsp_buffer, args.realtime, args.play, args.play_device,
+            args.viz_every, args.pose_feed, args.binaural, args.head_turn,
+            args.head_radius, args.doppler, args.doppler_per_arrival,
+            args.arrival_taps, args.device) == (
+        None, None, 2.0, 1, 1024, False, False, "default", 0, None, None,
+        0.0, 0.0875, False, False, 6, "cuda")
+    assert cli.build_parser().parse_args(STREAM).pose_feed is None
+
+
+def _scene_spec():
+    return {
+        "n_bands": 2,
+        "source": [-3.0, 1.0],
+        "listeners": [[2.0, -1.0], [2.5, 1.5]],
+        "listener_radius": 0.4,
+        "directivity": "cardioid:30",
+        "mic_directivity": ["figure8:90", "cardioid"],
+        "colliders": [
+            {"name": "Border", "type": "box", "position": [0, 0],
+             "size": [12, 8],
+             "material": {"absorption": 0.2, "scattering": 0.3}},
+            {"name": "Pillar ☃", "type": "circle", "position": [0.5, 0.2],
+             "radius": 0.6, "resolution": 12,
+             "material": {"band_absorption": [0.1, 0.4],
+                          "transmission": 0.2, "ior": 1.3}},
+            {"type": "polygon", "position": [-1.0, -2.0], "angle": 0.4,
+             "paths": [[[0, 0], [1, 0], [0.5, 0.8]]]}],
+        "boxes": [{"name": "Crate", "position": [3.0, 2.0],
+                   "angle": 0.3, "scale": [1.5, 0.5]}],
+    }
+
+
+def test_cli_scene_json_matches_jax_and_steers_by_name(tmp_path, capsys):
+    spec = _scene_spec()
+    room = cli.load_scene_json(spec, device=CPU)
+    want = jax_cli.load_scene_json(spec)
+    for f in want.scene._fields:
+        np.testing.assert_array_equal(getattr(room.scene, f).numpy(),
+                                      np.asarray(getattr(want.scene, f)))
+    for f in ("source", "listener", "directivity", "mic_directivity"):
+        np.testing.assert_array_equal(getattr(room, f), getattr(want, f))
+    assert room.listener_radius == want.listener_radius
+    # the port's loader also names the colliders for the pose feed
+    assert [c.name for c in room.builder.colliders] == [
+        "Border", "Pillar ☃", None, "Crate"]
+    path = tmp_path / "scene.json"
+    path.write_text(json.dumps(spec, ensure_ascii=False))
+    feed = tmp_path / "feed.jsonl"
+    feed.write_text(json.dumps({"chunk": 1, "obstacle": "Crate",
+                                "position": [3.0, -2.0]}) + "\n")
+    cli.main(["stream", *SMALL, "--scene-json", str(path), "--out",
+              str(tmp_path / "s.wav"), "--duration", "0.3",
+              "--pose-feed", str(feed)])
+    x, _ = read_wav(str(tmp_path / "s.wav"))
+    assert x.shape == (2400, 2) and np.abs(x).max() > 0
+    cli.main(["trace", *SMALL, "--scene-json", str(path)])
+    assert "traced 2 frames x 256 rays" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="no colliders"):
+        cli.load_scene_json({"source": [0, 0], "listener": [1, 1]})
+
+
+def test_cli_mp3_in_and_out(tmp_path, capsys):
+    from realisticaudioraytracing2d_tpu_torch import native
+    if not all(native.mp3_probe()):
+        pytest.skip("system mp3 codecs (libmpg123/libmp3lame) not available")
+    dry = str(tmp_path / "dry.mp3")
+    native.encode_mp3(dry, noise_burst(0.5, 8000, seed=3), 8000, kbps=64)
+    cli.main(["bake", *SMALL, "--in", dry, "--out", str(tmp_path / "w.mp3")])
+    x, rate = native.decode_mp3(str(tmp_path / "w.mp3"))
+    assert rate == 8000 and x.ndim == 1 and len(x) >= 4000 + 2048
+    assert np.isfinite(x).all() and np.abs(x).max() > 0.1

@@ -18,7 +18,12 @@ scenes past 5,280 walls against single K8/K7 calls, and a banded stream
 with air absorption against its plain twin; then the spatial captures and
 the binaural stream; then the per-arrival Doppler stream (mono and
 binaural) against its plain twins on the card and on the CPU, and the
-shared-rate Doppler feed on the card against the CPU's.
+shared-rate Doppler feed on the card against the CPU's; then the live
+player on the card against the card's stream of the same seed (mono,
+binaural, per-arrival; one K4 a chunk), a pose feed moving a wall and
+the source, and a realtime session from empty build directories (the
+player builds the kernels and the native library before its threads
+start) with no underrun.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
 file imports no JAX, so it runs on a machine without it:
@@ -37,6 +42,7 @@ bit, since both make the same IEEE operations and a minimum does not
 depend on its order."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1837,3 +1843,109 @@ def test_doppler_feed_stream_on_the_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(
         g, w, rtol=0,
         atol=2e-6 * np.abs(w).max() + float(dry.abs().sum()) * d_ir)
+
+
+# ---- the live pipeline on the card -------------------------------------------
+
+
+def _live_setup(device, binaural=False):
+    room = rooms.smoll_room(device=device)
+    cfg = art.smoll_room_config()
+    eng = art.Engine(room.scene, cfg)
+    src = np.float32(room.source)
+    dry = torch.zeros(48000, device=device)
+    dry[[4800, 28800]] = 1.0                    # clicks at 0.1 s, 0.6 s
+    return room, cfg, dry, lambda i: eng.params(
+        src + np.float32([0.2 * i, 0.0]), room.listener)
+
+
+@cuda
+@pytest.mark.parametrize("mode", ["mono", "binaural", "per_arrival"])
+def test_live_player_on_the_card_equals_its_stream(cuda_device, mode):
+    # integrity mode: the audio thread hears the card's stream of the same
+    # seed (the producer adds wet chunk and taps in the stream's order)
+    from realisticaudioraytracing2d_tpu_torch.live import LivePlayer
+    binaural = mode == "binaural"
+    room, cfg, dry, poses = _live_setup(cuda_device)
+    kw = dict(binaural=binaural)
+    run = dict(params_fn=poses, doppler=(mode == "per_arrival" and
+                                         "per_arrival"),
+               facing_fn=(lambda i: 0.3 * i) if binaural else None)
+    k4 = bk.trace_frames_ir_mega.launches
+    rep = LivePlayer(room.scene, cfg, seed=5, **kw).run(
+        dry, total_chunks=8, loop=False, **run)
+    assert bk.trace_frames_ir_mega.launches - k4 == 8     # one a chunk
+    want = to_numpy(art.Streamer(room.scene, cfg, seed=5, **kw).stream_clip(
+        dry, loop=False, total_chunks=8, **run))
+    assert rep.underruns == 0 and rep.chunks == 8
+    assert rep.audio.shape == want.shape == (2 if binaural else 1, 8 * 4800)
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(rep.audio, want, rtol=0, atol=1e-6)
+
+
+@cuda
+def test_pose_feed_moves_a_wall_on_the_card(cuda_device, tmp_path):
+    from realisticaudioraytracing2d_tpu_torch.live import LivePlayer
+    from realisticaudioraytracing2d_tpu_torch.posefeed import PoseFeed
+    room, cfg, _, poses = _live_setup(cuda_device)
+    # a dry signal in every chunk: each move changes the chunks after it
+    dry = torch.from_numpy(np.random.default_rng(6).normal(
+        size=48000).astype(np.float32) * 0.3).to(cuda_device)
+    path = tmp_path / "feed.jsonl"
+    path.write_text(json.dumps({"chunk": 2, "obstacle": "Wall (4)",
+                                "position": [-9.0, 5.0], "angle": 0.2})
+                    + "\n" + json.dumps({"chunk": 3, "source": [-15.0, 6.0]})
+                    + "\n")
+    feed = PoseFeed.open(str(path)).bind_scene(room.builder)
+    moved = room.builder.move_collider(room.scene, "Wall (4)",
+                                       position=(-9.0, 5.0), angle=0.2)
+    assert moved.device == room.scene.device
+    assert moved.n_walls == room.scene.n_walls
+
+    def fed_params(i):
+        p = feed.params(poses(i), i)
+        assert p.source.device == room.scene.device
+        return p
+
+    got = LivePlayer(room.scene, cfg, seed=6).run(
+        dry, total_chunks=6, loop=False, params_fn=fed_params,
+        scene_fn=lambda i: feed.scene(room.scene, i))
+    want = LivePlayer(room.scene, cfg, seed=6).run(
+        dry, total_chunks=6, loop=False,
+        params_fn=lambda i: poses(i)._replace(
+            source=torch.tensor([-15.0, 6.0], device=cuda_device))
+        if i >= 3 else poses(i),
+        scene_fn=lambda i: moved if i >= 2 else room.scene)
+    np.testing.assert_array_equal(got.audio, want.audio)
+    plain = LivePlayer(room.scene, cfg, seed=6).run(
+        dry, total_chunks=6, loop=False, params_fn=poses)
+    assert not np.array_equal(got.audio, plain.audio)
+
+
+@cuda
+def test_live_realtime_from_a_cold_build_has_no_underruns(cuda_device,
+                                                          tmp_path,
+                                                          monkeypatch):
+    # empty build directories: the player builds the CUDA kernels (nvcc)
+    # and the native library (g++) before its threads start, so the audio
+    # clock never waits on a compiler
+    from realisticaudioraytracing2d_tpu_torch import native
+    from realisticaudioraytracing2d_tpu_torch.live import LivePlayer
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "torch_kernels")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "torch_native")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    build.load_library.cache_clear()
+    try:
+        room, cfg, dry, poses = _live_setup(cuda_device)
+        player = LivePlayer(room.scene, cfg, seed=7)
+        assert build.library_path().exists() and native.available()
+        assert native.library_path().parent == tmp_path / "torch_native"
+        rep = player.run(dry, total_chunks=20, loop=True, realtime=True,
+                         prime=1, params_fn=poses)
+    finally:
+        build.load_library.cache_clear()
+    assert rep.chunks == 20 and rep.audio.shape == (1, 20 * 4800)
+    assert rep.underruns == 0, rep.summary()
+    assert rep.realtime_factor > 1.0
