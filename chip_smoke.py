@@ -43,6 +43,10 @@ every kernel against its plain PyTorch version:
   the 10,008-wall city through K8, in integrity and realtime mode,
   steered by a pose feed written while it plays; ``cli live``, ``cli
   stream --pose-feed``, ``--scene-json`` and the bundled clip.
+* differentiable acoustics (``diff.py``): the plain trace under autograd
+  on the card at ``cli fit``'s width (SmollRoom 15,000 x 5, 72,000 bins),
+  ``fit_materials``, the transmission surrogate through K1/K2, and ``cli
+  trace --ir-out`` (K4) -> ``cli fit`` -> ``cli locate``.
 
 Phases:
 
@@ -249,6 +253,24 @@ Phases:
    clip), ``cli stream --scene-json`` of SmollRoom exported by the phase
    (its walls equal SmollRoom's; its WAV equals ``cli live``'s), and
    ``cli live --play``, which plays or exits with the ALSA message;
+16. differentiable acoustics. 16a: SmollRoom's d(sum IR)/d(absorption,
+   scattering) at 15,000 x 5 x 72,000 bins finite and nonzero on the card
+   and against the CPU's on the same Philox draws (value within 1e-2,
+   gradients within 10% of the largest: a few razor-edge rays part the
+   two: ROADMAP section 3, the plain trace on the CPU and on the card);
+   the shoebox's absorption gradient against a central difference of
+   the card's forward (rtol 5e-2, JAX's check); the blur on the card against the CPU at 72,000 bins (1e-7 of
+   the largest: float64 sums, no TF32). 16b: ``fit_materials`` recovers
+   the shoebox's absorption (0.12 -> 0.45 within 0.08, JAX's test), a
+   rerun bit-identical. 16c: ``trace(use_kernels=True,
+   transmission_surrogate=True)`` == the plain surrogate trace bit for bit
+   (SmollRoom; the divider at t = 0.5), 5 launches of K1 and of K2 a
+   call. 16d: ``cli trace --ir-out`` (one K4 launch) -> ``cli fit`` at
+   its defaults (100 steps) -> ``cli locate`` (8 starts, 25 of the CLI's
+   200 steps, cut for time), no hand kernel in the last two, their JSON
+   keys. 16e: one ``fit_materials`` step at the CLI defaults, median and
+   p99 over 30, its ``cudaLaunchKernel`` calls and device-busy ms
+   (profiler), peak memory at 4 frames with and without ``remat``;
 5. timings with CUDA events after a warm-up, device times from the
    profiler (every reading holds all the launches of its calls, one for
    K1-K6 and K9 and one a bounce for K7/K8, or is retried), and each
@@ -2253,6 +2275,276 @@ def live_phase(c):
     return slice_launches, readings
 
 
+def diff_phase(c):
+    """Phase 16: differentiable acoustics (``diff.py``) on the card, at the
+    CLI's width (SmollRoom 15,000 x 5, 48 kHz, 72,000 bins) and at the JAX
+    tests' fixture (a 4 x 4 m shoebox, 64 rays x 4 bounces, 8 kHz, 512
+    bins). The differentiable forward is the plain trace under autograd
+    (the hand kernels have no backward): only 16c's surrogate trace with
+    ``use_kernels`` (K1/K2) and 16d's ``trace --ir-out`` (K4) launch hand
+    kernels. ``c`` holds the objects of main(). Returns the launch counts
+    of its paths and its readings."""
+    torch, art, cli, rng = (c[k] for k in ("torch", "art", "cli", "rng"))
+    dev, counted, only, card = (c[k] for k in (
+        "dev", "counted", "only", "card"))
+    from realisticaudioraytracing2d_tpu_torch import diff
+    from realisticaudioraytracing2d_tpu_torch.models.materials import \
+        AudioMaterial
+    from realisticaudioraytracing2d_tpu_torch.models.scene import \
+        Transform2D
+    from realisticaudioraytracing2d_tpu_torch.ops import trace as tt
+    from realisticaudioraytracing2d_tpu_torch.ops.trace import TraceParams
+    slice_launches = {k: 0 for k in only()}
+    readings = {}
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def add(launched):
+        for k in slice_launches:
+            slice_launches[k] += launched.get(k, 0)
+
+    def smoll_on(d):
+        room = art.rooms.smoll_room(device=d)
+        p = art.Engine(room.scene, art.smoll_room_config()).params(
+            room.source, room.listener)
+        return room, p
+
+    def shoebox(absorption=0.3, divider=None):
+        obstacles, src, lis = None, (-1.0, 0.0), (1.0, 0.3)
+        if divider is not None:
+            obstacles = [(Transform2D((0.0, 0.0), 0.0, (0.2, 3.0)),
+                          AudioMaterial(absorption=0.1, scattering=0.0,
+                                        transmission=divider))]
+            src, lis = (-1.2, 0.0), (1.2, 0.2)
+        scene = art.rooms.shoebox_room(
+            4.0, 4.0, wall_material=AudioMaterial(absorption=absorption,
+                                                  scattering=0.4),
+            obstacles=obstacles, device=dev)
+        return scene, TraceParams.make(src, lis, listener_radius=0.5,
+                                       device=dev)
+
+    small = dict(max_bounces=4, sample_rate=8000, ir_length=512)
+    full = dict(n_rays=RAYS, max_bounces=BOUNCES, sample_rate=SR,
+                ir_length=T)
+    fields = ("absorption", "scattering")
+
+    # 16a. SmollRoom's gradients at full width: finite and nonzero on the
+    # card, the card against the CPU on the same Philox draws (a few
+    # razor-edge rays part them: ROADMAP section 3, the plain trace on
+    # the CPU and on the card); the
+    # shoebox's absorption gradient against a central difference of the
+    # card's forward (JAX's check); the blur in full float32
+    grads = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        room, p = smoll_on(d)
+        groups, n_groups = diff.infer_material_groups(room.scene)
+        mp = diff.MaterialParams(*(
+            x.requires_grad_(True) for x in diff.MaterialParams.from_scene(
+                room.scene, groups, n_groups)))
+        value = torch.sum(diff.simulate_ir(
+            diff.apply_materials(room.scene, groups, mp, fields), p, 5,
+            device=d, **full))
+        value.backward()
+        grads[where] = (float(value.detach()),
+                        mp.absorption.grad.cpu().numpy().ravel(),
+                        mp.scattering.grad.cpu().numpy())
+    (vc, gac, gsc), (vh, gah, gsh) = grads["card"], grads["cpu"]
+    for v, ga, gs in grads.values():
+        check(v > 0 and np.isfinite(ga).all() and np.isfinite(gs).all()
+              and np.abs(ga).max() > 0 and np.abs(gs).max() > 0,
+              f"16a: SmollRoom gradients finite, nonzero ({ga}, {gs})")
+    v_gap = abs(vc - vh) / vh
+    g_gap = max(float(np.abs(gac - gah).max() / np.abs(gah).max()),
+                float(np.abs(gsc - gsh).max() / np.abs(gsh).max()))
+    scene_s, p_s = shoebox()
+    groups_s, n_s = diff.infer_material_groups(scene_s)
+    mp0 = diff.MaterialParams.from_scene(scene_s, groups_s, n_s)
+
+    def loss_at(delta):
+        mp = mp0._replace(absorption=mp0.absorption + delta)
+        return torch.sum(diff.simulate_ir(
+            diff.apply_materials(scene_s, groups_s, mp), p_s, 0, n_rays=64,
+            device=dev, **small))
+
+    delta = torch.zeros_like(mp0.absorption, requires_grad=True)
+    loss_at(delta).backward()
+    fd_said = []
+    with torch.no_grad():
+        for gi in range(n_s):
+            e = torch.zeros_like(mp0.absorption)
+            e[gi] = 1e-3
+            fd = float(loss_at(e) - loss_at(-e)) / 2e-3
+            ad = float(delta.grad[gi].sum())
+            if abs(fd) < 1e-7 and abs(ad) < 1e-7:
+                continue
+            fd_said.append(f"{ad:.6g} / {fd:.6g}")
+            check(abs(ad - fd) <= 5e-2 * abs(fd),
+                  f"16a: autograd {ad} vs central difference {fd}")
+    check(len(fd_said) >= 1, "16a: a group with a gradient")
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (1, T, 1), dtype=np.float32))
+    blur_gap = max(float((diff.gaussian_blur_time(x.to(dev), s).cpu()
+                          - diff.gaussian_blur_time(x, s)).abs().max())
+                   for s in (1.0, 24.0))
+    check(blur_gap <= 1e-7 * float(x.max()), f"16a: blur gap {blur_gap}")
+    print(f"[16a] SmollRoom {RAYS} x {BOUNCES}, {T} bins, d(sum IR)/d("
+          f"absorption, scattering) on {card}: finite, nonzero; card vs CPU "
+          f"value {v_gap:.2e} (< 1e-2), gradients {g_gap:.2e} of the "
+          f"largest (< 1e-1); shoebox autograd / central difference "
+          f"{', '.join(fd_said)} (rtol 5e-2); blur card vs CPU at {T} bins "
+          f"{blur_gap:.2e} (cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32})", flush=True)
+    check(v_gap < 1e-2 and g_gap < 1e-1, "16a: card vs CPU")
+
+    # 16b. fit_materials recovers absorption on the card (JAX's test), and
+    # a rerun gives the same losses bit for bit
+    true_s, _ = shoebox(absorption=0.45)
+    target_s = diff.simulate_ir(true_s, p_s, 7, n_rays=64, frames=4,
+                                device=dev, **small)
+    start_s, _ = shoebox(absorption=0.12)
+    fit_kw = dict(n_rays=64, max_bounces=4, sample_rate=8000,
+                  fields=("absorption",), loss="edc", steps=60, lr=0.1,
+                  device=dev)
+    runs = [diff.fit_materials(start_s, p_s, target_s, 0, **fit_kw)
+            for _ in range(2)]
+    losses = runs[0].losses.cpu().numpy()
+    fitted = float(torch.sigmoid(runs[0].params.absorption)[
+        int(diff.infer_material_groups(start_s)[0][0]), 0])
+    same_bits = bool(torch.equal(runs[0].losses, runs[1].losses)
+                     and torch.equal(runs[0].params.absorption,
+                                     runs[1].params.absorption))
+    print(f"[16b] fit_materials on {card}: absorption 0.12 -> {fitted:.4f} "
+          f"(target 0.45, within 0.08), loss head/tail "
+          f"{losses[:10].mean():.4f} / {losses[-10:].mean():.4f}; rerun "
+          f"bit-identical {same_bits}", flush=True)
+    check(abs(fitted - 0.45) < 0.08, "16b: absorption recovered")
+    check(losses[-10:].mean() < 0.65 * losses[:10].mean(), "16b: losses")
+    check(same_bits, "16b: a rerun gives the same bits")
+
+    # 16c. the surrogate trace through K1/K2 == the plain surrogate trace,
+    # bit for bit (SmollRoom's transmissive slant wall; the divider at
+    # t = 0.5), one launch of each a bounce
+    emit, u = rng.philox_uniforms(11, 1, BOUNCES, RAYS, device=dev)
+    said = []
+    for name, (scene, p) in (("SmollRoom", (lambda r: (r[0].scene, r[1]))(
+            smoll_on(dev))), ("divider t = 0.5", shoebox(divider=0.5))):
+        with_k, launched = counted(lambda: tt.trace_hits_only(
+            scene, p, emit[0], u[0], use_kernels=True,
+            transmission_surrogate=True))
+        check(launched == only(K1=BOUNCES, K2=BOUNCES),
+              f"16c: launches {launched}")
+        add(launched)
+        plain = tt.trace_hits_only(scene, p, emit[0], u[0],
+                                   transmission_surrogate=True)
+        check(bool(plain.valid.any()) and all(
+            torch.equal(a, b) for a, b in zip(with_k, plain)),
+              f"16c: {name} K1/K2 surrogate == plain")
+        said.append(f"{name} {int(plain.valid.sum())} valid records")
+    print(f"[16c] trace(use_kernels=True, transmission_surrogate=True) == "
+          f"the plain surrogate trace bit for bit, {RAYS} x {BOUNCES}: "
+          f"{'; '.join(said)}; K1 and K2 {BOUNCES} launches each", flush=True)
+
+    # 16d. cli trace --ir-out (K4) -> cli fit at its defaults -> cli locate
+    # (8 starts); fit and locate launch no hand kernel
+    locate_steps = 25
+    cli_s = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(n):
+            return os.path.join(tmp, n)
+
+        runs = [("trace --ir-out", ["trace", "--room", "smoll", "--ir-out",
+                                    path("t.npz")], only(K4=1)),
+                ("fit", ["fit", "--room", "smoll", "--target", path("t.npz"),
+                         "--out", path("fit.json")], only()),
+                (f"locate --steps {locate_steps}",
+                 ["locate", "--room", "smoll", "--target", path("t.npz"),
+                  "--out", path("loc.json"), "--steps", str(locate_steps)],
+                 only())]
+        for name, argv, want_l in runs:
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                _, launched = counted(lambda: cli.main(argv))
+            cli_s[name] = time.perf_counter() - t0
+            check(launched == want_l, f"16d: cli {name} launches {launched}")
+            add(launched)
+            print(f"    cli {name}: {buf.getvalue().strip()}", flush=True)
+        fit_rep = json.load(open(path("fit.json")))
+        loc_rep = json.load(open(path("loc.json")))
+    check(set(fit_rep) == {"loss", "steps", "loss_start", "loss_end",
+                           "fields", "groups"} and fit_rep["steps"] == 100
+          and np.isfinite(fit_rep["loss_end"]) and fit_rep["groups"],
+          f"16d: fit report {fit_rep}")
+    check(set(loc_rep) == {"position", "loss", "configured_source",
+                           "starts"} and len(loc_rep["starts"]) == 8
+          and np.isfinite(loc_rep["loss"]), f"16d: locate report {loc_rep}")
+    readings["cli"] = cli_s
+    print(f"[16d] cli on {card}, seconds (launches checked): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in cli_s.items())
+          + f"; fit loss {fit_rep['loss_start']:.4f} -> "
+          f"{fit_rep['loss_end']:.4f}; located {loc_rep['position']} "
+          f"(configured {loc_rep['configured_source']}, loss "
+          f"{loc_rep['loss']:.4f}); 8 starts x {locate_steps} steps (the "
+          f"CLI's 200 cut to fit the smoke)", flush=True)
+
+    # 16e. one fit_materials step at the CLI defaults (fit's body: rebind,
+    # trace, edc+mse, backward, Adam), synced: median and p99 over 30
+    # steps, its launches and device time, and peak memory at 4 frames
+    room, p = smoll_on(dev)
+    groups, n_groups = diff.infer_material_groups(room.scene)
+    target = diff.simulate_ir(room.scene, p, 99, frames=2, device=dev,
+                              **full)
+    mp = diff.MaterialParams(*(
+        x.clone().requires_grad_(True) for x in diff.MaterialParams.
+        from_scene(room.scene, groups, n_groups)))
+    opt = torch.optim.Adam(list(mp), lr=0.08)
+    groups_t = torch.from_numpy(groups).to(dev, torch.long)
+    step_i = [0]
+
+    def step(frames=1, remat=True):
+        opt.zero_grad(set_to_none=True)
+        pred = diff.simulate_ir(
+            diff.apply_materials(room.scene, groups_t, mp, fields), p,
+            rng.mix_seed(0, step_i[0]), frames=frames, remat=remat,
+            device=dev, **full)
+        diff.combined_loss(pred, target).backward()
+        opt.step()
+        step_i[0] += 1
+
+    step()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    busy, calls, kernels = chunk_profile(torch, step, 1)
+    peak = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(frames=4, remat=remat)
+        torch.cuda.synchronize()
+        peak[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    readings["step"] = (float(np.median(ms)), float(np.percentile(ms, 99)),
+                        busy, calls, kernels, peak)
+    print(f"[16e] fit_materials step on {card}, SmollRoom {RAYS} x "
+          f"{BOUNCES}, {T} bins, 1 frame, edc+mse, absorption + scattering:"
+          f" median {np.median(ms):.3f} ms, p99 "
+          f"{np.percentile(ms, 99):.3f} (30 steps); {calls:.0f} "
+          f"cudaLaunchKernel, {kernels:.0f} device kernels, device busy "
+          f"{busy:.3f} ms ({busy / np.median(ms) * 100:.1f}% of the step); "
+          f"peak memory at 4 frames {peak[True]:.1f} MiB with remat, "
+          f"{peak[False]:.1f} MiB without", flush=True)
+    check(all(np.isfinite(ms)) and peak[True] < peak[False],
+          "16e: step timed, remat keeps less")
+    print(f"[16] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return slice_launches, readings
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -3601,6 +3893,9 @@ def main():
     # --- 15. the live pipeline, the pose feed, the native runtime ----------
     live_launches, _ = live_phase(ctx)
 
+    # --- 16. differentiable acoustics --------------------------------------
+    diff_launches, _ = diff_phase(ctx)
+
     # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
     sc, p = smoll.scene, smoll_p
@@ -4001,6 +4296,8 @@ def main():
     for k, n in doppler_launches.items():   # and [14]'s
         launches[k] = launches.get(k, 0) + n
     for k, n in live_launches.items():      # and [15]'s
+        launches[k] = launches.get(k, 0) + n
+    for k, n in diff_launches.items():      # and [16]'s
         launches[k] = launches.get(k, 0) + n
 
     names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),

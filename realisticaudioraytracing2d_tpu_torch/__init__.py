@@ -16,10 +16,13 @@ diffraction (:mod:`.ops.diffraction`) and air absorption
 (:mod:`.ops.air`). :mod:`.spatial` traces spatial (W/X/Y) IRs through
 the same kernels and decodes them to two ears, which the stream does
 per chunk in binaural mode; :mod:`.analysis` computes the ISO 3382 room
-parameters of an IR. :class:`.live.LivePlayer` plays the stream's chunks
-through a producer thread and an audio thread around the native host
-ring (:mod:`.native`: the ring, mp3 codecs, the ALSA sink, built with
-g++ at first use), steered while it plays by :class:`.posefeed.PoseFeed`.
+parameters of an IR. :mod:`.diff` fits wall materials and locates a
+source from a target IR by autograd through the plain trace (the hand
+kernels have no backward). :class:`.live.LivePlayer` plays the stream's
+chunks through a producer thread and an audio thread around the native
+host ring (:mod:`.native`: the ring, mp3 codecs, the ALSA sink, built
+with g++ at first use), steered while it plays by
+:class:`.posefeed.PoseFeed`.
 It imports no JAX.
 
 Every builder takes ``device=None``, which means :data:`DEFAULT_DEVICE`
@@ -36,8 +39,8 @@ Quick start::
     wet = eng.bake(torch.as_tensor(dry_audio, device="cuda"), ir_state)
 """
 
-from . import (analysis, config, live, native, parallel, posefeed, spatial,
-               utils)
+from . import (analysis, config, diff, live, native, parallel, posefeed,
+               spatial, utils)
 from .config import (AudioConfig, DebugConfig, EngineConfig, SimConfig,
                      big_room_config, sample_scene_config,
                      smoll_room_config)
@@ -64,7 +67,7 @@ __all__ = [
     "PoseFeed", "PoseFeedError", "RingBuffer", "Scene",
     "SceneBuilder", "SimConfig", "StreamState", "Streamer", "TraceParams",
     "Transform2D", "air", "analysis", "bake_audio", "big_room_config", "config",
-    "convolve", "diffraction", "directivity", "geometry", "ir", "live",
+    "convolve", "diff", "diffraction", "directivity", "geometry", "ir", "live",
     "materials", "native", "parallel", "posefeed", "rooms",
     "sample_scene_config", "scene", "smoll_room_config", "spatial",
     "stream_chunk", "trace", "trace_accumulate", "wet_chunk",

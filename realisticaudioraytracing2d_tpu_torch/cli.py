@@ -1,7 +1,7 @@
 """Command-line entry point of the port: ``trace``, ``bake``, ``stream``,
-``live``, ``sweep``, ``analyze``.
+``live``, ``sweep``, ``analyze``, ``fit``, ``locate``.
 
-Port of six subcommands of ``realisticaudioraytracing2d_tpu/cli.py``.
+Port of eight subcommands of ``realisticaudioraytracing2d_tpu/cli.py``.
 Each runs on the card unless ``--device cpu`` asks for the plain version::
 
     python -m realisticaudioraytracing2d_tpu_torch.cli trace --room smoll \\
@@ -19,6 +19,10 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
         --out irs.npz [--metrics-out metrics.npz]
     python -m realisticaudioraytracing2d_tpu_torch.cli analyze --room smoll \\
         [--ir-in ir.npz] [--out report.json] [--edc-out edc.png]
+    python -m realisticaudioraytracing2d_tpu_torch.cli fit --room smoll \\
+        --target ir.npz --out materials.json [--fields absorption,ior]
+    python -m realisticaudioraytracing2d_tpu_torch.cli locate --room smoll \\
+        --target ir.npz --out located.json [--starts 8 --steps 200]
 
 * ``trace`` accumulates ``--frames`` Monte-Carlo frames into an IR (the
   whole-frame kernel K4 on the card), prints the JAX CLI's ``traced ...``
@@ -83,6 +87,12 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
 * ``analyze`` reports the metrics of a saved IR (``--ir-in``) or of a
   fresh trace as the JAX CLI's JSON (``--out``, else stdout) and plots
   the Schroeder decay (``--edc-out``).
+* ``fit`` fits the scene's per-group wall materials (``--fields``) to a
+  target IR checkpoint (``--target``, e.g. from ``trace --ir-out``) and
+  ``locate`` recovers the source position from one, by Adam through the
+  plain trace under autograd (:mod:`.diff`: the hand kernels have no
+  backward, as in the JAX package); both write the JAX CLI's JSON
+  report and print its line.
 
 Draws: frame ``f`` of ``--seed`` is the Philox stream of
 ``ops/rng.py::philox_uniforms``, which K4 draws in the kernel, so the
@@ -93,8 +103,9 @@ The flags and defaults are those the JAX subcommands read, plus
 ``--device`` (default ``cuda``). ``sweep`` accepts the pattern flags and
 ignores them, as the JAX ``sweep`` does. Not ported yet, and therefore
 not accepted (ROADMAP queue 1 names what each waits for): ``sweep
---sharded`` (item 10) and the subcommands ``fit``, ``locate`` (item 9)
-and ``bench`` (item 11).
+--sharded`` (item 10) and the subcommand ``bench`` (item 11). ``fit``
+and ``locate`` draw step ``i``'s rays from ``mix_seed(seed, i)`` (fit)
+or ``--seed`` every step (locate), as :mod:`.diff` says.
 """
 
 from __future__ import annotations
@@ -824,6 +835,130 @@ def cmd_live(args) -> None:
     print(f"live: {rep.summary()}" + (f" -> {args.out}" if args.out else ""))
 
 
+def _fit_target(args):
+    """Room, config, engine params and the normalized target IR of a
+    ``fit`` / ``locate`` command; exits as the JAX CLI does when the
+    target's listeners or bands do not match the setup."""
+    from .utils.checkpoint import load_ir_state
+    room, cfg, _, n_l, _, p = _setup(args)
+    target = load_ir_state(args.target, device=torch.device(
+        args.device)).normalized()
+    if target.shape[0] != n_l:
+        raise SystemExit(
+            f"target IR has {target.shape[0]} listeners; this setup has "
+            f"{n_l} (use --stereo / scene JSON listeners to match)")
+    if target.shape[-1] != room.scene.n_bands:
+        raise SystemExit(
+            f"target IR has {target.shape[-1]} bands; scene has "
+            f"{room.scene.n_bands} (set --bands to match)")
+    return room, cfg, p, target
+
+
+def cmd_fit(args) -> None:
+    """Inverse material estimation: fit the scene's per-group materials to
+    a target IR (an ``--ir-out`` checkpoint of ``trace``, or any IRState
+    npz) by gradient descent through the plain trace
+    (``diff.fit_materials``); writes the JAX CLI's JSON report."""
+    from . import diff
+
+    room, cfg, p, target = _fit_target(args)
+    groups, n_groups = diff.infer_material_groups(room.scene)
+    fields = tuple(f for f in args.fields.split(",") if f)
+    unknown = set(fields) - set(diff.FIELDS)
+    if unknown:
+        raise SystemExit(f"unknown --fields {sorted(unknown)}; pick from "
+                         "absorption/scattering/transmission/ior")
+
+    t0 = time.perf_counter()
+    result = diff.fit_materials(
+        room.scene, p, target, args.seed,
+        n_rays=args.rays if args.fit_rays is None else args.fit_rays,
+        max_bounces=args.bounces, sample_rate=cfg.audio.sample_rate,
+        frames=args.fit_frames, groups=groups, fields=fields,
+        loss=args.loss, steps=args.steps, lr=args.lr,
+        soft=args.soft or "ior" in fields, device=args.device)
+    losses = result.losses.cpu().numpy().astype(np.float64)
+    dt = time.perf_counter() - t0
+
+    absorption, scattering, transmission, ior = (
+        x.cpu().numpy() for x in result.params.constrained())
+    mask = room.scene.mask.cpu().numpy()
+    report = {
+        "loss": args.loss, "steps": args.steps,
+        "loss_start": float(losses[:5].mean()),
+        "loss_end": float(losses[-5:].mean()),
+        "fields": list(fields),
+        "groups": [],
+    }
+    for g in range(n_groups):
+        walls = np.flatnonzero((groups == g) & mask)
+        if walls.size == 0:
+            continue  # padding-only group
+        report["groups"].append({
+            "group": g, "n_walls": int(walls.size),
+            "first_wall": int(walls[0]),
+            "absorption": [round(float(a), 4) for a in absorption[g]],
+            "scattering": round(float(scattering[g]), 4),
+            "transmission": round(float(transmission[g]), 4),
+            "ior": round(float(ior[g]), 4),
+        })
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=2)
+    print(f"fit {len(report['groups'])} material groups in {dt:.1f}s "
+          f"({args.steps} steps); loss {report['loss_start']:.4f} -> "
+          f"{report['loss_end']:.4f} -> {args.out}")
+
+
+def cmd_locate(args) -> None:
+    """Source localization: recover the source position from a target IR
+    by multi-start gradient descent through the plain trace with the soft
+    splat (``diff.localize_source``). The configured source is not used
+    by the fit; the report gives it for comparison."""
+    from . import diff
+
+    room, cfg, p, target = _fit_target(args)
+    bounds = None
+    if args.bounds:
+        vals = [float(v) for v in args.bounds.split(",")]
+        if len(vals) != 4:
+            raise SystemExit("--bounds wants xmin,ymin,xmax,ymax")
+        bounds = np.asarray([[vals[0], vals[1]], [vals[2], vals[3]]],
+                            np.float32)
+
+    t0 = time.perf_counter()
+    result = diff.localize_source(
+        room.scene, p, target, args.seed,
+        n_rays=args.rays if args.fit_rays is None else args.fit_rays,
+        max_bounces=args.bounces, sample_rate=cfg.audio.sample_rate,
+        n_starts=args.starts, steps=args.steps, lr=args.lr,
+        n_sources=args.sources, bounds=bounds, device=args.device)
+    positions = result.positions.cpu().numpy()
+    losses = result.losses.cpu().numpy()
+    dt = time.perf_counter() - t0
+
+    pos = np.atleast_2d(result.position.cpu().numpy())
+    best = [[round(float(v), 4) for v in row] for row in pos]
+    if args.sources == 1:
+        best = best[0]
+    report = {
+        "position": best,
+        "loss": round(float(result.loss), 6),
+        "configured_source": [round(float(v), 4)
+                              for v in np.asarray(room.source)],
+        "starts": [
+            {"position": np.round(np.asarray(sp, np.float64), 4).tolist(),
+             "loss": round(float(loss), 6)}
+            for sp, loss in zip(positions, losses)],
+    }
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=2)
+    where = (f"({best[0]}, {best[1]})" if args.sources == 1 else
+             " + ".join(f"({x}, {y})" for x, y in best))
+    print(f"located source at {where} in {dt:.1f}s "
+          f"({args.starts} starts x {args.steps} steps, "
+          f"loss {report['loss']:.4f}) -> {args.out}")
+
+
 def cmd_analyze(args) -> None:
     """The ISO 3382 report (RT60, EDT, C50/C80, D50, centre time, first
     arrival) of a saved IRState (``--ir-in``) or of a fresh trace of the
@@ -1093,6 +1228,50 @@ def build_parser() -> argparse.ArgumentParser:
                         "arrays) in one batched pass")
     _common(p, room=False)
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("fit", help="inverse material estimation: fit "
+                       "per-group wall materials to a target IR by "
+                       "autograd through the trace")
+    _common(p)
+    p.add_argument("--target", required=True,
+                   help="target IRState npz (e.g. from trace --ir-out)")
+    p.add_argument("--out", required=True, help="fitted materials JSON")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=0.08)
+    p.add_argument("--loss", default="edc+mse",
+                   choices=["mse", "edc", "edc+mse", "blur"])
+    p.add_argument("--fields", default="absorption,scattering",
+                   help="comma list of material fields to fit; 'ior' "
+                        "needs delay gradients and implies --soft "
+                        "(transmission has no pathwise gradient)")
+    p.add_argument("--soft", action="store_true",
+                   help="soft two-bin IR splat forward (delay gradients; "
+                        "pair with --loss blur)")
+    p.add_argument("--fit-rays", type=int, default=None,
+                   help="rays per fitting step (default: --rays)")
+    p.add_argument("--fit-frames", type=int, default=1,
+                   help="MC frames per fitting step")
+    p.set_defaults(fn=cmd_fit)
+
+    p = sub.add_parser("locate", help="acoustic source localization: "
+                       "recover the source position from a target IR by "
+                       "autograd through the trace")
+    _common(p)
+    p.add_argument("--target", required=True,
+                   help="target IRState npz (e.g. from trace --ir-out)")
+    p.add_argument("--out", required=True, help="localization report JSON")
+    p.add_argument("--starts", type=int, default=8,
+                   help="random restarts (one parameter under one Adam)")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--lr", type=float, default=0.08)
+    p.add_argument("--fit-rays", type=int, default=None,
+                   help="rays per fitting step (default: --rays)")
+    p.add_argument("--sources", type=int, default=1,
+                   help="fit N simultaneous sources jointly")
+    p.add_argument("--bounds", default=None,
+                   help="search box xmin,ymin,xmax,ymax (default: scene "
+                        "AABB; pass the room INTERIOR for --sources > 1)")
+    p.set_defaults(fn=cmd_locate)
 
     p = sub.add_parser("analyze", help="room-acoustics metrics (RT60, "
                        "EDT, C50/C80, D50, centre time, first arrival) "

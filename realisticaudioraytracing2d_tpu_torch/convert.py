@@ -3,8 +3,9 @@
 Each function takes the JAX object, or anything with the same attribute
 names, reads every field with ``np.asarray`` (so this module imports no
 JAX), and returns the port's object on ``device``. This is how the tests
-hand a JAX scene, poses, hits, debug paths, IR, spatial IR and stream
-state (plain, binaural or per-arrival Doppler) to the port.
+hand a JAX scene, poses, hits, debug paths, IR, spatial IR, stream
+state (plain, binaural or per-arrival Doppler) and material logits to
+the port.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .device import resolve
+from .diff import MaterialParams
 from .models.scene import Scene
 from .ops.ir import IRState
 from .ops.legacy import LegacyIRState
@@ -42,6 +44,14 @@ def params_from_arrays(params, device=None) -> TraceParams:
     return TraceParams(**{f: (None if getattr(params, f) is None
                               else _t(getattr(params, f), device, np.float32))
                           for f in TraceParams._fields})
+
+
+def material_params_from_arrays(mp, device=None) -> MaterialParams:
+    """:class:`~.diff.MaterialParams` from a JAX ``MaterialParams`` (the
+    logits ``absorption[G, K]``, ``scattering``, ``transmission``,
+    ``ior``), so both packages fit from the same start."""
+    return MaterialParams(**{f: _t(getattr(mp, f), device, np.float32)
+                             for f in MaterialParams._fields})
 
 
 def ir_state_from_arrays(state, device=None) -> IRState:

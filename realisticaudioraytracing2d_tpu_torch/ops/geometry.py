@@ -166,12 +166,18 @@ def ray_circle_intersect(o, d, center, radius) -> torch.Tensor:
 def refract(i, n, eta):
     """Snell refraction of direction ``i`` across normal ``n`` with
     relative index ``eta``. Returns ``(t, ok)``; ``t`` is zero where
-    ``ok`` is False (total internal reflection, ``Common.hlsl:38-43``)."""
+    ``ok`` is False (total internal reflection, ``Common.hlsl:38-43``).
+
+    Double ``where``, as in :func:`ray_circle_intersect`: the JAX function
+    takes ``sqrt(|cost2|)``, whose backward is inf at ``cost2 == 0``,
+    and the mask turns it into inf * 0 = NaN (SmollRoom's gradients at
+    15,000 rays, in JAX too). Where its value is discarded sqrt gets 1;
+    where ``ok`` the values are the JAX function's bit for bit."""
     cosi = -dot2(i, n)
     cost2 = 1.0 - eta * eta * (1.0 - cosi * cosi)
     ok = cost2 > 0.0
-    t = eta[..., None] * i + (eta * cosi -
-                              torch.sqrt(cost2.abs()))[..., None] * n
+    root = torch.sqrt(torch.where(ok, cost2, 1.0))
+    t = eta[..., None] * i + (eta * cosi - root)[..., None] * n
     return t * ok[..., None].to(t.dtype), ok
 
 

@@ -116,6 +116,39 @@ def scatter_hits(hits: Hits, sample_rate: int, ir_length: int
     return ir.reshape(l, ir_length + 1, k)[:, :ir_length]
 
 
+def scatter_hits_soft(hits: Hits, sample_rate: int, ir_length: int
+                      ) -> torch.Tensor:
+    """Differentiable variant of :func:`scatter_hits` (JAX
+    ``ops/ir.py:98-133``): each hit splats linearly onto the two bins
+    around ``pos = delay * sample_rate``, with weights ``1 - frac`` and
+    ``frac``, ``frac = pos - floor(pos)``. ``frac`` carries the gradient
+    in the delay; ``floor`` carries none. A share that falls out of range
+    goes to the sacrificial bin ``T``, as in :func:`scatter_hits`.
+
+    The deposits go through :func:`add_rows` in the JAX function's order
+    (every lower share, then every upper share), so the IR is
+    deterministic on the card, and its backward is a gather."""
+    delay, valid, energy = _flatten_hits(hits)
+    l, n, k = energy.shape
+    pos = delay * sample_rate
+    i0f = torch.floor(pos)
+    frac = pos - i0f
+    # int64: a far miss (delay ~ INF / c) does not wrap
+    i0 = i0f.long()
+    ok0 = valid & (i0 >= 0) & (i0 < ir_length)
+    ok1 = valid & (i0 + 1 >= 0) & (i0 + 1 < ir_length)
+    b0 = torch.where(ok0, i0, ir_length)
+    b1 = torch.where(ok1, i0 + 1, ir_length)
+    e0 = energy * ((1.0 - frac) * ok0.to(frac.dtype))[..., None]
+    e1 = energy * (frac * ok1.to(frac.dtype))[..., None]
+    base = (ir_length + 1) * torch.arange(l, device=delay.device)[:, None]
+    rows = torch.cat([b0 + base, b1 + base], dim=1)         # [L, 2N]
+    ir = add_rows(l * (ir_length + 1), rows.reshape(-1),
+                  torch.cat([e0, e1], dim=1).reshape(l * 2 * n, k),
+                  torch.cat([ok0, ok1], dim=1).reshape(-1))
+    return ir.reshape(l, ir_length + 1, k)[:, :ir_length]
+
+
 def accumulate(state: IRState, hits: Hits, sample_rate: int) -> IRState:
     """One frame of Monte-Carlo IR accumulation (ProcessHits +
     accumFrames++, ``RayTraceManager.cs:220-233``)."""

@@ -150,16 +150,10 @@ def check_patterns(params: TraceParams) -> None:
                 + f" (L = {n_l}); got {tuple(c.shape)}")
 
 
-def _check_supported(params: TraceParams,
-                     transmission_surrogate: bool = False) -> None:
-    """Raise for trace features the port has not reached yet, for a
-    batch of sources and for patterns of the wrong shape."""
+def _check_supported(params: TraceParams) -> None:
+    """Raise for a batch of sources and for patterns of the wrong shape."""
     check_single_source(params)
     check_patterns(params)
-    if transmission_surrogate:
-        raise NotImplementedError(
-            "transmission_surrogate belongs to the differentiable path, "
-            "not ported yet (ROADMAP queue 1, item 9: diff.py)")
 
 
 def emission_angle(n_rays: int, emit_jitter: torch.Tensor) -> torch.Tensor:
@@ -198,7 +192,8 @@ def _emit(params: TraceParams, n_rays: int, n_bands: int,
 
 
 def _bounce(scene: Scene, params: TraceParams, st: _RayState,
-            u: torch.Tensor, walls: Optional[tk.Walls] = None
+            u: torch.Tensor, walls: Optional[tk.Walls] = None,
+            transmission_surrogate: bool = False
             ) -> Tuple[_RayState, Tuple]:
     """One bounce for all rays; ``u[R, 3]`` are this bounce's uniforms
     (transmission test / refraction jitter / diffuse angle). When
@@ -208,7 +203,16 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
     hit_wall)``: the hit records, the position each ray advanced to
     (offset off the wall, not frozen for a dying ray) and whether it hit
     a wall. A record that is not valid holds what the arithmetic gives for
-    wall 0 where no wall was hit."""
+    wall 0 where no wall was hit.
+
+    ``transmission_surrogate=True`` swaps the hard ``u < transmission``
+    branch (``Raytrace2D.compute:124``, zero pathwise gradient almost
+    everywhere) for the JAX function's importance-sampled relaxation: the
+    branch is drawn from a detached proposal ``q`` and the likelihood
+    ratio ``t/q`` or ``(1-t)/(1-q)`` rides the continuing ray's energy,
+    so the expected IR is unchanged and ``d/d(transmission)`` flows
+    through the weight. With every transmission exactly 0 it is the hard
+    branch bit for bit (q = 0, weight 1)."""
     listeners = params.listeners                     # [L, 2]
     c = params.speed_of_sound
 
@@ -301,7 +305,19 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
                              torch.where(st.depth <= 1, c, wall_speed))
     eta = next_speed / st.speed
     refr, refr_ok = refract(st.dir, n_eff, eta)
-    transmit = (u[:, 0] < w_trans) & refr_ok
+    if transmission_surrogate:
+        t_det = w_trans.detach()
+        # the proposal follows the detached t, clipped away from 0 and 1 so
+        # both branches keep support where t lies inside (0, 1); q = 0
+        # where t == 0 keeps those rays on the reflect branch, weight 1
+        q = torch.where(t_det > 0.0, torch.clamp(t_det, 0.05, 0.95), 0.0)
+        transmit = (u[:, 0] < q) & refr_ok
+        w_branch = torch.where(
+            transmit, w_trans / torch.clamp(q, min=1e-6),
+            (1.0 - w_trans) / (1.0 - q))
+        w_branch = torch.where(refr_ok, w_branch, 1.0)
+    else:
+        transmit = (u[:, 0] < w_trans) & refr_ok
     jitter = (u[:, 1] - 0.5) * 2.0 * w_scat
     trans_dir = normalize(rotate(refr, jitter))
 
@@ -312,6 +328,11 @@ def _bounce(scene: Scene, params: TraceParams, st: _RayState,
     refl_dir = normalize(spec_dir +
                          (diff_dir - spec_dir) * w_scat[:, None])
 
+    if transmission_surrogate:
+        # the ratio weights the continuing energy only: this bounce's NEE
+        # and direct records predate the branch, and the cutoff above
+        # stays on the unweighted energy (a detached routing decision)
+        energy = energy * w_branch[:, None]
     new_dir = torch.where(transmit[:, None], trans_dir, refl_dir)
     new_speed = torch.where(transmit, next_speed, st.speed)
     new_depth = torch.where(
@@ -347,8 +368,12 @@ def trace(scene: Scene, params: TraceParams, emit: torch.Tensor,
     :class:`Hits` and, when ``n_debug > 0``, the :class:`DebugPaths` of
     the first ``n_debug`` rays (else None). ``use_kernels`` routes the
     rays x walls passes through the hand kernels K1 and K2 (on a CPU
-    scene: their plain versions)."""
-    _check_supported(params, transmission_surrogate)
+    scene: their plain versions); ``transmission_surrogate`` takes the
+    relaxed transmission branch of :func:`_bounce` (with or without the
+    kernels: the branch is tensor code either way). Without the kernels
+    the trace is differentiable (``diff.py``): the kernels have no
+    backward."""
+    _check_supported(params)
     n_rays = emit.shape[0]
     if u.shape[1:] != (n_rays, 3):
         raise ValueError(f"u must be [B, {n_rays}, 3], got {tuple(u.shape)}")
@@ -366,7 +391,7 @@ def trace(scene: Scene, params: TraceParams, emit: torch.Tensor,
     for b in range(u.shape[0]):
         prev = st
         st, (delay, energy, valid, pos, hit_wall) = _bounce(
-            scene, params, st, u[b], walls)
+            scene, params, st, u[b], walls, transmission_surrogate)
         delays.append(delay)
         energies.append(energy)
         valids.append(valid)

@@ -1,5 +1,6 @@
 """PyTorch port: the command line's ``trace``, ``bake``, ``stream``,
-``live``, ``sweep`` and ``analyze`` subcommands on the CPU.
+``live``, ``sweep``, ``analyze``, ``fit`` and ``locate`` subcommands on
+the CPU.
 
 ``--device cpu`` runs the plain versions. The sweep's npz must hold
 exactly what :func:`sweep_rooms` returns for the same arguments; ``trace``
@@ -36,7 +37,13 @@ and flags, mono and binaural per-arrival, and prints JAX's ``live:``
 line; ``--scene-json`` builds JAX's scene, poses and patterns from the
 same file, and its named colliders take the pose feed's ``obstacle``
 lines; without ``--in`` the commands read the bundled clip; mp3 goes in
-and out through the system codecs (skipped without them)."""
+and out through the system codecs (skipped without them).
+
+``fit`` and ``locate`` parse with the JAX CLI's flags and defaults, take
+a target from the port's ``trace --ir-out``, write the JAX CLI's JSON
+keys and, fed JAX's draws, report exactly what ``diff.fit_materials`` /
+``diff.localize_source`` return for the same arguments; a target of
+another listener or band count exits with the JAX CLI's messages."""
 
 import argparse
 import dataclasses
@@ -710,3 +717,155 @@ def test_cli_mp3_in_and_out(tmp_path, capsys):
     x, rate = native.decode_mp3(str(tmp_path / "w.mp3"))
     assert rate == 8000 and x.ndim == 1 and len(x) >= 4000 + 2048
     assert np.isfinite(x).all() and np.abs(x).max() > 0.1
+
+
+# -- fit and locate ----------------------------------------------------------
+
+FIT_KEYS = {"loss", "steps", "loss_start", "loss_end", "fields", "groups"}
+GROUP_KEYS = {"group", "n_walls", "first_wall", "absorption", "scattering",
+              "transmission", "ior"}
+LOCATE_KEYS = {"position", "loss", "configured_source", "starts"}
+
+
+@pytest.mark.parametrize("sub", ["fit", "locate"])
+def test_cli_fit_and_locate_parse_with_jax_defaults(sub, monkeypatch):
+    """``fit`` and ``locate`` take the JAX CLI's flags with its defaults,
+    plus ``--device`` (the card by default)."""
+    argv = [sub, "--target", "t.npz", "--out", "r.json"]
+    parsed = {}
+    monkeypatch.setattr(jax_cli, f"cmd_{sub}",
+                        lambda args: parsed.update(vars(args)))
+    jax_cli.main(argv)     # its parser, with the command replaced
+    want = dict(parsed)
+    got = vars(cli.build_parser().parse_args(argv))
+    assert got.pop("device") == "cuda"
+    got.pop("fn"), want.pop("fn")
+    assert got == want
+
+
+def _fit_target(tmp_path):
+    """A small SmollRoom target through the port's ``trace --ir-out``."""
+    target = str(tmp_path / "target.npz")
+    cli.main(["trace", "--room", "smoll", *SMALL, "--ir-out", target])
+    return target
+
+
+def _record(monkeypatch, name, uniforms_fn):
+    """Wrap ``diff.<name>`` so the CLI's call takes JAX's draws; keep its
+    arguments and result."""
+    from realisticaudioraytracing2d_tpu_torch import diff
+    fn, seen = getattr(diff, name), {}
+
+    def wrapped(*a, **k):
+        seen.update(args=a, kwargs=k)
+        seen["result"] = fn(*a, **dict(k, uniforms_fn=uniforms_fn))
+        return seen["result"]
+
+    monkeypatch.setattr(diff, name, wrapped)
+    return fn, seen
+
+
+def _jax_sim_draws(seed, n_rays, n_bounces):
+    """The draws of JAX's ``simulate_ir(PRNGKey(seed))`` at one frame."""
+    import jax
+
+    from realisticaudioraytracing2d_tpu.ops import rng as jax_rng
+    emit, u = jax_rng.bounce_uniforms(jax.random.PRNGKey(seed), n_bounces,
+                                      n_rays)
+    return (torch.from_numpy(np.array(emit))[None],
+            torch.from_numpy(np.array(u))[None])
+
+
+def test_cli_fit_writes_jax_report(tmp_path, capsys, monkeypatch):
+    """``cli fit`` on a target from the port's ``trace --ir-out`` writes
+    the JAX CLI's JSON keys, and, fed JAX's draws, reports exactly what
+    ``diff.fit_materials`` returns for the same arguments."""
+    from realisticaudioraytracing2d_tpu_torch import diff
+    target = _fit_target(tmp_path)
+    capsys.readouterr()
+    draws = _jax_sim_draws(3, 128, 4)
+    fit, seen = _record(monkeypatch, "fit_materials", lambda i, j: draws)
+    out = str(tmp_path / "fit.json")
+    cli.main(["fit", "--room", "smoll", *SMALL, "--target", target,
+              "--out", out, "--steps", "3", "--fit-rays", "128"])
+    said = capsys.readouterr().out
+    assert "material groups in" in said and "(3 steps)" in said \
+        and f"-> {out}" in said
+    report = json.load(open(out))
+    assert set(report) == FIT_KEYS and report["steps"] == 3
+    assert report["loss"] == "edc+mse"
+    assert report["fields"] == ["absorption", "scattering"]
+    assert report["groups"] and all(set(g) == GROUP_KEYS
+                                    for g in report["groups"])
+    kw = seen["kwargs"]
+    assert (kw["n_rays"], kw["max_bounces"], kw["sample_rate"], kw["frames"],
+            kw["loss"], kw["steps"], kw["lr"], kw["soft"]) == (
+        128, 4, 8000, 1, "edc+mse", 3, 0.08, False)
+    room = rooms.smoll_room(device=CPU)
+    state = ckpt.load_ir_state(target, device=CPU)
+    p = art.Engine(room.scene, cli._config(cli.build_parser().parse_args(
+        ["fit", *SMALL, "--target", target, "--out", out]))).params(
+            room.source, room.listener)
+    again = fit(room.scene, p, state.normalized(), 3, n_rays=128,
+                max_bounces=4, sample_rate=8000, steps=3, lr=0.08,
+                loss="edc+mse", uniforms_fn=lambda i, j: draws, device=CPU)
+    assert torch.equal(again.losses, seen["result"].losses)
+    losses = again.losses.numpy().astype(np.float64)
+    assert report["loss_start"] == float(losses[:5].mean())
+    absorption = again.params.constrained()[0].numpy()
+    for g in report["groups"]:
+        assert g["absorption"] == [round(float(a), 4)
+                                   for a in absorption[g["group"]]]
+    groups, _ = diff.infer_material_groups(room.scene)
+    assert [g["group"] for g in report["groups"]] == sorted(set(
+        groups[room.scene.mask.numpy()].tolist()))
+
+
+def test_cli_locate_writes_jax_report(tmp_path, capsys, monkeypatch):
+    """``cli locate``: the JAX CLI's JSON keys, and, fed JAX's draws,
+    exactly what ``diff.localize_source`` returns for the same
+    arguments."""
+    target = _fit_target(tmp_path)
+    capsys.readouterr()
+    draws = _jax_sim_draws(3, 128, 4)
+    locate, seen = _record(monkeypatch, "localize_source",
+                           lambda i, j: draws)
+    out = str(tmp_path / "loc.json")
+    cli.main(["locate", "--room", "smoll", *SMALL, "--target", target,
+              "--out", out, "--starts", "3", "--steps", "2",
+              "--fit-rays", "128", "--bounds=-2,-1,2,1"])
+    said = capsys.readouterr().out
+    assert "located source at (" in said and "3 starts x 2 steps" in said
+    report = json.load(open(out))
+    assert set(report) == LOCATE_KEYS and len(report["starts"]) == 3
+    assert all(set(s) == {"position", "loss"} for s in report["starts"])
+    room = rooms.smoll_room(device=CPU)
+    assert report["configured_source"] == [round(float(v), 4)
+                                           for v in room.source]
+    res = seen["result"]
+    kw = seen["kwargs"]
+    assert (kw["n_rays"], kw["max_bounces"], kw["n_starts"], kw["steps"],
+            kw["lr"], kw["n_sources"]) == (128, 4, 3, 2, 0.08, 1)
+    np.testing.assert_array_equal(kw["bounds"], [[-2, -1], [2, 1]])
+    state = ckpt.load_ir_state(target, device=CPU)
+    again = locate(seen["args"][0], seen["args"][1], state.normalized(), 3,
+                   n_rays=128, max_bounces=4, sample_rate=8000, n_starts=3,
+                   steps=2, lr=0.08, bounds=kw["bounds"],
+                   uniforms_fn=lambda i, j: draws, device=CPU)
+    assert torch.equal(again.positions, res.positions)
+    assert torch.equal(again.losses, res.losses)
+    assert report["position"] == [round(float(v), 4) for v in again.position]
+    assert report["loss"] == round(float(again.loss), 6)
+
+
+@pytest.mark.parametrize("sub", ["fit", "locate"])
+def test_cli_fit_and_locate_refuse_mismatched_targets(tmp_path, sub):
+    """A target of another listener or band count exits with the JAX
+    CLI's messages before any fit."""
+    target = _fit_target(tmp_path)
+    base = [sub, "--room", "smoll", *SMALL, "--target", target, "--out",
+            str(tmp_path / "r.json"), "--steps", "1"]
+    with pytest.raises(SystemExit, match="1 listeners; this setup has 2"):
+        cli.main(base + ["--stereo", "0.2"])
+    with pytest.raises(SystemExit, match="1 bands; scene has 2"):
+        cli.main(base + ["--bands", "2"])

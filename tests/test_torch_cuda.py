@@ -23,7 +23,11 @@ player on the card against the card's stream of the same seed (mono,
 binaural, per-arrival; one K4 a chunk), a pose feed moving a wall and
 the source, and a realtime session from empty build directories (the
 player builds the kernels and the native library before its threads
-start) with no underrun.
+start) with no underrun; then the differentiable path (``diff.py``: the
+plain trace under autograd on the card) against central differences and
+the CPU, its fits' bit-stable reruns, the transmission surrogate through
+K1/K2 against the plain surrogate trace, the blur in full float32, and
+JAX's transmission and two-source recovery tests, too long for the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
 file imports no JAX, so it runs on a machine without it:
@@ -1949,3 +1953,258 @@ def test_live_realtime_from_a_cold_build_has_no_underruns(cuda_device,
     assert rep.chunks == 20 and rep.audio.shape == (1, 20 * 4800)
     assert rep.underruns == 0, rep.summary()
     assert rep.realtime_factor > 1.0
+
+
+# -- differentiable acoustics (diff.py) --------------------------------------
+#
+# The differentiable forward is the plain trace under autograd on the card
+# (the hand kernels have no backward, as in the JAX package). Fixtures are
+# tests/test_diff.py's (built by the port: this file imports no JAX).
+
+def _shoebox(device, absorption=0.3, scattering=0.4, divider=None,
+             source=(-1.0, 0.0), listeners=(1.0, 0.3), radius=0.5):
+    from realisticaudioraytracing2d_tpu_torch.models.materials import \
+        AudioMaterial
+    from realisticaudioraytracing2d_tpu_torch.models.scene import Transform2D
+    obstacles = None
+    if divider is not None:
+        obstacles = [(Transform2D((0.0, 0.0), 0.0, (0.2, 3.0)),
+                      AudioMaterial(absorption=0.1, scattering=0.0,
+                                    transmission=divider))]
+        source, listeners = (-1.2, 0.0), (1.2, 0.2)
+    scene = rooms.shoebox_room(
+        4.0, 4.0, wall_material=AudioMaterial(absorption=absorption,
+                                              scattering=scattering
+                                              if divider is None else 0.2),
+        obstacles=obstacles, device=device)
+    return scene, TraceParams.make(source, listeners, listener_radius=radius,
+                                   device=device)
+
+
+DIFF_KW = dict(max_bounces=4, sample_rate=8000, ir_length=512)
+
+
+@cuda
+def test_diff_smollroom_gradient_on_the_card(cuda_device):
+    """SmollRoom's scattering and absorption gradients are finite and
+    nonzero on the card (JAX's ``test_scattering_gradient_finite_on_
+    refractive_scene`` at 4,096 rays and 2,048 bins), and the card's
+    value and gradients agree with the CPU's on the same Philox draws
+    within what a few razor-edge rays explain (ROADMAP section 3: the
+    plain trace on the CPU and on the card): value rtol 1e-2, gradients
+    within 10% of the largest."""
+    from realisticaudioraytracing2d_tpu_torch import diff
+    out = {}
+    for where, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        scene, p = _setup(dev)
+        groups, n_groups = diff.infer_material_groups(scene)
+        mp = diff.MaterialParams(*(
+            x.requires_grad_(True)
+            for x in diff.MaterialParams.from_scene(scene, groups,
+                                                    n_groups)))
+        sc = diff.apply_materials(scene, groups, mp,
+                                  ("absorption", "scattering"))
+        pred = diff.simulate_ir(sc, p, 3, n_rays=4096, max_bounces=5,
+                                sample_rate=8000, ir_length=2048,
+                                device=dev)
+        value = torch.sum(pred)
+        value.backward()
+        out[where] = (float(value.detach()),
+                         to_numpy(mp.absorption.grad).ravel(),
+                         to_numpy(mp.scattering.grad))
+    for v, ga, gs in out.values():
+        assert v > 0 and np.isfinite(ga).all() and np.isfinite(gs).all()
+        assert np.abs(gs).max() > 0 and np.abs(ga).max() > 0
+    (vc, gac, gsc), (vh, gah, gsh) = out["card"], out["cpu"]
+    np.testing.assert_allclose(vc, vh, rtol=1e-2)
+    for g, h in ((gac, gah), (gsc, gsh)):
+        assert np.abs(g - h).max() <= 0.1 * np.abs(h).max(), (g, h)
+
+
+@cuda
+def test_diff_gradient_matches_central_difference_on_the_card(cuda_device):
+    """JAX's ``test_gradient_matches_central_difference`` on the card:
+    absorption's autograd gradient within rtol 5e-2 of a central
+    difference of the card's own forward."""
+    from realisticaudioraytracing2d_tpu_torch import diff
+    scene, p = _shoebox(cuda_device)
+    groups, n_groups = diff.infer_material_groups(scene)
+    mp0 = diff.MaterialParams.from_scene(scene, groups, n_groups)
+
+    def loss_at(delta):
+        mp = mp0._replace(absorption=mp0.absorption + delta)
+        return torch.sum(diff.simulate_ir(
+            diff.apply_materials(scene, groups, mp), p, 0, n_rays=64,
+            device=cuda_device, **DIFF_KW))
+
+    delta = torch.zeros_like(mp0.absorption, requires_grad=True)
+    loss_at(delta).backward()
+    eps, checked = 1e-3, 0
+    with torch.no_grad():
+        for gi in range(n_groups):
+            e = torch.zeros_like(mp0.absorption)
+            e[gi] = eps
+            fd = float(loss_at(e) - loss_at(-e)) / (2 * eps)
+            ad = float(delta.grad[gi].sum())
+            if abs(fd) < 1e-7 and abs(ad) < 1e-7:
+                continue
+            np.testing.assert_allclose(ad, fd, rtol=5e-2)
+            checked += 1
+    assert checked >= 1
+
+
+@cuda
+def test_diff_fits_on_the_card_rerun_bit_identical(cuda_device):
+    """JAX's ``test_fit_recovers_absorption`` on the card, and two
+    identical fits give the same losses and logits bit for bit: the
+    splats' deterministic accumulate and their gather backward, hard
+    (absorption) and soft (ior, blurred loss)."""
+    from realisticaudioraytracing2d_tpu_torch import diff
+    true_scene, p = _shoebox(cuda_device, absorption=0.45)
+    target = diff.simulate_ir(true_scene, p, 7, n_rays=64, frames=4,
+                              device=cuda_device, **DIFF_KW)
+    start, _ = _shoebox(cuda_device, absorption=0.12)
+    kw = dict(n_rays=64, max_bounces=4, sample_rate=8000, frames=1,
+              fields=("absorption",), loss="edc", steps=60, lr=0.1,
+              device=cuda_device)
+    runs = [diff.fit_materials(start, p, target, 0, **kw) for _ in range(2)]
+    assert torch.equal(runs[0].losses, runs[1].losses)
+    assert torch.equal(runs[0].params.absorption, runs[1].params.absorption)
+    losses = to_numpy(runs[0].losses)
+    assert losses[-10:].mean() < 0.65 * losses[:10].mean(), losses
+    groups, _ = diff.infer_material_groups(start)
+    fitted = to_numpy(torch.sigmoid(runs[0].params.absorption))
+    assert abs(float(fitted[int(groups[0]), 0]) - 0.45) < 0.08, fitted
+    soft = [diff.fit_materials(start, p, target, 0, n_rays=64,
+                               max_bounces=4, sample_rate=8000,
+                               fields=("ior", "absorption"), loss="blur",
+                               soft=True, steps=10, lr=0.1,
+                               device=cuda_device) for _ in range(2)]
+    assert torch.equal(soft[0].losses, soft[1].losses)
+    assert torch.isfinite(soft[0].losses).all()
+
+
+@cuda
+@pytest.mark.parametrize("room_fn", [rooms.smoll_room, "divider"])
+def test_surrogate_trace_with_kernels_equals_plain_on_the_card(cuda_device,
+                                                               room_fn):
+    """``trace(use_kernels=True, transmission_surrogate=True)``: K1/K2 do
+    the two wall passes and the branch stays tensor code; the hits equal
+    the plain surrogate trace's bit for bit (SmollRoom's transmissive
+    slant wall; the divider at t = 0.5), and with every transmission 0
+    the surrogate equals the hard trace."""
+    if room_fn == "divider":
+        scene, p = _shoebox(cuda_device, divider=0.5)
+    else:
+        scene, p = _setup(cuda_device)
+    emit, u = rng.philox_uniforms(4, 1, 5, 15000, device=cuda_device)
+    tk.nearest_hit.launches = tk.occlusion_min.launches = 0
+    with_k = tt.trace_hits_only(scene, p, emit[0], u[0], use_kernels=True,
+                                transmission_surrogate=True)
+    torch.cuda.synchronize()
+    assert (tk.nearest_hit.launches, tk.occlusion_min.launches) == (5, 5)
+    plain = tt.trace_hits_only(scene, p, emit[0], u[0],
+                               transmission_surrogate=True)
+    assert bool(plain.valid.any())
+    for a, b in zip(with_k, plain):
+        assert torch.equal(a, b)
+    opaque = scene._replace(transmission=torch.zeros_like(
+        scene.transmission))
+    hard = tt.trace_hits_only(opaque, p, emit[0], u[0], use_kernels=True)
+    surr = tt.trace_hits_only(opaque, p, emit[0], u[0], use_kernels=True,
+                              transmission_surrogate=True)
+    assert all(torch.equal(a, b) for a, b in zip(hard, surr))
+
+
+@cuda
+def test_gaussian_blur_on_the_card_is_full_float32(cuda_device):
+    """The blur sums in float64 and rounds once, never TF32: the card
+    equals the CPU within 1e-7 of the largest value at 72,000 bins (a
+    TF32 convolution would be ~1e-3 off)."""
+    from realisticaudioraytracing2d_tpu_torch import diff
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 72000, 1), dtype=np.float32))
+    assert torch.backends.cudnn.allow_tf32 in (True, False)
+    for sigma in (0.5, 4.0, 24.0):
+        got = to_numpy(diff.gaussian_blur_time(x.to(cuda_device), sigma))
+        want = to_numpy(diff.gaussian_blur_time(x, sigma))
+        assert np.abs(got - want).max() <= 1e-7 * np.abs(want).max()
+
+
+@cuda
+def test_transmission_gradient_and_fit_on_the_card(cuda_device):
+    """JAX's ``test_transmission_gradient_matches_fd_of_hard_expectation``
+    (the surrogate's d(total energy)/d(transmission) against central
+    differences of the hard forward's expectation, each over 6 seeds of
+    8 frames x 512 rays: within 25%) and ``test_fit_recovers_
+    transmission`` (from 0.15 to the hard target's 0.6 within 0.15, 200
+    steps) on the card: past the CPU tests' budget."""
+    from realisticaudioraytracing2d_tpu_torch import diff
+    scene, p = _shoebox(cuda_device, divider=0.5)
+    groups, n_groups = diff.infer_material_groups(scene)
+    mask = to_numpy(scene.mask) & (to_numpy(scene.transmission) > 0)
+    div = int(groups[mask][0])
+    mp0 = diff.MaterialParams.from_scene(scene, groups, n_groups)
+
+    def grad_dt(seed):
+        tr = torch.tensor(0.5, device=cuda_device, requires_grad=True)
+        logits = mp0.transmission.clone()
+        logits[div] = 0.0
+        logits = logits + torch.nn.functional.one_hot(
+            torch.tensor(div), n_groups).to(cuda_device) * (
+            torch.log(tr) - torch.log1p(-tr))
+        fitted = diff.apply_materials(scene, groups, mp0._replace(
+            transmission=logits), ("transmission",))
+        torch.sum(diff.simulate_ir(fitted, p, seed, n_rays=512, frames=8,
+                                   transmission_surrogate=True,
+                                   device=cuda_device, **DIFF_KW)).backward()
+        return float(tr.grad)
+
+    g = np.mean([grad_dt(i) for i in range(6)])
+
+    def hard_energy(t, seed):
+        sc, _ = _shoebox(cuda_device, divider=t)
+        return float(diff.simulate_ir(sc, p, seed, n_rays=512, frames=8,
+                                      device=cuda_device, **DIFF_KW).sum())
+
+    fd = np.mean([(hard_energy(0.6, 100 + i) - hard_energy(0.4, 100 + i))
+                  / 0.2 for i in range(6)])
+    assert fd > 0 and g > 0
+    assert abs(g - fd) / fd < 0.25, (g, fd)
+    true_scene, _ = _shoebox(cuda_device, divider=0.6)
+    target = diff.simulate_ir(true_scene, p, 7, n_rays=256, frames=4,
+                              device=cuda_device, **DIFF_KW)
+    start, _ = _shoebox(cuda_device, divider=0.15)
+    result = diff.fit_materials(start, p, target, 0, n_rays=256,
+                                max_bounces=4, sample_rate=8000, frames=1,
+                                fields=("transmission",), loss="edc",
+                                steps=200, lr=0.1, device=cuda_device)
+    fit_t = float(torch.sigmoid(result.params.transmission)[div])
+    assert abs(fit_t - 0.6) < 0.15, fit_t
+
+
+@cuda
+def test_localize_two_simultaneous_sources_on_the_card(cuda_device):
+    """JAX's ``test_localize_two_simultaneous_sources`` on the card: two
+    sources emitting at once, recovered jointly from one mixed IR at two
+    microphones (permutation-invariant error under 0.15 m)."""
+    from realisticaudioraytracing2d_tpu_torch import diff
+    scene, _ = _shoebox(cuda_device)
+    p = TraceParams.make((0.0, 0.0), [(1.2, 0.8), (-1.2, -0.9)],
+                         listener_radius=0.4, device=cuda_device)
+    true = torch.tensor([[-1.0, 0.4], [0.9, -1.1]], device=cuda_device)
+    target = sum(diff.simulate_ir(scene, p._replace(source=true[j]),
+                                  rng.mix_seed(0, j), n_rays=256, soft=True,
+                                  device=cuda_device, **DIFF_KW)
+                 for j in range(2))
+    result = diff.localize_source(
+        scene, p, target, 0, n_rays=256, max_bounces=4, sample_rate=8000,
+        n_sources=2, n_starts=12, steps=200, anneal_steps=30.0,
+        bounds=np.array([[-1.6, -1.6], [1.6, 1.6]], np.float32),
+        device=cuda_device)
+    fitted = to_numpy(result.position)
+    assert fitted.shape == (2, 2)
+    tn = to_numpy(true)
+    err = min(np.linalg.norm(fitted - tn, axis=1).mean(),
+              np.linalg.norm(fitted[::-1] - tn, axis=1).mean())
+    assert err < 0.15, (fitted, err, to_numpy(result.losses))

@@ -121,8 +121,16 @@ def test_trace_hits_only_and_unported_features_raise():
     with pytest.raises(ValueError, match="mic_directivity"):
         tt.trace(scene, p._replace(mic_directivity=torch.ones(2, 3)), emit,
                  u)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.trace(scene, p, emit, u, transmission_surrogate=True)
+    # the transmission surrogate runs (the differentiable path's branch,
+    # diff.py) and, with every transmission 0, is the hard trace bit for
+    # bit, with and without the sweeps of use_kernels
+    opaque = scene._replace(transmission=torch.zeros_like(
+        scene.transmission))
+    for kernels in (False, True):
+        hard = tt.trace_hits_only(opaque, p, emit, u, use_kernels=kernels)
+        surr = tt.trace_hits_only(opaque, p, emit, u, use_kernels=kernels,
+                                  transmission_surrogate=True)
+        assert all(torch.equal(a, b) for a, b in zip(hard, surr))
     with pytest.raises(ValueError, match="n_debug"):
         tt.trace(scene, p, emit, u, n_debug=65)
     _, dbg = tt.trace(scene, p, emit, u, n_debug=4)
