@@ -47,6 +47,14 @@ every kernel against its plain PyTorch version:
   on the card at ``cli fit``'s width (SmollRoom 15,000 x 5, 72,000 bins),
   ``fit_materials``, the transmission surrogate through K1/K2, and ``cli
   trace --ir-out`` (K4) -> ``cli fit`` -> ``cli locate``.
+* the device-mesh paths (``parallel/``) on a virtual mesh of the card
+  (``[cuda:0] * 8``): the sharded sweep at ``cli sweep``'s defaults
+  (8 K9 launches), a sweep of 10,008-wall cities through K8, the
+  64-source mixdown (8 K9 launches), frame- and ray-sharded traces (K4
+  with ``frame_offset`` and ``entry``, K3 on host uniforms), the
+  time-sharded convolution, ``localize_source(mesh=)``, ``cli sweep
+  --sharded``, ``utils/profiling.device_trace`` and the pytree
+  checkpoint.
 
 Phases:
 
@@ -271,6 +279,31 @@ Phases:
    keys. 16e: one ``fit_materials`` step at the CLI defaults, median and
    p99 over 30, its ``cudaLaunchKernel`` calls and device-busy ms
    (profiler), peak memory at 4 frames with and without ``remat``;
+17. the device-mesh paths, each launch count read. 17a: ``make_mesh()``
+   on the card (every CUDA device). 17b: ``sweep_rooms_sharded`` at
+   ``cli sweep``'s defaults (1,024 rooms, 15,000 x 5 x 8 frames, 72,000
+   bins) over 8 shards: 8 K9 launches, == ``sweep_rooms`` bit for bit
+   and bit-identical on a rerun, both timed. 17c: 8 copies of the
+   10,008-wall city over 2 shards (40 K8 launches) == the unsharded
+   sweep. 17d: the 64-source stereo mixdown over a (1, 8) rooms x rays
+   mesh (8 K9 launches) within 1e-6 of the peak of the unsharded one,
+   both timed. 17e: ``accumulate_frames_sharded``, SmollRoom 131,072 x 8,
+   8 frames over 8 shards (8 K4 launches, ``frame_offset`` d) against
+   ``trace_accumulate(n_frames=8)`` within the fixed point (n / S +
+   1e-6 of the value); K4 at ``frame_offset`` 0 keeps the parent's bits
+   (PARENT_BITS), at 5 equals K3 on those frames' numbers and its plain
+   version. 17f: ``trace_rays_sharded``, 131,072 rays over 8 shards:
+   shard 0 == K4 at 16,384 rays, the sum == the 8 launches, a rerun and
+   the ``uniforms=`` route (8 K3 launches) the same bits, 8 runs against
+   K4 over 8 frames within phase 3's limits (the first arrival at 2% of
+   the peak). 17g: ``convolve_seq_sharded``, 10 s at 48 kHz against a
+   72,000-bin IR over 8 shards, within 1e-5 of the peak of
+   ``convolve_fft``. 17h: ``localize_source(mesh=)``, 8 starts over 8
+   shards == ``mesh=None`` start by start. 17i: ``cli sweep --rooms 64
+   --sharded`` on a one-card host writes the npz of the run without the
+   flag. 17j: ``profiling.device_trace`` around one K4 call writes a
+   trace that names ``frames_ir_kernel``. 17k: a pytree checkpoint
+   written and read back on the card;
 5. timings with CUDA events after a warm-up, device times from the
    profiler (every reading holds all the launches of its calls, one for
    K1-K6 and K9 and one a bounce for K7/K8, or is retried), and each
@@ -306,6 +339,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
 
 import contextlib
 import ctypes
+import hashlib
 import io
 import json
 import os
@@ -432,6 +466,15 @@ PARENT_K4_MS = {"K4 15k x 5 x 1": 0.0322, "K3 15k x 5 x 1": 0.0330,
 # host uniforms.
 PARENT_K5_MS = {"15k x 5": 0.0401, "131k x 8": 0.1294}
 PARENT_K6_MS = {"15k x 5": 0.0437, "131k x 8": 0.1311}
+# sha256 (first 16 hex digits) of the f32 bytes of K4's and K9's IRs built
+# by the commit before K4 took a frame offset, on NVIDIA H100 80GB HBM3,
+# 700.00 W: SmollRoom at 48 kHz, 72,000 bins, seed 42 over 15,000 x 5 x 2
+# frames and seed 2024 over 131,072 x 8 x 8, and the 256-room sweep of
+# random_rooms(256, seed=0) at 15,000 x 5 x 8 (seed 0). K4 at
+# frame_offset 0 and K9 must keep them.
+PARENT_BITS = {"K4 15k x 5 x 2 seed 42": "2da62d18303cafd5",
+               "K4 131k x 8 x 8 seed 2024": "80a38d109abbb197",
+               "K9 256 rooms x 8": "d7be775f27ed4d09"}
 FMAD_NOTE = ("at the 67 TFLOP/s peak; the build's --fmad=false contracts no "
              "multiply-add, so at most half of it is reachable")
 
@@ -486,13 +529,19 @@ def kernel_device_ms(torch, fn, reps, name, launches):
     since the profiler now and then misses a short launch and such a
     reading would read low. Misses come in bursts (K5's 0.022 ms launch
     missed all of three tries once), so it tries up to ten times and
-    prints the event counts of a reading it gives up on."""
+    prints the event counts of a reading it gives up on. Each session
+    waits 10 ms before its calls (outside the kernels' time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a session can miss its first launches while the tracer
+            # starts (late in the smoke, readings that missed the same one
+            # or two launches ten times running): let it settle first
+            torch.cuda.synchronize()
+            time.sleep(0.01)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -2545,6 +2594,376 @@ def diff_phase(c):
     return slice_launches, readings
 
 
+def ir_sha(torch, x):
+    """The PARENT_BITS digest of an IR: sha256 of its f32 bytes."""
+    torch.cuda.synchronize()
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def mesh_phase(c):
+    """Phase 17: the device-mesh paths (``parallel/``) at full width on a
+    virtual mesh of the card (``[cuda:0] * 8``; a one-card host), the
+    sharded CLI sweep, the profiler trace and the pytree checkpoint.
+    ``c`` holds the objects of main(). Returns the launch counts of its
+    paths and its readings."""
+    torch, art, bk, rng, cli = (c[k] for k in ("torch", "art", "bk", "rng",
+                                               "cli"))
+    dev, counted, only, card = (c[k] for k in (
+        "dev", "counted", "only", "card"))
+    same_numbers, Scene = c["same_numbers"], c["Scene"]
+    from realisticaudioraytracing2d_tpu_torch import diff
+    from realisticaudioraytracing2d_tpu_torch.engine import trace_accumulate
+    from realisticaudioraytracing2d_tpu_torch.models.materials import \
+        AudioMaterial
+    from realisticaudioraytracing2d_tpu_torch.parallel import (
+        frames, multisource, rays, seq)
+    from realisticaudioraytracing2d_tpu_torch.parallel.mesh import make_mesh
+    from realisticaudioraytracing2d_tpu_torch.parallel.sweep import (
+        sweep_rooms, sweep_rooms_sharded)
+    from realisticaudioraytracing2d_tpu_torch.utils import checkpoint, \
+        profiling
+    slice_launches = {k: 0 for k in only()}
+    readings = {}
+    t_phase = time.perf_counter()
+
+    def add(launched):
+        for k in slice_launches:
+            slice_launches[k] += launched.get(k, 0)
+
+    def virtual(shape, names=("rooms",)):
+        return make_mesh(shape, names, devices=[dev] * int(np.prod(shape)))
+
+    def synced(fn):
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+
+    kw = dict(sample_rate=SR, ir_length=T)
+    one = dict(n_rays=RAYS, max_bounces=BOUNCES, **kw)
+
+    # 17a. make_mesh() on the card: every CUDA device on "rooms"
+    default = make_mesh()
+    n_cards = torch.cuda.device_count()
+    check(dict(default.shape) == {"rooms": n_cards, "rays": 1}
+          and list(default.devices.flat) == [torch.device("cuda", i)
+                                             for i in range(n_cards)],
+          f"17a: make_mesh() {default}")
+    print(f"[17a] make_mesh() on {card}: shape {dict(default.shape)}, "
+          f"devices {[str(d) for d in default.devices.flat]}; the phase "
+          f"shards over a virtual mesh of 8 x {dev}", flush=True)
+
+    # 17b. the sweep at cli sweep's defaults over 8 shards == the
+    # unsharded sweep bit for bit, 8 K9 launches; a rerun the same bits
+    scenes, src, lis = art.rooms.random_rooms(SWEEP_ROOMS, seed=0,
+                                              device=dev)
+    m8 = virtual((8,))
+    sweep_kw = dict(n_frames=SWEEP_FRAMES, **one)
+    sharded, launched = counted(lambda: sweep_rooms_sharded(
+        scenes, src, lis, 0, m8, **sweep_kw))
+    check(launched == only(K9=8), f"17b: launches {launched}")
+    add(launched)
+    whole, launched_w = counted(lambda: sweep_rooms(scenes, src, lis, 0,
+                                                    **sweep_kw))
+    check(launched_w == only(K9=1), f"17b: unsharded launches {launched_w}")
+    add(launched_w)
+    again = synced(lambda: sweep_rooms_sharded(scenes, src, lis, 0, m8,
+                                               **sweep_kw))
+    bits = torch.equal(sharded, whole) and torch.equal(sharded, again)
+    sweep_ms = {"sharded": cuda_ms(torch, lambda: sweep_rooms_sharded(
+        scenes, src, lis, 0, m8, **sweep_kw), 3),
+        "unsharded": cuda_ms(torch, lambda: sweep_rooms(
+            scenes, src, lis, 0, **sweep_kw), 3)}
+    readings["sweep_ms"] = sweep_ms
+    print(f"[17b] sweep_rooms_sharded, {SWEEP_ROOMS} rooms over 8 shards, "
+          f"{RAYS} x {BOUNCES} x {SWEEP_FRAMES} frames, {T} bins "
+          f"({sharded.numel() * 4 / 1e6:.0f} MB of IRs): launches "
+          f"{launched}; == sweep_rooms bit for bit and rerun bit-identical:"
+          f" {bits}; on {card}: sharded {sweep_ms['sharded']:.3f} ms, "
+          f"unsharded {sweep_ms['unsharded']:.3f} ms per call (CUDA events,"
+          " 3 calls)", flush=True)
+    check(bits, "17b: sharded sweep == unsharded, rerun bit-identical")
+    del sharded, whole, again, scenes
+
+    # 17c. 8 copies of the 10,008-wall city (distinct listeners) over 2
+    # shards, through K8 one entry at a time == the unsharded sweep
+    scene_9, p_9 = c["scene_9"], c["p_9"]
+    n_e, frames_c = 8, 2
+    offsets = torch.tensor([[float(i % 4) - 1.5, float(i // 4) - 0.5]
+                            for i in range(n_e)], device=dev)
+    copies = Scene.stack([scene_9] * n_e)
+    src8 = p_9.source[None].expand(n_e, 2)
+    lis8 = (p_9.listeners + offsets)[:, None]
+    city_kw = dict(n_frames=frames_c, input_gain=CITY_GAIN,
+                   listener_radius=float(p_9.listener_radius), **one)
+    city_sh, launched = counted(lambda: sweep_rooms_sharded(
+        copies, src8, lis8, 26, virtual((2,)), **city_kw))
+    check(launched == only(K8=n_e * BOUNCES), f"17c: launches {launched}")
+    add(launched)
+    city_un = synced(lambda: sweep_rooms(copies, src8, lis8, 26, **city_kw))
+    heard = [float(x) for x in city_un.sum((1, 2, 3))]
+    print(f"[17c] {n_e} copies of city_scene(2500) ({scene_9.n_walls} "
+          f"walls) over 2 shards, {RAYS} x {BOUNCES} x {frames_c} frames: "
+          f"launches {launched}; == the unsharded sweep bit for bit: "
+          f"{torch.equal(city_sh, city_un)}; energies {heard}", flush=True)
+    check(torch.equal(city_sh, city_un) and sum(x > 0 for x in heard) >= 4,
+          "17c: sharded city sweep == unsharded")
+    del city_sh, city_un, copies
+
+    # 17d. the 64-source stereo mixdown over a (1, 8) rooms x rays mesh:
+    # 8 K9 launches, the unsharded mixdown within the order of the sum
+    g = np.random.default_rng(11)       # phase 7's sources
+    sources = np.stack([g.uniform(-15, 15, N_SOURCES),
+                        g.uniform(-3, 8, N_SOURCES)], -1).astype(np.float32)
+    ears = np.array([[-0.2, -3.68], [0.2, -3.68]], np.float32)
+    mix_p = art.TraceParams.make(sources, ears, device=dev)
+    smoll = art.rooms.smoll_room(device=dev)
+    m18 = virtual((1, 8), ("rooms", "rays"))
+    mix_sh, launched = counted(lambda: multisource.
+                               trace_sources_mixdown_sharded(
+                                   smoll.scene, mix_p, 7, m18, **one))
+    check(launched == only(K9=8), f"17d: launches {launched}")
+    add(launched)
+    mix_un, launched_u = counted(lambda: multisource.trace_sources_mixdown(
+        smoll.scene, mix_p, 7, **one))
+    check(launched_u == only(K9=1), f"17d: unsharded launches {launched_u}")
+    add(launched_u)
+    gap = float((mix_sh - mix_un).abs().max())
+    rel = gap / float(mix_un.abs().max())
+    mix_ms = {"sharded": cuda_ms(torch, lambda: multisource.
+                                 trace_sources_mixdown_sharded(
+                                     smoll.scene, mix_p, 7, m18, **one), 5),
+              "unsharded": cuda_ms(torch, lambda: multisource.
+                                   trace_sources_mixdown(
+                                       smoll.scene, mix_p, 7, **one), 5)}
+    # one shard's work alone: the unsharded mixdown of its 8 sources
+    p_8 = mix_p._replace(source=mix_p.source[:8])
+    mix_ms["8 sources"] = cuda_ms(torch, lambda: multisource.
+                                  trace_sources_mixdown(smoll.scene, p_8, 7,
+                                                        **one), 5)
+    readings["mix_ms"] = mix_ms
+    print(f"[17d] trace_sources_mixdown_sharded, {N_SOURCES} sources, 2 "
+          f"ears, SmollRoom {RAYS} x {BOUNCES}, over (1, 8): launches "
+          f"{launched}; max abs gap to the unsharded mixdown {gap:.3e} "
+          f"({rel:.2e} of the peak; limit 1e-6: 8 float additions in "
+          f"another order); on {card}: sharded {mix_ms['sharded']:.3f} ms, "
+          f"unsharded {mix_ms['unsharded']:.3f} ms per call, one 8-source "
+          f"mixdown {mix_ms['8 sources']:.3f} ms", flush=True)
+    check(rel <= 1e-6 and float(mix_un.sum()) > 0, "17d: mixdown gap")
+
+    # 17e. frames: SmollRoom 131,072 x 8, 8 frames over 8 shards (8 K4
+    # launches, frame_offset d) against trace_accumulate(n_frames=8) (one
+    # K4 launch) within the fixed point: a bin of n deposits moves by at
+    # most n / S (n <= F * R * 2 * B), plus 1e-6 of the value (the float
+    # sum over shards); K4 at frame_offset 0 keeps the parent's bits, at 5
+    # equals K3 on those frames' Philox numbers and the plain version
+    p_s = art.TraceParams.make(smoll.source, smoll.listener, device=dev)
+    big = dict(n_rays=BIG_RAYS, max_bounces=BIG_BOUNCES, sample_rate=SR)
+    st0 = art.IRState.zeros(T, device=dev)
+    sh, launched = counted(lambda: frames.accumulate_frames_sharded(
+        smoll.scene, p_s, st0, 2024, m8, n_frames=BIG_FRAMES, **big))
+    check(launched == only(K4=8), f"17e: launches {launched}")
+    add(launched)
+    un, launched_u = counted(lambda: trace_accumulate(
+        smoll.scene, p_s, st0, n_frames=BIG_FRAMES, seed=2024, **big))
+    check(launched_u == only(K4=1), f"17e: unsharded launches {launched_u}")
+    add(launched_u)
+    s_whole = float(bk.fixed_point_scale(p_s, BIG_FRAMES, BIG_RAYS,
+                                         BIG_BOUNCES))
+    n_max = BIG_FRAMES * BIG_RAYS * 2 * BIG_BOUNCES
+    over = float(((sh.sum - un.sum).abs() - (n_max / s_whole
+                                             + 1e-6 * un.sum.abs())).max())
+    gap = float((sh.sum - un.sum).abs().max())
+    parent = {
+        "K4 15k x 5 x 2 seed 42": ir_sha(torch, bk.trace_frames_ir_mega(
+            smoll.scene, p_s, 42, 2, frame_offset=0, **one)),
+        "K4 131k x 8 x 8 seed 2024": ir_sha(torch, un.sum),
+        "K9 256 rooms x 8": ir_sha(torch, bk.trace_rooms_ir_mega(
+            *art.rooms.random_rooms(256, seed=0, device=dev), 0, 8,
+            **one))}
+    big1 = dict(n_rays=BIG_RAYS, max_bounces=BIG_BOUNCES, **kw)
+    k4_5 = bk.trace_frames_ir_mega(smoll.scene, p_s, 2024, 1, frame_offset=5,
+                                   **big1)
+    emit5, u5 = rng.philox_uniforms(2024, 1, BIG_BOUNCES, BIG_RAYS, dev,
+                                    first_frame=5)
+    k3_5 = bk.trace_frames_ir_whole(smoll.scene, p_s, emit5, u5, **kw)
+    k3_ok = torch.equal(k4_5, k3_5)
+    print(f"[17e] accumulate_frames_sharded, SmollRoom {BIG_RAYS} x "
+          f"{BIG_BOUNCES}, {BIG_FRAMES} frames over 8 shards: launches "
+          f"{launched}, frames {sh.frames}; max abs gap to trace_accumulate"
+          f"(n_frames={BIG_FRAMES}) {gap:.3e} (peak {float(un.sum.max()):.3e}"
+          f"; limit n / S + 1e-6 |x|, n <= {n_max}, S = 2^"
+          f"{int(np.log2(s_whole))}; worst margin {over:.3e}); K4 at "
+          f"frame_offset 0 keeps the parent's bits: "
+          f"{parent == PARENT_BITS}; K4 at frame_offset 5 == K3 on frame "
+          f"5's Philox numbers: {k3_ok}", flush=True)
+    check(sh.frames == BIG_FRAMES and over <= 0.0, "17e: frames gap")
+    check(parent == PARENT_BITS, f"17e: parent bits {parent}")
+    check(k3_ok, "17e: K4 frame_offset 5 == K3")
+    same_numbers(f"[17e] K4 frame_offset 5 vs plain first_frame 5, "
+                 f"{BIG_RAYS} x {BIG_BOUNCES} x 1 frame", "K4", k4_5,
+                 bk.trace_frames_ir_mega_plain(smoll.scene, p_s, 2024, 1,
+                                               frame_offset=5, **big1))
+    del sh, un, k4_5, k3_5, emit5, u5
+
+    # 17f. rays: 131,072 rays over 8 shards of 16,384 (8 K4 launches,
+    # entry d); shard 0 is K4 at 16,384 rays; the sum == the 8 launches;
+    # statistically the unsharded trace (phase 3's limits); a rerun the
+    # same bits; the uniforms= route (8 K3 launches) the same bits
+    local = BIG_RAYS // 8
+    ray_kw = dict(n_rays=BIG_RAYS, max_bounces=BIG_BOUNCES, **kw)
+    r_sh, launched = counted(lambda: rays.trace_rays_sharded(
+        smoll.scene, p_s, 77, m18, **ray_kw))
+    check(launched == only(K4=8), f"17f: launches {launched}")
+    add(launched)
+    loc = dict(n_rays=local, max_bounces=BIG_BOUNCES, **kw)
+    parts = [bk.trace_frames_ir_mega(smoll.scene, p_s, 77, 1, entry=d, **loc)
+             for d in range(8)]
+    shard0 = bk.trace_frames_ir_mega(smoll.scene, p_s, 77, 1, **loc)
+    again = synced(lambda: rays.trace_rays_sharded(smoll.scene, p_s, 77,
+                                                   m18, **ray_kw))
+    uni = [tuple(x[0] for x in rng.philox_uniforms(
+        77, 1, BIG_BOUNCES, local, dev, entry=d)) for d in range(8)]
+    r_k3, launched_k3 = counted(lambda: rays.trace_rays_sharded(
+        smoll.scene, p_s, 77, m18, uniforms=uni, **ray_kw))
+    check(launched_k3 == only(K3=8), f"17f: uniforms launches {launched_k3}")
+    add(launched_k3)
+    # statistics at phase 3's width: 8 sharded runs (seeds 77 .. 84)
+    # against one unsharded K4 launch of 8 frames, 1,048,576 rays a side
+    runs = [r_sh] + [rays.trace_rays_sharded(smoll.scene, p_s, 77 + i, m18,
+                                             **ray_kw) for i in range(1, 8)]
+    whole8 = bk.trace_frames_ir_mega(smoll.scene, p_s, 77, 8, **ray_kw)
+    torch.cuda.synchronize()
+    # per frame, as phase 3 holds them. The first arrival is the first bin
+    # reaching 2% of the peak (diff.first_arrival_times' definition): a
+    # rare ray guided inside SmollRoom's ior-0.6 slant slab arrives ~6 ms
+    # before the direct path (a few per million rays, ~6e-6 per frame),
+    # which phase 3's absolute threshold of 1e-7 counts in whichever run's
+    # draws happen to hold one (printed beside)
+    a = sum(runs[1:], runs[0]).cpu().numpy().ravel() / 8
+    o = whole8.cpu().numpy().ravel() / 8
+    e_rel = abs(a.sum() - o.sum()) / o.sum()
+    first_a = int(np.argmax(a >= 0.02 * a.max()))
+    first_o = int(np.argmax(o >= 0.02 * o.max()))
+    abs_a, abs_o = (int(np.nonzero(x > 1e-7)[0][0]) for x in (a, o))
+    checks = {f"shard 0 == K4 at {local} rays": torch.equal(parts[0],
+                                                           shard0),
+              "sum == the 8 launches": torch.equal(
+                  r_sh, sum(parts[1:], parts[0])),
+              "rerun": torch.equal(r_sh, again),
+              "uniforms= (K3) ==": torch.equal(r_k3, r_sh)}
+    print(f"[17f] trace_rays_sharded, SmollRoom {BIG_RAYS} rays x "
+          f"{BIG_BOUNCES} over 8 shards: launches {launched} (K4), "
+          f"{launched_k3} (uniforms=); {checks}; 8 runs (seeds 77 .. 84) "
+          f"against the unsharded K4 over 8 frames: energy {e_rel:.2e} "
+          f"(< 2e-2), first arrival at 2% of the peak {first_a}/{first_o} "
+          f"(<= 4 bins); first bin past 1e-7 {abs_a}/{abs_o} (energies per "
+          f"frame there {a[abs_a]:.3e}/{o[abs_o]:.3e})", flush=True)
+    check(all(checks.values()), f"17f: {checks}")
+    check(e_rel < 0.02 and abs(first_a - first_o) <= 4, "17f: statistics")
+    del r_sh, parts, again, r_k3, whole8, uni, runs
+
+    # 17g. 10 s at 48 kHz against a 72,000-bin IR over 8 shards against
+    # convolve_fft: within 1e-5 of the peak (FFT roundoff of 8 chunks
+    # against one transform of the whole)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dry = torch.randn(10 * SR, generator=gen, device=dev)
+    ir = torch.randn(T, generator=gen, device=dev) * torch.exp(
+        -torch.arange(T, device=dev) / dry.new_tensor(SR * 0.3))
+    conv_sh = synced(lambda: seq.convolve_seq_sharded(dry, ir, virtual(
+        (8,), ("rays",)), 3))
+    conv = art.convolve.convolve_fft(dry, ir, 3)
+    c_gap = float((conv_sh - conv).abs().max()) / float(conv.abs().max())
+    conv_ms = {"sharded": cuda_ms(torch, lambda: seq.convolve_seq_sharded(
+        dry, ir, virtual((8,), ("rays",)), 3), 5),
+        "unsharded": cuda_ms(torch, lambda: art.convolve.convolve_fft(
+            dry, ir, 3), 5)}
+    readings["conv_ms"] = conv_ms
+    print(f"[17g] convolve_seq_sharded, {dry.numel()} samples x {T} bins "
+          f"over 8 shards: {tuple(conv_sh.shape)}, max gap to convolve_fft "
+          f"{c_gap:.2e} of the peak (< 1e-5); on {card}: sharded "
+          f"{conv_ms['sharded']:.3f} ms, convolve_fft "
+          f"{conv_ms['unsharded']:.3f} ms", flush=True)
+    check(conv_sh.shape == conv.shape and c_gap < 1e-5, "17g: convolution")
+    del dry, ir, conv_sh, conv
+
+    # 17h. localize_source(mesh=) with 8 starts over 8 shards == mesh=None
+    # start by start (a 4 x 4 m shoebox, 64 rays x 4 bounces, 8 kHz)
+    box = art.rooms.shoebox_room(4.0, 4.0, wall_material=AudioMaterial(
+        absorption=0.3, scattering=0.4), device=dev)
+    p_box = art.TraceParams.make((-1.0, 0.4), (1.0, 0.3), device=dev)
+    target = diff.simulate_ir(box, p_box, 0, n_rays=64, max_bounces=4,
+                              sample_rate=8000, ir_length=512, soft=True,
+                              device=dev)
+    loc_kw = dict(n_rays=64, max_bounces=4, sample_rate=8000, steps=20,
+                  n_starts=8, device=dev)
+    loc_un, launched_l = counted(lambda: diff.localize_source(
+        box, p_box, target, 3, **loc_kw))
+    loc_sh = synced(lambda: diff.localize_source(box, p_box, target, 3,
+                                                 mesh=virtual((8,)),
+                                                 **loc_kw))
+    per_start = [bool(torch.equal(loc_sh.positions[i], loc_un.positions[i])
+                      and torch.equal(loc_sh.losses[i], loc_un.losses[i]))
+                 for i in range(8)]
+    print(f"[17h] localize_source(mesh=) 8 starts over 8 shards x 20 steps "
+          f"on {card}: each start == mesh=None bit for bit: {per_start}; "
+          f"best {loc_sh.position.tolist()} (loss {float(loc_sh.loss):.4f});"
+          f" launches {launched_l} (the plain trace under autograd)",
+          flush=True)
+    check(all(per_start) and launched_l == only(), "17h: sharded starts")
+
+    # 17i. cli sweep --sharded --rooms 64 on a one-card host: the npz of
+    # the run without the flag (one K9 launch each)
+    with tempfile.TemporaryDirectory() as tmp:
+        got = {}
+        for flag in ([], ["--sharded"]):
+            path = os.path.join(tmp, f"s{len(flag)}.npz")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                _, launched = counted(lambda: cli.main(
+                    ["sweep", "--rooms", "64", "--out", path, *flag]))
+            check(launched == only(K9=1), f"17i: launches {launched}")
+            add(launched)
+            with np.load(path) as npz:
+                got[len(flag)] = {k: npz[k] for k in npz.files}
+        same = all(np.array_equal(got[0][k], got[1][k]) for k in got[0])
+    print(f"[17i] cli sweep --rooms 64 --sharded on {n_cards} card(s): the "
+          f"npz of the run without the flag: {same}", flush=True)
+    check(same, "17i: cli sweep --sharded")
+
+    # 17j. profiling.device_trace around one K4 call names the kernel
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.device_trace(tmp):
+            bk.trace_frames_ir_mega(smoll.scene, p_s, 5, 1, **one)
+        files = os.listdir(tmp)
+        text = open(os.path.join(tmp, files[0])).read() if files else ""
+    named = "frames_ir_kernel" in text
+    print(f"[17j] profiling.device_trace: {files} ({len(text)} bytes), "
+          f"names frames_ir_kernel: {named}", flush=True)
+    check(len(files) == 1 and named, "17j: device trace")
+
+    # 17k. a pytree checkpoint on the card: written, read back onto it
+    tree = {"ir": art.IRState(sum=bk.trace_frames_ir_mega(
+        smoll.scene, p_s, 6, 1, **one), frames=1),
+        "poses": (p_s.source, [p_s.listeners, None])}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tree.npz")
+        checkpoint.save_pytree(path, tree, meta={"seed": 6}, kind="Run")
+        back = checkpoint.load_pytree(path, tree, kind="Run")
+        side = checkpoint.read_sidecar(path)
+    ok = (back["ir"].frames == 1 and back["ir"].sum.device.type == "cuda"
+          and torch.equal(back["ir"].sum, tree["ir"].sum)
+          and torch.equal(back["poses"][1][0], p_s.listeners)
+          and back["poses"][1][1] is None)
+    print(f"[17k] save_pytree / load_pytree on {card}: {side['treedef']}, "
+          f"leaves {side['leaf_paths']}, read back equal on {dev}: {ok}",
+          flush=True)
+    check(ok, "17k: pytree checkpoint")
+    print(f"[17] phase time {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {slice_launches}", flush=True)
+    return slice_launches, readings
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -3896,6 +4315,9 @@ def main():
     # --- 16. differentiable acoustics --------------------------------------
     diff_launches, _ = diff_phase(ctx)
 
+    # --- 17. the device-mesh paths -----------------------------------------
+    mesh_launches, _ = mesh_phase(ctx)
+
     # --- 5. timings (run last) -------------------------------------------
     emit, u = rng.bounce_uniforms(gen, 1, BOUNCES, RAYS, dev)
     sc, p = smoll.scene, smoll_p
@@ -4298,6 +4720,8 @@ def main():
     for k, n in live_launches.items():      # and [15]'s
         launches[k] = launches.get(k, 0) + n
     for k, n in diff_launches.items():      # and [16]'s
+        launches[k] = launches.get(k, 0) + n
+    for k, n in mesh_launches.items():      # and [17]'s
         launches[k] = launches.get(k, 0) + n
 
     names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),

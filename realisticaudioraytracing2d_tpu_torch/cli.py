@@ -16,7 +16,7 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
         --duration 5 --out heard.wav [--realtime | --play] \\
         [--pose-feed poses.jsonl]
     python -m realisticaudioraytracing2d_tpu_torch.cli sweep --rooms 1024 \\
-        --out irs.npz [--metrics-out metrics.npz]
+        --out irs.npz [--metrics-out metrics.npz] [--sharded]
     python -m realisticaudioraytracing2d_tpu_torch.cli analyze --room smoll \\
         [--ir-in ir.npz] [--out report.json] [--edc-out edc.png]
     python -m realisticaudioraytracing2d_tpu_torch.cli fit --room smoll \\
@@ -83,7 +83,11 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
   ``npz`` (``irs`` ``[rooms, 1, T, K]`` frame-normalized, ``sources``,
   ``listeners``) and ``swept ... rooms/s`` line as the JAX ``sweep``;
   ``--metrics-out`` adds the rooms' ISO 3382 metrics (``analysis.
-  analyze_dataset``, on the device of the IRs).
+  analyze_dataset``, on the device of the IRs). ``--sharded`` is the JAX
+  CLI's rule: with more than one CUDA device the rooms split over a mesh
+  of all of them (``parallel.sweep.sweep_rooms_sharded``, one K9 launch
+  per card), the same npz bit for bit; on one card, or with ``--device
+  cpu``, the unsharded sweep, as JAX runs it on one chip.
 * ``analyze`` reports the metrics of a saved IR (``--ir-in``) or of a
   fresh trace as the JAX CLI's JSON (``--out``, else stdout) and plots
   the Schroeder decay (``--edc-out``).
@@ -102,8 +106,7 @@ A resumed run (``--ir-in``) draws under ``mix_seed(seed, frames so far)``.
 The flags and defaults are those the JAX subcommands read, plus
 ``--device`` (default ``cuda``). ``sweep`` accepts the pattern flags and
 ignores them, as the JAX ``sweep`` does. Not ported yet, and therefore
-not accepted (ROADMAP queue 1 names what each waits for): ``sweep
---sharded`` (item 10) and the subcommand ``bench`` (item 11). ``fit``
+not accepted: the subcommand ``bench`` (ROADMAP queue 1, item 11). ``fit``
 and ``locate`` draw step ``i``'s rays from ``mix_seed(seed, i)`` (fit)
 or ``--seed`` every step (locate), as :mod:`.diff` says.
 """
@@ -526,9 +529,18 @@ def cmd_bake(args) -> None:
           f"-> {args.out}")
 
 
+def _sweep_mesh(dev):
+    """The mesh ``sweep --sharded`` splits the rooms over: every card of a
+    host with more than one, else None (the unsharded sweep)."""
+    if dev.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    from .parallel.mesh import make_mesh
+    return make_mesh((torch.cuda.device_count(), 1))
+
+
 def cmd_sweep(args) -> None:
     from .models.rooms import random_rooms
-    from .parallel.sweep import sweep_rooms
+    from .parallel.sweep import sweep_rooms, sweep_rooms_sharded
 
     if args.stereo is not None:
         print("note: --stereo is ignored by sweep (mono listeners per room)")
@@ -536,11 +548,16 @@ def cmd_sweep(args) -> None:
     scenes, sources, listeners = random_rooms(args.rooms, seed=args.seed,
                                               n_bands=args.bands, device=dev)
     ir_len = int(args.sample_rate * args.reverb)
+    kw = dict(n_rays=args.rays, max_bounces=args.bounces,
+              sample_rate=args.sample_rate, ir_length=ir_len,
+              n_frames=args.frames)
+    mesh = _sweep_mesh(dev) if args.sharded else None
     t0 = time.perf_counter()
-    irs = sweep_rooms(scenes, sources, listeners, args.seed,
-                      n_rays=args.rays, max_bounces=args.bounces,
-                      sample_rate=args.sample_rate, ir_length=ir_len,
-                      n_frames=args.frames)
+    if mesh is not None:
+        irs = sweep_rooms_sharded(scenes, sources, listeners, args.seed,
+                                  mesh, **kw)
+    else:
+        irs = sweep_rooms(scenes, sources, listeners, args.seed, **kw)
     irs_dev, irs = irs, irs.cpu().numpy()      # waits for the device
     dt = time.perf_counter() - t0
     np.savez_compressed(args.out, irs=irs, sources=sources,
@@ -1222,6 +1239,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("sweep", help="IR dataset over procedural rooms")
     p.add_argument("--rooms", type=int, default=64)
     p.add_argument("--out", required=True)
+    p.add_argument("--sharded", action="store_true",
+                   help="split the rooms over every CUDA device (one card: "
+                        "the unsharded sweep)")
     p.add_argument("--metrics-out", default=None,
                    help="also write per-room acoustics metrics "
                         "(RT60/EDT/C50/C80/D50/... as [rooms, L, K] "

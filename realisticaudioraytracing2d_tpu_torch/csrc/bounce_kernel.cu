@@ -271,8 +271,9 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
     const float* __restrict__ mic_c, int n_mic,
     const float* __restrict__ scal, float sr,
     const float* __restrict__ emit, const float* __restrict__ u,
-    uint32_t key0, uint32_t key1, uint32_t entry_offset, int n_rays,
-    int max_bounces, int ir_length, int plane0, int n_frames_all,
+    uint32_t key0, uint32_t key1, uint32_t entry_offset,
+    uint32_t frame_offset, int n_rays, int max_bounces, int ir_length,
+    int plane0, int n_frames_all,
     float* __restrict__ scratch, const double* __restrict__ scales,
     unsigned long long* __restrict__ acc,
     unsigned long long* __restrict__ work_out) {
@@ -295,6 +296,10 @@ __global__ void __launch_bounds__(kThreads) frames_ir_kernel(
     frame = blockIdx.y;
     n_frames = gridDim.y;
   }
+  // K4/K9 draw frames frame_offset .. of the Philox stream (a shard of a
+  // frame-sharded run); host uniforms are indexed from frame 0
+  if constexpr (!kHostUniforms)
+    frame = static_cast<int>(static_cast<uint32_t>(frame) + frame_offset);
   const int nk = kMaxK == 1 ? 1 : n_bands;
   walls += entry * wall_stride;  // stride 0: one scene shared by all entries
   listeners += static_cast<size_t>(entry) * 2 * n_listeners;
@@ -408,7 +413,8 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
                    const float* src_c, int n_src, const float* mic_c,
                    int n_mic, const float* scal,
                    float sr, const float* emit, const float* u, uint32_t key0,
-                   uint32_t key1, uint32_t entry_offset, int n_entries,
+                   uint32_t key1, uint32_t entry_offset,
+                   uint32_t frame_offset, int n_entries,
                    int n_rays, int max_bounces, int n_frames, int ir_length,
                    float* scratch, long long scratch_floats,
                    const double* scales, unsigned long long* acc, float* out,
@@ -449,7 +455,8 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
       kernel<<<grid, kThreads, smem, stream>>>(
           walls, wall_stride, n_walls, n_bands, listeners, n_listeners, src_c,
           n_src, mic_c, n_mic, scal, sr, emit, u, key0, key1, entry_offset,
-          n_rays, max_bounces, ir_length, static_cast<int>(p0), n_frames,
+          frame_offset, n_rays, max_bounces, ir_length, static_cast<int>(p0),
+          n_frames,
           scratch, scales, acc, work);
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
@@ -460,8 +467,8 @@ cudaError_t launch(const float* walls, long long wall_stride, int n_walls,
     kernel<<<grid, kThreads, smem, stream>>>(
         walls, wall_stride, n_walls, n_bands, listeners, n_listeners, src_c,
         n_src, mic_c, n_mic, scal, sr, emit, u, key0, key1, entry_offset,
-        n_rays, max_bounces, ir_length, 0, n_frames, nullptr, scales, acc,
-        work);
+        frame_offset, n_rays, max_bounces, ir_length, 0, n_frames, nullptr,
+        scales, acc, work);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ++*launched;
@@ -491,9 +498,11 @@ extern "C" {
 // Frame-summed IRs out[E, L, T, K] (f32) of n_frames frames for each of
 // n_entries batch entries. host_uniforms != 0 reads emit[E, F, R] and
 // u[E, F, B, R, 3] (K3); otherwise draws Philox numbers under (key0, key1)
-// with counter word 3 = entry_offset + e (K4 is E = 1, offset 0; K9 any
-// E). walls is [E or 1, 10 + K, W] (see WallField; the absorption of bands
-// 1 .. K-1 in rows 11 ..) with wall_stride (10 + K) * W or 0 (shared),
+// with counter word 3 = entry_offset + e and word 1 = frame_offset + f
+// for frame f of the launch (K4 is E = 1, entry offset 0; K9 any E;
+// frame_offset must be 0 with host uniforms). walls is [E or 1, 10 + K,
+// W] (see WallField; the absorption of bands 1 .. K-1 in rows 11 ..) with
+// wall_stride (10 + K) * W or 0 (shared),
 // listeners [E, L, 2] (any L whose table fits beside the walls in shared
 // memory), scal [E, 5] = (source x, source y, listener radius, speed of
 // sound, input gain), all device f32. src_c [E, n_src] and mic_c [E, L,
@@ -516,7 +525,7 @@ int art_trace_frames_ir(int host_uniforms, const float* walls,
                         int n_mic, const float* scal, float sr,
                         const float* emit, const float* u, unsigned int key0,
                         unsigned int key1, unsigned int entry_offset,
-                        int n_entries, int n_rays, int max_bounces,
+                        unsigned int frame_offset, int n_entries, int n_rays, int max_bounces,
                         int n_frames, int ir_length, int lanes,
                         float* scratch, long long scratch_floats,
                         const double* scales, unsigned long long* acc,
@@ -526,6 +535,7 @@ int art_trace_frames_ir(int host_uniforms, const float* walls,
   if (n_walls < 1 || n_walls > kMaxWalls || n_bands < 1 || n_listeners < 1 ||
       n_rays < 1 || n_frames < 1 || n_frames > 65535 || n_entries < 1 ||
       n_entries > 65535 || max_bounces < 1 || ir_length < 1 ||
+      (host_uniforms && frame_offset != 0) ||
       (wall_stride != 0 &&
        wall_stride != static_cast<long long>(kWallFields + n_bands - 1) *
                           n_walls) ||
@@ -540,8 +550,8 @@ int art_trace_frames_ir(int host_uniforms, const float* walls,
 #define ART_FRAMES(H, D)                                                     \
   launch<H, D, K, G>(walls, wall_stride, n_walls, n_bands, listeners,        \
                      n_listeners, src_c, n_src, mic_c, n_mic, scal, sr, emit,\
-                     u, key0, key1, entry_offset, n_entries, n_rays,         \
-                     max_bounces, n_frames, ir_length, scratch,              \
+                     u, key0, key1, entry_offset, frame_offset, n_entries,   \
+                     n_rays, max_bounces, n_frames, ir_length, scratch,      \
                      scratch_floats, scales, acc, out, work, launched, s)
     if (host_uniforms)
       return directive ? ART_FRAMES(true, true) : ART_FRAMES(true, false);

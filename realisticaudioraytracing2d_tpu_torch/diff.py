@@ -470,15 +470,16 @@ def localize_source(scene: Scene, trace_params: TraceParams, target_ir,
     Each start is scored at the last sigma (on ``uniforms_fn(steps,
     j)``). ``gain_invariant`` projects
     out the target's absolute level. ``trace_params.source`` is ignored.
-    ``mesh`` (sharding the starts) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "localize_source(mesh=...) shards the starts over a device "
-            "mesh, not ported yet (ROADMAP queue 1, item 10: parallel/)")
+
+    ``mesh`` (a :class:`.parallel.mesh.Mesh`) splits the starts over
+    ``mesh[axis]``: shard ``d`` runs its starts on its device under its
+    own Adam (each start's problem is its own: Adam is elementwise, the
+    draws are common, each loss is backpropagated alone), and the result
+    gathers them in order on the mesh's first device. ``n_starts`` must
+    divide evenly by the axis size."""
     dev = resolve(device)
     scene, trace_params = scene.to(dev), trace_params.to(dev)
     target = _float_on(target_ir, dev)
-    ir_length = target.shape[-2]
     bounds = np.asarray(scene_bounds(scene) if bounds is None else bounds,
                         np.float32)
     fa_target = torch.as_tensor(
@@ -493,10 +494,50 @@ def localize_source(scene: Scene, trace_params: TraceParams, target_ir,
         draw = torch.rand((n_starts, n_sources, 2), generator=gen)
         starts = torch.maximum(lo, draw * (hi - lo) + lo)
     n_starts = starts.shape[0]
-    sigmas = _sigma_schedule(steps, sigma0, sigma_min, anneal_steps).to(dev)
+    sigmas = _sigma_schedule(steps, sigma0, sigma_min, anneal_steps)
+    fit = dict(seed=seed, n_rays=n_rays, max_bounces=max_bounces,
+               sample_rate=sample_rate, steps=steps, lr=lr,
+               arrival_weight=arrival_weight, ir_weight=ir_weight,
+               gain_invariant=gain_invariant, uniforms_fn=uniforms_fn)
+    if mesh is None:
+        positions, losses = _fit_starts(scene, trace_params, target,
+                                        fa_target, starts, sigmas, dev,
+                                        **fit)
+    else:
+        from .parallel.mesh import gather, on_device
+        n_dev = mesh.shape[axis]
+        if n_starts % n_dev != 0:
+            raise ValueError(f"{n_starts} starts not divisible by "
+                             f"{axis}={n_dev}")
+        local = n_starts // n_dev
+        shards = []
+        for d, dev_d in enumerate(mesh.axis_devices(axis)):
+            with on_device(dev_d):
+                shards.append(_fit_starts(
+                    scene.to(dev_d), trace_params.to(dev_d),
+                    target.to(dev_d), fa_target.to(dev_d),
+                    starts[d * local:(d + 1) * local], sigmas, dev_d,
+                    **fit))
+        positions = gather(mesh, [p for p, _ in shards])
+        losses = gather(mesh, [loss for _, loss in shards])
+    if n_sources == 1:   # keep the single-source [2] / [S, 2] API
+        positions = positions[:, 0, :]
+    best = int(torch.argmin(losses))
+    return LocalizeResult(position=positions[best], loss=losses[best],
+                          positions=positions, losses=losses)
+
+
+def _fit_starts(scene, trace_params, target, fa_target, starts, sigmas, dev,
+                *, seed, n_rays, max_bounces, sample_rate, steps, lr,
+                arrival_weight, ir_weight, gain_invariant, uniforms_fn):
+    """The multi-start fit of :func:`localize_source` on one device: the
+    starts ``[S, N, 2]`` as one parameter under one Adam. Returns the
+    fitted positions ``[S, N, 2]`` and each start's final loss ``[S]``."""
+    n_starts, n_src = starts.shape[:2]
+    ir_length = target.shape[-2]
+    sigmas = sigmas.to(dev)
     listeners = trace_params.listeners
     c, r = trace_params.speed_of_sound, trace_params.listener_radius
-    n_src = starts.shape[1]
 
     def loss_fn(srcs: torch.Tensor, sigma: torch.Tensor, step: int):
         def one(j):
@@ -534,8 +575,4 @@ def localize_source(scene: Scene, trace_params: TraceParams, target_ir,
         positions = src.detach()
         losses = torch.stack([loss_fn(positions[s], sigmas[-1], steps)
                               for s in range(n_starts)])
-    if n_sources == 1:   # keep the single-source [2] / [S, 2] API
-        positions = positions[:, 0, :]
-    best = int(torch.argmin(losses))
-    return LocalizeResult(position=positions[best], loss=losses[best],
-                          positions=positions, losses=losses)
+    return positions, losses

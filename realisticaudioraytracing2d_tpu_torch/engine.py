@@ -75,49 +75,76 @@ def trace_accumulate(scene: Scene, params: TraceParams, state: irm.IRState,
     and the plain path computes on the host, so one seed names the same
     rays on either path. ``uniforms = (emit[F, R], u[F, B, R, 3])``
     replaces the draws (the parity tests pass JAX's)."""
+    ir = trace_ir(scene, params, n_rays=n_rays, max_bounces=max_bounces,
+                  sample_rate=sample_rate, ir_length=state.ir_length,
+                  n_frames=n_frames, seed=seed, uniforms=uniforms,
+                  backend=backend)
+    return irm.IRState(sum=state.sum + ir, frames=state.frames + n_frames)
+
+
+def trace_ir(scene: Scene, params: TraceParams, *, n_rays: int,
+             max_bounces: int, sample_rate: int, ir_length: int,
+             n_frames: int = 1, seed: int = 0,
+             uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             backend: str = "auto", entry: int = 0,
+             frame_offset: int = 0) -> torch.Tensor:
+    """The frame-summed IR ``[L, T, K]`` of ``n_frames`` frames, routed as
+    :func:`trace_accumulate` (which adds it to its state). ``entry`` and
+    ``frame_offset`` name the Philox stream as the kernels' arguments of
+    those names do (:func:`..ops.cuda.bounce_kernel.trace_frames_ir_mega`):
+    the shard of a ray-sharded trace draws entry ``d``, the shard of a
+    frame-sharded run the frames from ``frame_offset`` on. The cluster
+    kernels take an entry and no frame offset: on their route a frame
+    offset raises."""
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got "
                          f"{backend!r}")
-    kw = dict(sample_rate=sample_rate, ir_length=state.ir_length)
+    kw = dict(sample_rate=sample_rate, ir_length=ir_length)
     plain = backend == "plain"
     if backend == "accel" or (backend == "auto"
                               and scene.device.type == "cuda"
                               and scene.n_walls > bk.MAX_WALLS):
-        ir = _trace_accel(scene, params, seed, n_frames, uniforms,
-                          n_rays=n_rays, max_bounces=max_bounces, **kw)
-    elif uniforms is None:
+        if frame_offset and uniforms is None:
+            raise ValueError(
+                "the cluster kernels K7/K8 draw frames from 0: a frame "
+                "offset (a frame-sharded run) takes scenes of at most "
+                f"{bk.MAX_WALLS} walls, or uniforms= with backend='plain'")
+        return _trace_accel(scene, params, seed, n_frames, uniforms,
+                            n_rays=n_rays, max_bounces=max_bounces,
+                            entry=entry, **kw)
+    if uniforms is None:
         mega = bk.trace_frames_ir_mega_plain if plain \
             else bk.trace_frames_ir_mega
-        ir = mega(scene, params, seed, n_frames, n_rays=n_rays,
-                  max_bounces=max_bounces, **kw)
-    else:
-        emit, u = uniforms
-        if emit.shape != (n_frames, n_rays) or \
-                u.shape != (n_frames, max_bounces, n_rays, 3):
-            raise ValueError(
-                f"uniforms must be emit[{n_frames}, {n_rays}] and "
-                f"u[{n_frames}, {max_bounces}, {n_rays}, 3]; got "
-                f"{tuple(emit.shape)} and {tuple(u.shape)}")
-        whole = bk.trace_frames_ir_plain if plain \
-            else bk.trace_frames_ir_whole
-        ir = whole(scene, params, emit, u, **kw)
-    return irm.IRState(sum=state.sum + ir, frames=state.frames + n_frames)
+        return mega(scene, params, seed, n_frames, n_rays=n_rays,
+                    max_bounces=max_bounces, entry=entry,
+                    frame_offset=frame_offset, **kw)
+    emit, u = uniforms
+    if emit.shape != (n_frames, n_rays) or \
+            u.shape != (n_frames, max_bounces, n_rays, 3):
+        raise ValueError(
+            f"uniforms must be emit[{n_frames}, {n_rays}] and "
+            f"u[{n_frames}, {max_bounces}, {n_rays}, 3]; got "
+            f"{tuple(emit.shape)} and {tuple(u.shape)}")
+    whole = bk.trace_frames_ir_plain if plain else bk.trace_frames_ir_whole
+    return whole(scene, params, emit, u, **kw)
 
 
 def _trace_accel(scene: Scene, params: TraceParams, seed: int,
-                 n_frames: int, uniforms, **kw) -> torch.Tensor:
+                 n_frames: int, uniforms, entry: int = 0,
+                 **kw) -> torch.Tensor:
     """The cluster path: K8 for K = 1, K7 for banded scenes (both the
     sorted bounce kernel), or their plain version on a CPU scene. Host
     ``uniforms`` reach only the plain version: the kernels draw their own
     numbers."""
     if scene.device.type != "cuda":
         return ak.trace_frames_ir_accel_sorted_plain(
-            scene, params, seed, n_frames, uniforms=uniforms, **kw)
+            scene, params, seed, n_frames, uniforms=uniforms, entry=entry,
+            **kw)
     if uniforms is not None:
         raise ValueError("the cluster kernels draw their own numbers: "
                          "uniforms= needs backend='plain'")
     return ak.trace_frames_ir_accel_sorted(scene, params, seed, n_frames,
-                                           **kw)
+                                           entry=entry, **kw)
 
 
 def trace_hits(scene: Scene, params: TraceParams, emit: torch.Tensor,

@@ -108,7 +108,8 @@ _ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+             ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+             ctypes.c_uint32, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -338,7 +339,7 @@ def _ptr(x: Optional[torch.Tensor]):
 def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
             entry_offset, n_frames, n_rays, max_bounces, sample_rate,
             ir_length, scales, work_counts, src=None, mic=None, n_bands=1,
-            counter=None):
+            counter=None, frame_offset=0):
     """One launch over ``E = listeners.shape[0]`` entries: walls
     ``[E or 1, 10 + K, W]`` (:func:`pack_walls_banded`), listeners
     ``[E, L, 2]``, scal ``[E, 5]``, scales ``[E]`` float64, and for a
@@ -348,7 +349,9 @@ def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
     block's shared memory beside the walls (:func:`listener_block`) run in
     blocks, one call each; ``counter.launches`` counts the trace kernel's
     launches (more than one a call where the scratch takes the planes in
-    chunks). Returns ``[E, L, T, K]``."""
+    chunks). In-kernel draws take Philox counter word 3 = ``entry_offset
+    + e`` and word 1 = ``frame_offset + f`` (0 with host uniforms).
+    Returns ``[E, L, T, K]``."""
     dev = walls.device
     n_e, n_l = listeners.shape[:2]
     for name, x in (("walls", walls), ("listeners", listeners),
@@ -392,7 +395,8 @@ def _launch(host_uniforms, walls, listeners, scal, emit, u, key,
             n_mic, scal.data_ptr(), float(sample_rate),
             emit.data_ptr() if emit is not None else None,
             u.data_ptr() if u is not None else None, key[0], key[1],
-            int(entry_offset) & 0xFFFFFFFF, n_e, n_rays, max_bounces,
+            int(entry_offset) & 0xFFFFFFFF, int(frame_offset) & 0xFFFFFFFF,
+            n_e, n_rays, max_bounces,
             n_frames, ir_length, lanes, _ptr(scratch), n_scratch,
             scales.data_ptr(), acc.data_ptr(), out.data_ptr(),
             work_counts.data_ptr() if work_counts is not None else None,
@@ -415,8 +419,8 @@ def pack_scalars(params: TraceParams) -> torch.Tensor:
 
 def _launch_scene(host_uniforms, scene, params, emit, u, key, n_frames,
                   n_rays, max_bounces, sample_rate, ir_length, work_counts,
-                  counter):
-    """K3/K4: one scene, one entry."""
+                  counter, entry=0, frame_offset=0):
+    """K3/K4: one scene, one entry (its Philox entry id ``entry``)."""
     check_kernel_supported(scene, params)
     scal = pack_scalars(params)
     scales = fixed_point_scale(params, n_frames, n_rays, max_bounces)
@@ -424,9 +428,9 @@ def _launch_scene(host_uniforms, scene, params, emit, u, key, n_frames,
                               params.listeners.shape[0], scene.device)
     return _launch(host_uniforms, pack_walls_banded(scene)[None],
                    params.listeners.contiguous()[None], scal[None], emit, u,
-                   key, 0, n_frames, n_rays, max_bounces, sample_rate,
+                   key, entry, n_frames, n_rays, max_bounces, sample_rate,
                    ir_length, scales[None], work_counts, src, mic,
-                   scene.n_bands, counter)[0]
+                   scene.n_bands, counter, frame_offset)[0]
 
 
 def trace_frames_ir_plain(scene: Scene, params: TraceParams,
@@ -446,11 +450,14 @@ def trace_frames_ir_plain(scene: Scene, params: TraceParams,
 def trace_frames_ir_mega_plain(scene: Scene, params: TraceParams, seed: int,
                                n_frames: int, *, n_rays: int,
                                max_bounces: int, sample_rate: int,
-                               ir_length: int) -> torch.Tensor:
+                               ir_length: int, entry: int = 0,
+                               frame_offset: int = 0) -> torch.Tensor:
     """Plain version of K4: :func:`trace_frames_ir_plain` on the Philox
-    numbers the kernel draws for ``seed`` (:func:`..rng.philox_uniforms`)."""
+    numbers the kernel draws for ``seed``, ``entry`` and ``frame_offset``
+    (:func:`..rng.philox_uniforms`)."""
     emit, u = rng.philox_uniforms(seed, n_frames, max_bounces, n_rays,
-                                  scene.device)
+                                  scene.device, entry=entry,
+                                  first_frame=frame_offset)
     return trace_frames_ir_plain(scene, params, emit, u,
                                  sample_rate=sample_rate, ir_length=ir_length)
 
@@ -480,11 +487,17 @@ def trace_frames_ir_whole(scene: Scene, params: TraceParams,
 def trace_frames_ir_mega(scene: Scene, params: TraceParams, seed: int,
                          n_frames: int, *, n_rays: int, max_bounces: int,
                          sample_rate: int, ir_length: int,
+                         entry: int = 0, frame_offset: int = 0,
                          work_counts: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """K4: ``n_frames`` frames in one launch, uniforms drawn in the kernel
     (Philox-4x32-10 under the key of ``seed``) -> frame-summed IR
     ``[L, T, K]``. CPU scenes run :func:`trace_frames_ir_mega_plain`.
+
+    ``entry`` (Philox counter word 3, the shard of a ray-sharded trace)
+    and ``frame_offset`` (the first frame's counter word 1, the shard of a
+    frame-sharded run) name the stream; both 0 by default, which gives the
+    bits of the launch without them.
 
     ``work_counts`` (K3, K4 and K9 alike): an int64 CUDA tensor ``[3]`` to
     which the launch adds the wall tests it really made, the wall sweeps
@@ -495,11 +508,11 @@ def trace_frames_ir_mega(scene: Scene, params: TraceParams, seed: int,
         return trace_frames_ir_mega_plain(
             scene, params, seed, n_frames, n_rays=n_rays,
             max_bounces=max_bounces, sample_rate=sample_rate,
-            ir_length=ir_length)
+            ir_length=ir_length, entry=entry, frame_offset=frame_offset)
     return _launch_scene(False, scene, params, None, None,
                          rng.seed_key(seed), n_frames, n_rays, max_bounces,
                          sample_rate, ir_length, work_counts,
-                         trace_frames_ir_mega)
+                         trace_frames_ir_mega, entry, frame_offset)
 
 
 def _batch_inputs(scenes: Scene, sources, listeners, listener_radius,

@@ -1,4 +1,6 @@
-"""Batched traces on one device: the room-dataset sweep and the
-multi-source mixdown, both through the rooms-batched kernel (K9)."""
+"""Batched and mesh-sharded traces: the room-dataset sweep and the
+multi-source mixdown through the rooms-batched kernel (K9), and the
+device-mesh paths (:mod:`.mesh`): rooms, sources, rays, frames and audio
+time split over the axes of a mesh of ``torch.device``s."""
 
-from . import multisource, sweep  # noqa: F401
+from . import frames, mesh, multisource, rays, seq, sweep  # noqa: F401

@@ -7,8 +7,10 @@ exactly what :func:`sweep_rooms` returns for the same arguments; ``trace``
 must write its images and a checkpoint that ``--ir-in`` resumes (the frame
 count continues), holding exactly the engine's IR; ``bake`` and ``bake
 --legacy`` must write a WAV with a reverb tail after each click. The flags
-default as the JAX CLI's do, and the JAX flags whose modules are not
-ported are rejected by argparse.
+default as the JAX CLI's do, and the subcommand not ported (``bench``) is
+rejected by argparse. ``sweep --sharded`` writes the npz of the run
+without it, on one device and with the rooms split over a virtual mesh of
+8 (the sweep's bits, room by room).
 
 The directive, diffraction and air flags (``--directivity``,
 ``--mic-directivity``, ``--stereo-aim``, ``--diffraction[-order]``,
@@ -60,6 +62,7 @@ import realisticaudioraytracing2d_tpu_torch as art
 from realisticaudioraytracing2d_tpu import cli as jax_cli
 from realisticaudioraytracing2d_tpu_torch import cli
 from realisticaudioraytracing2d_tpu_torch.models import rooms
+from realisticaudioraytracing2d_tpu_torch.parallel.mesh import make_mesh
 from realisticaudioraytracing2d_tpu_torch.parallel.sweep import sweep_rooms
 from realisticaudioraytracing2d_tpu_torch.utils import checkpoint as ckpt
 from realisticaudioraytracing2d_tpu_torch.utils.audio_io import (click_clip,
@@ -199,13 +202,42 @@ def test_cli_bake_writes_a_reverberant_wav(tmp_path, capsys, mode):
 STREAM = ["stream", "--in", "a.wav", "--out", "b.wav"]
 
 
-@pytest.mark.parametrize("cmd, flag", [
-    (["sweep", "--out", "x.npz"], ["--sharded"])])
-def test_cli_rejects_flags_that_are_not_ported(cmd, flag, capsys):
+@pytest.mark.parametrize("cmd, said", [
+    (["bench"], "invalid choice: 'bench'")])
+def test_cli_rejects_flags_that_are_not_ported(cmd, said, capsys):
     with pytest.raises(SystemExit) as exc:
-        cli.build_parser().parse_args([*cmd, *flag])
+        cli.build_parser().parse_args(cmd)
     assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    assert said in capsys.readouterr().err
+
+
+def test_cli_sweep_sharded_equals_unsharded(tmp_path, capsys, monkeypatch):
+    args = ["sweep", "--rooms", "8", "--rays", "128", "--bounces", "4",
+            "--sample-rate", "8000", "--reverb", "0.256", "--frames", "2",
+            "--seed", "5", "--device", CPU]
+    paths = [str(tmp_path / f"{n}.npz") for n in ("plain", "one", "mesh")]
+    cli.main([*args, "--out", paths[0]])
+    cli.main([*args, "--out", paths[1], "--sharded"])   # one device
+    # a host of several devices: the rooms split over a mesh of 8
+    meshes = []
+
+    def mesh8(dev):
+        meshes.append(make_mesh((8, 1), devices=[CPU] * 8))
+        return meshes[-1]
+
+    monkeypatch.setattr(cli, "_sweep_mesh", mesh8)
+    cli.main([*args, "--out", paths[2], "--sharded"])
+    assert len(meshes) == 1
+    said = capsys.readouterr().out
+    assert said.count("swept 8 rooms in") == 3
+    with np.load(paths[0]) as a:
+        want = dict(a)
+    for p in paths[1:]:
+        with np.load(p) as b:
+            for k in ("irs", "sources", "listeners"):
+                np.testing.assert_array_equal(b[k], want[k], err_msg=k)
+    monkeypatch.undo()
+    assert cli._sweep_mesh(torch.device(CPU)) is None
 
 
 def test_cli_bake_rejects_binaural_and_needs_a_clip(tmp_path, capsys):

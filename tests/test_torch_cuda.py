@@ -27,7 +27,11 @@ start) with no underrun; then the differentiable path (``diff.py``: the
 plain trace under autograd on the card) against central differences and
 the CPU, its fits' bit-stable reruns, the transmission surrogate through
 K1/K2 against the plain surrogate trace, the blur in full float32, and
-JAX's transmission and two-source recovery tests, too long for the CPU.
+JAX's transmission and two-source recovery tests, too long for the CPU;
+then K4's ``frame_offset`` and ``entry`` against K3 on the same Philox
+numbers (bit for bit) and the device-mesh paths on a virtual mesh of the
+card (the sharded sweep bit for bit, frames within the fixed point, rays
+shard by shard, the mixdown within the float sum).
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
 file imports no JAX, so it runs on a machine without it:
@@ -2208,3 +2212,94 @@ def test_localize_two_simultaneous_sources_on_the_card(cuda_device):
     err = min(np.linalg.norm(fitted - tn, axis=1).mean(),
               np.linalg.norm(fitted[::-1] - tn, axis=1).mean())
     assert err < 0.15, (fitted, err, to_numpy(result.losses))
+
+
+# -- the device-mesh paths ----------------------------------------------------
+
+def _virtual_mesh(device, shape, names=("rooms",)):
+    from realisticaudioraytracing2d_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(shape, names, devices=[device] * int(np.prod(shape)))
+
+
+@cuda
+@pytest.mark.parametrize("n_bands", [1, 8, 40])
+def test_k4_frame_offset_and_entry_draw_their_philox_numbers(cuda_device,
+                                                             n_bands):
+    """K4's ``frame_offset`` moves only the frames' Philox counter word:
+    at 0 the launch keeps its bits (== K3 on frames 0 .. of the stream);
+    at ``f`` (and any ``entry``) it equals K3 on the uniforms of frames
+    ``f ..`` bit for bit and its plain version within the limits above,
+    in the register buckets and the scratch (40 bands)."""
+    scene, params = _setup(cuda_device, n_bands=n_bands)
+    kw = dict(n_rays=15000, max_bounces=5, **KW)
+    plain0 = bk.trace_frames_ir_mega(scene, params, 21, 2, **kw)
+    assert torch.equal(plain0, bk.trace_frames_ir_mega(
+        scene, params, 21, 2, frame_offset=0, entry=0, **kw))
+    for f, e in ((0, 0), (5, 0), (3, 3)):
+        before = bk.trace_frames_ir_mega.launches
+        k4 = bk.trace_frames_ir_mega(scene, params, 21, 2, entry=e,
+                                     frame_offset=f, **kw)
+        assert bk.trace_frames_ir_mega.launches == before + 1
+        emit, u = rng.philox_uniforms(21, 2, 5, 15000, cuda_device, entry=e,
+                                      first_frame=f)
+        k3 = bk.trace_frames_ir_whole(scene, params, emit, u, **KW)
+        torch.cuda.synchronize()
+        assert torch.equal(k4, k3), (f, e)
+        _assert_close_irs(k4, bk.trace_frames_ir_mega_plain(
+            scene, params, 21, 2, entry=e, frame_offset=f, **kw))
+    assert not torch.equal(plain0, k4)
+
+
+@cuda
+def test_sharded_paths_on_a_virtual_mesh_of_the_card(cuda_device):
+    """The sweep over 4 shards == the unsharded sweep bit for bit (4 K9
+    launches); the frame-sharded run == the unsharded K4 within the fixed
+    point (a bin of n deposits moves by at most n / S); the ray-sharded
+    trace's shard 0 is K4 at its rays, entry 0; the mixdown over 4 shards
+    (4 K9 launches) equals the unsharded one within the float sum."""
+    from realisticaudioraytracing2d_tpu_torch.parallel import (
+        frames, multisource, rays)
+    from realisticaudioraytracing2d_tpu_torch.parallel.sweep import \
+        sweep_rooms_sharded
+    scenes, src, lis = rooms.random_rooms(64, seed=0, device=cuda_device)
+    kw = dict(n_rays=15000, max_bounces=5, **KW)
+    m4 = _virtual_mesh(cuda_device, (4,))
+    before = bk.trace_rooms_ir_mega.launches
+    swept = sweep_rooms_sharded(scenes, src, lis, 3, m4, n_frames=2, **kw)
+    assert bk.trace_rooms_ir_mega.launches == before + 4
+    assert torch.equal(swept, sweep_rooms(scenes, src, lis, 3, n_frames=2,
+                                          **kw))
+    scene, params = _setup(cuda_device)
+    st = art.IRState.zeros(72000, device=cuda_device)
+    sh = frames.accumulate_frames_sharded(scene, params, st, 7, m4,
+                                          n_frames=8, n_rays=15000,
+                                          max_bounces=5, sample_rate=48000)
+    un = bk.trace_frames_ir_mega(scene, params, 7, 8, **kw)
+    res = 1.0 / float(bk.fixed_point_scale(params, 8, 15000, 5))
+    limit = 8 * 15000 * 2 * 5 * res + 1e-6 * un.abs()
+    assert sh.frames == 8 and bool(((sh.sum - un).abs() <= limit).all())
+    m8 = _virtual_mesh(cuda_device, (1, 8), ("rooms", "rays"))
+    before = bk.trace_frames_ir_mega.launches
+    ray_ir = rays.trace_rays_sharded(scene, params, 5, m8, n_rays=16384,
+                                     max_bounces=5, **KW)
+    assert bk.trace_frames_ir_mega.launches == before + 8
+    shard0 = bk.trace_frames_ir_mega(scene, params, 5, 1, n_rays=2048,
+                                     max_bounces=5, **KW)
+    parts = [bk.trace_frames_ir_mega(scene, params, 5, 1, n_rays=2048,
+                                     max_bounces=5, entry=d, **KW)
+             for d in range(8)]
+    assert torch.equal(parts[0], shard0)
+    assert torch.equal(ray_ir, sum(parts[1:], parts[0]))
+    _, src8, lis8, _ = _mixdown_batch(cuda_device)
+    m_src = _virtual_mesh(cuda_device, (1, 4), ("rooms", "rays"))
+    room = rooms.smoll_room(device=cuda_device)
+    p = TraceParams.make(src8, lis8[0], device=cuda_device)
+    before = bk.trace_rooms_ir_mega.launches
+    mixed = multisource.trace_sources_mixdown_sharded(room.scene, p, 9,
+                                                      m_src, **kw)
+    assert bk.trace_rooms_ir_mega.launches == before + 4
+    whole = trace_sources_mixdown(room.scene, p, 9, **kw)
+    torch.cuda.synchronize()
+    assert float(whole.sum()) > 0
+    np.testing.assert_allclose(to_numpy(mixed), to_numpy(whole), rtol=1e-5,
+                               atol=1e-9)

@@ -13,8 +13,9 @@ shoebox, 64-256 rays, 4 bounces, 8 kHz, 512 bins).
   Philox draws. The two-source localization runs on the card
   (``tests/test_torch_cuda.py``), past this file's CPU budget.
 * The start draw (``mix_seed(seed, 0x10C8)`` into a CPU
-  ``torch.Generator``: the same starts on any device) and ``mesh=``,
-  refused with ROADMAP's item."""
+  ``torch.Generator``: the same starts on any device) and ``mesh=``'s
+  refusal of starts that do not divide evenly (``test_torch_parallel.py``
+  holds the sharded fit against the unsharded one)."""
 
 import jax
 import numpy as np
@@ -31,6 +32,7 @@ from realisticaudioraytracing2d_tpu.ops import rng as jrng
 from realisticaudioraytracing2d_tpu.ops.trace import TraceParams as JParams
 from realisticaudioraytracing2d_tpu_torch import convert, diff
 from realisticaudioraytracing2d_tpu_torch.ops.rng import mix_seed
+from realisticaudioraytracing2d_tpu_torch.parallel.mesh import make_mesh
 
 SR = 8000
 IR_LEN = 512
@@ -151,7 +153,8 @@ def test_localize_warm_start_tracks_motion():
 def test_localize_starts_and_refusals():
     """The start draw: ``mix_seed(seed, 0x10C8)`` (or ``starts_seed``)
     into a CPU generator, uniform over the bounds; explicit starts take
-    any of JAX's shapes; ``mesh=`` is refused."""
+    any of JAX's shapes; ``mesh=`` refuses starts that do not divide
+    evenly over its axis."""
     _, scene = _scene()
     _, params = _params((-1.0, 0.4), (1.0, 0.3))
     target = _target(scene, params, 0, 64)
@@ -176,5 +179,7 @@ def test_localize_starts_and_refusals():
     for starts, n in (([0.1, 0.2], 1), (np.zeros((3, 2)), 3)):
         assert diff.localize_source(scene, params, target, 0, starts=starts,
                                     **kw).positions.shape[0] == n
-    with pytest.raises(NotImplementedError, match="item 10"):
-        diff.localize_source(scene, params, target, 0, mesh=object(), **kw)
+    with pytest.raises(ValueError, match="7 starts not divisible"):
+        diff.localize_source(scene, params, target, 5, n_starts=7,
+                             mesh=make_mesh((2,), ("rooms",),
+                                            devices=[CPU] * 2), **kw)

@@ -84,6 +84,32 @@ def jax_source_uniforms(key, n_sources: int, max_bounces: int, n_rays: int,
                      device)[:, None])
 
 
+def jax_shard_ray_uniforms(key, n_shards: int, max_bounces: int,
+                           local_rays: int, device="cpu"):
+    """The uniforms JAX's ``trace_rays_sharded(backend="jnp")`` draws on
+    shard ``d`` (``bounce_uniforms(fold_in(key, d))`` at ``n_rays /
+    n_shards`` rays), one ``(emit[R_d], u[B, R_d, 3])`` per shard."""
+    import jax
+    from realisticaudioraytracing2d_tpu.ops import rng as jax_rng
+    draws = [jax_rng.bounce_uniforms(jax.random.fold_in(key, d), max_bounces,
+                                     local_rays) for d in range(n_shards)]
+    return [(to_torch(np.asarray(e), device), to_torch(np.asarray(u), device))
+            for e, u in draws]
+
+
+def jax_sharded_source_uniforms(key, n_shards: int, n_sources: int,
+                                max_bounces: int, n_rays: int, device="cpu"):
+    """The uniforms JAX's ``trace_sources_mixdown_sharded(backend="jnp")``
+    draws: shard ``d`` splits ``split(key, n_shards)[d]`` among its
+    ``n_sources / n_shards`` sources. Stacked in source order as the
+    port's ``(emit[S, 1, R], u[S, 1, B, R, 3])``."""
+    import jax
+    parts = [jax_source_uniforms(k, n_sources // n_shards, max_bounces,
+                                 n_rays, device)
+             for k in jax.random.split(key, n_shards)]
+    return (torch.cat([e for e, _ in parts]), torch.cat([u for _, u in parts]))
+
+
 @pytest.fixture
 def cuda_device():
     """A CUDA device, or a skip where there is none."""
@@ -95,5 +121,6 @@ def cuda_device():
 
 
 __all__ = ["CPU", "cuda", "cuda_device", "jax_chunk_uniforms",
-           "jax_frame_uniforms", "jax_room_uniforms", "jax_source_uniforms",
-           "to_numpy", "to_torch"]
+           "jax_frame_uniforms", "jax_room_uniforms", "jax_shard_ray_uniforms",
+           "jax_sharded_source_uniforms", "jax_source_uniforms", "to_numpy",
+           "to_torch"]
