@@ -55,6 +55,14 @@ every kernel against its plain PyTorch version:
   time-sharded convolution, ``localize_source(mesh=)``, ``cli sweep
   --sharded``, ``utils/profiling.device_trace`` and the pytree
   checkpoint.
+* the twins of the JAX package's twelve examples and the sharded dataset
+  sweep (``examples/torch/``), each by its ``main(argv)`` at its default
+  width, the depth of the inverse ones cut: the trace, the debug rays,
+  bakes and streams of ``demo``, a microphone grid, a steered speaker
+  array, direction of arrival, the occlusion, Doppler and binaural
+  walk-bys, live steering through a pose feed, material fitting, source
+  localization, the obstacle-pose negative result (source tracking only
+  in ``scripts/torch_examples_phase.py --full``).
 
 Phases:
 
@@ -304,6 +312,15 @@ Phases:
    flag. 17j: ``profiling.device_trace`` around one K4 call writes a
    trace that names ``frames_ir_kernel``. 17k: a pytree checkpoint
    written and read back on the card;
+18. the example twins (run after 5, last): each of ``examples/torch/``
+   by its ``main(argv)`` in this process, in a temporary directory, at
+   ``EXAMPLE_CUTS`` (the inverse twins' steps, starts and chunks cut,
+   ``track_source`` left to ``scripts/torch_examples_phase.py --full``;
+   the line lists the cuts), counts reset before and read after each: it
+   returns 0 with its claims (asserts and thresholds of its JAX twin)
+   holding, and launches exactly ``EXAMPLE_KERNELS`` (K4, K1/K2, K9;
+   none for the four inverse twins, which differentiate the plain trace);
+   its seconds and its claim line are printed;
 5. timings with CUDA events after a warm-up, device times from the
    profiler (every reading holds all the launches of its calls, one for
    K1-K6 and K9 and one a bounce for K7/K8, or is retried), and each
@@ -493,6 +510,37 @@ class BoxWalkCount:
     @launches.setter
     def launches(self, n):
         self.fn.box_launches = n
+
+
+def launch_counters():
+    """The kernels' wrappers by name, and two helpers on their launch
+    counts: ``only(**n)``, the counts of a run that launched only ``n``,
+    and ``counted(run)``, which runs one path and returns its result with
+    the launches of that run alone (every count set to 0 just before,
+    read just after). K1 and K2 count by route: brute force in
+    ``.launches``, the box walk in ``.box_launches`` (K1b, K2b)."""
+    import torch
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import (
+        accel_kernel as ak, bounce_kernel as bk, trace_kernel as tk)
+    wrappers = {"K3": bk.trace_frames_ir_whole, "K4": bk.trace_frames_ir_mega,
+                "K9": bk.trace_rooms_ir_mega, "K7": ak.trace_frames_ir_accel,
+                "K8": ak.trace_frames_ir_accel_sorted, "K1": tk.nearest_hit,
+                "K2": tk.occlusion_min, "K5": bk.trace_fused_rows,
+                "K6": bk.trace_frame_ir_fused,
+                "K1b": BoxWalkCount(tk.nearest_hit),
+                "K2b": BoxWalkCount(tk.occlusion_min)}
+
+    def only(**n):
+        return {k: n.get(k, 0) for k in wrappers}
+
+    def counted(run):
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: fn.launches for k, fn in wrappers.items()}
+
+    return wrappers, only, counted
 
 
 def check(ok, what):
@@ -2964,6 +3012,110 @@ def mesh_phase(c):
     return slice_launches, readings
 
 
+# Phase 18: each twin of a JAX example (examples/torch/) and the arguments
+# [18] gives it: every twin's default width (rays, bins, microphones,
+# elements); the depth of the inverse twins cut (their steps, starts and
+# chunks), which take ~40 ms a start and step on the card (host-bound).
+# A cut must keep the claim: at 4 starts x 60 steps locate_source missed
+# on the card (0.232 m). None: the twin runs only under ``--full`` of
+# scripts/torch_examples_phase.py (every twin at its defaults), not in
+# the smoke: track_source at its 256 rays loses lock with 8 chunks or
+# below ~45 steps a chunk, and its shallowest cut that holds (10 chunks
+# x 45 steps, its cold solve of 8 starts x 150 steps kept) takes 127-146
+# s, which the smoke's 540 s cannot hold beside the earlier phases.
+EXAMPLE_CUTS = {
+    "demo.py": [], "quad_mic.py": [], "speaker_array.py": [],
+    "spatial_doa.py": [], "occlusion_walkby.py": [],
+    "doppler_walkby.py": [], "binaural_walkby.py": [],
+    "live_steering.py": [],
+    "inverse_materials.py": ["--steps", "10"],
+    "locate_source.py": ["--starts", "4", "--steps", "120"],
+    "track_source.py": None,
+    "obstacle_pose_negative.py": ["--steps", "20", "--grid", "2"],
+    "dataset_sweep.py": []}
+# The kernels each twin must launch, and no other: the inverse twins
+# differentiate the plain trace (the hand kernels have no backward).
+EXAMPLE_KERNELS = {
+    "demo.py": {"K1", "K2", "K4"}, "quad_mic.py": {"K4"},
+    "speaker_array.py": {"K9"}, "spatial_doa.py": {"K4"},
+    "occlusion_walkby.py": {"K2", "K4"}, "doppler_walkby.py": {"K4"},
+    "binaural_walkby.py": {"K4"}, "live_steering.py": {"K4"},
+    "inverse_materials.py": set(), "locate_source.py": set(),
+    "track_source.py": set(), "obstacle_pose_negative.py": set(),
+    "dataset_sweep.py": {"K9"}}
+# The line of a twin's output that states its claim.
+EXAMPLE_CLAIMS = {
+    "demo.py": "localized", "quad_mic.py": "first arrival",
+    "speaker_array.py": "contrast", "spatial_doa.py": "post-hoc",
+    "occlusion_walkby.py": "OK:", "doppler_walkby.py": "measured lines",
+    "binaural_walkby.py": "ILD", "live_steering.py": "byte-identical",
+    "inverse_materials.py": "loss:", "locate_source.py": "fitted",
+    "track_source.py": "mean |err|", "obstacle_pose_negative.py": "best",
+    "dataset_sweep.py": "dataset sweep ok"}
+
+
+def examples_phase(c, full=False):
+    """Phase 18: every twin of a JAX example (``examples/torch/``) by its
+    ``main(argv)`` in this process, in a temporary directory, at
+    ``EXAMPLE_CUTS`` (``full``: its defaults; a twin cut to None runs only
+    then). A non-zero return or an
+    exception fails the smoke (the twin's output is printed first); each
+    twin must launch exactly its ``EXAMPLE_KERNELS``. Returns the launch
+    counts and each twin's seconds."""
+    import importlib.util
+    torch, dev, counted, only = (c[k] for k in ("torch", "dev", "counted",
+                                                "only"))
+    slice_launches = {k: 0 for k in only()}
+    seconds = {}
+    t_phase = time.perf_counter()
+    cuts = ("none: every twin at its defaults" if full else "; ".join(
+        f"{k} {'(only in --full)' if v is None else ' '.join(v)}"
+        for k, v in EXAMPLE_CUTS.items() if v != []))
+    print(f"[18] the twins of the JAX examples on {c['card']}, default "
+          f"width; depth cuts: {cuts}", flush=True)
+    for name, cut in EXAMPLE_CUTS.items():
+        if cut is None and not full:
+            continue
+        argv = ([] if full else cut) + ["--device", str(dev)]
+        spec = importlib.util.spec_from_file_location(
+            "twin_" + name[:-3], os.path.join(HERE, "examples", "torch",
+                                              name))
+        twin = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(twin)
+        out, cwd = io.StringIO(), os.getcwd()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc, launched = counted(lambda: twin.main(argv))
+            except BaseException:
+                print(f"[18] {name} failed; its output:\n"
+                      f"{out.getvalue()[-6000:]}", flush=True)
+                raise
+            finally:
+                os.chdir(cwd)
+        seconds[name] = time.perf_counter() - t0
+        text = out.getvalue()
+        claim = [ln.strip() for ln in text.splitlines()
+                 if EXAMPLE_CLAIMS[name] in ln]
+        used = {k for k, n in launched.items() if n}
+        print(f"[18] {name} {' '.join(argv)}: {seconds[name]:.1f} s, "
+              f"returned {rc}, launches "
+              f"{ {k: n for k, n in launched.items() if n} }; "
+              f"{claim[-1] if claim else '(no claim line)'}", flush=True)
+        check(rc == 0 and claim, f"18: {name} returned {rc}:\n{text[-3000:]}")
+        check(used == EXAMPLE_KERNELS[name],
+              f"18: {name} launched {used}, not {EXAMPLE_KERNELS[name]}")
+        for k in slice_launches:
+            slice_launches[k] += launched.get(k, 0)
+        del twin
+        torch.cuda.empty_cache()
+    print(f"[18] phase time {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {slice_launches}", flush=True)
+    return slice_launches, seconds
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -3134,28 +3286,7 @@ def main():
                  bk.trace_frames_ir_whole(smoll.scene, smoll_p, *fixed, **kw),
                  bk.trace_frames_ir_plain(smoll.scene, smoll_p, *fixed, **kw))
 
-    # K1 and K2 count by route: brute force in .launches, the box walk in
-    # .box_launches (K1b, K2b)
-    wrappers = {"K3": bk.trace_frames_ir_whole, "K4": bk.trace_frames_ir_mega,
-                "K9": bk.trace_rooms_ir_mega, "K7": ak.trace_frames_ir_accel,
-                "K8": ak.trace_frames_ir_accel_sorted, "K1": tk.nearest_hit,
-                "K2": tk.occlusion_min, "K5": bk.trace_fused_rows,
-                "K6": bk.trace_frame_ir_fused,
-                "K1b": BoxWalkCount(tk.nearest_hit),
-                "K2b": BoxWalkCount(tk.occlusion_min)}
-
-    def only(**n):
-        """The launch counts of a run that launched only ``n``."""
-        return {k: n.get(k, 0) for k in wrappers}
-
-    def counted(run):
-        """Run one path; return its result with the launches of this run
-        only (every count set to 0 just before, read just after)."""
-        for fn in wrappers.values():
-            fn.launches = 0
-        out = run()
-        torch.cuda.synchronize()
-        return out, {k: fn.launches for k, fn in wrappers.items()}
+    wrappers, only, counted = launch_counters()
 
     def counted_stream(streamer):
         """Stream the clip; return it with the launches of this run only."""
@@ -4722,6 +4853,12 @@ def main():
     for k, n in diff_launches.items():      # and [16]'s
         launches[k] = launches.get(k, 0) + n
     for k, n in mesh_launches.items():      # and [17]'s
+        launches[k] = launches.get(k, 0) + n
+
+    # --- 18. the example twins (last: no global torch state a twin sets
+    # reaches an earlier phase) -------------------------------------------
+    example_launches, _ = examples_phase(ctx)
+    for k, n in example_launches.items():   # and [18]'s
         launches[k] = launches.get(k, 0) + n
 
     names = {"K3": ("bounce_kernel K3 (host uniforms)", 494, KERNEL_SOURCE),

@@ -1,7 +1,7 @@
 """IR dataset generation over procedural rooms, sharded across a device
 mesh (BASELINE.json config #5 at demo scale), on the PyTorch port.
 
-Run:  python examples/torch_dataset_sweep.py [--rooms 64] [--device cpu]
+Run:  python examples/torch/dataset_sweep.py [--rooms 64] [--device cpu]
 
 On the card it splits the rooms over ``make_mesh()``, every CUDA device
 (one K9 launch per card); with ``--device cpu`` over a virtual mesh of 8
@@ -15,7 +15,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -28,7 +28,7 @@ from realisticaudioraytracing2d_tpu_torch.parallel.sweep import (  # noqa: E402
     sweep_rooms, sweep_rooms_sharded)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--rooms", type=int, default=64)
     parser.add_argument("--rays", type=int, default=4096)
@@ -70,7 +70,8 @@ def main(argv=None) -> None:
                          "carry energy")
     print(f"dataset sweep ok: {rooms} rooms over {n_dev} shards == the "
           "unsharded sweep, bit for bit")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -80,8 +80,9 @@ def trace_sources_mixdown_sharded(scene: Scene, params: TraceParams,
     """:func:`trace_sources_mixdown` with the sources split over
     ``mesh[axis]``; returns the summed IR ``[L, T, K]`` on the mesh's first
     device. The source count must divide evenly by the axis size. The
-    per-source gains and, for ``directivity`` ``[S, C]``, the per-source
-    aims split with the sources. Shard ``d`` runs its ``local`` sources on
+    per-source gains and, for a 2-D ``directivity`` (``[S, C]``, or ``[1,
+    C]`` broadcast to every source), the per-source aims split with the
+    sources; a ``[C]`` pattern is shared. Shard ``d`` runs its ``local`` sources on
     its device with entry offset ``d * local`` (one K9 launch; K8/K7 calls
     past 5,280 walls), so it draws the unsharded mixdown's numbers, and the
     shards' IRs are summed in shard order (:func:`.mesh.reduce_sum`): the
@@ -98,6 +99,8 @@ def trace_sources_mixdown_sharded(scene: Scene, params: TraceParams,
     gains = torch.broadcast_to(params.input_gain.reshape(-1), (n_src,))
     dirs = params.directivity
     per_source = dirs is not None and dirs.dim() == 2
+    if per_source:        # [1, C] broadcasts to every source, as in JAX
+        dirs = torch.broadcast_to(dirs, (n_src, dirs.shape[-1]))
     parts = sharded_leading(mesh, axis, (sources, gains,
                                          dirs if per_source else None,
                                          uniforms))

@@ -6,7 +6,8 @@ NVIDIA GPU, in about a minute with the kernels' build.
 
 It builds the kernels, makes the 10,008-wall city the phase shards
 (``city_scene(2500)``, as the smoke's phase 9 does), gives the phase the
-launch counters of the smoke's ``main()`` and calls
+launch counters of the smoke's ``main()``
+(``chip_smoke.launch_counters``) and calls
 ``chip_smoke.mesh_phase``; any failed check raises.
 """
 
@@ -26,7 +27,7 @@ from realisticaudioraytracing2d_tpu_torch.models.scene import \
     Scene  # noqa: E402
 from realisticaudioraytracing2d_tpu_torch.ops import rng  # noqa: E402
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import (  # noqa: E402
-    accel_kernel as ak, bounce_kernel as bk, build, trace_kernel as tk)
+    accel_kernel as ak, bounce_kernel as bk, build)
 
 
 def main():
@@ -36,21 +37,7 @@ def main():
     print(f"build {build.build():.1f} s", flush=True)
     build.load_library()
     dev = torch.device(cs.DEVICE)
-    wrappers = {"K3": bk.trace_frames_ir_whole, "K4": bk.trace_frames_ir_mega,
-                "K9": bk.trace_rooms_ir_mega, "K7": ak.trace_frames_ir_accel,
-                "K8": ak.trace_frames_ir_accel_sorted, "K1": tk.nearest_hit,
-                "K2": tk.occlusion_min, "K5": bk.trace_fused_rows,
-                "K6": bk.trace_frame_ir_fused}
-
-    def only(**n):
-        return {k: n.get(k, 0) for k in wrappers}
-
-    def counted(run):
-        for fn in wrappers.values():
-            fn.launches = 0
-        out = run()
-        torch.cuda.synchronize()
-        return out, {k: fn.launches for k, fn in wrappers.items()}
+    _, only, counted = cs.launch_counters()
 
     def same_numbers(tag, kernel, got, want):
         torch.cuda.synchronize()

@@ -294,6 +294,41 @@ def test_mixdown_sharded_gains_and_aims_match_jax():
             4, m, **kw)
 
 
+def test_mixdown_sharded_one_row_pattern_broadcasts_as_jax():
+    """A ``[1, C]`` pattern is every source's aim: JAX broadcasts it to
+    ``[S, C]`` before it shards the sources, and so does the port."""
+    ref, port = _smoll()
+    n_src = 4
+    sources = np.tile(np.asarray(ref.source), (n_src, 1)).astype(np.float32)
+    sources[:, 0] += np.linspace(-2, 2, n_src, dtype=np.float32)
+    aim = jax_dv.cardioid(0.7)[None].astype(np.float32)        # [1, C]
+    jp = JParams.make(sources, ref.listener, 0.5, 343.0, 1.0,
+                      directivity=aim)
+    params = convert.params_from_arrays(jp, device=CPU)
+    assert tuple(params.directivity.shape) == aim.shape
+    key = jax.random.PRNGKey(5)
+    kw = dict(n_rays=128, max_bounces=4, sample_rate=SR, ir_length=T)
+    want = jax_ms.trace_sources_mixdown_sharded(
+        ref.scene, jp, key,
+        jax_mesh.make_mesh((1, 2), devices=jax.devices()[:2]),
+        backend="jnp", **kw)
+    uni = jax_sharded_source_uniforms(key, 2, n_src, 4, 128)
+    got = multisource.trace_sources_mixdown_sharded(
+        port.scene, params, 0, _mesh((1, 2)), backend="plain", uniforms=uni,
+        **kw)
+    _assert_jax_close(got, want)
+    # the unsharded mixdown takes [1, C] as it did: the same IR as [C]
+    un = multisource.trace_sources_mixdown(port.scene, params, 0,
+                                           backend="plain", uniforms=uni,
+                                           **kw)
+    shared = multisource.trace_sources_mixdown(
+        port.scene, params._replace(directivity=params.directivity[0]), 0,
+        backend="plain", uniforms=uni, **kw)
+    assert torch.equal(un, shared)
+    np.testing.assert_allclose(to_numpy(got), to_numpy(un), rtol=1e-6,
+                               atol=1e-9)
+
+
 # -- time ---------------------------------------------------------------------
 
 def test_convolve_seq_sharded_matches_jax_and_fft():
@@ -448,8 +483,8 @@ def test_torch_dataset_sweep_example_runs_on_a_virtual_mesh(tmp_path):
     out = str(tmp_path / "dataset.npz")
     env = {**os.environ, "PYTHONPATH": ROOT}
     proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "examples",
-                                      "torch_dataset_sweep.py"),
+        [sys.executable, os.path.join(ROOT, "examples", "torch",
+                                      "dataset_sweep.py"),
          "--device", CPU, "--rooms", "8", "--rays", "128", "--out", out],
         capture_output=True, text=True, env=env, timeout=240)
     assert proc.returncode == 0, proc.stderr
