@@ -63,6 +63,12 @@ every kernel against its plain PyTorch version:
   walk-bys, live steering through a pose feed, material fitting, source
   localization, the obstacle-pose negative result (source tracking only
   in ``scripts/torch_examples_phase.py --full``).
+* the port's bench (``realisticaudioraytracing2d_tpu_torch/bench.py``, the
+  JAX bench suite's measurements through the port) at the JAX sizes: the
+  trace at 131,072 x 8 x 50 frames and 15,000 x 5, four listeners, the IR
+  scatter, the streaming convolution, the stream chunk in four modes, the
+  1,024-room sweep and the 40,008- and 100,016-wall cities, through K4,
+  K9 and K8.
 
 Phases:
 
@@ -321,6 +327,21 @@ Phases:
    holding, and launches exactly ``EXAMPLE_KERNELS`` (K4, K1/K2, K9;
    none for the four inverse twins, which differentiate the plain trace);
    its seconds and its claim line are printed;
+19. the port's bench (run before 18): ``bench.main()`` in this process at
+   the JAX sizes, its stdout captured (the bench's JSON line is not one
+   of the smoke's): the line has exactly the JAX bench's four keys,
+   ``value > 0`` and ``vs_baseline`` its value over 100e6 at 4
+   significant figures; its stderr summary is printed on one ``[19]``
+   line; counts reset before and read after: K4 140 (10 in the trace
+   bench, 2 in the four-listener one, 32 in the stream chunk, 96 in its
+   three modes), K8 48 (two cities, early-out off and on, two calls of 6
+   bounces each), K9 2, nothing else; then (19b, not counted) the
+   bench's launch shapes against their plain versions on the same seed
+   (SAME_ENERGY / SAME_L1): K4 through ``trace_accumulate`` at 50 frames,
+   131,072 x 8 and 15,000 x 5 with one listener and 15,000 x 5 with
+   ``bench_quad``'s four, and K9 through ``sweep_rooms`` at
+   ``bench_sweep``'s 1,024 rooms x 4,096 x 6 x 1 frame, 16 kHz, 24,000
+   bins, rooms 0, 1, 511 and 1,023;
 5. timings with CUDA events after a warm-up, device times from the
    profiler (every reading holds all the launches of its calls, one for
    K1-K6 and K9 and one a bounce for K7/K8, or is retried), and each
@@ -362,7 +383,6 @@ import json
 import os
 import re
 import struct
-import subprocess
 import sys
 import tempfile
 import time
@@ -378,7 +398,9 @@ PALLAS = "realisticaudioraytracing2d_tpu/ops/pallas/bounce_kernel.py"
 PALLAS_SWEEPS = "realisticaudioraytracing2d_tpu/ops/pallas/trace_kernel.py"
 SR, T, CHUNK = 48000, 72000, 4800           # the shipped SmollRoom audio
 RAYS, BOUNCES = 15000, 5                     # the shipped SmollRoom trace
-BIG_RAYS, BIG_BOUNCES, BIG_FRAMES = 131072, 8, 8   # bench.py's frame
+# bench.py's frame (131,072 x 8), at 8 frames in [3] (the bench's 50 in
+# [19b])
+BIG_RAYS, BIG_BOUNCES, BIG_FRAMES = 131072, 8, 8
 SWEEP_ROOMS, SWEEP_FRAMES = 1024, 8             # cli sweep defaults, 1k rooms
 N_SOURCES = 64                                   # BASELINE.json config #4
 # bench.py:249-282 (bench_accel): the city at 131,072 rays x 6 bounces x 4
@@ -570,37 +592,47 @@ def cuda_ms(torch, fn, reps):
 def kernel_device_ms(torch, fn, reps, name, launches):
     """Device time per call of ``fn`` of the kernels whose name holds
     ``name``, over ``reps`` calls, from the profiler's CUDA events; None
-    if no reading in three tries holds all of the calls' launches. The
+    if no reading in ten tries holds all of the calls' launches. The
     wrapper's own small launches are left out. ``launches`` is the
     kernel's launches a call (one for K1-K6 and K9, one a bounce for
     K7/K8): a reading that holds another number is dropped and retried,
-    since the profiler now and then misses a short launch and such a
-    reading would read low. Misses come in bursts (K5's 0.022 ms launch
-    missed all of three tries once), so it tries up to ten times and
-    prints the event counts of a reading it gives up on. Each session
-    waits 10 ms before its calls (outside the kernels' time)."""
+    since the profiler now and then misses a launch and such a reading
+    would read low. Late in the smoke, sessions have lost one launch of
+    the kernel in every try, ten running, where the same calls alone
+    lost none, for a cause not found. As a workaround the timed calls sit
+    between two markers (``torch.cuda._sleep``'s ``spin_kernel``, a
+    private PyTorch call), with one untimed call before the first and
+    one after the second, and only the launches between the markers
+    count; every one of them is still required. Prints the counts of a
+    reading it gives up on."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # a session can miss its first launches while the tracer
-            # starts (late in the smoke, readings that missed the same one
-            # or two launches ten times running): let it settle first
             torch.cuda.synchronize()
             time.sleep(0.01)
+            fn()                                 # edge: not timed
+            torch.cuda._sleep(1000)              # marker
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(1000)              # marker
+            fn()                                 # edge: not timed
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and name in e.name]
+            time.sleep(0.02)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        marks = sorted(e.time_range.start for e in events
+                       if "spin_kernel" in e.name)
+        us = [] if len(marks) != 2 else [
+            e.time_range.elapsed_us() for e in events
+            if name in e.name and marks[0] < e.time_range.start < marks[1]]
         if len(us) == launches * reps:
             return sum(us) / reps / 1e3
-        seen.append(len(us))
+        seen.append((len(us), len(marks)))
     print(f"    ({name}: no reading held {launches * reps} launches; "
-          f"events seen {seen})", flush=True)
+          f"(launches, markers) seen {seen})", flush=True)
     return None
 
 
@@ -688,14 +720,6 @@ def read_png(path):
     rows = np.frombuffer(zlib.decompress(raw[41:41 + n]), np.uint8
                          ).reshape(h, 1 + 3 * w)
     return rows[:, 1:].reshape(h, w, 3)
-
-
-def card_line():
-    """The card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def ptxas_table(log):
@@ -3116,11 +3140,118 @@ def examples_phase(c, full=False):
     return slice_launches, seconds
 
 
+# Phase 19: the launches of bench.main() at the JAX sizes (see the
+# docstring) and the keys of its JSON line, JAX's.
+BENCH_LAUNCHES = {"K4": 10 + 2 + 32 + 96, "K8": 2 * 2 * 2 * 6, "K9": 2}
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def bench_phase(c):
+    """Phase 19: the port's bench suite, ``bench.main()``, in this process
+    at the JAX sizes, stdout and stderr captured. Checks its JSON line
+    and its launches (``BENCH_LAUNCHES``, nothing else); prints its
+    summary on one line. Returns the launch counts and the seconds."""
+    from realisticaudioraytracing2d_tpu_torch import bench
+    counted, only = c["counted"], c["only"]
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            got, launched = counted(bench.main)
+    except BaseException:
+        print(f"[19] bench.main() failed; its output:\n{out.getvalue()}\n"
+              f"{err.getvalue()[-6000:]}", flush=True)
+        raise
+    seconds = time.perf_counter() - t0
+    said = " | ".join(ln.strip() for ln in err.getvalue().splitlines()
+                      if ln.strip())
+    print(f"[19] bench.main() on {c['card']}: {seconds:.1f} s; launches "
+          f"{ {k: n for k, n in launched.items() if n} }; stderr: {said}",
+          flush=True)
+    lines = out.getvalue().strip().splitlines()
+    print(f"[19] its stdout's last line: {lines[-1] if lines else None}; "
+          f"unrounded: {json.dumps(got)}", flush=True)
+    line = json.loads(lines[-1])
+    check(list(line) == BENCH_KEYS, f"19: keys {list(line)}")
+    check(line["metric"] == "ray_bounce_intersections_per_sec_per_chip"
+          and line["unit"] == "intersections/s", f"19: {line}")
+    check(line["value"] > 0, f"19: value {line['value']}")
+    check(line["vs_baseline"] == float(f"{line['value'] / 100e6:.4g}"),
+          f"19: vs_baseline {line['vs_baseline']}")
+    check(launched == only(**BENCH_LAUNCHES),
+          f"19: launches {launched}, not {BENCH_LAUNCHES}")
+    bench_shapes(c)
+    return launched, seconds
+
+
+def bench_shapes(c):
+    """Phase 19b: the bench's own launches against their plain versions on
+    the same seeds (after the counted run; these launches are not
+    counted): K4 through ``engine.trace_accumulate`` at 50 frames on
+    SmollRoom padded to 32 walls (``bench_trace``'s 131,072 x 8 and
+    15,000 x 5, ``bench_quad``'s four listeners at 15,000 x 5), and K9
+    through ``sweep_rooms`` at ``bench_sweep``'s shape, four rooms of the
+    1,024 held against the plain version."""
+    from realisticaudioraytracing2d_tpu_torch.engine import trace_accumulate
+    from realisticaudioraytracing2d_tpu_torch.ops.ir import IRState
+    from realisticaudioraytracing2d_tpu_torch.parallel.sweep import \
+        sweep_rooms
+    torch, art, bk, dev = c["torch"], c["art"], c["bk"], c["dev"]
+    same_numbers = c["same_numbers"]
+    t0 = time.perf_counter()
+    room = art.rooms.smoll_room(pad_to=32, device=dev)
+    ears = np.asarray([[0.0, -3.68], [0.5, -3.68], [-6.0, 2.0],
+                       [8.0, -1.0]], np.float32)
+    one_ear = art.TraceParams.make(room.source, room.listener,
+                                   room.listener_radius, 343.0, 1.0,
+                                   device=dev)
+    four_ears = art.TraceParams.make(room.source, ears, 0.5, 343.0, 1.0,
+                                     device=dev)
+    nf, kw = 50, dict(sample_rate=SR, ir_length=T)
+    for what, p, n_rays, n_bounces in (
+            ("bench_trace", one_ear, BIG_RAYS, BIG_BOUNCES),
+            ("bench_trace", one_ear, RAYS, BOUNCES),
+            ("bench_quad, 4 listeners", four_ears, RAYS, BOUNCES)):
+        state = IRState.zeros(T, p.listeners.shape[0], 1, device=dev)
+        got = trace_accumulate(room.scene, p, state, n_rays=n_rays,
+                               max_bounces=n_bounces, sample_rate=SR,
+                               n_frames=nf, seed=1).sum
+        s = bk.fixed_point_scale(p, nf, n_rays, n_bounces)
+        same_numbers(
+            f"[19b] K4 vs plain at {what}'s shape, {n_rays} x {n_bounces} x "
+            f"{nf} frames (S = 2^{int(torch.log2(s))}), seed 1, same "
+            "Philox numbers", "K4", got,
+            bk.trace_frames_ir_mega_plain(room.scene, p, 1, nf, n_rays=n_rays,
+                                          max_bounces=n_bounces, **kw))
+        del got, state
+    n_rooms = 1024
+    scenes, src, lis = art.rooms.random_rooms(n_rooms, seed=0, device=dev)
+    sweep_kw = dict(n_rays=4096, max_bounces=6, sample_rate=16000,
+                    ir_length=24000)
+    irs = sweep_rooms(scenes, src, lis, 1, n_frames=1, **sweep_kw)
+    for r in (0, 1, n_rooms // 2 - 1, n_rooms - 1):
+        tag = (f"[19b] K9 vs plain at bench_sweep's shape, room {r} of "
+               f"{n_rooms}, 4096 x 6 x 1 frame, 16 kHz, 24000 bins, seed 1, "
+               "same Philox numbers")
+        want = bk.trace_rooms_ir_mega_plain(
+            scenes.row(slice(r, r + 1)), src[r:r + 1], lis[r:r + 1], 1, 1,
+            entry_offset=r, **sweep_kw)[0]
+        if float(want.sum()) > 0:
+            same_numbers(tag, "K9", irs[r], want)
+        else:               # no ray reaches this room's listener
+            print(f"{tag}: no energy in either", flush=True)
+            check(torch.equal(irs[r], want), f"{tag}: both silent")
+    del irs, scenes
+    torch.cuda.empty_cache()
+    print(f"[19b] phase time {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
     import realisticaudioraytracing2d_tpu_torch as art
     from realisticaudioraytracing2d_tpu_torch import cli, engine
+    from realisticaudioraytracing2d_tpu_torch.bench import card_line
     from realisticaudioraytracing2d_tpu_torch.models.scene import Scene
     from realisticaudioraytracing2d_tpu_torch.ops import accel
     from realisticaudioraytracing2d_tpu_torch.ops import ir as irm
@@ -3147,6 +3278,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this smoke runs only "
                          "on an NVIDIA GPU")
     card = card_line()
+    check(not card.startswith("nvidia-smi"), f"card line: {card}")
     dev = torch.device(DEVICE)
     print(f"[0] device: {torch.cuda.get_device_name(0)} | {card} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -4853,6 +4985,11 @@ def main():
     for k, n in diff_launches.items():      # and [16]'s
         launches[k] = launches.get(k, 0) + n
     for k, n in mesh_launches.items():      # and [17]'s
+        launches[k] = launches.get(k, 0) + n
+
+    # --- 19. the port's bench at the JAX sizes ---------------------------
+    bench_launches, _ = bench_phase(ctx)
+    for k, n in bench_launches.items():     # and [19]'s
         launches[k] = launches.get(k, 0) + n
 
     # --- 18. the example twins (last: no global torch state a twin sets

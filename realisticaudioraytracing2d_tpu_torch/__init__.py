@@ -53,7 +53,7 @@ from .models.materials import (MATERIAL_ANECHOIC, MATERIAL_BORDER,
 from .models.scene import Scene, SceneBuilder, Transform2D
 from .ops import air, convolve, diffraction, directivity, geometry, ir, trace
 from .ops.ir import IRState
-from .ops.trace import Hits, TraceParams
+from .ops.trace import DebugPaths, Hits, TraceParams
 from .posefeed import PoseFeed, PoseFeedError
 from .streaming import (RingBuffer, Streamer, StreamState, stream_chunk,
                         wet_chunk)
@@ -62,7 +62,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AudioConfig", "AudioMaterial", "DEFAULT_DEVICE", "DebugConfig",
-    "Engine", "EngineConfig", "Hits", "IRState", "LivePlayer", "LiveReport",
+    "DebugPaths", "Engine", "EngineConfig", "Hits", "IRState", "LivePlayer", "LiveReport",
     "MATERIAL_ANECHOIC", "MATERIAL_BORDER", "MATERIAL_INTERIOR",
     "PoseFeed", "PoseFeedError", "RingBuffer", "Scene",
     "SceneBuilder", "SimConfig", "StreamState", "Streamer", "TraceParams",

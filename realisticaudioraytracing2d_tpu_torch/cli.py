@@ -1,7 +1,7 @@
 """Command-line entry point of the port: ``trace``, ``bake``, ``stream``,
-``live``, ``sweep``, ``analyze``, ``fit``, ``locate``.
+``live``, ``sweep``, ``analyze``, ``fit``, ``locate``, ``bench``.
 
-Port of eight subcommands of ``realisticaudioraytracing2d_tpu/cli.py``.
+Port of the nine subcommands of ``realisticaudioraytracing2d_tpu/cli.py``.
 Each runs on the card unless ``--device cpu`` asks for the plain version::
 
     python -m realisticaudioraytracing2d_tpu_torch.cli trace --room smoll \\
@@ -23,6 +23,7 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
         --target ir.npz --out materials.json [--fields absorption,ior]
     python -m realisticaudioraytracing2d_tpu_torch.cli locate --room smoll \\
         --target ir.npz --out located.json [--starts 8 --steps 200]
+    python -m realisticaudioraytracing2d_tpu_torch.cli bench
 
 * ``trace`` accumulates ``--frames`` Monte-Carlo frames into an IR (the
   whole-frame kernel K4 on the card), prints the JAX CLI's ``traced ...``
@@ -105,10 +106,15 @@ A resumed run (``--ir-in``) draws under ``mix_seed(seed, frames so far)``.
 
 The flags and defaults are those the JAX subcommands read, plus
 ``--device`` (default ``cuda``). ``sweep`` accepts the pattern flags and
-ignores them, as the JAX ``sweep`` does. Not ported yet, and therefore
-not accepted: the subcommand ``bench`` (ROADMAP queue 1, item 11). ``fit``
-and ``locate`` draw step ``i``'s rays from ``mix_seed(seed, i)`` (fit)
-or ``--seed`` every step (locate), as :mod:`.diff` says.
+ignores them, as the JAX ``sweep`` does. ``bench`` takes only
+``--device``, as the JAX ``bench`` takes no flag: it runs the port's copy
+of the JAX bench suite (:mod:`.bench`: its eight measurements, through
+the port, at the JAX sizes) and prints the JAX bench's last line for the
+port, ``{"metric": "ray_bounce_intersections_per_sec_per_chip", "value":
+..., "unit": "intersections/s", "vs_baseline": ...}``, with its summary
+on stderr. ``fit`` and ``locate`` draw step ``i``'s rays from
+``mix_seed(seed, i)`` (fit) or ``--seed`` every step (locate), as
+:mod:`.diff` says.
 """
 
 from __future__ import annotations
@@ -1032,6 +1038,11 @@ def cmd_analyze(args) -> None:
         print(f"wrote {args.edc_out}")
 
 
+def cmd_bench(args) -> None:
+    from . import bench
+    bench.main(device=args.device)
+
+
 def _common(p, room: bool = True) -> None:
     """The flags every subcommand of the JAX CLI shares (those ported),
     plus ``--device``."""
@@ -1061,6 +1072,10 @@ def _common(p, room: bool = True) -> None:
     p.add_argument("--stereo-aim", type=float, default=None, metavar="DEG",
                    help="with --stereo: record through an XY cardioid "
                         "pair aimed at +-DEG (overrides --mic-directivity)")
+    _device_arg(p)
+
+
+def _device_arg(p) -> None:
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device (default %(default)s; cpu runs the "
                         "plain version)")
@@ -1308,6 +1323,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--speed-of-sound", type=float, default=343.0)
     _air_args(p)
     p.set_defaults(fn=cmd_analyze)
+
+    p = sub.add_parser("bench", help="run the benchmark suite")
+    _device_arg(p)
+    p.set_defaults(fn=cmd_bench)
     return ap
 
 

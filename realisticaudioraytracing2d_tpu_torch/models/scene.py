@@ -348,3 +348,15 @@ class SceneBuilder:
         return Scene(*(torch.from_numpy(x).to(device)
                        for x in (a, b, nrm, absb, scat, trans, ior, mask)))
 
+
+
+def scene_from_boxes(boxes: Sequence[Tuple[Transform2D, AudioMaterial]],
+                     n_bands: int = 1, pad_to: Optional[int] = None,
+                     device=None) -> Scene:
+    """A scene made of unit boxes under per-box transforms, the way the
+    reference rooms are authored (a unit BoxCollider2D scaled and rotated
+    by its GameObject's transform, SmollRoom.unity), on ``device``."""
+    builder = SceneBuilder(n_bands=n_bands)
+    for tf, mat in boxes:
+        builder.add_box(mat, tf)
+    return builder.build(pad_to=pad_to, device=device)

@@ -186,9 +186,13 @@ def nearest_hit(t: torch.Tensor):
 
     The index is the FIRST wall among equal minima (the JAX oracle's
     ``argmin`` rule, which the hand kernel keeps by scanning walls in
-    ascending order with a strict ``<``), and -1 when nothing was hit."""
+    ascending order with a strict ``<``), and -1 when nothing was hit. A
+    row holding a NaN has a NaN minimum, which equals no entry: its index
+    is that of its first NaN, as ``jnp.argmin`` gives, so every index
+    lies in ``[-1, W)``."""
     closest = t.min(dim=-1).values
     ids = torch.arange(t.shape[-1], dtype=torch.int32, device=t.device)
-    idx = torch.where(t == closest[..., None], ids,
+    at_min = (t == closest[..., None]) | torch.isnan(t)
+    idx = torch.where(at_min, ids,
                       t.shape[-1]).min(dim=-1).values.to(torch.int32)
     return closest, torch.where(closest >= INF, -1, idx).to(torch.int32)

@@ -79,6 +79,12 @@ def write_audio(path: str, x: np.ndarray, sample_rate: int) -> None:
     write_wav(path, x, sample_rate)
 
 
+def sine_clip(freq: float, duration: float, sample_rate: int,
+              amplitude: float = 0.5) -> np.ndarray:
+    t = np.arange(int(duration * sample_rate)) / sample_rate
+    return (amplitude * np.sin(2 * np.pi * freq * t)).astype(np.float32)
+
+
 def click_clip(duration: float, sample_rate: int,
                click_times=(0.05,)) -> np.ndarray:
     """Dirac-ish clicks — ideal for verifying IR delays audibly/numerically."""
@@ -108,3 +114,8 @@ def builtin_clip_path() -> str:
     import os
     return os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "assets", "dry_clip.wav")
+
+
+def load_builtin_clip() -> Tuple[np.ndarray, int]:
+    """The bundled clip's samples and sample rate."""
+    return read_wav(builtin_clip_path())

@@ -25,6 +25,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from realisticaudioraytracing2d_tpu_torch.bench import card_line  # noqa: E402
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import build  # noqa: E402
 
 
@@ -40,7 +41,7 @@ def main(argv=None):
     print(f"build {build.build():.1f} s", flush=True)
     build.load_library()
     _, only, counted = cs.launch_counters()
-    card = cs.card_line()
+    card = card_line()
     ctx = dict(torch=torch, dev=torch.device("cuda"), counted=counted,
                only=only, card=card)
     launches, seconds = cs.examples_phase(ctx, full=args.full)

@@ -21,6 +21,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from realisticaudioraytracing2d_tpu_torch.bench import card_line  # noqa: E402
 import realisticaudioraytracing2d_tpu_torch as art  # noqa: E402
 from realisticaudioraytracing2d_tpu_torch import cli  # noqa: E402
 from realisticaudioraytracing2d_tpu_torch.models.scene import \
@@ -52,7 +53,7 @@ def main():
                               device=dev)
     ctx = dict(torch=torch, art=art, bk=bk, ak=ak, rng=rng, cli=cli,
                dev=dev, counted=counted, only=only,
-               same_numbers=same_numbers, Scene=Scene, card=cs.card_line(),
+               same_numbers=same_numbers, Scene=Scene, card=card_line(),
                scene_9=city.scene, p_9=p9)
     launches, readings = cs.mesh_phase(ctx)
     print(f"launches {launches}; readings {readings}; "

@@ -7,8 +7,9 @@ exactly what :func:`sweep_rooms` returns for the same arguments; ``trace``
 must write its images and a checkpoint that ``--ir-in`` resumes (the frame
 count continues), holding exactly the engine's IR; ``bake`` and ``bake
 --legacy`` must write a WAV with a reverb tail after each click. The flags
-default as the JAX CLI's do, and the subcommand not ported (``bench``) is
-rejected by argparse. ``sweep --sharded`` writes the npz of the run
+default as the JAX CLI's do; ``bench`` parses with ``--device`` alone
+(default ``cuda``), as the JAX ``bench`` takes no flag, and argparse
+rejects any other (tests/test_torch_bench.py runs it). ``sweep --sharded`` writes the npz of the run
 without it, on one device and with the rooms split over a virtual mesh of
 8 (the sweep's bits, room by room).
 
@@ -203,12 +204,19 @@ STREAM = ["stream", "--in", "a.wav", "--out", "b.wav"]
 
 
 @pytest.mark.parametrize("cmd, said", [
-    (["bench"], "invalid choice: 'bench'")])
+    (["bench", "--rays", "8"], "unrecognized arguments: --rays 8")])
 def test_cli_rejects_flags_that_are_not_ported(cmd, said, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.build_parser().parse_args(cmd)
     assert exc.value.code == 2
     assert said in capsys.readouterr().err
+
+
+def test_cli_bench_parses_with_the_card_by_default():
+    args = cli.build_parser().parse_args(["bench"])
+    assert args.device == "cuda" and args.fn is cli.cmd_bench
+    assert cli.build_parser().parse_args(
+        ["bench", "--device", "cpu"]).device == "cpu"
 
 
 def test_cli_sweep_sharded_equals_unsharded(tmp_path, capsys, monkeypatch):

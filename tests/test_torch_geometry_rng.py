@@ -84,6 +84,28 @@ def test_nearest_hit_keeps_first_index_among_ties():
     assert idx.dtype == torch.int32
 
 
+def test_nearest_hit_nan_row_takes_jax_argmin_index(rng):
+    """A row whose minimum is NaN gets the index of its first NaN, as
+    ``jnp.argmin`` gives; ties, misses and ordinary rows keep their
+    results, and no index leaves ``[-1, W)``."""
+    nan = float("nan")
+    rows = np.array([[3.0, nan, 1.0, 1e30],
+                     [nan, 2.0, nan, 0.5],
+                     [4.0, 4.0, 4.0, nan],
+                     [5.0, 2.0, 2.0, 7.0],
+                     [g.INF, g.INF, g.INF, g.INF],
+                     [g.INF, g.INF, nan, g.INF],
+                     [9.0, 8.0, 1.0, 1.0]], np.float32)
+    t = np.concatenate([rows, rng.uniform(0, 50, (64, 4))
+                        .astype(np.float32)])
+    closest, idx = g.nearest_hit(to_torch(t))
+    jc, ji = jg.nearest_hit(jnp.asarray(t))
+    np.testing.assert_array_equal(to_numpy(idx), np.asarray(ji))
+    np.testing.assert_array_equal(to_numpy(closest), np.asarray(jc))
+    np.testing.assert_array_equal(to_numpy(idx)[:7], [1, 0, 3, 1, -1, 2, 2])
+    assert ((idx >= -1) & (idx < t.shape[-1])).all()
+
+
 def test_hlsl_random_bit_exact(rng):
     state = rng.integers(0, 2 ** 32, 100_000, dtype=np.uint64).astype(np.uint32)
     state[:4] = [0, 1, 2 ** 31, 2 ** 32 - 1]
