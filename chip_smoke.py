@@ -317,7 +317,18 @@ Phases:
    --sharded`` on a one-card host writes the npz of the run without the
    flag. 17j: ``profiling.device_trace`` around one K4 call writes a
    trace that names ``frames_ir_kernel``. 17k: a pytree checkpoint
-   written and read back on the card;
+   written and read back on the card. 17l: ``accumulate_frames_sharded``
+   on the cities past 5,280 walls (``LARGE_FRAMES``): the 10,008-wall
+   city at 15,000 x 5, 48 kHz, 72,000 bins, 8 frames over 8 shards (40
+   K8 launches), the 40,008-wall city at 131,072 x 6, 16 kHz, 24,000
+   bins, 4 frames over 4 shards through K8 and, at 8 bands, through K7
+   (24 launches each), and their unsharded calls (5, 6, 6 launches):
+   within n / S + 1e-6 of the value, no K3/K4 launched, the device time
+   of each (every launch held); the unsharded calls keep PARENT_BITS; on
+   the sorted 4,808-wall city K8 and K7 (K = 1), early_out on and off,
+   at frame_offset 5 == K4 at frame_offset 5 bit for bit; K8 and the
+   8-band K7 at frame_offset 5 against their plain twin (SAME_ENERGY /
+   SAME_L1) on the 10,008-wall city at 15,000 x 5 x 1 frame;
 18. the example twins (run after 5, last): each of ``examples/torch/``
    by its ``main(argv)`` in this process, in a temporary directory, at
    ``EXAMPLE_CUTS`` (the inverse twins' steps, starts and chunks cut,
@@ -511,9 +522,30 @@ PARENT_K6_MS = {"15k x 5": 0.0437, "131k x 8": 0.1311}
 # frames and seed 2024 over 131,072 x 8 x 8, and the 256-room sweep of
 # random_rooms(256, seed=0) at 15,000 x 5 x 8 (seed 0). K4 at
 # frame_offset 0 and K9 must keep them.
+# The last three: K8's and the 8-band K7's unsharded calls of [17l]
+# (LARGE_FRAMES), built by the commit before the cluster kernels took a
+# frame offset (scripts/torch_accel_frame_bits.py --root on its checkout;
+# NVIDIA H100 80GB HBM3, 700.00 W): K7 and K8 at frame_offset 0 must
+# keep them.
 PARENT_BITS = {"K4 15k x 5 x 2 seed 42": "2da62d18303cafd5",
                "K4 131k x 8 x 8 seed 2024": "80a38d109abbb197",
-               "K9 256 rooms x 8": "d7be775f27ed4d09"}
+               "K9 256 rooms x 8": "d7be775f27ed4d09",
+               "K8 10,008 walls 15k x 5 x 8 seed 2024": "489b75a49a4ed1fa",
+               "K8 40,008 walls 131k x 6 x 4 seed 2025": "ddceaaf776626875",
+               "K7 8-band 40,008 walls 131k x 6 x 4 seed 2026":
+                   "c5a81a5a93c444c6"}
+# [17l]: the frame-sharded runs of the cities past 5,280 walls, by the
+# PARENT_BITS name of their unsharded call: city_scene boxes, bands, rays,
+# bounces, frames (= shards, one frame each but the 10,008-wall city's
+# 8), sample rate, bins, seed. The first is the city stream's shape (K8),
+# the others the JAX bench's large-scene shape ([8b], [8d]).
+LARGE_FRAMES = {
+    "K8 10,008 walls 15k x 5 x 8 seed 2024":
+        (2500, 1, RAYS, BOUNCES, 8, SR, T, 2024),
+    "K8 40,008 walls 131k x 6 x 4 seed 2025":
+        (10000, 1, BIG_RAYS, CITY_BOUNCES, 4, CITY_SR, CITY_T, 2025),
+    "K7 8-band 40,008 walls 131k x 6 x 4 seed 2026":
+        (10000, 8, BIG_RAYS, CITY_BOUNCES, 4, CITY_SR, CITY_T, 2026)}
 FMAD_NOTE = ("at the 67 TFLOP/s peak; the build's --fmad=false contracts no "
              "multiply-add, so at most half of it is reachable")
 
@@ -786,10 +818,7 @@ def bands_phase(c):
             device=dev)
 
     def city(n_boxes, n_bands=1):
-        room = art.rooms.city_scene(n_boxes, n_bands=n_bands, device=dev)
-        return room.scene, art.TraceParams.make(
-            room.source, room.listener, room.listener_radius, 343.0,
-            CITY_GAIN, device=dev)
+        return city_setup(art, dev, n_boxes, n_bands)
 
     # 12a. K3, K4 and K9 at 8, 32 and 512 bands against their plain twins
     # on the same numbers; registers and spills of every bucket
@@ -1016,10 +1045,7 @@ def listeners_batches_phase(c):
                                                 device=dev)
 
     def city(n_boxes, n_bands=1):
-        room = art.rooms.city_scene(n_boxes, n_bands=n_bands, device=dev)
-        return room.scene, art.TraceParams.make(
-            room.source, room.listener, room.listener_radius, 343.0,
-            CITY_GAIN, device=dev)
+        return city_setup(art, dev, n_boxes, n_bands)
 
     # 12d. many listeners: a grid of 64 on SmollRoom at K = 8 through K4
     # (one launch), and on the 10,008-wall city through K8 / K7. Where a
@@ -2673,6 +2699,147 @@ def ir_sha(torch, x):
                           ).hexdigest()[:16]
 
 
+def parent_bits(got):
+    """The PARENT_BITS entries of the digests in ``got``."""
+    return {k: PARENT_BITS.get(k) for k in got}
+
+
+def city_setup(art, dev, n_boxes, n_bands=1):
+    """A city scene and its trace parameters at the JAX bench's gain, as
+    every phase builds them."""
+    room = art.rooms.city_scene(n_boxes, n_bands=n_bands, device=dev)
+    return room.scene, art.TraceParams.make(
+        room.source, room.listener, room.listener_radius, 343.0, CITY_GAIN,
+        device=dev)
+
+
+def large_frames_run(ak, name, scene, p):
+    """The unsharded call of ``LARGE_FRAMES[name]`` (K8's wrapper, which
+    is K7's at more bands), with no frame offset: the call whose digest
+    PARENT_BITS keeps (scripts/torch_accel_frame_bits.py runs it on the
+    parent's checkout too)."""
+    _, _, rays, bounces, n_f, sr, t, seed = LARGE_FRAMES[name]
+    return ak.trace_frames_ir_accel_sorted(
+        scene, p, seed, n_f, n_rays=rays, max_bounces=bounces,
+        sample_rate=sr, ir_length=t)
+
+
+def large_frames_phase(c, add, virtual):
+    """[17l]: ``accumulate_frames_sharded`` on the cities past 5,280 walls
+    (``LARGE_FRAMES``), through the cluster kernels at a frame offset:
+    each run's launches (the shards' ``max_bounces`` each, no K3/K4) and
+    its unsharded call's, the sharded IR within ``n / S + 1e-6 |x|`` of
+    the unsharded one, both timed by their device time (every launch
+    held); at frame_offset 0 the unsharded calls keep PARENT_BITS; on the
+    sorted 4,808-wall city K8 and K7 (K = 1) at frame_offset 5 == K4 at
+    it bit for bit; K8 and the 8-band K7 at frame_offset 5 against their
+    plain twin on the 10,008-wall city at the city stream's shape.
+    Returns its readings."""
+    torch, art, ak, bk = (c[k] for k in ("torch", "art", "ak", "bk"))
+    dev, counted, only, card = (c[k] for k in ("dev", "counted", "only",
+                                               "card"))
+    same_numbers = c["same_numbers"]
+    from realisticaudioraytracing2d_tpu_torch.parallel import frames
+    cities = {(2500, 1): (c["scene_9"], c["p_9"])}
+    if "city_bands" in c:
+        cities[10000, 8] = c["city_bands"][8]     # [8d]'s city
+    digests, readings = {}, {}
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
+
+    for name, (boxes, bands, rays, bounces, n_f, sr, t, seed) in \
+            LARGE_FRAMES.items():
+        if (boxes, bands) not in cities:
+            cities[boxes, bands] = city_setup(art, dev, boxes, bands)
+        scene, p = cities[boxes, bands]
+        key = "K7" if bands > 1 else "K8"
+        mesh = virtual((n_f,))
+        run = dict(n_rays=rays, max_bounces=bounces, sample_rate=sr,
+                   n_frames=n_f)
+        st0 = art.IRState.zeros(t, p.listeners.shape[0], bands, device=dev)
+
+        def sharded():
+            return frames.accumulate_frames_sharded(scene, p, st0, seed,
+                                                    mesh, **run)
+
+        sh, launched = counted(sharded)
+        check(launched == only(**{key: n_f * bounces}),
+              f"17l {name}: launches {launched}")
+        add(launched)
+        un, launched_u = counted(lambda: large_frames_run(ak, name, scene,
+                                                          p))
+        check(launched_u == only(**{key: bounces}),
+              f"17l {name}: unsharded launches {launched_u}")
+        add(launched_u)
+        s_whole = float(bk.fixed_point_scale(p, n_f, rays, bounces))
+        n_max = n_f * rays * 2 * bounces
+        over = float(((sh.sum - un).abs() - (n_max / s_whole
+                                             + 1e-6 * un.abs())).max())
+        gap = float((sh.sum - un).abs().max())
+        digests[name] = ir_sha(torch, un)
+        ms = {"sharded": kernel_device_ms(
+            torch, sharded, 2, "accel_bounce_kernel", n_f * bounces),
+            "unsharded": kernel_device_ms(
+                torch, lambda: large_frames_run(ak, name, scene, p), 2,
+                "accel_bounce_kernel", bounces)}
+        readings[name] = ms
+        print(f"[17l] accumulate_frames_sharded, {scene.n_walls} walls, "
+              f"{bands} band(s), {rays} x {bounces}, {n_f} frames over "
+              f"{n_f} shards: launches {launched}, unsharded "
+              f"{launched_u}; max abs gap to the unsharded {key} call "
+              f"{gap:.3e} (peak {float(un.max()):.3e}; limit n / S + 1e-6 "
+              f"|x|, n <= {n_max}, S = 2^{int(np.log2(s_whole))}; worst "
+              f"margin {over:.3e}); device ms on {card}: sharded "
+              f"{fmt(ms['sharded'])}, unsharded {fmt(ms['unsharded'])} "
+              "(profiler, every launch held)", flush=True)
+        check(sh.frames == n_f and float(un.sum()) > 0 and over <= 0.0,
+              f"17l {name}: frames gap")
+        check(None not in ms.values(), f"17l {name}: device time {ms}")
+        del sh, un
+    # K8 and K7 (K = 1) at frame_offset 5 == K4 at it on the sorted city
+    city_run = dict(n_rays=BIG_RAYS, max_bounces=CITY_BOUNCES,
+                    sample_rate=CITY_SR, ir_length=CITY_T)
+    scene_a, p_a = city_setup(art, dev, 1200)
+    k4 = bk.trace_frames_ir_mega(ak.prepare(scene_a).scene, p_a, 31,
+                                 CITY_FRAMES, frame_offset=5, **city_run)
+    parity = {f"{k} early_out={eo}": torch.equal(fn(
+        scene_a, p_a, 31, CITY_FRAMES, early_out=eo, frame_offset=5,
+        **city_run), k4)
+        for k, fn in (("K7", ak.trace_frames_ir_accel),
+                      ("K8", ak.trace_frames_ir_accel_sorted))
+        for eo in (True, False)}
+    moved = not torch.equal(k4, bk.trace_frames_ir_mega(
+        ak.prepare(scene_a).scene, p_a, 31, CITY_FRAMES, **city_run))
+    print(f"[17l] sorted city_scene(1200), {BIG_RAYS} x {CITY_BOUNCES} x "
+          f"{CITY_FRAMES} frames at frame_offset 5 (IR energy "
+          f"{float(k4.sum()):.4e}; other bits than at 0: {moved}): equal "
+          f"to K4 at frame_offset 5 bit for bit: {parity}", flush=True)
+    check(float(k4.sum()) > 0 and moved and all(parity.values()),
+          "17l: K4 == K7 == K8 at frame_offset 5")
+    # K8 and the 8-band K7 at frame_offset 5 against their plain twin on
+    # the 10,008-wall city at the city stream's shape
+    one = dict(n_rays=RAYS, max_bounces=BOUNCES, sample_rate=SR,
+               ir_length=T)
+    for key, bands in (("K8", 1), ("K7", 8)):
+        if (2500, bands) not in cities:
+            cities[2500, bands] = city_setup(art, dev, 2500, bands)
+        scene, p = cities[2500, bands]
+        chunk = max(256, PLAIN_ELEMENTS // scene.n_walls)
+        same_numbers(f"[17l] {key} at frame_offset 5 vs plain, "
+                     f"{scene.n_walls} walls, {scene.n_bands} band(s), "
+                     f"{RAYS} x {BOUNCES} x 1 frame", key,
+                     ak.trace_frames_ir_accel_sorted(
+                         scene, p, 9, 1, frame_offset=5, **one),
+                     ak.trace_frames_ir_accel_sorted_plain(
+                         scene, p, 9, 1, frame_offset=5, ray_chunk=chunk,
+                         **one))
+    print(f"[17l] the unsharded calls at frame_offset 0 keep the parent's "
+          f"bits: {digests == parent_bits(digests)}; {digests}", flush=True)
+    check(digests == parent_bits(digests), f"17l: parent bits {digests}")
+    return readings
+
+
 def mesh_phase(c):
     """Phase 17: the device-mesh paths (``parallel/``) at full width on a
     virtual mesh of the card (``[cuda:0] * 8``; a one-card host), the
@@ -2867,10 +3034,10 @@ def mesh_phase(c):
           f"; limit n / S + 1e-6 |x|, n <= {n_max}, S = 2^"
           f"{int(np.log2(s_whole))}; worst margin {over:.3e}); K4 at "
           f"frame_offset 0 keeps the parent's bits: "
-          f"{parent == PARENT_BITS}; K4 at frame_offset 5 == K3 on frame "
-          f"5's Philox numbers: {k3_ok}", flush=True)
+          f"{parent == parent_bits(parent)}; K4 at frame_offset 5 == K3 on "
+          f"frame 5's Philox numbers: {k3_ok}", flush=True)
     check(sh.frames == BIG_FRAMES and over <= 0.0, "17e: frames gap")
-    check(parent == PARENT_BITS, f"17e: parent bits {parent}")
+    check(parent == parent_bits(parent), f"17e: parent bits {parent}")
     check(k3_ok, "17e: K4 frame_offset 5 == K3")
     same_numbers(f"[17e] K4 frame_offset 5 vs plain first_frame 5, "
                  f"{BIG_RAYS} x {BIG_BOUNCES} x 1 frame", "K4", k4_5,
@@ -3031,6 +3198,10 @@ def mesh_phase(c):
           f"leaves {side['leaf_paths']}, read back equal on {dev}: {ok}",
           flush=True)
     check(ok, "17k: pytree checkpoint")
+
+    # 17l. frames of the cities past 5,280 walls: the cluster kernels at a
+    # frame offset
+    readings["large_frames_ms"] = large_frames_phase(c, add, virtual)
     print(f"[17] phase time {time.perf_counter() - t_phase:.1f} s; "
           f"launches {slice_launches}", flush=True)
     return slice_launches, readings
@@ -3569,11 +3740,8 @@ def main():
 
     def city(n_boxes, n_bands=1):
         t0 = time.perf_counter()
-        room = art.rooms.city_scene(n_boxes, n_bands=n_bands, device=dev)
-        p = art.TraceParams.make(room.source, room.listener,
-                                 room.listener_radius, 343.0, CITY_GAIN,
-                                 device=dev)
-        return room.scene, p, time.perf_counter() - t0
+        scene, p = city_setup(art, dev, n_boxes, n_bands)
+        return scene, p, time.perf_counter() - t0
 
     # 8a. K4 = K7 = K8 on a sorted city K4 can take
     scene_a, p_a, _ = city(1200)

@@ -96,7 +96,12 @@
 //    ray) id through the re-sorts and draws by it, so sorting never
 //    changes a ray's numbers: the kernel equals K4 bit for bit on a sorted
 //    scene (JAX's K8 pairs host uniforms with tile positions and is only
-//    statistically equal).
+//    statistically equal). Frame f of a launch draws frame frame_offset +
+//    f, as K4's frame_offset (a shard of a frame-sharded run): the offset
+//    is its own argument, added to the counter's frame word only, so the
+//    int32 id a ray carries stays the launch's own (an offset folded into
+//    the id would overflow it at 16,383 frames of 131,072 rays), and K8
+//    keeps its ids from 0.
 //  * Listeners: a table sized from the launch in shared memory beside the
 //    super boxes (8 B a listener); a caller whose listeners do not fit
 //    launches them in blocks over the same random numbers (the wrapper).
@@ -259,14 +264,15 @@ __device__ __forceinline__ void store_bands(const float (&en)[kMaxK],
 // [2, N] i32 = id, depth; depth -1 = dead). Bounce 0 emits ray id = id0 +
 // slot; a later bounce reads the ray at perm[slot] of state_in /
 // istate_in. Either writes the ray to `slot` of state_out / istate_out
-// and its next sort key to keys_out. K = 1 (K8) keeps the energy in state
-// row 4 and ids from 0. K > 1 (K7) keeps a ray's n_bands energies in the
-// energy buffers en_in / en_out: the register bucket (kMaxK = 8) in
-// ray-major rows of kp = K rounded up to 4 floats (slot s at en[s * kp]),
-// which it loads from en_in's row perm[slot] and stores to en_out's row
-// slot; the wide kernel (kMaxK == kWideK, any K) band-major (band k of
-// slot s at en[k * N + s]), which it copies to en_out once and works on
-// in place.
+// and its next sort key to keys_out. Ray id = frame * n_rays + ray draws
+// the Philox numbers of frame frame_offset + frame. K = 1 (K8) keeps the
+// energy in state row 4 and ids from 0. K > 1 (K7) keeps a ray's n_bands
+// energies in the energy buffers en_in / en_out: the register bucket
+// (kMaxK = 8) in ray-major rows of kp = K rounded up to 4 floats (slot s
+// at en[s * kp]), which it loads from en_in's row perm[slot] and stores
+// to en_out's row slot; the wide kernel (kMaxK == kWideK, any K)
+// band-major (band k of slot s at en[k * N + s]), which it copies to
+// en_out once and works on in place.
 template <int kMaxK, bool kEarlyOut, bool kDirective>
 __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
     const float* __restrict__ walls, const float4* __restrict__ geo,
@@ -276,9 +282,10 @@ __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
     const float* __restrict__ src_c, int n_src,
     const float* __restrict__ mic_c, int n_mic,
     const float* __restrict__ scal, const float* __restrict__ bounds,
-    float sr, uint32_t key0, uint32_t key1, uint32_t entry, int n_rays,
-    int id0, int n_slots, int max_bounces, int bounce, int ir_length,
-    const double* __restrict__ scale, const long long* __restrict__ perm,
+    float sr, uint32_t key0, uint32_t key1, uint32_t entry,
+    uint32_t frame_offset, int n_rays, int id0, int n_slots, int max_bounces,
+    int bounce, int ir_length, const double* __restrict__ scale,
+    const long long* __restrict__ perm,
     const float* __restrict__ state_in, const int* __restrict__ istate_in,
     float* __restrict__ state_out, int* __restrict__ istate_out,
     const float* __restrict__ en_in, float* __restrict__ en_out,
@@ -315,7 +322,8 @@ __global__ void __launch_bounds__(kAccelThreads) accel_bounce_kernel(
                               kDirective ? &s_mic : nullptr,
                               kDirective ? &s_src : nullptr);
   const WallTable table = global_table(walls, geo, n_walls);
-  const int ray = id % n_rays, frame = id / n_rays;
+  const int ray = id % n_rays;
+  const uint32_t frame = static_cast<uint32_t>(id / n_rays) + frame_offset;
   const int nk = kMaxK == 1 ? 1 : n_bands;
   Ray<kMaxK> r;
   if constexpr (kMaxK == kWideK) {
@@ -444,7 +452,7 @@ struct BounceArgs {
   const float* scal;
   const float* bounds;
   float sr;
-  uint32_t key0, key1, entry;
+  uint32_t key0, key1, entry, frame_offset;
   int n_rays, id0, n_slots, max_bounces, bounce, ir_length;
   const double* scale;
   const long long* perm;
@@ -474,10 +482,10 @@ cudaError_t launch_bounce(Kernel kernel, const BounceArgs& a,
       reinterpret_cast<const float4*>(a.aabb),
       reinterpret_cast<const float4*>(a.saabb), a.n_clusters, a.group,
       a.cluster_size, a.listeners, a.n_listeners, a.src_c, a.n_src, a.mic_c,
-      a.n_mic, a.scal, a.bounds, a.sr, a.key0, a.key1, a.entry, a.n_rays,
-      a.id0, a.n_slots, a.max_bounces, a.bounce, a.ir_length, a.scale,
-      a.perm, a.state_in, a.istate_in, a.state_out, a.istate_out, a.en_in,
-      a.en_out, a.keys_out, a.acc, a.work);
+      a.n_mic, a.scal, a.bounds, a.sr, a.key0, a.key1, a.entry,
+      a.frame_offset, a.n_rays, a.id0, a.n_slots, a.max_bounces, a.bounce,
+      a.ir_length, a.scale, a.perm, a.state_in, a.istate_in, a.state_out,
+      a.istate_out, a.en_in, a.en_out, a.keys_out, a.acc, a.work);
   return cudaGetLastError();
 }
 
@@ -516,11 +524,11 @@ extern "C" {
 // i64: the Morton code of its new position within bounds [4] = (lo x, lo
 // y, span x, span y), or 0xFFFFFFFF if it died (ops/accel.py::
 // morton_ray_keys). K = n_bands: K = 1 keeps the energy in state row 4
-// (id0 = 0: K8); K > 1 keeps the energies in en_in (read, bounce > 0) and
-// en_out (written), two other buffers of n_slots * kp floats, kp = K
-// rounded up to 4: up to 8 bands ray-major, slot s's row of kp at s * kp
-// (16-byte aligned buffers), past 8 band-major, band k of slot s at k *
-// n_slots + s. Hits
+// (id0 = 0: K8, whose frames move by frame_offset alone); K > 1 keeps the
+// energies in en_in (read, bounce > 0) and en_out (written), two other
+// buffers of n_slots * kp floats, kp = K rounded up to 4: up to 8 bands
+// ray-major, slot s's row of kp at s * kp (16-byte aligned buffers), past
+// 8 band-major, band k of slot s at k * n_slots + s. Hits
 // add to acc [L, T, K] u64 (zeroed by the caller before the first bounce
 // of a call; art_fixed_to_float converts it after the last). walls [10 +
 // K, W] (see WallField; W = n_clusters * cluster_size, Morton-sorted), geo
@@ -529,10 +537,13 @@ extern "C" {
 // boxes in shared memory), scal [5] = (source x, source y, listener
 // radius, speed of sound, input gain), all device f32; scale one device
 // double; work, if not null, three device u64 (wall tests, wall sweeps,
-// slab tests). Philox counter (ray, frame, bounce, entry) under (key0,
-// key1). src_c [n_src] and mic_c [L, n_mic] (device f32, n odd) are the
-// source and microphone patterns of a directive trace, both null for
-// omni. Returns a cudaError_t code (0 = launched).
+// slab tests). Philox counter (ray, frame_offset + frame, bounce, entry)
+// under (key0, key1), frame = id / n_rays; the pass's last frame word,
+// frame_offset + (id0 + n_slots) / n_rays - 1, must fit 32 bits (a
+// launch past it is refused, never wrapped). src_c [n_src] and mic_c [L,
+// n_mic] (device f32, n odd) are the source and microphone patterns of a
+// directive trace, both null for omni. Returns a cudaError_t code (0 =
+// launched).
 int art_accel_bounce(const float* walls, const float* geo, int n_walls,
                      int n_bands, const float* aabb, const float* saabb,
                      int n_clusters, int group, int cluster_size,
@@ -540,8 +551,9 @@ int art_accel_bounce(const float* walls, const float* geo, int n_walls,
                      const float* src_c, int n_src, const float* mic_c,
                      int n_mic, const float* scal, const float* bounds,
                      float sr, unsigned int key0, unsigned int key1,
-                     unsigned int entry, int n_rays, int id0, int n_slots,
-                     int max_bounces, int bounce, int ir_length,
+                     unsigned int entry, unsigned int frame_offset,
+                     int n_rays, int id0, int n_slots, int max_bounces,
+                     int bounce, int ir_length,
                      const double* scale, const long long* perm,
                      const float* state_in, const int* istate_in,
                      float* state_out, int* istate_out, const float* en_in,
@@ -560,6 +572,8 @@ int art_accel_bounce(const float* walls, const float* geo, int n_walls,
       n_slots % n_rays != 0 || id0 < 0 || id0 % n_rays != 0 ||
       (!banded && id0 != 0) ||
       static_cast<long long>(id0) + n_slots > 0x7fffffffll ||
+      frame_offset + (static_cast<unsigned long long>(id0) + n_slots) /
+              n_rays > 0x100000000ull ||
       max_bounces < 1 || bounce < 0 || bounce >= max_bounces ||
       ir_length < 1 || state_out == nullptr || istate_out == nullptr ||
       keys_out == nullptr || state_out == state_in ||
@@ -572,9 +586,10 @@ int art_accel_bounce(const float* walls, const float* geo, int n_walls,
   const BounceArgs a{walls, geo, n_walls, n_bands, aabb, saabb, n_clusters,
                      group, cluster_size, listeners, n_listeners, src_c,
                      n_src, mic_c, n_mic, scal, bounds, sr, key0, key1,
-                     entry, n_rays, id0, n_slots, max_bounces, bounce,
-                     ir_length, scale, perm, state_in, istate_in, state_out,
-                     istate_out, en_in, en_out, keys_out, acc, work};
+                     entry, frame_offset, n_rays, id0, n_slots, max_bounces,
+                     bounce, ir_length, scale, perm, state_in, istate_in,
+                     state_out, istate_out, en_in, en_out, keys_out, acc,
+                     work};
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_kernel(
       n_bands, early_out, directive,

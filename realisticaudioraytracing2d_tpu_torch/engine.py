@@ -25,11 +25,14 @@ Routing of :func:`trace_accumulate` (the JAX package's
   kernels' plain version), and ``backend="plain"`` forces the plain path
   on either device (the JAX package's ``backend="jnp"``).
 
-Every kernel takes any listener count (listener blocks where a block's
-shared memory is too small for all of them). What a kernel does not take
-raises on CUDA and is never rerouted: host ``uniforms`` on a route whose
-kernel draws its own numbers, and patterns too large for a block's shared
-memory; both messages name ``backend='plain'``.
+Every route takes a Philox ``entry`` and a ``frame_offset`` (K4 and the
+cluster kernels alike), so a ray-sharded or frame-sharded run
+(``parallel/``) takes a scene of any wall count, as the JAX package's
+does. Every kernel takes any listener count (listener blocks where a
+block's shared memory is too small for all of them). What a kernel does
+not take raises on CUDA and is never rerouted: host ``uniforms`` on a
+route whose kernel draws its own numbers, and patterns too large for a
+block's shared memory; both messages name ``backend='plain'``.
 
 Routing of a request for hit RECORDS (:func:`trace_hits`: the legacy
 spectro-IR, anything that consumes individual hits instead of a binned
@@ -91,11 +94,13 @@ def trace_ir(scene: Scene, params: TraceParams, *, n_rays: int,
     """The frame-summed IR ``[L, T, K]`` of ``n_frames`` frames, routed as
     :func:`trace_accumulate` (which adds it to its state). ``entry`` and
     ``frame_offset`` name the Philox stream as the kernels' arguments of
-    those names do (:func:`..ops.cuda.bounce_kernel.trace_frames_ir_mega`):
-    the shard of a ray-sharded trace draws entry ``d``, the shard of a
-    frame-sharded run the frames from ``frame_offset`` on. The cluster
-    kernels take an entry and no frame offset: on their route a frame
-    offset raises."""
+    those names do (:func:`..ops.cuda.bounce_kernel.trace_frames_ir_mega`,
+    :func:`..ops.cuda.accel_kernel.trace_frames_ir_accel_sorted`), on
+    every route: the shard of a ray-sharded trace draws entry ``d``, the
+    shard of a frame-sharded run the frames from ``frame_offset`` on.
+    Host ``uniforms`` are the frames' numbers themselves: with them the
+    offset names nothing and is not used (a sharded caller slices the
+    uniforms of its frames)."""
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got "
                          f"{backend!r}")
@@ -104,14 +109,11 @@ def trace_ir(scene: Scene, params: TraceParams, *, n_rays: int,
     if backend == "accel" or (backend == "auto"
                               and scene.device.type == "cuda"
                               and scene.n_walls > bk.MAX_WALLS):
-        if frame_offset and uniforms is None:
-            raise ValueError(
-                "the cluster kernels K7/K8 draw frames from 0: a frame "
-                "offset (a frame-sharded run) takes scenes of at most "
-                f"{bk.MAX_WALLS} walls, or uniforms= with backend='plain'")
         return _trace_accel(scene, params, seed, n_frames, uniforms,
                             n_rays=n_rays, max_bounces=max_bounces,
-                            entry=entry, **kw)
+                            entry=entry,
+                            frame_offset=0 if uniforms is not None
+                            else frame_offset, **kw)
     if uniforms is None:
         mega = bk.trace_frames_ir_mega_plain if plain \
             else bk.trace_frames_ir_mega
@@ -131,20 +133,22 @@ def trace_ir(scene: Scene, params: TraceParams, *, n_rays: int,
 
 def _trace_accel(scene: Scene, params: TraceParams, seed: int,
                  n_frames: int, uniforms, entry: int = 0,
-                 **kw) -> torch.Tensor:
+                 frame_offset: int = 0, **kw) -> torch.Tensor:
     """The cluster path: K8 for K = 1, K7 for banded scenes (both the
-    sorted bounce kernel), or their plain version on a CPU scene. Host
+    sorted bounce kernel), or their plain version on a CPU scene, on the
+    Philox frames ``frame_offset ..`` of ``seed`` and ``entry``. Host
     ``uniforms`` reach only the plain version: the kernels draw their own
     numbers."""
     if scene.device.type != "cuda":
         return ak.trace_frames_ir_accel_sorted_plain(
             scene, params, seed, n_frames, uniforms=uniforms, entry=entry,
-            **kw)
+            frame_offset=frame_offset, **kw)
     if uniforms is not None:
         raise ValueError("the cluster kernels draw their own numbers: "
                          "uniforms= needs backend='plain'")
     return ak.trace_frames_ir_accel_sorted(scene, params, seed, n_frames,
-                                           entry=entry, **kw)
+                                           entry=entry,
+                                           frame_offset=frame_offset, **kw)
 
 
 def trace_hits(scene: Scene, params: TraceParams, emit: torch.Tensor,

@@ -32,8 +32,11 @@ numbers and scale, so the blocks give the whole launch's bits.
 They return the frame-SUMMED IR ``[L, T, K]`` and draw Philox numbers in
 the kernel under the key of ``seed``, counter (ray, frame, bounce,
 entry): with ``entry=0`` the numbers K4 draws, so on a sorted scene K7
-and K8 equal K4 bit for bit. ``early_out=False`` visits every cluster (the
-brute-force yardstick) and gives the same bits.
+and K8 equal K4 bit for bit. ``frame_offset`` moves the frames to
+``frame_offset ..`` of the stream, as K4's does (the shard of a
+frame-sharded run); 0 gives the bits of the launch without it.
+``early_out=False`` visits every cluster (the brute-force yardstick) and
+gives the same bits.
 
 :func:`trace_rooms_ir_accel` is the batched path of scenes past the bounce
 kernel's wall limit (sweeps and mixdowns): one K8 (K = 1) or K7 call per
@@ -70,9 +73,11 @@ from . import build
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _BOUNCE_ARGTYPES = (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P,
-                    _I, _P, _P, ctypes.c_float, _U, _U, _U, _I, _I, _I, _I,
-                    _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                    _P)
+                    _I, _P, _P, ctypes.c_float, _U, _U, _U, _U, _I, _I, _I,
+                    _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                    _P, _P)
+# frames a launch can draw: the Philox counter's frame word is 32 bits
+FRAME_WORDS = 1 << 32
 # scenes whose sorted tables prepare() keeps
 PREPARED_SCENES = 8
 # K7's register buckets of a ray's band energies (csrc/accel_kernel.cu::
@@ -186,11 +191,27 @@ def _listener_step(prep: "AccelScene", n_src: int, n_mic: int) -> int:
     return step
 
 
+def check_frame_offset(frame_offset: int, n_frames: int) -> None:
+    """Raise for frames ``frame_offset .. frame_offset + n_frames - 1``
+    that leave the Philox counter's 32-bit frame word (the kernel refuses
+    such a launch; nothing wraps)."""
+    if frame_offset < 0 or frame_offset + n_frames > FRAME_WORDS:
+        raise ValueError(
+            f"frames {frame_offset} .. {frame_offset + n_frames - 1} leave "
+            f"the Philox frame word [0, {FRAME_WORDS})")
+
+
 def _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms,
-              entry=0):
+              entry=0, frame_offset=0):
+    check_frame_offset(frame_offset, n_frames)
     if uniforms is None:
         return rng.philox_uniforms(seed, n_frames, max_bounces, n_rays,
-                                   scene.device, entry=entry)
+                                   scene.device, entry=entry,
+                                   first_frame=frame_offset)
+    if frame_offset:
+        raise ValueError("uniforms= are the frames' numbers themselves: a "
+                         "frame offset names Philox frames and takes no "
+                         "uniforms")
     emit, u = uniforms
     if emit.shape != (n_frames, n_rays) or \
             u.shape != (n_frames, max_bounces, n_rays, 3):
@@ -250,17 +271,19 @@ def trace_frames_ir_accel_plain(scene: Scene, params: TraceParams, seed: int,
                                 max_bounces: int, sample_rate: int,
                                 ir_length: int, uniforms=None,
                                 ray_chunk: Optional[int] = None,
-                                entry: int = 0) -> torch.Tensor:
+                                entry: int = 0,
+                                frame_offset: int = 0) -> torch.Tensor:
     """The unsorted reference of K7 and K8 (the tests'; the JAX K7's
     order): :func:`.bounce_kernel.trace_frames_ir_plain`
     on the :func:`..accel.cluster_scene`-sorted scene, fed the Philox
-    numbers the kernel draws for ``seed`` and ``entry`` or host
-    ``uniforms = (emit[F, R], u[F, B, R, 3])``. Returns ``[L, T, K]``.
+    numbers the kernel draws for ``seed``, ``entry`` and ``frame_offset``
+    or host ``uniforms = (emit[F, R], u[F, B, R, 3])``. Returns
+    ``[L, T, K]``.
     With ``ray_chunk`` the same trace runs each bounce over slices of that
     many rays (a ``[131072, 40008]`` f32 temporary would take 21 GB),
     scattering the hits bounce by bounce."""
     emit, u = _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms,
-                        entry)
+                        entry, frame_offset)
     prep = prepare(scene)
     if ray_chunk is None:
         return bk.trace_frames_ir_plain(prep.scene, params, emit, u,
@@ -278,15 +301,18 @@ def trace_frames_ir_accel_sorted_plain(scene: Scene, params: TraceParams,
                                        sample_rate: int, ir_length: int,
                                        uniforms=None,
                                        ray_chunk: Optional[int] = None,
-                                       entry: int = 0) -> torch.Tensor:
+                                       entry: int = 0,
+                                       frame_offset: int = 0
+                                       ) -> torch.Tensor:
     """Plain version of K7 and K8: the ``F * R`` rays of all frames bounce
     by bounce through ``ops/trace.py::_bounce`` on the sorted scene, each fed
-    the numbers of its original (frame, ray) id (and ``entry``), their
-    hits scattered after every bounce, and the rays re-sorted by
+    the numbers of its original (frame, ray) id (and ``entry``; frame
+    ``f`` draws Philox frame ``frame_offset + f``), their hits scattered
+    after every bounce, and the rays re-sorted by
     :func:`..accel.morton_ray_keys` between bounces. ``ray_chunk`` runs
     each bounce over slices of that many rays. Returns ``[L, T, K]``."""
     emit, u = _uniforms(scene, seed, n_frames, n_rays, max_bounces, uniforms,
-                        entry)
+                        entry, frame_offset)
     _check_supported(params)
     return _trace_rays_plain(prepare(scene), params, emit, u, resort=True,
                              ray_chunk=ray_chunk, sample_rate=sample_rate,
@@ -297,6 +323,7 @@ def trace_frames_ir_accel(scene: Scene, params: TraceParams, seed: int,
                           n_frames: int, *, n_rays: int, max_bounces: int,
                           sample_rate: int, ir_length: int,
                           early_out: bool = True, entry: int = 0,
+                          frame_offset: int = 0,
                           work_counts: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """K7: ``n_frames`` frames of any wall count and any K bands ->
@@ -309,7 +336,7 @@ def trace_frames_ir_accel(scene: Scene, params: TraceParams, seed: int,
         scene, params, seed, n_frames, n_rays=n_rays,
         max_bounces=max_bounces, sample_rate=sample_rate,
         ir_length=ir_length, early_out=early_out, entry=entry,
-        work_counts=work_counts)
+        frame_offset=frame_offset, work_counts=work_counts)
 
 
 def _blocks(prep: AccelScene, params: TraceParams):
@@ -351,17 +378,20 @@ def frames_per_pass(n_bands: int, n_frames: int, n_rays: int) -> int:
 
 
 def _run_sorted(scene, params, seed, n_frames, n_rays, max_bounces,
-                sample_rate, ir_length, early_out, entry, work_counts,
-                keys_out) -> torch.Tensor:
+                sample_rate, ir_length, early_out, entry, frame_offset,
+                work_counts, keys_out) -> torch.Tensor:
     """The launches of a K7/K8 call. For each listener block and each pass
     of frames (:func:`frames_per_pass`): ``max_bounces`` launches over the
-    pass's rays; a launch writes every ray to its slot of a second state
-    buffer (and, at K > 1, its energies to a second energy buffer, of
-    :func:`energy_rows` floats a ray) together with its next sort key, and
-    between two launches the wrapper only sorts the keys. All passes add
+    pass's rays, each drawing its frames from ``frame_offset`` on (a
+    pass's ray ids, ``id0``, count from the call's first frame); a launch
+    writes every ray to its slot of a second state buffer (and, at K > 1,
+    its energies to a second energy buffer, of :func:`energy_rows` floats
+    a ray) together with its next sort key, and between two launches the
+    wrapper only sorts the keys. All passes add
     to one u64 accumulator, converted once. The launches count in K8's
     ``.launches`` at K = 1 and in K7's past it."""
     check_accel_supported(scene, params)
+    check_frame_offset(frame_offset, n_frames)
     prep = prepare(scene)
     dev = scene.device
     n_k = scene.n_bands
@@ -402,9 +432,9 @@ def _run_sorted(scene, params, seed, n_frames, n_rays, max_bounces,
                          prep.cluster_size, lis.data_ptr(), n_b, *pats[0],
                          scal.data_ptr(), prep.bounds.data_ptr(),
                          float(sample_rate), key[0], key[1],
-                         int(entry) & 0xFFFFFFFF, n_rays, f0 * n_rays,
-                         n_pass, max_bounces, b, ir_length,
-                         scale.data_ptr(),
+                         int(entry) & 0xFFFFFFFF, int(frame_offset),
+                         n_rays, f0 * n_rays, n_pass, max_bounces, b,
+                         ir_length, scale.data_ptr(),
                          perm.data_ptr() if perm is not None else None,
                          state[src].data_ptr(), istate[src].data_ptr(),
                          state[dst].data_ptr(), istate[dst].data_ptr(),
@@ -434,7 +464,7 @@ def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
                                  seed: int, n_frames: int, *, n_rays: int,
                                  max_bounces: int, sample_rate: int,
                                  ir_length: int, early_out: bool = True,
-                                 entry: int = 0,
+                                 entry: int = 0, frame_offset: int = 0,
                                  work_counts: Optional[torch.Tensor] = None,
                                  keys_out: Optional[list] = None
                                  ) -> torch.Tensor:
@@ -453,21 +483,24 @@ def trace_frames_ir_accel_sorted(scene: Scene, params: TraceParams,
     :func:`trace_frames_ir_accel_sorted_plain`.
 
     ``entry``: Philox counter word 3, the global id of a batch entry (0:
-    K4's numbers). ``work_counts``: an int64 CUDA tensor ``[3]`` to which
-    the launches add the wall tests, wall sweeps and slab tests they
-    really made (a listener block reruns every bounce on the same rays).
-    ``keys_out``, a list,
-    receives after each launch ``(state[8, N], istate[2, N], keys[N])`` as
+    K4's numbers). ``frame_offset``: frame ``f`` draws Philox frame
+    ``frame_offset + f`` (counter word 1, as K4's argument of that name:
+    the shard of a frame-sharded run), in every pass and listener block;
+    0 keeps the bits of the call without it. ``work_counts``: an int64
+    CUDA tensor ``[3]`` to which the launches add the wall tests, wall
+    sweeps and slab tests they really made (a listener block reruns every
+    bounce on the same rays). ``keys_out``, a list, receives after each
+    launch ``(state[8, N], istate[2, N], keys[N])`` as
     the kernel left them (clones: a check of the in-kernel keys against
     :func:`..accel.morton_ray_keys`)."""
     if scene.device.type != "cuda":
         return trace_frames_ir_accel_sorted_plain(
             scene, params, seed, n_frames, n_rays=n_rays,
             max_bounces=max_bounces, sample_rate=sample_rate,
-            ir_length=ir_length, entry=entry)
+            ir_length=ir_length, entry=entry, frame_offset=frame_offset)
     return _run_sorted(scene, params, seed, n_frames, n_rays, max_bounces,
-                       sample_rate, ir_length, early_out, entry, work_counts,
-                       keys_out)
+                       sample_rate, ir_length, early_out, entry, frame_offset,
+                       work_counts, keys_out)
 
 
 def _accel_entries(scenes: Scene, sources, listeners, kw):

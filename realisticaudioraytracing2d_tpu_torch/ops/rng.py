@@ -142,12 +142,15 @@ def philox_uniforms(seed: int, n_frames: int, max_bounces: int,
 
 
 def bounce_uniforms(generator: torch.Generator, n_frames: int,
-                    max_bounces: int, n_rays: int, device=None
+                    max_bounces: int, n_rays: int, device=None, *,
+                    n_listeners: int = 1
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-draw every uniform ``n_frames`` traces consume from a torch
     Generator: ``(emit[F, R], u[F, B, R, 3])``, the 3 slots per bounce
     being transmission test, refraction jitter and diffuse angle
-    (``Raytrace2D.compute:129, 137, 150``)."""
+    (``Raytrace2D.compute:129, 137, 150``). The draws are the same for
+    any ``n_listeners``, as in the JAX package's function of this name:
+    every listener hears the same rays."""
     device = resolve(device)
     emit = torch.rand((n_frames, n_rays), generator=generator,
                       device=device, dtype=torch.float32)

@@ -7,18 +7,20 @@ exact. Each shard runs the full single-frame workload (all rays, all
 walls) on its slice of the frame stream: shard ``d`` runs frames
 ``d * local .. (d + 1) * local - 1`` of the unsharded stream, as the JAX
 package's jnp path does (``frame_key(key, d * local + i)``). On a CUDA
-scene that is one K4 launch of ``local`` frames with ``frame_offset =
-d * local`` (the frames' Philox counter word 1), so the sharded IR is the
-unsharded IR summed in another order.
+scene that is one kernel call of ``local`` frames with ``frame_offset =
+d * local`` (the frames' Philox counter word 1): one K4 launch up to
+5,280 walls, and past them ``max_bounces`` launches of the cluster kernel
+(K8 at one band, K7 at more), so a scene of any wall count shards, as in
+the JAX package; the sharded IR is the unsharded IR summed in another
+order.
 
-The kernel's fixed-point scale depends on the launch's frame count
+The kernels' fixed-point scale depends on the call's frame count
 (:func:`..ops.cuda.bounce_kernel.fixed_point_scale`), so a shard rounds
-each deposit to ``1 / S_d`` where the unsharded launch rounds to
-``1 / S``: a bin of ``n`` deposits differs from the unsharded bin by at
-most ``n / S`` (``n <= F * R * 2 * B``), plus the float rounding of the
-sum over shards. The plain path bins in float and differs by the order of
-the sum alone. The cluster kernels K7/K8 draw frames from 0: a CUDA scene
-past 5,280 walls raises here (:func:`..engine.trace_ir`).
+each deposit to ``1 / S_d`` where the unsharded call rounds to ``1 / S``:
+a bin of ``n`` deposits differs from the unsharded bin by at most ``n /
+S`` (``n <= F * R * 2 * B``), plus the float rounding of the sum over
+shards. The plain path bins in float and differs by the order of the sum
+alone.
 """
 
 from __future__ import annotations

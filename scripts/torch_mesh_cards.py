@@ -10,8 +10,11 @@ card: the sweep at ``cli sweep``'s defaults (1,024 rooms, 15,000 x 5 x 8
 frames, 72,000 bins) == ``sweep_rooms`` bit for bit with one K9 launch a
 card; the 64-source stereo mixdown within 1e-6 of the peak; 8 frames of
 SmollRoom at 131,072 x 8 within the fixed point of
-``trace_accumulate``; 131,072 rays == the sum of K4's entries traced on
-the first card, bit for bit; the time-sharded convolution within 1e-5 of
+``trace_accumulate``; 8 frames of the 10,008-wall city at 15,000 x 5
+(one K8 call of ``max_bounces`` launches a card, ``frame_offset`` the
+card's first frame) within the fixed point of the unsharded K8 call;
+131,072 rays == the sum of K4's entries traced on the first card, bit
+for bit; the time-sharded convolution within 1e-5 of
 the peak; ``localize_source(mesh=)`` == ``mesh=None`` start by start;
 ``cli sweep --sharded`` (which splits the rooms here) == the run without
 the flag. Times: wall clock over calls that end with every card
@@ -41,7 +44,7 @@ from realisticaudioraytracing2d_tpu_torch.engine import \
 from realisticaudioraytracing2d_tpu_torch.models.materials import \
     AudioMaterial  # noqa: E402
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import (  # noqa: E402
-    bounce_kernel as bk, build)
+    accel_kernel as ak, bounce_kernel as bk, build)
 from realisticaudioraytracing2d_tpu_torch.parallel import (  # noqa: E402
     frames, multisource, rays, seq)
 from realisticaudioraytracing2d_tpu_torch.parallel.mesh import \
@@ -167,6 +170,36 @@ def main():
     print(f"frames, {n_frames} over {n} cards: within the fixed point; "
           f"rays, {BIG_RAYS} over {n} cards == K4's entries on cuda:0 bit "
           f"for bit; frames ms {out['frames_ms']}", flush=True)
+
+    # frames of the 10,008-wall city: K8 at a frame offset on every card
+    city = art.rooms.city_scene(2500, device=dev)
+    p9 = art.TraceParams.make(city.source, city.listener,
+                              city.listener_radius, 343.0, 100.0,
+                              device=dev)
+    city_kw = dict(n_rays=RAYS, max_bounces=BOUNCES, sample_rate=SR)
+    ak.trace_frames_ir_accel_sorted.launches = 0
+    c_sh = frames.accumulate_frames_sharded(city.scene, p9, st0, 2024,
+                                            rooms_mesh, n_frames=n_frames,
+                                            **city_kw)
+    sync_all()
+    launches = ak.trace_frames_ir_accel_sorted.launches
+    c_un = ak.trace_frames_ir_accel_sorted(city.scene, p9, 2024, n_frames,
+                                           ir_length=T, **city_kw)
+    res = 1.0 / float(bk.fixed_point_scale(p9, n_frames, RAYS, BOUNCES))
+    limit = n_frames * RAYS * 2 * BOUNCES * res + 1e-6 * c_un.abs()
+    check(launches == n * BOUNCES and float(c_un.sum()) > 0
+          and bool(((c_sh.sum - c_un).abs() <= limit).all()),
+          f"city frames: {launches} K8 launches, within the fixed point")
+    out["city_frames_ms"] = {
+        "sharded": wall_ms(lambda: frames.accumulate_frames_sharded(
+            city.scene, p9, st0, 2024, rooms_mesh, n_frames=n_frames,
+            **city_kw)),
+        "unsharded": wall_ms(lambda: ak.trace_frames_ir_accel_sorted(
+            city.scene, p9, 2024, n_frames, ir_length=T, **city_kw))}
+    print(f"city frames, {city.scene.n_walls} walls, {n_frames} over {n} "
+          f"cards: {launches} K8 launches, within the fixed point of the "
+          f"unsharded K8 call; ms {out['city_frames_ms']}", flush=True)
+    del c_sh, c_un
 
     # time, starts, the CLI
     gen = torch.Generator(device=dev).manual_seed(4)

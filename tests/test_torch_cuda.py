@@ -31,7 +31,12 @@ JAX's transmission and two-source recovery tests, too long for the CPU;
 then K4's ``frame_offset`` and ``entry`` against K3 on the same Philox
 numbers (bit for bit) and the device-mesh paths on a virtual mesh of the
 card (the sharded sweep bit for bit, frames within the fixed point, rays
-shard by shard, the mixdown within the float sum).
+shard by shard, the mixdown within the float sum); then the cluster
+kernels' ``frame_offset``: K8 and K7 (K = 1) == K4 at the same offset
+on a sorted city bit for bit, K8 and the 8-band K7 at an offset against
+their plain twin, K7's passes at an offset == one pass, and frame shards
+of the 10,008-wall city (K8) within the fixed point of the unsharded
+call.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
 file imports no JAX, so it runs on a machine without it:
@@ -451,7 +456,7 @@ def test_k8_refuses_buffers_it_cannot_ping_pong(cuda_device):
     energy = torch.empty((2, n * 8 + 4), device=cuda_device)
 
     def launch(bounce, perm_ptr, src, dst, n_bands=1, e_src=0, e_dst=1,
-               shift=0):
+               shift=0, frame_offset=0, n_rays=n):
         en = (None, None) if n_bands == 1 else (
             energy[e_src].data_ptr() + shift, energy[e_dst].data_ptr())
         return fn(prep.walls.data_ptr(), prep.geo.data_ptr(),
@@ -459,13 +464,18 @@ def test_k8_refuses_buffers_it_cannot_ping_pong(cuda_device):
                   prep.saabb.data_ptr(), prep.n_clusters, prep.group,
                   prep.cluster_size, None, 1, None, 0, None, 0, None,
                   prep.bounds.data_ptr(),
-                  16000.0, 0, 0, 0, n, 0, n, 2, bounce, 100, None, perm_ptr,
+                  16000.0, 0, 0, 0, frame_offset, n_rays, 0, n, 2, bounce,
+                  100, None, perm_ptr,
                   state[src].data_ptr(), istate[src].data_ptr(),
                   state[dst].data_ptr(), istate[dst].data_ptr(), *en,
                   keys.data_ptr(), None, 1, None, None)
 
     assert launch(1, perm.data_ptr(), 0, 0) == 1    # cudaErrorInvalidValue
     assert launch(1, None, 0, 1) == 1
+    # the frame word: the last frame of a launch must fit 32 bits (2
+    # frames of 500 rays from 2^32 - 1 would wrap); nothing is launched
+    assert launch(0, None, 0, 1, frame_offset=(1 << 32) - 1,
+                  n_rays=n // 2) == 1
     # K > 1: the energies ping-pong between two buffers as well, and the
     # register bucket's rows take 16-byte loads
     assert launch(1, perm.data_ptr(), 0, 1, 8, 0, 0) == 1
@@ -2303,3 +2313,104 @@ def test_sharded_paths_on_a_virtual_mesh_of_the_card(cuda_device):
     assert float(whole.sum()) > 0
     np.testing.assert_allclose(to_numpy(mixed), to_numpy(whole), rtol=1e-5,
                                atol=1e-9)
+
+
+# -- frame offsets in the cluster kernels ------------------------------------
+
+@cuda
+def test_k7_k8_at_a_frame_offset_are_k4_at_it_on_a_sorted_city(cuda_device):
+    """K8 and K7 at one band (K8's instantiation) on the Morton-sorted
+    4,808-wall city equal K4 on the sorted table at the same
+    ``frame_offset`` bit for bit, at 0 (the calls without an offset) and
+    at 5 (the frames 5, 6, 7 of the stream: K3 on those rows)."""
+    scene, params = _city(cuda_device, 1200)
+    sorted_scene = ak.prepare(scene).scene
+    assert sorted_scene.n_walls <= bk.MAX_WALLS
+    for f in (0, 5):
+        k4 = bk.trace_frames_ir_mega(sorted_scene, params, 8, 3,
+                                     frame_offset=f, **ACCEL_KW)
+        before = _launch_counts()
+        k8 = ak.trace_frames_ir_accel_sorted(scene, params, 8, 3,
+                                             frame_offset=f, **ACCEL_KW)
+        k7 = ak.trace_frames_ir_accel(scene, params, 8, 3, frame_offset=f,
+                                      **ACCEL_KW)
+        assert _launch_counts()[3] == before[3] + 2 * 5
+        torch.cuda.synchronize()
+        assert float(k4.sum()) > 0, f
+        assert torch.equal(k8, k4) and torch.equal(k7, k4), f
+    emit, u = rng.philox_uniforms(8, 3, 5, ACCEL_KW["n_rays"], cuda_device,
+                                  first_frame=5)
+    k3 = bk.trace_frames_ir_whole(sorted_scene, params, emit, u,
+                                  sample_rate=ACCEL_KW["sample_rate"],
+                                  ir_length=ACCEL_KW["ir_length"])
+    torch.cuda.synchronize()
+    assert torch.equal(k8, k3)
+    assert torch.equal(ak.trace_frames_ir_accel_sorted(
+        scene, params, 8, 3, **ACCEL_KW), ak.trace_frames_ir_accel_sorted(
+        scene, params, 8, 3, frame_offset=0, **ACCEL_KW))
+
+
+@cuda
+@pytest.mark.parametrize("kernel,n_bands", [("K8", 1), ("K7", 8)])
+def test_cluster_kernels_at_a_frame_offset_match_plain(cuda_device, kernel,
+                                                       n_bands):
+    """K8 and the 8-band K7 at ``frame_offset=5`` on the 10,008-wall city
+    against their plain twin at the same offset (the limits above)."""
+    scene, params = _city(cuda_device, 2500, n_bands)
+    fn = (ak.trace_frames_ir_accel if kernel == "K7"
+          else ak.trace_frames_ir_accel_sorted)
+    got = fn(scene, params, 21, 2, frame_offset=5, **ACCEL_KW)
+    want = ak.trace_frames_ir_accel_sorted_plain(scene, params, 21, 2,
+                                                 frame_offset=5, **ACCEL_KW)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (1, ACCEL_KW["ir_length"], n_bands)
+    for k in range(n_bands):
+        _assert_close_irs(got[..., k], want[..., k])
+    assert not torch.equal(got, fn(scene, params, 21, 2, **ACCEL_KW))
+
+
+@cuda
+def test_k7_passes_at_a_frame_offset_equal_one_pass(cuda_device,
+                                                    monkeypatch):
+    """K7's passes of frames (``frames_per_pass``) draw frames
+    ``frame_offset + f0 ..``: 5 frames from offset 4 in passes of 2 equal
+    the one-pass call bit for bit (the u64 accumulator sums either
+    order)."""
+    scene, params = _city(cuda_device, 300, 8)
+    run = lambda: ak.trace_frames_ir_accel(  # noqa: E731
+        scene, params, 3, 5, frame_offset=4, **ACCEL_KW)
+    one = run()
+    monkeypatch.setattr(bk, "SCRATCH_FLOATS",
+                        2 * 2 * ACCEL_KW["n_rays"] * ak.energy_rows(8))
+    assert ak.frames_per_pass(8, 5, ACCEL_KW["n_rays"]) == 2
+    before = ak.trace_frames_ir_accel.launches
+    passes = run()
+    torch.cuda.synchronize()
+    assert ak.trace_frames_ir_accel.launches - before == 3 * 5
+    assert float(one.sum()) > 0 and torch.equal(one, passes)
+
+
+@cuda
+def test_frames_sharded_on_a_city_past_the_wall_limit(cuda_device):
+    """``accumulate_frames_sharded`` on the 10,008-wall city over a virtual
+    4-shard mesh of the card: 4 K8 calls of ``max_bounces`` launches, no
+    K4, within ``n / S`` (+ 1e-6 of the value) of the unsharded K8 call."""
+    from realisticaudioraytracing2d_tpu_torch.parallel import frames
+    scene, params = _city(cuda_device, 2500)
+    assert scene.n_walls > bk.MAX_WALLS
+    m4 = _virtual_mesh(cuda_device, (4,))
+    st = art.IRState.zeros(ACCEL_KW["ir_length"], device=cuda_device)
+    run = dict(n_rays=ACCEL_KW["n_rays"], max_bounces=5,
+               sample_rate=ACCEL_KW["sample_rate"])
+    before = _launch_counts()
+    sh = frames.accumulate_frames_sharded(scene, params, st, 7, m4,
+                                          n_frames=8, **run)
+    assert _launch_counts() == (before[0], before[1], before[2],
+                                before[3] + 4 * 5)
+    un = ak.trace_frames_ir_accel_sorted(scene, params, 7, 8, **ACCEL_KW)
+    res = 1.0 / float(bk.fixed_point_scale(params, 8, ACCEL_KW["n_rays"],
+                                           5))
+    limit = 8 * ACCEL_KW["n_rays"] * 2 * 5 * res + 1e-6 * un.abs()
+    torch.cuda.synchronize()
+    assert float(un.sum()) > 0
+    assert sh.frames == 8 and bool(((sh.sum - un).abs() <= limit).all())
