@@ -1,0 +1,9 @@
+"""Host milliseconds a stream chunk spends in the ring (``art.stream.ring``):
+overlap-add, drain and the carried state's copies
+(``benchmark/stages.py``)."""
+
+from benchmark import stages
+
+
+def read(r):
+    return stages.host_ms(r, "ring")

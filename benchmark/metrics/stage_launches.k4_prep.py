@@ -1,0 +1,9 @@
+"""Kernel launch calls a stream chunk issues in K4's argument preparation
+(``art.k4.prep``), inside the retrace: checks, scalars, fixed-point scale,
+pattern tables, the packed wall table (``benchmark/stages.py``)."""
+
+from benchmark import stages
+
+
+def read(r):
+    return stages.launches(r, "k4_prep")

@@ -34,6 +34,11 @@ not take raises on CUDA and is never rerouted: host ``uniforms`` on a
 route whose kernel draws its own numbers, and patterns too large for a
 block's shared memory; both messages name ``backend='plain'``.
 
+Each call of :func:`trace_ir` (and so of :func:`trace_accumulate`) is one
+span of the port's (``utils/profiling.py::span``) named by the route that
+ran: ``art.trace.k4``, ``art.trace.k3``, ``art.trace.cluster`` (K8/K7) or
+``art.trace.plain`` (any plain version, every CPU scene's).
+
 Routing of a request for hit RECORDS (:func:`trace_hits`: the legacy
 spectro-IR, anything that consumes individual hits instead of a binned
 IR), by device and shape:
@@ -61,6 +66,7 @@ from .ops.cuda import accel_kernel as ak
 from .ops.cuda import bounce_kernel as bk
 from .ops import rng
 from .ops.trace import DebugPaths, Hits, TraceParams, trace, trace_hits_only
+from .utils.profiling import span
 
 _BACKENDS = ("auto", "plain", "accel")
 
@@ -106,20 +112,24 @@ def trace_ir(scene: Scene, params: TraceParams, *, n_rays: int,
                          f"{backend!r}")
     kw = dict(sample_rate=sample_rate, ir_length=ir_length)
     plain = backend == "plain"
+    # the span names the route that runs: a kernel's, or the plain version
+    kernel = scene.device.type == "cuda" and not plain
     if backend == "accel" or (backend == "auto"
                               and scene.device.type == "cuda"
                               and scene.n_walls > bk.MAX_WALLS):
-        return _trace_accel(scene, params, seed, n_frames, uniforms,
-                            n_rays=n_rays, max_bounces=max_bounces,
-                            entry=entry,
-                            frame_offset=0 if uniforms is not None
-                            else frame_offset, **kw)
+        with span("trace.cluster" if kernel else "trace.plain"):
+            return _trace_accel(scene, params, seed, n_frames, uniforms,
+                                n_rays=n_rays, max_bounces=max_bounces,
+                                entry=entry,
+                                frame_offset=0 if uniforms is not None
+                                else frame_offset, **kw)
     if uniforms is None:
         mega = bk.trace_frames_ir_mega_plain if plain \
             else bk.trace_frames_ir_mega
-        return mega(scene, params, seed, n_frames, n_rays=n_rays,
-                    max_bounces=max_bounces, entry=entry,
-                    frame_offset=frame_offset, **kw)
+        with span("trace.k4" if kernel else "trace.plain"):
+            return mega(scene, params, seed, n_frames, n_rays=n_rays,
+                        max_bounces=max_bounces, entry=entry,
+                        frame_offset=frame_offset, **kw)
     emit, u = uniforms
     if emit.shape != (n_frames, n_rays) or \
             u.shape != (n_frames, max_bounces, n_rays, 3):
@@ -128,7 +138,8 @@ def trace_ir(scene: Scene, params: TraceParams, *, n_rays: int,
             f"u[{n_frames}, {max_bounces}, {n_rays}, 3]; got "
             f"{tuple(emit.shape)} and {tuple(u.shape)}")
     whole = bk.trace_frames_ir_plain if plain else bk.trace_frames_ir_whole
-    return whole(scene, params, emit, u, **kw)
+    with span("trace.k3" if kernel else "trace.plain"):
+        return whole(scene, params, emit, u, **kw)
 
 
 def _trace_accel(scene: Scene, params: TraceParams, seed: int,
@@ -194,13 +205,14 @@ class Engine:
 
     def params(self, source, listener, directivity=None,
                mic_directivity=None) -> TraceParams:
-        return TraceParams.make(
-            source, listener,
-            listener_radius=self.config.sim.listener_radius,
-            speed_of_sound=self.config.sim.speed_of_sound,
-            input_gain=self.config.sim.input_gain,
-            directivity=directivity, mic_directivity=mic_directivity,
-            device=self.scene.device)
+        with span("params"):
+            return TraceParams.make(
+                source, listener,
+                listener_radius=self.config.sim.listener_radius,
+                speed_of_sound=self.config.sim.speed_of_sound,
+                input_gain=self.config.sim.input_gain,
+                directivity=directivity, mic_directivity=mic_directivity,
+                device=self.scene.device)
 
     def trace_frames(self, params: TraceParams, seed: int = 0,
                      n_frames: int = 1,

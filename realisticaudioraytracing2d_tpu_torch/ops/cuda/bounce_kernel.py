@@ -79,6 +79,7 @@ from ..trace import (Hits, TraceParams, _bounce, _check_supported as
                      _check_trace_supported, _emit, check_patterns,
                      check_single_source, trace_hits_only)
 from . import build
+from ...utils.profiling import span
 
 # 44 B per wall in the 227 KB of shared memory a block can use, leaving
 # room for 16 listeners (kMaxWalls in csrc/bounce_kernel.cu): the routing
@@ -420,14 +421,18 @@ def pack_scalars(params: TraceParams) -> torch.Tensor:
 def _launch_scene(host_uniforms, scene, params, emit, u, key, n_frames,
                   n_rays, max_bounces, sample_rate, ir_length, work_counts,
                   counter, entry=0, frame_offset=0):
-    """K3/K4: one scene, one entry (its Philox entry id ``entry``)."""
-    check_kernel_supported(scene, params)
-    scal = pack_scalars(params)
-    scales = fixed_point_scale(params, n_frames, n_rays, max_bounces)
-    src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
-                              params.listeners.shape[0], scene.device)
-    return _launch(host_uniforms, pack_walls_banded(scene)[None],
-                   params.listeners.contiguous()[None], scal[None], emit, u,
+    """K3/K4: one scene, one entry (its Philox entry id ``entry``). The
+    arguments' preparation, everything before :func:`_launch`, is the span
+    ``art.k4.prep`` (K3's and K6's launches share it)."""
+    with span("k4.prep"):
+        check_kernel_supported(scene, params)
+        scal = pack_scalars(params)
+        scales = fixed_point_scale(params, n_frames, n_rays, max_bounces)
+        src, mic = pattern_tables(params.directivity, params.mic_directivity,
+                                  1, params.listeners.shape[0], scene.device)
+        walls = pack_walls_banded(scene)[None]
+        listeners = params.listeners.contiguous()[None]
+    return _launch(host_uniforms, walls, listeners, scal[None], emit, u,
                    key, entry, n_frames, n_rays, max_bounces, sample_rate,
                    ir_length, scales[None], work_counts, src, mic,
                    scene.n_bands, counter, frame_offset)[0]

@@ -44,6 +44,13 @@ Two Doppler modes (``Streamer.stream_clip(doppler=...)``):
   :func:`_per_arrival_binaural`). The previous chunk's tap table and
   residual ride in :class:`ArrivalCarry`.
 
+Each stage of a chunk is a span of the port's (``utils/profiling.py::
+span``), recorded while a profiler runs (``utils.profiling.device_trace``):
+``art.stream.retrace`` (holding the trace route's ``art.trace.*``),
+``art.stream.addenda``, ``art.stream.decode`` (binaural),
+``art.stream.crossfade`` (or the per-arrival branch) and, in
+:func:`stream_chunk`, ``art.stream.ring``.
+
 The trace of a Doppler chunk is that of the plain or binaural chunk (the
 same kernels); the arrival tables, matching, tap synthesis and warp are
 plain tensor code on the stream's device, as they are ``jnp`` code in JAX,
@@ -66,6 +73,7 @@ from .ops import convolve as cv
 from .ops import ir as irm
 from .ops.rng import mix_seed
 from .ops.trace import TraceParams
+from .utils.profiling import span
 
 # per-arrival Doppler defaults (Streamer kwargs and CLI flags)
 _ARRIVAL_TAPS = 6         # taps tracked per listener
@@ -692,51 +700,56 @@ def wet_chunk(scene: Scene, params: TraceParams, prev_ir: torch.Tensor,
     binaural = binaural_facing is not None
 
     # 1. retrace: a fresh IR for this chunk (RayTraceManager.cs:82-85)
-    tp = spm.binaural_trace_params(params, l) if binaural else params
-    ir_state = trace_accumulate(
-        scene, tp, irm.IRState.zeros(t, tp.listeners.shape[0], k,
-                                     device=scene.device),
-        n_rays=n_rays, max_bounces=max_bounces, sample_rate=sample_rate,
-        n_frames=frames_per_chunk, seed=mix_seed(seed, chunk_index),
-        uniforms=uniforms, backend=backend)
-    cur_ir = _augment_ir(ir_state.normalized(), scene, tp, sample_rate,
-                         diffraction, air_alpha,
-                         plain=backend == "plain")            # [L, T, K]
+    with span("stream.retrace"):
+        tp = spm.binaural_trace_params(params, l) if binaural else params
+        ir_state = trace_accumulate(
+            scene, tp, irm.IRState.zeros(t, tp.listeners.shape[0], k,
+                                         device=scene.device),
+            n_rays=n_rays, max_bounces=max_bounces, sample_rate=sample_rate,
+            n_frames=frames_per_chunk, seed=mix_seed(seed, chunk_index),
+            uniforms=uniforms, backend=backend)
+    with span("stream.addenda"):
+        cur_ir = _augment_ir(ir_state.normalized(), scene, tp, sample_rate,
+                             diffraction, air_alpha,
+                             plain=backend == "plain")        # [L, T, K]
     cur_sp = None
     if binaural:                                  # [3, T, K] -> [2, T, K]
-        cur_sp = cur_ir
-        cur_ir = spm.binaural_decode_ir(
-            cur_sp, sample_rate, binaural_facing, head_radius, shadow,
-            params.speed_of_sound, decorrelate=decorrelate)
+        with span("stream.decode"):
+            cur_sp = cur_ir
+            cur_ir = spm.binaural_decode_ir(
+                cur_sp, sample_rate, binaural_facing, head_radius, shadow,
+                params.speed_of_sound, decorrelate=decorrelate)
 
     # The first chunk has no predecessor: fade in from the current IR.
     is_first = chunk_index == 0
 
     # 2. convolve + crossfade (per-arrival: the taps leave the convolution)
-    if dry_full is None:
-        prev = cur_ir if is_first else prev_ir
-        return _crossfaded_wet(dry_chunk, prev, cur_ir), None, cur_ir, None
-    if arrival is None:
-        raise ValueError("per-arrival Doppler needs the arrival "
-                         "carry: init_stream(..., arrival_taps=A) "
-                         "(Streamer.process allocates it lazily)")
-    window = _device_window(dry_full, n + arrival_early + 2, win_start,
-                            win_prefix, win_cut, window_loop)
-    if binaural:
-        if prev_facing is None:
-            raise ValueError("binaural per-arrival Doppler needs the "
-                             "facing carry: init_stream(..., "
-                             "binaural=True)")
-        prev_fac = binaural_facing if is_first else prev_facing
-        wet, taps, new_carry = _per_arrival_binaural(
-            dry_chunk, window, arrival, cur_sp, prev_fac, binaural_facing,
-            is_first, n, sample_rate, head_radius, shadow,
-            params.speed_of_sound, decorrelate, arrival_taps,
-            arrival_match_bins)
-    else:
-        wet, taps, new_carry = _per_arrival_parts(
-            dry_chunk, window, arrival, cur_ir, is_first, n, k,
-            arrival_taps, arrival_match_bins)
+    with span("stream.crossfade"):
+        if dry_full is None:
+            prev = cur_ir if is_first else prev_ir
+            return (_crossfaded_wet(dry_chunk, prev, cur_ir), None, cur_ir,
+                    None)
+        if arrival is None:
+            raise ValueError("per-arrival Doppler needs the arrival "
+                             "carry: init_stream(..., arrival_taps=A) "
+                             "(Streamer.process allocates it lazily)")
+        window = _device_window(dry_full, n + arrival_early + 2, win_start,
+                                win_prefix, win_cut, window_loop)
+        if binaural:
+            if prev_facing is None:
+                raise ValueError("binaural per-arrival Doppler needs the "
+                                 "facing carry: init_stream(..., "
+                                 "binaural=True)")
+            prev_fac = binaural_facing if is_first else prev_facing
+            wet, taps, new_carry = _per_arrival_binaural(
+                dry_chunk, window, arrival, cur_sp, prev_fac,
+                binaural_facing, is_first, n, sample_rate, head_radius,
+                shadow, params.speed_of_sound, decorrelate, arrival_taps,
+                arrival_match_bins)
+        else:
+            wet, taps, new_carry = _per_arrival_parts(
+                dry_chunk, window, arrival, cur_ir, is_first, n, k,
+                arrival_taps, arrival_match_bins)
     return wet, taps, cur_ir, new_carry
 
 
@@ -779,17 +792,18 @@ def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
     # 3. overlap-add at the stream position (the read head: both advance
     #    one chunk per step), drain one chunk; the taps belong to exactly
     #    this chunk's output samples
-    out = state.ring.push(wet, state.ring.read_head).drain(
-        dry_chunk.shape[-1])
-    if taps is not None:
-        out = out + taps
+    with span("stream.ring"):
+        out = state.ring.push(wet, state.ring.read_head).drain(
+            dry_chunk.shape[-1])
+        if taps is not None:
+            out = out + taps
 
-    state.prev_ir.copy_(cur_ir)
-    if new_carry is not None:
-        state.arrival.copy_(new_carry)
-    if binaural_facing is not None and state.prev_facing is not None:
-        state.prev_facing.fill_(binaural_facing)
-    state.chunk_index += 1
+        state.prev_ir.copy_(cur_ir)
+        if new_carry is not None:
+            state.arrival.copy_(new_carry)
+        if binaural_facing is not None and state.prev_facing is not None:
+            state.prev_facing.fill_(binaural_facing)
+        state.chunk_index += 1
     return out, state
 
 

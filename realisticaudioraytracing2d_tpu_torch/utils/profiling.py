@@ -4,7 +4,8 @@ Port of ``realisticaudioraytracing2d_tpu/utils/profiling.py``: wall-clock
 timers around steps, the domain's derived counts (ray-bounce
 intersections), a metric log that dumps the JAX package's JSON, and a
 device trace around a block (``torch.profiler`` in place of
-``jax.profiler``).
+``jax.profiler``), plus the port's own spans (:func:`span`) at the stage
+boundaries of a stream chunk, which show up in that trace.
 """
 
 from __future__ import annotations
@@ -17,6 +18,12 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+# what span() returns while no profiler records: stateless, so one object
+# serves every (nested) use
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _sync(sync) -> None:
@@ -32,6 +39,19 @@ def _sync(sync) -> None:
         dev = sync.device if isinstance(sync, torch.Tensor) else sync
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+
+def span(name: str):
+    """A context manager around one stage of the port's work, named
+    ``art.<name>``. While a ``torch.profiler`` session records (for one,
+    :func:`device_trace`) it is a host event on the profiler's own
+    timeline, the clock of the card's kernels in the same trace. It is not
+    a user-scope range (``torch.profiler.record_function``), so the card's
+    trace holds no device-side copy of it. With no profiler recording it
+    is a shared null context: one flag read, nothing allocated."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast("art." + name)
 
 
 @dataclass

@@ -36,7 +36,8 @@ kernels' ``frame_offset``: K8 and K7 (K = 1) == K4 at the same offset
 on a sorted city bit for bit, K8 and the 8-band K7 at an offset against
 their plain twin, K7's passes at an offset == one pass, and frame shards
 of the 10,008-wall city (K8) within the fixed point of the unsharded
-call.
+call; last, the port's spans in a traced stream chunk, host events with
+no device-side copy.
 
 Every test here needs an NVIDIA GPU and nvcc and skips elsewhere. This
 file imports no JAX, so it runs on a machine without it:
@@ -2414,3 +2415,32 @@ def test_frames_sharded_on_a_city_past_the_wall_limit(cuda_device):
     torch.cuda.synchronize()
     assert float(un.sum()) > 0
     assert sh.frames == 8 and bool(((sh.sum - un).abs() <= limit).all())
+
+
+@cuda
+def test_stream_spans_on_the_card_have_no_device_echo(cuda_device):
+    """A traced stream chunk on the card records the port's spans on the
+    host (K4's route and its argument preparation inside the retrace) and
+    no device-side event of theirs: the card's trace holds only its
+    kernels, copies and fills."""
+    from torch.profiler import ProfilerActivity, profile
+    scene, params = _setup(cuda_device)
+    cfg = art.smoll_room_config()
+    st = art.Streamer(scene, cfg, seed=1)
+    dry = torch.rand(4800, device=cuda_device)
+    st.process(dry, params)                   # build and warm outside
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st.process(dry, params)
+        torch.cuda.synchronize()
+    cuda_kind = torch.autograd.DeviceType.CUDA
+    host = [e.name for e in prof.events() if e.name.startswith("art.")
+            and e.device_type != cuda_kind]
+    assert sorted(host) == sorted(
+        ["art.stream.retrace", "art.trace.k4", "art.k4.prep",
+         "art.stream.addenda", "art.stream.crossfade", "art.stream.ring"])
+    assert not [e.name for e in prof.events()
+                if e.device_type == cuda_kind and e.name.startswith("art.")]
+    assert any("frames_ir_kernel" in e.name for e in prof.events()
+               if e.device_type == cuda_kind)
