@@ -86,7 +86,13 @@ Phases:
    frame of 15k x 5), then 2.0 s of clicks = 20 chunks + 15 tail chunks
    through K4, and the same stream with one fixed IR through K3, which
    must equal the offline bake; the launch counts are reset before and
-   read after each stream;
+   read after each stream, the argument kernel's too (one a chunk);
+4b. K3/K4/K6's argument kernel (``k4_args``, ``k4_args_kernel``): its
+   wall table, scalars and fixed-point scale against the plain chain
+   (``k4_args_plain``) bit for bit at the stream's and the bench's
+   shapes, 1 and 8 bands, 1 to 64 listeners, omni and directive, one
+   launch a call; its device time against the chain's (``[5]``-style
+   profiler readings), registers and ptxas line;
 6. the sweep: the CLI into a temporary directory (launch counts reset
    before and read after: one K9 launch), its npz read back; K9 over the
    1,024 rooms directly, which must equal the npz times 8 frames, rerun
@@ -679,6 +685,21 @@ def check_work(tag, got, want, exact):
               f"{tag}: work {got} within {WORK_TOLERANCE} of {want}")
 
 
+def profiler_lead_in(torch, n=64):
+    """50 ms of host time and ``n`` short spin kernels (``spin_kernel``)
+    first in a profiled window: late in a long process (this smoke by
+    phase 17) the profiler has dropped the device events of the first
+    launches of a session (all of a K4 call's, with 8 spin kernels and
+    the sleep before it; the parent's K4 call, 28 launches, kept its
+    last), and the lead-in takes the loss, as ``kernel_device_ms``'s
+    sleep and edge call do. Leave out ``spin_kernel`` when counting a
+    window's kernels."""
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+
+
 def busy_share(torch, fn, call_ms):
     """One call of ``fn`` under the profiler: (device-busy ms, its share
     of ``call_ms``, the unprofiled time of a call, and the device kernels'
@@ -754,6 +775,22 @@ def read_png(path):
     return rows[:, 1:].reshape(h, w, 3)
 
 
+def kernel_base(mangled):
+    """The kernel's own name in a mangled one: the last length-prefixed
+    identifier that ends in ``_kernel`` (an anonymous namespace's prefix
+    holds the file's name first, and a hash whose digits may run into the
+    length), or the mangled name where there is none."""
+    names = []
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):
+            ident = mangled[m.end():m.end() + int(digits[i:])]
+            if re.fullmatch(r"[a-z][a-z0-9_]*_kernel", ident):
+                names.append(ident)
+                break
+    return names[-1] if names else mangled
+
+
 def ptxas_table(log):
     """{kernel<template args>: (registers, spill stores, spill loads)} of
     each kernel instantiation of the build log (frames_ir_kernel<host,
@@ -764,11 +801,8 @@ def ptxas_table(log):
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             mangled = m.group(1)
-            # the last length-prefixed identifier ending in _kernel (the
-            # file's name comes first in an anonymous namespace's prefix)
-            base = re.findall(r"\d+([a-z][a-z_]*_kernel)", mangled)
             args = re.findall(r"L([bi])(\d+)E", mangled)
-            name = (base[-1] if base else mangled) + (
+            name = kernel_base(mangled) + (
                 "<" + ",".join(v for _, v in args) + ">" if args else "")
         elif name and "spill stores" in ln:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -786,6 +820,82 @@ def ptxas_lines(log):
     its template arguments, registers and spill bytes."""
     return [f"{n} {r} regs, spill {st}/{ld} B"
             for n, (r, st, ld) in ptxas_table(log).items()]
+
+
+def k4_args_phase(c):
+    """Phase 4b: the argument kernel of K3/K4/K6 (``bk.k4_args``) against
+    its plain twin (``bk.k4_args_plain``, the chain of
+    ``pack_walls_banded``, ``pack_scalars`` and ``fixed_point_scale``)
+    bit for bit, one launch a call, and both sides' device time at the
+    stream's shape. ``c`` holds the objects of main()."""
+    from realisticaudioraytracing2d_tpu_torch.ops import directivity as dv
+    torch, art, bk, dev = (c[k] for k in ("torch", "art", "bk", "dev"))
+    smoll, smoll_p = c["smoll"], c["smoll_p"]
+
+    def bits(x):
+        return x.contiguous().view(torch.int64 if x.dtype == torch.float64
+                                   else torch.int32)
+
+    rng_np = np.random.default_rng(22)
+    cases = 0
+    for n_bands, n_l, directive in ((1, 1, False), (8, 64, False),
+                                    (1, 3, True), (8, 4, True)):
+        room = art.rooms.smoll_room(n_bands=n_bands, device=dev)
+        scene = room.scene._replace(absorption=torch.as_tensor(
+            rng_np.uniform(0, 1, (room.scene.n_walls, n_bands)).astype(
+                np.float32), device=dev))
+        lis = (np.asarray(room.source, np.float32)
+               + rng_np.uniform(-6, 6, (n_l, 2))).astype(np.float32)
+        p = art.TraceParams.make(
+            room.source, lis, directivity=dv.cardioid(-0.9) if directive
+            else None, mic_directivity=dv.figure_eight(0.3) if directive
+            else None, device=dev)
+        for shape in ((1, RAYS, BOUNCES), (BIG_FRAMES, BIG_RAYS,
+                                           BIG_BOUNCES)):
+            before = bk.k4_args.launches
+            got = bk.k4_args(scene, p, *shape)
+            want = bk.k4_args_plain(scene, p, *shape)
+            torch.cuda.synchronize()
+            check(bk.k4_args.launches == before + 1,
+                  f"4b: one argument launch a call, K={n_bands} L={n_l}")
+            check(all(torch.equal(bits(g), bits(w))
+                      for g, w in zip(got, want)),
+                  f"4b: k4_args == k4_args_plain bit for bit, K={n_bands} "
+                  f"L={n_l} directive={directive} shape={shape}")
+            cases += 1
+
+    def kernels_of(fn):
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_lead_in(torch)
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.name]
+
+    shape = (1, RAYS, BOUNCES)
+    kernel = lambda: bk.k4_args(smoll.scene, smoll_p, *shape)  # noqa: E731
+    chain = lambda: bk.k4_args_plain(smoll.scene, smoll_p, *shape)  # noqa
+    n_kernel, n_chain = len(kernels_of(kernel)), len(kernels_of(chain))
+    ms_kernel = kernel_device_ms(torch, kernel, 50, "k4_args_kernel", 1)
+    ms_chain = kernel_device_ms(torch, chain, 50, "", n_chain)
+    lib = c["build"].load_library()
+    out = (ctypes.c_int * 2)()
+    check(lib.art_k4_args_attributes(out) == 0, "4b: attributes")
+    line = ptxas_table(c["build"].build_log()).get("k4_args_kernel")
+    print(f"[4b] k4_args == k4_args_plain bit for bit in {cases} cases "
+          f"(1 and 8 bands, 1-64 listeners, omni and directive, the "
+          f"stream's and the bench's shapes), one launch a call; at the "
+          f"stream's shape the kernel makes {n_kernel} device launch "
+          f"({ms_kernel} ms of device time a call), the chain {n_chain} "
+          f"({ms_chain} ms); registers / local bytes {out[0]} / {out[1]} B, "
+          f"ptxas (registers, spill stores, spill loads) {line}",
+          flush=True)
+    check(n_kernel == 1, f"4b: the kernel alone on the card ({n_kernel})")
+    check(line is not None, "4b: k4_args_kernel in the build log")
 
 
 def bands_phase(c):
@@ -3173,6 +3283,7 @@ def mesh_phase(c):
     # 17j. profiling.device_trace around one K4 call names the kernel
     with tempfile.TemporaryDirectory() as tmp:
         with profiling.device_trace(tmp):
+            profiler_lead_in(torch)
             bk.trace_frames_ir_mega(smoll.scene, p_s, 5, 1, **one)
         files = os.listdir(tmp)
         text = open(os.path.join(tmp, files[0])).read() if files else ""
@@ -3596,13 +3707,18 @@ def main():
         return counted(lambda: streamer.stream_clip(dry, lambda i: smoll_p))
 
     n_chunks = 20 + 15
+    args0 = bk.k4_args.launches
     wet, seeded = counted_stream(art.Streamer(smoll.scene, cfg, seed=7))
-    check(seeded == only(K4=n_chunks),
-          f"seeded stream launch counts {seeded}")
+    args_seeded, args0 = bk.k4_args.launches - args0, bk.k4_args.launches
+    check(seeded == only(K4=n_chunks) and args_seeded == n_chunks,
+          f"seeded stream launch counts {seeded}, {args_seeded} argument "
+          "launches")
     static, fixed_ir = counted_stream(
         art.Streamer(smoll.scene, cfg, uniforms_fn=lambda i: fixed))
-    check(fixed_ir == only(K3=n_chunks),
-          f"fixed-IR stream launch counts {fixed_ir}")
+    args_fixed = bk.k4_args.launches - args0
+    check(fixed_ir == only(K3=n_chunks) and args_fixed == n_chunks,
+          f"fixed-IR stream launch counts {fixed_ir}, {args_fixed} "
+          "argument launches")
     launches = {"K3": fixed_ir["K3"], "K4": seeded["K4"]}
     out = wet.cpu().numpy()
     check(out.shape == (1, n_chunks * CHUNK), f"stream shape {out.shape}")
@@ -3626,10 +3742,13 @@ def main():
           f"{(first - clicks[0] * SR) / SR * 1e3:.1f} ms after the first "
           f"click, tail/pre-click energy {[f'{r:.3g}' for r in tails]}, "
           f"launches {seeded} (seeded stream) and {fixed_ir} (fixed-IR "
-          f"stream); fixed-IR stream vs bake: max abs "
+          f"stream), argument kernel {args_seeded} and {args_fixed}; "
+          f"fixed-IR stream vs bake: max abs "
           f"{np.abs(st - bake[:st.shape[0]]).max():.2e} (rtol 2e-3, atol "
           f"2e-5) {'ok' if bake_ok else 'FAILED'}", flush=True)
     check(bake_ok, "fixed-IR stream == bake")
+    k4_args_phase(dict(torch=torch, art=art, bk=bk, build=build, dev=dev,
+                       smoll=smoll, smoll_p=smoll_p))
 
     # --- 6. the sweep: cli sweep --rooms 1024 at the defaults ----------------
     sweep_kw = dict(n_rays=RAYS, max_bounces=BOUNCES, **kw)
@@ -4590,6 +4709,14 @@ def main():
           + "; ".join(f"{k} {table.get(k)}" for k in PARENT_PTXAS),
           flush=True)
     check(not moved, f"11c: ptxas lines moved from the parent's: {moved}")
+    # K3/K4/K6's argument kernel is new code: its lines beside K4's
+    out = (ctypes.c_int * 2)()
+    check(lib.art_k4_args_attributes(out) == 0, "11c: k4_args attributes")
+    print(f"[11c] k4_args_kernel (K3/K4/K6's arguments; K6 launches K3's "
+          f"or K4's instantiation, so its registers are theirs): registers "
+          f"/ local bytes {out[0]} / {out[1]} B, ptxas "
+          f"{table.get('k4_args_kernel')}; K4's frames_ir_kernel<0,0,1,1> "
+          f"{table.get('frames_ir_kernel<0,0,1,1>')}", flush=True)
     # K5's kernel is new code: its lines beside K3's G = 1 omni one
     rows_lines = {k: v for k, v in table.items()
                   if k.startswith("frame_rows_kernel")}
@@ -5210,6 +5337,8 @@ def main():
         for k in ("K1", "K2", "K1b", "K2b", "K3", "K4", "K5", "K6", "K7",
                   "K8", "K9")]
     print(json.dumps({"kernels": kernels}))
+    print(f"K3/K4/K6's argument kernel (k4_args_kernel): "
+          f"{bk.k4_args.launches} launches over the smoke", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,6 +62,13 @@ are held against on the card. Each entry point counts its launches in
 ``.launches`` (K5 and K6: one per call; K3, K4 and K9 one per listener
 block, or one per chunk of (entry, frame) planes where the scratch takes
 them in chunks).
+
+K3, K4 and K6 get their launch's arguments (the wall table, the scalars
+and the fixed-point scale) from one launch of :func:`k4_args`
+(``csrc/k4_args_kernel.cu``), counted in ``k4_args.launches``; its plain
+twin :func:`k4_args_plain` (:func:`pack_walls_banded`,
+:func:`pack_scalars`, :func:`fixed_point_scale`) gives the same bits and
+is the CPU path. K9 packs its batch with PyTorch calls.
 """
 
 from __future__ import annotations
@@ -179,18 +186,20 @@ def _pattern_sizes(src, mic):
     return (0, 0) if src is None else (src.shape[-1], mic.shape[-1])
 
 
-def check_kernel_supported(scene: Scene, params: TraceParams) -> None:
+def check_kernel_supported(scene: Scene, params: TraceParams) -> tuple:
     """Raise for a configuration the kernel does not take
     (``NotImplementedError`` for patterns too large for a block's shared
     memory, ``ValueError`` for a scene past :data:`MAX_WALLS`, which
     ``engine.trace_accumulate`` sends to the cluster kernels, or for
     patterns of the wrong shape). Such configurations are never rerouted
-    to the plain path. Any band and listener count passes."""
+    to the plain path. Any band and listener count passes. Returns the
+    kernel's pattern tables ``(src, mic)`` (:func:`pattern_tables`)."""
     check_single_source(params)
     check_patterns(params)
     src, mic = pattern_tables(params.directivity, params.mic_directivity, 1,
                               params.listeners.shape[0], scene.device)
     _check_supported(scene.n_walls, *_pattern_sizes(src, mic))
+    return src, mic
 
 
 def check_batch_supported(scenes: Scene,
@@ -418,23 +427,155 @@ def pack_scalars(params: TraceParams) -> torch.Tensor:
                         params.input_gain]).to(torch.float32)
 
 
+def k4_args_plain(scene: Scene, params: TraceParams, n_frames: int,
+                  n_rays: int, max_bounces: int, tables=None):
+    """Plain version of :func:`k4_args`: the wall table ``[1, 10 + K, W]``
+    (:func:`pack_walls_banded`), the scalars ``[1, 5]``
+    (:func:`pack_scalars`) and the scale ``[1]`` float64
+    (:func:`fixed_point_scale`; with ``tables``, the ``(src, mic)`` of
+    :func:`pattern_tables` for ``params``, its patterns' bound from
+    them)."""
+    if tables is None:
+        scale = fixed_point_scale(params, n_frames, n_rays, max_bounces)
+    else:
+        scale = fixed_point_scales(
+            params.source[None], params.listeners[None],
+            params.input_gain.reshape(1), n_frames, n_rays, max_bounces,
+            pattern_gain_bound(*tables))[0]
+    return (pack_walls_banded(scene)[None], pack_scalars(params)[None],
+            scale[None])
+
+
+# the scene's fields k4_args_kernel reads, with their shapes ("W": walls,
+# "K": bands)
+_SCENE_FIELDS = (("a", ("W", 2)), ("b", ("W", 2)), ("normal", ("W", 2)),
+                 ("absorption", ("W", "K")), ("scattering", ("W",)),
+                 ("transmission", ("W",)), ("ior", ("W",)))
+# the scalar inputs, in the order of f64_mask's bits
+_SCALAR_FIELDS = (("source", (2,)), ("listener_radius", ()),
+                  ("speed_of_sound", ()), ("input_gain", ()))
+
+
+def k4_args_inputs(scene: Scene, params: TraceParams):
+    """The inputs of one ``k4_args_kernel`` launch, checked before it:
+    the scene's fields (float32 on its device, ``a`` ``[W, 2]`` of one
+    scene and ``absorption`` ``[W, K]``, the rows 10 .. 9 + K of the
+    table), the listeners ``[L, 2]`` float32 with L >= 1, and the scalar
+    inputs (source ``[2]``, then radius, speed of sound and gain of one
+    element each), each contiguous. A scalar input of another dtype is
+    converted to float64 once (a float64 one is passed as it is) and its
+    bit set in the returned mask: the kernel reads it in double for the
+    scale and rounds it to float32 for the scalars, as the plain twin's
+    ``.double()`` and ``stack(...).to(float32)`` see it. Raises
+    ``ValueError`` on a wrong device, dtype or shape. Returns ``(scene
+    fields, listeners, scalars, f64_mask)``."""
+    dev = scene.device
+    if scene.a.dim() != 2:
+        raise ValueError(f"one scene's a [W, 2] expected, got "
+                         f"{tuple(scene.a.shape)}: a stacked scene goes to "
+                         "trace_rooms_ir_mega")
+    sizes = {"W": scene.n_walls, "K": scene.n_bands}
+    fields = []
+    for name, dims in _SCENE_FIELDS:
+        x = getattr(scene, name)
+        _check_tensor(name, x, dev, tuple(sizes.get(d, d) for d in dims))
+        fields.append(x.contiguous())
+    if scene.n_bands < 1:
+        raise ValueError("absorption must hold at least one band")
+    lis = params.listeners
+    if lis.dim() != 2 or lis.shape[0] < 1:
+        raise ValueError(f"listeners must be [L, 2] with L >= 1, got "
+                         f"{tuple(lis.shape)}")
+    _check_tensor("listeners", lis, dev, (lis.shape[0], 2))
+    mask = 0
+    scalars = []
+    for bit, (name, shape) in enumerate(_SCALAR_FIELDS):
+        x = getattr(params, name)
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, the scene on {dev}")
+        if x.numel() != (shape[0] if shape else 1) \
+                or (shape and tuple(x.shape) != shape):
+            raise ValueError(f"{name} must have shape {shape} (or one "
+                             f"element), got {tuple(x.shape)}")
+        if x.dtype != torch.float32:
+            x = x.to(torch.float64)
+            mask |= 1 << bit
+        scalars.append(x.contiguous())
+    return fields, lis.contiguous(), scalars, mask
+
+
+_ARGS_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int, ctypes.c_int)
+                  + (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_double)
+                  + (ctypes.c_void_p,) * 4)
+
+
+def _args_fn():
+    fn = build.load_library().art_k4_args
+    fn.argtypes = _ARGS_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def k4_args(scene: Scene, params: TraceParams, n_frames: int, n_rays: int,
+            max_bounces: int, tables=None):
+    """The arguments of a single-scene K3/K4/K6 launch in ONE launch of
+    ``k4_args_kernel`` (``csrc/k4_args_kernel.cu``), on the current stream
+    with no host sync: the wall table ``[1, 10 + K, W]`` float32, the
+    scalars ``[1, 5]`` float32 and the fixed-point scale ``[1]`` float64,
+    equal to :func:`k4_args_plain` bit for bit. ``tables``: the ``(src,
+    mic)`` of :func:`pattern_tables` for ``params``, if the caller has
+    them (computed otherwise); a directive trace's gain bound
+    (:func:`pattern_gain_bound`) reaches the kernel by pointer. Counts its
+    launches in ``.launches``. A CPU scene runs :func:`k4_args_plain`."""
+    if scene.device.type != "cuda":
+        return k4_args_plain(scene, params, n_frames, n_rays, max_bounces,
+                             tables)
+    dev = scene.device
+    fields, lis, scalars, mask = k4_args_inputs(scene, params)
+    if tables is None:
+        tables = pattern_tables(params.directivity, params.mic_directivity,
+                                1, lis.shape[0], dev)
+    bound = pattern_gain_bound(*tables)      # 1.0 for omni: no pointer
+    if not isinstance(bound, torch.Tensor):
+        bound = None
+    else:
+        _check_tensor("pattern gain bound", bound, dev, (1,), torch.float64)
+        bound = bound.contiguous()
+    n_walls, n_bands = scene.n_walls, scene.n_bands
+    walls = torch.empty((1, 10 + n_bands, n_walls), dtype=torch.float32,
+                        device=dev)
+    scal = torch.empty((1, 5), dtype=torch.float32, device=dev)
+    scale = torch.empty((1,), dtype=torch.float64, device=dev)
+    err = _args_fn()(
+        *(x.data_ptr() for x in fields), n_walls, n_bands,
+        *(x.data_ptr() for x in scalars), mask, lis.data_ptr(),
+        lis.shape[0], _ptr(bound),
+        float(n_frames * n_rays * 2 * max_bounces), walls.data_ptr(),
+        scal.data_ptr(), scale.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"argument kernel launch failed: cudaError {err}")
+    k4_args.launches += 1
+    return walls, scal, scale
+
+
 def _launch_scene(host_uniforms, scene, params, emit, u, key, n_frames,
                   n_rays, max_bounces, sample_rate, ir_length, work_counts,
                   counter, entry=0, frame_offset=0):
     """K3/K4: one scene, one entry (its Philox entry id ``entry``). The
     arguments' preparation, everything before :func:`_launch`, is the span
-    ``art.k4.prep`` (K3's and K6's launches share it)."""
+    ``art.k4.prep`` (K3's and K6's launches share it): the checks and one
+    launch of :func:`k4_args`."""
     with span("k4.prep"):
-        check_kernel_supported(scene, params)
-        scal = pack_scalars(params)
-        scales = fixed_point_scale(params, n_frames, n_rays, max_bounces)
-        src, mic = pattern_tables(params.directivity, params.mic_directivity,
-                                  1, params.listeners.shape[0], scene.device)
-        walls = pack_walls_banded(scene)[None]
+        src, mic = check_kernel_supported(scene, params)
+        walls, scal, scales = k4_args(scene, params, n_frames, n_rays,
+                                      max_bounces, (src, mic))
         listeners = params.listeners.contiguous()[None]
-    return _launch(host_uniforms, walls, listeners, scal[None], emit, u,
+    return _launch(host_uniforms, walls, listeners, scal, emit, u,
                    key, entry, n_frames, n_rays, max_bounces, sample_rate,
-                   ir_length, scales[None], work_counts, src, mic,
+                   ir_length, scales, work_counts, src, mic,
                    scene.n_bands, counter, frame_offset)[0]
 
 
@@ -939,6 +1080,7 @@ def trace_accumulate_fused(scene: Scene, params: TraceParams, state: IRState,
     return IRState(sum=total, frames=state.frames + emit.shape[0])
 
 
+k4_args.launches = 0
 trace_frames_ir_whole.launches = 0
 trace_frames_ir_mega.launches = 0
 trace_rooms_ir_mega.launches = 0

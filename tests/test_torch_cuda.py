@@ -61,7 +61,8 @@ import json
 import numpy as np
 import pytest
 import torch
-from torch_parity import cuda, cuda_device, to_numpy  # noqa: F401
+from torch_parity import (cuda, cuda_device, profiler_lead_in,  # noqa: F401
+                          to_numpy)
 
 import realisticaudioraytracing2d_tpu_torch as art
 from realisticaudioraytracing2d_tpu_torch.models import rooms
@@ -2432,6 +2433,7 @@ def test_stream_spans_on_the_card_have_no_device_echo(cuda_device):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        profiler_lead_in()
         st.process(dry, params)
         torch.cuda.synchronize()
     cuda_kind = torch.autograd.DeviceType.CUDA

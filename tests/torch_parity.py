@@ -10,6 +10,8 @@ imported only by the helpers that draw JAX's uniforms, so the ``cuda``
 tests (tests/test_torch_cuda.py) also run where JAX is not installed.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -120,7 +122,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def profiler_lead_in(n: int = 64) -> None:
+    """Open a profiled window on the card with 50 ms of host time and
+    ``n`` short spin kernels (``torch.cuda._sleep``, device name
+    ``spin_kernel``). Late in a long process (after the cold-build live
+    test, which loads a second copy of the kernel library) the profiler
+    drops the device events of the first launches of a session (a K4
+    call's first three, or all of them, on an H100); the lead-in takes
+    the loss, so the window's own kernels are all recorded. Leave out
+    ``spin_kernel`` when counting them."""
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+
+
 __all__ = ["CPU", "cuda", "cuda_device", "jax_chunk_uniforms",
            "jax_frame_uniforms", "jax_room_uniforms", "jax_shard_ray_uniforms",
-           "jax_sharded_source_uniforms", "jax_source_uniforms", "to_numpy",
-           "to_torch"]
+           "jax_sharded_source_uniforms", "jax_source_uniforms",
+           "profiler_lead_in", "to_numpy", "to_torch"]
