@@ -1,0 +1,10 @@
+"""Host milliseconds a stream chunk spends in per-arrival Doppler's tap
+table of the capture's W channel, the taps' X/Y windows and their
+removal from the capture (``art.arrival.extract``;
+``benchmark/span_stages.py``)."""
+
+from benchmark import span_stages
+
+
+def read(r):
+    return span_stages.host_ms(r, "art.arrival.extract")

@@ -1,0 +1,9 @@
+"""Kernel launch calls a stream chunk issues in per-arrival Doppler's
+crossfaded FFT convolution of the residual ears
+(``art.arrival.convolve``; ``benchmark/span_stages.py``)."""
+
+from benchmark import span_stages
+
+
+def read(r):
+    return span_stages.launches(r, "art.arrival.convolve")

@@ -1,0 +1,9 @@
+"""Kernel launch calls a stream chunk issues in the binaural decode of the
+chunk's full three-microphone capture to two ears
+(``art.stream.decode``; ``benchmark/span_stages.py``)."""
+
+from benchmark import span_stages
+
+
+def read(r):
+    return span_stages.launches(r, "art.stream.decode")

@@ -49,7 +49,12 @@ span``), recorded while a profiler runs (``utils.profiling.device_trace``):
 ``art.stream.retrace`` (holding the trace route's ``art.trace.*``),
 ``art.stream.addenda``, ``art.stream.decode`` (binaural),
 ``art.stream.crossfade`` (or the per-arrival branch) and, in
-:func:`stream_chunk`, ``art.stream.ring``.
+:func:`stream_chunk`, ``art.stream.ring``. The per-arrival branch splits
+its crossfade span four ways: ``art.arrival.extract`` (the tap table and
+the taps' removal from the IR), ``art.arrival.residual`` (binaural: the
+residual capture's decode), ``art.arrival.taps`` (the history window,
+matching, ear fields and tap synthesis) and ``art.arrival.convolve`` (the
+residual's crossfaded convolution).
 
 The trace of a Doppler chunk is that of the plain or binaural chunk (the
 same kernels); the arrival tables, matching, tap synthesis and warp are
@@ -479,27 +484,31 @@ def _per_arrival_parts(dry_piece: torch.Tensor, dry_window: torch.Tensor,
     rule of every stream mode. Banded IRs (K > 1) share one delay glide
     per arrival with per-band window gains, read from band-split dry."""
     early_bins = dry_window.shape[-1] - n - 2
-    idx_c, g3_c, val_c = _arrival_table(cur_ir, early_bins, n_taps)
-    cur_res = _remove_taps(cur_ir, idx_c, val_c)
+    with span("arrival.extract"):
+        idx_c, g3_c, val_c = _arrival_table(cur_ir, early_bins, n_taps)
+        cur_res = _remove_taps(cur_ir, idx_c, val_c)
     new_carry = ArrivalCarry(cur_res, idx_c, g3_c, val_c)
     prev = new_carry if is_first else carry
-    tau0, g0, matched_prev, _, _ = _match_arrivals(
-        idx_c, val_c, prev.idx, prev.g3, prev.val, match_bins)
-    # A vanished arrival (valid in prev, matched by no current tap) fades
-    # out as a tap at its own delay: the previous chunk's tail was pushed
-    # without its bins, and the residual crossfade convolves only this
-    # chunk's dry. The fade-outs ride the same _tap_chunk call as the
-    # current taps (concatenated along the tap axis).
-    tau_p = prev.idx.to(torch.float32)
-    vanished = prev.val & ~matched_prev
-    taps = _tap_chunk(_band_windows(cv.gate_input(dry_window), k),
-                      torch.cat([tau0, tau_p], dim=1),
-                      torch.cat([idx_c.to(torch.float32), tau_p], dim=1),
-                      torch.cat([g0, prev.g3], dim=1),
-                      torch.cat([g3_c, torch.zeros_like(prev.g3)], dim=1),
-                      torch.cat([val_c, vanished], dim=1), n)
-    return (_crossfaded_wet(dry_piece, prev.res, cur_res), taps,
-            new_carry)
+    with span("arrival.taps"):
+        tau0, g0, matched_prev, _, _ = _match_arrivals(
+            idx_c, val_c, prev.idx, prev.g3, prev.val, match_bins)
+        # A vanished arrival (valid in prev, matched by no current tap)
+        # fades out as a tap at its own delay: the previous chunk's tail
+        # was pushed without its bins, and the residual crossfade
+        # convolves only this chunk's dry. The fade-outs ride the same
+        # _tap_chunk call as the current taps (concatenated along the tap
+        # axis).
+        tau_p = prev.idx.to(torch.float32)
+        vanished = prev.val & ~matched_prev
+        taps = _tap_chunk(_band_windows(cv.gate_input(dry_window), k),
+                          torch.cat([tau0, tau_p], dim=1),
+                          torch.cat([idx_c.to(torch.float32), tau_p], dim=1),
+                          torch.cat([g0, prev.g3], dim=1),
+                          torch.cat([g3_c, torch.zeros_like(prev.g3)], dim=1),
+                          torch.cat([val_c, vanished], dim=1), n)
+    with span("arrival.convolve"):
+        wet = _crossfaded_wet(dry_piece, prev.res, cur_res)
+    return wet, taps, new_carry
 
 
 def _ear_fields(w3, x3, y3, idx, facing, sign: float, sample_rate: int,
@@ -566,48 +575,53 @@ def _per_arrival_binaural(dry_piece: torch.Tensor, dry_window: torch.Tensor,
     # last bins stay in the residual, which renders any delay exactly.
     itd_pad = int(np.ceil(head_radius * sample_rate / 100.0))
     early_bins = max(1, dry_window.shape[-1] - n - 2 - itd_pad)
-    sp_c = spm.spatial_from_ir(cur_sp)
-    idx_c, g3_c, val_c = _arrival_table(sp_c.w, early_bins, n_taps)
-    x3_c = _window3(sp_c.x, idx_c)
-    y3_c = _window3(sp_c.y, idx_c)
-    rem_c = _remove_taps(cur_sp, idx_c.repeat(3, 1), val_c.repeat(3, 1))
-    res_c = spm.binaural_decode_ir(rem_c, sample_rate, cur_facing,
-                                   head_radius, shadow, speed_of_sound,
-                                   decorrelate=decorrelate)
+    with span("arrival.extract"):
+        sp_c = spm.spatial_from_ir(cur_sp)
+        idx_c, g3_c, val_c = _arrival_table(sp_c.w, early_bins, n_taps)
+        x3_c = _window3(sp_c.x, idx_c)
+        y3_c = _window3(sp_c.y, idx_c)
+        rem_c = _remove_taps(cur_sp, idx_c.repeat(3, 1), val_c.repeat(3, 1))
+    with span("arrival.residual"):
+        res_c = spm.binaural_decode_ir(rem_c, sample_rate, cur_facing,
+                                       head_radius, shadow, speed_of_sound,
+                                       decorrelate=decorrelate)
     new_carry = ArrivalCarry(res_c, idx_c, g3_c, val_c, x3_c, y3_c)
     prev = new_carry if is_first else carry
-    _, _, matched_prev, j, mutual = _match_arrivals(
-        idx_c, val_c, prev.idx, prev.g3, prev.val, match_bins)
-    vanished = prev.val & ~matched_prev
-    decorr = decorrelate and not (head_radius == 0.0 and shadow == 0.0)
-    li = torch.arange(idx_c.shape[0], device=idx_c.device)[:, None]
-    mu = mutual[:, :, None, None]
-    ear_tau0, ear_tau1, ear_g0, ear_g1 = [], [], [], []
-    for sign in (1.0, -1.0):
-        tc_c, gc_c, td_c, gd_c = _ear_fields(
-            g3_c, x3_c, y3_c, idx_c, cur_facing, sign, sample_rate,
-            head_radius, shadow, speed_of_sound, n_t, decorr)
-        tc_p, gc_p, td_p, gd_p = _ear_fields(
-            prev.g3, prev.x3, prev.y3, prev.idx, prev_facing, sign,
-            sample_rate, head_radius, shadow, speed_of_sound, n_t, decorr)
-        # rows: cur coherent, cur diffuse, fade-out coherent, diffuse
-        ear_tau0.append(torch.cat(
-            [torch.where(mu, tc_p[li, j], tc_c),
-             torch.where(mu, td_p[li, j], td_c), tc_p, td_p], dim=1))
-        ear_tau1.append(torch.cat([tc_c, td_c, tc_p, td_p], dim=1))
-        ear_g0.append(torch.cat(
-            [torch.where(mu, gc_p[li, j], 0.0),
-             torch.where(mu, gd_p[li, j], 0.0), gc_p, gd_p], dim=1))
-        ear_g1.append(torch.cat(
-            [gc_c, gd_c, torch.zeros_like(gc_p), torch.zeros_like(gd_p)],
-            dim=1))
-    rows_valid = torch.cat([val_c, val_c, vanished, vanished], dim=1)
-    taps = _tap_chunk(_band_windows(cv.gate_input(dry_window), k),
-                      torch.cat(ear_tau0), torch.cat(ear_tau1),
-                      torch.cat(ear_g0), torch.cat(ear_g1),
-                      torch.cat([rows_valid, rows_valid]), n)   # [2, n]
-    return (_crossfaded_wet(dry_piece, prev.res, res_c), taps,
-            new_carry)
+    with span("arrival.taps"):
+        _, _, matched_prev, j, mutual = _match_arrivals(
+            idx_c, val_c, prev.idx, prev.g3, prev.val, match_bins)
+        vanished = prev.val & ~matched_prev
+        decorr = decorrelate and not (head_radius == 0.0 and shadow == 0.0)
+        li = torch.arange(idx_c.shape[0], device=idx_c.device)[:, None]
+        mu = mutual[:, :, None, None]
+        ear_tau0, ear_tau1, ear_g0, ear_g1 = [], [], [], []
+        for sign in (1.0, -1.0):
+            tc_c, gc_c, td_c, gd_c = _ear_fields(
+                g3_c, x3_c, y3_c, idx_c, cur_facing, sign, sample_rate,
+                head_radius, shadow, speed_of_sound, n_t, decorr)
+            tc_p, gc_p, td_p, gd_p = _ear_fields(
+                prev.g3, prev.x3, prev.y3, prev.idx, prev_facing, sign,
+                sample_rate, head_radius, shadow, speed_of_sound, n_t,
+                decorr)
+            # rows: cur coherent, cur diffuse, fade-out coherent, diffuse
+            ear_tau0.append(torch.cat(
+                [torch.where(mu, tc_p[li, j], tc_c),
+                 torch.where(mu, td_p[li, j], td_c), tc_p, td_p], dim=1))
+            ear_tau1.append(torch.cat([tc_c, td_c, tc_p, td_p], dim=1))
+            ear_g0.append(torch.cat(
+                [torch.where(mu, gc_p[li, j], 0.0),
+                 torch.where(mu, gd_p[li, j], 0.0), gc_p, gd_p], dim=1))
+            ear_g1.append(torch.cat(
+                [gc_c, gd_c, torch.zeros_like(gc_p), torch.zeros_like(gd_p)],
+                dim=1))
+        rows_valid = torch.cat([val_c, val_c, vanished, vanished], dim=1)
+        taps = _tap_chunk(_band_windows(cv.gate_input(dry_window), k),
+                          torch.cat(ear_tau0), torch.cat(ear_tau1),
+                          torch.cat(ear_g0), torch.cat(ear_g1),
+                          torch.cat([rows_valid, rows_valid]), n)  # [2, n]
+    with span("arrival.convolve"):
+        wet = _crossfaded_wet(dry_piece, prev.res, res_c)
+    return wet, taps, new_carry
 
 
 def _device_window(dry: torch.Tensor, wd: int, win_start: int,
@@ -733,8 +747,10 @@ def wet_chunk(scene: Scene, params: TraceParams, prev_ir: torch.Tensor,
             raise ValueError("per-arrival Doppler needs the arrival "
                              "carry: init_stream(..., arrival_taps=A) "
                              "(Streamer.process allocates it lazily)")
-        window = _device_window(dry_full, n + arrival_early + 2, win_start,
-                                win_prefix, win_cut, window_loop)
+        with span("arrival.taps"):
+            window = _device_window(dry_full, n + arrival_early + 2,
+                                    win_start, win_prefix, win_cut,
+                                    window_loop)
         if binaural:
             if prev_facing is None:
                 raise ValueError("binaural per-arrival Doppler needs the "

@@ -9,6 +9,9 @@
   ``art.stream.decode`` between the addenda and the crossfade; a live
   player's chunk (on its producer thread) records ``wet_chunk``'s stages
   and no ring of the stream's;
+* a per-arrival chunk records its four stages inside the crossfade
+  (``art.arrival.extract``, ``residual`` in a binaural stream, ``taps``,
+  ``convolve``; the history window under a ``taps`` span of its own);
 * ``engine.trace_ir`` names the route that ran (``k4``, ``k3``,
   ``cluster``, ``plain``), and the one-scene launch's argument preparation
   (``art.k4.prep``) ends before the launch;
@@ -29,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from torch_parity import CPU
 
 import realisticaudioraytracing2d_tpu_torch as art
-from realisticaudioraytracing2d_tpu_torch import engine
+from realisticaudioraytracing2d_tpu_torch import engine, streaming
 from realisticaudioraytracing2d_tpu_torch.live import LivePlayer
 from realisticaudioraytracing2d_tpu_torch.ops import rng
 from realisticaudioraytracing2d_tpu_torch.ops.cuda import bounce_kernel as bk
@@ -121,6 +124,34 @@ def test_a_binaural_chunk_adds_the_decode(small):
     assert names.count("art.stream.decode") == 1
     stages = [n for n in names if n.startswith("art.stream.")]
     assert stages == STAGES[:2] + ["art.stream.decode"] + STAGES[2:]
+
+
+@pytest.mark.parametrize("binaural", [False, True])
+def test_a_per_arrival_chunk_splits_its_crossfade(small, binaural):
+    """Per-arrival Doppler's stages, one after another inside the
+    crossfade span: the history window (a ``taps`` span of its own), the
+    table and removal, the residual's decode (binaural only), matching and
+    tap synthesis, the residual's convolution."""
+    room, cfg, dry = small
+    params = art.Engine(room.scene, cfg).params(room.source, room.listener)
+    st = art.Streamer(room.scene, cfg, seed=4, binaural=binaural)
+    n = cfg.audio.chunk_samples
+    wd = n + st.arrival_early + 2
+    window = (dry, *streaming.window_scalars(0, n, wd, dry.shape[-1], True,
+                                             None), True)
+    with _cpu_profile() as prof:
+        st.process(dry[:n], params, facing=0.3, window=window)
+    spans = _spans(prof)
+    arrival = [e for e in spans if e.name.startswith("art.arrival.")]
+    assert [e.name for e in arrival] == (
+        ["art.arrival.taps", "art.arrival.extract"]
+        + (["art.arrival.residual"] if binaural else [])
+        + ["art.arrival.taps", "art.arrival.convolve"])
+    crossfade, = [e for e in spans if e.name == "art.stream.crossfade"]
+    assert all(_inside(e, crossfade) for e in arrival)
+    for a, b in zip(arrival, arrival[1:]):
+        assert a.time_range.end <= b.time_range.start, (a.name, b.name)
+    assert sum(e.name == "art.stream.decode" for e in spans) == binaural
 
 
 def test_a_live_chunk_records_the_wet_chunk_stages_and_no_ring(small):
