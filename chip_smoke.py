@@ -31,7 +31,8 @@ every kernel against its plain PyTorch version:
   capture (``spatial.trace_spatial``) through the directive K4 and K3 on
   SmollRoom, K8 and K7 on the 10,008-wall city; the binaural stream with
   a turning head; ``cli bake --binaural``, ``trace --spatial-out``,
-  ``stream --binaural``, ``analyze`` and ``sweep --metrics-out``.
+  ``stream --binaural``, ``analyze`` and ``sweep --metrics-out``; the
+  binaural decode kernel beside its plain chain (13e).
 * Doppler streams: ``Streamer.stream_clip(doppler="per_arrival")`` on
   SmollRoom (mono, and binaural at 8 bands) through K4, the tap tables,
   matching and synthesis plain tensor code on the card;
@@ -822,6 +823,21 @@ def ptxas_lines(log):
             for n, (r, st, ld) in ptxas_table(log).items()]
 
 
+def device_kernels(torch, fn):
+    """The names of the device events of one profiled call of ``fn``
+    (after a warm call; the lead-in's spin kernels left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_lead_in(torch)
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name]
+
+
 def k4_args_phase(c):
     """Phase 4b: the argument kernel of K3/K4/K6 (``bk.k4_args``) against
     its plain twin (``bk.k4_args_plain``, the chain of
@@ -864,22 +880,11 @@ def k4_args_phase(c):
                   f"L={n_l} directive={directive} shape={shape}")
             cases += 1
 
-    def kernels_of(fn):
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            profiler_lead_in(torch)
-            fn()
-            torch.cuda.synchronize()
-        return [e.name for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and "spin_kernel" not in e.name]
-
     shape = (1, RAYS, BOUNCES)
     kernel = lambda: bk.k4_args(smoll.scene, smoll_p, *shape)  # noqa: E731
     chain = lambda: bk.k4_args_plain(smoll.scene, smoll_p, *shape)  # noqa
-    n_kernel, n_chain = len(kernels_of(kernel)), len(kernels_of(chain))
+    n_kernel = len(device_kernels(torch, kernel))
+    n_chain = len(device_kernels(torch, chain))
     ms_kernel = kernel_device_ms(torch, kernel, 50, "k4_args_kernel", 1)
     ms_chain = kernel_device_ms(torch, chain, 50, "", n_chain)
     lib = c["build"].load_library()
@@ -1926,6 +1931,88 @@ def spatial_phase(c):
         f"{k} {v:.2f}" for k, v in cli_s.items())
         + f"; stream --binaural {xrt}x realtime; {bake_line}", flush=True)
     return slice_launches, readings
+
+
+def decode_phase(c):
+    """Phase 13e: the binaural decode kernel (``binaural_decode_kernel``
+    through ``ops/cuda/binaural_kernel.py::binaural_decode``) beside its
+    plain chain (``spatial.binaural_plain``, the sorted ``index_put_``) on
+    K4 captures of SmollRoom at the headphone cell's ``[3, 72,000, 1]``
+    and at 8 bands, ``[3, 72,000, 8]``, the stream's card tensor speed of
+    sound: the kernel equals the chain's card-computed deposits summed in
+    index order bit for bit, one launch a call; ms a call (CUDA events),
+    device ms (profiler), the byte bound (capture and ear signs read,
+    both ears written, over 3.35 TB/s) and each side's device launches;
+    registers, local bytes and the ptxas line. ``c`` holds the objects of
+    main() (``torch``, ``art``, ``build``, ``dev``). Returns the
+    readings."""
+    from realisticaudioraytracing2d_tpu_torch import spatial as sp
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
+        binaural_kernel as bdk
+    torch, art, dev = c["torch"], c["art"], c["dev"]
+    readings = {}
+    for n_bands in (1, 8):
+        room = art.rooms.smoll_room(n_bands=n_bands, device=dev)
+        p = art.TraceParams.make(room.source, room.listener, device=dev)
+        _, st = sp.trace_spatial(room.scene, p, 13, n_rays=RAYS,
+                                 max_bounces=BOUNCES, sample_rate=SR,
+                                 ir_length=T)
+        cap, speed = st.normalized(), p.speed_of_sound
+        head = (SR, 0.3, 0.0875, 0.6, speed)
+
+        def kernel():
+            return sp.binaural_decode_ir(cap, *head)
+
+        def chain():
+            return sp.binaural_plain(sp.spatial_from_ir(cap), *head)
+
+        rows, values, diffuse = sp.binaural_entries(sp.spatial_from_ir(cap),
+                                                    *head)
+        deposits = torch.zeros(2 * diffuse.numel()).index_add_(
+            0, rows.cpu(), values.cpu())
+        want = sp.binaural_ears(deposits, diffuse.cpu(), True)
+        before = bdk.binaural_decode.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        check(bdk.binaural_decode.launches == before + 1,
+              f"13e: one decode launch a call, K={n_bands}")
+        check(torch.equal(got.cpu().view(torch.int32),
+                          want.view(torch.int32)),
+              f"13e: decode kernel == the chain's deposits in index order "
+              f"bit for bit, K={n_bands}")
+        ref = chain().cpu()
+        gap = float((got.cpu() - ref).abs().max() / ref.abs().max())
+        n_kernel = len(device_kernels(torch, kernel))
+        n_chain = len(device_kernels(torch, chain))
+        ms_kernel, ms_chain = cuda_ms(torch, kernel, 50), cuda_ms(torch,
+                                                                  chain, 20)
+        dev_kernel = kernel_device_ms(torch, kernel, 50,
+                                      "binaural_decode_kernel", 1)
+        dev_chain = kernel_device_ms(torch, chain, 20, "", n_chain)
+        n_bytes = 4 * (3 * T * n_bands + 2 * T + 2 * T * n_bands)
+        bound_ms = n_bytes / 3.35e12 * 1e3
+        readings[n_bands] = dict(ms=ms_kernel, device_ms=dev_kernel,
+                                 chain_ms=ms_chain,
+                                 chain_device_ms=dev_chain,
+                                 bound_ms=bound_ms, launches=n_kernel,
+                                 chain_launches=n_chain, gap=gap)
+        print(f"[13e] decode [3, {T}, {n_bands}]: kernel {ms_kernel:.4f} ms "
+              f"a call [{dev_kernel} ms device, {n_kernel} launch], chain "
+              f"{ms_chain:.4f} ms [{dev_chain} ms device, {n_chain} "
+              f"launches]; bound {bound_ms:.6f} ms ({n_bytes} B, bytes); "
+              f"== the chain's deposits in index order bit for bit; the "
+              f"card chain's sorted accumulate within {gap:.2e} of the "
+              f"peak", flush=True)
+        check(n_kernel == 1, f"13e: the decode kernel alone ({n_kernel})")
+    lib = c["build"].load_library()
+    out = (ctypes.c_int * 2)()
+    check(lib.art_binaural_decode_attributes(out) == 0, "13e: attributes")
+    line = ptxas_table(c["build"].build_log()).get("binaural_decode_kernel")
+    print(f"[13e] binaural_decode_kernel registers / local bytes {out[0]} / "
+          f"{out[1]} B, ptxas (registers, spill stores, spill loads) "
+          f"{line}", flush=True)
+    check(line is not None, "13e: binaural_decode_kernel in the build log")
+    return readings
 
 
 def per_arrival_limit(peak, dry, d_res, d_tap, n_taps, n_bands=1,
@@ -4863,6 +4950,7 @@ def main():
     # --- 13. spatial captures and the binaural stream ----------------------
     ctx.update(scene_9=scene_9, p_9=p_9)
     spatial_launches, _ = spatial_phase(ctx)
+    decode_phase(ctx)
 
     # --- 14. per-arrival and shared-rate Doppler streams -------------------
     doppler_launches, _ = doppler_phase(ctx)

@@ -17,9 +17,10 @@ per-listener ``mic_directivity`` table, omni ``g = 1``, cardioid at 0
 cos 2theta`` and ``1 + sin 2theta`` for the second moments). On the card
 the capture is a directive trace like any other: ``engine.
 trace_accumulate`` routes it to K4 (a seed) or K3 (host uniforms) up to
-5,280 walls, to K8 (one band) or K7 (bands) past them. The decode,
-steering and the analysis of the moments are plain tensor code, as in
-JAX, where they are ``jnp``.
+5,280 walls, to K8 (one band) or K7 (bands) past them. Steering and the
+analysis of the moments are plain tensor code, as in JAX, where they are
+``jnp``; the decode is plain tensor code on the CPU and one hand-written
+kernel on the card (JAX's is ``jnp`` too).
 
 Two things the card changes, both stated where they happen:
 
@@ -29,11 +30,12 @@ Two things the card changes, both stated where they happen:
   step of an omni trace's and is not the omni IR bit for bit there. The
   plain path's float scatter gives the per-hit identity exactly;
 * the decode's two-bin splat collides (a shift of up to ``r / c * sr``
-  bins), and float atomics would sum the collisions in any order. Its
-  deposits go through ``ops/ir.py::add_rows`` in JAX's order, the ``lo``
-  deposits of an ear before its ``hi`` ones: ``index_add_`` on the CPU,
-  the deterministic accumulate on the card, so a rerun gives the same
-  bits.
+  bins), and float atomics would sum the collisions in any order. The
+  plain decode (:func:`binaural_plain`, the CPU path) sends its deposits
+  through ``ops/ir.py::add_rows`` in JAX's order, the ``lo`` deposits of
+  an ear before its ``hi`` ones; on the card one kernel gathers each
+  bin's deposits in that order (``ops/cuda/binaural_kernel.py``), so a
+  rerun gives the same bits.
 """
 
 from __future__ import annotations
@@ -172,54 +174,16 @@ class SpatialIR(NamedTuple):
         as a 0-d float32 tensor gives ``max_shift = r / c * sample_rate``
         in float32 operations, as the JAX stream step computes it on its
         traced ``params.speed_of_sound``; as a number, in Python floats,
-        as the JAX CLI's eager bake does."""
-        if not 0.0 <= shadow <= 1.0:
-            raise ValueError(f"shadow must be in [0, 1], got {shadow}")
-        r = torch.sqrt(self.x * self.x + self.y * self.y)   # coherent
-        coh = torch.minimum(r, self.w)
-        diffuse = self.w - coh                              # per ear, full
-        s = torch.sin(torch.atan2(self.y, self.x) - facing)
-        n_l, n_t, n_k = self.w.shape
-        dev = self.w.device
-        bins = torch.arange(n_t, dtype=torch.float32, device=dev)[None, :,
-                                                                  None]
-        if isinstance(speed_of_sound, torch.Tensor):
-            max_shift = (torch.full_like(speed_of_sound, head_radius)
-                         / speed_of_sound) * float(sample_rate)
-        else:
-            max_shift = head_radius / speed_of_sound * sample_rate
-        decorr = decorrelate and not (head_radius == 0.0 and shadow == 0.0)
-        # flat row of (l, t, k); the two ears stacked ear-major
-        lk = (torch.arange(n_l, device=dev)[:, None, None] * n_t * n_k
-              + torch.arange(n_k, device=dev)[None, None, :])
-        rows, values = [], []
-        for ear, sign in enumerate((1.0, -1.0)):
-            # sign = +1 left ear, -1 right ear
-            gain = 1.0 + sign * shadow * s
-            # clamp BEFORE the fraction: an unclamped t < 0 would give
-            # (1 - frac) > 1 and frac < 0
-            t = torch.clamp(bins - sign * max_shift * s, 0.0,
-                            float(n_t - 1))
-            lo_f = torch.floor(t)
-            frac = t - lo_f
-            lo = lo_f.to(torch.int64)
-            hi = torch.clamp(lo + 1, max=n_t - 1)
-            e = coh * gain
-            off = ear * n_l * n_t * n_k
-            rows += [(lo * n_k + lk + off).reshape(-1),
-                     (hi * n_k + lk + off).reshape(-1)]
-            values += [(e * (1.0 - frac)).reshape(-1),
-                       (e * frac).reshape(-1)]
-        ears = irm.add_rows(2 * n_l * n_t * n_k, torch.cat(rows),
-                            torch.cat(values)).reshape(2, n_l, n_t, n_k)
-        out = []
-        for ear in range(2):
-            if decorr:
-                out.append(ears[ear] + diffuse
-                           * _ear_signs_tensor(n_t, ear, dev))
-            else:
-                out.append(ears[ear] + diffuse)
-        return out[0], out[1]
+        as the JAX CLI's eager bake does.
+
+        On the card: one launch of the decode kernel
+        (``ops/cuda/binaural_kernel.py::binaural_decode``); on the CPU the
+        plain chain, :func:`binaural_plain`."""
+        from .ops.cuda.binaural_kernel import binaural_decode
+        ears = binaural_decode(self, sample_rate, facing, head_radius,
+                               shadow, speed_of_sound, decorrelate)
+        n_l = self.w.shape[0]
+        return ears[:n_l], ears[n_l:]
 
     def arrival_angle(self) -> torch.Tensor:
         """Dominant arrival bearing per bin, ``atan2(Y, X)``, ``[L, T,
@@ -270,15 +234,103 @@ def binaural_trace_params(params: TraceParams,
     return spatial_params(params)
 
 
+def _decorrelated(decorrelate: bool, head_radius: float,
+                  shadow: float) -> bool:
+    """Whether the diffuse stream goes through the ear signs: not for a
+    degenerate head, whose ears are both ``W``."""
+    return decorrelate and not (head_radius == 0.0 and shadow == 0.0)
+
+
+def binaural_entries(sp: SpatialIR, sample_rate: int, facing=0.0,
+                     head_radius: float = 0.0875, shadow: float = 0.6,
+                     speed_of_sound=343.0):
+    """The splat of :func:`binaural_plain`: ``(rows [4 L T K] int64,
+    values [4 L T K] float32, diffuse [L, T, K])``. The entries run ear 0's
+    ``lo`` deposits, ear 0's ``hi`` ones, then ear 1's, each flat over
+    ``(l, t, k)``; a row indexes the flat ``[2, L, T, K]`` two-ear IR."""
+    if not 0.0 <= shadow <= 1.0:
+        raise ValueError(f"shadow must be in [0, 1], got {shadow}")
+    r = torch.sqrt(sp.x * sp.x + sp.y * sp.y)       # coherent
+    coh = torch.minimum(r, sp.w)
+    diffuse = sp.w - coh                            # per ear, full
+    s = torch.sin(torch.atan2(sp.y, sp.x) - facing)
+    n_l, n_t, n_k = sp.w.shape
+    dev = sp.w.device
+    bins = torch.arange(n_t, dtype=torch.float32, device=dev)[None, :, None]
+    if isinstance(speed_of_sound, torch.Tensor):
+        max_shift = (torch.full_like(speed_of_sound, head_radius)
+                     / speed_of_sound) * float(sample_rate)
+    else:
+        max_shift = head_radius / speed_of_sound * sample_rate
+    # flat row of (l, t, k); the two ears stacked ear-major
+    lk = (torch.arange(n_l, device=dev)[:, None, None] * n_t * n_k
+          + torch.arange(n_k, device=dev)[None, None, :])
+    rows, values = [], []
+    for ear, sign in enumerate((1.0, -1.0)):
+        # sign = +1 left ear, -1 right ear
+        gain = 1.0 + sign * shadow * s
+        # clamp BEFORE the fraction: an unclamped t < 0 would give
+        # (1 - frac) > 1 and frac < 0
+        t = torch.clamp(bins - sign * max_shift * s, 0.0, float(n_t - 1))
+        lo_f = torch.floor(t)
+        frac = t - lo_f
+        lo = lo_f.to(torch.int64)
+        hi = torch.clamp(lo + 1, max=n_t - 1)
+        e = coh * gain
+        off = ear * n_l * n_t * n_k
+        rows += [(lo * n_k + lk + off).reshape(-1),
+                 (hi * n_k + lk + off).reshape(-1)]
+        values += [(e * (1.0 - frac)).reshape(-1),
+                   (e * frac).reshape(-1)]
+    return torch.cat(rows), torch.cat(values), diffuse
+
+
+def binaural_ears(deposits: torch.Tensor, diffuse: torch.Tensor,
+                  decorr: bool) -> torch.Tensor:
+    """The two-ear IR ``[2L, T, K]`` from the summed splat ``deposits``
+    (``2 L T K`` values, the rows of :func:`binaural_entries`) and the
+    diffuse rest, through each ear's signs where ``decorr``."""
+    n_l, n_t, n_k = diffuse.shape
+    ears = deposits.reshape(2, n_l, n_t, n_k)
+    out = []
+    for ear in range(2):
+        if decorr:
+            out.append(ears[ear] + diffuse
+                       * _ear_signs_tensor(n_t, ear, diffuse.device))
+        else:
+            out.append(ears[ear] + diffuse)
+    return torch.cat(out, dim=0)
+
+
+def binaural_plain(sp: SpatialIR, sample_rate: int, facing=0.0,
+                   head_radius: float = 0.0875, shadow: float = 0.6,
+                   speed_of_sound=343.0, decorrelate: bool = True
+                   ) -> torch.Tensor:
+    """The plain decode of :meth:`SpatialIR.binaural`, ``[2L, T, K]``
+    (left ear first): the PyTorch chain of :func:`binaural_entries`, the
+    splat through ``ops/ir.py::add_rows`` in the entries' order (``lo``
+    deposits of an ear before its ``hi`` ones: ``index_add_`` on the CPU,
+    the deterministic accumulate on the card), and :func:`binaural_ears`.
+    The CPU path of the decode and the oracle of its kernel."""
+    rows, values, diffuse = binaural_entries(sp, sample_rate, facing,
+                                             head_radius, shadow,
+                                             speed_of_sound)
+    deposits = irm.add_rows(2 * diffuse.numel(), rows, values)
+    return binaural_ears(deposits, diffuse,
+                         _decorrelated(decorrelate, head_radius, shadow))
+
+
 def binaural_decode_ir(cur_ir: torch.Tensor, sample_rate: int, facing,
                        head_radius: float, shadow: float, speed_of_sound,
                        decorrelate: bool = True) -> torch.Tensor:
     """Split a fresh ``[3, T, K]`` spatial IR and decode it to the two-ear
-    ``[2, T, K]`` IR: the binaural chunk step."""
-    lft, rgt = spatial_from_ir(cur_ir).binaural(
-        sample_rate, facing, head_radius, shadow, speed_of_sound,
-        decorrelate=decorrelate)
-    return torch.cat([lft, rgt], dim=0)
+    ``[2, T, K]`` IR: the binaural chunk step. On the card one launch of
+    the decode kernel, which takes the capture's rows as they lie
+    (``ops/cuda/binaural_kernel.py``); on the CPU :func:`spatial_from_ir`
+    and :func:`binaural_plain`."""
+    from .ops.cuda.binaural_kernel import binaural_decode
+    return binaural_decode(cur_ir, sample_rate, facing, head_radius, shadow,
+                           speed_of_sound, decorrelate)
 
 
 def spatial_from_ir(ir: torch.Tensor, order: int = 1) -> SpatialIR:
