@@ -49,7 +49,7 @@ from .ops.cuda.accel_kernel import trace_frames_ir_accel_sorted
 from .ops.rng import philox_uniforms
 from .ops.trace import TraceParams, trace_hits_only
 from .parallel.sweep import sweep_rooms
-from .streaming import Streamer, window_scalars
+from .streaming import Streamer
 
 BASELINE = 100e6   # intersections/s (BASELINE.json's north-star target)
 
@@ -239,13 +239,8 @@ def bench_stream_chunk_modes(n_chunks=30, device=None):
     chunk = dry[:n]
 
     def run_mode(streamer, per_arrival, facing):
-        wd = n + streamer.arrival_early + 2
-
         def window(i):
-            if not per_arrival:
-                return None
-            return (dry,) + window_scalars(i, n, wd, dry.shape[-1],
-                                           True) + (True,)
+            return streamer._window(dry, i, True) if per_arrival else None
 
         streamer.process(chunk, p, facing=facing, window=window(0))
         _sync(dev)

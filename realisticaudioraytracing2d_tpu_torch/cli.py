@@ -635,11 +635,44 @@ def _binaural_setup(args, room, n_l: int, chunk_dt: float):
     return True, (lambda i: base + turn * i)
 
 
-def _arrival_kwargs(args):
-    """The per-arrival Doppler flags as ``Streamer`` keyword arguments."""
-    return dict(arrival_taps=args.arrival_taps,
-                arrival_window_s=args.arrival_window,
-                arrival_match_bins=args.arrival_match_bins)
+def _stream_setup(args):
+    """What ``stream`` and ``live`` build alike from their flags: ``(room,
+    cfg, dry, run_kw, stream_kw)``, ``dry`` the input clip on the device,
+    ``run_kw`` the keyword arguments ``stream_clip`` and ``LivePlayer.run``
+    share (the per-chunk hooks through the pose feed, Doppler, the chunk
+    count), ``stream_kw`` those ``Streamer`` and ``LivePlayer`` share."""
+    from .engine import Engine
+    from .ops.convolve import load_samples
+    from .utils.audio_io import builtin_clip_path, read_audio
+
+    dev = torch.device(args.device)
+    room = _build_room(args, dev)
+    cfg = _config(args)
+    listeners, n_l = _listeners(args, room)
+    eng = Engine(room.scene, cfg, n_listeners=n_l)
+    x, rate = read_audio(args.infile or builtin_clip_path())
+    dry = load_samples(torch.as_tensor(x, device=dev), rate,
+                       cfg.audio.sample_rate)
+    chunk_dt = cfg.audio.chunk_duration
+    binaural, facing_fn = _binaural_setup(args, room, n_l, chunk_dt)
+    poses = _trajectory_poses(args, eng, room, listeners, chunk_dt)
+    run_kw = dict(zip(("params_fn", "facing_fn", "scene_fn", "control_fn"),
+                      _pose_feed_wrap(args, poses, facing_fn, room,
+                                      binaural)), doppler=_doppler_arg(args))
+    # a timed stream wraps the clip at its end while config.audio.loop is
+    # set (RayTraceManager.cs:74-77), else pads with silence; an untimed
+    # one plays the clip once and flushes the reverb tail
+    run_kw["total_chunks"] = None if args.duration is None \
+        else max(1, int(round(args.duration / chunk_dt)))
+    stream_kw = dict(
+        seed=args.seed, n_listeners=n_l,
+        frames_per_chunk=args.frames_per_chunk,
+        diffraction=args.diffraction and args.diffraction_order,
+        air_alpha=_air_alpha_arr(args, room.scene.n_bands, dev),
+        binaural=binaural, head_radius=args.head_radius,
+        arrival_taps=args.arrival_taps, arrival_window_s=args.arrival_window,
+        arrival_match_bins=args.arrival_match_bins)
+    return room, cfg, dry, run_kw, stream_kw
 
 
 def _arrival_args(p):
@@ -738,52 +771,17 @@ def _pose_feed_wrap(args, poses, facing_fn, room, binaural=False):
 
 
 def cmd_stream(args) -> None:
-    from .engine import Engine
-    from .ops.convolve import load_samples
     from .streaming import Streamer
-    from .utils.audio_io import builtin_clip_path, read_audio, write_audio
+    from .utils.audio_io import write_audio
 
-    dev = torch.device(args.device)
-    room = _build_room(args, dev)
-    cfg = _config(args)
-    listeners, n_l = _listeners(args, room)
-    eng = Engine(room.scene, cfg, n_listeners=n_l)
-    x, rate = read_audio(args.infile or builtin_clip_path())
-    dry = load_samples(torch.as_tensor(x, device=dev), rate,
-                       cfg.audio.sample_rate)
-    chunk_dt = cfg.audio.chunk_duration
-    poses = _trajectory_poses(args, eng, room, listeners, chunk_dt)
-    binaural, facing_fn = _binaural_setup(args, room, n_l, chunk_dt)
-    poses, facing_fn, scene_fn, control_fn = _pose_feed_wrap(
-        args, poses, facing_fn, room, binaural)
-    streamer = Streamer(room.scene, cfg, seed=args.seed, n_listeners=n_l,
-                        frames_per_chunk=args.frames_per_chunk,
-                        diffraction=(args.diffraction
-                                     and args.diffraction_order),
-                        air_alpha=_air_alpha_arr(args, room.scene.n_bands,
-                                                 dev),
-                        binaural=binaural, head_radius=args.head_radius,
-                        **_arrival_kwargs(args))
+    room, cfg, dry, run_kw, stream_kw = _stream_setup(args)
+    streamer = Streamer(room.scene, cfg, **stream_kw)
     on_chunk = None
     if args.viz_every:
         viz_cb = _viz_callback(args.out, args.viz_every)
         on_chunk = lambda i, st: viz_cb(i, st.prev_ir)  # noqa: E731
-    doppler = _doppler_arg(args)
     t0 = time.perf_counter()
-    if args.duration is not None:
-        # timed stream: the clip wraps at its end while config.audio.loop
-        # is set (RayTraceManager.cs:74-77), else pads with silence
-        total_chunks = max(1, int(round(args.duration / chunk_dt)))
-        wet = streamer.stream_clip(dry, poses, scene_fn=scene_fn,
-                                   total_chunks=total_chunks,
-                                   on_chunk=on_chunk, facing_fn=facing_fn,
-                                   doppler=doppler, control_fn=control_fn)
-    else:
-        # play the clip once and flush the reverb tail
-        wet = streamer.stream_clip(dry, poses, scene_fn=scene_fn,
-                                   loop=False, on_chunk=on_chunk,
-                                   facing_fn=facing_fn, doppler=doppler,
-                                   control_fn=control_fn)
+    wet = streamer.stream_clip(dry, on_chunk=on_chunk, **run_kw)
     wet = wet.cpu().numpy()      # waits for the device
     dt = time.perf_counter() - t0
     if args.viz_every:
@@ -800,34 +798,12 @@ def cmd_live(args) -> None:
     device feeding the native ring, an audio thread draining it at DSP
     cadence (the ``AudioManager.OnAudioFilterRead`` contract,
     AudioManager.cs:56-69), underruns reported instead of hidden."""
-    from .engine import Engine
     from .live import LivePlayer
-    from .ops.convolve import load_samples
-    from .utils.audio_io import builtin_clip_path, read_audio, write_audio
+    from .utils.audio_io import write_audio
 
-    dev = torch.device(args.device)
-    room = _build_room(args, dev)
-    cfg = _config(args)
-    listeners, n_l = _listeners(args, room)
-    eng = Engine(room.scene, cfg, n_listeners=n_l)
-    x, rate = read_audio(args.infile or builtin_clip_path())
-    dry = load_samples(torch.as_tensor(x, device=dev), rate,
-                       cfg.audio.sample_rate)
-    chunk_dt = cfg.audio.chunk_duration
-    total_chunks = max(1, int(round(args.duration / chunk_dt)))
-    binaural, facing_fn = _binaural_setup(args, room, n_l, chunk_dt)
-    poses = _trajectory_poses(args, eng, room, listeners, chunk_dt)
-    poses, facing_fn, scene_fn, control_fn = _pose_feed_wrap(
-        args, poses, facing_fn, room, binaural)
-    player = LivePlayer(room.scene, cfg, seed=args.seed, n_listeners=n_l,
-                        frames_per_chunk=args.frames_per_chunk,
-                        dsp_buffer=args.dsp_buffer,
-                        diffraction=(args.diffraction
-                                     and args.diffraction_order),
-                        air_alpha=_air_alpha_arr(args, room.scene.n_bands,
-                                                 dev),
-                        binaural=binaural, head_radius=args.head_radius,
-                        device=dev, **_arrival_kwargs(args))
+    room, cfg, dry, run_kw, stream_kw = _stream_setup(args)
+    player = LivePlayer(room.scene, cfg, dsp_buffer=args.dsp_buffer,
+                        device=torch.device(args.device), **stream_kw)
     on_chunk = _viz_callback(args.out or "live.wav", args.viz_every) \
         if args.viz_every else None
     sink = None
@@ -840,12 +816,8 @@ def cmd_live(args) -> None:
             raise SystemExit(
                 f"--play: {e} (run without --play to record to a WAV)")
     try:
-        rep = player.run(dry, total_chunks=total_chunks,
-                         realtime=args.realtime or sink is not None,
-                         params_fn=poses, scene_fn=scene_fn,
-                         on_chunk=on_chunk, facing_fn=facing_fn,
-                         doppler=_doppler_arg(args), sink=sink,
-                         control_fn=control_fn)
+        rep = player.run(dry, realtime=args.realtime or sink is not None,
+                         on_chunk=on_chunk, sink=sink, **run_kw)
     finally:
         if sink is not None:
             sink.close()

@@ -10,10 +10,12 @@ samples per callback (``AudioManager.OnAudioFilterRead``,
 ``AudioManager.cs:56-69``), copying mono to every channel and zeroing
 what it consumed.
 
-A producer thread runs the stream's chunk step
-(:func:`..streaming.wet_chunk`: the trace through the hand kernels on
-the card, the crossfaded convolution, per-arrival Doppler's taps) and
-overlap-adds each wet chunk, then its taps, into the host
+A producer thread runs the stream's own chunk loop: the dry feed and
+controls, the settings and the carried-state step that
+:class:`..streaming.Streamer` runs (``streaming._StreamSettings``), around
+the chunk step :func:`..streaming.wet_chunk` (the trace through the hand
+kernels on the card, the crossfaded convolution, per-arrival Doppler's
+taps). It overlap-adds each wet chunk, then its taps, into the host
 :class:`~.native.NativeRingBuffer` in the stream's order of additions
 (so integrity-mode output equals ``Streamer.stream_clip``'s bit for
 bit); a consumer thread drains fixed DSP buffers on the audio clock. A
@@ -46,8 +48,8 @@ from .models.scene import Scene
 from .native import NativeRingBuffer
 from .ops.trace import TraceParams
 from .streaming import (_ARRIVAL_MATCH_BINS, _ARRIVAL_TAPS,
-                        _ARRIVAL_WINDOW_S, DopplerFeed, dry_chunk,
-                        init_arrival_carry, wet_chunk, window_scalars)
+                        _ARRIVAL_WINDOW_S, _advance, _StreamSettings,
+                        wet_chunk)
 
 
 @dataclass
@@ -75,7 +77,7 @@ class LiveReport:
                 f"{self.late_samples} late samples dropped")
 
 
-class LivePlayer:
+class LivePlayer(_StreamSettings):
     """Producer/consumer driver of the live pipeline.
 
     ``realtime=True`` paces the consumer on the wall clock (one drain per
@@ -103,10 +105,10 @@ class LivePlayer:
                  arrival_window_s: float = _ARRIVAL_WINDOW_S,
                  arrival_match_bins: float = _ARRIVAL_MATCH_BINS,
                  uniforms_fn=None, backend: str = "auto", device=None):
-        if binaural and n_listeners != 1:
-            raise ValueError("binaural live takes one head listener")
-        if arrival_taps < 1:
-            raise ValueError("arrival_taps must be >= 1")
+        super().__init__(scene, config, seed, n_listeners, frames_per_chunk,
+                         uniforms_fn, backend, diffraction, air_alpha,
+                         binaural, head_radius, shadow, decorrelate,
+                         arrival_taps, arrival_window_s, arrival_match_bins)
         device = resolve(device)
         if device.type == "cuda":
             # an explicit index: the producer thread does not inherit the
@@ -118,25 +120,7 @@ class LivePlayer:
             raise ValueError(f"the scene lies on {scene.device}, the "
                              f"player on {device}")
         self.device = device
-        self.scene = scene
-        self.config = config
-        self.seed = int(seed)
-        self.uniforms_fn = uniforms_fn
-        self.backend = backend
-        self.n_listeners = 2 if binaural else n_listeners
-        self.frames_per_chunk = frames_per_chunk
         self.dsp_buffer = dsp_buffer
-        self.diffraction = diffraction
-        self.air_alpha = air_alpha
-        self.binaural = binaural
-        self.head_radius = head_radius
-        self.shadow = shadow
-        self.decorrelate = decorrelate
-        self.arrival_taps = int(arrival_taps)
-        self.arrival_match_bins = float(arrival_match_bins)
-        self.arrival_early = min(
-            config.audio.ir_length,
-            int(round(arrival_window_s * config.audio.sample_rate)))
         n = config.audio.chunk_samples
         t = config.audio.ir_length
         if ring_size is None:
@@ -180,24 +164,20 @@ class LivePlayer:
         ``prime`` chunks are final (a prebuffer), so underruns measure the
         producer's lag, not its start. 0 restores the bare clock.
 
-        ``doppler=True`` feeds the producer through the same
-        :class:`..streaming.DopplerFeed` as
-        :meth:`..streaming.Streamer.stream_clip`, and
-        ``doppler="per_arrival"`` runs the same tap extraction inside the
-        chunk step, so integrity-mode live output equals the stream's.
+        ``params_fn``, ``facing_fn``, ``scene_fn`` (per-chunk geometry of
+        the same padded wall count), ``doppler`` and ``control_fn`` (the
+        reference's runtime verbs, ``RayTraceManager.cs:55-61``) are
+        :meth:`..streaming.Streamer.stream_clip`'s: the player runs the
+        stream's own dry feed, controls and carried-state step, so
+        integrity-mode live output equals the stream's. A ``"stop"`` ends
+        the run after flushing the reverb tail (the report's audio is
+        shorter).
 
         ``sink`` (an object with ``write(block[C, N]) -> frames``, e.g.
         :class:`..native.AudioSink`) receives every drained DSP buffer on
         the consumer thread. A device sink's blocking write IS the audio
         clock, so the consumer skips the wall-clock sleep in realtime
         mode (underrun accounting unchanged).
-
-        ``control_fn(i) -> dict`` carries the reference's runtime verbs
-        (``RayTraceManager.cs:55-61``) as in ``stream_clip``:
-        ``"reset_ir"`` drops the IR memory before chunk ``i``; ``"stop"``
-        silences the dry feed and ends the run after flushing the reverb
-        tail (the report's audio is shorter). ``scene_fn(i) -> Scene``
-        supplies per-chunk geometry (same padded wall count).
 
         ``record=False`` drops the drained audio instead of keeping the
         session in the report (~0.2 MB/s a listener at 48 kHz): sink
@@ -209,7 +189,6 @@ class LivePlayer:
         plays, as a long session's monitor does."""
         cfg = self.config
         n = cfg.audio.chunk_samples
-        t = cfg.audio.ir_length
         sr = cfg.audio.sample_rate
         dev = self.device
         loop = cfg.audio.loop if loop is None else loop
@@ -232,79 +211,28 @@ class LivePlayer:
         goal = [total_samples]
         producer_err = []
 
-        per_arrival = doppler == "per_arrival"
-        feed = DopplerFeed(dry, params_fn, n, sr, total_chunks,
-                           loop) if (doppler and not per_arrival) else None
-        wd = n + self.arrival_early + 2
-        total_dry = dry.shape[-1]
-        tail_chunks = (t + n - 1) // n
-        # the carried state, updated in place chunk by chunk, as the
-        # stream's StreamState
-        prev_ir = torch.zeros((self.n_listeners, t, self.scene.n_bands),
-                              dtype=torch.float32, device=dev)
-        carry = (init_arrival_carry(t, self.n_listeners,
-                                    self.scene.n_bands, self.arrival_taps,
-                                    self.binaural, dev)
-                 if per_arrival else None)
-        prev_fac = (torch.zeros((), dtype=torch.float32, device=dev)
-                    if self.binaural else None)
+        # each run carries a fresh state, updated in place chunk by chunk
+        # (the player overlap-adds into its host ring: the state's tensor
+        # ring stays unused)
+        state = self.state = self._init_state()
+
+        def on_stop(end_step):
+            with frontier_lock:
+                goal[0] = min(goal[0], end_step * n)
+                frontier_lock.notify_all()
 
         def produce():
             nonlocal frontier
-            stop_at = None
-            end_step = total_chunks
-            for i in range(total_chunks):
-                if i >= end_step:
-                    break
-                t_step = time.perf_counter()
-                if control_fn is not None:
-                    ctrl = control_fn(i) or {}
-                    if ctrl.get("reset_ir"):
-                        prev_ir.zero_()
-                        if carry is not None:
-                            for x in carry.tensors():
-                                x.zero_()
-                    if ctrl.get("stop") and stop_at is None:
-                        stop_at = i * n
-                        end_step = min(end_step, i + tail_chunks)
-                        with frontier_lock:
-                            goal[0] = min(goal[0], end_step * n)
-                            frontier_lock.notify_all()
-                if stop_at is not None:
-                    piece = torch.zeros(n, dtype=dry.dtype, device=dev)
-                else:
-                    piece = (feed.chunk(i) if feed is not None
-                             else dry_chunk(dry, i, n, loop))
-                win = (window_scalars(i, n, wd, total_dry, loop, stop_at)
-                       if per_arrival else (None, None, None))
-                facing = None
-                if self.binaural:
-                    facing = float(facing_fn(i) if facing_fn is not None
-                                   else 0.0)
+            t_step = time.perf_counter()
+            for i, piece, params, scene, facing, window in self._chunks(
+                    state, dry, params_fn, total_chunks, loop, doppler,
+                    control_fn, scene_fn, facing_fn, on_stop):
+                kw = self._chunk_kw(state, facing, window)
                 wet, taps, cur_ir, new_carry = wet_chunk(
-                    scene_fn(i) if scene_fn is not None else self.scene,
-                    params_fn(i), prev_ir, piece, i, seed=self.seed,
-                    n_rays=cfg.sim.ray_count,
-                    max_bounces=cfg.sim.max_bounces, sample_rate=sr,
-                    frames_per_chunk=self.frames_per_chunk,
-                    diffraction=self.diffraction, air_alpha=self.air_alpha,
-                    uniforms=(self.uniforms_fn(i) if self.uniforms_fn
-                              else None),
-                    backend=self.backend, binaural_facing=facing,
-                    head_radius=self.head_radius, shadow=self.shadow,
-                    decorrelate=self.decorrelate,
-                    dry_full=dry if per_arrival else None,
-                    win_start=win[0], win_prefix=win[1], win_cut=win[2],
-                    arrival_early=self.arrival_early if per_arrival else 0,
-                    arrival_taps=self.arrival_taps,
-                    arrival_match_bins=self.arrival_match_bins,
-                    window_loop=loop and per_arrival, arrival=carry,
-                    prev_facing=prev_fac)
-                prev_ir.copy_(cur_ir)
-                if new_carry is not None:
-                    carry.copy_(new_carry)
-                if prev_fac is not None:
-                    prev_fac.fill_(facing)
+                    scene, params, state.prev_ir, piece, state.chunk_index,
+                    arrival=state.arrival, prev_facing=state.prev_facing,
+                    **kw)
+                _advance(state, cur_ir, new_carry, kw["binaural_facing"])
                 wet_np = wet.cpu().numpy()    # device->host readback
                 taps_np = taps.cpu().numpy() if taps is not None else None
                 head = i * n
@@ -334,9 +262,10 @@ class LivePlayer:
                     frontier_lock.notify_all()
                 report.chunks = i + 1
                 if on_chunk is not None:
-                    on_chunk(i, prev_ir)
+                    on_chunk(i, state.prev_ir)
                 if stop.is_set():
                     break
+                t_step = time.perf_counter()
 
         def producer():
             t0 = time.perf_counter()

@@ -18,6 +18,7 @@ The JAX package has no Pallas kernel here, so neither does the port.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -143,13 +144,23 @@ def load_samples(x: torch.Tensor, src_rate: int, dst_rate: int
 def band_filterbank(n_samples: int, n_bands: int, n_fft: int
                     ) -> torch.Tensor:
     """Brickwall rfft-domain masks splitting [0, nyquist] into ``n_bands``
-    equal bands. Returns [n_bands, n_fft//2 + 1] float32 (on the CPU; the
-    callers move it)."""
+    equal bands. Returns [n_bands, n_fft//2 + 1] float32 on the CPU
+    (:func:`_band_masks` keeps it on the callers' device). ``n_samples``
+    does not enter the masks; it stays for JAX's signature."""
     n_bins = n_fft // 2 + 1
     band_of_bin = torch.clamp((torch.arange(n_bins) * n_bands) // n_bins,
                               max=n_bands - 1)
     return (band_of_bin[None, :] ==
             torch.arange(n_bands)[:, None]).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _band_masks(n_bands: int, n_fft: int, device: torch.device
+                ) -> torch.Tensor:
+    """:func:`band_filterbank` ``[K, F]`` on ``device``, made once per
+    ``(K, n_fft, device)``: a copy to the card per banded call would wait
+    for the device. Callers read it and never write it."""
+    return band_filterbank(0, n_bands, n_fft).to(device)
 
 
 def combined_transfer(ir: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -160,8 +171,7 @@ def combined_transfer(ir: torch.Tensor, n_fft: int) -> torch.Tensor:
     h = torch.fft.rfft(ir.movedim(-1, -2), n_fft)            # [..., K, F]
     if k == 1:
         return h[..., 0, :]
-    masks = band_filterbank(ir.shape[-2], k, n_fft).to(ir.device)
-    return (h * masks).sum(dim=-2)
+    return (h * _band_masks(k, n_fft, ir.device)).sum(dim=-2)
 
 
 def convolve_banded(x: torch.Tensor, ir_banded: torch.Tensor,
@@ -179,7 +189,7 @@ def convolve_banded(x: torch.Tensor, ir_banded: torch.Tensor,
     out_length = x.shape[-1] + t_ir
     n_fft = _next_pow2(out_length)
     spec = torch.fft.rfft(x, n_fft)                          # [F]
-    masks = band_filterbank(x.shape[-1], k, n_fft).to(x.device)   # [K, F]
+    masks = _band_masks(k, n_fft, x.device)                  # [K, F]
     h = torch.fft.rfft(ir_banded.T, n_fft)                   # [K, F]
     y = torch.fft.irfft(spec[None, :] * masks * h, n_fft)    # [K, n_fft]
     y = torch.sum(y, dim=0)[:out_length]

@@ -292,20 +292,6 @@ def _crossfaded_wet(chunk: torch.Tensor, ir_prev: torch.Tensor,
 # unwarped: a diffuse late field arrives from every direction, so its net
 # shift is about zero.
 
-_MASKS = {}
-
-
-def _band_masks(n_samples: int, n_bands: int, n_fft: int,
-                device) -> torch.Tensor:
-    """:func:`..ops.convolve.band_filterbank` ``[K, F]`` on ``device``,
-    made once per shape and device: a copy to the card per chunk would
-    wait for the device."""
-    key = (n_samples, n_bands, n_fft, str(device))
-    if key not in _MASKS:
-        _MASKS[key] = cv.band_filterbank(n_samples, n_bands, n_fft).to(device)
-    return _MASKS[key]
-
-
 def _window3(chan: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """3-bin windows ``[L, A, 3, K]`` of channel ``[L, T, K]`` at tap bins
     ``idx[L, A]``. Neighbours out of range are 0, not the clipped edge bin
@@ -417,7 +403,7 @@ def _band_windows(window: torch.Tensor, k: int) -> torch.Tensor:
     wd = window.shape[-1]
     n_fft = cv._next_pow2(2 * wd)
     x = torch.fft.rfft(window, n_fft)
-    masks = _band_masks(wd, k, n_fft, window.device)         # [K, F]
+    masks = cv._band_masks(k, n_fft, window.device)          # [K, F]
     return torch.fft.irfft(x[None, :] * masks, n_fft)[:, :wd]
 
 
@@ -769,6 +755,29 @@ def wet_chunk(scene: Scene, params: TraceParams, prev_ir: torch.Tensor,
     return wet, taps, cur_ir, new_carry
 
 
+def _reset_carry(state: StreamState) -> None:
+    """Drop the carried IR memory: the crossfade's previous IR and the
+    per-arrival carry, so the next chunk fades in from silence."""
+    state.prev_ir.zero_()
+    if state.arrival is not None:
+        for x in state.arrival.tensors():
+            x.zero_()
+
+
+def _advance(state: StreamState, cur_ir: torch.Tensor,
+             new_carry: Optional[ArrivalCarry], facing) -> None:
+    """Carry a chunk's IR, per-arrival products and binaural ``facing``
+    (None for a stream that is not binaural) to the next chunk, in place:
+    :func:`stream_chunk` inside its ring span, ``live.LivePlayer`` after
+    :func:`wet_chunk`."""
+    state.prev_ir.copy_(cur_ir)
+    if new_carry is not None:
+        state.arrival.copy_(new_carry)
+    if facing is not None and state.prev_facing is not None:
+        state.prev_facing.fill_(facing)
+    state.chunk_index += 1
+
+
 def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
                  dry_chunk: torch.Tensor, **kw
                  ) -> Tuple[torch.Tensor, StreamState]:
@@ -800,7 +809,6 @@ def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
     carry. It composes with ``binaural_facing`` (taps from the W channel,
     per-tap bearings from X/Y driving per-ear ITD/ILD glides:
     :func:`_per_arrival_binaural`) and with banded scenes."""
-    binaural_facing = kw.get("binaural_facing")
     wet, taps, cur_ir, new_carry = wet_chunk(
         scene, params, state.prev_ir, dry_chunk, state.chunk_index,
         arrival=state.arrival, prev_facing=state.prev_facing, **kw)
@@ -813,29 +821,18 @@ def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
             dry_chunk.shape[-1])
         if taps is not None:
             out = out + taps
-
-        state.prev_ir.copy_(cur_ir)
-        if new_carry is not None:
-            state.arrival.copy_(new_carry)
-        if binaural_facing is not None and state.prev_facing is not None:
-            state.prev_facing.fill_(binaural_facing)
-        state.chunk_index += 1
+        _advance(state, cur_ir, new_carry, kw.get("binaural_facing"))
     return out, state
 
 
-class Streamer:
-    """Host-side driver of the streaming loop (the reference's
-    ``StartStreaming``, ``RayTraceManager.cs:125-133``). Poses may change
-    every chunk. ``seed`` names the random stream; ``uniforms_fn(i) ->
-    (emit[F, R], u[F, B, R, 3])`` replaces chunk ``i``'s draws.
-    ``diffraction`` (False, 1 or 2) and ``air_alpha`` add edge
-    diffraction and air absorption to every chunk's IR. ``binaural``
-    streams one head listener to two ear channels (``n_listeners`` is 2
-    then), decoded with ``head_radius``, ``shadow`` and ``decorrelate``
-    at the facing :meth:`process` is given. ``arrival_taps`` (taps per
-    listener), ``arrival_window_s`` (the early window they may live in)
-    and ``arrival_match_bins`` (the largest drift matched chunk to chunk)
-    tune per-arrival Doppler."""
+class _StreamSettings:
+    """What :class:`Streamer` and ``live.LivePlayer`` share: the stream's
+    fixed settings, checked once, with the constant part of
+    :func:`wet_chunk`'s keywords built once; the per-chunk keywords
+    (:meth:`_chunk_kw`); and the chunk loop's dry feed and controls
+    (:meth:`_chunks`). The two drivers differ only in where a wet chunk
+    goes: the tensor ring of :func:`stream_chunk`, or the player's host
+    ring."""
 
     def __init__(self, scene: Scene, config: EngineConfig, seed: int = 0,
                  n_listeners: int = 1, frames_per_chunk: int = 1,
@@ -850,39 +847,132 @@ class Streamer:
             raise ValueError("binaural streaming takes one head listener")
         if arrival_taps < 1:
             raise ValueError("arrival_taps must be >= 1")
+        audio = config.audio
         self.scene = scene
-        self.diffraction = diffraction
-        self.air_alpha = air_alpha
         self.config = config
         self.seed = int(seed)
         self.n_listeners = 2 if binaural else n_listeners
         self.frames_per_chunk = frames_per_chunk
         self.uniforms_fn = uniforms_fn
-        self.backend = backend
         self.binaural = binaural
         self.head_radius = head_radius
-        self.shadow = shadow
-        self.decorrelate = decorrelate
         self.arrival_taps = int(arrival_taps)
-        self.arrival_match_bins = float(arrival_match_bins)
         # the early window the taps may live in (bins; fixed per stream)
         self.arrival_early = min(
-            config.audio.ir_length,
-            int(round(arrival_window_s * config.audio.sample_rate)))
-        self.state = init_stream(config.audio.ir_length,
-                                 config.audio.chunk_samples,
-                                 self.n_listeners, scene.n_bands,
-                                 binaural=binaural, device=scene.device)
+            audio.ir_length,
+            int(round(arrival_window_s * audio.sample_rate)))
+        # chunks that flush the reverb tail once the feed ends or stops
+        self._tail_chunks = (audio.ir_length + audio.chunk_samples - 1) \
+            // audio.chunk_samples
+        self._kw = dict(
+            seed=self.seed, n_rays=config.sim.ray_count,
+            max_bounces=config.sim.max_bounces,
+            sample_rate=audio.sample_rate,
+            frames_per_chunk=frames_per_chunk, diffraction=diffraction,
+            air_alpha=air_alpha, backend=backend, head_radius=head_radius,
+            shadow=shadow, decorrelate=decorrelate,
+            arrival_taps=self.arrival_taps,
+            arrival_match_bins=float(arrival_match_bins))
+        self.state = self._init_state()
+
+    def _init_state(self) -> StreamState:
+        """A fresh carried state (the arrival carry comes with the first
+        per-arrival chunk, :meth:`_chunk_kw`)."""
+        audio = self.config.audio
+        return init_stream(audio.ir_length, audio.chunk_samples,
+                           self.n_listeners, self.scene.n_bands,
+                           binaural=self.binaural, device=self.scene.device)
+
+    def _chunk_kw(self, state: StreamState, facing, window) -> dict:
+        """:func:`wet_chunk`'s keywords for chunk ``state.chunk_index``:
+        the settings', its uniforms, its binaural facing and, for
+        per-arrival Doppler, its ``window`` ``(dry_full, win_start,
+        win_prefix, win_cut, loop)``. The first per-arrival chunk
+        allocates ``state.arrival``, so other streams never carry it."""
+        i = state.chunk_index
+        kw = dict(self._kw,
+                  uniforms=self.uniforms_fn(i) if self.uniforms_fn else None,
+                  binaural_facing=float(facing) if self.binaural else None)
+        if window is not None:
+            if state.arrival is None:
+                state.arrival = init_arrival_carry(
+                    self.config.audio.ir_length, self.n_listeners,
+                    self.scene.n_bands, self.arrival_taps, self.binaural,
+                    self.scene.device)
+            dry_full, win_start, win_prefix, win_cut, loop = window
+            kw.update(dry_full=dry_full, win_start=win_start,
+                      win_prefix=win_prefix, win_cut=win_cut,
+                      arrival_early=self.arrival_early, window_loop=loop)
+        return kw
+
+    def _window(self, dry: torch.Tensor, i: int, loop: bool,
+                stop_at: Optional[int] = None) -> tuple:
+        """Chunk ``i``'s per-arrival ``window`` for :meth:`_chunk_kw`: the
+        clip and the host ints of :func:`window_scalars`."""
+        n = self.config.audio.chunk_samples
+        return (dry,) + window_scalars(i, n, n + self.arrival_early + 2,
+                                       dry.shape[-1], loop, stop_at) + (loop,)
+
+    def _chunks(self, state: StreamState, dry: torch.Tensor, params_fn,
+                n_steps: int, loop: bool, doppler, control_fn, scene_fn,
+                facing_fn, on_stop=None):
+        """The chunk loop's feed: yields ``(i, dry piece, params, scene,
+        facing, window)`` for chunk ``i`` of ``n_steps``, ``window``
+        :meth:`_window`'s (None unless ``doppler="per_arrival"``). The dry piece is :class:`DopplerFeed`'s
+        for ``doppler=True``, else :func:`dry_chunk`'s. ``control_fn(i)``
+        comes first: ``"reset_ir"`` resets ``state``'s carry; ``"stop"``
+        silences the feed from sample ``i * n`` and ends the loop after
+        the reverb tail's chunks, calling ``on_stop(end_step)``."""
+        n = self.config.audio.chunk_samples
+        per_arrival = doppler == "per_arrival"
+        feed = DopplerFeed(dry, params_fn, n, self.config.audio.sample_rate,
+                           n_steps, loop) if (doppler and not per_arrival) \
+            else None
+        stop_at = None
+        i, end_step = 0, n_steps
+        while i < end_step:
+            if control_fn is not None:
+                ctrl = control_fn(i) or {}
+                if ctrl.get("reset_ir"):
+                    _reset_carry(state)
+                if ctrl.get("stop") and stop_at is None:
+                    stop_at = i * n
+                    end_step = min(end_step, i + self._tail_chunks)
+                    if on_stop is not None:
+                        on_stop(end_step)
+            if stop_at is not None:
+                piece = torch.zeros(n, dtype=dry.dtype, device=dry.device)
+            else:
+                piece = (feed.chunk(i) if feed is not None
+                         else dry_chunk(dry, i, n, loop))
+            window = (self._window(dry, i, loop, stop_at) if per_arrival
+                      else None)
+            scene = scene_fn(i) if scene_fn is not None else self.scene
+            facing = facing_fn(i) if facing_fn is not None else 0.0
+            yield i, piece, params_fn(i), scene, facing, window
+            i += 1
+
+
+class Streamer(_StreamSettings):
+    """Host-side driver of the streaming loop (the reference's
+    ``StartStreaming``, ``RayTraceManager.cs:125-133``). Poses may change
+    every chunk. ``seed`` names the random stream; ``uniforms_fn(i) ->
+    (emit[F, R], u[F, B, R, 3])`` replaces chunk ``i``'s draws.
+    ``diffraction`` (False, 1 or 2) and ``air_alpha`` add edge
+    diffraction and air absorption to every chunk's IR. ``binaural``
+    streams one head listener to two ear channels (``n_listeners`` is 2
+    then), decoded with ``head_radius``, ``shadow`` and ``decorrelate``
+    at the facing :meth:`process` is given. ``arrival_taps`` (taps per
+    listener), ``arrival_window_s`` (the early window they may live in)
+    and ``arrival_match_bins`` (the largest drift matched chunk to chunk)
+    tune per-arrival Doppler."""
 
     def reset_ir(self) -> None:
         """The reference's R key (``RayTraceManager.cs:58-61``): drop the IR
         memory, the crossfade's previous IR and the per-arrival carry, so
         the next chunk fades in from silence. Audio already in the ring
         keeps playing."""
-        self.state.prev_ir.zero_()
-        if self.state.arrival is not None:
-            for x in self.state.arrival.tensors():
-                x.zero_()
+        _reset_carry(self.state)
 
     def process(self, dry_chunk: torch.Tensor, params: TraceParams,
                 scene: Optional[Scene] = None, facing: float = 0.0,
@@ -893,34 +983,9 @@ class Streamer:
         (per-arrival Doppler) is ``(dry_full, win_start, win_prefix,
         win_cut, loop)``: the clip on the stream's device and the history
         window's host ints from :func:`window_scalars`."""
-        i = self.state.chunk_index
-        uniforms = self.uniforms_fn(i) if self.uniforms_fn else None
-        dry_full = win_start = win_prefix = win_cut = None
-        window_loop = False
-        if window is not None:
-            dry_full, win_start, win_prefix, win_cut, window_loop = window
-            if self.state.arrival is None:
-                # the carry, allocated on the first per-arrival chunk
-                self.state.arrival = init_arrival_carry(
-                    self.config.audio.ir_length, self.n_listeners,
-                    self.scene.n_bands, self.arrival_taps, self.binaural,
-                    self.scene.device)
         out, self.state = stream_chunk(
             scene if scene is not None else self.scene, params, self.state,
-            dry_chunk, seed=self.seed, n_rays=self.config.sim.ray_count,
-            max_bounces=self.config.sim.max_bounces,
-            sample_rate=self.config.audio.sample_rate,
-            frames_per_chunk=self.frames_per_chunk,
-            diffraction=self.diffraction, air_alpha=self.air_alpha,
-            uniforms=uniforms, backend=self.backend,
-            binaural_facing=(float(facing) if self.binaural else None),
-            head_radius=self.head_radius, shadow=self.shadow,
-            decorrelate=self.decorrelate, dry_full=dry_full,
-            win_start=win_start, win_prefix=win_prefix, win_cut=win_cut,
-            arrival_early=(self.arrival_early if window is not None else 0),
-            arrival_taps=self.arrival_taps,
-            arrival_match_bins=self.arrival_match_bins,
-            window_loop=window_loop)
+            dry_chunk, **self._chunk_kw(self.state, facing, window))
         return out
 
     def stream_clip(self, dry: torch.Tensor, params_fn, scene_fn=None,
@@ -962,52 +1027,23 @@ class Streamer:
         needed and geometry-driven delay changes (a moving obstacle) are
         heard too. It works on mono, multi-listener, banded and binaural
         streams."""
-        n = self.config.audio.chunk_samples
-        total = dry.shape[-1]
         if loop is None:
             loop = self.config.audio.loop and total_chunks is not None
-        if loop:
-            if total_chunks is None:
-                raise ValueError(
-                    "loop=True streams forever; pass total_chunks")
-            n_steps = total_chunks
-        else:
-            n_chunks = (total + n - 1) // n
-            tail = (self.config.audio.ir_length + n - 1) // n \
-                if pad_tail else 0
-            n_steps = (n_chunks + tail) if total_chunks is None \
-                else total_chunks
-        per_arrival = doppler == "per_arrival"
-        feed = DopplerFeed(dry, params_fn, n, self.config.audio.sample_rate,
-                           n_steps, loop) if (doppler and not per_arrival) \
-            else None
-        wd = n + self.arrival_early + 2
-        tail_chunks = (self.config.audio.ir_length + n - 1) // n
+        if loop and total_chunks is None:
+            raise ValueError("loop=True streams forever; pass total_chunks")
+        n_steps = total_chunks
+        if n_steps is None:
+            n = self.config.audio.chunk_samples
+            n_steps = (dry.shape[-1] + n - 1) // n + (
+                self._tail_chunks if pad_tail else 0)
         chunks = []
-        stop_at = None
-        i, end_step = 0, n_steps
-        while i < end_step:
-            if control_fn is not None:
-                ctrl = control_fn(i) or {}
-                if ctrl.get("reset_ir"):
-                    self.reset_ir()
-                if ctrl.get("stop") and stop_at is None:
-                    stop_at = i * n
-                    end_step = min(end_step, i + tail_chunks)
-            if stop_at is not None:
-                piece = torch.zeros(n, dtype=dry.dtype, device=dry.device)
-            else:
-                piece = (feed.chunk(i) if feed is not None
-                         else dry_chunk(dry, i, n, loop))
-            window = ((dry,) + window_scalars(i, n, wd, total, loop, stop_at)
-                      + (loop,)) if per_arrival else None
-            scene_i = scene_fn(i) if scene_fn is not None else None
-            facing = facing_fn(i) if facing_fn is not None else 0.0
-            chunks.append(self.process(piece, params_fn(i), scene_i,
-                                       facing=facing, window=window))
+        for i, piece, params, scene, facing, window in self._chunks(
+                self.state, dry, params_fn, n_steps, loop, doppler,
+                control_fn, scene_fn, facing_fn):
+            chunks.append(self.process(piece, params, scene, facing=facing,
+                                       window=window))
             if on_chunk is not None:
                 on_chunk(i, self.state)
-            i += 1
         return torch.cat(chunks, dim=-1)
 
 

@@ -13,6 +13,7 @@ import torch
 from torch_parity import to_numpy, to_torch
 
 from realisticaudioraytracing2d_tpu.ops import convolve as jcv
+from realisticaudioraytracing2d_tpu_torch import streaming
 from realisticaudioraytracing2d_tpu_torch.ops import convolve as cv
 
 
@@ -74,6 +75,25 @@ def test_band_filterbank_equals_jax():
         np.testing.assert_array_equal(
             to_numpy(cv.band_filterbank(100, k, 256)),
             np.asarray(jcv.band_filterbank(100, k, 256)))
+
+
+def test_banded_calls_share_one_mask_per_key(rng):
+    # combined_transfer, convolve_banded and the stream's band windows
+    # read one [K, F] mask per (K, n_fft, device): a second banded call
+    # gets the cached tensor, band_filterbank's masks
+    cpu = torch.device("cpu")
+    masks = cv._band_masks(4, 512, cpu)
+    assert torch.equal(masks, cv.band_filterbank(100, 4, 512))
+    hits = cv._band_masks.cache_info().hits
+    ir = to_torch(rng.uniform(0, 0.4, (150, 4)).astype(np.float32))
+    cv.combined_transfer(ir, 512)
+    cv.convolve_banded(to_torch(rng.uniform(-1, 1, 300).astype(np.float32)),
+                       ir)                                # n_fft 512
+    streaming._band_windows(to_torch(rng.normal(size=256)
+                                     .astype(np.float32)), 4)  # n_fft 512
+    assert cv._band_masks.cache_info().hits == hits + 3
+    assert cv._band_masks(4, 512, cpu) is masks
+    assert cv._band_masks(8, 512, cpu) is not masks
 
 
 def test_peak_downmix_resample_load_match_jax(rng):

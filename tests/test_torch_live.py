@@ -15,6 +15,8 @@ producer/consumer-style.
   ``STREAM_TOL`` (rtol 2e-3, atol 2e-5; tests/test_torch_streaming.py):
   mono with reset/stop and a moved wall, binaural, shared-rate Doppler
   and per-arrival Doppler.
+* The settings the player shares with ``Streamer`` (one head listener,
+  ``arrival_taps``, the early window), checked on both alike.
 * After tests/test_live.py: the DSP cadence, backpressure with a tight
   ring, the ring-size floor, underruns counted in realtime mode, the sink
   receiving every buffer and pacing with silence, ``record=False``, and
@@ -200,6 +202,34 @@ def test_live_ring_size_floor_and_device_checks(live_cfg):
         # the default device is the card: nothing falls back to the CPU
         with pytest.raises((AssertionError, RuntimeError)):
             LivePlayer(room.scene, cfg)
+
+
+@pytest.mark.parametrize("driver", ["stream", "live"])
+@pytest.mark.parametrize("case", ["one head listener", "arrival_taps",
+                                  "arrival_early"])
+def test_stream_settings_are_checked_once(live_cfg, driver, case):
+    # the stream and the player take their settings through one holder:
+    # the same refusals, the same listener count and early window
+    room, cfg, _ = live_cfg
+
+    def make(**kw):
+        if driver == "stream":
+            return art.Streamer(room.scene, cfg, **kw)
+        return LivePlayer(room.scene, cfg, device=CPU, **kw)
+
+    if case == "one head listener":
+        with pytest.raises(ValueError, match=case):
+            make(binaural=True, n_listeners=2)
+        assert make(binaural=True).n_listeners == 2
+    elif case == "arrival_taps":
+        with pytest.raises(ValueError, match=case):
+            make(arrival_taps=0)
+        assert make(arrival_taps=1).state.arrival is None
+    else:
+        # 0.05 s at 48 kHz; a window past the IR stops at its length
+        assert make(arrival_window_s=0.05).arrival_early == 2400
+        assert make(arrival_window_s=1.0).arrival_early \
+            == cfg.audio.ir_length == 4800
 
 
 def test_live_realtime_mode_counts_underruns_not_crashes(live_cfg):
