@@ -32,7 +32,8 @@ every kernel against its plain PyTorch version:
   SmollRoom, K8 and K7 on the 10,008-wall city; the binaural stream with
   a turning head; ``cli bake --binaural``, ``trace --spatial-out``,
   ``stream --binaural``, ``analyze`` and ``sweep --metrics-out``; the
-  binaural decode kernel beside its plain chain (13e).
+  binaural decode kernel beside its plain chain (13e); per-arrival
+  Doppler's ear-tap table and tap synthesis kernels beside theirs (13f).
 * Doppler streams: ``Streamer.stream_clip(doppler="per_arrival")`` on
   SmollRoom (mono, and binaural at 8 bands) through K4, the tap tables,
   matching and synthesis plain tensor code on the card;
@@ -2012,6 +2013,126 @@ def decode_phase(c):
           f"{out[1]} B, ptxas (registers, spill stores, spill loads) "
           f"{line}", flush=True)
     check(line is not None, "13e: binaural_decode_kernel in the build log")
+    return readings
+
+
+# FP32 operations of a tap term in tap_synthesis_kernel: the delay's and
+# the gain's glides (3 each), the read position, floor and fraction (3),
+# the interpolation (4), the gain and the sum (2)
+TAP_TERM_FLOP = 15
+
+
+def taps_phase(c):
+    """Phase 13f: per-arrival Doppler's tap kernels (``ear_taps_kernel``
+    and ``tap_synthesis_kernel`` through ``ops/cuda/arrival_taps_kernel.
+    py``) beside their plain chain (``streaming._ear_taps``, the window's
+    gate and ``_tap_chunk_plain``, 200-odd launches) on the headphone
+    cell's chunk: a composed stream of SmollRoom (15,000 x 5, 72,000 bins,
+    4,800-sample chunks, 6 taps, a 10,562-sample window) gives chunk 2's
+    tables; the table equals the card chain's bit for bit, the taps fall
+    within ``1e-5 max|dry| sum|g|`` of the chain's (their sums' order);
+    one launch a call each; ms a call of both (CUDA events), each
+    kernel's device ms and the chain's over its launches (profiler); the
+    bound, the larger of the valid rows' tap terms' FP32 operations
+    (TAP_TERM_FLOP) over 67 TFLOP/s and the bytes (tables, window, rows,
+    taps) over 3.35 TB/s; registers, local bytes and ptxas lines. ``c``
+    holds the objects of main() (``torch``, ``art``, ``build``, ``dev``).
+    Returns the readings."""
+    from realisticaudioraytracing2d_tpu_torch import streaming as st
+    from realisticaudioraytracing2d_tpu_torch.ops import convolve as cv
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
+        arrival_taps_kernel as atk
+    torch, art, dev = c["torch"], c["art"], c["dev"]
+    room = art.rooms.smoll_room(device=dev)
+    cfg = art.smoll_room_config()
+    p = art.Engine(room.scene, cfg).params(room.source, room.listener)
+    dry = torch.rand(6 * CHUNK, generator=torch.Generator(dev).manual_seed(
+        13), device=dev) - 0.5
+    streamer = art.Streamer(room.scene, cfg, seed=13, binaural=True)
+    carries = []
+    streamer.stream_clip(dry, lambda i: p, total_chunks=3, loop=True,
+                         facing_fn=lambda i: 0.3 * i, doppler="per_arrival",
+                         on_chunk=lambda i, s: carries.append(
+                             st.ArrivalCarry(*(x.clone() for x in
+                                               s.arrival.tensors()))))
+    prev, cur = carries[1], carries[2]
+    wd = CHUNK + streamer.arrival_early + 2
+    window = st.DryWindow(dry, wd, *st.window_scalars(
+        2, CHUNK, wd, dry.shape[-1], True, None), True)
+    head = (cur, prev, 0.6, torch.tensor(0.3, device=dev), T, SR, 0.0875,
+            0.6, p.speed_of_sound, True, 64.0)
+
+    def kernels():
+        ears = atk.ear_taps(*head)
+        return st._tap_chunk(window, *ears[:5], CHUNK)
+
+    def chain():
+        ears = st._ear_taps(*head)
+        return st._tap_chunk_plain(cv.gate_input(window.tensor()),
+                                   *ears[:5], CHUNK)
+
+    before = (atk.ear_taps.launches, atk.tap_synthesis.launches)
+    got = kernels()
+    torch.cuda.synchronize()
+    check((atk.ear_taps.launches - before[0],
+           atk.tap_synthesis.launches - before[1]) == (1, 1),
+          "13f: one launch of each tap kernel a call")
+    ears, ears_chain = atk.ear_taps(*head), st._ear_taps(*head)
+    for f, x, y in zip(st.EarTaps._fields, ears, ears_chain):
+        check(torch.equal(x.cpu().reshape(-1).view(torch.uint8),
+                          y.cpu().reshape(-1).view(torch.uint8)),
+              f"13f: ear-tap table {f} == the card chain's bit for bit")
+    want = chain()
+    limit = 1e-5 * float(dry.abs().max()) * float(
+        ears.g0.abs().sum() + ears.g1.abs().sum())
+    gap = float((got - want).abs().max())
+    check(gap <= limit, f"13f: taps within the tap limit ({gap} > {limit})")
+    check(float(want.abs().max()) > 0, "13f: the chunk has live taps")
+    n_kernel = len(device_kernels(torch, kernels))
+    n_chain = len(device_kernels(torch, chain))
+    check(n_kernel == 2, f"13f: the two tap kernels alone ({n_kernel})")
+    ms_kernel, ms_chain = cuda_ms(torch, kernels, 200), cuda_ms(torch, chain,
+                                                                 20)
+    dev_ears = kernel_device_ms(torch, kernels, 50, "ear_taps_kernel", 1)
+    dev_synth = kernel_device_ms(torch, kernels, 50, "tap_synthesis_kernel",
+                                 1)
+    dev_chain = kernel_device_ms(torch, chain, 20, "", n_chain)
+    terms = int(ears.valid.sum()) * 3 * CHUNK
+    n_rows = ears.valid.numel() * 3
+    n_bytes = (2 * (8 + 1 + 3 * 3 * 4) * ears.j.numel()    # both tables
+               + 4 * wd + 4 * 2 * CHUNK                   # window, taps
+               + 2 * (4 * 4 * n_rows + ears.valid.numel()))  # rows w + r
+    flop_ms = TAP_TERM_FLOP * terms / 67e12 * 1e3
+    byte_ms = n_bytes / 3.35e12 * 1e3
+    bound_ms = max(flop_ms, byte_ms)
+    readings = dict(ms=ms_kernel, ear_taps_device_ms=dev_ears,
+                    synthesis_device_ms=dev_synth, chain_ms=ms_chain,
+                    chain_device_ms=dev_chain, chain_launches=n_chain,
+                    terms=terms, bound_ms=bound_ms, flop_ms=flop_ms,
+                    byte_ms=byte_ms, gap=gap, limit=limit)
+    print(f"[13f] arrival taps, the headphone chunk [2, {ears.tau0.shape[1]}"
+          f", 3, 1] x {CHUNK} (window {wd}): kernels {ms_kernel:.4f} ms a "
+          f"call [ear_taps {dev_ears} + synthesis {dev_synth} ms device, 2 "
+          f"launches], chain {ms_chain:.4f} ms [{dev_chain} ms device, "
+          f"{n_chain} launches]; bound {bound_ms:.6f} ms (operations "
+          f"{flop_ms:.6f}: {terms} valid tap terms of "
+          f"{2 * ears.tau0.shape[1] * 3 * CHUNK} x {TAP_TERM_FLOP} FLOP; "
+          f"bytes {byte_ms:.6f}: {n_bytes} B); table == the card chain's "
+          f"bit for bit; taps within {gap:.3e} of the chain's (limit "
+          f"{limit:.3e})", flush=True)
+    lib = c["build"].load_library()
+    table = ptxas_table(c["build"].build_log())
+    for which, name in enumerate(("ear_taps_kernel",
+                                  "tap_synthesis_kernel")):
+        out = (ctypes.c_int * 2)()
+        check(lib.art_arrival_taps_attributes(which, out) == 0,
+              f"13f: {name} attributes")
+        readings[name] = dict(registers=out[0], local_bytes=out[1],
+                              ptxas=table.get(name))
+        print(f"[13f] {name} registers / local bytes {out[0]} / {out[1]} B,"
+              f" ptxas (registers, spill stores, spill loads) "
+              f"{table.get(name)}", flush=True)
+        check(table.get(name) is not None, f"13f: {name} in the build log")
     return readings
 
 
@@ -4951,6 +5072,7 @@ def main():
     ctx.update(scene_9=scene_9, p_9=p_9)
     spatial_launches, _ = spatial_phase(ctx)
     decode_phase(ctx)
+    taps_phase(ctx)
 
     # --- 14. per-arrival and shared-rate Doppler streams -------------------
     doppler_launches, _ = doppler_phase(ctx)

@@ -57,16 +57,21 @@ matching, ear fields and tap synthesis) and ``art.arrival.convolve`` (the
 residual's crossfaded convolution).
 
 The trace of a Doppler chunk is that of the plain or binaural chunk (the
-same kernels); the arrival tables, matching, tap synthesis and warp are
-plain tensor code on the stream's device, as they are ``jnp`` code in JAX,
-and they never read a tensor back to the host.
+same kernels). On the card the taps are hand-written kernels
+(``ops/cuda/arrival_taps_kernel.py``): the tap synthesis of every
+per-arrival stream, which at one band reads the dry history straight
+from the clip (:class:`DryWindow`), and the binaural ear-tap table
+(matching, ear fields and rows). The arrival tables and the warp are
+plain tensor code on the stream's device, as they are ``jnp`` code in
+JAX; on the CPU the taps are too (:func:`_tap_chunk_plain`,
+:func:`_ear_taps`). None of it reads a tensor back to the host.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, fields
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +81,7 @@ from .device import resolve
 from .models.scene import Scene
 from .ops import convolve as cv
 from .ops import ir as irm
+from .ops.cuda import arrival_taps_kernel as atk
 from .ops.rng import mix_seed
 from .ops.trace import TraceParams
 from .utils.profiling import span
@@ -407,10 +413,22 @@ def _band_windows(window: torch.Tensor, k: int) -> torch.Tensor:
     return torch.fft.irfft(x[None, :] * masks, n_fft)[:, :wd]
 
 
-def _tap_chunk(dry_window: torch.Tensor, tau0, tau1, g0, g1, valid,
-               n: int) -> torch.Tensor:
+def _tap_chunk(dry_window, tau0, tau1, g0, g1, valid, n: int
+               ) -> torch.Tensor:
+    """``[L, n]`` sum of time-varying 3-bin taps, arguments as
+    :func:`_tap_chunk_plain`'s; ``dry_window`` may also be a
+    :class:`DryWindow`, read gated. On the card one launch of the tap
+    synthesis kernel (``ops/cuda/arrival_taps_kernel.py::
+    tap_synthesis``), whatever form the delays and gains take; on the CPU
+    :func:`_tap_chunk_plain`."""
+    return atk.tap_synthesis(dry_window, tau0, tau1, g0, g1, valid, n)
+
+
+def _tap_chunk_plain(dry_window: torch.Tensor, tau0, tau1, g0, g1, valid,
+                     n: int) -> torch.Tensor:
     """``[L, n]`` sum of time-varying 3-bin taps (the gather form of JAX's
-    ``_tap_chunk``). ``dry_window`` is ``[Wd]`` mono or ``[K, Wd]``
+    ``_tap_chunk``): the CPU path of :func:`_tap_chunk` and the oracle of
+    its kernel. ``dry_window`` is ``[Wd]`` mono or ``[K, Wd]``
     band-split (:func:`_band_windows`), ending at the chunk end: its sample
     ``Wd - n + s`` is the chunk's output sample ``s``. Delays and gains
     come as ``tau[L, A]`` + ``g[L, A, 3]`` (one window delay per tap,
@@ -455,7 +473,29 @@ def _tap_chunk(dry_window: torch.Tensor, tau0, tau1, g0, g1, valid,
                        0.0).sum(dim=(1, 2, 3))
 
 
-def _per_arrival_parts(dry_piece: torch.Tensor, dry_window: torch.Tensor,
+def _window_length(dry_window) -> int:
+    """The samples of a dry-history window (a tensor or a
+    :class:`DryWindow`)."""
+    return (dry_window.wd if isinstance(dry_window, DryWindow)
+            else dry_window.shape[-1])
+
+
+def _window_taps(dry_window, k: int, tau0, tau1, g0, g1, valid, n: int
+                 ) -> torch.Tensor:
+    """A chunk's taps from its dry-history window (a tensor or a
+    :class:`DryWindow`): the input gate, the band split
+    (:func:`_band_windows`), :func:`_tap_chunk`. A one-band DryWindow on
+    the card goes to :func:`_tap_chunk` as it is: the synthesis kernel
+    reads it from the clip, gated, and no window tensor is built."""
+    if isinstance(dry_window, DryWindow):
+        if k == 1 and dry_window.dry.device.type == "cuda":
+            return _tap_chunk(dry_window, tau0, tau1, g0, g1, valid, n)
+        dry_window = dry_window.tensor()
+    return _tap_chunk(_band_windows(cv.gate_input(dry_window), k), tau0,
+                      tau1, g0, g1, valid, n)
+
+
+def _per_arrival_parts(dry_piece: torch.Tensor, dry_window,
                        carry: ArrivalCarry, cur_ir: torch.Tensor,
                        is_first: bool, n: int, k: int,
                        n_taps: int = _ARRIVAL_TAPS,
@@ -468,8 +508,10 @@ def _per_arrival_parts(dry_piece: torch.Tensor, dry_window: torch.Tensor,
     The previous chunk's products arrive in ``carry``; on the first chunk
     (``is_first``, a host bool) they are this chunk's own, the fade-in
     rule of every stream mode. Banded IRs (K > 1) share one delay glide
-    per arrival with per-band window gains, read from band-split dry."""
-    early_bins = dry_window.shape[-1] - n - 2
+    per arrival with per-band window gains, read from band-split dry.
+    ``dry_window`` is the history window, a tensor or a
+    :class:`DryWindow`."""
+    early_bins = _window_length(dry_window) - n - 2
     with span("arrival.extract"):
         idx_c, g3_c, val_c = _arrival_table(cur_ir, early_bins, n_taps)
         cur_res = _remove_taps(cur_ir, idx_c, val_c)
@@ -486,12 +528,12 @@ def _per_arrival_parts(dry_piece: torch.Tensor, dry_window: torch.Tensor,
         # axis).
         tau_p = prev.idx.to(torch.float32)
         vanished = prev.val & ~matched_prev
-        taps = _tap_chunk(_band_windows(cv.gate_input(dry_window), k),
-                          torch.cat([tau0, tau_p], dim=1),
-                          torch.cat([idx_c.to(torch.float32), tau_p], dim=1),
-                          torch.cat([g0, prev.g3], dim=1),
-                          torch.cat([g3_c, torch.zeros_like(prev.g3)], dim=1),
-                          torch.cat([val_c, vanished], dim=1), n)
+        taps = _window_taps(
+            dry_window, k, torch.cat([tau0, tau_p], dim=1),
+            torch.cat([idx_c.to(torch.float32), tau_p], dim=1),
+            torch.cat([g0, prev.g3], dim=1),
+            torch.cat([g3_c, torch.zeros_like(prev.g3)], dim=1),
+            torch.cat([val_c, vanished], dim=1), n)
     with span("arrival.convolve"):
         wet = _crossfaded_wet(dry_piece, prev.res, cur_res)
     return wet, taps, new_carry
@@ -533,7 +575,67 @@ def _ear_fields(w3, x3, y3, idx, facing, sign: float, sample_rate: int,
     return tau_coh, g_coh, tau_dif, g_dif
 
 
-def _per_arrival_binaural(dry_piece: torch.Tensor, dry_window: torch.Tensor,
+class EarTaps(NamedTuple):
+    """A binaural chunk's ear-tap rows: ``tau0``/``tau1``/``g0``/``g1``
+    ``[2L, 4A, 3, K]`` (left ear's rows first; per ear this chunk's taps
+    coherent, then diffuse, then the vanished taps' fade-outs, coherent
+    and diffuse) and their ``valid [2L, 4A]``; the match behind them,
+    ``j``/``mutual``/``vanished [L, A]`` (:func:`_match_arrivals`)."""
+
+    tau0: torch.Tensor
+    tau1: torch.Tensor
+    g0: torch.Tensor
+    g1: torch.Tensor
+    valid: torch.Tensor
+    j: torch.Tensor
+    mutual: torch.Tensor
+    vanished: torch.Tensor
+
+
+def _ear_taps(cur: ArrivalCarry, prev: ArrivalCarry, facing, prev_facing,
+              n_t: int, sample_rate: int, head_radius: float, shadow: float,
+              speed_of_sound, decorrelate: bool, match_bins: float
+              ) -> EarTaps:
+    """The ear-tap rows of this chunk's binaural tap table ``cur`` (at
+    ``facing``) gliding from the previous chunk's ``prev`` (at
+    ``prev_facing``): the taps matched (:func:`_match_arrivals`), each
+    path tap four ear taps (:func:`_ear_fields`), a matched tap's rows
+    starting from its previous tap's fields, a new one fading in at its
+    own, and the previous taps no current one matched fading out. The CPU
+    path of ``ops/cuda/arrival_taps_kernel.py::ear_taps`` and the oracle
+    of its kernel."""
+    _, _, matched_prev, j, mutual = _match_arrivals(
+        cur.idx, cur.val, prev.idx, prev.g3, prev.val, match_bins)
+    vanished = prev.val & ~matched_prev
+    decorr = decorrelate and not (head_radius == 0.0 and shadow == 0.0)
+    li = torch.arange(cur.idx.shape[0], device=cur.idx.device)[:, None]
+    mu = mutual[:, :, None, None]
+    ear_tau0, ear_tau1, ear_g0, ear_g1 = [], [], [], []
+    for sign in (1.0, -1.0):
+        tc_c, gc_c, td_c, gd_c = _ear_fields(
+            cur.g3, cur.x3, cur.y3, cur.idx, facing, sign, sample_rate,
+            head_radius, shadow, speed_of_sound, n_t, decorr)
+        tc_p, gc_p, td_p, gd_p = _ear_fields(
+            prev.g3, prev.x3, prev.y3, prev.idx, prev_facing, sign,
+            sample_rate, head_radius, shadow, speed_of_sound, n_t, decorr)
+        # rows: cur coherent, cur diffuse, fade-out coherent, diffuse
+        ear_tau0.append(torch.cat(
+            [torch.where(mu, tc_p[li, j], tc_c),
+             torch.where(mu, td_p[li, j], td_c), tc_p, td_p], dim=1))
+        ear_tau1.append(torch.cat([tc_c, td_c, tc_p, td_p], dim=1))
+        ear_g0.append(torch.cat(
+            [torch.where(mu, gc_p[li, j], 0.0),
+             torch.where(mu, gd_p[li, j], 0.0), gc_p, gd_p], dim=1))
+        ear_g1.append(torch.cat(
+            [gc_c, gd_c, torch.zeros_like(gc_p), torch.zeros_like(gd_p)],
+            dim=1))
+    rows_valid = torch.cat([cur.val, cur.val, vanished, vanished], dim=1)
+    return EarTaps(torch.cat(ear_tau0), torch.cat(ear_tau1),
+                   torch.cat(ear_g0), torch.cat(ear_g1),
+                   torch.cat([rows_valid, rows_valid]), j, mutual, vanished)
+
+
+def _per_arrival_binaural(dry_piece: torch.Tensor, dry_window,
                           carry: ArrivalCarry, cur_sp: torch.Tensor,
                           prev_facing, cur_facing, is_first: bool, n: int,
                           sample_rate: int, head_radius: float,
@@ -551,7 +653,10 @@ def _per_arrival_binaural(dry_piece: torch.Tensor, dry_window: torch.Tensor,
     ``(wet[2, N+T], taps[2, n], new_carry)``. The previous chunk's side
     arrives in ``carry`` (its W table, X/Y windows and decoded residual),
     so the only full-IR work per chunk is the current capture's: one
-    table, one removal, one decode."""
+    table, one removal, one decode. The ear-tap rows are
+    :func:`_ear_taps`' (on the card one launch of its kernel,
+    ``ops/cuda/arrival_taps_kernel.py::ear_taps``); ``dry_window`` is the
+    history window, a tensor or a :class:`DryWindow`."""
     from . import spatial as spm
     k = cur_sp.shape[-1]
     n_t = cur_sp.shape[-2]
@@ -560,7 +665,7 @@ def _per_arrival_binaural(dry_piece: torch.Tensor, dry_window: torch.Tensor,
     # extraction window by a host ITD pad (c >= 100 m/s) so arrivals in its
     # last bins stay in the residual, which renders any delay exactly.
     itd_pad = int(np.ceil(head_radius * sample_rate / 100.0))
-    early_bins = max(1, dry_window.shape[-1] - n - 2 - itd_pad)
+    early_bins = max(1, _window_length(dry_window) - n - 2 - itd_pad)
     with span("arrival.extract"):
         sp_c = spm.spatial_from_ir(cur_sp)
         idx_c, g3_c, val_c = _arrival_table(sp_c.w, early_bins, n_taps)
@@ -574,40 +679,35 @@ def _per_arrival_binaural(dry_piece: torch.Tensor, dry_window: torch.Tensor,
     new_carry = ArrivalCarry(res_c, idx_c, g3_c, val_c, x3_c, y3_c)
     prev = new_carry if is_first else carry
     with span("arrival.taps"):
-        _, _, matched_prev, j, mutual = _match_arrivals(
-            idx_c, val_c, prev.idx, prev.g3, prev.val, match_bins)
-        vanished = prev.val & ~matched_prev
-        decorr = decorrelate and not (head_radius == 0.0 and shadow == 0.0)
-        li = torch.arange(idx_c.shape[0], device=idx_c.device)[:, None]
-        mu = mutual[:, :, None, None]
-        ear_tau0, ear_tau1, ear_g0, ear_g1 = [], [], [], []
-        for sign in (1.0, -1.0):
-            tc_c, gc_c, td_c, gd_c = _ear_fields(
-                g3_c, x3_c, y3_c, idx_c, cur_facing, sign, sample_rate,
-                head_radius, shadow, speed_of_sound, n_t, decorr)
-            tc_p, gc_p, td_p, gd_p = _ear_fields(
-                prev.g3, prev.x3, prev.y3, prev.idx, prev_facing, sign,
-                sample_rate, head_radius, shadow, speed_of_sound, n_t,
-                decorr)
-            # rows: cur coherent, cur diffuse, fade-out coherent, diffuse
-            ear_tau0.append(torch.cat(
-                [torch.where(mu, tc_p[li, j], tc_c),
-                 torch.where(mu, td_p[li, j], td_c), tc_p, td_p], dim=1))
-            ear_tau1.append(torch.cat([tc_c, td_c, tc_p, td_p], dim=1))
-            ear_g0.append(torch.cat(
-                [torch.where(mu, gc_p[li, j], 0.0),
-                 torch.where(mu, gd_p[li, j], 0.0), gc_p, gd_p], dim=1))
-            ear_g1.append(torch.cat(
-                [gc_c, gd_c, torch.zeros_like(gc_p), torch.zeros_like(gd_p)],
-                dim=1))
-        rows_valid = torch.cat([val_c, val_c, vanished, vanished], dim=1)
-        taps = _tap_chunk(_band_windows(cv.gate_input(dry_window), k),
-                          torch.cat(ear_tau0), torch.cat(ear_tau1),
-                          torch.cat(ear_g0), torch.cat(ear_g1),
-                          torch.cat([rows_valid, rows_valid]), n)  # [2, n]
+        ears = atk.ear_taps(new_carry, prev, cur_facing, prev_facing, n_t,
+                            sample_rate, head_radius, shadow, speed_of_sound,
+                            decorrelate, match_bins)
+        taps = _window_taps(dry_window, k, ears.tau0, ears.tau1, ears.g0,
+                            ears.g1, ears.valid, n)               # [2, n]
     with span("arrival.convolve"):
         wet = _crossfaded_wet(dry_piece, prev.res, res_c)
     return wet, taps, new_carry
+
+
+@dataclass(frozen=True)
+class DryWindow:
+    """A chunk's dry-history window, not built: ``wd`` samples of the mono
+    clip ``dry`` (on the stream's device) from the host ints of
+    :func:`window_scalars`, as :func:`_device_window` takes them. On the
+    card the tap synthesis kernel reads it straight from the clip, gated
+    (``ops/cuda/arrival_taps_kernel.py``); :meth:`tensor` builds it."""
+
+    dry: torch.Tensor
+    wd: int
+    start: int
+    prefix: int
+    cut: int
+    loop: bool
+
+    def tensor(self) -> torch.Tensor:
+        """The window ``[wd]`` (:func:`_device_window`)."""
+        return _device_window(self.dry, self.wd, self.start, self.prefix,
+                              self.cut, self.loop)
 
 
 def _device_window(dry: torch.Tensor, wd: int, win_start: int,
@@ -733,10 +833,8 @@ def wet_chunk(scene: Scene, params: TraceParams, prev_ir: torch.Tensor,
             raise ValueError("per-arrival Doppler needs the arrival "
                              "carry: init_stream(..., arrival_taps=A) "
                              "(Streamer.process allocates it lazily)")
-        with span("arrival.taps"):
-            window = _device_window(dry_full, n + arrival_early + 2,
-                                    win_start, win_prefix, win_cut,
-                                    window_loop)
+        window = DryWindow(dry_full, n + arrival_early + 2, win_start,
+                           win_prefix, win_cut, window_loop)
         if binaural:
             if prev_facing is None:
                 raise ValueError("binaural per-arrival Doppler needs the "

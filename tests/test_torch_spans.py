@@ -129,9 +129,9 @@ def test_a_binaural_chunk_adds_the_decode(small):
 @pytest.mark.parametrize("binaural", [False, True])
 def test_a_per_arrival_chunk_splits_its_crossfade(small, binaural):
     """Per-arrival Doppler's stages, one after another inside the
-    crossfade span: the history window (a ``taps`` span of its own), the
-    table and removal, the residual's decode (binaural only), matching and
-    tap synthesis, the residual's convolution."""
+    crossfade span: the table and removal, the residual's decode
+    (binaural only), the history window, matching and tap synthesis, the
+    residual's convolution."""
     room, cfg, dry = small
     params = art.Engine(room.scene, cfg).params(room.source, room.listener)
     st = art.Streamer(room.scene, cfg, seed=4, binaural=binaural)
@@ -144,7 +144,7 @@ def test_a_per_arrival_chunk_splits_its_crossfade(small, binaural):
     spans = _spans(prof)
     arrival = [e for e in spans if e.name.startswith("art.arrival.")]
     assert [e.name for e in arrival] == (
-        ["art.arrival.taps", "art.arrival.extract"]
+        ["art.arrival.extract"]
         + (["art.arrival.residual"] if binaural else [])
         + ["art.arrival.taps", "art.arrival.convolve"])
     crossfade, = [e for e in spans if e.name == "art.stream.crossfade"]
