@@ -1,0 +1,9 @@
+"""Kernel launch calls a stream chunk issues in ISO 9613-1 air absorption: the
+per-band curve and its product with the IR (``art.addenda.air``, inside
+``art.stream.addenda``; ``benchmark/span_stages.py``)."""
+
+from benchmark import span_stages
+
+
+def read(r):
+    return span_stages.launches(r, "art.addenda.air")

@@ -1,0 +1,9 @@
+"""Kernel launch calls a banded stream chunk issues in its crossfade
+(``art.stream.crossfade``): the crossfaded FFT convolution in the stream's
+band split, K transforms of each IR (``benchmark/span_stages.py``)."""
+
+from benchmark import span_stages
+
+
+def read(r):
+    return span_stages.launches(r, "art.stream.crossfade")

@@ -62,8 +62,10 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
   with ``--binaural`` and ``--bands`` too), ``--pose-feed FILE`` (a
   JSON-lines feed, tailed while the stream runs, that moves the source,
   the listeners, the head or a named wall and carries the stop/reset_ir
-  verbs: :mod:`.posefeed`), and prints the JAX CLI's ``streamed ... x
-  realtime`` line.
+  verbs: :mod:`.posefeed`), ``--band-split linear|octave`` (the bands of
+  a banded scene's convolution: K equal bands, as JAX, or bands about the
+  banded physics' centre frequencies), and prints the JAX CLI's
+  ``streamed ... x realtime`` line.
 * ``live`` runs the same chunk step in :class:`.live.LivePlayer`: a
   producer thread pushes each wet chunk into the native ring while an
   audio thread drains it ``--dsp-buffer`` samples at a time, on the
@@ -71,7 +73,8 @@ Each runs on the card unless ``--device cpu`` asks for the plain version::
   ``--play`` (which exits with the ALSA message where there is no sound
   system), records what the audio thread heard (``--out``) and prints
   the JAX CLI's ``live: ...`` line with its underruns. It takes
-  ``stream``'s pose, head, Doppler and ``--pose-feed`` flags.
+  ``stream``'s pose, head, Doppler, band-split and ``--pose-feed``
+  flags.
 * Every command but ``sweep`` takes ``--scene-json FILE`` in place of
   ``--room``: the JAX CLI's exported-collider schema
   (:func:`load_scene_json`). A collider's ``name`` names it for the pose
@@ -671,7 +674,8 @@ def _stream_setup(args):
         air_alpha=_air_alpha_arr(args, room.scene.n_bands, dev),
         binaural=binaural, head_radius=args.head_radius,
         arrival_taps=args.arrival_taps, arrival_window_s=args.arrival_window,
-        arrival_match_bins=args.arrival_match_bins)
+        arrival_match_bins=args.arrival_match_bins,
+        band_split=args.band_split)
     return room, cfg, dry, run_kw, stream_kw
 
 
@@ -693,6 +697,17 @@ def _arrival_args(p):
                    help="per-arrival Doppler: max IR-bin drift matched "
                         f"chunk-to-chunk (default "
                         f"{_ARRIVAL_MATCH_BINS:.0f} = ~0.5 m at 48 kHz)")
+
+
+def _band_split_arg(p):
+    from .ops.convolve import BAND_SPLITS
+    p.add_argument("--band-split", choices=BAND_SPLITS, default="linear",
+                   help="with --bands > 1: the bands of the convolution. "
+                        "'linear' (default): K equal bands of [0, Nyquist], "
+                        "as the JAX package splits; 'octave': bands about "
+                        "the centres the air, the diffraction and banded "
+                        "materials are computed at (octaves 125 Hz - 16 "
+                        "kHz at --bands 8)")
 
 
 def _doppler_arg(args):
@@ -1170,6 +1185,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--head-radius", type=float, default=0.0875,
                    metavar="M")
     _arrival_args(p)
+    _band_split_arg(p)
     _air_args(p)
     p.set_defaults(fn=cmd_stream)
 
@@ -1220,6 +1236,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--head-radius", type=float, default=0.0875,
                    metavar="M")
     _arrival_args(p)
+    _band_split_arg(p)
     _air_args(p)
     p.set_defaults(fn=cmd_live)
 

@@ -92,8 +92,9 @@ class LivePlayer(_StreamSettings):
     default raises. ``seed``, ``uniforms_fn`` and ``backend`` are
     :class:`..streaming.Streamer`'s: chunk ``i`` draws under
     ``mix_seed(seed, i)`` unless ``uniforms_fn(i)`` gives its uniforms,
-    and ``backend="plain"`` runs the plain versions. The other arguments
-    are the JAX player's (and the streamer's)."""
+    and ``backend="plain"`` runs the plain versions; ``band_split`` is
+    the streamer's too. The other arguments are the JAX player's (and the
+    streamer's)."""
 
     def __init__(self, scene: Scene, config: EngineConfig, seed: int = 0,
                  n_listeners: int = 1, frames_per_chunk: int = 1,
@@ -104,11 +105,13 @@ class LivePlayer(_StreamSettings):
                  arrival_taps: int = _ARRIVAL_TAPS,
                  arrival_window_s: float = _ARRIVAL_WINDOW_S,
                  arrival_match_bins: float = _ARRIVAL_MATCH_BINS,
-                 uniforms_fn=None, backend: str = "auto", device=None):
+                 uniforms_fn=None, backend: str = "auto", device=None,
+                 band_split: str = "linear"):
         super().__init__(scene, config, seed, n_listeners, frames_per_chunk,
                          uniforms_fn, backend, diffraction, air_alpha,
                          binaural, head_radius, shadow, decorrelate,
-                         arrival_taps, arrival_window_s, arrival_match_bins)
+                         arrival_taps, arrival_window_s, arrival_match_bins,
+                         band_split)
         device = resolve(device)
         if device.type == "cuda":
             # an explicit index: the producer thread does not inherit the

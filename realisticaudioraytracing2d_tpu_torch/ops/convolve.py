@@ -13,6 +13,14 @@ oracle, including the reference's quirks:
 * the IR is normalized by the Monte-Carlo frame count at convolution time
   (``AudioConvolve.compute:30``).
 
+A banded IR ``[T, K]`` convolves each band of the dry signal with its
+own band of the IR, the bands brickwall masks on the FFT's bins. Two
+splits: JAX's K equal bands of [0, Nyquist] (:func:`band_filterbank`,
+the default), and the port's log-spaced bands about the centres the air
+absorption, the Maekawa factor and banded materials are computed at
+(:func:`octave_filterbank`: octaves at K = 8), which the stream takes
+through its ``band_split``.
+
 The JAX package has no Pallas kernel here, so neither does the port.
 """
 
@@ -21,9 +29,11 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .air import band_frequencies
 from .geometry import EPS
 
 
@@ -154,6 +164,33 @@ def band_filterbank(n_samples: int, n_bands: int, n_fft: int
             torch.arange(n_bands)[:, None]).to(torch.float32)
 
 
+def octave_filterbank(n_bands: int, n_fft: int, sample_rate: int
+                      ) -> torch.Tensor:
+    """Brickwall rfft-domain masks of the log-spaced bands whose centres
+    are :func:`..air.band_frequencies` (the frequencies the air
+    absorption, the Maekawa factor and banded materials are computed at):
+    band k holds the bins whose frequency ``j * sample_rate / n_fft`` lies
+    from the geometric midpoint below its centre up to (not including) the
+    one above it, ``f_k 2^(-1/2) .. f_k 2^(1/2)`` for the octave centres
+    125 Hz - 16 kHz at K = 8. Band 0 starts at 0 Hz and band K - 1 ends at
+    Nyquist, so every bin lies in exactly one band (a band above Nyquist
+    holds none). Returns [n_bands, n_fft//2 + 1] float32 on the CPU."""
+    centres = band_frequencies(n_bands)
+    edges = np.sqrt(centres[:-1] * centres[1:])              # [K - 1] Hz
+    freqs = np.arange(n_fft // 2 + 1) * (float(sample_rate) / n_fft)
+    band_of_bin = torch.as_tensor(np.searchsorted(edges, freqs,
+                                                  side="right"))
+    return (band_of_bin[None, :] ==
+            torch.arange(n_bands)[:, None]).to(torch.float32)
+
+
+# The band splits of a banded convolution: "linear", K equal bands of
+# [0, Nyquist] (the JAX package's, the default), and "octave", bands
+# around the centres the banded physics is computed at
+# (:func:`octave_filterbank`).
+BAND_SPLITS = ("linear", "octave")
+
+
 @functools.lru_cache(maxsize=64)
 def _band_masks(n_bands: int, n_fft: int, device: torch.device
                 ) -> torch.Tensor:
@@ -163,15 +200,42 @@ def _band_masks(n_bands: int, n_fft: int, device: torch.device
     return band_filterbank(0, n_bands, n_fft).to(device)
 
 
-def combined_transfer(ir: torch.Tensor, n_fft: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _octave_masks(n_bands: int, n_fft: int, sample_rate: int,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`octave_filterbank` ``[K, F]`` on ``device``, made once per
+    ``(K, n_fft, sample_rate, device)``, as :func:`_band_masks`."""
+    return octave_filterbank(n_bands, n_fft, sample_rate).to(device)
+
+
+def split_masks(n_bands: int, n_fft: int, device: torch.device,
+                split: str = "linear",
+                sample_rate: Optional[int] = None) -> torch.Tensor:
+    """The cached ``[K, F]`` masks of band split ``split``
+    (:data:`BAND_SPLITS`); the octave split needs the ``sample_rate`` its
+    bins are at. Any other split raises."""
+    if split == "linear":
+        return _band_masks(n_bands, n_fft, device)
+    if split != "octave":
+        raise ValueError(f"band split must be one of {BAND_SPLITS}, got "
+                         f"{split!r}")
+    if sample_rate is None:
+        raise ValueError("the octave band split needs the sample rate")
+    return _octave_masks(n_bands, n_fft, int(sample_rate), device)
+
+
+def combined_transfer(ir: torch.Tensor, n_fft: int, split: str = "linear",
+                      sample_rate: Optional[int] = None) -> torch.Tensor:
     """Collapse a banded IR ``[..., T, K]`` into one rfft-domain transfer
     function ``[..., F]``: ``H = sum_k mask_k * rfft(ir[..., k])`` (the band
-    masks partition the spectrum). For K == 1 this is ``rfft(ir)``."""
+    masks of ``split``, :func:`split_masks`, partition the spectrum). For
+    K == 1 this is ``rfft(ir)`` whatever the split."""
     k = ir.shape[-1]
     h = torch.fft.rfft(ir.movedim(-1, -2), n_fft)            # [..., K, F]
     if k == 1:
         return h[..., 0, :]
-    return (h * _band_masks(k, n_fft, ir.device)).sum(dim=-2)
+    return (h * split_masks(k, n_fft, ir.device, split, sample_rate)
+            ).sum(dim=-2)
 
 
 def convolve_banded(x: torch.Tensor, ir_banded: torch.Tensor,

@@ -18,8 +18,12 @@ The fresh chunk IR takes the JAX step's physics addenda before the
 crossfade (:func:`_augment_ir`): edge diffraction (``ops/diffraction.py``,
 its visibility sweeps through the kernel K2 on the card) and ISO 9613-1
 air absorption (``ops/air.py``). Directive sources and microphones ride
-in ``params``. Where the JAX step donates its state buffers, this one
-updates the preallocated :class:`StreamState` in place.
+in ``params``. A banded IR's convolutions split the spectrum as the
+stream's ``band_split`` says: into K equal bands (the JAX package's
+split, the default) or into bands about the centres the banded physics
+is computed at (``ops/convolve.py::octave_filterbank``). Where the JAX
+step donates its state buffers, this one updates the preallocated
+:class:`StreamState` in place.
 
 In binaural mode (``binaural_facing``) the chunk traces the head's
 three-microphone spatial capture (``spatial.binaural_trace_params``: K4
@@ -47,7 +51,9 @@ Two Doppler modes (``Streamer.stream_clip(doppler=...)``):
 Each stage of a chunk is a span of the port's (``utils/profiling.py::
 span``), recorded while a profiler runs (``utils.profiling.device_trace``):
 ``art.stream.retrace`` (holding the trace route's ``art.trace.*``),
-``art.stream.addenda``, ``art.stream.decode`` (binaural),
+``art.stream.addenda`` (holding ``art.addenda.diffraction`` and
+``art.addenda.air`` where those addenda are on), ``art.stream.decode``
+(binaural),
 ``art.stream.crossfade`` (or the per-arrival branch) and, in
 :func:`stream_chunk`, ``art.stream.ring``. The per-arrival branch splits
 its crossfade span four ways: ``art.arrival.extract`` (the tap table and
@@ -103,17 +109,22 @@ def _augment_ir(cur_ir: torch.Tensor, scene: Scene, params: TraceParams,
     The air curve multiplies by the float32 reciprocals of the sample
     rate and 10, as XLA computes the jitted JAX step with a static
     sample rate. ``plain`` runs diffraction's visibility sweeps as the
-    plain version, not K2, on a CUDA scene (``backend="plain"``)."""
+    plain version, not K2, on a CUDA scene (``backend="plain"``). Each
+    addendum that is on runs in a span of its own,
+    ``art.addenda.diffraction`` and ``art.addenda.air``."""
     if diffraction:
         from .ops.diffraction import diffraction_ir
-        cur_ir = cur_ir + diffraction_ir(
-            scene, params, sample_rate=sample_rate,
-            ir_length=cur_ir.shape[-2], order=int(diffraction),
-            use_kernels=False if plain else None)
+        with span("addenda.diffraction"):
+            cur_ir = cur_ir + diffraction_ir(
+                scene, params, sample_rate=sample_rate,
+                ir_length=cur_ir.shape[-2], order=int(diffraction),
+                use_kernels=False if plain else None)
     if air_alpha is not None:
         from .ops.air import apply_air_absorption
-        cur_ir = apply_air_absorption(cur_ir, sample_rate, air_alpha,
-                                      params.speed_of_sound, reciprocal=True)
+        with span("addenda.air"):
+            cur_ir = apply_air_absorption(cur_ir, sample_rate, air_alpha,
+                                          params.speed_of_sound,
+                                          reciprocal=True)
     return cur_ir
 
 
@@ -261,17 +272,21 @@ def init_stream(ir_length: int, chunk_samples: int, n_listeners: int = 1,
 
 
 def _crossfaded_wet(chunk: torch.Tensor, ir_prev: torch.Tensor,
-                    ir_cur: torch.Tensor) -> torch.Tensor:
+                    ir_cur: torch.Tensor, split: str = "linear",
+                    sample_rate: Optional[int] = None) -> torch.Tensor:
     """Wet chunk ``[L, N+T]``: convolve against both IRs (one input FFT,
     two transfer functions) and crossfade prev->cur linearly across the
-    chunk; the reverb tail uses the current IR only."""
+    chunk; the reverb tail uses the current IR only. A banded IR's bands
+    are those of ``split`` (``ops/convolve.py::split_masks``; the octave
+    split's bins at ``sample_rate``)."""
     chunk = cv.gate_input(chunk)
     n = chunk.shape[-1]
     out_length = n + ir_prev.shape[-2]
     n_fft = cv._next_pow2(out_length)
     x = torch.fft.rfft(chunk, n_fft)
-    h = torch.stack([cv.combined_transfer(ir_prev, n_fft),
-                     cv.combined_transfer(ir_cur, n_fft)])     # [2, L, F]
+    h = torch.stack([cv.combined_transfer(ir_prev, n_fft, split, sample_rate),
+                     cv.combined_transfer(ir_cur, n_fft, split,
+                                          sample_rate)])        # [2, L, F]
     y = torch.fft.irfft(x * h, n_fft)[..., :out_length]         # [2, L, O]
     ramp = torch.clamp(cv._divide(torch.arange(out_length,
                                                dtype=torch.float32,
@@ -397,19 +412,22 @@ def _remove_taps(ir: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor
     return ir * mask[..., None]
 
 
-def _band_windows(window: torch.Tensor, k: int) -> torch.Tensor:
+def _band_windows(window: torch.Tensor, k: int, split: str = "linear",
+                  sample_rate: Optional[int] = None) -> torch.Tensor:
     """Split a mono dry-history window ``[Wd]`` into the ``[K, Wd]`` band
     signals that banded taps read: a banded IR convolves each brickwall
     band of the dry with that band's IR (:func:`..ops.convolve.
     combined_transfer`), so a tap with per-band gains reads band-filtered
-    dry. Zero-padding to ``>= 2 Wd`` keeps the brickwall's circular wrap
-    out of the window. K == 1 passes the raw window through."""
+    dry, in the bands of ``split`` (the crossfade's). Zero-padding to
+    ``>= 2 Wd`` keeps the brickwall's circular wrap out of the window.
+    K == 1 passes the raw window through."""
     if k == 1:
         return window[None, :]
     wd = window.shape[-1]
     n_fft = cv._next_pow2(2 * wd)
     x = torch.fft.rfft(window, n_fft)
-    masks = cv._band_masks(k, n_fft, window.device)          # [K, F]
+    masks = cv.split_masks(k, n_fft, window.device, split,
+                           sample_rate)                      # [K, F]
     return torch.fft.irfft(x[None, :] * masks, n_fft)[:, :wd]
 
 
@@ -480,26 +498,31 @@ def _window_length(dry_window) -> int:
             else dry_window.shape[-1])
 
 
-def _window_taps(dry_window, k: int, tau0, tau1, g0, g1, valid, n: int
+def _window_taps(dry_window, k: int, tau0, tau1, g0, g1, valid, n: int,
+                 split: str = "linear", sample_rate: Optional[int] = None
                  ) -> torch.Tensor:
     """A chunk's taps from its dry-history window (a tensor or a
     :class:`DryWindow`): the input gate, the band split
-    (:func:`_band_windows`), :func:`_tap_chunk`. A one-band DryWindow on
-    the card goes to :func:`_tap_chunk` as it is: the synthesis kernel
-    reads it from the clip, gated, and no window tensor is built."""
+    (:func:`_band_windows` in ``split``'s bands), :func:`_tap_chunk`. A
+    one-band DryWindow on the card goes to :func:`_tap_chunk` as it is:
+    the synthesis kernel reads it from the clip, gated, and no window
+    tensor is built."""
     if isinstance(dry_window, DryWindow):
         if k == 1 and dry_window.dry.device.type == "cuda":
             return _tap_chunk(dry_window, tau0, tau1, g0, g1, valid, n)
         dry_window = dry_window.tensor()
-    return _tap_chunk(_band_windows(cv.gate_input(dry_window), k), tau0,
-                      tau1, g0, g1, valid, n)
+    return _tap_chunk(_band_windows(cv.gate_input(dry_window), k, split,
+                                    sample_rate), tau0, tau1, g0, g1, valid,
+                      n)
 
 
 def _per_arrival_parts(dry_piece: torch.Tensor, dry_window,
                        carry: ArrivalCarry, cur_ir: torch.Tensor,
                        is_first: bool, n: int, k: int,
                        n_taps: int = _ARRIVAL_TAPS,
-                       match_bins: float = _ARRIVAL_MATCH_BINS):
+                       match_bins: float = _ARRIVAL_MATCH_BINS,
+                       split: str = "linear",
+                       sample_rate: Optional[int] = None):
     """The per-arrival chunk step: extract, match and synthesize the taps
     and convolve the residuals. Returns ``(wet[L, N+T], taps[L, n],
     new_carry)``: ``wet`` the crossfaded residual convolution, ``taps``
@@ -508,7 +531,8 @@ def _per_arrival_parts(dry_piece: torch.Tensor, dry_window,
     The previous chunk's products arrive in ``carry``; on the first chunk
     (``is_first``, a host bool) they are this chunk's own, the fade-in
     rule of every stream mode. Banded IRs (K > 1) share one delay glide
-    per arrival with per-band window gains, read from band-split dry.
+    per arrival with per-band window gains, read from band-split dry
+    (the bands of ``split`` at ``sample_rate``, as the crossfade's).
     ``dry_window`` is the history window, a tensor or a
     :class:`DryWindow`."""
     early_bins = _window_length(dry_window) - n - 2
@@ -533,9 +557,10 @@ def _per_arrival_parts(dry_piece: torch.Tensor, dry_window,
             torch.cat([idx_c.to(torch.float32), tau_p], dim=1),
             torch.cat([g0, prev.g3], dim=1),
             torch.cat([g3_c, torch.zeros_like(prev.g3)], dim=1),
-            torch.cat([val_c, vanished], dim=1), n)
+            torch.cat([val_c, vanished], dim=1), n, split, sample_rate)
     with span("arrival.convolve"):
-        wet = _crossfaded_wet(dry_piece, prev.res, cur_res)
+        wet = _crossfaded_wet(dry_piece, prev.res, cur_res, split,
+                              sample_rate)
     return wet, taps, new_carry
 
 
@@ -641,7 +666,8 @@ def _per_arrival_binaural(dry_piece: torch.Tensor, dry_window,
                           sample_rate: int, head_radius: float,
                           shadow: float, speed_of_sound, decorrelate: bool,
                           n_taps: int = _ARRIVAL_TAPS,
-                          match_bins: float = _ARRIVAL_MATCH_BINS):
+                          match_bins: float = _ARRIVAL_MATCH_BINS,
+                          split: str = "linear"):
     """Binaural per-arrival Doppler: the per-path glides and the two-ear
     decode together. Taps come from the spatial capture's W channel
     ``[3, T, K] -> w`` and are matched as in :func:`_per_arrival_parts`;
@@ -656,7 +682,8 @@ def _per_arrival_binaural(dry_piece: torch.Tensor, dry_window,
     table, one removal, one decode. The ear-tap rows are
     :func:`_ear_taps`' (on the card one launch of its kernel,
     ``ops/cuda/arrival_taps_kernel.py::ear_taps``); ``dry_window`` is the
-    history window, a tensor or a :class:`DryWindow`."""
+    history window, a tensor or a :class:`DryWindow`; ``split`` the band
+    split of the taps and the crossfade."""
     from . import spatial as spm
     k = cur_sp.shape[-1]
     n_t = cur_sp.shape[-2]
@@ -683,9 +710,11 @@ def _per_arrival_binaural(dry_piece: torch.Tensor, dry_window,
                             sample_rate, head_radius, shadow, speed_of_sound,
                             decorrelate, match_bins)
         taps = _window_taps(dry_window, k, ears.tau0, ears.tau1, ears.g0,
-                            ears.g1, ears.valid, n)               # [2, n]
+                            ears.g1, ears.valid, n, split,
+                            sample_rate)                          # [2, n]
     with span("arrival.convolve"):
-        wet = _crossfaded_wet(dry_piece, prev.res, res_c)
+        wet = _crossfaded_wet(dry_piece, prev.res, res_c, split,
+                              sample_rate)
     return wet, taps, new_carry
 
 
@@ -778,7 +807,8 @@ def wet_chunk(scene: Scene, params: TraceParams, prev_ir: torch.Tensor,
               arrival_taps: int = _ARRIVAL_TAPS,
               arrival_match_bins: float = _ARRIVAL_MATCH_BINS,
               window_loop: bool = False,
-              arrival: Optional[ArrivalCarry] = None, prev_facing=None):
+              arrival: Optional[ArrivalCarry] = None, prev_facing=None,
+              band_split: str = "linear"):
     """The chunk step before the ring (the JAX live player's
     ``wet_chunk``, shared here by the stream and the live player):
     retrace -> physics addenda -> crossfaded convolution, and per-arrival
@@ -792,7 +822,10 @@ def wet_chunk(scene: Scene, params: TraceParams, prev_ir: torch.Tensor,
     its first N samples: :func:`stream_chunk` through the tensor ring,
     ``live.LivePlayer`` through the host ring, in the same order, so the
     two agree bit for bit. Arguments as :func:`stream_chunk`'s;
-    ``chunk_index`` seeds the chunk's draws and marks the first chunk."""
+    ``chunk_index`` seeds the chunk's draws and marks the first chunk;
+    ``band_split`` (``ops/convolve.py::BAND_SPLITS``) names the bands of
+    a banded IR in every convolution of the chunk: the crossfade and
+    per-arrival Doppler's band-split dry."""
     from . import spatial as spm
     from .engine import trace_accumulate
     n = dry_chunk.shape[-1]
@@ -827,8 +860,8 @@ def wet_chunk(scene: Scene, params: TraceParams, prev_ir: torch.Tensor,
     with span("stream.crossfade"):
         if dry_full is None:
             prev = cur_ir if is_first else prev_ir
-            return (_crossfaded_wet(dry_chunk, prev, cur_ir), None, cur_ir,
-                    None)
+            return (_crossfaded_wet(dry_chunk, prev, cur_ir, band_split,
+                                    sample_rate), None, cur_ir, None)
         if arrival is None:
             raise ValueError("per-arrival Doppler needs the arrival "
                              "carry: init_stream(..., arrival_taps=A) "
@@ -845,11 +878,11 @@ def wet_chunk(scene: Scene, params: TraceParams, prev_ir: torch.Tensor,
                 dry_chunk, window, arrival, cur_sp, prev_fac,
                 binaural_facing, is_first, n, sample_rate, head_radius,
                 shadow, params.speed_of_sound, decorrelate, arrival_taps,
-                arrival_match_bins)
+                arrival_match_bins, band_split)
         else:
             wet, taps, new_carry = _per_arrival_parts(
                 dry_chunk, window, arrival, cur_ir, is_first, n, k,
-                arrival_taps, arrival_match_bins)
+                arrival_taps, arrival_match_bins, band_split, sample_rate)
     return wet, taps, cur_ir, new_carry
 
 
@@ -887,6 +920,8 @@ def stream_chunk(scene: Scene, params: TraceParams, state: StreamState,
     with seed ``mix_seed(seed, i)`` unless ``uniforms`` (``emit[F, R]``,
     ``u[F, B, R, 3]``) are given. ``diffraction`` (falsy, 1 or 2) and
     ``air_alpha`` (dB/m, or None) as in :func:`_augment_ir`.
+    ``band_split`` ("linear", the default, or "octave") names the bands
+    of a banded IR in the chunk's convolutions (:func:`wet_chunk`).
 
     ``binaural_facing`` (radians, a number or a 0-d tensor) makes the
     step binaural: ``params`` carry ONE listener (the head) and ``state``
@@ -940,11 +975,15 @@ class _StreamSettings:
                  shadow: float = 0.6, decorrelate: bool = True,
                  arrival_taps: int = _ARRIVAL_TAPS,
                  arrival_window_s: float = _ARRIVAL_WINDOW_S,
-                 arrival_match_bins: float = _ARRIVAL_MATCH_BINS):
+                 arrival_match_bins: float = _ARRIVAL_MATCH_BINS,
+                 band_split: str = "linear"):
         if binaural and n_listeners != 1:
             raise ValueError("binaural streaming takes one head listener")
         if arrival_taps < 1:
             raise ValueError("arrival_taps must be >= 1")
+        if band_split not in cv.BAND_SPLITS:
+            raise ValueError(f"band_split must be one of {cv.BAND_SPLITS}, "
+                             f"got {band_split!r}")
         audio = config.audio
         self.scene = scene
         self.config = config
@@ -955,6 +994,7 @@ class _StreamSettings:
         self.binaural = binaural
         self.head_radius = head_radius
         self.arrival_taps = int(arrival_taps)
+        self.band_split = band_split
         # the early window the taps may live in (bins; fixed per stream)
         self.arrival_early = min(
             audio.ir_length,
@@ -970,7 +1010,8 @@ class _StreamSettings:
             air_alpha=air_alpha, backend=backend, head_radius=head_radius,
             shadow=shadow, decorrelate=decorrelate,
             arrival_taps=self.arrival_taps,
-            arrival_match_bins=float(arrival_match_bins))
+            arrival_match_bins=float(arrival_match_bins),
+            band_split=band_split)
         self.state = self._init_state()
 
     def _init_state(self) -> StreamState:
@@ -1063,7 +1104,11 @@ class Streamer(_StreamSettings):
     at the facing :meth:`process` is given. ``arrival_taps`` (taps per
     listener), ``arrival_window_s`` (the early window they may live in)
     and ``arrival_match_bins`` (the largest drift matched chunk to chunk)
-    tune per-arrival Doppler."""
+    tune per-arrival Doppler. ``band_split`` names the bands of a banded
+    scene's convolutions: "linear" (K equal bands of [0, Nyquist], the
+    JAX package's) or "octave" (bands about the centres the air, the
+    diffraction and the banded materials are computed at,
+    ``ops/convolve.py::octave_filterbank``)."""
 
     def reset_ir(self) -> None:
         """The reference's R key (``RayTraceManager.cs:58-61``): drop the IR

@@ -683,6 +683,48 @@ def test_cli_live_writes_what_stream_streams(tmp_path, capsys, mode):
     np.testing.assert_array_equal(x, y)
 
 
+def test_cli_band_split_reaches_the_streamer_and_the_player(
+        tmp_path, capsys, monkeypatch):
+    """``--band-split`` goes to ``Streamer`` and ``LivePlayer`` (linear by
+    default); live writes what stream writes with it, the octave split
+    another stream than the linear one, and an unknown split is
+    refused at parse time."""
+    from realisticaudioraytracing2d_tpu_torch import streaming
+    seen = []
+    orig = streaming._StreamSettings.__init__
+
+    def init(self, *a, **k):
+        orig(self, *a, **k)
+        seen.append((type(self).__name__, self.band_split))
+    monkeypatch.setattr(streaming._StreamSettings, "__init__", init)
+    dry = str(tmp_path / "dry.wav")
+    write_wav(dry, noise_burst(0.25, 8000, seed=3), 8000)
+    flags = [*SMALL, "--room", "sample", "--bands", "8", "--diffraction",
+             "--diffraction-order", "2", "--air", "--in", dry,
+             "--duration", "0.3"]
+    out = {}
+    for cmd, split in (("stream", "octave"), ("live", "octave"),
+                       ("stream", None)):
+        path = str(tmp_path / f"{cmd}_{split}.wav")
+        cli.main([cmd, *flags, "--out", path]
+                 + (["--band-split", split] if split else []))
+        out[cmd, split] = read_wav(path)[0]
+    capsys.readouterr()
+    assert seen == [("Streamer", "octave"), ("LivePlayer", "octave"),
+                    ("Streamer", "linear")]
+    assert np.abs(out["stream", "octave"]).max() > 0
+    np.testing.assert_array_equal(out["stream", "octave"],
+                                  out["live", "octave"])
+    assert not np.allclose(out["stream", "octave"], out["stream", None])
+    for cmd in ("stream", "live"):
+        assert cli.build_parser().parse_args(
+            [cmd, "--out", "x"]).band_split == "linear"
+        with pytest.raises(SystemExit):
+            cli.build_parser().parse_args([cmd, "--out", "x",
+                                           "--band-split", "cubic"])
+    assert "invalid choice: 'cubic'" in capsys.readouterr().err
+
+
 def test_cli_live_flags_default_as_jax():
     args = cli.build_parser().parse_args(["live"])
     assert (args.infile, args.out, args.duration, args.frames_per_chunk,

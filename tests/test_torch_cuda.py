@@ -14,8 +14,9 @@ then the banded and many-listener paths: K3/K4/K9 at 8, 32 and 512 bands
 and K7 at 32 and 40 against their plain versions, equal bands == one band
 bit for bit, K4 == K7 on a sorted banded city, listener blocks == the
 whole launch bit for bit (K3, K4, K9, K7, K8), the sweep and mixdown of
-scenes past 5,280 walls against single K8/K7 calls, and a banded stream
-with air absorption against its plain twin; then the spatial captures and
+scenes past 5,280 walls against single K8/K7 calls, a banded stream
+with air absorption and an octave-split SampleScene stream with order-2
+diffraction and air against their plain twins; then the spatial captures and
 the binaural stream; then the per-arrival Doppler stream (mono and
 binaural) against its plain twins on the card and on the CPU, and the
 shared-rate Doppler feed on the card against the CPU's; then the live
@@ -1411,6 +1412,34 @@ def test_banded_stream_with_air_matches_plain(cuda_device):
     got, want = to_numpy(outs["auto"]), to_numpy(outs["plain"])
     assert got.shape == (1, 4 * 4800) and np.abs(want).max() > 0
     # the limits of the directive stream's test above
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-6 * np.abs(want).max())
+
+
+@cuda
+def test_octave_stream_with_diffraction_and_air_matches_plain(cuda_device):
+    """SampleScene in 8 bands with the octave split, order-2 diffraction
+    and air, the listener in the top wall's shadow: K4 and K2 against the
+    plain trace and sweeps, within the banded stream's limits."""
+    from realisticaudioraytracing2d_tpu_torch.ops import air
+    room = rooms.sample_scene(n_bands=8, device=cuda_device)
+    cfg = art.sample_scene_config(n_bands=8, ray_count=4096)
+    p = art.Engine(room.scene, cfg).params(room.source, [18.5, 18.12])
+    alpha = air.iso9613_alpha(air.band_frequencies(8))
+    dry = torch.zeros(8820, device=cuda_device)
+    dry[100] = 1.0
+    outs = {}
+    for backend in ("auto", "plain"):
+        before = tk.occlusion_min.launches
+        outs[backend] = art.Streamer(
+            room.scene, cfg, seed=4, diffraction=2, air_alpha=alpha,
+            band_split="octave", backend=backend).stream_clip(
+            dry, lambda i: p, total_chunks=4)
+        torch.cuda.synchronize()
+        assert tk.occlusion_min.launches - before == (
+            8 if backend == "auto" else 0)
+    got, want = to_numpy(outs["auto"]), to_numpy(outs["plain"])
+    assert got.shape == (1, 4 * 4410) and np.abs(want).max() > 0
     np.testing.assert_allclose(got, want, rtol=1e-4,
                                atol=1e-6 * np.abs(want).max())
 

@@ -12,6 +12,9 @@
 * a per-arrival chunk records its four stages inside the crossfade
   (``art.arrival.extract``, ``residual`` in a binaural stream, ``taps``,
   ``convolve``; the history window under a ``taps`` span of its own);
+* ``art.stream.addenda`` holds ``art.addenda.diffraction`` and
+  ``art.addenda.air``, each exactly when its addendum is on (a plain
+  stream records neither), the diffraction first;
 * ``engine.trace_ir`` names the route that ran (``k4``, ``k3``,
   ``cluster``, ``plain``), and the one-scene launch's argument preparation
   (``art.k4.prep``) ends before the launch;
@@ -152,6 +155,30 @@ def test_a_per_arrival_chunk_splits_its_crossfade(small, binaural):
     for a, b in zip(arrival, arrival[1:]):
         assert a.time_range.end <= b.time_range.start, (a.name, b.name)
     assert sum(e.name == "art.stream.decode" for e in spans) == binaural
+
+
+@pytest.mark.parametrize("diffraction,air", [(False, False), (1, False),
+                                             (False, True), (2, True)])
+def test_the_addenda_record_their_own_spans_when_on(small, diffraction,
+                                                    air):
+    room, cfg, dry = small
+    params = art.Engine(room.scene, cfg).params(room.source, room.listener)
+    st = art.Streamer(room.scene, cfg, seed=4, diffraction=diffraction,
+                      air_alpha=0.005 if air else None)
+    with _cpu_profile() as prof:
+        st.process(dry[:cfg.audio.chunk_samples], params)
+    spans = _spans(prof)
+    addenda, = [e for e in spans if e.name == "art.stream.addenda"]
+    inner = [e for e in spans if e.name.startswith("art.addenda.")]
+    assert [e.name for e in inner] == (
+        ["art.addenda.diffraction"] * bool(diffraction)
+        + ["art.addenda.air"] * air)
+    assert all(_inside(e, addenda) for e in inner)
+    for a, b in zip(inner, inner[1:]):
+        assert a.time_range.end <= b.time_range.start
+    for e in inner:
+        assert any(x.name.startswith("aten::") and _inside(x, e)
+                   for x in prof.events()), e.name
 
 
 def test_a_live_chunk_records_the_wet_chunk_stages_and_no_ring(small):
