@@ -33,7 +33,9 @@ every kernel against its plain PyTorch version:
   a turning head; ``cli bake --binaural``, ``trace --spatial-out``,
   ``stream --binaural``, ``analyze`` and ``sweep --metrics-out``; the
   binaural decode kernel beside its plain chain (13e); per-arrival
-  Doppler's ear-tap table and tap synthesis kernels beside theirs (13f).
+  Doppler's ear-tap table and tap synthesis kernels beside theirs (13f);
+  edge diffraction's kernels beside their chain at the barrier cell's
+  call (13g).
 * Doppler streams: ``Streamer.stream_clip(doppler="per_arrival")`` on
   SmollRoom (mono, and binaural at 8 bands) through K4, the tap tables,
   matching and synthesis plain tensor code on the card;
@@ -182,10 +184,12 @@ Phases:
    SmollRoom with an opaque barrier below the source, a cardioid source,
    an XY cardioid pair and a third listener in the barrier's shadow,
    diffraction order 1 and ISO 9613-1 air (counts reset and read: 35 K4
-   and 35 K2 launches, one a chunk for all its visibility sweeps) against
+   and 35 K2 launches, one a chunk for all its visibility sweeps, and 35
+   of each diffraction kernel, D3seg and D3bin) against
    its ``backend="plain"`` twin; diffraction
-   adds energy in the shadow. 11f: ``diffraction_ir`` through K2 equals
-   its plain version, orders 1 and 2 (one and two K2 launches). 11g: ``cli trace`` and ``cli bake``
+   adds energy in the shadow. 11f: ``diffraction_ir`` through its
+   kernels equals its plain version bit for bit, orders 1 and 2 (one and
+   two K2 launches, one of each diffraction kernel). 11g: ``cli trace`` and ``cli bake``
    with ``--directivity --stereo --stereo-aim --diffraction --air``, and
    ``cli bake --legacy`` with patterns, their launch counts;
 12. bands, any listener count and batches past 5,280 walls. 12a: K3, K4
@@ -241,9 +245,16 @@ Phases:
    launches), chunk 0's capture against the plain version, and the
    8-band city's capture through K7 (5 launches). 13d: ``cli bake
    --binaural 30``, ``trace --spatial-out``, ``stream --binaural 0
-   --head-turn 90 --diffraction --duration 1`` (10 K4 and 10 K2
-   launches), ``analyze --edc-out`` and ``sweep --rooms 64
-   --metrics-out``, each timed and its launches counted;
+   --head-turn 90 --diffraction --duration 1`` (10 K4, 10 K2 and 10 of
+   each diffraction kernel), ``analyze --edc-out`` and ``sweep --rooms 64
+   --metrics-out``, each timed and its launches counted. 13e, 13f: the
+   binaural decode and the tap kernels beside their chains. 13g: edge
+   diffraction at the barrier cell's call (SampleScene, ``[1, 88,200,
+   8]``, order 2): ``diffraction_ir`` == its card chain bit for bit at
+   16 poses of the walk's circle; one ``add_diffraction`` call, counts
+   reset just before, launches K2 twice and D3seg and D3bin once, makes
+   no sync or copy, and equals the chain's bits in place; each kernel's
+   device ms, bound and share, and its ptxas registers;
 14. Doppler streams. 14a: 2.0 s of clicks through ``Streamer.stream_clip(
    doppler="per_arrival")`` with the source approaching at 2 m/s (35 K4
    launches): rerun bit-identical; against its ``backend="plain"`` twin,
@@ -343,7 +354,8 @@ Phases:
    ``track_source`` left to ``scripts/torch_examples_phase.py --full``;
    the line lists the cuts), counts reset before and read after each: it
    returns 0 with its claims (asserts and thresholds of its JAX twin)
-   holding, and launches exactly ``EXAMPLE_KERNELS`` (K4, K1/K2, K9;
+   holding, and launches exactly ``EXAMPLE_KERNELS`` (K4, K1/K2, K9,
+   the diffraction kernels D3seg/D3bin;
    none for the four inverse twins, which differentiate the plain trace);
    its seconds and its claim line are printed;
 19. the port's bench (run before 18): ``bench.main()`` in this process at
@@ -580,17 +592,21 @@ def launch_counters():
     and ``counted(run)``, which runs one path and returns its result with
     the launches of that run alone (every count set to 0 just before,
     read just after). K1 and K2 count by route: brute force in
-    ``.launches``, the box walk in ``.box_launches`` (K1b, K2b)."""
+    ``.launches``, the box walk in ``.box_launches`` (K1b, K2b). D3seg and
+    D3bin are the diffraction kernels (``diffraction_segments_kernel``,
+    ``diffraction_bin_kernel``)."""
     import torch
     from realisticaudioraytracing2d_tpu_torch.ops.cuda import (
-        accel_kernel as ak, bounce_kernel as bk, trace_kernel as tk)
+        accel_kernel as ak, bounce_kernel as bk, diffraction_kernel as dk,
+        trace_kernel as tk)
     wrappers = {"K3": bk.trace_frames_ir_whole, "K4": bk.trace_frames_ir_mega,
                 "K9": bk.trace_rooms_ir_mega, "K7": ak.trace_frames_ir_accel,
                 "K8": ak.trace_frames_ir_accel_sorted, "K1": tk.nearest_hit,
                 "K2": tk.occlusion_min, "K5": bk.trace_fused_rows,
                 "K6": bk.trace_frame_ir_fused,
                 "K1b": BoxWalkCount(tk.nearest_hit),
-                "K2b": BoxWalkCount(tk.occlusion_min)}
+                "K2b": BoxWalkCount(tk.occlusion_min),
+                "D3seg": dk.segments, "D3bin": dk.bin_paths}
 
     def only(**n):
         return {k: n.get(k, 0) for k in wrappers}
@@ -1891,7 +1907,8 @@ def spatial_phase(c):
             ("stream --binaural 0 --head-turn 90 --diffraction --duration 1",
              ["stream", "--room", "smoll", "--in", path("d.wav"), "--out",
               path("s.wav"), "--binaural", "0", "--head-turn", "90",
-              "--diffraction", "--duration", "1"], dict(K4=10, K2=10)),
+              "--diffraction", "--duration", "1"],
+             dict(K4=10, K2=10, D3seg=10, D3bin=10)),
             ("analyze", ["analyze", "--room", "smoll", "--out",
                          path("r.json"), "--edc-out", path("edc.png")],
              dict(K4=1)),
@@ -2133,6 +2150,176 @@ def taps_phase(c):
               f" ptxas (registers, spill stores, spill loads) "
               f"{table.get(name)}", flush=True)
         check(table.get(name) is not None, f"13f: {name} in the build log")
+    return readings
+
+
+# The barrier cell's diffraction call (samplescene_octave.barrier_walk):
+# SampleScene at 44.1 kHz with a 2 s IR, 8 octave bands, order 2, one
+# listener on the walk's circle of 4 m about the top wall's right-hand end
+BARRIER_SR, BARRIER_T, BARRIER_K = 44100, 88200, 8
+BARRIER_CENTRE, BARRIER_RADIUS = np.array([18.5, 14.12]), 4.0
+# FP32 operations of the diffraction kernels' bound: a segment (its
+# difference, length, two divisions, limit), an edge-table pair test
+# (difference, squared length), a candidate path (order 1: d1, d2, d,
+# delta, base and the bin; order 2: d12, d, delta1, delta2, base, the
+# weights' product and the bin) and a band of it (order 1: n, 3 + 20 n,
+# the quotient and the weight; order 2: two n, the two factors, the
+# reciprocal and the products)
+SEGMENT_FLOP, EDGE_PAIR_FLOP, PATH_FLOP = 9, 5, 21
+BAND1_FLOP, BAND2_FLOP = 8, 16
+
+
+def barrier_pose(i, n=16):
+    a = 2.0 * np.pi * i / n
+    return BARRIER_CENTRE + BARRIER_RADIUS * np.array([np.cos(a),
+                                                       np.sin(a)])
+
+
+def diffraction_phase(c):
+    """Phase 13g: edge diffraction's kernels (``diffraction_segments_
+    kernel``, K2 a sweep an order, ``diffraction_bin_kernel``, through
+    ``ops/cuda/diffraction_kernel.py::add_paths``) beside the plain chain
+    (``use_kernels=False``, some 350 launches) at the barrier cell's call:
+    SampleScene, ``[1, 88,200, 8]``, order 2. ``diffraction_ir`` equals
+    the chain's bit for bit at the 16 poses of the walk's circle (some
+    shadowed, some lit); one ``add_diffraction`` call into a random IR,
+    counts set to 0 just before, launches K2 twice and each diffraction
+    kernel once, makes no sync or copy, and equals the chain's ``ir +
+    diffraction_ir`` bit for bit; ms a call of both (CUDA events), each
+    kernel's device ms and the chain's (profiler); each kernel's bound,
+    the larger of its FP32 operations over 67 TFLOP/s and its bytes over
+    3.35 TB/s (``SEGMENT_FLOP`` .. ``BAND2_FLOP``, K2's wall tests as in
+    the other phases, the kept paths' records and keys and a
+    read-modify-write of each IR bin they touch), and its share;
+    registers and spills from the build log. ``c`` holds the objects of
+    main() (``torch``, ``art``, ``build``, ``dev``, ``counted``,
+    ``only``). Returns the readings."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from realisticaudioraytracing2d_tpu_torch.ops import diffraction as dfr
+    torch, art, dev = c["torch"], c["art"], c["dev"]
+    counted, only = c["counted"], c["only"]
+    room = art.rooms.sample_scene(n_bands=BARRIER_K, device=dev)
+    scene = room.scene
+    engine = art.Engine(scene, art.sample_scene_config(n_bands=BARRIER_K))
+    kw = dict(sample_rate=BARRIER_SR, order=2)
+    heard = []
+    for i in range(16):
+        p_i = engine.params(room.source, barrier_pose(i))
+        got = dfr.diffraction_ir(scene, p_i, ir_length=BARRIER_T, **kw)
+        want = dfr.diffraction_ir(scene, p_i, ir_length=BARRIER_T,
+                                  use_kernels=False, **kw)
+        check(torch.equal(got, want), f"13g: pose {i}: diffraction_ir == "
+                                      f"the card chain's bit for bit")
+        heard.append(bool(want.any()))
+    check(0 < sum(heard) < 16, f"13g: the walk is shadowed and lit {heard}")
+    p = engine.params(room.source, barrier_pose(6))
+    cur = torch.rand((1, BARRIER_T, BARRIER_K), device=dev,
+                     generator=torch.Generator(dev).manual_seed(28))
+    got = cur.clone()
+    _, launched = counted(lambda: dfr.add_diffraction(got, scene, p, **kw))
+    check(launched == only(K2=2, D3seg=1, D3bin=1),
+          f"13g: launches of one call {launched}")
+    want = dfr.add_diffraction(cur, scene, p, use_kernels=False, **kw)
+    check(torch.equal(got, want) and bool((got != cur).any()),
+          "13g: the call == the card chain's ir + diffraction_ir bit for "
+          "bit, and adds paths")
+    work = cur.clone()
+
+    def kernels():
+        dfr.add_diffraction(work, scene, p, **kw)
+
+    def chain():
+        return dfr.add_diffraction(cur, scene, p, use_kernels=False, **kw)
+
+    kernels()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("diffraction_call"):
+            kernels()
+        torch.cuda.synchronize()
+    host = list(prof.events())
+    call = [e for e in host if e.name == "diffraction_call"]
+    check(len(call) == 1, "13g: the profiled call's range")
+    t0, t1 = call[0].time_range.start, call[0].time_range.end
+    inside = [e.name for e in host if t0 <= e.time_range.start <= t1]
+    stalls = [n for n in inside if "Synchronize" in n or "Memcpy" in n
+              or "index_put" in n or "nonzero" in n]
+    check(not stalls, f"13g: no sync or copy inside the call {stalls}")
+    n_kernel = len(device_kernels(torch, kernels))
+    n_chain = len(device_kernels(torch, chain))
+    check(n_kernel == 4, f"13g: the four launches alone ({n_kernel})")
+    ms_kernel, ms_chain = cuda_ms(torch, kernels, 200), cuda_ms(torch, chain,
+                                                                 20)
+    dev_ms = {"diffraction_segments_kernel": kernel_device_ms(
+                  torch, kernels, 50, "diffraction_segments_kernel", 1),
+              "wall_sweep_kernel": kernel_device_ms(
+                  torch, kernels, 50, "wall_sweep_kernel", 2),
+              "diffraction_bin_kernel": kernel_device_ms(
+                  torch, kernels, 50, "diffraction_bin_kernel", 1)}
+    dev_chain = kernel_device_ms(torch, chain, 20, "", n_chain)
+    # the work of the call, from its inputs and the chain's paths
+    n_w, n_l, n_k = scene.n_walls, 1, BARRIER_K
+    n_e = 2 * n_w
+    n_seg = n_e + n_l + n_l * n_e + n_e * n_e
+    freqs = dfr.band_frequencies(n_k)
+    kept = sum(int(v.sum()) for v in (
+        dfr.diffraction_paths(scene, p, freqs, False)[2],
+        dfr.diffraction_paths2(scene, p, freqs, False)[2]))
+    touched = int(dfr.diffraction_ir(scene, p, ir_length=BARRIER_T,
+                                     use_kernels=False, **kw)
+                  .ne(0).any(-1).sum())
+    cap = 1 << (n_e + n_e * n_e - 1).bit_length()
+    work_of = {
+        "diffraction_segments_kernel": (
+            SEGMENT_FLOP * n_seg + EDGE_PAIR_FLOP * n_e * n_e,
+            4 * 4 * n_w + n_w + 4 * 2 * (1 + n_l)            # walls, points
+            + 4 * (5 * n_w + 5 * n_e) + 4 * 5 * n_seg),      # tables, rays
+        "wall_sweep_kernel": (
+            OPS_PER_TEST * n_seg * n_w + OPS_PER_SWEEP * n_seg,
+            4 * (5 * n_seg + 5 * n_w + n_seg)),              # rays, walls, t
+        "diffraction_bin_kernel": (
+            n_l * (n_e * (PATH_FLOP + BAND1_FLOP * n_k)
+                   + n_e * n_e * (PATH_FLOP + BAND2_FLOP * n_k)),
+            4 * (n_seg + n_e + 4 * n_w + 2 * (1 + n_l) + n_k)  # distances..
+            + 2 * 4 * 5 * kept + 2 * 8 * kept                # records, keys
+            + 2 * 4 * n_k * touched)}                        # the IR bins
+    readings = dict(ms=ms_kernel, chain_ms=ms_chain,
+                    chain_device_ms=dev_chain, chain_launches=n_chain,
+                    kept=kept, touched=touched, segments=n_seg, heard=heard)
+    parts = []
+    for name, (flop, n_bytes) in work_of.items():
+        flop_ms = flop / PEAK_FP32 * 1e3
+        byte_ms = n_bytes / PEAK_BYTES * 1e3
+        bound_ms = max(flop_ms, byte_ms)
+        d = dev_ms[name]
+        share = None if not d else bound_ms / d
+        readings[name] = dict(device_ms=d, bound_ms=bound_ms, flop=flop,
+                              bytes=n_bytes, share=share)
+        parts.append(f"{name} {d} ms device, bound {bound_ms:.3e} ms "
+                     f"({'operations' if flop_ms >= byte_ms else 'bytes'}: "
+                     f"{flop} FLOP, {n_bytes} B), share "
+                     f"{'n/a' if share is None else f'{100 * share:.4f}%'}")
+    total = (None if None in dev_ms.values()
+             else sum(dev_ms.values()))
+    bound_all = sum(r["bound_ms"] for r in readings.values()
+                    if isinstance(r, dict))
+    readings.update(device_ms=total, bound_ms=bound_all)
+    print(f"[13g] diffraction, the barrier call [{n_l}, {BARRIER_T}, {n_k}] "
+          f"order 2 ({n_w} walls, {n_seg} segments, {n_e + n_e * n_e} "
+          f"candidate paths, {kept} kept in {touched} bins, key capacity "
+          f"{cap}): kernels {ms_kernel:.4f} ms a call [{total} ms device, "
+          f"{n_kernel} launches], chain {ms_chain:.4f} ms [{dev_chain} ms "
+          f"device, {n_chain} launches]; " + "; ".join(parts)
+          + f"; the call's bound {bound_all:.3e} ms, share "
+          f"{'n/a' if not total else f'{100 * bound_all / total:.4f}%'}; "
+          f"== the card chain bit for bit at 16 poses ({sum(heard)} heard) "
+          f"and in place", flush=True)
+    table = ptxas_table(c["build"].build_log())
+    for name in ("diffraction_segments_kernel", "diffraction_bin_kernel"):
+        readings[name]["ptxas"] = table.get(name)
+        print(f"[13g] {name} ptxas (registers, spill stores, spill loads) "
+              f"{table.get(name)}", flush=True)
+        check(table.get(name) is not None, f"13g: {name} in the build log")
     return readings
 
 
@@ -3552,7 +3739,8 @@ EXAMPLE_CUTS = {
 EXAMPLE_KERNELS = {
     "demo.py": {"K1", "K2", "K4"}, "quad_mic.py": {"K4"},
     "speaker_array.py": {"K9"}, "spatial_doa.py": {"K4"},
-    "occlusion_walkby.py": {"K2", "K4"}, "doppler_walkby.py": {"K4"},
+    "occlusion_walkby.py": {"K2", "K4", "D3seg", "D3bin"},
+    "doppler_walkby.py": {"K4"},
     "binaural_walkby.py": {"K4"}, "live_steering.py": {"K4"},
     "inverse_materials.py": set(), "locate_source.py": set(),
     "track_source.py": set(), "obstacle_pose_negative.py": set(),
@@ -4959,7 +5147,8 @@ def main():
             **a).stream_clip(dry, lambda i: p_e))
 
     wet_e, launched_e = stream_e(diffraction=1)
-    check(launched_e == only(K4=n_chunks, K2=n_chunks),  # one a chunk
+    check(launched_e == only(K4=n_chunks, K2=n_chunks, D3seg=n_chunks,
+                             D3bin=n_chunks),   # one of each a chunk
           f"11e: stream launches {launched_e}")
     wet_plain, launched_p = stream_e(diffraction=1, backend="plain")
     check(launched_p == only(), f"11e: the plain twin launched {launched_p}")
@@ -4986,11 +5175,11 @@ def main():
           "11e: stream == its plain twin")
     check(e_shadow[1] > e_shadow[0] and xy > 0,
           "11e: diffraction adds energy in the shadow; the XY pair differs")
-    for k in ("K2", "K4"):
-        launches[k] += launched_e[k]
+    for k in ("K2", "K4", "D3seg", "D3bin"):
+        launches[k] = launches.get(k, 0) + launched_e[k]
     del wet_e, wet_plain, wet_nod, out_e, out_p, out_n
 
-    # 11f. diffraction through K2 equals its plain version
+    # 11f. diffraction through its kernels and K2 equals its plain version
     for order in (1, 2):
         d_ir, launched_f = counted(lambda: dfr.diffraction_ir(
             scene_e, p_e, order=order, **kw))
@@ -5001,9 +5190,10 @@ def main():
               f"3 listeners: launches {launched_f}; energy per listener "
               f"{[float(x) for x in d_ir.sum(dim=(1, 2))]}; == plain bit for "
               f"bit: {torch.equal(d_ir, d_plain)}", flush=True)
-        check(launched_f == only(K2=1 if order == 1 else 2)
+        check(launched_f == only(K2=order, D3seg=1, D3bin=1)
               and float(d_ir[2].sum()) > 0 and torch.equal(d_ir, d_plain),
-              f"11f: diffraction order {order} through K2 == plain")
+              f"11f: diffraction order {order} through its kernels == "
+              f"plain")
     del d_ir, d_plain
 
     # 11g. cli trace / cli bake with the new flags
@@ -5016,19 +5206,22 @@ def main():
         said, launched_g, secs_t = run_cli(
             ["trace", "--room", "smoll", "--out", g("ir.png"), "--scene-out",
              g("scene.png"), *new_flags])
-        check(launched_g == only(K4=1, K1=BOUNCES, K2=BOUNCES + 2)
+        # K2: the debug paths' sweeps, the diffraction's and the scene
+        # picture's diffraction paths (the chain through K2)
+        check(launched_g == only(K4=1, K1=BOUNCES, K2=BOUNCES + 2, D3seg=1,
+                                 D3bin=1)
               and "air absorption:" in said and "diffraction: added" in said,
               f"11g: cli trace launch counts {launched_g}")
         lit(g("ir.png"), (256, 1024, 3))
         lit(g("scene.png"), (600, 800, 3))
-        for k in ("K1", "K2", "K4"):
-            launches[k] += launched_g[k]
+        for k in ("K1", "K2", "K4", "D3seg", "D3bin"):
+            launches[k] = launches.get(k, 0) + launched_g[k]
         write_wav(g("dry.wav"), click_clip(1.0, 44100,
                                            click_times=hit_clicks), 44100)
         said, launched_b, secs_b = run_cli(
             ["bake", "--room", "smoll", "--in", g("dry.wav"), "--out",
              g("wet.wav"), *new_flags])
-        check(launched_b == only(K4=1, K2=1),
+        check(launched_b == only(K4=1, K2=1, D3seg=1, D3bin=1),
               f"11g: cli bake launch counts {launched_b}")
         ratios_b = tails(g("wet.wav"), hit_clicks, n_channels=2)
         said, launched_l, secs_l = run_cli(
@@ -5039,8 +5232,8 @@ def main():
               f"11g: cli bake --legacy launch counts {launched_l}")
         ratios_l = tails(g("legacy.wav"), hit_clicks)
         for lb in (launched_b, launched_l):
-            for k in ("K2", "K4", "K5"):
-                launches[k] += lb[k]
+            for k in ("K2", "K4", "K5", "D3seg", "D3bin"):
+                launches[k] = launches.get(k, 0) + lb[k]
     print(f"[11g] cli trace {' '.join(new_flags)}: {secs_t:.3f} s, launches "
           f"{launched_g}; cli bake with them: {secs_b:.3f} s, launches "
           f"{launched_b}, tail/pre-click energy "
@@ -5073,6 +5266,7 @@ def main():
     spatial_launches, _ = spatial_phase(ctx)
     decode_phase(ctx)
     taps_phase(ctx)
+    diffraction_phase(ctx)
 
     # --- 14. per-arrival and shared-rate Doppler streams -------------------
     doppler_launches, _ = doppler_phase(ctx)

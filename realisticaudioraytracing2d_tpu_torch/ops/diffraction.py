@@ -18,15 +18,21 @@ sound that bends around wall endpoints:
   factor per wedge (:func:`diffraction_paths2`, O(W^3): room-scale
   scenes).
 
-The visibility test :func:`_segments_clear` is an occlusion sweep of all
-the segments a call needs at once: on a CUDA scene one launch of the
-hand kernel K2 (``ops/cuda/trace_kernel.py::occlusion_min``, the minimum
+On a CUDA scene :func:`diffraction_ir` and :func:`add_diffraction` run
+hand-written launches (``ops/cuda/diffraction_kernel.py``): the edge
+table and every visibility segment of both orders, once; a sweep an
+order by K2 (``ops/cuda/trace_kernel.py::occlusion_min``, the minimum
 wall distance of each segment's ray, searched only up to the segment's
-end) per :func:`diffraction_paths` or :func:`diffraction_paths2` call; on
-the CPU, or with ``use_kernels=False``, the plain
+end), order 1's segments, then the edge pairs; and the paths judged and
+added into their bins. The torch chain below is the CPU route,
+``use_kernels=False`` on the card, and the oracle the kernels equal bit
+for bit on the card. In it the visibility test :func:`_segments_clear`
+sweeps the segments of a :func:`diffraction_paths` or
+:func:`diffraction_paths2` call at once: through K2 (``use_kernels``
+True; its plain version on the CPU) or the plain
 ``pairwise_ray_segment_t`` over all walls. Both compute every distance in
-the same IEEE operations, so they judge every segment alike.
-The paths are binned by ``ops/ir.py::add_rows`` (a fixed order on either
+the same IEEE operations, so they judge every segment alike. The chain
+bins the paths by ``ops/ir.py::add_rows`` (a fixed order on either
 device).
 """
 
@@ -38,6 +44,7 @@ import torch
 
 from ..models.scene import Scene
 from .air import band_frequencies
+from .cuda import diffraction_kernel as dk
 from .cuda import trace_kernel as tk
 from .directivity import evaluate
 from .geometry import EPS, pairwise_ray_segment_t
@@ -48,6 +55,8 @@ from .trace import TraceParams
 # |cross| below this (per unit length) are collinear.
 _COINCIDENT_TOL = 1e-4
 _COLLINEAR_TOL = 1e-3
+# a visibility segment's far end is trimmed by this (_segment_clear)
+_SLACK = 1e-3
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -55,7 +64,7 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_clear(p: torch.Tensor, q: torch.Tensor, scene: Scene,
-                   walls: Optional[tk.Walls], slack: float = 1e-3
+                   walls: Optional[tk.Walls], slack: float = _SLACK
                    ) -> torch.Tensor:
     """True where the open segment ``p -> q`` (``[..., 2]``) hits no wall.
     ``slack`` trims the far end so that a segment ending on a wall (at an
@@ -253,6 +262,10 @@ def _scatter_paths(delay: torch.Tensor, energy: torch.Tensor,
     return ir.reshape(n_l, ir_length + 1, k)[:, :ir_length]
 
 
+def _kernel_route(scene: Scene, use_kernels: Optional[bool]) -> bool:
+    return scene.device.type == "cuda" and _use_kernels(scene, use_kernels)
+
+
 def diffraction_ir(scene: Scene, params: TraceParams, *, sample_rate: int,
                    ir_length: int, band_freqs=None, order: int = 1,
                    use_kernels: Optional[bool] = None) -> torch.Tensor:
@@ -261,12 +274,20 @@ def diffraction_ir(scene: Scene, params: TraceParams, *, sample_rate: int,
     Monte-Carlo variance). ``band_freqs`` defaults to
     :func:`..air.band_frequencies`; ``order=2`` adds edge-to-edge double
     diffraction. ``use_kernels`` (default: on a CUDA scene) runs the
-    visibility sweeps through K2; False is the plain version."""
+    launches of ``ops/cuda/diffraction_kernel.py`` into zeros on a CUDA
+    scene, and the chain's visibility sweeps through K2's plain version on
+    the CPU; False is the plain chain."""
     if order not in (1, 2):
         raise ValueError(f"order must be 1 or 2, got {order}")
     k = scene.n_bands
     if band_freqs is None:
         band_freqs = band_frequencies(k)
+    if _kernel_route(scene, use_kernels):
+        ir = torch.zeros((params.listeners.reshape(-1, 2).shape[0],
+                          ir_length, k), dtype=torch.float32,
+                         device=scene.device)
+        return add_diffraction(ir, scene, params, sample_rate=sample_rate,
+                               band_freqs=band_freqs, order=order)
     delay, energy, valid = diffraction_paths(scene, params, band_freqs,
                                              use_kernels)
     ir = _scatter_paths(delay, energy, valid, sample_rate, ir_length, k)
@@ -276,3 +297,21 @@ def diffraction_ir(scene: Scene, params: TraceParams, *, sample_rate: int,
         ir = ir + _scatter_paths(delay2, energy2, valid2, sample_rate,
                                  ir_length, k)
     return ir
+
+
+def add_diffraction(ir: torch.Tensor, scene: Scene, params: TraceParams, *,
+                    sample_rate: int, band_freqs=None, order: int = 1,
+                    use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """``ir + diffraction_ir(...)`` of an IR ``[L, T, K]``. On the
+    kernel route (a CUDA scene, ``use_kernels`` not False) the paths are
+    added into ``ir`` in place, which must be contiguous and the caller's
+    to change; elsewhere the sum is a new tensor."""
+    if not _kernel_route(scene, use_kernels):
+        return ir + diffraction_ir(scene, params, sample_rate=sample_rate,
+                                   ir_length=ir.shape[-2],
+                                   band_freqs=band_freqs, order=order,
+                                   use_kernels=use_kernels)
+    if band_freqs is None:
+        band_freqs = band_frequencies(scene.n_bands)
+    return dk.add_paths(ir, scene, params, sample_rate=sample_rate,
+                        band_freqs=band_freqs, order=order)

@@ -108,17 +108,19 @@ def _augment_ir(cur_ir: torch.Tensor, scene: Scene, params: TraceParams,
     number; None for none), which attenuates the diffracted paths too.
     The air curve multiplies by the float32 reciprocals of the sample
     rate and 10, as XLA computes the jitted JAX step with a static
-    sample rate. ``plain`` runs diffraction's visibility sweeps as the
-    plain version, not K2, on a CUDA scene (``backend="plain"``). Each
+    sample rate. On a CUDA scene the diffraction is added into
+    ``cur_ir`` in place by the hand kernels; ``plain`` runs its plain
+    chain instead (``backend="plain"``). Each
     addendum that is on runs in a span of its own,
     ``art.addenda.diffraction`` and ``art.addenda.air``."""
     if diffraction:
-        from .ops.diffraction import diffraction_ir
+        from .ops.diffraction import add_diffraction
         with span("addenda.diffraction"):
-            cur_ir = cur_ir + diffraction_ir(
-                scene, params, sample_rate=sample_rate,
-                ir_length=cur_ir.shape[-2], order=int(diffraction),
-                use_kernels=False if plain else None)
+            # cur_ir is normalized()'s fresh quotient: the card's kernels
+            # add the paths into it in place
+            cur_ir = add_diffraction(
+                cur_ir, scene, params, sample_rate=sample_rate,
+                order=int(diffraction), use_kernels=False if plain else None)
     if air_alpha is not None:
         from .ops.air import apply_air_absorption
         with span("addenda.air"):

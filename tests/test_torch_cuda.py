@@ -10,6 +10,11 @@ one-frame kernels (K5's hit rows, ``frame_rows_kernel`` of
 frame) against their plain versions, K6 == K3 == K4 bit for bit, K6's
 refusals, the routing of a request for hits by listener, band and wall
 count, and the float scatters' determinism;
+then the diffraction kernels (``csrc/diffraction_kernel.cu``) against the
+card's chain bit for bit: round the barrier walk's circle, on barrier
+scenes, with host numbers, in place in ``_augment_ir``, and four launches
+(a K2 sweep an order) in a profiled barrier chunk's
+``art.addenda.diffraction``;
 then the banded and many-listener paths: K3/K4/K9 at 8, 32 and 512 bands
 and K7 at 32 and 40 against their plain versions, equal bands == one band
 bit for bit, K4 == K7 on a sorted banded city, listener blocks == the
@@ -1141,6 +1146,155 @@ def test_diffraction_through_k2_equals_its_plain_version(cuda_device, order):
     assert float(got[0].sum()) > 0 and torch.equal(got, want)
 
 
+# --- the diffraction kernels (csrc/diffraction_kernel.cu) ----------------------
+
+def _diffraction_counts():
+    """Launches of K2 and of the two diffraction kernels."""
+    from realisticaudioraytracing2d_tpu_torch.ops.cuda import \
+        diffraction_kernel as dk
+    return (tk.occlusion_min.launches + tk.occlusion_min.box_launches,
+            dk.segments.launches, dk.bin_paths.launches)
+
+
+def _kernel_and_chain(scene, p, order, **kw):
+    """``diffraction_ir`` through the kernels (a K2 sweep an order, one
+    launch of each diffraction kernel: checked) and through the plain
+    chain, on the card."""
+    from realisticaudioraytracing2d_tpu_torch.ops import diffraction as dfr
+    before = _diffraction_counts()
+    got = dfr.diffraction_ir(scene, p, order=order, **kw)
+    assert tuple(a - b for a, b in zip(_diffraction_counts(), before)) \
+        == (order, 1, 1)
+    return got, dfr.diffraction_ir(scene, p, order=order, use_kernels=False,
+                                   **kw)
+
+
+@cuda
+@pytest.mark.parametrize("pats", [False, True])
+@pytest.mark.parametrize("n_listeners", [1, 2])
+@pytest.mark.parametrize("n_bands", [1, 8])
+@pytest.mark.parametrize("order", [1, 2])
+def test_diffraction_kernels_equal_the_card_chain_round_the_walk(
+        cuda_device, order, n_bands, n_listeners, pats):
+    """SampleScene at the 16 poses of the barrier walk's circle (7
+    shadowed, 9 lit), at the barrier cell's rate and IR length: the
+    kernels' IR is the card chain's bit for bit."""
+    from test_torch_diffraction_kernel import case
+    heard = 0
+    for i in range(16):
+        scene, p = case(f"walk{i}", n_bands, n_listeners, pats, cuda_device)
+        got, want = _kernel_and_chain(scene, p, order, sample_rate=44100,
+                                      ir_length=88200)
+        assert torch.equal(got, want)
+        heard += int(bool(want.any()))
+    assert 0 < heard < 16
+
+
+@cuda
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("name,n_bands,n_listeners,pats", [
+    ("split", 1, 1, False), ("doubled", 8, 2, True),
+    ("smoll barrier", 1, 2, True), ("barrier", 8, 2, True),
+    ("scattered", 8, 1, True)])
+def test_diffraction_kernels_equal_the_card_chain_on_barriers(
+        cuda_device, order, name, n_bands, n_listeners, pats):
+    """A straight seam, coincident corners, SmollRoom with a barrier, and
+    a barrier among 100 short walls (3,226 kept order-2 paths: the sort
+    in the scratch, past the shared keys)."""
+    from test_torch_diffraction_kernel import case
+    scene, p = case(name, n_bands, n_listeners, pats, cuda_device)
+    got, want = _kernel_and_chain(scene, p, order, **KW)
+    assert float(want.sum()) > 0 and torch.equal(got, want)
+
+
+@cuda
+def test_diffraction_kernels_take_host_numbers(cuda_device):
+    """A speed of sound and an input gain given as Python numbers: the
+    chain multiplies by f32(1 / c) where it divides by c, and so do the
+    kernels."""
+    from test_torch_diffraction_kernel import case
+    scene, p = case("walk5", 8, 2, True, cuda_device)
+    p = p._replace(speed_of_sound=340.0, input_gain=2.5)
+    got, want = _kernel_and_chain(scene, p, 2, **KW)
+    assert float(want.sum()) > 0 and torch.equal(got, want)
+
+
+@cuda
+def test_augment_ir_adds_the_kernels_paths_in_place(cuda_device,
+                                                    monkeypatch):
+    """One order-2 ``_augment_ir`` call: the paths are added into the
+    fresh IR in place, the chain's bits, through two K2 launches (a sweep
+    an order), one of each diffraction kernel and no ``add_rows``
+    (``index_put_``)."""
+    from test_torch_diffraction_kernel import case
+    from realisticaudioraytracing2d_tpu_torch import streaming as st
+    from realisticaudioraytracing2d_tpu_torch.ops import diffraction as dfr
+    scene, p = case("walk6", 8, 1, False, cuda_device)
+    cur = torch.rand((1, 88200, 8), device=cuda_device)
+    want = st._augment_ir(cur.clone(), scene, p, 44100, 2, None, plain=True)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the chain's binning ran on the card")
+
+    monkeypatch.setattr(dfr, "add_rows", refuse)
+    got = cur.clone()
+    before = _diffraction_counts()
+    out = st._augment_ir(got, scene, p, 44100, 2, None)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_diffraction_counts(), before)) \
+        == (2, 1, 1)
+    assert out is got and torch.equal(got, want)
+    assert bool((got != cur).any())
+
+
+@cuda
+def test_a_profiled_barrier_chunk_launches_four_diffraction_kernels(
+        cuda_device):
+    """Two profiled chunks of the barrier cell's stream (8 octave bands,
+    order 2, air), the listener in the shadow: inside each
+    ``art.addenda.diffraction`` span exactly four launch calls and no
+    sync or copy, and on the card two K2 sweeps (one an order, as the
+    benchmark's barrier cell counts them), one segment launch and one bin
+    launch a chunk."""
+    from torch.profiler import ProfilerActivity, profile
+    from realisticaudioraytracing2d_tpu_torch.ops import air
+    from test_torch_diffraction_kernel import walk_pose
+    room = rooms.sample_scene(n_bands=8, device=cuda_device)
+    cfg = art.sample_scene_config(n_bands=8, ray_count=4096)
+    p = art.Engine(room.scene, cfg).params(room.source, walk_pose(5))
+    alpha = air.iso9613_alpha(air.band_frequencies(8))
+    dry = torch.rand(4 * 4410, device=cuda_device) - 0.5
+
+    def run():
+        return art.Streamer(room.scene, cfg, seed=6, diffraction=2,
+                            air_alpha=alpha, band_split="octave").stream_clip(
+            dry, lambda i: p, total_chunks=2)
+
+    run()                                            # build and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiler_lead_in()
+        run()
+        torch.cuda.synchronize()
+    cuda_kind = torch.autograd.DeviceType.CUDA
+    kernels = [e.name for e in prof.events() if e.device_type == cuda_kind]
+    assert sum("wall_sweep_kernel<false" in n for n in kernels) == 4
+    assert sum("diffraction_segments_kernel" in n for n in kernels) == 2
+    assert sum("diffraction_bin_kernel" in n for n in kernels) == 2
+    host = [e for e in prof.events() if e.device_type != cuda_kind]
+    spans = [e for e in host if e.name == "art.addenda.diffraction"]
+    assert len(spans) == 2
+    for r in spans:
+        t0, t1 = r.time_range.start, r.time_range.end
+        inside = [e.name for e in host if t0 <= e.time_range.start <= t1]
+        launches = [n for n in inside
+                    if n.startswith(("cudaLaunch", "cuLaunch"))]
+        assert len(launches) == 4, inside
+        assert not [n for n in inside if "Synchronize" in n
+                    or "Memcpy" in n or "index_put" in n], inside
+
+
 @cuda
 def test_stream_with_patterns_diffraction_and_air_matches_plain(cuda_device):
     from realisticaudioraytracing2d_tpu_torch.ops import air
@@ -1419,8 +1573,9 @@ def test_banded_stream_with_air_matches_plain(cuda_device):
 @cuda
 def test_octave_stream_with_diffraction_and_air_matches_plain(cuda_device):
     """SampleScene in 8 bands with the octave split, order-2 diffraction
-    and air, the listener in the top wall's shadow: K4 and K2 against the
-    plain trace and sweeps, within the banded stream's limits."""
+    and air, the listener in the top wall's shadow: K4 and the
+    diffraction kernels (a K2 sweep an order) against the plain trace and
+    chain, within the banded stream's limits."""
     from realisticaudioraytracing2d_tpu_torch.ops import air
     room = rooms.sample_scene(n_bands=8, device=cuda_device)
     cfg = art.sample_scene_config(n_bands=8, ray_count=4096)
